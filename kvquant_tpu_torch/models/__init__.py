@@ -1,0 +1,12 @@
+from .config import ModelConfig, LLAMA2_7B, TINY_LLAMA, TINY_GQA
+from .llama import (
+    Llama,
+    init_params,
+    params_from_numpy,
+    forward,
+    rope_cos_sin,
+    apply_rope,
+    rotate_half,
+    rms_norm,
+    norm,
+)

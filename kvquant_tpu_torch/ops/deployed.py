@@ -1,0 +1,438 @@
+"""Deployed quantized-KV datapath in eager PyTorch (port of
+kvquant_tpu/ops/deployed.py for the integer containers).
+
+This is the port's oracle for everything except the attention kernel:
+append-side quantization (per-channel K, per-token V range, per-head-group
+outlier words or static K channel residuals), full-cache dequantization,
+the ``kernel="xla"`` decode attention, the row-level append of the flash
+decode path and the prompt-phase parallel pack.
+
+Differences from the JAX functions:
+  - caches are updated IN PLACE (``cache_l`` is a set of views of the
+    stacked arrays, see KVCache.layer) and also returned;
+  - positions are host integers: ``pos`` is an int (every sequence at the
+    same position) or a sequence/tensor of B ints (per-sample positions);
+  - the bit-plane "nuq" storage and the two-pass ``kernel="pallas"``
+    branches belong to later slices and raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..cache import KVCache, DeployConfig, DeployedQuant, k_channel_index
+from ..models.config import ModelConfig
+from ..models.llama import rope_cos_sin, rotate_half
+from ..quant.nuq import nearest_codes, lut_lookup
+from ..utils.topk import top_k
+from .packing import (
+    store_codes_int, load_codes_int, place_codes_int,
+    pair_codes_int4x2, unpair_codes_int4x2, place_codes_int4x2,
+    set_token_rows, set_token_rows_at_layer,
+    encode_outlier_words, decode_outlier_words, OUTLIER_DIM_MASK,
+)
+
+
+def _require_intn(dcfg: DeployConfig):
+    if dcfg.codes == "nuq":
+        raise NotImplementedError(
+            "codes='nuq' (bit-plane storage) is ported with the general "
+            "flash kernel K1 (ROADMAP queue 1 item 3, queue 2 K1)")
+
+
+def host_positions(pos, B: int) -> list[int]:
+    """``pos`` (int, sequence or tensor) as B host integers."""
+    if isinstance(pos, torch.Tensor):
+        pos = pos.tolist()
+    if isinstance(pos, (list, tuple)):
+        assert len(pos) == B, (len(pos), B)
+        return [int(p) for p in pos]
+    return [int(pos)] * B
+
+
+def _stored_codes(planes, dcfg: DeployConfig):
+    """Container storage -> unsigned int32 codes (..., Hkv, Tc, D)."""
+    _require_intn(dcfg)
+    if dcfg.codes == "int4x2":
+        return unpair_codes_int4x2(planes)
+    return load_codes_int(planes, dcfg.bits)
+
+
+def _encode_rows(codes, dcfg: DeployConfig):
+    """Unsigned codes (..., Hkv, D) -> container rows (..., H', Dc)."""
+    _require_intn(dcfg)
+    if dcfg.codes == "int4x2":
+        return pair_codes_int4x2(codes)
+    return store_codes_int(codes, dcfg.bits, dcfg.code_dtype)
+
+
+def _place_codes(arr, codes, p0: int, dcfg: DeployConfig):
+    """Aligned block write of unsigned codes (..., T, Hkv, D) into a
+    container array (..., H', Tc, Dc), in place."""
+    _require_intn(dcfg)
+    if dcfg.codes == "int4x2":
+        return place_codes_int4x2(arr, codes, p0)
+    return place_codes_int(arr, codes, p0, dcfg.bits)
+
+
+# ---------------------------------------------------------------------------
+# per-token quantization (append-side math)
+# ---------------------------------------------------------------------------
+
+
+def _headwise_residual_outliers(xf, resc, deq, cap: int):
+    """Per-group fixed-budget outlier extraction: the ``cap`` largest and
+    ``cap`` smallest ``resc`` entries (jax.lax.top_k order). Returns
+    (ovals, oidx), each (..., 2*cap); non-genuine slots carry value 0."""
+    top_v, top_i = top_k(resc, cap)
+    bot_v, bot_i = top_k(-resc, cap)
+    oidx = torch.cat([top_i, bot_i], dim=-1)
+    genuine = torch.cat([top_v > 0.0, bot_v > 0.0], dim=-1)
+    x_at = torch.gather(xf, -1, oidx)
+    d_at = torch.gather(deq, -1, oidx)
+    vals = torch.where(genuine, x_at - d_at, torch.zeros_like(x_at))
+    return vals, oidx.to(torch.int32)
+
+
+def _encode_padded(ovals, oidx, n_slots: int):
+    """(..., G, 2*cap) residuals / 9-bit idx -> (..., G, n_slots) encoded
+    fp32 words, zero-padded."""
+    words = encode_outlier_words(ovals, oidx)
+    pad = n_slots - words.shape[-1]
+    if pad:
+        words = torch.nn.functional.pad(words, (0, pad))
+    return words
+
+
+def _group_outlier_words(x_g, xn_g, deq_g, dcfg: DeployConfig,
+                         n_slots: int | None = None):
+    """Per-(token, head-group) residual outliers encoded with the 9-bit
+    ``head_in_group << 7 | dim`` index. x_g/xn_g/deq_g: (..., n_groups,
+    head_group*d_head) raw / normalized / dense-dequantized values."""
+    base = torch.abs(xn_g) > 1.0
+    resc = torch.where(base, torch.abs(xn_g), torch.zeros_like(xn_g))
+    signed = torch.where(xn_g > 0, resc, -resc)
+    ovals, oidx = _headwise_residual_outliers(
+        x_g, signed, deq_g, dcfg.cap_per_side
+    )
+    D = dcfg.d_head
+    oidx9 = (oidx // D) * 128 + (oidx % D)
+    return _encode_padded(
+        ovals, oidx9, dcfg.slots_per_kind if n_slots is None else n_slots,
+    )
+
+
+def quantize_k(k, lq: DeployedQuant, dcfg: DeployConfig):
+    """Quantize keys (..., C) -> (codes (..., Hkv, D) int32, outlier rows
+    (..., n_groups, slots_per_kind) fp32 or None). "channels" mode: the rows
+    are the plain residuals x - dequant at the layer's static channels."""
+    Hkv, D = dcfg.n_kv_heads, dcfg.d_head
+    kf = k.to(torch.float32).reshape(*k.shape[:-1], Hkv, D)
+    zp = ((lq.k_upper + lq.k_lower) * 0.5).reshape(Hkv, D)
+    hr = ((lq.k_upper - lq.k_lower) * 0.5).reshape(Hkv, D)
+    xn = (kf - zp) / hr
+    codes = nearest_codes(xn, lq.k_lut_enc)
+    deq = lut_lookup(lq.k_lut_dec, codes) * hr + zp
+
+    out_words = None
+    if dcfg.include_sparse:
+        gshape = (*k.shape[:-1], dcfg.n_groups, dcfg.head_group * D)
+        if dcfg.k_outliers == "channels":
+            idx = k_channel_index(lq.k_ressc, dcfg)  # (G, n_kc)
+            resid = (kf - deq).reshape(gshape)
+            out_words = torch.gather(
+                resid, -1, idx.expand(*resid.shape[:-1], idx.shape[-1]))
+        else:
+            out_words = _group_outlier_words(
+                kf.reshape(gshape), xn.reshape(gshape), deq.reshape(gshape),
+                dcfg,
+            )
+    return codes, out_words
+
+
+def quantize_v(v, lq: DeployedQuant, dcfg: DeployConfig):
+    """Quantize values (..., C) -> (codes (..., Hkv, D), outlier words
+    (..., n_groups, n_slots - slots_per_kind) or None, scale (...,),
+    offset (...,)); the range is the (r+1)-th global extreme each side."""
+    Hkv, D = dcfg.n_kv_heads, dcfg.d_head
+    vf = v.to(torch.float32)
+    r = dcfg.v_range_exclude
+    # values only: torch.topk's tie order does not matter here
+    maxval = torch.topk(vf, r + 1, dim=-1).values[..., -1:]
+    minval = -torch.topk(-vf, r + 1, dim=-1).values[..., -1:]
+    offset = (maxval + minval) * 0.5
+    scale = (maxval - minval) * 0.5
+
+    vh = vf.reshape(*v.shape[:-1], Hkv, D)
+    xn = (vh - offset[..., None]) / scale[..., None]
+    codes = nearest_codes(xn, lq.v_lut_enc)
+    deq = lut_lookup(lq.v_lut_dec, codes) * scale[..., None] + offset[..., None]
+
+    out_words = None
+    if dcfg.include_sparse and dcfg.cap_per_side > 0:
+        gshape = (*v.shape[:-1], dcfg.n_groups, dcfg.head_group * D)
+        out_words = _group_outlier_words(
+            vh.reshape(gshape), xn.reshape(gshape), deq.reshape(gshape),
+            dcfg, n_slots=dcfg.n_slots - dcfg.slots_per_kind,
+        )
+    return codes, out_words, scale[..., 0], offset[..., 0]
+
+
+# ---------------------------------------------------------------------------
+# full-cache dequantization (the eager oracle)
+# ---------------------------------------------------------------------------
+
+
+def _outlier_addend(out_words, dcfg: DeployConfig):
+    """(B, n_groups, J, Tc) encoded slots -> dense (B, Hkv, Tc, D) addend.
+    Padding slots decode to value 0, so index collisions add nothing."""
+    B, Gp, J, Tc = out_words.shape
+    D, hg = dcfg.d_head, dcfg.head_group
+    vals, idx9 = decode_outlier_words(out_words)
+    gidx = ((idx9 >> 7) * D + (idx9 & OUTLIER_DIM_MASK)).long()  # dense group index
+    dense = torch.zeros((B, Gp, Tc, hg * D), dtype=torch.float32,
+                        device=out_words.device)
+    dense.scatter_add_(-1, gidx.transpose(-1, -2), vals.transpose(-1, -2))
+    return dense.reshape(B, Gp, Tc, hg, D).transpose(2, 3).reshape(
+        B, Gp * hg, Tc, D)
+
+
+def dequant_k_full(cache_l: KVCache, lq: DeployedQuant, dcfg: DeployConfig,
+                   with_outliers: bool = True):
+    """(B, Hkv, Tc, D) fp32 keys (dense [+ sparse])."""
+    codes = _stored_codes(cache_l.k_planes, dcfg)
+    deq = lut_lookup(lq.k_lut_dec, codes) * lq.k_range[:, None, :] + (
+        lq.k_offset[:, None, :])
+    if dcfg.include_sparse and with_outliers:
+        rows = cache_l.kv_out[:, :, : dcfg.slots_per_kind]
+        if dcfg.k_outliers == "channels":
+            B, Gp, N, Tc = rows.shape
+            D, hg = dcfg.d_head, dcfg.head_group
+            idx = k_channel_index(lq.k_ressc, dcfg)  # (G, n_kc)
+            dense = torch.zeros((B, Gp, Tc, hg * D), dtype=torch.float32,
+                                device=rows.device)
+            dense.scatter_add_(
+                -1, idx[None, :, None, :].expand(B, Gp, Tc, N),
+                rows.transpose(-1, -2))
+            deq = deq + dense.reshape(B, Gp, Tc, hg, D).transpose(
+                2, 3).reshape(B, Gp * hg, Tc, D)
+        else:
+            deq = deq + _outlier_addend(rows, dcfg)
+    return deq
+
+
+def dequant_v_full(cache_l: KVCache, lq: DeployedQuant, dcfg: DeployConfig,
+                   with_outliers: bool = True):
+    """(B, Hkv, Tc, D) fp32 values (dense [+ sparse])."""
+    codes = _stored_codes(cache_l.v_planes, dcfg)
+    deq = lut_lookup(lq.v_lut_dec, codes) * cache_l.v_scale[:, None, :, None] \
+        + cache_l.v_offset[:, None, :, None]
+    if dcfg.include_sparse and with_outliers and dcfg.cap_per_side > 0:
+        deq = deq + _outlier_addend(
+            cache_l.kv_out[:, :, dcfg.slots_per_kind:], dcfg)
+    return deq
+
+
+# ---------------------------------------------------------------------------
+# decode step, kernel="xla": append + attention over the dequantized cache
+# ---------------------------------------------------------------------------
+
+
+def _append_layer(cache_l: KVCache, dcfg: DeployConfig, codes, words, row0,
+                  planes_name, p: list[int], not_sink: list[bool]):
+    """Per-sample row writes of one kind (K or V) into a layer cache."""
+    rows = _encode_rows(codes, dcfg)
+    planes = getattr(cache_l, planes_name)
+    for b, (pb, ok) in enumerate(zip(p, not_sink)):
+        set_token_rows(planes[b], rows[b], pb, ok)
+        if ok and words is not None:
+            cache_l.kv_out[b, :, row0:row0 + words.shape[-1], pb] = words[b]
+
+
+def decode_attention(cache_l: KVCache, lq: DeployedQuant, dcfg: DeployConfig,
+                     mcfg: ModelConfig, q, k_new, v_new, pos):
+    """Append each sample's token at its position to the single-layer cache
+    (in place) and attend over positions 0..pos. q (B, H, Dh) un-roped,
+    k_new/v_new (B, C). Returns (cache_l, out (B, H, Dh))."""
+    _require_intn(dcfg)
+    if dcfg.kernel == "pallas":
+        raise NotImplementedError(
+            "kernel='pallas' (two-pass kernels K3/K4) is ROADMAP queue 2")
+    B = q.shape[0]
+    S, Tc = dcfg.sink, dcfg.cache_tokens
+    Hkv, Dh = dcfg.n_kv_heads, dcfg.d_head
+    G = q.shape[1] // Hkv
+    dev = q.device
+
+    pl = host_positions(pos, B)
+    not_sink = [p >= S for p in pl]
+    p = [min(max(x - S, 0), Tc - 1) for x in pl]
+    post = torch.tensor(pl, dtype=torch.int32, device=dev)
+    cos, sin = rope_cos_sin(post, mcfg)  # (B, Dh)
+
+    # ---- append K ----
+    k_h = k_new.reshape(B, Hkv, Dh).to(torch.float32)
+    k_roped = k_h * cos[:, None] + rotate_half(k_h) * sin[:, None]
+    k_store = k_roped.reshape(B, Hkv * Dh) if dcfg.post_rope_k else k_new
+    codes_k, k_words = quantize_k(k_store, lq, dcfg)
+    for b in range(B):
+        if S > 0 and not not_sink[b]:
+            cache_l.k_sink[b, :, pl[b]] = k_roped[b]
+    _append_layer(cache_l, dcfg, codes_k,
+                  k_words if dcfg.include_sparse else None, 0,
+                  "k_planes", p, not_sink)
+
+    # ---- scores ----
+    q_h = q.reshape(B, Hkv, G, Dh).to(torch.float32)
+    q_rot = q_h * cos[:, None, None] + rotate_half(q_h) * sin[:, None, None]
+    inv = 1.0 / (Dh ** 0.5)
+    k_full = dequant_k_full(cache_l, lq, dcfg)
+    if not dcfg.post_rope_k:
+        pos_cache = S + torch.arange(Tc, dtype=torch.int32, device=dev)
+        ck, sk = rope_cos_sin(pos_cache, mcfg)
+        k_full = k_full * ck + rotate_half(k_full) * sk
+    scores = torch.einsum("bhgd,bhtd->bhgt", q_rot, k_full) * inv
+    if S > 0:
+        sink_sc = torch.einsum("bhgd,bhsd->bhgs", q_rot, cache_l.k_sink) * inv
+        scores = torch.cat([sink_sc, scores], dim=-1)  # (B,Hkv,G,S+Tc)
+
+    idx = torch.arange(S + Tc, dtype=torch.int32, device=dev)
+    valid = idx[None, :] <= post[:, None]
+    if mcfg.sliding_window is not None:
+        valid &= idx[None, :] > (post[:, None] - mcfg.sliding_window)
+    scores = scores.masked_fill(~valid[:, None, None, :], float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+
+    # ---- append V ----
+    codes_v, v_words, v_sc, v_off = quantize_v(v_new, lq, dcfg)
+    v_h = v_new.reshape(B, Hkv, Dh).to(torch.float32)
+    for b in range(B):
+        if not_sink[b]:
+            cache_l.v_scale[b, p[b]] = v_sc[b]
+            cache_l.v_offset[b, p[b]] = v_off[b]
+        elif S > 0:
+            cache_l.v_sink[b, :, pl[b]] = v_h[b]
+    _append_layer(cache_l, dcfg, codes_v,
+                  v_words if dcfg.include_sparse else None,
+                  dcfg.slots_per_kind, "v_planes", p, not_sink)
+    cache_l.length.copy_(post + 1)
+
+    # ---- weighted values ----
+    v_full = dequant_v_full(cache_l, lq, dcfg)
+    out = torch.einsum("bhgt,bhtd->bhgd", probs[..., S:], v_full)
+    if S > 0:
+        out = out + torch.einsum("bhgs,bhsd->bhgd", probs[..., :S],
+                                 cache_l.v_sink)
+    return cache_l, out.reshape(B, Hkv * G, Dh)
+
+
+# ---------------------------------------------------------------------------
+# flash-decode append: row-level writes into the FULL (L, ...) cache arrays
+# ---------------------------------------------------------------------------
+
+
+def append_token_flash(arrs: dict, lq: DeployedQuant, dcfg: DeployConfig,
+                       mcfg: ModelConfig, k_new, v_new, pos, li: int) -> dict:
+    """Append one token at layer ``li`` directly into the stacked (L, B, ...)
+    arrays (in place; ``arrs`` is returned). An int ``pos`` takes one
+    batch-wide row write per array; per-sample positions write each
+    sample's row in turn. Tokens inside the sink prefix go to the exact
+    sink rows and leave the packed arrays untouched."""
+    B = k_new.shape[0]
+    S, Tc = dcfg.sink, dcfg.cache_tokens
+    Hkv, Dh = dcfg.n_kv_heads, dcfg.d_head
+    dev = k_new.device
+
+    pl = host_positions(pos, B)
+    cos, sin = rope_cos_sin(torch.tensor(pl, dtype=torch.int32, device=dev),
+                            mcfg)
+    k_h = k_new.reshape(B, Hkv, Dh).to(torch.float32)
+    k_roped = k_h * cos[:, None] + rotate_half(k_h) * sin[:, None]
+    k_store = k_roped.reshape(B, Hkv * Dh) if dcfg.post_rope_k else k_new
+    codes_k, k_words = quantize_k(k_store, lq, dcfg)
+    codes_v, v_words, v_sc, v_off = quantize_v(v_new, lq, dcfg)
+    rows_k = _encode_rows(codes_k, dcfg)  # (B, H', Dc)
+    rows_v = _encode_rows(codes_v, dcfg)
+    v_h = v_new.reshape(B, Hkv, Dh).to(torch.float32)
+    spk = dcfg.slots_per_kind
+
+    if not isinstance(pos, (list, tuple, torch.Tensor)):
+        # uniform position: one batch-wide row write per array
+        p0 = min(max(pl[0] - S, 0), Tc - 1)
+        if pl[0] >= S:
+            set_token_rows(arrs["k_planes"][li], rows_k, p0)
+            set_token_rows(arrs["v_planes"][li], rows_v, p0)
+            if dcfg.include_sparse:
+                arrs["kv_out"][li, :, :, :spk, p0] = k_words
+                if v_words is not None:
+                    arrs["kv_out"][li, :, :, spk:spk + v_words.shape[-1],
+                                   p0] = v_words
+            arrs["v_scale"][li, :, p0] = v_sc
+            arrs["v_offset"][li, :, p0] = v_off
+        elif S > 0:
+            arrs["k_sink"][li, :, :, pl[0], :] = k_roped
+            arrs["v_sink"][li, :, :, pl[0], :] = v_h
+        return arrs
+
+    # per-sample positions (serving slot pools): one row write per sample
+    for b in range(B):
+        if pl[b] >= S:
+            pb = min(pl[b] - S, Tc - 1)
+            set_token_rows_at_layer(arrs["k_planes"][:, b], rows_k[b], li, pb)
+            set_token_rows_at_layer(arrs["v_planes"][:, b], rows_v[b], li, pb)
+            if dcfg.include_sparse:
+                arrs["kv_out"][li, b, :, :spk, pb] = k_words[b]
+                if v_words is not None:
+                    arrs["kv_out"][li, b, :, spk:spk + v_words.shape[-1],
+                                   pb] = v_words[b]
+            arrs["v_scale"][li, b, pb] = v_sc[b]
+            arrs["v_offset"][li, b, pb] = v_off[b]
+        elif S > 0:
+            arrs["k_sink"][li, b, :, pl[b], :] = k_roped[b]
+            arrs["v_sink"][li, b, :, pl[b], :] = v_h[b]
+    return arrs
+
+
+# ---------------------------------------------------------------------------
+# prompt-phase parallel pack
+# ---------------------------------------------------------------------------
+
+
+def prefill_pack(cache_l: KVCache, lq: DeployedQuant, dcfg: DeployConfig,
+                 mcfg: ModelConfig, k, v):
+    """Pack a whole prompt's pre-RoPE k / v projections (B, T0, C) into the
+    single-layer cache in place: exact sink rows for the first S tokens,
+    quantized containers, outlier rows and V ranges for the rest."""
+    _require_intn(dcfg)
+    B, T0, C = k.shape
+    S, Tc = dcfg.sink, dcfg.cache_tokens
+    Hkv, Dh = dcfg.n_kv_heads, dcfg.d_head
+    assert T0 > S, "prompt must extend beyond the sink prefix"
+    Tp = T0 - S
+    assert Tp <= Tc
+
+    cos, sin = rope_cos_sin(
+        torch.arange(T0, dtype=torch.int32, device=k.device), mcfg)
+    kh = k.reshape(B, T0, Hkv, Dh).to(torch.float32)
+    kh = kh * cos[:, None] + rotate_half(kh) * sin[:, None]
+    if S > 0:
+        cache_l.k_sink.copy_(kh[:, :S].transpose(1, 2))
+        cache_l.v_sink.copy_(
+            v[:, :S].reshape(B, S, Hkv, Dh).to(torch.float32).transpose(1, 2))
+
+    k_store = kh.reshape(B, T0, Hkv * Dh)[:, S:] if dcfg.post_rope_k \
+        else k[:, S:]
+    codes_k, k_words = quantize_k(k_store, lq, dcfg)
+    codes_v, v_words, v_sc, v_off = quantize_v(v[:, S:], lq, dcfg)
+    _place_codes(cache_l.k_planes, codes_k, 0, dcfg)
+    _place_codes(cache_l.v_planes, codes_v, 0, dcfg)
+    if dcfg.include_sparse:
+        kv_words = k_words if v_words is None else torch.cat(
+            [k_words, v_words], dim=-1)
+        # (B, Tp, G, J) -> (B, G, J, Tp) token axis last
+        cache_l.kv_out[..., :kv_words.shape[-1], :Tp] = \
+            kv_words.permute(0, 2, 3, 1)
+    cache_l.v_scale[:, :Tp] = v_sc
+    cache_l.v_offset[:, :Tp] = v_off
+    cache_l.length.fill_(T0)
+    return cache_l

@@ -1,0 +1,340 @@
+"""Decode-step attention over the quantized cache (port of
+kvquant_tpu/ops/pallas/flash_serial.py:flash_serial_decode).
+
+``flash_serial_decode`` keeps the JAX signature and layouts: queries
+(B, Hkv, G, D), the full stacked (L, ...) cache arrays, layer index ``li``,
+per-row positions ``pos`` (B,). It attends, for every batch row at its own
+position, over the exact sink prefix and the packed tokens [0, pos - S]
+(optionally a sliding window), and returns (B, Hkv, G, D) fp32.
+
+  - CPU tensors: the plain PyTorch version ``flash_serial_decode_ref``.
+  - CUDA tensors: the hand-written kernel ``csrc/flash_serial.cu``, or an
+    exception when it cannot be built or launched; there is no fallback.
+
+``flash_serial_decode.launches`` counts kernel launches (one per call on
+the card). The TPU kernel's constant-band packing (``prep_constants``) works
+around a Mosaic operand limit and is not ported: the CUDA kernel takes its
+operands plainly, folds the affine codebook itself and reads the static K
+channels as int32 indices.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ...cache import DeployConfig, k_channel_index
+from ..deployed import _outlier_addend
+from ..packing import unpack_nibbles, unpair_codes_int4x2
+
+CODES = {"int4": 0, "int8": 1, "int4x2": 2}
+TILE_TOKENS = 128  # tokens per tile in the kernel
+MAX_KC = 64
+MAX_SINK = 64
+
+
+def _check_config(dcfg: DeployConfig):
+    assert dcfg.codes in CODES, (
+        "flash_serial supports hardware intN containers only")
+    assert dcfg.post_rope_k, "flash_serial requires post-RoPE K storage"
+    if dcfg.codes == "int4x2":
+        assert dcfg.head_group % 2 == 0
+
+
+def fold_affine(dcfg: DeployConfig, k_lut, v_lut, k_range, k_offset, li: int):
+    """Layer ``li``'s affine codebook folded into the dequant constants, so
+    a signed container code c_s dequantizes as ``c_s*k_step + k_zero`` (K)
+    and ``c_s*(v_scale*vb) + (v_scale*va + v_offset)`` (V); the same fp32
+    operations as flash_decode.fold_affine. Returns (k_step (Hkv, D),
+    k_zero (Hkv, D), va, vb)."""
+    K = 2 ** dcfg.bits
+    bias = dcfg.code_bias
+    kl, vl = k_lut[li], v_lut[li]
+    kb = (kl[-1] - kl[0]) / (K - 1)
+    ka = kl[0] + bias * kb
+    vb = (vl[-1] - vl[0]) / (K - 1)
+    va = vl[0] + bias * vb
+    return kb * k_range[li], ka * k_range[li] + k_offset[li], va, vb
+
+
+def _signed_codes(planes, dcfg: DeployConfig):
+    """Container (B, H', Tc, Dc) -> the codes the kernel multiplies,
+    (B, Hkv, Tc, D) fp32: signed (code - bias) for int4/int8, unsigned
+    for int4x2 (bias 0)."""
+    if dcfg.codes == "int4x2":
+        return unpair_codes_int4x2(planes).to(torch.float32)
+    if dcfg.codes == "int4":
+        return unpack_nibbles(planes).to(torch.float32)
+    return planes.to(torch.float32)
+
+
+def _channel_addend(rows, chan, dcfg: DeployConfig):
+    """Dense (B, Hkv, Tc, D) K addend from the static-channel residual rows
+    (B, NG, n_kc, Tc) at group-space channels ``chan`` (NG, n_kc)."""
+    B, NG, N, Tc = rows.shape
+    hg, D = dcfg.head_group, dcfg.d_head
+    dense = torch.zeros((B, NG, Tc, hg * D), dtype=torch.float32,
+                        device=rows.device)
+    dense.scatter_add_(-1, chan.long()[None, :, None, :].expand(B, NG, Tc, N),
+                       rows.transpose(-1, -2))
+    return dense.reshape(B, NG, Tc, hg, D).transpose(2, 3).reshape(
+        B, NG * hg, Tc, D)
+
+
+def flash_serial_decode_ref(
+    q_rot, k_planes, v_planes, kv_out, k_range, k_offset, v_scale, v_offset,
+    k_sink, v_sink, k_lut, v_lut, li, pos, dcfg: DeployConfig, mcfg,
+    block_tokens: int = 2048, k_ressc=None, k_chan=None,
+):
+    """Plain PyTorch version of the kernel: dequantize layer ``li`` in full,
+    score against the sinks and the packed tokens, masked softmax, P.V.
+    ``dot_bf16`` rounds every dot operand to bf16 (fp32 accumulation) where
+    the kernel does. ``block_tokens`` is accepted for signature parity."""
+    _check_config(dcfg)
+    li = int(li)
+    B, Hkv, G, D = q_rot.shape
+    S, Tc = dcfg.sink, k_planes.shape[-2]
+    dev = q_rot.device
+    rnd = (lambda x: x.to(torch.bfloat16).to(torch.float32)) \
+        if dcfg.dot_bf16 else (lambda x: x)
+    pos = torch.as_tensor(pos, dtype=torch.int64, device=dev).reshape(B)
+    inv = 1.0 / (D ** 0.5)
+
+    k_step, k_zero, va, vb = fold_affine(dcfg, k_lut, v_lut, k_range,
+                                         k_offset, li)
+    q = q_rot.to(torch.float32)
+    ck = _signed_codes(k_planes[li], dcfg)
+    cv = _signed_codes(v_planes[li], dcfg)
+    rows = kv_out[li]  # (B, NG, J, Tc)
+
+    # ---- scores over the packed tokens ----
+    sc = torch.einsum("bhgd,bhtd->bhgt", rnd(q * k_step[None, :, None]), ck)
+    sc = sc + (q * k_zero[None, :, None]).sum(-1, keepdim=True)
+    if dcfg.include_sparse:
+        spk = dcfg.slots_per_kind
+        if dcfg.k_outliers == "channels":
+            chan = k_chan[li] if k_chan is not None \
+                else k_channel_index(k_ressc[li], dcfg)
+            add = _channel_addend(rows[:, :, :spk], chan, dcfg)
+            sc = sc + torch.einsum("bhgd,bhtd->bhgt", rnd(q), rnd(add))
+        elif dcfg.cap_per_side > 0:
+            add = _outlier_addend(rows[:, :, :spk], dcfg)
+            sc = sc + torch.einsum("bhgd,bhtd->bhgt", rnd(q), rnd(add))
+    sc = sc * inv
+    t = torch.arange(Tc, device=dev)
+    valid = t[None, :] <= (pos - S)[:, None]
+    if mcfg.sliding_window is not None:
+        valid &= (t[None, :] + S) > (pos - mcfg.sliding_window)[:, None]
+    sc = sc.masked_fill(~valid[:, None, None, :], float("-inf"))
+
+    # ---- sink prefix ----
+    if S > 0:
+        ks, vs = k_sink[li], v_sink[li]  # (B, Hkv, S, D)
+        ss = torch.einsum("bhgd,bhsd->bhgs", rnd(q), rnd(ks)) * inv
+        si = torch.arange(S, device=dev)
+        svalid = si[None, :] <= pos[:, None]
+        if mcfg.sliding_window is not None:
+            svalid &= si[None, :] > (pos - mcfg.sliding_window)[:, None]
+        ss = ss.masked_fill(~svalid[:, None, None, :], float("-inf"))
+        sc = torch.cat([ss, sc], dim=-1)
+    probs = torch.softmax(sc, dim=-1)
+    p_pk = probs[..., S:]
+
+    # ---- P.V ----
+    vsc = v_scale[li] * vb  # (B, Tc)
+    voff = v_scale[li] * va + v_offset[li]
+    out = torch.einsum("bhgt,bhtd->bhgd",
+                       rnd(p_pk * vsc[:, None, None, :]), cv)
+    out = out + (p_pk * torch.where(valid, voff, torch.zeros_like(voff))
+                 [:, None, None, :]).sum(-1, keepdim=True)
+    if dcfg.include_sparse and dcfg.cap_per_side > 0:
+        vadd = _outlier_addend(rows[:, :, dcfg.slots_per_kind:], dcfg)
+        out = out + torch.einsum("bhgt,bhtd->bhgd", rnd(p_pk), rnd(vadd))
+    if S > 0:
+        out = out + torch.einsum("bhgs,bhsd->bhgd", rnd(probs[..., :S]),
+                                 rnd(vs))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+class _FsArgs(ctypes.Structure):
+    """Mirror of ``FsArgs`` in csrc/flash_serial.cu (same field order)."""
+    _fields_ = [
+        ("q", _P), ("kp", _P), ("vp", _P), ("kv_out", _P),
+        ("k_range", _P), ("k_offset", _P), ("v_scale", _P), ("v_offset", _P),
+        ("k_sink", _P), ("v_sink", _P), ("k_lut", _P), ("v_lut", _P),
+        ("pos", _P), ("k_chan", _P),
+        ("part_m", _P), ("part_l", _P), ("part_acc", _P), ("out", _P),
+        ("L", _I), ("B", _I), ("Hkv", _I), ("G", _I), ("D", _I), ("Tc", _I),
+        ("S", _I), ("J", _I), ("spk", _I), ("n_kc", _I),
+        ("n_kslots", _I), ("n_vslots", _I),
+        ("hg", _I), ("codes", _I), ("bits", _I), ("window", _I),
+        ("dot_bf16", _I), ("li", _I), ("n_split", _I),
+        ("inv", ctypes.c_float),
+    ]
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    from .build import load
+
+    lib = load("flash_serial")
+    lib.fs_decode.argtypes = [ctypes.POINTER(_FsArgs), ctypes.c_void_p]
+    lib.fs_decode.restype = ctypes.c_int
+    return lib
+
+
+def load_library():
+    """Build (on first use) and load the kernel library."""
+    return _lib()
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def n_splits(B: int, Hkv: int, Tc: int, device: torch.device) -> int:
+    """Token-axis splits per (b, kv head): about eight blocks per SM, at
+    most one per 128-token tile of the capacity."""
+    target = 8 * _sm_count(device.index if device.index is not None
+                           else torch.cuda.current_device())
+    return max(1, min(-(-target // (B * Hkv)), -(-Tc // TILE_TOKENS)))
+
+
+def _launch(q_rot, k_planes, v_planes, kv_out, k_range, k_offset, v_scale,
+            v_offset, k_sink, v_sink, k_lut, v_lut, li, pos, dcfg, mcfg,
+            k_chan_l):
+    B, Hkv, G, D = q_rot.shape
+    L, Tc = k_planes.shape[0], k_planes.shape[-2]
+    S, hg = dcfg.sink, dcfg.head_group
+    dev = q_rot.device
+    Hc = Hkv // 2 if dcfg.codes == "int4x2" else Hkv
+    NG = Hkv // hg
+    J = kv_out.shape[-2]
+
+    if Tc % TILE_TOKENS:
+        # the kernel copies whole tiles; a partial last tile would read
+        # past the end of the last (layer, batch, head) slab
+        raise ValueError(f"flash_serial kernel: cache capacity {Tc} is not "
+                         f"a multiple of {TILE_TOKENS} tokens")
+    if D not in (32, 64, 128):
+        raise ValueError(f"flash_serial kernel: d_head {D} not in 32/64/128")
+    if G not in (1, 2, 4, 8):
+        raise ValueError(f"flash_serial kernel: {G} query rows per kv head "
+                         f"not in 1/2/4/8")
+    if S > MAX_SINK:
+        raise ValueError(f"flash_serial kernel: sink {S} > {MAX_SINK}")
+    n_kc = 0
+    n_kslots = n_vslots = 0
+    if dcfg.include_sparse:
+        if dcfg.k_outliers == "channels":
+            n_kc = dcfg.n_kc
+            if n_kc > MAX_KC:
+                raise ValueError(f"flash_serial kernel: n_kc {n_kc} > {MAX_KC}")
+        elif dcfg.cap_per_side > 0:
+            n_kslots = dcfg.slots_per_kind
+        if dcfg.cap_per_side > 0:
+            n_vslots = J - dcfg.slots_per_kind
+            assert hg * D <= 512, "slot words carry a 9-bit (head, dim) index"
+
+    expect = {
+        "q_rot": (q_rot, (B, Hkv, G, D), torch.float32),
+        "k_planes": (k_planes, (L, B, Hc, Tc, dcfg.code_cols), dcfg.code_dtype),
+        "v_planes": (v_planes, (L, B, Hc, Tc, dcfg.code_cols), dcfg.code_dtype),
+        "kv_out": (kv_out, (L, B, NG, J, Tc), torch.float32),
+        "k_range": (k_range, (L, Hkv, D), torch.float32),
+        "k_offset": (k_offset, (L, Hkv, D), torch.float32),
+        "v_scale": (v_scale, (L, B, Tc), torch.float32),
+        "v_offset": (v_offset, (L, B, Tc), torch.float32),
+        "k_sink": (k_sink, (L, B, Hkv, S, D), torch.float32),
+        "v_sink": (v_sink, (L, B, Hkv, S, D), torch.float32),
+        "k_lut": (k_lut, (L, 2 ** dcfg.bits), torch.float32),
+        "v_lut": (v_lut, (L, 2 ** dcfg.bits), torch.float32),
+        "pos": (pos, (B,), torch.int32),
+    }
+    if n_kc:
+        expect["k_chan"] = (k_chan_l, (NG, n_kc), torch.int32)
+    for name, (t, shape, dt) in expect.items():
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, queries on {dev}")
+        if tuple(t.shape) != shape or t.dtype != dt:
+            raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype}, kernel "
+                             f"takes {shape} {dt}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+    ns = n_splits(B, Hkv, Tc, dev)
+    out = torch.empty((B, Hkv, G, D), dtype=torch.float32, device=dev)
+    part_m = torch.empty((B, Hkv, ns, G), dtype=torch.float32, device=dev)
+    part_l = torch.empty_like(part_m)
+    part_acc = torch.empty((B, Hkv, ns, G, D), dtype=torch.float32,
+                           device=dev)
+    win = mcfg.sliding_window or 0
+    args = _FsArgs(
+        q_rot.data_ptr(), k_planes.data_ptr(), v_planes.data_ptr(),
+        kv_out.data_ptr(), k_range.data_ptr(), k_offset.data_ptr(),
+        v_scale.data_ptr(), v_offset.data_ptr(), k_sink.data_ptr(),
+        v_sink.data_ptr(), k_lut.data_ptr(), v_lut.data_ptr(),
+        pos.data_ptr(), k_chan_l.data_ptr() if n_kc else None,
+        part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
+        out.data_ptr(),
+        L, B, Hkv, G, D, Tc, S, J, dcfg.slots_per_kind, n_kc,
+        n_kslots, n_vslots, hg, CODES[dcfg.codes], dcfg.bits, win,
+        int(dcfg.dot_bf16), int(li), ns, 1.0 / (D ** 0.5),
+    )
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.fs_decode(ctypes.byref(args), ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"flash_serial kernel launch failed: cudaError {err}")
+    flash_serial_decode.launches += 1
+    return out
+
+
+def flash_serial_decode(
+    q_rot, k_planes, v_planes, kv_out, k_range, k_offset, v_scale, v_offset,
+    k_sink, v_sink, k_lut, v_lut, li, pos, dcfg: DeployConfig, mcfg,
+    block_tokens: int = 2048, k_ressc=None, k_chan=None,
+):
+    """Decode-step attention (Tq = 1) for layer ``li`` of the stacked cache.
+    Post-RoPE intN storage only. ``k_chan`` (L, n_groups, n_kc) int32 may
+    carry the static K channels precomputed from ``k_ressc`` (the engine
+    does this once per step); otherwise they are derived from ``k_ressc``.
+    ``block_tokens`` is accepted for signature parity; the kernel's token
+    tile is fixed at 128."""
+    _check_config(dcfg)
+    if q_rot.device.type == "cpu":
+        return flash_serial_decode_ref(
+            q_rot, k_planes, v_planes, kv_out, k_range, k_offset, v_scale,
+            v_offset, k_sink, v_sink, k_lut, v_lut, li, pos, dcfg, mcfg,
+            block_tokens=block_tokens, k_ressc=k_ressc, k_chan=k_chan)
+    if q_rot.device.type != "cuda":
+        raise ValueError(f"flash_serial_decode: unsupported device "
+                         f"{q_rot.device}")
+    li = int(li)
+    B = q_rot.shape[0]
+    if not isinstance(pos, torch.Tensor):
+        pos = torch.tensor(pos, dtype=torch.int32).reshape(-1)
+    pos = pos.to(device=q_rot.device, dtype=torch.int32).expand(B).contiguous()
+    k_chan_l = None
+    if dcfg.include_sparse and dcfg.k_outliers == "channels":
+        k_chan_l = (k_chan[li] if k_chan is not None
+                    else k_channel_index(k_ressc[li], dcfg))
+        k_chan_l = k_chan_l.to(torch.int32).contiguous()
+    return _launch(q_rot.contiguous(), k_planes, v_planes, kv_out, k_range,
+                   k_offset, v_scale, v_offset, k_sink, v_sink, k_lut, v_lut,
+                   li, pos, dcfg, mcfg, k_chan_l)
+
+
+flash_serial_decode.launches = 0
