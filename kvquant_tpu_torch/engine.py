@@ -4,8 +4,12 @@ kvquant_tpu/engine.py: prefill, decode_step, generate, deployed_ppl).
   - ``prefill``: one full-precision forward over the prompt that captures
     the pre-RoPE K/V and packs every layer's cache (ops.deployed.prefill_pack).
   - ``decode_step``: one token through every layer; ``dcfg.kernel`` picks
-    the datapath: "xla" (the eager oracle, ops.deployed.decode_attention)
-    or "flash_serial" (row-level append + the Hopper kernel).
+    the datapath: "xla" (the eager oracle, ops.deployed.decode_attention),
+    "flash" (row-level append + the Hopper kernel K1, flash_decode) or
+    "flash_serial" (row-level append + the Hopper kernel K2).
+  - ``prefill_chunk`` / ``prefill_quantized``: chunked prefill through the
+    quantized datapath (ops.deployed.block_attention: K1 with Tq > 1 under
+    "flash" / "flash_serial"); the JAX engine's chunk scan is a Python loop.
   - ``generate`` / ``deployed_ppl``: Python loops over decode_step.
 
 The cache is updated in place (the JAX engine threads an immutable pytree).
@@ -27,8 +31,6 @@ from .models import llama
 from .ops import deployed
 
 _NOT_PORTED = {
-    "flash": "kernel='flash' runs the general flash kernel K1 "
-             "(ROADMAP queue 2, K1: the next slice)",
     "pallas": "kernel='pallas' runs the two-pass kernels K3/K4 "
               "(ROADMAP queue 2, K3/K4)",
 }
@@ -37,7 +39,7 @@ _NOT_PORTED = {
 def _check_kernel(dcfg: DeployConfig):
     if dcfg.kernel in _NOT_PORTED:
         raise NotImplementedError(_NOT_PORTED[dcfg.kernel])
-    if dcfg.kernel not in ("xla", "flash_serial"):
+    if dcfg.kernel not in ("xla", "flash", "flash_serial"):
         raise ValueError(f"unknown kernel {dcfg.kernel!r}")
 
 
@@ -81,7 +83,7 @@ def decode_step(params, cfg: ModelConfig, dcfg: DeployConfig,
     position."""
     _check_kernel(dcfg)
     check_intn_codebook(dcfg, dq)
-    if dcfg.kernel == "flash_serial":
+    if dcfg.kernel in ("flash", "flash_serial"):
         return _decode_step_flash(params, cfg, dcfg, dq, cache, token, pos)
 
     B = token.shape[0]
@@ -102,10 +104,15 @@ def decode_step(params, cfg: ModelConfig, dcfg: DeployConfig,
 
 def _decode_step_flash(params, cfg: ModelConfig, dcfg: DeployConfig,
                        dq: DeployedQuant, cache: KVCache, token, pos):
-    """decode_step for kernel="flash_serial": per layer a row-level append
-    into the stacked (L, ...) arrays, then the kernel over layer ``li`` of
-    those arrays (no layer slice of the cache is copied)."""
+    """decode_step for kernel="flash" (K1, flash_decode) and "flash_serial"
+    (K2): per layer a row-level append into the stacked (L, ...) arrays,
+    then the kernel over layer ``li`` of those arrays (no layer slice of the
+    cache is copied)."""
+    from .ops.kernels.flash_decode import flash_decode
     from .ops.kernels.flash_serial import flash_serial_decode
+
+    attn_fn = (flash_serial_decode if dcfg.kernel == "flash_serial"
+               else flash_decode)
 
     B = token.shape[0]
     H, Dh, Hkv = cfg.n_heads, cfg.d_head, cfg.n_kv_heads
@@ -131,7 +138,7 @@ def _decode_step_flash(params, cfg: ModelConfig, dcfg: DeployConfig,
         q_h = q.reshape(B, Hkv, G, Dh).to(torch.float32)
         q_rot = q_h * cos[:, None, None] + (
             llama.rotate_half(q_h) * sin[:, None, None])
-        attn = flash_serial_decode(
+        attn = attn_fn(
             q_rot, arrs["k_planes"], arrs["v_planes"], arrs["kv_out"],
             dq.k_range, dq.k_offset, arrs["v_scale"], arrs["v_offset"],
             arrs["k_sink"], arrs["v_sink"], dq.k_lut_dec, dq.v_lut_dec,
@@ -181,17 +188,20 @@ def generate(params, cfg: ModelConfig, dcfg: DeployConfig, dq: DeployedQuant,
              prefill_mode: str = "fp16", device="cuda"):
     """Prefill + ``max_new_tokens`` decode steps. Returns (tokens (B, N)
     int32, cache). Positions past ``dcfg.max_len`` or after EOS emit
-    ``eos`` (or 0). ``device`` places a cache created here."""
-    if prefill_mode == "quantized":
-        raise NotImplementedError(
-            "prefill_mode='quantized' (prefill_chunk / block_attention) is "
-            "ROADMAP queue 1 item 6")
+    ``eos`` (or 0). ``device`` places a cache created here.
+    ``prefill_mode`` "fp16" packs a full-precision prompt forward (the
+    reference's semantics); "quantized" runs ``prefill_quantized``."""
+    if prefill_mode not in ("fp16", "quantized"):
+        raise ValueError(f"unknown prefill_mode {prefill_mode!r}")
     _check_kernel(dcfg)
     B, T0 = prompt.shape
     if cache is None:
         cache = create_cache(dcfg, cfg.n_layers, B, device=device)
     prompt = prompt.to(cache.length.device)
-    cache, logits = prefill(params, cfg, dcfg, dq, cache, prompt)
+    if prefill_mode == "quantized":
+        cache, logits = prefill_quantized(params, cfg, dcfg, dq, cache, prompt)
+    else:
+        cache, logits = prefill(params, cfg, dcfg, dq, cache, prompt)
 
     pad_id = gcfg.eos_token_id if gcfg.eos_token_id is not None else 0
     done = torch.zeros((B,), dtype=torch.bool, device=logits.device)
@@ -239,3 +249,72 @@ def deployed_ppl(params, cfg: ModelConfig, dcfg: DeployConfig,
         cache, logits = decode_step(params, cfg, dcfg, dq, cache, tgt, t)
     n = (T - t0) * B
     return float(torch.exp(total / n))
+
+
+# ---------------------------------------------------------------------------
+# quantized-trajectory chunked prefill: each chunk attends over the already
+# quantized cache, so the prompt's KV follows the same trajectory as
+# token-by-token decode, at block throughput
+# ---------------------------------------------------------------------------
+
+
+def prefill_chunk(params, cfg: ModelConfig, dcfg: DeployConfig,
+                  dq: DeployedQuant, cache: KVCache, tok_blk, pos0: int,
+                  sink_fill: bool):
+    """One chunk of quantized prefill: embed, every layer's block_attention
+    (pack + attend over the quantized cache, in place), the MLP. tok_blk
+    (B, Tq) holds the chunk's tokens (after the ``sink`` leading sink
+    tokens when ``sink_fill``); ``pos0`` is the absolute position of its
+    first non-sink token. Returns (cache, logits (B, Tq, V) fp32)."""
+    _check_kernel(dcfg)
+    B, T = tok_blk.shape
+    H, Dh = cfg.n_heads, cfg.d_head
+    x = params.embed[tok_blk.to(params.embed.device).long()]
+    for li in range(cfg.n_layers):
+        lp = params.layer(li)
+        h = llama.norm(x, lp["ln_attn"], cfg)
+        q = (h @ lp["wq"]).reshape(B, T, H, Dh)
+        k = h @ lp["wk"]
+        v = h @ lp["wv"]
+        _, attn = deployed.block_attention(cache.layer(li), dq.layer(li),
+                                           dcfg, cfg, q, k, v, pos0,
+                                           sink_fill=sink_fill)
+        x = x + attn.to(x.dtype) @ lp["wo"]
+        x = _mlp(x, lp, cfg)
+    return cache, _logits(params, x, cfg)
+
+
+def prefill_quantized(params, cfg: ModelConfig, dcfg: DeployConfig,
+                      dq: DeployedQuant, cache: KVCache, tokens,
+                      chunk: int = 256, max_scan_chunks: int | None = None):
+    """Chunked prefill through the quantized datapath (in place). Returns
+    (cache, logits_last (B, V) fp32). Pad tokens beyond T0 (to reach chunk
+    alignment) are packed but masked from every real query and overwritten
+    by later decode steps. ``max_scan_chunks`` splits the JAX engine's
+    device scan into host dispatches; the chunks here run as a Python loop
+    already, so it is accepted and has no effect."""
+    check_intn_codebook(dcfg, dq)
+    B, T0 = tokens.shape
+    S = dcfg.sink
+    assert T0 > S, "prompt must extend beyond the sink prefix"
+    assert chunk % 128 == 0
+    n_pack = T0 - S
+    n_chunks = -(-n_pack // chunk)
+    assert n_chunks * chunk <= dcfg.cache_tokens, (
+        f"prompt needs {n_chunks * chunk} packed tokens (chunk-aligned) but "
+        f"cache holds {dcfg.cache_tokens}")
+    toks = torch.nn.functional.pad(tokens.to(cache.length.device),
+                                   (0, n_chunks * chunk - n_pack))
+    # chunk 0 carries the sink prefix
+    cache, logits = prefill_chunk(params, cfg, dcfg, dq, cache,
+                                  toks[:, :S + chunk], S, True)
+    for c in range(1, n_chunks):
+        start = S + c * chunk
+        cache, logits = prefill_chunk(params, cfg, dcfg, dq, cache,
+                                      toks[:, start:start + chunk], start,
+                                      False)
+    # logits of the last REAL token (pad-safe)
+    last = (T0 - 1) - (S + (n_chunks - 1) * chunk) if n_chunks > 1 \
+        else T0 - 1
+    cache.length.fill_(T0)
+    return cache, logits[:, last]

@@ -127,14 +127,19 @@ def norm(x, w, cfg: ModelConfig):
     return rms_norm(x, w, cfg.rms_eps)
 
 
+def rope_inv_freq(cfg: ModelConfig, device) -> torch.Tensor:
+    """(d_head/2,) fp32 ``theta ** (-2i / d_head)``, in the JAX function's
+    fp32 order."""
+    ar = torch.arange(0, cfg.d_head // 2, dtype=torch.float32, device=device)
+    return torch.pow(torch.tensor(cfg.rope_theta, dtype=torch.float32),
+                     -ar * 2.0 / cfg.d_head)
+
+
 def rope_cos_sin(positions: torch.Tensor, cfg: ModelConfig):
     """fp32 cos/sin tables for ``positions``: (..., d_head), HF rotate-half
     convention (angles of pair i at i and i + d_head/2); the same fp32
-    operation order as the JAX function."""
-    half = cfg.d_head // 2
-    ar = torch.arange(0, half, dtype=torch.float32, device=positions.device)
-    inv_freq = torch.pow(torch.tensor(cfg.rope_theta, dtype=torch.float32),
-                         -ar * 2.0 / cfg.d_head)
+    operation order as the JAX function: ``(pos / scaling) * inv_freq``."""
+    inv_freq = rope_inv_freq(cfg, positions.device)
     pos = positions.to(torch.float32) / cfg.rope_scaling
     angles = pos[..., None] * inv_freq
     angles = torch.cat([angles, angles], dim=-1)

@@ -1,19 +1,20 @@
 """Deployed quantized-KV datapath in eager PyTorch (port of
-kvquant_tpu/ops/deployed.py for the integer containers).
+kvquant_tpu/ops/deployed.py).
 
-This is the port's oracle for everything except the attention kernel:
+This is the port's oracle for everything except the attention kernels:
 append-side quantization (per-channel K, per-token V range, per-head-group
-outlier words or static K channel residuals), full-cache dequantization,
-the ``kernel="xla"`` decode attention, the row-level append of the flash
-decode path and the prompt-phase parallel pack.
+outlier words or static K channel residuals), full-cache dequantization of
+bit planes and integer containers, the ``kernel="xla"`` decode attention,
+the row-level append of the flash decode path, the prompt-phase parallel
+pack and the block append + attention of quantized chunked prefill.
 
 Differences from the JAX functions:
   - caches are updated IN PLACE (``cache_l`` is a set of views of the
     stacked arrays, see KVCache.layer) and also returned;
   - positions are host integers: ``pos`` is an int (every sequence at the
     same position) or a sequence/tensor of B ints (per-sample positions);
-  - the bit-plane "nuq" storage and the two-pass ``kernel="pallas"``
-    branches belong to later slices and raise NotImplementedError.
+  - the two-pass ``kernel="pallas"`` branches (kernels K3/K4) raise
+    NotImplementedError.
 """
 
 from __future__ import annotations
@@ -26,18 +27,15 @@ from ..models.llama import rope_cos_sin, rotate_half
 from ..quant.nuq import nearest_codes, lut_lookup
 from ..utils.topk import top_k
 from .packing import (
+    unpack_codes, set_token_codes, set_token_codes_at_layer,
+    set_token_codes_at_layer_uniform, place_planes,
     store_codes_int, load_codes_int, place_codes_int,
     pair_codes_int4x2, unpair_codes_int4x2, place_codes_int4x2,
     set_token_rows, set_token_rows_at_layer,
     encode_outlier_words, decode_outlier_words, OUTLIER_DIM_MASK,
 )
 
-
-def _require_intn(dcfg: DeployConfig):
-    if dcfg.codes == "nuq":
-        raise NotImplementedError(
-            "codes='nuq' (bit-plane storage) is ported with the general "
-            "flash kernel K1 (ROADMAP queue 1 item 3, queue 2 K1)")
+_PALLAS = "kernel='pallas' (two-pass kernels K3/K4) is ROADMAP queue 2"
 
 
 def host_positions(pos, B: int) -> list[int]:
@@ -51,28 +49,32 @@ def host_positions(pos, B: int) -> list[int]:
 
 
 def _stored_codes(planes, dcfg: DeployConfig):
-    """Container storage -> unsigned int32 codes (..., Hkv, Tc, D)."""
-    _require_intn(dcfg)
+    """Code storage -> unsigned int32 codes (..., Hkv, Tc, D)."""
+    if dcfg.codes == "nuq":
+        return unpack_codes(planes, dcfg.bits)
     if dcfg.codes == "int4x2":
         return unpair_codes_int4x2(planes)
     return load_codes_int(planes, dcfg.bits)
 
 
 def _encode_rows(codes, dcfg: DeployConfig):
-    """Unsigned codes (..., Hkv, D) -> container rows (..., H', Dc)."""
-    _require_intn(dcfg)
+    """Unsigned codes (..., Hkv, D) -> container rows (..., H', Dc) for
+    the integer containers (bit planes are written by set_token_codes)."""
     if dcfg.codes == "int4x2":
         return pair_codes_int4x2(codes)
     return store_codes_int(codes, dcfg.bits, dcfg.code_dtype)
 
 
 def _place_codes(arr, codes, p0: int, dcfg: DeployConfig):
-    """Aligned block write of unsigned codes (..., T, Hkv, D) into a
-    container array (..., H', Tc, Dc), in place."""
-    _require_intn(dcfg)
+    """Aligned block write of unsigned codes (..., T, Hkv, D) into the code
+    storage (..., H', Tc, Dc) or bit planes (..., Hkv, bits, TW, D), in
+    place."""
+    if dcfg.codes == "nuq":
+        return place_planes(arr, codes, p0, dcfg.bits)
     if dcfg.codes == "int4x2":
         return place_codes_int4x2(arr, codes, p0)
     return place_codes_int(arr, codes, p0, dcfg.bits)
+
 
 
 # ---------------------------------------------------------------------------
@@ -241,12 +243,29 @@ def dequant_v_full(cache_l: KVCache, lq: DeployedQuant, dcfg: DeployConfig,
 def _append_layer(cache_l: KVCache, dcfg: DeployConfig, codes, words, row0,
                   planes_name, p: list[int], not_sink: list[bool]):
     """Per-sample row writes of one kind (K or V) into a layer cache."""
-    rows = _encode_rows(codes, dcfg)
     planes = getattr(cache_l, planes_name)
+    if dcfg.codes == "nuq":
+        for b, (pb, ok) in enumerate(zip(p, not_sink)):
+            set_token_codes(planes[b], codes[b], pb, ok)
+    else:
+        rows = _encode_rows(codes, dcfg)
+        for b, (pb, ok) in enumerate(zip(p, not_sink)):
+            set_token_rows(planes[b], rows[b], pb, ok)
     for b, (pb, ok) in enumerate(zip(p, not_sink)):
-        set_token_rows(planes[b], rows[b], pb, ok)
         if ok and words is not None:
             cache_l.kv_out[b, :, row0:row0 + words.shape[-1], pb] = words[b]
+
+
+def _roped_keys(k_full, dcfg: DeployConfig, mcfg: ModelConfig):
+    """Dequantized cache keys (..., Tc, D) as the scores see them: stored
+    post-RoPE, or rotated here at their absolute positions S + t."""
+    if dcfg.post_rope_k:
+        return k_full
+    Tc = k_full.shape[-2]
+    pos_cache = dcfg.sink + torch.arange(Tc, dtype=torch.int32,
+                                         device=k_full.device)
+    ck, sk = rope_cos_sin(pos_cache, mcfg)
+    return k_full * ck + rotate_half(k_full) * sk
 
 
 def decode_attention(cache_l: KVCache, lq: DeployedQuant, dcfg: DeployConfig,
@@ -254,10 +273,8 @@ def decode_attention(cache_l: KVCache, lq: DeployedQuant, dcfg: DeployConfig,
     """Append each sample's token at its position to the single-layer cache
     (in place) and attend over positions 0..pos. q (B, H, Dh) un-roped,
     k_new/v_new (B, C). Returns (cache_l, out (B, H, Dh))."""
-    _require_intn(dcfg)
     if dcfg.kernel == "pallas":
-        raise NotImplementedError(
-            "kernel='pallas' (two-pass kernels K3/K4) is ROADMAP queue 2")
+        raise NotImplementedError(_PALLAS)
     B = q.shape[0]
     S, Tc = dcfg.sink, dcfg.cache_tokens
     Hkv, Dh = dcfg.n_kv_heads, dcfg.d_head
@@ -286,11 +303,7 @@ def decode_attention(cache_l: KVCache, lq: DeployedQuant, dcfg: DeployConfig,
     q_h = q.reshape(B, Hkv, G, Dh).to(torch.float32)
     q_rot = q_h * cos[:, None, None] + rotate_half(q_h) * sin[:, None, None]
     inv = 1.0 / (Dh ** 0.5)
-    k_full = dequant_k_full(cache_l, lq, dcfg)
-    if not dcfg.post_rope_k:
-        pos_cache = S + torch.arange(Tc, dtype=torch.int32, device=dev)
-        ck, sk = rope_cos_sin(pos_cache, mcfg)
-        k_full = k_full * ck + rotate_half(k_full) * sk
+    k_full = _roped_keys(dequant_k_full(cache_l, lq, dcfg), dcfg, mcfg)
     scores = torch.einsum("bhgd,bhtd->bhgt", q_rot, k_full) * inv
     if S > 0:
         sink_sc = torch.einsum("bhgd,bhsd->bhgs", q_rot, cache_l.k_sink) * inv
@@ -351,8 +364,12 @@ def append_token_flash(arrs: dict, lq: DeployedQuant, dcfg: DeployConfig,
     k_store = k_roped.reshape(B, Hkv * Dh) if dcfg.post_rope_k else k_new
     codes_k, k_words = quantize_k(k_store, lq, dcfg)
     codes_v, v_words, v_sc, v_off = quantize_v(v_new, lq, dcfg)
-    rows_k = _encode_rows(codes_k, dcfg)  # (B, H', Dc)
-    rows_v = _encode_rows(codes_v, dcfg)
+    nuq = dcfg.codes == "nuq"
+    rows_k = codes_k if nuq else _encode_rows(codes_k, dcfg)  # (B, H', Dc)
+    rows_v = codes_v if nuq else _encode_rows(codes_v, dcfg)
+    put_uniform = set_token_codes_at_layer_uniform if nuq else (
+        lambda a, r, li_, p_: set_token_rows(a[li_], r, p_))
+    put_sample = set_token_codes_at_layer if nuq else set_token_rows_at_layer
     v_h = v_new.reshape(B, Hkv, Dh).to(torch.float32)
     spk = dcfg.slots_per_kind
 
@@ -360,8 +377,8 @@ def append_token_flash(arrs: dict, lq: DeployedQuant, dcfg: DeployConfig,
         # uniform position: one batch-wide row write per array
         p0 = min(max(pl[0] - S, 0), Tc - 1)
         if pl[0] >= S:
-            set_token_rows(arrs["k_planes"][li], rows_k, p0)
-            set_token_rows(arrs["v_planes"][li], rows_v, p0)
+            put_uniform(arrs["k_planes"], rows_k, li, p0)
+            put_uniform(arrs["v_planes"], rows_v, li, p0)
             if dcfg.include_sparse:
                 arrs["kv_out"][li, :, :, :spk, p0] = k_words
                 if v_words is not None:
@@ -378,8 +395,8 @@ def append_token_flash(arrs: dict, lq: DeployedQuant, dcfg: DeployConfig,
     for b in range(B):
         if pl[b] >= S:
             pb = min(pl[b] - S, Tc - 1)
-            set_token_rows_at_layer(arrs["k_planes"][:, b], rows_k[b], li, pb)
-            set_token_rows_at_layer(arrs["v_planes"][:, b], rows_v[b], li, pb)
+            put_sample(arrs["k_planes"][:, b], rows_k[b], li, pb)
+            put_sample(arrs["v_planes"][:, b], rows_v[b], li, pb)
             if dcfg.include_sparse:
                 arrs["kv_out"][li, b, :, :spk, pb] = k_words[b]
                 if v_words is not None:
@@ -402,8 +419,7 @@ def prefill_pack(cache_l: KVCache, lq: DeployedQuant, dcfg: DeployConfig,
                  mcfg: ModelConfig, k, v):
     """Pack a whole prompt's pre-RoPE k / v projections (B, T0, C) into the
     single-layer cache in place: exact sink rows for the first S tokens,
-    quantized containers, outlier rows and V ranges for the rest."""
-    _require_intn(dcfg)
+    quantized codes, outlier rows and V ranges for the rest."""
     B, T0, C = k.shape
     S, Tc = dcfg.sink, dcfg.cache_tokens
     Hkv, Dh = dcfg.n_kv_heads, dcfg.d_head
@@ -436,3 +452,111 @@ def prefill_pack(cache_l: KVCache, lq: DeployedQuant, dcfg: DeployConfig,
     cache_l.v_offset[:, :Tp] = v_off
     cache_l.length.fill_(T0)
     return cache_l
+
+
+# ---------------------------------------------------------------------------
+# block append + attention: a whole 128-aligned token block at once (the
+# basis of quantized chunked prefill)
+# ---------------------------------------------------------------------------
+
+
+def block_attention(cache_l: KVCache, lq: DeployedQuant, dcfg: DeployConfig,
+                    mcfg: ModelConfig, q, k_new, v_new, pos0: int,
+                    sink_fill: bool = False):
+    """Pack a block of tokens into the single-layer cache (in place) and
+    attend for every query of the block over cache positions 0..its own,
+    so each query sees the dequantized values a later decode step would.
+
+    q (B, Tq_all, H, Dh) un-roped; k_new / v_new (B, Tq_all, C) pre-RoPE;
+    ``pos0`` is the absolute position of the block's first NON-sink token
+    (``pos0 - sink`` 128-aligned); with ``sink_fill`` the first ``sink``
+    rows are the sink tokens (block 0 of a prefill). kernel "flash" /
+    "flash_serial" attends through K1 (``kernels.flash_decode.
+    flash_attention``), "xla" over the eagerly dequantized cache. Returns
+    (cache_l, out (B, Tq_all, H*Dh) fp32)."""
+    if dcfg.kernel == "pallas":
+        raise NotImplementedError(_PALLAS)
+    B, Tq_all = q.shape[:2]
+    S, Tc = dcfg.sink, dcfg.cache_tokens
+    Hkv, Dh = dcfg.n_kv_heads, dcfg.d_head
+    G = q.shape[2] // Hkv
+    ns = S if sink_fill else 0
+    Tq = Tq_all - ns  # packed tokens
+    assert Tq % 128 == 0, Tq
+    dev = q.device
+    pos0 = int(pos0)
+    positions = (pos0 - ns) + torch.arange(Tq_all, dtype=torch.int32,
+                                           device=dev)
+    cos, sin = rope_cos_sin(positions, mcfg)  # (Tq_all, Dh)
+
+    if sink_fill and S > 0:
+        k_s = k_new[:, :S].reshape(B, S, Hkv, Dh).to(torch.float32)
+        k_s = k_s * cos[:S, None] + rotate_half(k_s) * sin[:S, None]
+        cache_l.k_sink.copy_(k_s.transpose(1, 2))
+        cache_l.v_sink.copy_(v_new[:, :S].reshape(B, S, Hkv, Dh)
+                             .to(torch.float32).transpose(1, 2))
+
+    kq, vq = k_new[:, ns:], v_new[:, ns:]
+    if dcfg.post_rope_k:
+        kh = k_new.reshape(B, Tq_all, Hkv, Dh).to(torch.float32)
+        kh = kh * cos[:, None] + rotate_half(kh) * sin[:, None]
+        kq = kh.reshape(B, Tq_all, Hkv * Dh)[:, ns:]
+    codes_k, k_words = quantize_k(kq, lq, dcfg)  # (B, Tq, Hkv, D)
+    codes_v, v_words, v_sc, v_off = quantize_v(vq, lq, dcfg)
+
+    p0 = max(pos0 - S, 0)  # packed offset of the block
+    assert p0 + Tq <= Tc, f"block [{p0}, {p0 + Tq}) exceeds capacity {Tc}"
+    _place_codes(cache_l.k_planes, codes_k, p0, dcfg)
+    _place_codes(cache_l.v_planes, codes_v, p0, dcfg)
+    if dcfg.include_sparse:
+        kv_words = k_words if v_words is None else torch.cat(
+            [k_words, v_words], dim=-1)
+        # (B, Tq, G, J) -> (B, G, J, Tq) token axis last
+        cache_l.kv_out[..., :kv_words.shape[-1], p0:p0 + Tq] = \
+            kv_words.permute(0, 2, 3, 1)
+    cache_l.v_scale[:, p0:p0 + Tq] = v_sc
+    cache_l.v_offset[:, p0:p0 + Tq] = v_off
+    cache_l.length.fill_(pos0 + Tq)
+
+    # ---- attention for every query of the block ----
+    q_h = q.reshape(B, Tq_all, Hkv, G, Dh).to(torch.float32)
+    q_rot = q_h * cos[:, None, None] + rotate_half(q_h) * sin[:, None, None]
+    q_rot = q_rot.permute(0, 2, 3, 1, 4)  # (B, Hkv, G, Tq_all, Dh)
+
+    if dcfg.kernel in ("flash", "flash_serial"):
+        # one K1 call over the whole block: every row masked to its own
+        # position in-kernel, nothing of O(Tq x Tc) materialized; rows are
+        # g-major, row r at position pos_first + r % Tq_all
+        from .kernels.flash_decode import flash_attention
+
+        pos_first = torch.full((B,), pos0 - ns, dtype=torch.int32, device=dev)
+        out = flash_attention(
+            q_rot.reshape(B, Hkv, G * Tq_all, Dh).contiguous(),
+            cache_l.k_planes[None], cache_l.v_planes[None],
+            cache_l.kv_out[None], lq.k_range[None], lq.k_offset[None],
+            cache_l.v_scale[None], cache_l.v_offset[None],
+            cache_l.k_sink[None], cache_l.v_sink[None],
+            lq.k_lut_dec[None], lq.v_lut_dec[None], 0, pos_first, dcfg, mcfg,
+            Tq=Tq_all, k_ressc=lq.k_ressc[None],
+        ).reshape(B, Hkv, G, Tq_all, Dh)
+    else:
+        inv = 1.0 / (Dh ** 0.5)
+        kx = _roped_keys(dequant_k_full(cache_l, lq, dcfg), dcfg, mcfg)
+        scores = torch.einsum("bhgqd,bhtd->bhgqt", q_rot, kx) * inv
+        if S > 0:
+            sink_sc = torch.einsum("bhgqd,bhsd->bhgqs", q_rot,
+                                   cache_l.k_sink) * inv
+            scores = torch.cat([sink_sc, scores], dim=-1)
+        idx = torch.arange(S + Tc, dtype=torch.int32, device=dev)
+        valid = idx[None, :] <= positions[:, None]  # (Tq_all, S + Tc)
+        if mcfg.sliding_window is not None:
+            valid &= idx[None, :] > positions[:, None] - mcfg.sliding_window
+        probs = torch.softmax(scores.masked_fill(~valid, float("-inf")),
+                              dim=-1)
+        out = torch.einsum("bhgqt,bhtd->bhgqd", probs[..., S:],
+                           dequant_v_full(cache_l, lq, dcfg))
+        if S > 0:
+            out = out + torch.einsum("bhgqs,bhsd->bhgqd", probs[..., :S],
+                                     cache_l.v_sink)
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, Tq_all, Hkv * G * Dh)
+    return cache_l, out

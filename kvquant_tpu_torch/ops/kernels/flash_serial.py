@@ -15,7 +15,8 @@ position, over the exact sink prefix and the packed tokens [0, pos - S]
 the card). The TPU kernel's constant-band packing (``prep_constants``) works
 around a Mosaic operand limit and is not ported: the CUDA kernel takes its
 operands plainly, folds the affine codebook itself and reads the static K
-channels as int32 indices.
+channels as int32 indices. The codebook fold and the plain version's codes
+and addends are shared with K1 (``common.py``).
 """
 
 from __future__ import annotations
@@ -27,12 +28,10 @@ import torch
 
 from ...cache import DeployConfig, k_channel_index
 from ..deployed import _outlier_addend
-from ..packing import unpack_nibbles, unpair_codes_int4x2
+from .common import (MAX_KC, MAX_SINK, TILE_TOKENS, fold_affine,
+                     signed_codes, channel_addend, check_operands, sm_count)
 
 CODES = {"int4": 0, "int8": 1, "int4x2": 2}
-TILE_TOKENS = 128  # tokens per tile in the kernel
-MAX_KC = 64
-MAX_SINK = 64
 
 
 def _check_config(dcfg: DeployConfig):
@@ -41,46 +40,6 @@ def _check_config(dcfg: DeployConfig):
     assert dcfg.post_rope_k, "flash_serial requires post-RoPE K storage"
     if dcfg.codes == "int4x2":
         assert dcfg.head_group % 2 == 0
-
-
-def fold_affine(dcfg: DeployConfig, k_lut, v_lut, k_range, k_offset, li: int):
-    """Layer ``li``'s affine codebook folded into the dequant constants, so
-    a signed container code c_s dequantizes as ``c_s*k_step + k_zero`` (K)
-    and ``c_s*(v_scale*vb) + (v_scale*va + v_offset)`` (V); the same fp32
-    operations as flash_decode.fold_affine. Returns (k_step (Hkv, D),
-    k_zero (Hkv, D), va, vb)."""
-    K = 2 ** dcfg.bits
-    bias = dcfg.code_bias
-    kl, vl = k_lut[li], v_lut[li]
-    kb = (kl[-1] - kl[0]) / (K - 1)
-    ka = kl[0] + bias * kb
-    vb = (vl[-1] - vl[0]) / (K - 1)
-    va = vl[0] + bias * vb
-    return kb * k_range[li], ka * k_range[li] + k_offset[li], va, vb
-
-
-def _signed_codes(planes, dcfg: DeployConfig):
-    """Container (B, H', Tc, Dc) -> the codes the kernel multiplies,
-    (B, Hkv, Tc, D) fp32: signed (code - bias) for int4/int8, unsigned
-    for int4x2 (bias 0)."""
-    if dcfg.codes == "int4x2":
-        return unpair_codes_int4x2(planes).to(torch.float32)
-    if dcfg.codes == "int4":
-        return unpack_nibbles(planes).to(torch.float32)
-    return planes.to(torch.float32)
-
-
-def _channel_addend(rows, chan, dcfg: DeployConfig):
-    """Dense (B, Hkv, Tc, D) K addend from the static-channel residual rows
-    (B, NG, n_kc, Tc) at group-space channels ``chan`` (NG, n_kc)."""
-    B, NG, N, Tc = rows.shape
-    hg, D = dcfg.head_group, dcfg.d_head
-    dense = torch.zeros((B, NG, Tc, hg * D), dtype=torch.float32,
-                        device=rows.device)
-    dense.scatter_add_(-1, chan.long()[None, :, None, :].expand(B, NG, Tc, N),
-                       rows.transpose(-1, -2))
-    return dense.reshape(B, NG, Tc, hg, D).transpose(2, 3).reshape(
-        B, NG * hg, Tc, D)
 
 
 def flash_serial_decode_ref(
@@ -105,8 +64,8 @@ def flash_serial_decode_ref(
     k_step, k_zero, va, vb = fold_affine(dcfg, k_lut, v_lut, k_range,
                                          k_offset, li)
     q = q_rot.to(torch.float32)
-    ck = _signed_codes(k_planes[li], dcfg)
-    cv = _signed_codes(v_planes[li], dcfg)
+    ck = signed_codes(k_planes[li], dcfg)
+    cv = signed_codes(v_planes[li], dcfg)
     rows = kv_out[li]  # (B, NG, J, Tc)
 
     # ---- scores over the packed tokens ----
@@ -117,7 +76,7 @@ def flash_serial_decode_ref(
         if dcfg.k_outliers == "channels":
             chan = k_chan[li] if k_chan is not None \
                 else k_channel_index(k_ressc[li], dcfg)
-            add = _channel_addend(rows[:, :, :spk], chan, dcfg)
+            add = channel_addend(rows[:, :, :spk], chan, dcfg)
             sc = sc + torch.einsum("bhgd,bhtd->bhgt", rnd(q), rnd(add))
         elif dcfg.cap_per_side > 0:
             add = _outlier_addend(rows[:, :, :spk], dcfg)
@@ -198,16 +157,10 @@ def load_library():
     return _lib()
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def n_splits(B: int, Hkv: int, Tc: int, device: torch.device) -> int:
     """Token-axis splits per (b, kv head): about eight blocks per SM, at
     most one per 128-token tile of the capacity."""
-    target = 8 * _sm_count(device.index if device.index is not None
-                           else torch.cuda.current_device())
+    target = 8 * sm_count(device)
     return max(1, min(-(-target // (B * Hkv)), -(-Tc // TILE_TOKENS)))
 
 
@@ -264,14 +217,7 @@ def _launch(q_rot, k_planes, v_planes, kv_out, k_range, k_offset, v_scale,
     }
     if n_kc:
         expect["k_chan"] = (k_chan_l, (NG, n_kc), torch.int32)
-    for name, (t, shape, dt) in expect.items():
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, queries on {dev}")
-        if tuple(t.shape) != shape or t.dtype != dt:
-            raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype}, kernel "
-                             f"takes {shape} {dt}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    check_operands("flash_serial kernel", expect, dev)
 
     ns = n_splits(B, Hkv, Tc, dev)
     out = torch.empty((B, Hkv, G, D), dtype=torch.float32, device=dev)

@@ -1,6 +1,11 @@
-"""Integer code containers and outlier words (port of the integer-container
-half of kvquant_tpu/ops/packing.py:174-335; the bit-plane half belongs to
-the "nuq" storage of the general flash kernel, a later slice).
+"""Code containers and outlier words (port of kvquant_tpu/ops/packing.py).
+
+Bit planes ("nuq" storage): (..., bits, TW, D) int32, head_dim last, the
+planes packed along the TOKEN axis in 128-token groups: token t of group
+g = t // 128 lives in word row ``g*4 + t % 4`` at bit ``(t % 128) // 4``.
+One int32 word row per plane holds 32 tokens. The words are the JAX
+package's bit for bit; torch has no uint32 shifts, so the bit arithmetic
+runs on int64 and wraps back to int32.
 
 torch has no int4 dtype. The JAX package's int4 arrays become uint8 nibble
 pairs along d_head: byte j of a row holds dims 2j (low nibble) and 2j+1
@@ -12,6 +17,103 @@ return a new array) and take host-side positions and predicates.
 from __future__ import annotations
 
 import torch
+
+GROUP = 128  # tokens per packing group
+WPG = 4  # int32 words per group and plane
+
+
+# ---------------------------------------------------------------------------
+# bit planes (DeployConfig.codes "nuq")
+# ---------------------------------------------------------------------------
+
+
+def _to_int32(words: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2**32) -> int32 with the same bit pattern."""
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32)
+
+
+def token_word_bit(pos: int) -> tuple[int, int]:
+    """Word row index and bit position of packed token ``pos``."""
+    g, r = divmod(int(pos), GROUP)
+    return g * WPG + r % WPG, r // WPG
+
+
+def pack_codes(codes: torch.Tensor, bits: int) -> torch.Tensor:
+    """codes (..., T, D) in [0, 2**bits) with T % 128 == 0 -> planes
+    (..., bits, T//32, D) int32."""
+    *lead, T, D = codes.shape
+    assert T % GROUP == 0, f"token axis must be a multiple of {GROUP}, got {T}"
+    # (..., g, j, w, D): token t = g*128 + j*4 + w
+    c = codes.to(torch.int64).reshape(*lead, T // GROUP, GROUP // WPG, WPG, D)
+    weights = (1 << torch.arange(GROUP // WPG, dtype=torch.int64,
+                                 device=codes.device))[:, None, None]
+    planes = [((((c >> b) & 1) * weights).sum(dim=-3)).reshape(*lead, T // 32, D)
+              for b in range(bits)]
+    return _to_int32(torch.stack(planes, dim=-3))
+
+
+def unpack_codes(planes: torch.Tensor, bits: int) -> torch.Tensor:
+    """planes (..., bits, TW, D) int32 -> codes (..., 32*TW, D) int32."""
+    *lead, b_dim, TW, D = planes.shape
+    assert b_dim == bits and TW % WPG == 0
+    words = (planes.to(torch.int64) & 0xFFFFFFFF).reshape(
+        *lead, bits, TW // WPG, 1, WPG, D)
+    shifts = torch.arange(GROUP // WPG, dtype=torch.int64,
+                          device=planes.device).reshape(-1, 1, 1)
+    bitvals = (words >> shifts) & 1  # (..., bits, g, j, w, D)
+    codes = sum(bitvals.select(-5, b) << b for b in range(bits))
+    return codes.reshape(*lead, 32 * TW, D).to(torch.int32)
+
+
+def set_token_codes(planes: torch.Tensor, codes: torch.Tensor, pos: int,
+                    pred: bool = True) -> torch.Tensor:
+    """Write one token's codes at packed position ``pos`` in place: clear
+    then set its bit in its word row of every plane, unless ``pred`` is
+    False. planes (..., bits, TW, D) int32; codes (..., D)."""
+    if not pred:
+        return planes
+    bits = planes.shape[-3]
+    w, j = token_word_bit(pos)
+    assert 0 <= w < planes.shape[-2], (pos, planes.shape)
+    row = planes[..., w, :].to(torch.int64) & 0xFFFFFFFF  # (..., bits, D)
+    shifts = torch.arange(bits, dtype=torch.int64,
+                          device=planes.device)[:, None]
+    bitvals = ((codes.to(torch.int64)[..., None, :] >> shifts) & 1) << j
+    planes[..., w, :] = _to_int32((row & ~(1 << j)) | bitvals)
+    return planes
+
+
+def set_token_codes_at_layer(planes, codes, li: int, pos: int,
+                             pred: bool = True):
+    """One sample's token codes into layer ``li`` of the stacked planes, in
+    place: planes (L, H, bits, TW, D); codes (H, D)."""
+    set_token_codes(planes[li], codes, pos, pred)
+    return planes
+
+
+def set_token_codes_at_layer_uniform(planes, codes, li: int, pos: int,
+                                     pred: bool = True):
+    """Every sample's token codes at one shared position into layer ``li``,
+    in place: planes (L, B, H, bits, TW, D); codes (B, H, D)."""
+    set_token_codes(planes[li], codes, pos, pred)
+    return planes
+
+
+def place_planes(planes, codes, p0: int, bits: int):
+    """Write an aligned token block in place: planes (..., H, bits, TW, D),
+    codes (..., T, H, D) unsigned, block start ``p0`` (a multiple of 128).
+    The block pads to whole 128-token groups with code 0, as the JAX
+    package's prompt pack does."""
+    assert p0 % GROUP == 0, p0
+    c = torch.movedim(codes, -3, -2)  # (..., H, T, D)
+    T = c.shape[-2]
+    pad = -T % GROUP
+    if pad:
+        c = torch.nn.functional.pad(c, (0, 0, 0, pad))
+    words = pack_codes(c, bits)
+    w0 = p0 // 32
+    planes[..., w0:w0 + words.shape[-2], :] = words
+    return planes
 
 
 # ---------------------------------------------------------------------------

@@ -9,9 +9,27 @@ engine on the same weights, quantizers and tokens, fp32 dots:
     rounding can move a value across a midpoint);
   - prefill + greedy generate on the committed toy checkpoint: identical
     tokens for 32 steps;
-  - deployed_ppl on the toy checkpoint within 1e-3 relative.
+  - deployed_ppl on the toy checkpoint within 1e-3 relative;
+  - the reference-faithful scheme (nuq3 bit planes, pre-RoPE K, slot
+    outliers) through kernel="flash" (K1): 30-token decode trajectories
+    (logits as above), quantized chunked prefill at chunk 128 (k_planes
+    bitwise, against JAX and against the port's own xla path; logits
+    within the trajectory tolerance of tests/test_flash_decode.py:244-249)
+    and, on the toy checkpoint with its committed 3-bit k-means quantizers
+    at head_group 4, greedy generate token-identical for 32 steps with
+    either prefill and deployed_ppl within 1e-3 relative.
+
+The random-model trajectories fit uniform codebooks (stored as bit planes
+and decoded through the LUT like any other). A per-token V range is set by
+the token's own extremes, so those elements sit exactly at |x_norm| = 1,
+the outlier threshold, and XLA's and torch's matmuls round them apart by
+an ulp: a k-means codebook, whose end entries are not +-1, then turns the
+flipped membership into a residual of ~0.15 and the trajectories drift
+apart (the JAX package's flash-vs-xla tests loosen their tolerance for the
+same reason); with end entries at +-1 the residual there is ~0.
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -197,13 +215,127 @@ def test_temperature_sampling_is_seeded():
 
 @pytest.mark.parametrize("kernel", ["flash", "pallas"])
 def test_unported_kernels_raise(kernel, toy):
+    """kernel="pallas" (K3/K4) is not ported; under kernel="flash" the
+    head-paired int4x2 path of K1 is not, for decode and chunked prefill."""
     params, cfg, dcfg, dq = toy["torch"]
-    import dataclasses
     d = dataclasses.replace(dcfg, kernel=kernel)
+    if kernel == "flash":
+        d = dataclasses.replace(d, codes="int4x2", bits=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         engine.deployed_ppl(params, cfg, d, dq, torch.zeros((1, 8),
                             dtype=torch.int32), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.generate(params, cfg, dcfg, dq, torch.zeros((1, 8),
+        engine.generate(params, cfg, d, dq, torch.zeros((1, 8),
                         dtype=torch.int32), engine.GenerateConfig(4),
                         prefill_mode="quantized", device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the reference-faithful scheme through K1 (kernel="flash")
+# ---------------------------------------------------------------------------
+
+FAITHFUL = dict(codes="nuq", post_rope_k=False, k_outliers="slots",
+                cap_per_side=2)
+
+
+def _faithful(jcfg, max_len=69, hg=2):
+    d = dict(bits=3, n_kv_heads=jcfg.n_kv_heads, d_head=jcfg.d_head,
+             max_len=max_len, sink=5, kernel="flash", dot_bf16=False,
+             head_group=hg, **FAITHFUL)
+    return JDeployConfig.create(**d), DeployConfig.create(**d)
+
+
+@pytest.mark.parametrize("which", ["mha", "gqa"])
+def test_flash_trajectory_matches_jax(which, tmp_path):
+    jcfg, tcfg = (J_TINY, TINY_LLAMA) if which == "mha" else (J_GQA, TINY_GQA)
+    (jp, jq), (tp, tq) = _setup(jcfg, tcfg, 3, tmp_path)
+    tokens = np.random.default_rng(1).integers(0, jcfg.vocab_size, (1, 30),
+                                               dtype=np.int32)
+    jd, td = _faithful(jcfg)
+    jc = jcreate(jd, jcfg.n_layers, 1)
+    step = jax.jit(lambda c, tok, pos: jeng.decode_step(
+        jp, jcfg, jd, jq, c, tok, pos))
+    tc = create_cache(td, tcfg.n_layers, 1, device="cpu")
+    jl, tl = [], []
+    for t in range(tokens.shape[1]):
+        jc, lg = step(jc, jnp.asarray(tokens[:, t]), jnp.int32(t))
+        jl.append(np.asarray(lg))
+        tc, lg = engine.decode_step(tp, tcfg, td, tq, tc,
+                                    torch.as_tensor(tokens[:, t]), t)
+        tl.append(lg.numpy())
+    np.testing.assert_allclose(np.stack(tl), np.stack(jl), atol=3e-4,
+                               rtol=1e-4)
+    for name in ("k_planes", "v_planes"):
+        got = _stored_codes(getattr(tc, name), td).numpy()
+        want = np.asarray(jstored(getattr(jc, name), jd))
+        diff = np.abs(got - want)
+        assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3, name
+    assert tc.length.tolist() == np.asarray(jc.length).tolist()
+
+
+def test_prefill_quantized_matches_jax(tmp_path):
+    """Chunked prefill at chunk 128 (a first chunk with the sink rows, then
+    a later one) through K1, B=2, GQA."""
+    (jp, jq), (tp, tq) = _setup(J_GQA, TINY_GQA, 3, tmp_path)
+    tokens = np.random.default_rng(11).integers(0, J_GQA.vocab_size, (2, 200),
+                                                dtype=np.int32)
+    jd, td = _faithful(J_GQA, max_len=300)
+    xc, _ = engine.prefill_quantized(
+        tp, TINY_GQA, dataclasses.replace(td, kernel="xla"), tq,
+        create_cache(td, TINY_GQA.n_layers, 2, device="cpu"),
+        torch.as_tensor(tokens), chunk=128)
+    jc, jlog = jeng.prefill_quantized(jp, J_GQA, jd, jq,
+                                      jcreate(jd, J_GQA.n_layers, 2),
+                                      jnp.asarray(tokens), chunk=128)
+    tc, tlog = engine.prefill_quantized(
+        tp, TINY_GQA, td, tq, create_cache(td, TINY_GQA.n_layers, 2,
+                                           device="cpu"),
+        torch.as_tensor(tokens), chunk=128)
+    np.testing.assert_array_equal(tc.k_planes.numpy(),
+                                  np.asarray(jc.k_planes))
+    assert torch.equal(tc.k_planes, xc.k_planes)
+    assert tc.length.tolist() == np.asarray(jc.length).tolist() == [200, 200]
+    diff = np.abs(tlog.numpy() - np.asarray(jlog))
+    assert np.quantile(diff, 0.5) < 5e-3 and diff.max() < 0.25, (
+        np.quantile(diff, 0.5), diff.max())
+
+
+@pytest.fixture(scope="module")
+def toy_nuq():
+    """The committed toy checkpoint with its committed 3-bit quantizers:
+    nuq3, pre-RoPE K, slots cap 2, head_group 4, kernel "flash"."""
+    from kvquant_tpu.quant.artifacts import load_quantizers as jload
+    from kvquant_tpu.utils.toymodel import BigramLM, TOY_CFG as J_TOY
+
+    tree, _, seed = load_toy_checkpoint(os.path.join(ART, "toy_model.npz"))
+    path = os.path.join(ART, "toy_quantizers_3bit.npz")
+    jd, td = _faithful(J_TOY, hg=4)
+    return dict(
+        jax=(jax.tree.map(jnp.asarray, tree), J_TOY, jd,
+             jdeployed(jload(path), 4, 32)),
+        torch=(params_from_numpy(tree, TOY_CFG, device="cpu"), TOY_CFG, td,
+               deployed_from_quantizers(load_quantizers(path), 4, 32,
+                                        device="cpu")),
+        lm=BigramLM(J_TOY.vocab_size, seed=seed),
+    )
+
+
+@pytest.mark.parametrize("prefill_mode", ["fp16", "quantized"])
+def test_toy_nuq3_flash_generate_matches_jax(toy_nuq, prefill_mode):
+    prompt = np.array(toy_nuq["lm"].sample(1, 16, seed=31))
+    want, _ = jeng.generate(*toy_nuq["jax"], jnp.asarray(prompt),
+                            jeng.GenerateConfig(max_new_tokens=32),
+                            prefill_mode=prefill_mode)
+    got, cache = engine.generate(*toy_nuq["torch"], torch.as_tensor(prompt),
+                                 engine.GenerateConfig(max_new_tokens=32),
+                                 prefill_mode=prefill_mode, device="cpu")
+    assert got.tolist() == np.asarray(want).tolist()
+    assert cache.length.tolist() == [16 + 32]
+
+
+def test_toy_nuq3_flash_deployed_ppl_matches_jax(toy_nuq):
+    toks = np.array(toy_nuq["lm"].sample(1, 40, seed=10_001))
+    want = jeng.deployed_ppl(*toy_nuq["jax"], jnp.asarray(toks))
+    got = engine.deployed_ppl(*toy_nuq["torch"], torch.as_tensor(toks),
+                              device="cpu")
+    assert abs(got / want - 1) < 1e-3, (got, want)
