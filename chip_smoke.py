@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --phases 1,6 --verbose-build   # build + K1 check
+    python3 chip_smoke.py --phases 1,10 --verbose-build  # build + K3/K4
 
 Phases (each prints its own lines; any failure raises and exits non-zero).
 K2 is csrc/flash_serial.cu (flash_serial_decode), K1 csrc/flash_decode.cu
@@ -40,6 +41,21 @@ K2 is csrc/flash_serial.cu (flash_serial_decode), K1 csrc/flash_decode.cu
   9. K1 alone at one LLaMA-2-7B layer: decode at 32K and 128K, a 256-row
      prefill chunk at 2K and 32K; times as in phase 5, bound from bytes
      and bf16 tensor-core operations.
+K3 (qk_fused) and K4 (pv_fused) are csrc/attention.cu, kernel="pallas":
+ 10. K3 and K4 against their plain versions: bits 2/3/4 x head group
+     1/2/4 x cap 0/2 at R = G and R = G*261 rows, G 1/4, D 32/64/128,
+     capacity 256 / 2304, B=2, fp32 and bf16 dots;
+ 11. the main path through the user's entry point: cli.generate
+     --kernel pallas --prefill-mode quantized at LLaMA-2-7B width (2048-word
+     prompt, 64 new tokens); K3 and K4 must each have run 32 x (chunks +
+     64) times and K1 never; engine-level quantized prefill seconds, decode
+     tok/s at 2K and 32K (profiler pass), K3 / K4 against plain on the live
+     cache; the fp16-KV baseline's tok/s on the same weights; cli.passkey
+     and cli.needle at toy width;
+ 12. card against CPU through K3 / K4: the toy checkpoint's 32 greedy
+     tokens, fp16 and quantized prefill;
+ 13. K3 and K4 alone at one LLaMA-2-7B layer: decode rows at 32K and 128K,
+     a 261-row prefill chunk at 2K; times, plain, bound as in phase 9.
 The line before the last lists every ported kernel as JSON; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -59,7 +75,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, NVIDIA data sheet
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak, data sheet
 FP32_TOL = 1e-4  # fp32 dots: |kernel - plain| <= FP32_TOL * (1 + max|plain|)
-SOURCES = ("flash_serial", "flash_decode")  # csrc/<name>.cu
+SOURCES = ("flash_serial", "flash_decode", "attention")  # csrc/<name>.cu
 VERBOSE_BUILD = False  # --verbose-build: nvcc's register / spill report
 BF16_TOL = 1e-2  # bf16 dot operands: |kernel - plain| <= BF16_TOL * max|plain|;
 # the kernel rounds each split's probabilities against the split's own
@@ -212,6 +228,7 @@ def phase_device_and_build(report):
     from concurrent.futures import ThreadPoolExecutor
 
     from kvquant_tpu_torch.ops.kernels import build, flash_decode as fd
+    from kvquant_tpu_torch.ops.kernels import attention as at
     from kvquant_tpu_torch.ops.kernels import flash_serial as fs
 
     # one nvcc per source, all started together
@@ -222,6 +239,7 @@ def phase_device_and_build(report):
             f.result()
     fs.load_library()
     fd.load_library()
+    at.load_library()
     log(f"[1] built and loaded {', '.join(f'csrc/{n}.cu' for n in SOURCES)} "
         f"in {time.perf_counter() - t0:.1f} s (nvcc " + ", ".join(
             f"{n} {build.build_seconds.get(n, 0.0):.1f} s" for n in SOURCES)
@@ -801,10 +819,10 @@ def phase_k1_main_path(report):
     torch.cuda.empty_cache()
 
 
-def phase_k1_card_vs_cpu(report):
+def toy_card_vs_cpu(tag, kernel):
     """The committed toy checkpoint with its 3-bit quantizers, nuq3
-    pre-RoPE slots hg 4 through K1: 32 greedy tokens, card == CPU, with
-    the fp16 and the quantized prefill."""
+    pre-RoPE slots hg 4, fp32 dots, through ``kernel``: 32 greedy tokens,
+    card == CPU, with the fp16 and the quantized prefill."""
     import os
 
     from kvquant_tpu_torch import engine
@@ -820,7 +838,7 @@ def phase_k1_card_vs_cpu(report):
     qs = load_quantizers(os.path.join(art, "toy_quantizers_3bit.npz"))
     dcfg = DeployConfig.create(
         bits=3, n_kv_heads=cfg.n_kv_heads, d_head=cfg.d_head, max_len=69,
-        sink=5, kernel="flash", head_group=4, codes="nuq", post_rope_k=False,
+        sink=5, kernel=kernel, head_group=4, codes="nuq", post_rope_k=False,
         k_outliers="slots", cap_per_side=2, dot_bf16=False)
     prompt = torch.as_tensor(np.random.default_rng(6).integers(
         0, cfg.vocab_size, (1, 16), dtype=np.int32))
@@ -835,10 +853,15 @@ def phase_k1_card_vs_cpu(report):
                                       prefill_mode=mode, device=dev)
             out[dev] = toks.cpu().tolist()
         same = out["cuda"] == out["cpu"]
-        log(f"[8] toy checkpoint, nuq3 K1, prefill {mode}, 32 greedy tokens: "
-            f"card == cpu: {same}")
+        log(f"{tag} toy checkpoint, nuq3 kernel {kernel}, prefill {mode}, "
+            f"32 greedy tokens: card == cpu: {same}")
         if not same:
             raise AssertionError(f"card {out['cuda']} != cpu {out['cpu']}")
+
+
+def phase_k1_card_vs_cpu(report):
+    """The toy checkpoint through K1: card == CPU, both prefill modes."""
+    toy_card_vs_cpu("[8]", "flash")
 
 
 def phase_k1_times(report):
@@ -916,10 +939,380 @@ def phase_k1_times(report):
     report["k1_times"] = rows
 
 
+# ---------------------------------------------------------------------------
+# K3 / K4: qk_fused and pv_fused (csrc/attention.cu)
+# ---------------------------------------------------------------------------
+
+
+def k34_operands(dcfg, B, R, Tc, gen, dev, p_cols=5):
+    """Random operands of K3 and K4 for one config: random int32 words are
+    valid bit planes; slot words at in-group heads below head_group and
+    dims below d_head, a fifth of them zero (padding); the probabilities a
+    column slice of a softmax over p_cols + Tc columns, as the main path
+    hands them over after the sink columns."""
+    from kvquant_tpu_torch.ops import packing as pk
+
+    Hkv, D, hg, bits = dcfg.n_kv_heads, dcfg.d_head, dcfg.head_group, dcfg.bits
+    K = 2 ** bits
+
+    def planes():
+        return torch.randint(-2 ** 31, 2 ** 31, (B, Hkv, bits, Tc // 32, D),
+                             generator=gen, device=dev,
+                             dtype=torch.int64).to(torch.int32)
+
+    shape = (B, dcfg.n_groups, dcfg.n_slots, Tc)
+    vals = torch.randn(shape, generator=gen, device=dev) * 0.5
+    idx = (torch.randint(0, hg, shape, generator=gen, device=dev) << 7) | \
+        torch.randint(0, D, shape, generator=gen, device=dev)
+    words = pk.encode_outlier_words(vals, idx)
+    words = words.masked_fill(torch.rand(shape, generator=gen, device=dev)
+                              < 0.2, 0.0)
+    logits = torch.randn((B, Hkv, R, p_cols + Tc), generator=gen, device=dev)
+    return dict(
+        q=torch.randn((B, Hkv, R, D), generator=gen, device=dev),
+        k_planes=planes(), v_planes=planes(), kv_out=words.contiguous(),
+        k_range=torch.rand((Hkv, D), generator=gen, device=dev) + 0.5,
+        k_offset=torch.randn((Hkv, D), generator=gen, device=dev) * 0.1,
+        k_lut=torch.sort(torch.rand(K, generator=gen, device=dev) * 2 - 1
+                         ).values,
+        v_lut=torch.sort(torch.rand(K, generator=gen, device=dev) * 2 - 1
+                         ).values,
+        probs=torch.softmax(logits * 3, dim=-1)[..., p_cols:],
+        v_scale=torch.rand((B, Tc), generator=gen, device=dev) + 0.5,
+        v_offset=torch.randn((B, Tc), generator=gen, device=dev) * 0.1,
+    )
+
+
+def run_qk(fn, o, dcfg, mcfg):
+    return fn(o["q"], o["k_planes"], o["kv_out"], o["k_range"],
+              o["k_offset"], o["k_lut"], dcfg, mcfg)
+
+
+def run_pv(fn, o, dcfg):
+    return fn(o["probs"], o["v_planes"], o["v_scale"], o["v_offset"],
+              o["kv_out"], o["v_lut"], dcfg)
+
+
+def phase_k34_vs_plain(report):
+    """K3 and K4 against their plain versions, B=2: bits 2/3/4 x head
+    group 1/2/4 x cap 0/2, each at R = G (decode) and R = G*(256+5) (a
+    first prefill chunk), with G 1/4, D 32/64/128 and Tc 256/2304 in
+    rotation, fp32 and bf16 dots."""
+    from kvquant_tpu_torch.cache import DeployConfig
+    from kvquant_tpu_torch.models.config import ModelConfig
+    from kvquant_tpu_torch.ops.kernels import attention as at
+
+    dev = torch.device("cuda")
+    B, Hkv = 2, 4
+    cases = []
+    i = 0
+    for bits in (2, 3, 4):
+        for hg in (1, 2, 4):
+            for cap in (0, 2):
+                g, d, tc = (1, 4)[(i // 3) % 2], (32, 64, 128)[i % 3], \
+                    (256, 2304)[(i // 2) % 2]
+                cases += [(bits, hg, cap, g, d, tc, r) for r in (g, g * 261)]
+                i += 1
+    worst = {False: 0.0, True: 0.0}
+    t0 = time.perf_counter()
+    for dot_bf16 in (False, True):
+        for bits, hg, cap, g, d, tc, r in cases:
+            dcfg = DeployConfig.create(
+                bits=bits, n_kv_heads=Hkv, d_head=d, max_len=tc + 5, sink=5,
+                kernel="pallas", dot_bf16=dot_bf16, head_group=hg,
+                cap_per_side=cap)
+            mcfg = ModelConfig(vocab_size=64, d_model=Hkv * g * d,
+                               n_layers=1, n_heads=Hkv * g, n_kv_heads=Hkv,
+                               d_head=d, d_ff=64, max_seq_len=tc,
+                               rope_scaling=2.0)
+            gen = torch.Generator(device=dev).manual_seed(31)
+            o = k34_operands(dcfg, B, r, tc, gen, dev)
+            tag = f"[10] nuq{bits} hg{hg} cap{cap} G{g} D{d} Tc{tc} R{r}"
+            for name, got, want in (
+                    ("K3", run_qk(at.qk_fused, o, dcfg, mcfg),
+                     run_qk(at.qk_fused_ref, o, dcfg, mcfg)),
+                    ("K4", run_pv(at.pv_fused, o, dcfg),
+                     run_pv(at.pv_fused_ref, o, dcfg))):
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                scale = float(want.abs().max())
+                bound = BF16_TOL * scale if dot_bf16 else \
+                    FP32_TOL * (1 + scale)
+                if not (err <= bound and bool(torch.isfinite(got).all())):
+                    agree(f"{tag} {name}", got, want, dot_bf16)  # raises
+                worst[dot_bf16] = max(worst[dot_bf16], err / bound)
+    log(f"[10] K3 and K4 == plain on {len(cases)} cases x 2 dot modes in "
+        f"{time.perf_counter() - t0:.1f} s; worst |err| / bound: fp32 dots "
+        f"{worst[False]:.3f} (bound 1e-4*(1+max|plain|)), bf16 dots "
+        f"{worst[True]:.3f} (bound 1e-2*max|plain|)")
+    report["k34_grid_worst_ratio"] = worst
+
+
+def live_k34_check(tag, cache, dq, dcfg, cfg, li_list, gen):
+    """K3 and K4 against plain on layers of a live cache: random queries
+    and probabilities at R = 1 and R = 261, the main path's bf16 dots and
+    fp32 dots. Returns the worst |err| of each kernel."""
+    from kvquant_tpu_torch.ops.kernels import attention as at
+
+    Hkv, D, Tc = cfg.n_kv_heads, cfg.d_head, dcfg.cache_tokens
+    worst = {"qk_fused": 0.0, "pv_fused": 0.0}
+    for r in (1, 261):
+        q = torch.randn((1, Hkv, r, D), generator=gen, device="cuda")
+        probs = torch.softmax(3 * torch.randn(
+            (1, Hkv, r, dcfg.sink + Tc), generator=gen, device="cuda"),
+            dim=-1)[..., dcfg.sink:]
+        for li in li_list:
+            lc, lq = cache.layer(li), dq.layer(li)
+            for d in (dcfg, dataclasses.replace(dcfg, dot_bf16=False)):
+                qk = [fn(q, lc.k_planes, lc.kv_out, lq.k_range, lq.k_offset,
+                         lq.k_lut_dec, d, cfg)
+                      for fn in (at.qk_fused, at.qk_fused_ref)]
+                pv = [fn(probs, lc.v_planes, lc.v_scale, lc.v_offset,
+                         lc.kv_out, lq.v_lut_dec, d)
+                      for fn in (at.pv_fused, at.pv_fused_ref)]
+                for name, (got, want) in (("qk_fused", qk), ("pv_fused", pv)):
+                    worst[name] = max(worst[name], agree(
+                        f"{tag} {name} layer {li} R {r}", got, want,
+                        d.dot_bf16))
+    return worst
+
+
+def phase_pallas_main_path(report):
+    """The CLIs' default datapath (kernel="pallas": K3 + K4) through the
+    user's entry point: cli.generate at LLaMA-2-7B width (the CLI's own
+    random init, d_ff = 3 * d_model) with quantized prefill of a 2048-word
+    prompt and 64 greedy tokens; then engine-level timings at LLAMA2_7B
+    with the faithful scheme, the fp16-KV baseline on the same weights,
+    and short card runs of cli.passkey and cli.needle at toy width."""
+    import os
+    import shutil
+
+    from kvquant_tpu_torch import baseline_fp16, engine
+    from kvquant_tpu_torch.cache import (KVCache, create_cache,
+                                         deployed_from_quantizers)
+    from kvquant_tpu_torch.cli import generate as generate_cli
+    from kvquant_tpu_torch.cli import needle as needle_cli
+    from kvquant_tpu_torch.cli import passkey as passkey_cli
+    from kvquant_tpu_torch.models import init_params
+    from kvquant_tpu_torch.ops.kernels import attention as at
+    from kvquant_tpu_torch.ops.kernels import flash_decode as fd
+    from kvquant_tpu_torch.quant.artifacts import save_quantizers
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    # scratch files of this phase, in the checkout's ignored build directory
+    work = os.path.join(root, "kvquant_tpu_torch", "_build", "smoke_work")
+    os.makedirs(work, exist_ok=True)
+    T0, N, chunk = 2048, 64, 256
+    _, _, qs = faithful_config(T0 + N + 5, 32)
+    qpath = os.path.join(work, "faithful_nuq3_quantizers.npz")
+    save_quantizers(qpath, qs)
+
+    # ---- the CLI run: the main path's launches are counted here ----
+    prompt = " ".join(f"w{i % 1500}" for i in range(T0))
+    argv = ["--toy-layers", "32", "--toy-dmodel", "4096", "--toy-heads",
+            "32", "--toy-vocab", "32000", "--quantizers", qpath,
+            "--kernel", "pallas", "--prefill-mode", "quantized",
+            "--prompt", prompt, "--max-new-tokens", str(N),
+            "--device", "cuda"]
+    n_chunks = -(-(T0 - 5) // chunk)
+    at.qk_fused.launches = at.pv_fused.launches = 0
+    fd.flash_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    text = generate_cli.main(argv)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    k3, k4 = at.qk_fused.launches, at.pv_fused.launches
+    want = 32 * (n_chunks + N)
+    report["k3_launches"], report["k4_launches"] = k3, k4
+    log(f"[11] cli.generate --kernel pallas --prefill-mode quantized at "
+        f"LLaMA-2-7B width: {T0}-word prompt ({n_chunks} chunks), {N} new "
+        f"tokens in {cli_s:.3f} s (model init included); launches K3 {k3}, "
+        f"K4 {k4} (expected {want} each), K1 "
+        f"{fd.flash_attention.launches}; printed {len(text.split())} words")
+    if not (k3 == k4 == want and fd.flash_attention.launches == 0):
+        raise AssertionError("the CLI's main path did not run K3 and K4 per "
+                             "layer, chunk and step")
+    if len(text.split()) != N:
+        raise AssertionError(f"cli.generate printed {text!r}")
+    torch.cuda.empty_cache()
+
+    # ---- engine-level timings at LLAMA2_7B, faithful scheme, pallas ----
+    cfg, dcfg, qs = faithful_config(T0 + N + 5, 32)
+    dcfg = dataclasses.replace(dcfg, kernel="pallas")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         dtype=torch.bfloat16, device="cuda")
+    dq = deployed_from_quantizers(qs, cfg.n_kv_heads, cfg.d_head,
+                                  device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (1, T0),
+                         generator=torch.Generator().manual_seed(1)).cuda()
+    cache = create_cache(dcfg, cfg.n_layers, 1, device="cuda")
+    engine.prefill_quantized(params, cfg, dcfg, dq, cache, toks, chunk=chunk)
+    cache = create_cache(dcfg, cfg.n_layers, 1, device="cuda")  # warm: timed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, logits = engine.prefill_quantized(params, cfg, dcfg, dq, cache, toks,
+                                         chunk=chunk)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("non-finite logits after quantized prefill")
+    log(f"[11] LLaMA-2-7B width, faithful nuq3 hg 4 cap 2, kernel pallas: "
+        f"quantized prefill of {T0} tokens ({n_chunks} chunks of {chunk}) "
+        f"{prefill_s:.3f} s")
+    tok = torch.zeros((1,), dtype=torch.int32, device="cuda")
+    tps2, idle2 = decode_profile(
+        f"[11] pallas {T0} ctx", lambda i: engine.decode_step(
+            params, cfg, dcfg, dq, cache, tok, T0 + i), 16)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    report["k34_max_abs_err"] = live_k34_check(
+        "[11] live cache", cache, dq, dcfg, cfg, (0, cfg.n_layers - 1), gen)
+    del cache
+    torch.cuda.empty_cache()
+
+    ctx = 32768
+    _, dcfg32, qs32 = faithful_config(ctx + 32, 32)
+    dcfg32 = dataclasses.replace(dcfg32, kernel="pallas")
+    dq32 = deployed_from_quantizers(qs32, cfg.n_kv_heads, cfg.d_head,
+                                    device="cuda")
+    ops = k1_operands(dcfg32, cfg.n_layers, 1, dcfg32.cache_tokens,
+                      torch.Generator(device="cuda").manual_seed(3),
+                      torch.device("cuda"))
+    cache = KVCache(length=torch.full((1,), ctx, dtype=torch.int32,
+                                      device="cuda"),
+                    **{k: ops[k] for k in ("k_planes", "v_planes", "kv_out",
+                                           "v_scale", "v_offset", "k_sink",
+                                           "v_sink")})
+    tps32, idle32 = decode_profile(
+        f"[11] pallas {ctx} ctx", lambda i: engine.decode_step(
+            params, cfg, dcfg32, dq32, cache, tok, ctx + i), 16)
+    report.update(k34_prefill_s_2k=prefill_s, k34_decode_tps_2k=tps2,
+                  k34_idle_2k=idle2, k34_decode_tps_32k=tps32,
+                  k34_idle_32k=idle32)
+    del cache, ops
+    torch.cuda.empty_cache()
+
+    # ---- the fp16-KV baseline on the same weights (context only) ----
+    base = {}
+    fcache = baseline_fp16.create_fp16_cache(cfg, T0 + 32, 1, device="cuda")
+    baseline_fp16.prefill(params, cfg, fcache, toks)
+    base["2k"], _ = decode_profile(
+        f"[11] fp16-KV baseline {T0} ctx", lambda i: baseline_fp16.
+        decode_step(params, cfg, fcache, tok, T0 + i), 16)
+    del fcache
+    fcache = baseline_fp16.create_fp16_cache(cfg, ctx + 32, 1, device="cuda")
+    for t in (fcache.k, fcache.v):  # a filled cache, drawn layer by layer
+        for li in range(cfg.n_layers):
+            t[li].normal_(generator=torch.Generator(device="cuda")
+                          .manual_seed(li))
+    base["32k"], _ = decode_profile(
+        f"[11] fp16-KV baseline {ctx} ctx", lambda i: baseline_fp16.
+        decode_step(params, cfg, fcache, tok, ctx + i), 16)
+    del fcache, params
+    torch.cuda.empty_cache()
+    report["fp16_baseline_tps"] = base
+    log(f"[11] fp16-KV baseline (bf16 cache cast to fp32 in its attention, "
+        f"as the JAX baseline does): {base['2k']:.2f} tok/s at {T0}, "
+        f"{base['32k']:.2f} tok/s at {ctx}; kernel pallas: {tps2:.2f} / "
+        f"{tps32:.2f} tok/s")
+
+    # ---- the other CLIs at toy width on the card ----
+    toy = ["--toy-layers", "4", "--toy-dmodel", "256", "--toy-heads", "8",
+           "--toy-kv-heads", "4", "--toy-vocab", "512", "--device", "cuda",
+           "--quantizers", os.path.join(root, "artifacts",
+                                        "toy_quantizers_3bit.npz")]
+    at.qk_fused.launches = 0
+    res = passkey_cli.main(toy + ["--ctx", "512", "--trials", "2"])
+    grid = needle_cli.main(toy + ["--ctx", "512", "--depths", "0,100",
+                                  "--results",
+                                  os.path.join(work, "needle.json")])
+    log(f"[11] cli.passkey ctx 512 x 2 trials: accuracy "
+        f"{res[0].accuracy:.2f}; cli.needle ctx 512 depths 0/100: "
+        f"{sorted(grid.values())}; K3 launches {at.qk_fused.launches} "
+        f"(random weights: accuracy is not the point)")
+    if at.qk_fused.launches == 0 or len(grid) != 2:
+        raise AssertionError("passkey / needle did not run through K3")
+    shutil.rmtree(work)
+
+
+def phase_pallas_card_vs_cpu(report):
+    """The toy checkpoint through K3 / K4: card == CPU, both prefills."""
+    toy_card_vs_cpu("[12]", "pallas")
+
+
+def phase_k34_times(report):
+    """K3 and K4 alone at one LLaMA-2-7B layer (B=1, Hkv=32, G=1, D=128,
+    nuq3, hg 4, cap 2): decode rows (R=1) over 32K and 128K capacities and
+    a 261-row prefill chunk over a 2K capacity."""
+    from kvquant_tpu_torch.ops.kernels import attention as at
+
+    dev = torch.device("cuda")
+    rows = []
+    for kind, ctx, r in (("decode", 32768, 1), ("decode", 131072, 1),
+                         ("prefill", 2048, 261)):
+        cfg, dcfg, _ = faithful_config(ctx + 8, 1)
+        dcfg = dataclasses.replace(dcfg, kernel="pallas")
+        Hkv, D, Tc = cfg.n_kv_heads, cfg.d_head, dcfg.cache_tokens
+        o = k34_operands(dcfg, 1, r, Tc, torch.Generator(device=dev)
+                         .manual_seed(7), dev)
+        d32 = dataclasses.replace(dcfg, dot_bf16=False)
+        qk = lambda fn, d=dcfg: run_qk(fn, o, d, cfg)
+        pv = lambda fn, d=dcfg: run_pv(fn, o, d)
+        code_b = Hkv * D * dcfg.bits // 8  # one kind's codes per token
+        J, spk = dcfg.n_slots, dcfg.slots_per_kind
+        flops = 2 * r * Tc * D * Hkv  # the contraction of either kernel
+        for name, fn, ref, nbytes in (
+                ("qk_fused", at.qk_fused, at.qk_fused_ref,
+                 Tc * (code_b + dcfg.n_groups * spk * 4 + Hkv * r * 4)
+                 + 4 * Hkv * D * (r + 2) + 4 * 2 ** dcfg.bits),
+                ("pv_fused", at.pv_fused, at.pv_fused_ref,
+                 Tc * (code_b + dcfg.n_groups * (J - spk) * 4 + 8
+                       + Hkv * r * 4) + 4 * Hkv * D * r
+                 + 4 * 2 ** dcfg.bits)):
+            call = qk if name == "qk_fused" else pv
+            err = max(agree(f"[13] {name} {kind} Tc {Tc}", call(fn),
+                            call(ref), True),
+                      agree(f"[13] {name} {kind} Tc {Tc}", call(fn, d32),
+                            call(ref, d32), False))
+            ms = device_ms(lambda: call(fn))
+            plain_ms = device_ms(lambda: call(ref), n=2, reps=3, warmup=1)
+            ms2 = device_ms(lambda: call(fn))
+            call_ms = median_ms(lambda: call(fn))
+            b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            b_ops = flops / BF16_FLOPS * 1e3
+            row = dict(name=name, kind=kind, ctx=ctx, Tc=Tc, R=r,
+                       ms=min(ms, ms2), ms_runs=[ms, ms2], call_ms=call_ms,
+                       plain_ms=plain_ms, bound_ms=max(b_bytes, b_ops),
+                       bound_by="bytes" if b_bytes >= b_ops else "operations",
+                       bytes=nbytes, flops=flops, max_abs_err=err)
+            rows.append(row)
+            log(f"[13] {name} {kind} R {r} Tc {Tc}: kernel {row['ms']:.4f} "
+                f"ms device (runs {ms:.4f}, {ms2:.4f}; {call_ms:.4f} ms per "
+                f"call with the wrapper's host time), plain {plain_ms:.3f} "
+                f"ms, bound {row['bound_ms']:.4f} ms by {row['bound_by']} "
+                f"({nbytes / 1e6:.1f} MB at 3.35 TB/s = {b_bytes:.4f} ms; "
+                f"{flops / 1e9:.2f} GFLOP at 989 TFLOP/s = {b_ops:.4f} ms), "
+                f"|err| {err:.2e}")
+        # context only, never called by the port: a bf16 matmul of the
+        # queries against a dense K of the same length
+        kb = torch.randn((1, Hkv, Tc, D), device=dev, dtype=torch.bfloat16)
+        qb = o["q"].to(torch.bfloat16)
+        mm_ms = device_ms(lambda: torch.matmul(qb, kb.transpose(-1, -2)))
+        rows[-1]["matmul_bf16_dense_k_ms_context_only"] = mm_ms
+        rows[-2]["matmul_bf16_dense_k_ms_context_only"] = mm_ms
+        log(f"[13] context only: bf16 torch.matmul of the {r} query rows "
+            f"against a dense bf16 K of {Tc} tokens {mm_ms:.4f} ms")
+        del kb, o
+        torch.cuda.empty_cache()
+    report["k34_times"] = rows
+
+
 PHASES = {1: phase_device_and_build, 2: phase_kernel_vs_plain,
           3: phase_main_path, 4: phase_card_vs_cpu, 5: phase_times,
           6: phase_k1_vs_plain, 7: phase_k1_main_path,
-          8: phase_k1_card_vs_cpu, 9: phase_k1_times}
+          8: phase_k1_card_vs_cpu, 9: phase_k1_times,
+          10: phase_k34_vs_plain, 11: phase_pallas_main_path,
+          12: phase_pallas_card_vs_cpu, 13: phase_k34_times}
 
 
 def main(argv=None) -> int:
@@ -977,6 +1370,26 @@ def main(argv=None) -> int:
             "shape": f"B=1 Hkv=32 G=1 D=128 nuq3 pre-RoPE slots cap=2 hg=4 "
                      f"sink=5, {t['kind']} Tq={t['tq']}, {t['ctx']} tokens",
         })
+    if 13 in phases and 11 in phases:
+        for name, body_line, launches in (
+                ("qk_fused", 156, report["k3_launches"]),
+                ("pv_fused", 249, report["k4_launches"])):
+            t = next(x for x in report["k34_times"]
+                     if x["name"] == name and x["ctx"] == 32768)
+            kernels.append({
+                "name": name, "route": "cuda",
+                "source": "kvquant_tpu_torch/csrc/attention.cu",
+                "replaces": f"kvquant_tpu/ops/pallas/attention.py:{body_line}",
+                "launches": launches,
+                "max_abs_err": max(report["k34_max_abs_err"][name], max(
+                    x["max_abs_err"] for x in report["k34_times"]
+                    if x["name"] == name)),
+                "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": None,
+                "shape": f"B=1 Hkv=32 G=1 D=128 nuq3 pre-RoPE slots cap=2 "
+                         f"hg=4 sink=5, decode R=1, Tc={t['Tc']}",
+            })
     if kernels:
         log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

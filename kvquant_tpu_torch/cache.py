@@ -53,7 +53,7 @@ class DeployConfig:
     sink: int = 5  # first_few_fp16
     sparsity_threshold: float = 0.99
     include_sparse: bool = True
-    kernel: str = "xla"  # "xla" (eager datapath) or "flash_serial"
+    kernel: str = "xla"  # "xla" (eager) / "pallas" / "flash" / "flash_serial"
     v_range_exclude: int = 21  # global extremes/side excluded from V range
     dot_bf16: bool = True  # bf16 dot operands, fp32 accumulation
     codes: str = "nuq"  # "nuq" | "int4" | "int8" | "int4x2"

@@ -4,12 +4,15 @@ kvquant_tpu/engine.py: prefill, decode_step, generate, deployed_ppl).
   - ``prefill``: one full-precision forward over the prompt that captures
     the pre-RoPE K/V and packs every layer's cache (ops.deployed.prefill_pack).
   - ``decode_step``: one token through every layer; ``dcfg.kernel`` picks
-    the datapath: "xla" (the eager oracle, ops.deployed.decode_attention),
-    "flash" (row-level append + the Hopper kernel K1, flash_decode) or
-    "flash_serial" (row-level append + the Hopper kernel K2).
+    the datapath: "xla" (the eager oracle) and "pallas" (the two-pass
+    Hopper kernels K3 qk_fused / K4 pv_fused) run the per-layer
+    ops.deployed.decode_attention; "flash" (row-level append + the Hopper
+    kernel K1, flash_decode) and "flash_serial" (row-level append + K2)
+    append into and attend over the stacked arrays.
   - ``prefill_chunk`` / ``prefill_quantized``: chunked prefill through the
     quantized datapath (ops.deployed.block_attention: K1 with Tq > 1 under
-    "flash" / "flash_serial"); the JAX engine's chunk scan is a Python loop.
+    "flash" / "flash_serial", K3 / K4 under "pallas"); the JAX engine's
+    chunk scan is a Python loop.
   - ``generate`` / ``deployed_ppl``: Python loops over decode_step.
 
 The cache is updated in place (the JAX engine threads an immutable pytree).
@@ -30,16 +33,9 @@ from .models.config import ModelConfig
 from .models import llama
 from .ops import deployed
 
-_NOT_PORTED = {
-    "pallas": "kernel='pallas' runs the two-pass kernels K3/K4 "
-              "(ROADMAP queue 2, K3/K4)",
-}
-
 
 def _check_kernel(dcfg: DeployConfig):
-    if dcfg.kernel in _NOT_PORTED:
-        raise NotImplementedError(_NOT_PORTED[dcfg.kernel])
-    if dcfg.kernel not in ("xla", "flash", "flash_serial"):
+    if dcfg.kernel not in ("xla", "pallas", "flash", "flash_serial"):
         raise ValueError(f"unknown kernel {dcfg.kernel!r}")
 
 

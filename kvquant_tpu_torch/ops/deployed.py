@@ -6,15 +6,16 @@ append-side quantization (per-channel K, per-token V range, per-head-group
 outlier words or static K channel residuals), full-cache dequantization of
 bit planes and integer containers, the ``kernel="xla"`` decode attention,
 the row-level append of the flash decode path, the prompt-phase parallel
-pack and the block append + attention of quantized chunked prefill.
+pack and the block append + attention of quantized chunked prefill. Under
+``kernel="pallas"`` the decode and block attention run the two-pass kernels
+(ops/kernels/attention: K3 ``qk_fused`` for the scores, the scaling, masks
+and softmax here, K4 ``pv_fused`` for the weighted values).
 
 Differences from the JAX functions:
   - caches are updated IN PLACE (``cache_l`` is a set of views of the
     stacked arrays, see KVCache.layer) and also returned;
   - positions are host integers: ``pos`` is an int (every sequence at the
-    same position) or a sequence/tensor of B ints (per-sample positions);
-  - the two-pass ``kernel="pallas"`` branches (kernels K3/K4) raise
-    NotImplementedError.
+    same position) or a sequence/tensor of B ints (per-sample positions).
 """
 
 from __future__ import annotations
@@ -34,8 +35,6 @@ from .packing import (
     set_token_rows, set_token_rows_at_layer,
     encode_outlier_words, decode_outlier_words, OUTLIER_DIM_MASK,
 )
-
-_PALLAS = "kernel='pallas' (two-pass kernels K3/K4) is ROADMAP queue 2"
 
 
 def host_positions(pos, B: int) -> list[int]:
@@ -256,6 +255,15 @@ def _append_layer(cache_l: KVCache, dcfg: DeployConfig, codes, words, row0,
             cache_l.kv_out[b, :, row0:row0 + words.shape[-1], pb] = words[b]
 
 
+def _assert_two_pass(dcfg: DeployConfig):
+    """The storage the two-pass kernels (kernel="pallas") read."""
+    assert dcfg.codes == "nuq", "two-pass kernels read bit planes only"
+    assert not dcfg.post_rope_k, "two-pass kernels rope in-kernel"
+    assert dcfg.k_outliers == "slots", (
+        "two-pass kernels decode slot words; use kernel='flash' for "
+        "k_outliers='channels'")
+
+
 def _roped_keys(k_full, dcfg: DeployConfig, mcfg: ModelConfig):
     """Dequantized cache keys (..., Tc, D) as the scores see them: stored
     post-RoPE, or rotated here at their absolute positions S + t."""
@@ -272,9 +280,12 @@ def decode_attention(cache_l: KVCache, lq: DeployedQuant, dcfg: DeployConfig,
                      mcfg: ModelConfig, q, k_new, v_new, pos):
     """Append each sample's token at its position to the single-layer cache
     (in place) and attend over positions 0..pos. q (B, H, Dh) un-roped,
-    k_new/v_new (B, C). Returns (cache_l, out (B, H, Dh))."""
-    if dcfg.kernel == "pallas":
-        raise NotImplementedError(_PALLAS)
+    k_new/v_new (B, C). Returns (cache_l, out (B, H, Dh)). kernel "pallas"
+    scores through K3 and weights the values through K4; every other
+    kernel attends over the eagerly dequantized cache."""
+    pallas = dcfg.kernel == "pallas"
+    if pallas:
+        _assert_two_pass(dcfg)
     B = q.shape[0]
     S, Tc = dcfg.sink, dcfg.cache_tokens
     Hkv, Dh = dcfg.n_kv_heads, dcfg.d_head
@@ -303,8 +314,15 @@ def decode_attention(cache_l: KVCache, lq: DeployedQuant, dcfg: DeployConfig,
     q_h = q.reshape(B, Hkv, G, Dh).to(torch.float32)
     q_rot = q_h * cos[:, None, None] + rotate_half(q_h) * sin[:, None, None]
     inv = 1.0 / (Dh ** 0.5)
-    k_full = _roped_keys(dequant_k_full(cache_l, lq, dcfg), dcfg, mcfg)
-    scores = torch.einsum("bhgd,bhtd->bhgt", q_rot, k_full) * inv
+    if pallas:
+        from .kernels.attention import qk_fused
+
+        scores = qk_fused(q_rot, cache_l.k_planes, cache_l.kv_out,
+                          lq.k_range, lq.k_offset, lq.k_lut_dec, dcfg,
+                          mcfg) * inv
+    else:
+        k_full = _roped_keys(dequant_k_full(cache_l, lq, dcfg), dcfg, mcfg)
+        scores = torch.einsum("bhgd,bhtd->bhgt", q_rot, k_full) * inv
     if S > 0:
         sink_sc = torch.einsum("bhgd,bhsd->bhgs", q_rot, cache_l.k_sink) * inv
         scores = torch.cat([sink_sc, scores], dim=-1)  # (B,Hkv,G,S+Tc)
@@ -331,8 +349,14 @@ def decode_attention(cache_l: KVCache, lq: DeployedQuant, dcfg: DeployConfig,
     cache_l.length.copy_(post + 1)
 
     # ---- weighted values ----
-    v_full = dequant_v_full(cache_l, lq, dcfg)
-    out = torch.einsum("bhgt,bhtd->bhgd", probs[..., S:], v_full)
+    if pallas:
+        from .kernels.attention import pv_fused
+
+        out = pv_fused(probs[..., S:], cache_l.v_planes, cache_l.v_scale,
+                       cache_l.v_offset, cache_l.kv_out, lq.v_lut_dec, dcfg)
+    else:
+        out = torch.einsum("bhgt,bhtd->bhgd", probs[..., S:],
+                           dequant_v_full(cache_l, lq, dcfg))
     if S > 0:
         out = out + torch.einsum("bhgs,bhsd->bhgd", probs[..., :S],
                                  cache_l.v_sink)
@@ -472,10 +496,12 @@ def block_attention(cache_l: KVCache, lq: DeployedQuant, dcfg: DeployConfig,
     (``pos0 - sink`` 128-aligned); with ``sink_fill`` the first ``sink``
     rows are the sink tokens (block 0 of a prefill). kernel "flash" /
     "flash_serial" attends through K1 (``kernels.flash_decode.
-    flash_attention``), "xla" over the eagerly dequantized cache. Returns
-    (cache_l, out (B, Tq_all, H*Dh) fp32)."""
-    if dcfg.kernel == "pallas":
-        raise NotImplementedError(_PALLAS)
+    flash_attention``), "pallas" through the two-pass kernels K3 / K4
+    (``kernels.attention``), "xla" over the eagerly dequantized cache.
+    Returns (cache_l, out (B, Tq_all, H*Dh) fp32)."""
+    pallas = dcfg.kernel == "pallas"
+    if pallas:
+        _assert_two_pass(dcfg)
     B, Tq_all = q.shape[:2]
     S, Tc = dcfg.sink, dcfg.cache_tokens
     Hkv, Dh = dcfg.n_kv_heads, dcfg.d_head
@@ -541,8 +567,17 @@ def block_attention(cache_l: KVCache, lq: DeployedQuant, dcfg: DeployConfig,
         ).reshape(B, Hkv, G, Tq_all, Dh)
     else:
         inv = 1.0 / (Dh ** 0.5)
-        kx = _roped_keys(dequant_k_full(cache_l, lq, dcfg), dcfg, mcfg)
-        scores = torch.einsum("bhgqd,bhtd->bhgqt", q_rot, kx) * inv
+        if pallas:
+            # the block's rows g-major, as one (G*Tq_all)-row K3 call
+            from .kernels.attention import qk_fused, pv_fused
+
+            scores = qk_fused(
+                q_rot.reshape(B, Hkv, G * Tq_all, Dh), cache_l.k_planes,
+                cache_l.kv_out, lq.k_range, lq.k_offset, lq.k_lut_dec, dcfg,
+                mcfg).reshape(B, Hkv, G, Tq_all, Tc) * inv
+        else:
+            kx = _roped_keys(dequant_k_full(cache_l, lq, dcfg), dcfg, mcfg)
+            scores = torch.einsum("bhgqd,bhtd->bhgqt", q_rot, kx) * inv
         if S > 0:
             sink_sc = torch.einsum("bhgqd,bhsd->bhgqs", q_rot,
                                    cache_l.k_sink) * inv
@@ -553,8 +588,15 @@ def block_attention(cache_l: KVCache, lq: DeployedQuant, dcfg: DeployConfig,
             valid &= idx[None, :] > positions[:, None] - mcfg.sliding_window
         probs = torch.softmax(scores.masked_fill(~valid, float("-inf")),
                               dim=-1)
-        out = torch.einsum("bhgqt,bhtd->bhgqd", probs[..., S:],
-                           dequant_v_full(cache_l, lq, dcfg))
+        if pallas:
+            out = pv_fused(
+                probs[..., S:].reshape(B, Hkv, G * Tq_all, Tc),
+                cache_l.v_planes, cache_l.v_scale, cache_l.v_offset,
+                cache_l.kv_out, lq.v_lut_dec, dcfg,
+            ).reshape(B, Hkv, G, Tq_all, Dh)
+        else:
+            out = torch.einsum("bhgqt,bhtd->bhgqd", probs[..., S:],
+                               dequant_v_full(cache_l, lq, dcfg))
         if S > 0:
             out = out + torch.einsum("bhgqs,bhsd->bhgqd", probs[..., :S],
                                      cache_l.v_sink)

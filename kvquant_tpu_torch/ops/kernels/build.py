@@ -2,8 +2,9 @@
 
 Each ``kvquant_tpu_torch/csrc/<name>.cu`` exposes a plain C interface and
 compiles on first use into ``kvquant_tpu_torch/_build/`` (listed in
-.gitignore), keyed by a hash of the source and the flags so an edited
-source is rebuilt:
+.gitignore), keyed by a hash of the source, the ``csrc`` headers it
+includes (``#include "<name>.cuh"``) and the flags, so an edited source or
+header is rebuilt:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o lib<name>-<hash>.so <name>.cu
@@ -17,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -42,12 +44,32 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda)")
 
 
-def library_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(
-            f.read() + " ".join(ARCH_FLAGS + FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _sources(path: str, seen: list) -> list:
+    """``path`` and the headers beside it that it includes, transitively,
+    in first inclusion order (quoted includes found elsewhere are not the
+    repository's and are skipped)."""
+    seen.append(path)
+    with open(path, "rb") as f:
+        text = f.read()
+    for inc in _INCLUDE.findall(text):
+        dep = os.path.join(os.path.dirname(path), inc.decode())
+        if dep not in seen and os.path.exists(dep):
+            _sources(dep, seen)
+    return seen
+
+
+def library_path(name: str, csrc_dir: str = CSRC_DIR,
+                 build_dir: str = BUILD_DIR) -> str:
+    """The library of ``<csrc_dir>/<name>.cu``, named by a hash of the
+    source, every local header it includes and the flags."""
+    h = hashlib.sha256(" ".join(ARCH_FLAGS + FLAGS).encode())
+    for path in _sources(os.path.join(csrc_dir, f"{name}.cu"), []):
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
+    return os.path.join(build_dir, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def build(name: str, verbose: bool = False) -> str:

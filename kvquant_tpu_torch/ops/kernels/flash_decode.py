@@ -32,12 +32,13 @@ import functools
 import torch
 
 from ...cache import DeployConfig, k_channel_index
-from ...models.llama import rope_cos_sin, rope_inv_freq, rotate_half
+from ...models.llama import rope_cos_sin, rotate_half
 from ...quant.nuq import lut_lookup
 from ..deployed import _outlier_addend
 from ..packing import unpack_codes
 from .common import (MAX_KC, MAX_SINK, TILE_TOKENS, fold_affine,
-                     signed_codes, channel_addend, check_operands, sm_count)
+                     signed_codes, channel_addend, check_operands, inv_freq,
+                     n_splits)
 
 MODES = {"nuq": 0, "int4": 1, "int8": 2}
 TILE = 64  # key tokens per tile in the kernel
@@ -192,18 +193,6 @@ def load_library():
     return _lib()
 
 
-@functools.lru_cache(maxsize=16)
-def _inv_freq(mcfg, device: torch.device) -> torch.Tensor:
-    return rope_inv_freq(mcfg, device)
-
-
-def n_splits(blocks: int, Tc: int, device: torch.device, per_sm: int) -> int:
-    """Token-axis splits for ``blocks`` (kv head, row tile, batch row)
-    blocks: about ``per_sm`` blocks per SM, at most one split per key
-    tile."""
-    return max(1, min(-(-per_sm * sm_count(device) // blocks), Tc // TILE))
-
-
 def _launch(q_rot, k_planes, v_planes, kv_out, k_range, k_offset, v_scale,
             v_offset, k_sink, v_sink, k_lut, v_lut, li, pos, dcfg, mcfg, Tq,
             k_chan_l):
@@ -269,8 +258,8 @@ def _launch(q_rot, k_planes, v_planes, kv_out, k_range, k_offset, v_scale,
     # many short splits for decode blocks (measured on the H100: 24 per SM
     # beat 4-16, which leave a ragged last wave); prefill blocks do more
     # work per tile and keep 4 per SM
-    ns = n_splits(B * Hkv * n_rt, Tc, dev, 24 if few else 4)
-    inv_freq = _inv_freq(mcfg, dev)
+    ns = n_splits(B * Hkv * n_rt, Tc, dev, 24 if few else 4, TILE)
+    freqs = inv_freq(mcfg, dev)
     # the kernel's (cos, sin) table of the packed positions (pre-RoPE keys)
     rope = None if dcfg.post_rope_k else torch.empty(
         (Tc, D // 2, 2), dtype=torch.float32, device=dev)
@@ -284,7 +273,7 @@ def _launch(q_rot, k_planes, v_planes, kv_out, k_range, k_offset, v_scale,
         kv_out.data_ptr(), k_range.data_ptr(), k_offset.data_ptr(),
         v_scale.data_ptr(), v_offset.data_ptr(), k_sink.data_ptr(),
         v_sink.data_ptr(), k_lut.data_ptr(), v_lut.data_ptr(),
-        inv_freq.data_ptr(), None if rope is None else rope.data_ptr(),
+        freqs.data_ptr(), None if rope is None else rope.data_ptr(),
         pos.data_ptr(),
         k_chan_l.data_ptr() if n_kc else None,
         part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),

@@ -1,0 +1,50 @@
+"""The port's kernel build cache (kvquant_tpu_torch/ops/kernels/build.py):
+a library is named by a hash of its CUDA source, the csrc headers that
+source includes and the nvcc flags, so that editing a shared header
+rebuilds every library that includes it. CPU only: nothing is compiled."""
+
+import os
+
+import pytest
+
+from kvquant_tpu_torch.ops.kernels import build
+
+
+def _write(path, text):
+    with open(path, "w") as f:
+        f.write(text)
+
+
+def test_library_path_hashes_included_headers(tmp_path):
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    _write(csrc / "shared.cuh", "#pragma once\n#include \"inner.cuh\"\n")
+    _write(csrc / "inner.cuh", "#pragma once\nconstexpr int K = 1;\n")
+    _write(csrc / "a.cu", "#include <cuda_runtime.h>\n#include \"shared.cuh\"\n")
+    _write(csrc / "b.cu", "#include <cuda_runtime.h>\n")
+    path = lambda n: build.library_path(n, str(csrc), str(tmp_path / "out"))
+    a0, b0 = path("a"), path("b")
+    assert os.path.dirname(a0) == str(tmp_path / "out")
+    assert os.path.basename(a0).startswith("liba-") and a0.endswith(".so")
+
+    _write(csrc / "inner.cuh", "#pragma once\nconstexpr int K = 2;\n")
+    a1 = path("a")
+    assert a1 != a0  # a header two includes deep moves the includer
+    assert path("b") == b0  # a source that does not include it stays
+    _write(csrc / "shared.cuh", "#pragma once\n#include \"inner.cuh\"\n// x\n")
+    assert path("a") not in (a0, a1)
+
+    _write(csrc / "b.cu", "#include <cuda_runtime.h>\n// edited\n")
+    assert path("b") != b0
+
+
+def test_library_path_of_the_repository_sources():
+    """Every committed source resolves (its local includes exist) and the
+    names differ between sources."""
+    names = sorted(f[:-3] for f in os.listdir(build.CSRC_DIR)
+                   if f.endswith(".cu"))
+    assert {"flash_serial", "flash_decode", "attention"} <= set(names)
+    paths = [build.library_path(n) for n in names]
+    assert len(set(paths)) == len(paths)
+    with pytest.raises(FileNotFoundError):
+        build.library_path("no_such_source")

@@ -215,16 +215,21 @@ def test_temperature_sampling_is_seeded():
 
 @pytest.mark.parametrize("kernel", ["flash", "pallas"])
 def test_unported_kernels_raise(kernel, toy):
-    """kernel="pallas" (K3/K4) is not ported; under kernel="flash" the
-    head-paired int4x2 path of K1 is not, for decode and chunked prefill."""
+    """Under kernel="flash" the head-paired int4x2 path of K1 is not ported
+    (NotImplementedError naming ROADMAP), for decode and chunked prefill;
+    kernel="pallas" refuses the storage its two-pass kernels do not read
+    (here int4 containers with post-RoPE keys and channel outliers), as the
+    JAX package asserts."""
     params, cfg, dcfg, dq = toy["torch"]
     d = dataclasses.replace(dcfg, kernel=kernel)
+    err, match = AssertionError, "two-pass kernels"
     if kernel == "flash":
         d = dataclasses.replace(d, codes="int4x2", bits=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        err, match = NotImplementedError, "ROADMAP"
+    with pytest.raises(err, match=match):
         engine.deployed_ppl(params, cfg, d, dq, torch.zeros((1, 8),
                             dtype=torch.int32), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(err, match=match):
         engine.generate(params, cfg, d, dq, torch.zeros((1, 8),
                         dtype=torch.int32), engine.GenerateConfig(4),
                         prefill_mode="quantized", device="cpu")
@@ -337,5 +342,105 @@ def test_toy_nuq3_flash_deployed_ppl_matches_jax(toy_nuq):
     toks = np.array(toy_nuq["lm"].sample(1, 40, seed=10_001))
     want = jeng.deployed_ppl(*toy_nuq["jax"], jnp.asarray(toks))
     got = engine.deployed_ppl(*toy_nuq["torch"], torch.as_tensor(toks),
+                              device="cpu")
+    assert abs(got / want - 1) < 1e-3, (got, want)
+
+
+# ---------------------------------------------------------------------------
+# the two-pass path (kernel="pallas": K3 qk_fused + K4 pv_fused)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("bits", [4, 2])
+def test_pallas_decode_attention_matches_jax_xla(bits):
+    """decode_attention with kernel="pallas" for 12 steps at B=2 against
+    the JAX package's kernel="xla" oracle (tests/test_pallas_kernels.py:
+    TestDecodePallasVsXla): NormalFloat codebooks, pre-RoPE K, slots cap 2,
+    sink 5, RoPE scaling 2, fp32 dots. Outputs within atol 1e-4 (rtol 1e-3,
+    the JAX test's); the caches afterwards bitwise, except the sink keys,
+    which hold roped keys (torch.pow and jnp.power may round the RoPE
+    frequencies differently in the last ulp: rtol 1e-6)."""
+    from kvquant_tpu.cache import DeployedQuant as JDeployedQuant
+    from kvquant_tpu.models.config import ModelConfig as JModelConfig
+    from kvquant_tpu.ops import deployed as jdep
+    from kvquant_tpu.quant.nuq import nf_signposts
+    from kvquant_tpu_torch.cache import DeployedQuant
+    from kvquant_tpu_torch.models.config import ModelConfig
+    from kvquant_tpu_torch.ops import deployed as tdep
+
+    Hkv, Dh, G = 2, 16, 2
+    mk = dict(vocab_size=64, d_model=64, n_layers=1, n_heads=Hkv * G,
+              n_kv_heads=Hkv, d_head=Dh, d_ff=64, max_seq_len=512,
+              rope_scaling=2.0)
+    jm, tm = JModelConfig(**mk), ModelConfig(**mk)
+    rng = np.random.default_rng(5)
+    C = Hkv * Dh
+    u = (np.abs(rng.normal(size=C)) * 2 + 1).astype(np.float32)
+    lut = np.sort(nf_signposts(bits)).astype(np.float32)
+    dq = dict(k_range=(u * 0.95).reshape(Hkv, Dh),
+              k_offset=(u * 0.05).reshape(Hkv, Dh), k_lower=-u * 0.9,
+              k_upper=u, k_lut_enc=lut, k_lut_dec=lut, v_lut_enc=lut,
+              v_lut_dec=lut, k_ressc=np.zeros(C, np.float32))
+    jq = JDeployedQuant(**{k: jnp.asarray(v) for k, v in dq.items()})
+    tq = DeployedQuant(**{k: torch.as_tensor(v) for k, v in dq.items()})
+    kw = dict(bits=bits, n_kv_heads=Hkv, d_head=Dh, max_len=133, sink=5,
+              dot_bf16=False)
+    jd = JDeployConfig.create(kernel="xla", **kw)
+    td = DeployConfig.create(kernel="pallas", **kw)
+
+    Bn, T = 2, 12
+    q = rng.normal(size=(Bn, T, Hkv * G, Dh)).astype(np.float32)
+    k = (rng.normal(size=(Bn, T, C)) * 2).astype(np.float32)
+    v = rng.normal(size=(Bn, T, C)).astype(np.float32)
+    jc = jcreate(jd, 1, Bn).layer(0)
+    tc = create_cache(td, 1, Bn, device="cpu").layer(0)
+    for t in range(T):
+        jc, jo = jdep.decode_attention(jc, jq, jd, jm, jnp.asarray(q[:, t]),
+                                       jnp.asarray(k[:, t]),
+                                       jnp.asarray(v[:, t]), jnp.int32(t))
+        tc, to = tdep.decode_attention(tc, tq, td, tm,
+                                       torch.as_tensor(q[:, t]),
+                                       torch.as_tensor(k[:, t]),
+                                       torch.as_tensor(v[:, t]), t)
+        np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=1e-4,
+                                   rtol=1e-3, err_msg=f"step {t}")
+    for name in ("k_planes", "v_planes", "v_scale", "v_offset", "v_sink",
+                 "length"):
+        np.testing.assert_array_equal(getattr(tc, name).numpy(),
+                                      np.asarray(getattr(jc, name)), name)
+    np.testing.assert_array_equal(tc.kv_out.numpy().view(np.int32),
+                                  np.asarray(jc.kv_out).view(np.int32))
+    np.testing.assert_allclose(tc.k_sink.numpy(), np.asarray(jc.k_sink),
+                               rtol=1e-6, atol=1e-7)
+
+
+@pytest.fixture(scope="module")
+def toy_pallas(toy_nuq):
+    """The toy checkpoint and its committed 3-bit quantizers (hg 4) under
+    kernel="pallas" on both sides."""
+    return {side: (*toy_nuq[side][:2],
+                   dataclasses.replace(toy_nuq[side][2], kernel="pallas"),
+                   toy_nuq[side][3])
+            for side in ("jax", "torch")} | {"lm": toy_nuq["lm"]}
+
+
+@pytest.mark.parametrize("prefill_mode", ["fp16", "quantized"])
+def test_toy_nuq3_pallas_generate_matches_jax(toy_pallas, prefill_mode):
+    prompt = np.array(toy_pallas["lm"].sample(1, 16, seed=31))
+    want, _ = jeng.generate(*toy_pallas["jax"], jnp.asarray(prompt),
+                            jeng.GenerateConfig(max_new_tokens=32),
+                            prefill_mode=prefill_mode)
+    got, cache = engine.generate(*toy_pallas["torch"],
+                                 torch.as_tensor(prompt),
+                                 engine.GenerateConfig(max_new_tokens=32),
+                                 prefill_mode=prefill_mode, device="cpu")
+    assert got.tolist() == np.asarray(want).tolist()
+    assert cache.length.tolist() == [16 + 32]
+
+
+def test_toy_nuq3_pallas_deployed_ppl_matches_jax(toy_pallas):
+    toks = np.array(toy_pallas["lm"].sample(1, 40, seed=10_001))
+    want = jeng.deployed_ppl(*toy_pallas["jax"], jnp.asarray(toks))
+    got = engine.deployed_ppl(*toy_pallas["torch"], torch.as_tensor(toks),
                               device="cpu")
     assert abs(got / want - 1) < 1e-3, (got, want)
