@@ -56,6 +56,26 @@ K3 (qk_fused) and K4 (pv_fused) are csrc/attention.cu, kernel="pallas":
      tokens, fp16 and quantized prefill;
  13. K3 and K4 alone at one LLaMA-2-7B layer: decode rows at 32K and 128K,
      a 261-row prefill chunk at 2K; times, plain, bound as in phase 9.
+K5 (paged_flash_decode) is fd_paged_attention in csrc/flash_decode.cu:
+K1's body addressed through a page table:
+ 14. K5 against its plain version: nuq 2/3/4, int4, int8 x pre / post RoPE
+     x slots / channels x sink 0 / 5 x page 256 / 1024, three live slots
+     at unequal positions (inside page 0, just past a page boundary, deep
+     in the last live page) over permuted pages with junk trailing table
+     ids, and an inactive slot aliasing another's pages; fp32 and bf16
+     dots; and K5 == K1 on the same tokens laid out contiguously;
+ 15. the serving main path through the user's entry point: cli.serve_demo
+     --paged at LLaMA-2-7B width (4 slots, 8 requests, 2048-token prompts,
+     64 new tokens, pages of 1024, chunked admission, bursts of 32): every
+     budget served, every page returned, K5 32 times per decode step, K1
+     32 times per admission chunk, K2 / K3 / K4 never; pool MiB, aggregate
+     tok/s, a profiler pass over steady-state steps with 4 active slots;
+     then cli.serve_demo without --paged (slot pool, K1) at toy width;
+ 16. card against CPU through PagedServer: the toy checkpoint (P 256, 2
+     slots, 4 requests, chunked admission, bursts) gives the same tokens
+     on both, and the same as the port's isolated generate on the card;
+ 17. K5 alone at one LLaMA-2-7B layer: B=1 at 32K (32 permuted pages) and
+     B=4 at 8K each; kernel, plain, bytes bound, K1 on the same tokens.
 The line before the last lists every ported kernel as JSON; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -1307,12 +1327,390 @@ def phase_k34_times(report):
     report["k34_times"] = rows
 
 
+# ---------------------------------------------------------------------------
+# K5: paged_flash_decode (fd_paged_attention in csrc/flash_decode.cu)
+# ---------------------------------------------------------------------------
+
+
+def paged_case(dcfg, L, P, gen, dev, n_pages=8):
+    """A random pool (k1_operands' arrays with the page axis for the batch
+    axis), 4 slots (slot 3 inactive, its row aliasing slot 2's pages)
+    and their positions; trailing table entries hold other slots' pages."""
+    from kvquant_tpu_torch.paged import PagedPool
+
+    S = dcfg.sink
+    ops = k1_operands(dcfg, L, n_pages, P, gen, dev)
+    sinks = k1_operands(dcfg, L, 4, 128, gen, dev)
+    pool = PagedPool(k_planes=ops["k_planes"], v_planes=ops["v_planes"],
+                     kv_out=ops["kv_out"], v_scale=ops["v_scale"],
+                     v_offset=ops["v_offset"], k_sink=sinks["k_sink"],
+                     v_sink=sinks["v_sink"])
+    table = torch.tensor([[5, 1, 4], [2, 7, 0], [6, 0, 3], [6, 0, 3]],
+                         dtype=torch.int32, device=dev)
+    pos = torch.tensor([S + 10, S + P + 3, S + 3 * P - 30, S + P + 100],
+                       dtype=torch.int32, device=dev)
+    return pool, ops, table, pos
+
+
+def paged_dq(ops):
+    from kvquant_tpu_torch.cache import DeployedQuant
+
+    L, Hkv, D = ops["k_range"].shape
+    z = torch.zeros((L, Hkv * D), device=ops["k_range"].device)
+    return DeployedQuant(k_range=ops["k_range"], k_offset=ops["k_offset"],
+                         k_lower=z, k_upper=z, k_lut_enc=ops["k_lut"],
+                         k_lut_dec=ops["k_lut"], v_lut_enc=ops["v_lut"],
+                         v_lut_dec=ops["v_lut"], k_ressc=ops["k_ressc"])
+
+
+def k1_on_pages(q, pool, table, dq, li, pos, dcfg, mcfg, fn):
+    """K1 (``fn``: the kernel or its plain version) over the slots' live
+    pages gathered into a contiguous (1, B, ...) layer."""
+    from kvquant_tpu_torch.ops.kernels import paged_decode as pdk
+
+    g = pdk.gather_layer(pool, pdk.live_pages(table, pos, dcfg), li, dcfg)
+    one = lambda t: t[li][None].contiguous()  # noqa: E731
+    return fn(q, g["k_planes"][None], g["v_planes"][None], g["kv_out"][None],
+              one(dq.k_range), one(dq.k_offset), g["v_scale"][None],
+              g["v_offset"][None], one(pool.k_sink), one(pool.v_sink),
+              one(dq.k_lut_dec), one(dq.v_lut_dec), 0, pos, dcfg, mcfg,
+              k_ressc=one(dq.k_ressc))
+
+
+def phase_k5_vs_plain(report):
+    """K5 against its plain version and against K1 on the same tokens."""
+    from kvquant_tpu_torch.ops.kernels import flash_decode as fd
+    from kvquant_tpu_torch.ops.kernels import paged_decode as pdk
+
+    dev = torch.device("cuda")
+    L, Hkv, G, D = 2, 4, 2, 128
+    cases = []
+    for codes, bits in (("nuq", 2), ("nuq", 3), ("nuq", 4), ("int4", 4),
+                        ("int8", 8)):
+        for post in (False, True):
+            for k_out, hg in (("slots", 4), ("channels", 2)):
+                for sink in (0, 5):
+                    for P in (256, 1024):
+                        cases.append((codes, bits, post, k_out, hg, sink, P))
+    worst = {False: 0.0, True: 0.0}
+    k1_diff = 0.0
+    t0 = time.perf_counter()
+    for dot_bf16 in (False, True):
+        for codes, bits, post, k_out, hg, sink, P in cases:
+            dcfg, mcfg = k1_config(codes, bits, Hkv, D, G, 3 * P, sink, post,
+                                   k_out, hg, None, dot_bf16, L=L)
+            dcfg = dataclasses.replace(dcfg, page_tokens=P)
+            gen = torch.Generator(device=dev).manual_seed(41)
+            pool, ops, table, pos = paged_case(dcfg, L, P, gen, dev)
+            dq = paged_dq(ops)
+            q = torch.randn((4, Hkv, G, D), generator=gen, device=dev)
+            got = pdk.paged_flash_decode(q, pool, table, dq, 1, pos, dcfg,
+                                         mcfg)
+            torch.cuda.synchronize()
+            want = pdk.paged_flash_decode_ref(q, pool, table, dq, 1, pos,
+                                              dcfg, mcfg)
+            tag = (f"[14] {codes}{bits} {'post' if post else 'pre'} {k_out} "
+                   f"hg{hg} sink{sink} P{P}")
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            bound = BF16_TOL * scale if dot_bf16 else FP32_TOL * (1 + scale)
+            if not (err <= bound and bool(torch.isfinite(got).all())):
+                agree(tag, got, want, dot_bf16)  # logs and raises
+            worst[dot_bf16] = max(worst[dot_bf16], err / bound)
+            # JAX's ground truth: the paged kernel equals the contiguous one
+            k1 = k1_on_pages(q, pool, table, dq, 1, pos, dcfg, mcfg,
+                             fd.flash_attention)
+            diff = float((got - k1).abs().max())
+            if not diff <= FP32_TOL * (1 + scale):
+                raise AssertionError(f"{tag}: K5 != K1 on the same tokens "
+                                     f"({diff:.3e})")
+            k1_diff = max(k1_diff, diff)
+    log(f"[14] K5 == plain on {len(cases)} cases x 2 dot modes in "
+        f"{time.perf_counter() - t0:.1f} s; worst |err| / bound: fp32 dots "
+        f"{worst[False]:.3f} (bound 1e-4*(1+max|plain|)), bf16 dots "
+        f"{worst[True]:.3f} (bound 1e-2*max|plain|); max |K5 - K1 on the "
+        f"same tokens| {k1_diff:.3e}")
+    report["k5_grid_worst_ratio"] = worst
+    report["k5_vs_k1_max_diff"] = k1_diff
+
+
+def demo_requests(n, prompt_len, max_new, vocab, seed=0):
+    """The (prompt length, budget) pairs cli.serve_demo draws."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        t0 = len(rng.integers(0, vocab, size=int(prompt_len
+                                                 * rng.uniform(0.5, 1.0))))
+        out.append((t0, int(max_new * rng.uniform(0.5, 1.0))))
+    return out
+
+
+def reset_launches():
+    from kvquant_tpu_torch.ops.kernels import attention as at
+    from kvquant_tpu_torch.ops.kernels import flash_decode as fd
+    from kvquant_tpu_torch.ops.kernels import flash_serial as fs
+    from kvquant_tpu_torch.ops.kernels import paged_decode as pdk
+
+    counters = {"K1": fd.flash_attention, "K2": fs.flash_serial_decode,
+                "K3": at.qk_fused, "K4": at.pv_fused,
+                "K5": pdk.paged_flash_decode}
+    for fn in counters.values():
+        fn.launches = 0
+    return lambda: {k: fn.launches for k, fn in counters.items()}
+
+
+def phase_paged_main_path(report):
+    """The serving main path through cli.serve_demo --paged at LLaMA-2-7B
+    width, then the slot pool at toy width."""
+    import os
+    import shutil
+
+    from kvquant_tpu_torch import paged
+    from kvquant_tpu_torch.cli import serve_demo
+    from kvquant_tpu_torch.quant.artifacts import save_quantizers
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "kvquant_tpu_torch", "_build", "smoke_work")
+    os.makedirs(work, exist_ok=True)
+    n_req, T, N, P, slots, chunk = 8, 2048, 64, 1024, 4, 256
+    _, _, qs = faithful_config(T + N + 5, 32)
+    qpath = os.path.join(work, "faithful_nuq3_quantizers.npz")
+    save_quantizers(qpath, qs)
+
+    servers = []
+    run = paged.PagedServer.run
+
+    def recording_run(self, requests, max_steps=10_000):
+        servers.append(self)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run(self, requests, max_steps)
+        torch.cuda.synchronize()
+        self.run_s = time.perf_counter() - t0
+        return out
+
+    argv = ["--toy-layers", "32", "--toy-dmodel", "4096", "--toy-heads",
+            "32", "--toy-vocab", "32000", "--quantizers", qpath,
+            "--slots", str(slots), "--requests", str(n_req), "--prompt-len",
+            str(T), "--max-new-tokens", str(N), "--page-tokens", str(P),
+            "--paged", "--device", "cuda"]
+    want = demo_requests(n_req, T, N, 32000)
+    read = reset_launches()
+    paged.PagedServer.run = recording_run
+    try:
+        t0 = time.perf_counter()
+        comps = serve_demo.main(argv)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+    finally:
+        paged.PagedServer.run = run
+    n = read()
+    srv = servers[0]
+    chunks = sum(-(-(t0_ - 5) // chunk) for t0_, _ in want)
+    tokens = sum(len(c.tokens) for c in comps.values())
+    pool_b = sum(getattr(srv.pool, f.name).numel()
+                 * getattr(srv.pool, f.name).element_size()
+                 for f in dataclasses.fields(paged.PagedPool))
+    log(f"[15] cli.serve_demo --paged at LLaMA-2-7B width: {n_req} requests "
+        f"(prompts {min(w[0] for w in want)}-{max(w[0] for w in want)}, "
+        f"budgets {min(w[1] for w in want)}-{max(w[1] for w in want)}), "
+        f"{slots} slots, pool {len(srv.free)} pages x {P} tokens = "
+        f"{pool_b / 2 ** 20:.1f} MiB; {tokens} tokens in {srv.run_s:.3f} s "
+        f"of serving = {tokens / srv.run_s:.2f} tok/s aggregate "
+        f"({cli_s:.3f} s with model init); launches {n} (K1 expected 32 x "
+        f"{chunks} admission chunks)")
+    budgets_ok = [len(comps[i].tokens) for i in range(n_req)] == \
+        [w[1] for w in want]
+    if not (budgets_ok and sorted(srv.free) == list(range(len(srv.free)))
+            and len(srv.free) == srv.pool.k_planes.shape[1]):
+        raise AssertionError("a budget was not served or a page not returned")
+    if not (n["K5"] > 0 and n["K5"] % 32 == 0
+            and n["K5"] >= 32 * max(w[1] for w in want)
+            and n["K1"] == 32 * chunks
+            and n["K2"] == n["K3"] == n["K4"] == 0):
+        raise AssertionError(f"serving main path launches {n}")
+    report["k5_launches"] = n["K5"]
+    report["serve_tps"] = tokens / srv.run_s
+    report["serve_pool_mib"] = pool_b / 2 ** 20
+
+    # steady state: 4 active slots over the pool's pages, at a third to
+    # two thirds of their capacity
+    table = np.arange(slots * srv.MP, dtype=np.int32).reshape(slots, srv.MP)
+    act = np.ones(slots, bool)
+    pos0 = (5 + srv.MP * P * np.linspace(0.35, 0.65, slots)).astype(np.int32)
+    tok = torch.zeros((slots,), dtype=torch.int32, device="cuda")
+    steps_s, idle = decode_profile(
+        f"[15] paged {slots} slots", lambda i: paged.paged_decode_step(
+            srv.params, srv.cfg, srv.dcfg, srv.dq, srv.pool, table, tok,
+            pos0 + i, act), 8)
+    log(f"[15] paged decode step, {slots} active slots at {pos0.min()}-"
+        f"{pos0.max()}: "
+        f"{1e3 / steps_s:.3f} ms/step, {slots * steps_s:.2f} tok/s "
+        f"aggregate (the 'tok/s' above counts steps)")
+    report["serve_step_ms"] = 1e3 / steps_s
+    report["serve_idle"] = idle
+    del srv, servers, comps
+    torch.cuda.empty_cache()
+
+    # the slot pool (serve.Server, kernel flash) at toy width
+    toy = ["--toy-layers", "4", "--toy-dmodel", "256", "--toy-heads", "8",
+           "--toy-kv-heads", "4", "--toy-vocab", "512", "--device", "cuda",
+           "--quantizers", os.path.join(root, "artifacts",
+                                        "toy_quantizers_3bit.npz"),
+           "--slots", "2", "--requests", "4", "--prompt-len", "300",
+           "--max-new-tokens", "16"]
+    read = reset_launches()
+    comps = serve_demo.main(toy)
+    n = read()
+    want = demo_requests(4, 300, 16, 512)
+    log(f"[15] cli.serve_demo (slot pool, kernel flash) at toy width: "
+        f"{[len(comps[i].tokens) for i in range(4)]} tokens, launches {n}")
+    if not ([len(comps[i].tokens) for i in range(4)] == [w[1] for w in want]
+            and n["K1"] > 0 and n["K5"] == 0):
+        raise AssertionError("slot-pool serve_demo did not run through K1")
+    shutil.rmtree(work)
+
+
+def phase_paged_card_vs_cpu(report):
+    """PagedServer on the toy checkpoint: card == CPU, and == the port's
+    isolated quantized-prefill generate through K1 on the card (the same
+    256-token capacity on both: the token splits sum in the same order)."""
+    import os
+
+    from kvquant_tpu_torch import engine
+    from kvquant_tpu_torch.cache import DeployConfig, deployed_from_quantizers
+    from kvquant_tpu_torch.models import params_from_numpy
+    from kvquant_tpu_torch.paged import PagedServer
+    from kvquant_tpu_torch.quant.artifacts import load_quantizers
+    from kvquant_tpu_torch.serve import Request
+    from kvquant_tpu_torch.utils.toymodel import TOY_CFG as cfg
+    from kvquant_tpu_torch.utils.toymodel import load_toy_checkpoint
+
+    art = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "artifacts")
+    tree, _, _ = load_toy_checkpoint(os.path.join(art, "toy_model.npz"))
+    qs = load_quantizers(os.path.join(art, "toy_quantizers_3bit.npz"))
+    P = 256
+    dcfg = dataclasses.replace(DeployConfig.create(
+        bits=3, n_kv_heads=cfg.n_kv_heads, d_head=cfg.d_head,
+        max_len=P + 5, sink=5, kernel="flash", head_group=4, codes="nuq",
+        post_rope_k=False, k_outliers="slots", cap_per_side=2,
+        dot_bf16=False), page_tokens=P)
+    rng = np.random.default_rng(16)
+    reqs = [(rng.integers(0, cfg.vocab_size, n).astype(np.int32), m)
+            for n, m in ((16, 12), (40, 9), (25, 16), (33, 7))]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = params_from_numpy(tree, cfg, device=dev)
+        dq = deployed_from_quantizers(qs, cfg.n_kv_heads, cfg.d_head,
+                                      device=dev)
+        srv = PagedServer(params, cfg, dcfg, dq, n_pages=2, n_slots=2,
+                          max_pages_per_slot=1, admit_mode="chunked",
+                          burst=8, device=dev)
+        comps = srv.run([Request(rid=i, prompt=p, max_new_tokens=m)
+                         for i, (p, m) in enumerate(reqs)])
+        out[dev] = [comps[i].tokens for i in range(len(reqs))]
+        if sorted(srv.free) != [0, 1]:
+            raise AssertionError(f"{dev}: pages not returned")
+        if dev == "cuda":
+            iso = []
+            for p, m in reqs:
+                t, _ = engine.generate(
+                    params, cfg, dcfg, dq, torch.as_tensor(p)[None],
+                    engine.GenerateConfig(max_new_tokens=m),
+                    prefill_mode="quantized", device="cuda")
+                iso.append(t[0].tolist())
+    same, same_iso = out["cuda"] == out["cpu"], out["cuda"] == iso
+    log(f"[16] toy checkpoint through PagedServer (P {P}, 2 slots, 4 "
+        f"requests, chunked admission, bursts of 8): card == cpu: {same}; "
+        f"card == isolated generate (K1) on the card: {same_iso}")
+    if not (same and same_iso):
+        raise AssertionError(f"card {out['cuda']} cpu {out['cpu']} "
+                             f"isolated {iso}")
+
+
+def phase_k5_times(report):
+    """K5 alone at one LLaMA-2-7B layer (faithful nuq3, bf16 dots): B=1 at
+    32K over 32 permuted pages of 1024, B=4 at 8K each; K1 over the same
+    tokens laid out contiguously as context."""
+    from kvquant_tpu_torch.ops.kernels import flash_decode as fd
+    from kvquant_tpu_torch.ops.kernels import paged_decode as pdk
+    from kvquant_tpu_torch.paged import PagedPool
+
+    dev = torch.device("cuda")
+    P, rows = 1024, []
+    for B, ctx in ((1, 32768), (4, 8192)):
+        cfg, dcfg, _ = faithful_config(ctx + 8, 1)
+        dcfg = dataclasses.replace(dcfg, page_tokens=P)
+        Hkv, D, S = cfg.n_kv_heads, cfg.d_head, dcfg.sink
+        MP = ctx // P
+        gen = torch.Generator(device=dev).manual_seed(17)
+        ops = k1_operands(dcfg, 1, B * MP, P, gen, dev)
+        sinks = k1_operands(dcfg, 1, B, 128, gen, dev)
+        pool = PagedPool(k_planes=ops["k_planes"], v_planes=ops["v_planes"],
+                         kv_out=ops["kv_out"], v_scale=ops["v_scale"],
+                         v_offset=ops["v_offset"], k_sink=sinks["k_sink"],
+                         v_sink=sinks["v_sink"])
+        dq = paged_dq(ops)
+        table = torch.randperm(B * MP, generator=torch.Generator()
+                               .manual_seed(18)).to(torch.int32).reshape(
+            B, MP).to(dev)
+        pos = torch.full((B,), ctx - 1, dtype=torch.int32, device=dev)
+        q = torch.randn((B, Hkv, 1, D), generator=gen, device=dev)
+
+        def run(fn, d=dcfg):
+            return fn(q, pool, table, dq, 0, pos, d, cfg)
+
+        d32 = dataclasses.replace(dcfg, dot_bf16=False)
+        err = max(agree(f"[17] K5 B {B} ctx {ctx}",
+                        run(pdk.paged_flash_decode),
+                        run(pdk.paged_flash_decode_ref), True),
+                  agree(f"[17] K5 B {B} ctx {ctx}",
+                        run(pdk.paged_flash_decode, d32),
+                        run(pdk.paged_flash_decode_ref, d32), False))
+        kern = lambda: run(pdk.paged_flash_decode)  # noqa: E731
+        ms = device_ms(kern)
+        plain_ms = device_ms(lambda: run(pdk.paged_flash_decode_ref), n=2,
+                             reps=3, warmup=1)
+        ms2 = device_ms(kern)
+        call_ms = median_ms(kern)
+        # K1 over the same tokens, gathered contiguously once (context)
+        g = pdk.gather_layer(pool, pdk.live_pages(table, pos, dcfg), 0, dcfg)
+        one = lambda t: t[0][None].contiguous()  # noqa: E731
+        k1_args = (q, g["k_planes"][None], g["v_planes"][None],
+                   g["kv_out"][None], one(dq.k_range), one(dq.k_offset),
+                   g["v_scale"][None], g["v_offset"][None],
+                   one(pool.k_sink), one(pool.v_sink), one(dq.k_lut_dec),
+                   one(dq.v_lut_dec), 0, pos, dcfg, cfg)
+        k1_ms = device_ms(lambda: fd.flash_attention(*k1_args))
+        n_live = B * (ctx - 1 - S + 1)
+        nbytes = (n_live * nuq_bytes_per_token(dcfg)
+                  + 4 * Hkv * D * (2 * S + 2) * B + 4 * B * MP)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        row = dict(B=B, ctx=ctx, pages=B * MP, ms=min(ms, ms2),
+                   ms_runs=[ms, ms2], call_ms=call_ms, plain_ms=plain_ms,
+                   bound_ms=bound_ms, bytes=nbytes, k1_same_tokens_ms=k1_ms,
+                   max_abs_err=err)
+        log(f"[17] K5 B {B} ctx {ctx} ({B * MP} permuted pages of {P}): "
+            f"kernel {row['ms']:.4f} ms device (runs {ms:.4f}, {ms2:.4f}; "
+            f"{call_ms:.4f} ms per call with the wrapper's host time), plain "
+            f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms by bytes "
+            f"({nbytes / 1e6:.1f} MB at 3.35 TB/s), |err| {err:.2e}; "
+            f"context: K1 on the same tokens contiguous {k1_ms:.4f} ms")
+        rows.append(row)
+        del ops, pool, g, k1_args
+        torch.cuda.empty_cache()
+    report["k5_times"] = rows
+
+
 PHASES = {1: phase_device_and_build, 2: phase_kernel_vs_plain,
           3: phase_main_path, 4: phase_card_vs_cpu, 5: phase_times,
           6: phase_k1_vs_plain, 7: phase_k1_main_path,
           8: phase_k1_card_vs_cpu, 9: phase_k1_times,
           10: phase_k34_vs_plain, 11: phase_pallas_main_path,
-          12: phase_pallas_card_vs_cpu, 13: phase_k34_times}
+          12: phase_pallas_card_vs_cpu, 13: phase_k34_times,
+          14: phase_k5_vs_plain, 15: phase_paged_main_path,
+          16: phase_paged_card_vs_cpu, 17: phase_k5_times}
 
 
 def main(argv=None) -> int:
@@ -1390,6 +1788,23 @@ def main(argv=None) -> int:
                 "shape": f"B=1 Hkv=32 G=1 D=128 nuq3 pre-RoPE slots cap=2 "
                          f"hg=4 sink=5, decode R=1, Tc={t['Tc']}",
             })
+    if 17 in phases and 15 in phases:
+        t = report["k5_times"][-1]  # B=4 slots at 8K, as the main path
+        kernels.append({
+            "name": "paged_flash_decode",
+            "route": "cuda",
+            "source": "kvquant_tpu_torch/csrc/flash_decode.cu",
+            "replaces": "kvquant_tpu/paged.py:103",
+            "launches": report["k5_launches"],
+            "max_abs_err": max(x["max_abs_err"]
+                               for x in report["k5_times"]),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": "bytes",
+            "library_ms": None,
+            "shape": f"B={t['B']} Hkv=32 G=1 D=128 nuq3 pre-RoPE slots "
+                     f"cap=2 hg=4 sink=5, {t['ctx']} tokens per slot in "
+                     f"{t['pages']} permuted pages of 1024",
+        })
     if kernels:
         log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -60,6 +60,8 @@ class DeployConfig:
     k_outliers: str = "slots"  # "slots" | "channels"
     n_kc: int = 4  # static K channels per head group ("channels" mode)
     post_rope_k: bool = False  # store keys post-rotary
+    page_tokens: int = 1024  # paged-pool page size (paged.py): tokens per
+    #   page, the token block the paged kernel addresses through its table
 
     def __post_init__(self):
         assert self.codes in ("nuq", "int4", "int8", "int4x2"), self.codes

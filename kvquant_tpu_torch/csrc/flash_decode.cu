@@ -58,11 +58,25 @@
 // sink rows) are rounded to bf16 and accumulated in fp32; otherwise all
 // fp32. Built without fast-math:
 // slot words are fp32 bit patterns whose zero-valued slots are denormals.
+//
+// The paged entry fd_paged_attention replaces kvquant_tpu/paged.py:
+// paged_flash_decode (K5), which on the TPU reuses _flash_kernel unchanged
+// and only remaps the token-block index through a scalar-prefetched
+// (B, MP) page table. Here too the body is shared: fd_partial takes its
+// addressing as a template policy. Contig (K1) reads the (L, B, ..., Tc)
+// cache of batch row b; Paged (K5) reads a 64-token tile at logical packed
+// position t0 from page table[b, min(t0 / P, last live page)] of the
+// (L, NP, ..., P) pool, at row t0 % P. Sinks stay per slot, the RoPE table
+// is indexed by logical position over MP * P tokens, and tiles past each
+// slot's position are skipped as in K1, so dead pages cost nothing. K5 is a
+// decode kernel (Tq = 1, G <= 8 query rows per kv head); its bound is K1's
+// decode bound: the live tokens' bytes.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 #include <math.h>
+#include <type_traits>
 
 // Field order is mirrored by the ctypes Structure in
 // kvquant_tpu_torch/ops/kernels/flash_decode.py.
@@ -75,6 +89,9 @@ struct FdArgs {
   const float* k_offset;   // (L, Hkv, D)
   const float* v_scale;    // (L, B, Tc)
   const float* v_offset;   // (L, B, Tc)
+                           // (paged: the pool's (L, NP, ..., P) in place of
+                           //  (L, B, ..., Tc) for kp, vp, kv_out, v_scale,
+                           //  v_offset; Tc = MP * P logical tokens)
   const float* k_sink;     // (L, B, Hkv, S, D) post-RoPE
   const float* v_sink;     // (L, B, Hkv, S, D)
   const float* k_lut;      // (L, 2**bits)
@@ -95,6 +112,8 @@ struct FdArgs {
   int hg, mode, bits, window, post_rope, dot_bf16, li, n_split, n_rt;
   float inv;               // 1 / sqrt(D)
   float scaling;           // linear RoPE position scaling
+  const int* table;        // paged: (B, MP) page ids of each slot
+  int MP, P, NP;           // paged: table width, tokens per page, pool pages
 };
 
 namespace {
@@ -137,11 +156,38 @@ size_t smem_bytes(int RT, int D) {
   return sizeof(float) * smem_floats(RT, D) + sizeof(int) * smem_ints(RT);
 }
 
+// Addressing policies of fd_partial: where the cache rows of the 64-token
+// key tile at logical packed position t0 live. A slab is one entry of the
+// cache arrays' second axis (a batch row, or a pool page) and holds
+// tokens() rows; locate() returns (slab, row of t0 in it).
+struct Contig {  // K1: the (L, B, ..., Tc) cache of batch row b
+  __device__ static int slabs(const FdArgs& a) { return a.B; }
+  __device__ static int tokens(const FdArgs& a) { return a.Tc; }
+  __device__ static int last_page(const FdArgs&, int, int) { return 0; }
+  __device__ static int2 locate(const FdArgs&, int b, int t0, int) {
+    return make_int2(b, t0);
+  }
+};
+struct Paged {  // K5: page table[b, t / P] of the (L, NP, ..., P) pool
+  __device__ static int slabs(const FdArgs& a) { return a.NP; }
+  __device__ static int tokens(const FdArgs& a) { return a.P; }
+  // the slot's last live page (its last visible packed token's), kept
+  // below MP: the table is never read at or past a slot's MP entries
+  __device__ static int last_page(const FdArgs& a, int maxp, int S) {
+    return min(max(maxp - S, 0) / a.P, a.MP - 1);
+  }
+  // page index clamped to the last live page before the lookup, as the TPU
+  // kernel's index map does (paged.py:211-216)
+  __device__ static int2 locate(const FdArgs& a, int b, int t0, int last) {
+    return make_int2(a.table[(size_t)b * a.MP + min(t0 / a.P, last)], t0 % a.P);
+  }
+};
+
 // One block: kv head h, query rows [r0, r0 + RT) of batch row b, split s of
 // the live key tiles. RT <= 8: the rows of a decode step (thread per token
 // for the scores, thread per d for P.V); RT == PR: 8x4 / 8x(D/16)
-// register tiles per thread for a prefill block.
-template <int MODE, int RT>
+// register tiles per thread for a prefill block. AP: Contig or Paged.
+template <int MODE, int RT, class AP>
 __global__ void __launch_bounds__(NT) fd_partial(FdArgs a) {
   extern __shared__ __align__(16) float smem[];
   const int D = a.D, DP = D + 1, half = D / 2;
@@ -237,20 +283,27 @@ __global__ void __launch_bounds__(NT) fd_partial(FdArgs a) {
   const float kr1 = a.k_range[cidx + c1], ko1 = a.k_offset[cidx + c1];
   const float ks0 = kb * kr0, kz0 = ka * kr0 + ko0;
   const float ks1 = kb * kr1, kz1 = ka * kr1 + ko1;
-  const float* vsc = a.v_scale + ((size_t)li * a.B + b) * Tc;
-  const float* vof = a.v_offset + ((size_t)li * a.B + b) * Tc;
-  const size_t head_slab = (((size_t)li * a.B + b) * a.Hkv + h);
-  const float* kvo = a.kv_out + (((size_t)li * a.B + b) * (a.Hkv / hg) + grp) * a.J * (size_t)Tc;
+  // the tile's slab and row through the addressing policy
+  const int TS = AP::tokens(a);
+  const size_t lay = (size_t)li * AP::slabs(a);
+  const int last = AP::last_page(a, maxp, S);
+  auto at = [&](int t0) { return AP::locate(a, b, t0, last); };
+  auto head_slab = [&](int2 sr) { return (lay + sr.x) * a.Hkv + h; };
+  auto kvo_of = [&](int2 sr) {
+    return a.kv_out + ((lay + sr.x) * (a.Hkv / hg) + grp) * a.J * (size_t)TS + sr.y;
+  };
   const bool pre = !a.post_rope;
   // the tile's per-token V scale / offset, one load per thread
-  auto load_vso = [&](int t0) {
-    return tid < TT ? vsc[t0 + tid] : (tid < 2 * TT ? vof[t0 + tid - TT] : 0.f);
+  auto load_vso = [&](int2 sr) {
+    const size_t o = (lay + sr.x) * TS + sr.y;
+    return tid < TT ? a.v_scale[o + tid] : (tid < 2 * TT ? a.v_offset[o + tid - TT] : 0.f);
   };
   auto store_vso = [&](float x) {
     if (tid < TT) sVs[tid] = x;
     else if (tid < 2 * TT) sVo[tid - TT] = x;
   };
-  store_vso(load_vso(t_begin * TT));
+  int2 cur = at(t_begin * TT);
+  store_vso(load_vso(cur));
   __syncthreads();
 
   // one token's K pair (rotated at position S + t under pre-RoPE storage)
@@ -290,8 +343,8 @@ __global__ void __launch_bounds__(NT) fd_partial(FdArgs a) {
   constexpr int OPF = 4;
   const int n_ow = (a.n_kslots > 0 || a.n_kc > 0 || a.n_vslots > 0) ? a.J * TT : 0;
   float ow[OPF];
-  auto load_ow = [&](int t0, int i) {
-    return kvo[(size_t)(i / TT) * Tc + t0 + i % TT];
+  auto load_ow = [&](const float* kvo, int i) {
+    return kvo[(size_t)(i / TT) * TS + i % TT];
   };
   auto use_ow = [&](int t0, int i, float w) {
     const int r = i / TT, t = i % TT;
@@ -315,10 +368,11 @@ __global__ void __launch_bounds__(NT) fd_partial(FdArgs a) {
   // tile's dequantization, under its outlier and contraction phases.
   constexpr bool PF = RT <= 8;
   uint32_t wk0[4][4], wk1[4][4], wv0[4][4], wv1[4][4];
-  auto load_words = [&](int t0) {
-    const int bits = a.bits, TW = Tc / 32, g = t0 / 128;
-    const int32_t* kpl = reinterpret_cast<const int32_t*>(a.kp) + head_slab * bits * TW * D;
-    const int32_t* vpl = reinterpret_cast<const int32_t*>(a.vp) + head_slab * bits * TW * D;
+  auto load_words = [&](int2 sr) {
+    const int bits = a.bits, TW = TS / 32, g = sr.y / 128;
+    const size_t slab = head_slab(sr) * bits * TW * D;
+    const int32_t* kpl = reinterpret_cast<const int32_t*>(a.kp) + slab;
+    const int32_t* vpl = reinterpret_cast<const int32_t*>(a.vp) + slab;
 #pragma unroll
     for (int bb = 0; bb < 4; ++bb)
 #pragma unroll
@@ -331,7 +385,7 @@ __global__ void __launch_bounds__(NT) fd_partial(FdArgs a) {
         wv1[bb][w] = on ? (uint32_t)vpl[row + c1] : 0u;
       }
   };
-  if (MODE == MODE_NUQ && PF) load_words(t_begin * TT);
+  if (MODE == MODE_NUQ && PF) load_words(cur);
 
   // running state: few-row path in shared memory (sM, sL, sA) and o[];
   // multi-row path in registers
@@ -348,12 +402,13 @@ __global__ void __launch_bounds__(NT) fd_partial(FdArgs a) {
 
   for (int tile = t_begin; tile < t_end; ++tile) {
     const int t0 = tile * TT;
+    const float* kvo = kvo_of(cur);
 #pragma unroll
     for (int k = 0; k < OPF; ++k)
-      ow[k] = tid + k * NT < n_ow ? load_ow(t0, tid + k * NT) : 0.f;
+      ow[k] = tid + k * NT < n_ow ? load_ow(kvo, tid + k * NT) : 0.f;
     // ---- dequantize (and rotate) K and V of the tile into shared memory ----
     if (MODE == MODE_NUQ) {
-      if (!PF) load_words(t0);
+      if (!PF) load_words(cur);
       const int bit0 = ((t0 % 128) + tb) >> 2;
 #pragma unroll
       for (int kind = 0; kind < 2; ++kind) {
@@ -385,7 +440,7 @@ __global__ void __launch_bounds__(NT) fd_partial(FdArgs a) {
 #pragma unroll 4
       for (int j = 0; j < tpp; ++j) {
         const int t = tb + j;
-        const size_t row = head_slab * Tc + t0 + t;
+        const size_t row = head_slab(cur) * TS + cur.y + t;
         float x0, x1, y0, y1;
         if (MODE == MODE_INT8) {
           const int8_t* kr = reinterpret_cast<const int8_t*>(a.kp) + row * D;
@@ -405,15 +460,18 @@ __global__ void __launch_bounds__(NT) fd_partial(FdArgs a) {
     }
     __syncthreads();
     const bool more = tile + 1 < t_end;
-    const float vso_next = more ? load_vso(t0 + TT) : 0.f;
-    if (MODE == MODE_NUQ && PF && more) load_words(t0 + TT);
+    // the next tile's slab and row: under paging its table lookup comes
+    // before the prefetch that reads through it
+    const int2 nxt = more ? at(t0 + TT) : cur;
+    const float vso_next = more ? load_vso(nxt) : 0.f;
+    if (MODE == MODE_NUQ && PF && more) load_words(nxt);
 
     // ---- outliers, added to the rotated tile ----
     if (n_ow > 0) {
 #pragma unroll
       for (int k = 0; k < OPF; ++k)
         if (tid + k * NT < n_ow) use_ow(t0, tid + k * NT, ow[k]);
-      for (int i = tid + OPF * NT; i < n_ow; i += NT) use_ow(t0, i, load_ow(t0, i));
+      for (int i = tid + OPF * NT; i < n_ow; i += NT) use_ow(t0, i, load_ow(kvo, i));
       __syncthreads();
     }
 
@@ -539,6 +597,7 @@ __global__ void __launch_bounds__(NT) fd_partial(FdArgs a) {
       }
     }
     if (more) store_vso(vso_next);
+    cur = nxt;
     __syncthreads();  // the next tile overwrites sK, sV, sP, sVs, sVo
   }
 
@@ -656,39 +715,41 @@ __global__ void __launch_bounds__(NT) fd_merge(FdArgs a) {
   }
 }
 
-template <int MODE, int RT>
+template <int MODE, int RT, class AP>
 cudaError_t launch_partial(const FdArgs& a, cudaStream_t stream) {
   static bool configured = false;
   if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(fd_partial<MODE, RT>,
+    cudaError_t e = cudaFuncSetAttribute(fd_partial<MODE, RT, AP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem_bytes(RT, MAXD));
     if (e != cudaSuccess) return e;
     configured = true;
   }
-  fd_partial<MODE, RT><<<dim3(a.n_split, a.Hkv * a.n_rt, a.B), NT, smem_bytes(RT, a.D),
-                         stream>>>(a);
+  fd_partial<MODE, RT, AP><<<dim3(a.n_split, a.Hkv * a.n_rt, a.B), NT, smem_bytes(RT, a.D),
+                             stream>>>(a);
   return cudaGetLastError();
 }
 
-template <int MODE>
+// The decode instances (all Q <= 8 rows of a kv head in one block) for
+// both policies; the multi-row prefill instance for the contiguous cache
+// only (paged attention is a decode step).
+template <int MODE, class AP>
 cudaError_t dispatch_rows(const FdArgs& a, cudaStream_t st) {
   if (a.n_rt == 1) {
     switch (a.Q) {
-      case 1: return launch_partial<MODE, 1>(a, st);
-      case 2: return launch_partial<MODE, 2>(a, st);
-      case 4: return launch_partial<MODE, 4>(a, st);
-      case 8: return launch_partial<MODE, 8>(a, st);
+      case 1: return launch_partial<MODE, 1, AP>(a, st);
+      case 2: return launch_partial<MODE, 2, AP>(a, st);
+      case 4: return launch_partial<MODE, 4, AP>(a, st);
+      case 8: return launch_partial<MODE, 8, AP>(a, st);
     }
   }
-  return launch_partial<MODE, PR>(a, st);
+  if constexpr (std::is_same<AP, Contig>::value) return launch_partial<MODE, PR, AP>(a, st);
+  return cudaErrorInvalidValue;
 }
 
-}  // namespace
-
-// Launches the split kernel and the merge kernel on `stream`. Returns the
-// cudaError_t of the launches (0 on success); nothing is synchronised.
-extern "C" int fd_attention(const FdArgs* a, void* stream) {
+// The RoPE table, the split kernel and the merge kernel on `stream`.
+template <class AP>
+int run(const FdArgs* a, void* stream) {
   if (a->S > MAX_SINK || a->n_kc > MAX_KC || a->D > MAXD || a->D % 32 ||
       a->Tc % 128 || (a->mode == MODE_NUQ && (a->bits < 1 || a->bits > 4)))
     return (int)cudaErrorInvalidValue;
@@ -701,11 +762,28 @@ extern "C" int fd_attention(const FdArgs* a, void* stream) {
   }
   cudaError_t e = cudaErrorInvalidValue;
   switch (a->mode) {
-    case MODE_NUQ: e = dispatch_rows<MODE_NUQ>(*a, st); break;
-    case MODE_INT4: e = dispatch_rows<MODE_INT4>(*a, st); break;
-    case MODE_INT8: e = dispatch_rows<MODE_INT8>(*a, st); break;
+    case MODE_NUQ: e = dispatch_rows<MODE_NUQ, AP>(*a, st); break;
+    case MODE_INT4: e = dispatch_rows<MODE_INT4, AP>(*a, st); break;
+    case MODE_INT8: e = dispatch_rows<MODE_INT8, AP>(*a, st); break;
   }
   if (e != cudaSuccess) return (int)e;
   fd_merge<<<dim3(a->Q, a->Hkv, a->B), NT, a->n_split * sizeof(float), st>>>(*a);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// K1 over the contiguous (L, B, ...) cache. Returns the cudaError_t of the
+// launches (0 on success); nothing is synchronised.
+extern "C" int fd_attention(const FdArgs* a, void* stream) {
+  return run<Contig>(a, stream);
+}
+
+// K5: decode attention (Tq = 1, Q <= 8 rows per kv head) over the
+// (L, NP, ...) page pool through the (B, MP) page table, Tc = MP * P.
+extern "C" int fd_paged_attention(const FdArgs* a, void* stream) {
+  if (!a->table || a->P <= 0 || a->P % 128 || a->MP <= 0 || a->NP <= 0 ||
+      a->Tc != a->MP * a->P || a->Tq != 1 || a->n_rt != 1 || a->Q > 8)
+    return (int)cudaErrorInvalidValue;
+  return run<Paged>(a, stream);
 }

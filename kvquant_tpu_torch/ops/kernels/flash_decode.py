@@ -175,6 +175,7 @@ class _FdArgs(ctypes.Structure):
         ("post_rope", _I), ("dot_bf16", _I), ("li", _I), ("n_split", _I),
         ("n_rt", _I),
         ("inv", ctypes.c_float), ("scaling", ctypes.c_float),
+        ("table", _P), ("MP", _I), ("P", _I), ("NP", _I),
     ]
 
 
@@ -183,8 +184,9 @@ def _lib():
     from .build import load
 
     lib = load("flash_decode")
-    lib.fd_attention.argtypes = [ctypes.POINTER(_FdArgs), ctypes.c_void_p]
-    lib.fd_attention.restype = ctypes.c_int
+    for entry in (lib.fd_attention, lib.fd_paged_attention):
+        entry.argtypes = [ctypes.POINTER(_FdArgs), ctypes.c_void_p]
+        entry.restype = ctypes.c_int
     return lib
 
 
@@ -193,27 +195,15 @@ def load_library():
     return _lib()
 
 
-def _launch(q_rot, k_planes, v_planes, kv_out, k_range, k_offset, v_scale,
-            v_offset, k_sink, v_sink, k_lut, v_lut, li, pos, dcfg, mcfg, Tq,
-            k_chan_l):
-    B, Hkv, Q, D = q_rot.shape
-    L = k_planes.shape[0]
-    S, hg = dcfg.sink, dcfg.head_group
-    dev = q_rot.device
-    NG = Hkv // hg
-    J, Tc = kv_out.shape[-2:]
-
-    if Tc % TILE_TOKENS:
-        raise ValueError(f"flash_attention kernel: cache capacity {Tc} is "
-                         f"not a multiple of {TILE_TOKENS} tokens")
+def kernel_limits(dcfg: DeployConfig, D: int, J: int):
+    """Raise ValueError for a configuration the CUDA kernel does not take;
+    returns its live (static K channel, K slot, V slot) row counts."""
     if D not in (32, 64, 128):
         raise ValueError(f"flash_attention kernel: d_head {D} not in "
                          f"32/64/128")
-    if Q % Tq:
-        raise ValueError(f"flash_attention kernel: {Q} rows are not a "
-                         f"multiple of Tq={Tq}")
-    if S > MAX_SINK:
-        raise ValueError(f"flash_attention kernel: sink {S} > {MAX_SINK}")
+    if dcfg.sink > MAX_SINK:
+        raise ValueError(f"flash_attention kernel: sink {dcfg.sink} > "
+                         f"{MAX_SINK}")
     if dcfg.codes == "nuq" and dcfg.bits not in (2, 3, 4):
         raise ValueError(f"flash_attention kernel: nuq bits {dcfg.bits} "
                          f"not in 2/3/4")
@@ -228,8 +218,71 @@ def _launch(q_rot, k_planes, v_planes, kv_out, k_range, k_offset, v_scale,
             n_kslots = dcfg.slots_per_kind
         if dcfg.cap_per_side > 0:
             n_vslots = J - dcfg.slots_per_kind
-            assert hg * D <= 512, "slot words carry a 9-bit (head, dim) index"
+            assert dcfg.head_group * D <= 512, \
+                "slot words carry a 9-bit (head, dim) index"
+    return n_kc, n_kslots, n_vslots
 
+
+def run_kernel(entry, q_rot, arrays, pos, k_chan_l, dcfg, mcfg, *, L, Tc, J,
+               Tq, n_rt, li, per_sm, paged=(None, 0, 0, 0)):
+    """Allocate the output, the partials and the RoPE table, fill the
+    ``FdArgs`` struct and launch ``entry`` (fd_attention or
+    fd_paged_attention) on the current stream. ``arrays``: k_planes,
+    v_planes, kv_out, k_range, k_offset, v_scale, v_offset, k_sink, v_sink,
+    k_lut, v_lut, checked by the caller; ``paged``: (table, MP, P, NP).
+    Returns the (B, Hkv, Q, D) fp32 output."""
+    B, Hkv, Q, D = q_rot.shape
+    dev = q_rot.device
+    n_kc, n_kslots, n_vslots = kernel_limits(dcfg, D, J)
+    ns = n_splits(B * Hkv * n_rt, Tc, dev, per_sm, TILE)
+    freqs = inv_freq(mcfg, dev)
+    # the kernel's (cos, sin) table of the packed positions (pre-RoPE keys)
+    rope = None if dcfg.post_rope_k else torch.empty(
+        (Tc, D // 2, 2), dtype=torch.float32, device=dev)
+    out = torch.empty((B, Hkv, Q, D), dtype=torch.float32, device=dev)
+    part_m = torch.empty((B, Hkv, ns, Q), dtype=torch.float32, device=dev)
+    part_l = torch.empty_like(part_m)
+    part_acc = torch.empty((B, Hkv, ns, Q, D), dtype=torch.float32,
+                           device=dev)
+    table, MP, P, NP = paged
+    args = _FdArgs(
+        q_rot.data_ptr(), *(t.data_ptr() for t in arrays),
+        freqs.data_ptr(), None if rope is None else rope.data_ptr(),
+        pos.data_ptr(),
+        k_chan_l.data_ptr() if n_kc else None,
+        part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
+        out.data_ptr(),
+        L, B, Hkv, Q, Tq, D, Tc, dcfg.sink, J, dcfg.slots_per_kind, n_kc,
+        n_kslots, n_vslots, dcfg.head_group, MODES[dcfg.codes], dcfg.bits,
+        mcfg.sliding_window or 0, int(dcfg.post_rope_k), int(dcfg.dot_bf16),
+        int(li), ns, n_rt, 1.0 / (D ** 0.5), float(mcfg.rope_scaling),
+        None if table is None else table.data_ptr(), MP, P, NP,
+    )
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = entry(ctypes.byref(args), ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: "
+                           f"cudaError {err}")
+    return out
+
+
+def _launch(q_rot, k_planes, v_planes, kv_out, k_range, k_offset, v_scale,
+            v_offset, k_sink, v_sink, k_lut, v_lut, li, pos, dcfg, mcfg, Tq,
+            k_chan_l):
+    B, Hkv, Q, D = q_rot.shape
+    L = k_planes.shape[0]
+    S, hg = dcfg.sink, dcfg.head_group
+    NG = Hkv // hg
+    J, Tc = kv_out.shape[-2:]
+
+    if Tc % TILE_TOKENS:
+        raise ValueError(f"flash_attention kernel: cache capacity {Tc} is "
+                         f"not a multiple of {TILE_TOKENS} tokens")
+    if Q % Tq:
+        raise ValueError(f"flash_attention kernel: {Q} rows are not a "
+                         f"multiple of Tq={Tq}")
+    n_kc = kernel_limits(dcfg, D, J)[0]
     if dcfg.codes == "nuq":
         code = ((L, B, Hkv, dcfg.bits, Tc // 32, D), torch.int32)
     else:
@@ -251,45 +304,18 @@ def _launch(q_rot, k_planes, v_planes, kv_out, k_range, k_offset, v_scale,
     }
     if n_kc:
         expect["k_chan"] = (k_chan_l, (NG, n_kc), torch.int32)
-    check_operands("flash_attention kernel", expect, dev)
+    check_operands("flash_attention kernel", expect, q_rot.device)
 
     few = Q in (1, 2, 4, 8)  # the decode instances: all rows in one block
-    n_rt = 1 if few else -(-Q // ROWS)
     # many short splits for decode blocks (measured on the H100: 24 per SM
     # beat 4-16, which leave a ragged last wave); prefill blocks do more
     # work per tile and keep 4 per SM
-    ns = n_splits(B * Hkv * n_rt, Tc, dev, 24 if few else 4, TILE)
-    freqs = inv_freq(mcfg, dev)
-    # the kernel's (cos, sin) table of the packed positions (pre-RoPE keys)
-    rope = None if dcfg.post_rope_k else torch.empty(
-        (Tc, D // 2, 2), dtype=torch.float32, device=dev)
-    out = torch.empty((B, Hkv, Q, D), dtype=torch.float32, device=dev)
-    part_m = torch.empty((B, Hkv, ns, Q), dtype=torch.float32, device=dev)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((B, Hkv, ns, Q, D), dtype=torch.float32,
-                           device=dev)
-    args = _FdArgs(
-        q_rot.data_ptr(), k_planes.data_ptr(), v_planes.data_ptr(),
-        kv_out.data_ptr(), k_range.data_ptr(), k_offset.data_ptr(),
-        v_scale.data_ptr(), v_offset.data_ptr(), k_sink.data_ptr(),
-        v_sink.data_ptr(), k_lut.data_ptr(), v_lut.data_ptr(),
-        freqs.data_ptr(), None if rope is None else rope.data_ptr(),
-        pos.data_ptr(),
-        k_chan_l.data_ptr() if n_kc else None,
-        part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
-        out.data_ptr(),
-        L, B, Hkv, Q, Tq, D, Tc, S, J, dcfg.slots_per_kind, n_kc,
-        n_kslots, n_vslots, hg, MODES[dcfg.codes], dcfg.bits,
-        mcfg.sliding_window or 0, int(dcfg.post_rope_k), int(dcfg.dot_bf16),
-        int(li), ns, n_rt, 1.0 / (D ** 0.5), float(mcfg.rope_scaling),
-    )
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fd_attention(ctypes.byref(args), ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: "
-                           f"cudaError {err}")
+    out = run_kernel(
+        _lib().fd_attention, q_rot,
+        (k_planes, v_planes, kv_out, k_range, k_offset, v_scale, v_offset,
+         k_sink, v_sink, k_lut, v_lut), pos, k_chan_l, dcfg, mcfg, L=L,
+        Tc=Tc, J=J, Tq=Tq, n_rt=1 if few else -(-Q // ROWS), li=li,
+        per_sm=24 if few else 4)
     flash_attention.launches += 1
     return out
 

@@ -9,6 +9,8 @@ evals, utils/toytokenizer.py, baseline_fp16.py) against the JAX package:
     tolerance on the same weights (params_from_numpy);
   - cli.generate / cli.passkey / cli.needle run end to end on the CPU with
     --kernel pallas (the default) at the committed toy quantizers' widths;
+  - cli.serve_demo serves every request its budget on the CPU, from the
+    page pool (--paged) and from the slot pool;
   - every option of the JAX CLIs' --help is an option of the port's.
 """
 
@@ -184,6 +186,25 @@ def test_cli_passkey_fp16_baseline_and_refusals():
         generate.main(TOY + ["--moe"])
 
 
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "slots"])
+def test_cli_serve_demo_runs(paged, capsys):
+    from kvquant_tpu_torch.cli import serve_demo
+
+    argv = [a for a in TOY if a not in ("--kernel", "pallas")] + [
+        "--slots", "2", "--requests", "3", "--prompt-len", "40",
+        "--max-new-tokens", "8", "--page-tokens", "256"]
+    comps = serve_demo.main(argv + (["--paged"] if paged else []))
+    rng = np.random.default_rng(0)  # the CLI's request draws
+    budgets = []
+    for _ in range(3):
+        rng.integers(0, 512, size=int(40 * rng.uniform(0.5, 1.0)))
+        budgets.append(int(8 * rng.uniform(0.5, 1.0)))
+    assert [len(comps[i].tokens) for i in range(3)] == budgets
+    out = capsys.readouterr().out
+    assert ("paged pool: 2 pages x 256 tok" in out) == paged
+    assert "served 3 requests" in out
+
+
 def _options(main, capsys):
     with pytest.raises(SystemExit):
         main(["--help"])
@@ -191,7 +212,8 @@ def _options(main, capsys):
                           capsys.readouterr().out))
 
 
-@pytest.mark.parametrize("name", ["generate", "passkey", "needle"])
+@pytest.mark.parametrize("name", ["generate", "passkey", "needle",
+                                  "serve_demo"])
 def test_cli_options_cover_jax(name, capsys):
     import importlib
 
