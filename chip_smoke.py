@@ -76,6 +76,28 @@ K1's body addressed through a page table:
      on both, and the same as the port's isolated generate on the card;
  17. K5 alone at one LLaMA-2-7B layer: B=1 at 32K (32 permuted pages) and
      B=4 at 8K each; kernel, plain, bytes bound, K1 on the same tokens.
+int4x2 (the head-paired 2-bit container) through K1 and K5:
+ 18. K1 and K5 int4x2 against their plain versions: pre / post RoPE x
+     channels (n_kc 4) / slots (cap 2) / no sparse x sink 0 / 5 x head group
+     2 / 4 (and 16 with channels) x D 64 / 128; K1 decode at B=2 with
+     unequal positions, a first and a later prefill chunk, a sliding
+     window; K5 over pages of 256 / 1024 as phase 14; fp32 and bf16 dots;
+     K5 == K1 on the same tokens;
+ 19. the 2-bit exact-density main path at LLaMA-2-7B width (int4x2, post-
+     RoPE K, 4 static K channels per head group of 4, no V slots, sink 5,
+     kernel "flash"): quantized chunked prefill of 2048 tokens (chunk 256)
+     and 64 greedy tokens; K1 32 x (chunks + 64) times, K2-K5 never; K1
+     against plain on the live cache; decode tok/s at 2K, 32K (profiled)
+     and 128K;
+ 20. the accuracy oracle on the card: the port's uniform 2-bit fit on the
+     toy checkpoint's roped calibration tokens, deployed through K1 ==
+     simulated within 0.02 in log and card == CPU within 1e-3; the
+     committed nuq3 quantizers through K3 / K4 == simulated; PagedServer
+     with int4x2 card == CPU; cli.calibrate and cli.eval_ppl --deployed
+     --kernel flash at LLaMA-2-7B width (K1 32 x 256 times);
+ 21. K1 (decode at 32K / 128K / 512K, a 256-row chunk at 32K) and K5 (B=4
+     x 8K) on int4x2 at one LLaMA-2-7B layer: kernel, plain, bound; K1 on
+     int4 containers and K2 on the same int4x2 tokens as context.
 The line before the last lists every ported kernel as JSON; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -116,6 +138,18 @@ def agree(tag, got, want, dot_bf16):
         f"{err:.3e} (tol {bound:.1e}, max|plain| {scale:.3e})")
     if not err <= bound:
         raise AssertionError(f"kernel disagrees with plain: {tag}")
+    return err
+
+
+def check_case(tag, got, want, dot_bf16, worst):
+    """Hold ``got`` to ``want`` in the dot mode's bound; track the worst
+    |err| / bound per dot mode in ``worst``."""
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    bound = BF16_TOL * scale if dot_bf16 else FP32_TOL * (1 + scale)
+    if not (err <= bound and bool(torch.isfinite(got).all())):
+        agree(tag, got, want, dot_bf16)  # logs and raises
+    worst[dot_bf16] = max(worst[dot_bf16], err / bound)
     return err
 
 
@@ -177,10 +211,10 @@ def kernel_operands(dcfg, mcfg, L, B, G, Tc, gen, dev):
     # random container bytes: every nibble (int4 at 4 bits, int4x2 at 2+2
     # bits) and every byte (int8 at 8 bits) is a valid code
     assert bits == {"int4": 4, "int8": 8, "int4x2": 2}[dcfg.codes]
-    Hc = Hkv // 2 if dcfg.codes == "int4x2" else Hkv
 
     def container():
-        return torch.randint(0, 256, (L, B, Hc, Tc, dcfg.code_cols),
+        return torch.randint(0, 256, (L, B, dcfg.code_heads, Tc,
+                                      dcfg.code_cols),
                              generator=gen, device=dev,
                              dtype=torch.uint8).view(dcfg.code_dtype)
 
@@ -423,23 +457,13 @@ def phase_main_path(report):
     cfg32, dcfg32, qs32 = speed_config(ctx + steps + 8, 32)
     dq32 = deployed_from_quantizers(qs32, cfg.n_kv_heads, cfg.d_head,
                                     device="cuda")
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    ops = kernel_operands(dcfg32, cfg32, cfg.n_layers, 1, 1,
-                          dcfg32.cache_tokens, gen, torch.device("cuda"))
-    from kvquant_tpu_torch.cache import KVCache
-
-    cache = KVCache(k_planes=ops["k_planes"], v_planes=ops["v_planes"],
-                    kv_out=ops["kv_out"], v_scale=ops["v_scale"],
-                    v_offset=ops["v_offset"], k_sink=ops["k_sink"],
-                    v_sink=ops["v_sink"],
-                    length=torch.full((1,), ctx, dtype=torch.int32,
-                                      device="cuda"))
+    cache = filled_cache(dcfg32, cfg.n_layers, ctx, 3)
     tok = torch.zeros((1,), dtype=torch.int32, device="cuda")
     tps32, _ = decode_profile(
         f"[3] {ctx} ctx", lambda i: engine.decode_step(
             params, cfg32, dcfg32, dq32, cache, tok, ctx + i), steps)
     report["decode_tps_32k"] = tps32
-    del cache, ops, params
+    del cache, params
     torch.cuda.empty_cache()
 
 
@@ -576,16 +600,34 @@ def k1_operands(dcfg, L, B, Tc, gen, dev):
     return ops
 
 
+def filled_cache(dcfg, n_layers, ctx, seed):
+    """A synthetic cache of ``ctx`` tokens (random containers and rows)."""
+    from kvquant_tpu_torch.cache import KVCache
+
+    ops = k1_operands(dcfg, n_layers, 1, dcfg.cache_tokens,
+                      torch.Generator(device="cuda").manual_seed(seed),
+                      torch.device("cuda"))
+    return KVCache(length=torch.full((1,), ctx, dtype=torch.int32,
+                                     device="cuda"),
+                   **{k: ops[k] for k in ("k_planes", "v_planes", "kv_out",
+                                          "v_scale", "v_offset", "k_sink",
+                                          "v_sink")})
+
+
 def k1_config(codes, bits, Hkv, D, G, Tc, sink, post, k_out, hg, window,
-              dot_bf16, L=2):
+              dot_bf16, L=2, n_kc=None):
+    """A K1 DeployConfig (k_out: "channels" cap 0 / "slots" cap 2 / "none"
+    no sparse rows; n_kc 3, or 16 at head group 16) and its ModelConfig."""
     from kvquant_tpu_torch.cache import DeployConfig
     from kvquant_tpu_torch.models.config import ModelConfig
 
     dcfg = DeployConfig.create(
         bits=bits, n_kv_heads=Hkv, d_head=D, max_len=Tc + sink, sink=sink,
         kernel="flash", dot_bf16=dot_bf16, head_group=hg, codes=codes,
-        post_rope_k=post, k_outliers=k_out, n_kc=3 if hg < 16 else 16,
-        cap_per_side=0 if k_out == "channels" else 2)
+        post_rope_k=post,
+        k_outliers="channels" if k_out == "channels" else "slots",
+        n_kc=n_kc or (3 if hg < 16 else 16), include_sparse=k_out != "none",
+        cap_per_side=2 if k_out == "slots" else 0)
     mcfg = ModelConfig(vocab_size=64, d_model=Hkv * G * D, n_layers=L,
                        n_heads=Hkv * G, n_kv_heads=Hkv, d_head=D, d_ff=64,
                        max_seq_len=Tc, sliding_window=window)
@@ -639,14 +681,9 @@ def phase_k1_vs_plain(report):
             torch.cuda.synchronize()
             want = fd.flash_attention_ref(*args, Tq=tq,
                                           k_ressc=ops["k_ressc"])
-            tag = (f"[6] {codes}{bits} {'post' if post else 'pre'} {k_out} "
-                   f"hg{hg} sink{sink} D{d} G{g} Tq{tq} win{window}")
-            err = float((got - want).abs().max())
-            scale = float(want.abs().max())
-            bound = BF16_TOL * scale if dot_bf16 else FP32_TOL * (1 + scale)
-            if not (err <= bound and bool(torch.isfinite(got).all())):
-                agree(tag, got, want, dot_bf16)  # logs and raises
-            worst[dot_bf16] = max(worst[dot_bf16], err / bound)
+            check_case(f"[6] {codes}{bits} {'post' if post else 'pre'} "
+                       f"{k_out} hg{hg} sink{sink} D{d} G{g} Tq{tq} "
+                       f"win{window}", got, want, dot_bf16, worst)
     log(f"[6] K1 == plain on {len(cases)} cases x 2 dot modes in "
         f"{time.perf_counter() - t0:.1f} s; worst |err| / bound: fp32 dots "
         f"{worst[False]:.3f} (bound 1e-4*(1+max|plain|)), bf16 dots "
@@ -698,7 +735,8 @@ def decode_profile(tag, step, steps, prof_steps=3):
     then one profiler pass over ``prof_steps`` more: device kernel time per
     step, device idle share (profiled device time over the step time of the
     unprofiled loop, since the profiler slows the host) and the top
-    kernels. ``step(i)`` runs the decode step at offset i."""
+    kernels. ``step(i)`` runs the decode step at offset i; with
+    ``prof_steps`` 0 only the wall time (idle share None)."""
     from torch.profiler import ProfilerActivity, profile
 
     for i in range(2):  # warm-up
@@ -709,6 +747,9 @@ def decode_profile(tag, step, steps, prof_steps=3):
         step(2 + i)
     torch.cuda.synchronize()
     tps = steps / (time.perf_counter() - t0)
+    if prof_steps == 0:
+        log(f"{tag} decode {tps:.2f} tok/s (host wall time, {steps} steps)")
+        return tps, None
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA], acc_events=True) as prof:
         for i in range(prof_steps):
@@ -736,14 +777,12 @@ def phase_k1_main_path(report):
     """The slice's main path at LLaMA-2-7B width: quantized chunked prefill
     of a 2048-token prompt and 64 greedy tokens, all through K1."""
     from kvquant_tpu_torch import engine
-    from kvquant_tpu_torch.cache import (KVCache, create_cache,
-                                         deployed_from_quantizers)
+    from kvquant_tpu_torch.cache import create_cache, deployed_from_quantizers
     from kvquant_tpu_torch.models import init_params
     from kvquant_tpu_torch.ops.kernels import flash_decode as fd
 
     T0, N, chunk = 2048, 64, 256
     cfg, dcfg, qs = faithful_config(T0 + N + 5, 32)
-    dev = torch.device("cuda")
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          dtype=torch.bfloat16, device="cuda")
     dq = deployed_from_quantizers(qs, cfg.n_kv_heads, cfg.d_head,
@@ -822,20 +861,14 @@ def phase_k1_main_path(report):
     cfg32, dcfg32, qs32 = faithful_config(ctx + steps + 8, 32)
     dq32 = deployed_from_quantizers(qs32, cfg.n_kv_heads, cfg.d_head,
                                     device="cuda")
-    ops = k1_operands(dcfg32, cfg.n_layers, 1, dcfg32.cache_tokens,
-                      torch.Generator(device="cuda").manual_seed(3), dev)
-    cache = KVCache(length=torch.full((1,), ctx, dtype=torch.int32,
-                                      device="cuda"),
-                    **{k: ops[k] for k in ("k_planes", "v_planes", "kv_out",
-                                           "v_scale", "v_offset", "k_sink",
-                                           "v_sink")})
+    cache = filled_cache(dcfg32, cfg.n_layers, ctx, 3)
     tok = torch.zeros((1,), dtype=torch.int32, device="cuda")
     tps32, idle = decode_profile(
         f"[7] {ctx} ctx", lambda i: engine.decode_step(
             params, cfg32, dcfg32, dq32, cache, tok, ctx + i), steps)
     report["k1_decode_tps_32k"] = tps32
     report["k1_idle_32k"] = idle
-    del cache, ops, params
+    del cache, params
     torch.cuda.empty_cache()
 
 
@@ -1108,8 +1141,7 @@ def phase_pallas_main_path(report):
     import shutil
 
     from kvquant_tpu_torch import baseline_fp16, engine
-    from kvquant_tpu_torch.cache import (KVCache, create_cache,
-                                         deployed_from_quantizers)
+    from kvquant_tpu_torch.cache import create_cache, deployed_from_quantizers
     from kvquant_tpu_torch.cli import generate as generate_cli
     from kvquant_tpu_torch.cli import needle as needle_cli
     from kvquant_tpu_torch.cli import passkey as passkey_cli
@@ -1195,21 +1227,14 @@ def phase_pallas_main_path(report):
     dcfg32 = dataclasses.replace(dcfg32, kernel="pallas")
     dq32 = deployed_from_quantizers(qs32, cfg.n_kv_heads, cfg.d_head,
                                     device="cuda")
-    ops = k1_operands(dcfg32, cfg.n_layers, 1, dcfg32.cache_tokens,
-                      torch.Generator(device="cuda").manual_seed(3),
-                      torch.device("cuda"))
-    cache = KVCache(length=torch.full((1,), ctx, dtype=torch.int32,
-                                      device="cuda"),
-                    **{k: ops[k] for k in ("k_planes", "v_planes", "kv_out",
-                                           "v_scale", "v_offset", "k_sink",
-                                           "v_sink")})
+    cache = filled_cache(dcfg32, cfg.n_layers, ctx, 3)
     tps32, idle32 = decode_profile(
         f"[11] pallas {ctx} ctx", lambda i: engine.decode_step(
             params, cfg, dcfg32, dq32, cache, tok, ctx + i), 16)
     report.update(k34_prefill_s_2k=prefill_s, k34_decode_tps_2k=tps2,
                   k34_idle_2k=idle2, k34_decode_tps_32k=tps32,
                   k34_idle_32k=idle32)
-    del cache, ops
+    del cache
     torch.cuda.empty_cache()
 
     # ---- the fp16-KV baseline on the same weights (context only) ----
@@ -1411,17 +1436,12 @@ def phase_k5_vs_plain(report):
                                               dcfg, mcfg)
             tag = (f"[14] {codes}{bits} {'post' if post else 'pre'} {k_out} "
                    f"hg{hg} sink{sink} P{P}")
-            err = float((got - want).abs().max())
-            scale = float(want.abs().max())
-            bound = BF16_TOL * scale if dot_bf16 else FP32_TOL * (1 + scale)
-            if not (err <= bound and bool(torch.isfinite(got).all())):
-                agree(tag, got, want, dot_bf16)  # logs and raises
-            worst[dot_bf16] = max(worst[dot_bf16], err / bound)
+            check_case(tag, got, want, dot_bf16, worst)
             # JAX's ground truth: the paged kernel equals the contiguous one
             k1 = k1_on_pages(q, pool, table, dq, 1, pos, dcfg, mcfg,
                              fd.flash_attention)
             diff = float((got - k1).abs().max())
-            if not diff <= FP32_TOL * (1 + scale):
+            if not diff <= FP32_TOL * (1 + float(want.abs().max())):
                 raise AssertionError(f"{tag}: K5 != K1 on the same tokens "
                                      f"({diff:.3e})")
             k1_diff = max(k1_diff, diff)
@@ -1703,6 +1723,541 @@ def phase_k5_times(report):
     report["k5_times"] = rows
 
 
+# ---------------------------------------------------------------------------
+# int4x2 (the head-paired 2-bit container) through K1 and K5
+# ---------------------------------------------------------------------------
+
+
+def phase_x2_vs_plain(report):
+    """K1 and K5 on int4x2 against their plain versions, and K5 against K1
+    on the same tokens."""
+    from kvquant_tpu_torch.ops.kernels import flash_decode as fd
+    from kvquant_tpu_torch.ops.kernels import paged_decode as pdk
+
+    dev = torch.device("cuda")
+    L, B, Tc = 2, 2, 1024
+    outl = (("channels", 2), ("channels", 4), ("slots", 2), ("slots", 4),
+            ("none", 2), ("none", 4))
+    # (post, k_out, hg, sink, D, Hkv, G, Tq, pos, window)
+    k1 = []
+    for post in (False, True):
+        for k_out, hg in outl:
+            for sink in (0, 5):
+                for D in (64, 128):
+                    k1.append((post, k_out, hg, sink, D, 4, 2, 1, [3, 700],
+                               None))
+                for tq, pos in ((128 + sink, [0, 0]),
+                                (128, [sink + 128, sink + 384])):
+                    k1.append((post, k_out, hg, sink, 128, 4, 2, tq, pos,
+                               None))
+        for sink in (0, 5):  # hg 16 with channels, the speed layout
+            for tq, pos in ((1, [5, 1000]), (128 + sink, [0, 0]),
+                            (128, [sink + 128, sink + 640])):
+                k1.append((post, "channels", 16, sink, 128, 16, 1, tq, pos,
+                           None))
+    k1 += [(False, "slots", 4, 5, 128, 4, 2, 1, [700, 1001], 300),
+           (True, "channels", 2, 5, 128, 4, 2, 128, [389, 645], 200)]
+    worst = {False: 0.0, True: 0.0}
+    t0 = time.perf_counter()
+    for dot_bf16 in (False, True):
+        for (post, k_out, hg, sink, D, Hkv, G, tq, pos, window) in k1:
+            dcfg, mcfg = k1_config("int4x2", 2, Hkv, D, G, Tc, sink, post,
+                                   k_out, hg, window, dot_bf16, n_kc=4)
+            gen = torch.Generator(device=dev).manual_seed(51)
+            ops = k1_operands(dcfg, L, B, Tc, gen, dev)
+            q = torch.randn((B, Hkv, G * tq, D), generator=gen, device=dev)
+            p = torch.tensor(pos, dtype=torch.int32, device=dev)
+            args = (q, ops["k_planes"], ops["v_planes"], ops["kv_out"],
+                    ops["k_range"], ops["k_offset"], ops["v_scale"],
+                    ops["v_offset"], ops["k_sink"], ops["v_sink"],
+                    ops["k_lut"], ops["v_lut"], 1, p, dcfg, mcfg)
+            got = fd.flash_attention(*args, Tq=tq, k_ressc=ops["k_ressc"])
+            torch.cuda.synchronize()
+            want = fd.flash_attention_ref(*args, Tq=tq,
+                                          k_ressc=ops["k_ressc"])
+            check_case(f"[18] K1 int4x2 {'post' if post else 'pre'} {k_out} "
+                       f"hg{hg} sink{sink} D{D} G{G} Tq{tq} win{window}",
+                       got, want, dot_bf16, worst)
+    log(f"[18] K1 int4x2 == plain on {len(k1)} cases x 2 dot modes in "
+        f"{time.perf_counter() - t0:.1f} s; worst |err| / bound: fp32 dots "
+        f"{worst[False]:.3f}, bf16 dots {worst[True]:.3f}")
+    report["x2_k1_grid_worst_ratio"] = dict(worst)
+
+    worst5 = {False: 0.0, True: 0.0}
+    k1_diff, n5 = 0.0, 0
+    t0 = time.perf_counter()
+    for dot_bf16 in (False, True):
+        for post in (False, True):
+            for k_out, hg in (("channels", 2), ("slots", 4), ("none", 2)):
+                for sink in (0, 5):
+                    for P in (256, 1024):
+                        dcfg, mcfg = k1_config("int4x2", 2, 4, 128, 2, 3 * P,
+                                               sink, post, k_out, hg, None,
+                                               dot_bf16, n_kc=4)
+                        dcfg = dataclasses.replace(dcfg, page_tokens=P)
+                        gen = torch.Generator(device=dev).manual_seed(52)
+                        pool, ops, table, pos = paged_case(dcfg, L, P, gen,
+                                                           dev)
+                        dq = paged_dq(ops)
+                        q = torch.randn((4, 4, 2, 128), generator=gen,
+                                        device=dev)
+                        got = pdk.paged_flash_decode(q, pool, table, dq, 1,
+                                                     pos, dcfg, mcfg)
+                        torch.cuda.synchronize()
+                        want = pdk.paged_flash_decode_ref(q, pool, table, dq,
+                                                          1, pos, dcfg, mcfg)
+                        tag = (f"[18] K5 int4x2 {'post' if post else 'pre'} "
+                               f"{k_out} hg{hg} sink{sink} P{P}")
+                        check_case(tag, got, want, dot_bf16, worst5)
+                        k1_ = k1_on_pages(q, pool, table, dq, 1, pos, dcfg,
+                                          mcfg, fd.flash_attention)
+                        diff = float((got - k1_).abs().max())
+                        if not diff <= FP32_TOL * (1 + float(
+                                want.abs().max())):
+                            raise AssertionError(f"{tag}: K5 != K1 on the "
+                                                 f"same tokens ({diff:.3e})")
+                        k1_diff = max(k1_diff, diff)
+                        n5 += 1
+    log(f"[18] K5 int4x2 == plain on {n5 // 2} cases x 2 dot modes in "
+        f"{time.perf_counter() - t0:.1f} s; worst |err| / bound: fp32 dots "
+        f"{worst5[False]:.3f}, bf16 dots {worst5[True]:.3f}; max |K5 - K1 "
+        f"on the same tokens| {k1_diff:.3e}")
+    report["x2_k5_grid_worst_ratio"] = dict(worst5)
+    report["x2_k5_vs_k1_max_diff"] = k1_diff
+
+
+def speed2_config(max_len, n_layers, cfg=None):
+    """The 2-bit exact-density speed config (benchmarks/ppl_table.py:
+    281-286) at LLaMA-2-7B width: int4x2, post-RoPE K, 4 static K channels
+    per head group of 4, no V slots, sink 5, K1; uniform 2-bit quantizers
+    drawn from a seed."""
+    from kvquant_tpu_torch.cache import DeployConfig
+    from kvquant_tpu_torch.models.config import LLAMA2_7B
+    from kvquant_tpu_torch.quant.artifacts import (
+        KQuantizer, VQuantizer, LayerQuantizers, QuantizerSet)
+
+    cfg = cfg or LLAMA2_7B
+    dcfg = DeployConfig.create(
+        bits=2, n_kv_heads=cfg.n_kv_heads, d_head=cfg.d_head,
+        max_len=max_len, sink=5, kernel="flash", head_group=4,
+        codes="int4x2", post_rope_k=True, k_outliers="channels", n_kc=4,
+        cap_per_side=0)
+    rng = np.random.default_rng(19)
+    lut = np.linspace(-1, 1, 4, dtype=np.float32)
+    layers = []
+    for _ in range(n_layers):
+        u = (np.abs(rng.normal(size=cfg.kv_hidden)) * 2 + 1).astype(np.float32)
+        layers.append(LayerQuantizers(
+            k=KQuantizer(upper=u, lower=(-u * 0.9).astype(np.float32),
+                         lut=lut.copy(),
+                         ressc=rng.random(cfg.kv_hidden).astype(np.float32)),
+            v=VQuantizer(lut=lut.copy())))
+    qs = QuantizerSet(layers=layers, bits=2, sparsity_threshold=0.99,
+                      cap_outliers=True, first_few_fp16=5,
+                      meta={"post_rope_k": True})
+    return cfg, dcfg, qs
+
+
+def phase_x2_main_path(report):
+    """The 2-bit exact-density main path at LLaMA-2-7B width: quantized
+    chunked prefill of a 2048-token prompt and 64 greedy tokens, all
+    attention through K1's int4x2 instances."""
+    from kvquant_tpu_torch import engine
+    from kvquant_tpu_torch.cache import create_cache, deployed_from_quantizers
+    from kvquant_tpu_torch.models import init_params
+    from kvquant_tpu_torch.ops.kernels import flash_decode as fd
+
+    T0, N, chunk = 2048, 64, 256
+    cfg, dcfg, qs = speed2_config(T0 + N + 5, 32)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         dtype=torch.bfloat16, device="cuda")
+    dq = deployed_from_quantizers(qs, cfg.n_kv_heads, cfg.d_head,
+                                  device="cuda")
+    prompt = torch.randint(0, cfg.vocab_size, (1, T0),
+                           generator=torch.Generator().manual_seed(1))
+    n_chunks = -(-(T0 - dcfg.sink) // chunk)
+    bpt = stored_bytes_per_token(dcfg)
+    log(f"[19] LLaMA-2-7B width, {cfg.n_layers} layers, bf16 weights; int4x2 "
+        f"2-bit post-RoPE, 4 static K channels per group of 4, no V slots, "
+        f"sink 5, kernel flash; cache {bpt:.0f} B/token/layer (nuq3 faithful "
+        f"{nuq_bytes_per_token(faithful_config(64, 1)[1])} B, fp16 "
+        f"{4 * cfg.kv_hidden} B)")
+
+    # prefill alone (also the warm-up of every shape the path uses)
+    cache = create_cache(dcfg, cfg.n_layers, 1, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.prefill_quantized(params, cfg, dcfg, dq, cache, prompt.cuda(),
+                             chunk=chunk)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    del cache
+
+    gcfg = engine.GenerateConfig(max_new_tokens=N)
+    read = reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, cache = engine.generate(params, cfg, dcfg, dq, prompt, gcfg,
+                                  prefill_mode="quantized", device="cuda")
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    n = read()
+    want = cfg.n_layers * (n_chunks + N)
+    report["x2_k1_launches"] = n["K1"]
+    log(f"[19] quantized prefill {T0} tokens ({n_chunks} chunks of {chunk}) "
+        f"{prefill_s:.3f} s; generate (prefill + {N} decode steps) "
+        f"{gen_s:.3f} s; launches {n} (K1 expected {want})")
+    if not (n["K1"] == want and n["K2"] == n["K3"] == n["K4"] == n["K5"] == 0):
+        raise AssertionError("the 2-bit main path did not run K1 alone per "
+                             "layer, chunk and step")
+    if not (toks.shape == (1, N) and int(toks.min()) >= 0
+            and int(toks.max()) < cfg.vocab_size):
+        raise AssertionError(f"bad tokens {toks.shape}")
+    _, logits = engine.decode_step(params, cfg, dcfg, dq, cache,
+                                   toks[:, -1], T0 + N)
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("non-finite logits")
+    decode_tps = N / (gen_s - prefill_s)
+    log(f"[19] decode {decode_tps:.2f} tok/s at {T0}-{T0 + N} context "
+        f"(64 / (generate - prefill) wall time)")
+
+    # the live cache: K1 against plain at the first and last layer
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    arrs = cache.arrays()
+    k_chan = fd.k_channel_index(dq.k_ressc, dcfg).to(torch.int32)
+    worst = 0.0
+    for tq, p0 in ((1, T0 + N), (256, 1029)):
+        q = torch.randn((1, cfg.n_kv_heads, tq, cfg.d_head), generator=gen,
+                        device="cuda")
+        pos = torch.tensor([p0], dtype=torch.int32, device="cuda")
+        for li in (0, cfg.n_layers - 1):
+            for d in (dcfg, dataclasses.replace(dcfg, dot_bf16=False)):
+                args = (q, arrs["k_planes"], arrs["v_planes"],
+                        arrs["kv_out"], dq.k_range, dq.k_offset,
+                        arrs["v_scale"], arrs["v_offset"], arrs["k_sink"],
+                        arrs["v_sink"], dq.k_lut_dec, dq.v_lut_dec, li, pos,
+                        d, cfg)
+                got = fd.flash_attention(*args, Tq=tq, k_chan=k_chan)
+                want_ = fd.flash_attention_ref(*args, Tq=tq, k_chan=k_chan)
+                worst = max(worst, agree(f"[19] live cache layer {li} Tq {tq}",
+                                         got, want_, d.dot_bf16))
+    report["x2_max_abs_err"] = worst
+    del cache, arrs
+
+    # decode at 32K (profiled) and 128K over synthetic filled caches
+    tok = torch.zeros((1,), dtype=torch.int32, device="cuda")
+    tps = {T0: decode_tps}
+    for ctx, prof in ((32768, True), (131072, False)):
+        _, dcfg_c, qs_c = speed2_config(ctx + 32, 32)
+        dq_c = deployed_from_quantizers(qs_c, cfg.n_kv_heads, cfg.d_head,
+                                        device="cuda")
+        cache = filled_cache(dcfg_c, cfg.n_layers, ctx, 3)
+        tps[ctx], idle = decode_profile(
+            f"[19] {ctx} ctx", lambda i: engine.decode_step(
+                params, cfg, dcfg_c, dq_c, cache, tok, ctx + i), 16,
+            prof_steps=3 if prof else 0)
+        if prof:
+            report["x2_idle_32k"] = idle
+        del cache
+        torch.cuda.empty_cache()
+    report["x2_decode_tps"] = tps
+    report["x2_prefill_s_2k"] = prefill_s
+    report["x2_bytes_per_token"] = bpt
+    log(f"[19] 2-bit int4x2 decode tok/s: " + ", ".join(
+        f"{c}: {t:.2f}" for c, t in tps.items()))
+    del params
+    torch.cuda.empty_cache()
+
+
+def toy_deployed_and_simulated(dev, qs, dcfg, windows, params_tree):
+    """(deployed ppl, simulated ppl) of the toy checkpoint on ``dev``."""
+    from kvquant_tpu_torch import engine
+    from kvquant_tpu_torch.cache import deployed_from_quantizers
+    from kvquant_tpu_torch.evals import perplexity
+    from kvquant_tpu_torch.models import params_from_numpy
+    from kvquant_tpu_torch.models import simquant_from_quantizers
+    from kvquant_tpu_torch.utils.toymodel import TOY_CFG as cfg
+
+    params = params_from_numpy(params_tree, cfg, device=dev)
+    dq = deployed_from_quantizers(qs, cfg.n_kv_heads, cfg.d_head, device=dev)
+    dep = engine.deployed_ppl(params, cfg, dcfg, dq, windows, device=dev)
+    sq = simquant_from_quantizers(
+        qs, v_mode="topk", n_kv_heads=cfg.n_kv_heads,
+        head_group=dcfg.head_group, k_outliers=dcfg.k_outliers,
+        cap_per_side=dcfg.cap_per_side, n_kc=dcfg.n_kc, device=dev)
+    return dep, perplexity(params, cfg, windows, simquant=sq)
+
+
+def phase_x2_oracle(report):
+    """The accuracy oracle on the card: calibration -> simulated ppl ->
+    deployed ppl on the committed toy checkpoint (int4x2 through K1; the
+    committed nuq3 quantizers through K3 / K4), PagedServer with int4x2
+    card == CPU, then cli.calibrate and cli.eval_ppl at LLaMA-2-7B
+    width."""
+    import os
+    import shutil
+
+    from kvquant_tpu_torch.cache import DeployConfig, deployed_from_quantizers
+    from kvquant_tpu_torch.cli import calibrate as calibrate_cli
+    from kvquant_tpu_torch.cli import eval_ppl as eval_ppl_cli
+    from kvquant_tpu_torch.models import params_from_numpy
+    from kvquant_tpu_torch.paged import PagedServer
+    from kvquant_tpu_torch.quant.artifacts import load_quantizers
+    from kvquant_tpu_torch.quant.calibration import (collect_kv_activations,
+                                                     fit_quantizers)
+    from kvquant_tpu_torch.serve import Request
+    from kvquant_tpu_torch.utils.toymodel import TOY_CFG as cfg
+    from kvquant_tpu_torch.utils.toymodel import (BigramLM,
+                                                  load_toy_checkpoint)
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    art = os.path.join(root, "artifacts")
+    tree, _, seed = load_toy_checkpoint(os.path.join(art, "toy_model.npz"))
+    lm = BigramLM(cfg.vocab_size, seed=seed)
+    ev = lm.sample(4, 256, seed=10_001)[:2]
+    cal = lm.sample(4, 256, seed=20_002)
+
+    # the speed config's quantizers, fitted on the card
+    params = params_from_numpy(tree, cfg, device="cuda")
+    k, v = collect_kv_activations(params, cfg, [cal], rope_k=True)
+    qs = fit_quantizers(k, v, bits=2, sparsity_threshold=0.99,
+                        cap_outliers=True, first_few_fp16=5, sample_seqlen=256,
+                        mode="uniform", meta={"post_rope_k": True})
+    del params, k, v
+    d2 = DeployConfig.create(
+        bits=2, n_kv_heads=cfg.n_kv_heads, d_head=cfg.d_head, max_len=261,
+        sink=5, head_group=4, codes="int4x2", post_rope_k=True,
+        k_outliers="channels", kernel="flash", cap_per_side=0)
+    read = reset_launches()
+    dep, sim = toy_deployed_and_simulated("cuda", qs, d2, ev, tree)
+    n = read()
+    dep_cpu, sim_cpu = toy_deployed_and_simulated("cpu", qs, d2, ev, tree)
+    gap = abs(np.log(dep) - np.log(sim))
+    log(f"[20] toy checkpoint, int4x2 speed config (uniform 2-bit fitted on "
+        f"the card on roped activations): simulated ppl {sim:.4f}, deployed "
+        f"ppl through K1 {dep:.4f} (|log gap| {gap:.2e}, bound 0.02; K1 "
+        f"launches {n['K1']}); CPU: deployed {dep_cpu:.4f}, simulated "
+        f"{sim_cpu:.4f} (card/cpu deployed {dep / dep_cpu - 1:+.2e})")
+    if not (gap < 0.02 and abs(dep / dep_cpu - 1) < 1e-3 and n["K1"] > 0):
+        raise AssertionError("int4x2 deployed != simulated, or card != cpu")
+
+    qs3 = load_quantizers(os.path.join(art, "toy_quantizers_3bit.npz"))
+    d3 = DeployConfig.create(bits=3, n_kv_heads=cfg.n_kv_heads,
+                             d_head=cfg.d_head, max_len=261, sink=5,
+                             head_group=4, kernel="pallas")
+    read = reset_launches()
+    dep3, sim3 = toy_deployed_and_simulated("cuda", qs3, d3, ev, tree)
+    n = read()
+    gap3 = abs(np.log(dep3) - np.log(sim3))
+    log(f"[20] toy checkpoint, committed nuq3 quantizers hg 4: simulated "
+        f"{sim3:.4f}, deployed through K3/K4 {dep3:.4f} (|log gap| "
+        f"{gap3:.2e}; launches {n})")
+    if not (gap3 < 0.02 and n["K3"] > 0 and n["K4"] > 0):
+        raise AssertionError("nuq3 deployed through K3/K4 != simulated")
+    report["x2_oracle"] = dict(sim=sim, dep=dep, dep_cpu=dep_cpu,
+                               sim_nuq3=sim3, dep_nuq3=dep3)
+
+    # PagedServer with int4x2 on the toy checkpoint: card == CPU
+    P = 256
+    dp = dataclasses.replace(d2, dot_bf16=False, max_len=P + 5,
+                             page_tokens=P)
+    rng = np.random.default_rng(20)
+    reqs = [(rng.integers(0, cfg.vocab_size, m).astype(np.int32), b)
+            for m, b in ((16, 12), (40, 9), (25, 16), (33, 7))]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        srv = PagedServer(params_from_numpy(tree, cfg, device=dev), cfg, dp,
+                          deployed_from_quantizers(qs, cfg.n_kv_heads,
+                                                   cfg.d_head, device=dev),
+                          n_pages=2, n_slots=2, max_pages_per_slot=1,
+                          admit_mode="chunked", burst=8, device=dev)
+        read = reset_launches()
+        comps = srv.run([Request(rid=i, prompt=p, max_new_tokens=m)
+                         for i, (p, m) in enumerate(reqs)])
+        if dev == "cuda":
+            n = read()
+        out[dev] = [comps[i].tokens for i in range(len(reqs))]
+    same = out["cuda"] == out["cpu"]
+    log(f"[20] PagedServer int4x2 toy checkpoint (P {P}, 2 slots, 4 "
+        f"requests): card == cpu: {same}; card launches {n}")
+    if not (same and n["K5"] > 0 and n["K1"] > 0):
+        raise AssertionError(f"card {out['cuda']} cpu {out['cpu']}")
+
+    # the CLIs at LLaMA-2-7B width (their own random init)
+    work = os.path.join(root, "kvquant_tpu_torch", "_build", "smoke_work")
+    os.makedirs(work, exist_ok=True)
+    qpath = os.path.join(work, "cli_uniform2.npz")
+    big = ["--toy-layers", "32", "--toy-dmodel", "4096", "--toy-heads", "32",
+           "--toy-vocab", "32000", "--device", "cuda", "--seqlen", "256",
+           "--post-rope-k", "--k-outliers", "channels"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    calibrate_cli.main(big + ["--abits", "2", "--mode", "uniform",
+                              "--nsamples", "2", "--output", qpath])
+    torch.cuda.synchronize()
+    cal_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    read = reset_launches()
+    t0 = time.perf_counter()
+    ppl, dep7 = eval_ppl_cli.main(big + ["--quantizers", qpath, "--deployed",
+                                         "--kernel", "flash",
+                                         "--max-windows", "2"])
+    torch.cuda.synchronize()
+    ev_s = time.perf_counter() - t0
+    n = read()
+    log(f"[20] cli.calibrate (uniform 2-bit, 2 x 256 tokens) at LLaMA-2-7B "
+        f"width {cal_s:.1f} s; cli.eval_ppl --deployed --kernel flash: "
+        f"simulated ppl {ppl:.4f}, deployed ppl {dep7:.4f} in {ev_s:.1f} s "
+        f"(model init included); launches {n} (K1 expected 32 x 256)")
+    if not (np.isfinite([ppl, dep7]).all() and n["K1"] == 32 * 256):
+        raise AssertionError("the CLIs did not run through K1")
+    report["x2_cli"] = dict(sim=ppl, dep=dep7, calibrate_s=cal_s,
+                            eval_s=ev_s, k1_launches=n["K1"])
+    shutil.rmtree(work)
+    torch.cuda.empty_cache()
+
+
+def phase_x2_times(report):
+    """K1 and K5 on int4x2 at one LLaMA-2-7B layer (Hkv 32, D 128, hg 4,
+    channels n_kc 4, cap 0, post-RoPE, bf16 dots): K1 decode at 32K, 128K
+    and 512K and a 256-row chunk at 32K; K5 at B=4 x 8K over permuted pages
+    of 1024. Context: K1 on int4 containers and K2 on the same int4x2
+    tokens."""
+    from kvquant_tpu_torch.ops.kernels import flash_decode as fd
+    from kvquant_tpu_torch.ops.kernels import flash_serial as fs
+    from kvquant_tpu_torch.ops.kernels import paged_decode as pdk
+    from kvquant_tpu_torch.paged import PagedPool
+
+    dev = torch.device("cuda")
+    rows = []
+    for kind, ctx in (("decode", 32768), ("decode", 131072),
+                      ("decode", 524288), ("prefill", 32768)):
+        tq = 1 if kind == "decode" else 256
+        cfg, dcfg, _ = speed2_config(ctx + tq + 8, 1)
+        Hkv, D, S = cfg.n_kv_heads, cfg.d_head, dcfg.sink
+        gen = torch.Generator(device=dev).manual_seed(7)
+        ops = k1_operands(dcfg, 1, 1, dcfg.cache_tokens, gen, dev)
+        q = torch.randn((1, Hkv, tq, D), generator=gen, device=dev)
+        p0 = ctx - 1 if kind == "decode" else ctx
+        pos = torch.tensor([p0], dtype=torch.int32, device=dev)
+
+        def run(fn, d=dcfg, o=ops):
+            return call(lambda *a, **k: fn(*a, Tq=tq, **k), q, o, 0, pos, d,
+                        cfg)
+
+        d32 = dataclasses.replace(dcfg, dot_bf16=False)
+        err = max(agree(f"[21] K1 int4x2 {kind} ctx {ctx}",
+                        run(fd.flash_attention), run(fd.flash_attention_ref),
+                        True),
+                  agree(f"[21] K1 int4x2 {kind} ctx {ctx}",
+                        run(fd.flash_attention, d32),
+                        run(fd.flash_attention_ref, d32), False))
+        torch.cuda.empty_cache()
+        kern = lambda: run(fd.flash_attention)  # noqa: E731
+        ms = device_ms(kern)
+        plain_ms = device_ms(lambda: run(fd.flash_attention_ref), n=1,
+                             reps=3, warmup=1)
+        torch.cuda.empty_cache()
+        ms2 = device_ms(kern)
+        last = p0 + tq - 1 - S
+        pairs = sum(p0 + r - S + 1 + S for r in range(tq))
+        nbytes = ((last + 1) * stored_bytes_per_token(dcfg)
+                  + 4 * Hkv * D * (2 * S + 2 * tq))
+        flops = 4 * pairs * D * Hkv
+        b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        b_ops = flops / BF16_FLOPS * 1e3
+        row = dict(kernel="K1", kind=kind, ctx=ctx, tq=tq, ms=min(ms, ms2),
+                   ms_runs=[ms, ms2], plain_ms=plain_ms,
+                   bound_ms=max(b_bytes, b_ops),
+                   bound_by="bytes" if b_bytes >= b_ops else "operations",
+                   bytes=nbytes, flops=flops, max_abs_err=err)
+        ctx_note = ""
+        if kind == "decode" and ctx <= 131072:
+            # context on the same tokens: K2 on these int4x2 arrays, and
+            # K1 on int4 containers of the same token count
+            d2 = dataclasses.replace(dcfg, kernel="flash_serial")
+            chan = fs.k_channel_index(ops["k_ressc"], d2).to(torch.int32)
+            row["k2_same_tokens_ms"] = device_ms(lambda: call(
+                lambda *a, **k: fs.flash_serial_decode(*a, k_chan=chan),
+                q, ops, 0, pos, d2, cfg))
+            d4 = dataclasses.replace(dcfg, codes="int4", bits=4)
+            ops4 = k1_operands(d4, 1, 1, dcfg.cache_tokens, gen, dev)
+            row["k1_int4_same_tokens_ms"] = device_ms(
+                lambda: run(fd.flash_attention, d4, ops4))
+            del ops4
+            ctx_note = (f"; context: K2 on the same int4x2 tokens "
+                        f"{row['k2_same_tokens_ms']:.4f} ms, K1 on int4 "
+                        f"containers of the same length "
+                        f"{row['k1_int4_same_tokens_ms']:.4f} ms")
+        log(f"[21] K1 int4x2 {kind} Tq {tq} ctx {ctx}: kernel "
+            f"{row['ms']:.4f} ms (runs {ms:.4f}, {ms2:.4f}), plain "
+            f"{plain_ms:.3f} ms, bound {row['bound_ms']:.4f} ms by "
+            f"{row['bound_by']} ({nbytes / 1e6:.1f} MB = {b_bytes:.4f} ms; "
+            f"{flops / 1e9:.2f} GFLOP = {b_ops:.4f} ms), |err| {err:.2e}"
+            f"{ctx_note}")
+        rows.append(row)
+        del ops
+        torch.cuda.empty_cache()
+
+    # K5: B=4 slots at 8K each over permuted pages of 1024
+    P, B, ctx = 1024, 4, 8192
+    cfg, dcfg, _ = speed2_config(ctx + 8, 1)
+    dcfg = dataclasses.replace(dcfg, page_tokens=P)
+    Hkv, D, S = cfg.n_kv_heads, cfg.d_head, dcfg.sink
+    MP = ctx // P
+    gen = torch.Generator(device=dev).manual_seed(17)
+    ops = k1_operands(dcfg, 1, B * MP, P, gen, dev)
+    sinks = k1_operands(dcfg, 1, B, 128, gen, dev)
+    pool = PagedPool(k_planes=ops["k_planes"], v_planes=ops["v_planes"],
+                     kv_out=ops["kv_out"], v_scale=ops["v_scale"],
+                     v_offset=ops["v_offset"], k_sink=sinks["k_sink"],
+                     v_sink=sinks["v_sink"])
+    dq = paged_dq(ops)
+    table = torch.randperm(B * MP, generator=torch.Generator().manual_seed(18)
+                           ).to(torch.int32).reshape(B, MP).to(dev)
+    pos = torch.full((B,), ctx - 1, dtype=torch.int32, device=dev)
+    q = torch.randn((B, Hkv, 1, D), generator=gen, device=dev)
+
+    def run5(fn, d=dcfg):
+        return fn(q, pool, table, dq, 0, pos, d, cfg)
+
+    d32 = dataclasses.replace(dcfg, dot_bf16=False)
+    err = max(agree("[21] K5 int4x2", run5(pdk.paged_flash_decode),
+                    run5(pdk.paged_flash_decode_ref), True),
+              agree("[21] K5 int4x2", run5(pdk.paged_flash_decode, d32),
+                    run5(pdk.paged_flash_decode_ref, d32), False))
+    kern = lambda: run5(pdk.paged_flash_decode)  # noqa: E731
+    ms = device_ms(kern)
+    plain_ms = device_ms(lambda: run5(pdk.paged_flash_decode_ref), n=2,
+                         reps=3, warmup=1)
+    ms2 = device_ms(kern)
+    # K1 over the same tokens, gathered contiguously once (context)
+    g = pdk.gather_layer(pool, pdk.live_pages(table, pos, dcfg), 0, dcfg)
+    one = lambda t: t[0][None].contiguous()  # noqa: E731
+    k1_args = (q, g["k_planes"][None], g["v_planes"][None],
+               g["kv_out"][None], one(dq.k_range), one(dq.k_offset),
+               g["v_scale"][None], g["v_offset"][None], one(pool.k_sink),
+               one(pool.v_sink), one(dq.k_lut_dec), one(dq.v_lut_dec), 0,
+               pos, dcfg, cfg)
+    k1_ms = device_ms(lambda: fd.flash_attention(*k1_args,
+                                                 k_ressc=one(dq.k_ressc)))
+    nbytes = (B * (ctx - S) * stored_bytes_per_token(dcfg)
+              + 4 * Hkv * D * (2 * S + 2) * B + 4 * B * MP)
+    row = dict(kernel="K5", B=B, ctx=ctx, pages=B * MP, ms=min(ms, ms2),
+               ms_runs=[ms, ms2], plain_ms=plain_ms,
+               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+               bytes=nbytes, k1_same_tokens_ms=k1_ms, max_abs_err=err)
+    log(f"[21] K5 int4x2 B {B} ctx {ctx} ({B * MP} permuted pages of {P}): "
+        f"kernel {row['ms']:.4f} ms (runs {ms:.4f}, {ms2:.4f}), plain "
+        f"{plain_ms:.3f} ms, bound {row['bound_ms']:.4f} ms by bytes "
+        f"({nbytes / 1e6:.1f} MB), |err| {err:.2e}; context: K1 on the same "
+        f"tokens contiguous {k1_ms:.4f} ms")
+    rows.append(row)
+    del ops, pool, g, k1_args
+    torch.cuda.empty_cache()
+    report["x2_times"] = rows
+
+
 PHASES = {1: phase_device_and_build, 2: phase_kernel_vs_plain,
           3: phase_main_path, 4: phase_card_vs_cpu, 5: phase_times,
           6: phase_k1_vs_plain, 7: phase_k1_main_path,
@@ -1710,7 +2265,9 @@ PHASES = {1: phase_device_and_build, 2: phase_kernel_vs_plain,
           10: phase_k34_vs_plain, 11: phase_pallas_main_path,
           12: phase_pallas_card_vs_cpu, 13: phase_k34_times,
           14: phase_k5_vs_plain, 15: phase_paged_main_path,
-          16: phase_paged_card_vs_cpu, 17: phase_k5_times}
+          16: phase_paged_card_vs_cpu, 17: phase_k5_times,
+          18: phase_x2_vs_plain, 19: phase_x2_main_path,
+          20: phase_x2_oracle, 21: phase_x2_times}
 
 
 def main(argv=None) -> int:
@@ -1768,6 +2325,18 @@ def main(argv=None) -> int:
             "shape": f"B=1 Hkv=32 G=1 D=128 nuq3 pre-RoPE slots cap=2 hg=4 "
                      f"sink=5, {t['kind']} Tq={t['tq']}, {t['ctx']} tokens",
         })
+        if 21 in phases and 19 in phases:
+            x = report["x2_times"][0]  # int4x2 decode at 32K
+            kernels[-1].update({
+                "int4x2_launches": report["x2_k1_launches"],
+                "int4x2_ms": x["ms"], "int4x2_plain_ms": x["plain_ms"],
+                "int4x2_bound_ms": x["bound_ms"],
+                "int4x2_max_abs_err": max(report["x2_max_abs_err"], max(
+                    r["max_abs_err"] for r in report["x2_times"])),
+                "int4x2_shape": "B=1 Hkv=32 G=1 D=128 int4x2 post-RoPE "
+                                "channels n_kc=4 cap=0 hg=4 sink=5, decode "
+                                f"Tq=1, {x['ctx']} tokens",
+            })
     if 13 in phases and 11 in phases:
         for name, body_line, launches in (
                 ("qk_fused", 156, report["k3_launches"]),
@@ -1805,6 +2374,17 @@ def main(argv=None) -> int:
                      f"cap=2 hg=4 sink=5, {t['ctx']} tokens per slot in "
                      f"{t['pages']} permuted pages of 1024",
         })
+        if 21 in phases:
+            x = report["x2_times"][-1]  # int4x2 K5, B=4 at 8K
+            kernels[-1].update({
+                "int4x2_ms": x["ms"], "int4x2_plain_ms": x["plain_ms"],
+                "int4x2_bound_ms": x["bound_ms"],
+                "int4x2_max_abs_err": x["max_abs_err"],
+                "int4x2_shape": f"B={x['B']} Hkv=32 G=1 D=128 int4x2 "
+                                "post-RoPE channels n_kc=4 cap=0 hg=4 sink=5, "
+                                f"{x['ctx']} tokens per slot in "
+                                f"{x['pages']} permuted pages of 1024",
+            })
     if kernels:
         log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

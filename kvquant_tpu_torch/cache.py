@@ -90,6 +90,13 @@ class DeployConfig:
             else self.d_head
 
     @property
+    def code_heads(self) -> int:
+        """Head axis of an integer container: n_kv_heads, or half of it for
+        int4x2, whose container head j holds kv heads 2j and 2j + 1."""
+        return self.n_kv_heads // 2 if self.codes == "int4x2" \
+            else self.n_kv_heads
+
+    @property
     def code_bias(self) -> int:
         """Offset between the signed container code and the unsigned
         codebook index (0 for int4x2, whose pairing absorbs the bias)."""
@@ -199,8 +206,8 @@ def create_cache(dcfg: DeployConfig, n_layers: int, batch: int,
     if dcfg.codes == "nuq":
         code_shape, code_dt = (L, B, H, dcfg.bits, Tc // 32, D), torch.int32
     else:
-        Hc = H // 2 if dcfg.codes == "int4x2" else H
-        code_shape, code_dt = (L, B, Hc, Tc, dcfg.code_cols), dcfg.code_dtype
+        code_shape = (L, B, dcfg.code_heads, Tc, dcfg.code_cols)
+        code_dt = dcfg.code_dtype
     return KVCache(
         k_planes=z(code_shape, code_dt),
         v_planes=z(code_shape, code_dt),

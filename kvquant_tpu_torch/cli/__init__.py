@@ -6,7 +6,9 @@ same flags and defaults, plus ``--device``):
   python -m kvquant_tpu_torch.cli.needle     needle in a haystack
   python -m kvquant_tpu_torch.cli.serve_demo continuous batching (slot or
                                              page pool)
+  python -m kvquant_tpu_torch.cli.calibrate  fit K / V quantizers
+  python -m kvquant_tpu_torch.cli.eval_ppl   simulated (and deployed) ppl
 
-eval_ppl, deploy, calibrate and fisher wait for the simulated path,
-calibration and parallelism (ROADMAP queue 1 items 8, 9, 12).
+deploy and fisher wait for parallelism and Fisher information (ROADMAP
+queue 1 items 9 and 12).
 """

@@ -1,5 +1,5 @@
-"""Shared CLI plumbing: model loading and the tokenizer (port of
-kvquant_tpu/cli/common.py:14-81,135-187).
+"""Shared CLI plumbing: model loading, data and the tokenizer (port of
+kvquant_tpu/cli/common.py:14-81,126-187).
 
 Every port CLI takes ``--device`` (default ``cuda``, which raises without a
 card; ``cpu`` runs the kernels' plain PyTorch versions). Without
@@ -9,8 +9,7 @@ card; ``cpu`` runs the kernels' plain PyTorch versions). Without
 the JAX CLIs' ``jax.random.PRNGKey(0)`` draws, and between the card's and
 the CPU's generators. ``--model`` (the HF loader) and ``--moe`` are not
 ported (ROADMAP queue 1 item 11) and raise NotImplementedError. The
-parallel and data flags arrive with the CLIs that use them (eval_ppl,
-deploy, calibrate, fisher).
+parallel flags arrive with the CLIs that use them (deploy, fisher).
 """
 
 from __future__ import annotations
@@ -93,6 +92,28 @@ def add_storage_args(ap: argparse.ArgumentParser):
     ap.add_argument("--n-kc", type=int, default=4,
                     help="static K outlier channels per head group "
                          "(--k-outliers channels)")
+
+
+def add_data_args(ap: argparse.ArgumentParser):
+    ap.add_argument("--dataset", default="synthetic",
+                    help="synthetic | text (with --dataset-path)")
+    ap.add_argument("--dataset-path", default=None)
+    ap.add_argument("--nsamples", type=int, default=16)
+    ap.add_argument("--seqlen", type=int, default=2048)
+    ap.add_argument("--seed", type=int, default=0)
+
+
+def load_data(args, cfg):
+    """(calibration windows, eval windows) as numpy (N, seqlen) int32, the
+    JAX CLIs' windows for the same flags (data.get_loaders)."""
+    from ..data import get_loaders
+
+    return get_loaders(
+        args.dataset, nsamples=args.nsamples, seed=args.seed,
+        seqlen=args.seqlen, vocab_size=cfg.vocab_size,
+        tokenizer=load_tokenizer(args) if args.dataset_path else None,
+        path=args.dataset_path,
+    )
 
 
 def load_model(args):

@@ -4,8 +4,9 @@
 //
 // Replaces kvquant_tpu/ops/pallas/flash_decode.py:_flash_kernel (the TPU
 // kernel behind flash_attention / flash_decode): one layer `li` of the full
-// (L, ...) cache arrays; codes as nuq bit planes (2-4 bits, any codebook) or
-// int4 / int8 containers (affine codebook); keys stored pre-RoPE (rotated
+// (L, ...) cache arrays; codes as nuq bit planes (2-4 bits, any codebook),
+// int4 / int8 containers (affine codebook) or the head-paired 2-bit int4x2
+// container (affine codebook); keys stored pre-RoPE (rotated
 // here at their absolute positions) or post-RoPE; K outliers as slot words
 // or static-channel residuals, V outliers as slot words; an exact sink
 // prefix; per-row causal and sliding-window masks; per-sample positions.
@@ -51,7 +52,14 @@
 //    TPU kernel's one-hot E-tiles and score corrections work around its
 //    lack of scatters);
 //  - rows with no valid key in a split report m = -inf, l = 0, acc = 0 and
-//    carry zero weight in the merge.
+//    carry zero weight in the merge;
+//  - int4x2 (two 2-bit codes per nibble, kv heads 2j and 2j + 1 sharing
+//    container head j): the block of head h reads container head h >> 1
+//    and takes its own two bits of each nibble, so a pair's container is
+//    read by two blocks (the second read mostly from L2). The TPU kernel's
+//    distributed even-head dot (c_even = x - 4 c_odd + 8) and its stacked
+//    per-pair softmax balance its matrix and vector units; here each block
+//    dequantizes its own head's code into the shared tile, as for int4.
 //
 // Numerics: with dot_bf16 the dot operands (queries, roped keys, the
 // dequantized values, the rotated outlier terms, the probabilities, the
@@ -83,7 +91,8 @@
 struct FdArgs {
   const float* q;          // (B, Hkv, Q, D) roped queries
   const void* kp;          // nuq: (L, B, Hkv, bits, Tc/32, D) int32 planes;
-  const void* vp;          //   int4: (L, B, Hkv, Tc, D/2) uint8; int8: (L, B, Hkv, Tc, D)
+  const void* vp;          //   int4: (L, B, Hkv, Tc, D/2) uint8; int8: (L, B, Hkv, Tc, D);
+                           //   int4x2: (L, B, Hkv/2, Tc, D/2) uint8
   const float* kv_out;     // (L, B, NG, J, Tc) outlier rows
   const float* k_range;    // (L, Hkv, D)
   const float* k_offset;   // (L, Hkv, D)
@@ -125,7 +134,7 @@ constexpr int MAXD = 128;
 constexpr int MAX_KC = 64;
 constexpr int MAX_SINK = 64;
 constexpr int PR = 64;       // query rows per block, multi-row instance
-constexpr int MODE_NUQ = 0, MODE_INT4 = 1, MODE_INT8 = 2;
+constexpr int MODE_NUQ = 0, MODE_INT4 = 1, MODE_INT8 = 2, MODE_INT4X2 = 3;
 constexpr int NEG_ROW = -(1 << 30);  // position of a padding row: sees nothing
 
 __device__ __forceinline__ float rnd(float x, bool bf) {
@@ -134,6 +143,13 @@ __device__ __forceinline__ float rnd(float x, bool bf) {
 
 __device__ __forceinline__ float nibble(uint8_t x, int hi) {
   return (float)((int)(((x >> (4 * hi)) & 0xF) ^ 8) - 8);
+}
+
+// int4x2: the nibble holds c_even + 4 * c_odd - 8; head parity `odd` picks
+// its 2-bit code
+__device__ __forceinline__ float pair_code(uint8_t x, int hi, int odd) {
+  const int v = (((x >> (4 * hi)) & 0xF) ^ 8) >> (2 * odd);
+  return (float)(v & 3);
 }
 
 __device__ __forceinline__ bool key_ok(int t_abs, int rp, int S, int window) {
@@ -267,8 +283,9 @@ __global__ void __launch_bounds__(NT) fd_partial(FdArgs a) {
     sChDim[n] = ch / D == jh ? ch % D : -1;
   }
   // the affine codebook of the integer containers, folded as in the plain
-  // version (common.fold_affine): code c_s -> c_s * kstep + kzero
-  const float bias = (float)(1 << (a.bits - 1));
+  // version (common.fold_affine): code c_s -> c_s * kstep + kzero, c_s the
+  // signed code (int4 / int8) or the unsigned one (int4x2, bias 0)
+  const float bias = MODE == MODE_INT4X2 ? 0.f : (float)(1 << (a.bits - 1));
   const float kb = (kl[K - 1] - kl[0]) / (float)(K - 1);
   const float ka = kl[0] + bias * kb;
   const float vb = (vl[K - 1] - vl[0]) / (float)(K - 1);
@@ -288,7 +305,11 @@ __global__ void __launch_bounds__(NT) fd_partial(FdArgs a) {
   const size_t lay = (size_t)li * AP::slabs(a);
   const int last = AP::last_page(a, maxp, S);
   auto at = [&](int t0) { return AP::locate(a, b, t0, last); };
-  auto head_slab = [&](int2 sr) { return (lay + sr.x) * a.Hkv + h; };
+  // the code arrays' head: int4x2 keeps head h in container head h >> 1
+  const bool paired = MODE == MODE_INT4X2;
+  const int Hc = paired ? a.Hkv / 2 : a.Hkv, hc = paired ? h >> 1 : h;
+  const int odd = h & 1;
+  auto head_slab = [&](int2 sr) { return (lay + sr.x) * Hc + hc; };
   auto kvo_of = [&](int2 sr) {
     return a.kv_out + ((lay + sr.x) * (a.Hkv / hg) + grp) * a.J * (size_t)TS + sr.y;
   };
@@ -446,6 +467,11 @@ __global__ void __launch_bounds__(NT) fd_partial(FdArgs a) {
           const int8_t* kr = reinterpret_cast<const int8_t*>(a.kp) + row * D;
           const int8_t* vr = reinterpret_cast<const int8_t*>(a.vp) + row * D;
           x0 = kr[c0]; x1 = kr[c1]; y0 = vr[c0]; y1 = vr[c1];
+        } else if (MODE == MODE_INT4X2) {
+          const uint8_t* kr = reinterpret_cast<const uint8_t*>(a.kp) + row * (D / 2);
+          const uint8_t* vr = reinterpret_cast<const uint8_t*>(a.vp) + row * (D / 2);
+          x0 = pair_code(kr[c0 >> 1], c0 & 1, odd); x1 = pair_code(kr[c1 >> 1], c1 & 1, odd);
+          y0 = pair_code(vr[c0 >> 1], c0 & 1, odd); y1 = pair_code(vr[c1 >> 1], c1 & 1, odd);
         } else {
           const uint8_t* kr = reinterpret_cast<const uint8_t*>(a.kp) + row * (D / 2);
           const uint8_t* vr = reinterpret_cast<const uint8_t*>(a.vp) + row * (D / 2);
@@ -751,7 +777,8 @@ cudaError_t dispatch_rows(const FdArgs& a, cudaStream_t st) {
 template <class AP>
 int run(const FdArgs* a, void* stream) {
   if (a->S > MAX_SINK || a->n_kc > MAX_KC || a->D > MAXD || a->D % 32 ||
-      a->Tc % 128 || (a->mode == MODE_NUQ && (a->bits < 1 || a->bits > 4)))
+      a->Tc % 128 || (a->mode == MODE_NUQ && (a->bits < 1 || a->bits > 4)) ||
+      (a->mode == MODE_INT4X2 && (a->bits != 2 || a->Hkv % 2 || a->hg % 2)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!a->post_rope) {
@@ -765,6 +792,7 @@ int run(const FdArgs* a, void* stream) {
     case MODE_NUQ: e = dispatch_rows<MODE_NUQ, AP>(*a, st); break;
     case MODE_INT4: e = dispatch_rows<MODE_INT4, AP>(*a, st); break;
     case MODE_INT8: e = dispatch_rows<MODE_INT8, AP>(*a, st); break;
+    case MODE_INT4X2: e = dispatch_rows<MODE_INT4X2, AP>(*a, st); break;
   }
   if (e != cudaSuccess) return (int)e;
   fd_merge<<<dim3(a->Q, a->Hkv, a->B), NT, a->n_split * sizeof(float), st>>>(*a);

@@ -1,2 +1,5 @@
-"""Retrieval evaluations (passkey, needle-in-a-haystack); numpy and
-tokenizer code, engine-agnostic."""
+"""Evaluations: perplexity (the simulated-quantization oracle) and the
+retrieval evaluations (passkey, needle-in-a-haystack; numpy and tokenizer
+code, engine-agnostic)."""
+
+from .ppl import perplexity

@@ -9,4 +9,11 @@ from .llama import (
     rotate_half,
     rms_norm,
     norm,
+    SimQuantArrays,
+    SimQuantConfig,
+    SimQuantParams,
+    simquant_from_quantizers,
+    simquant_k,
+    simquant_v,
+    v_topk_range_and_mask,
 )

@@ -1,5 +1,5 @@
-"""LLaMA-family transformer, full-precision forward (port of
-kvquant_tpu/models/llama.py:42-131,374-567).
+"""LLaMA-family transformer: full-precision forward and the simulated KV
+quantization hook (port of kvquant_tpu/models/llama.py:42-567).
 
 Parameters live in an ``nn.Module`` (``Llama``) holding the JAX package's
 stacked per-layer layout: weights (L, in, out) used as ``x @ W``, norms
@@ -9,9 +9,17 @@ dtype (bf16 for real models), RMSNorm, softmax and RoPE in fp32.
 Prompt attention is plain PyTorch (a materialized masked softmax, or the
 online-softmax chunk loop for long prompts): the JAX package leaves it to
 XLA and has no kernel for it, and the port calls no library attention.
+
+Simulated quantization (``forward(..., simquant=)``) fake-quantizes the k / v
+projections of every layer: keys per channel with static calibrated
+thresholds (before RoPE, or after it for the post-RoPE scheme), values per
+token with a dynamic range; the accuracy oracle the deployed cache is held
+to (``evals.ppl.perplexity`` against ``engine.deployed_ppl``).
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass, fields
 
 import numpy as np
 import torch
@@ -19,6 +27,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
+from ..quant.nuq import quant_lut
+from ..quant.outliers import (apply_sink_mask, capped_outlier_mask_headwise,
+                              dynamic_outlier_mask,
+                              headwise_range_outlier_mask,
+                              outlier_budget_per_side, static_outlier_mask)
+from ..utils.topk import top_k
 from .config import ModelConfig
 
 LAYER_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
@@ -159,6 +173,202 @@ def apply_rope(x, cos, sin):
     return (xf * c + rotate_half(xf) * s).to(x.dtype)
 
 
+# ---------------------------------------------------------------------------
+# simulated KV quantization hook
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class SimQuantArrays:
+    """Stacked (leading L axis) quantizer arrays: k_lower / k_upper (L, C)
+    static per-channel K thresholds; k_lut / v_lut (L, 2**bits) sorted
+    normalized codebooks; *_normscale / *_normoffset (L,) Q-Norm affine (1 /
+    0 when unused); k_ressc (L, C) per-channel residual energy (read in the
+    static-channel K outlier mode)."""
+
+    k_lower: torch.Tensor
+    k_upper: torch.Tensor
+    k_lut: torch.Tensor
+    v_lut: torch.Tensor
+    k_normscale: torch.Tensor
+    k_normoffset: torch.Tensor
+    v_normscale: torch.Tensor
+    v_normoffset: torch.Tensor
+    k_ressc: torch.Tensor | None = None
+
+    def layer(self, i) -> "SimQuantArrays":
+        return SimQuantArrays(**{
+            f.name: None if getattr(self, f.name) is None
+            else getattr(self, f.name)[i] for f in fields(self)})
+
+
+@dataclass(frozen=True)
+class SimQuantConfig:
+    """Static scheme config (fields as in the JAX package). v_mode "topk":
+    the per-token V range from the token's two-sided global top-k, with the
+    per-head capped outlier storage of the deployed cache; "percentile":
+    the reference's simulated-eval semantics. ``cap_per_side`` is per
+    (token, kv-head group of ``n_kv_heads``); ``v_range_exclude`` the global
+    per-side extreme count that defines the V range."""
+
+    bits: int
+    include_sparse: bool = True
+    sparsity_threshold: float = 0.99
+    cap_per_side: int = 0  # 0 => uncapped static mask
+    n_kv_heads: int = 1
+    v_range_exclude: int = 0  # 0 => derive from sparsity_threshold
+    first_few_fp16: int = 0
+    v_mode: str = "topk"  # or "percentile"
+    qnorm: bool = False
+    k_outliers: str = "slots"  # "channels": the n_kc highest-residual
+    #   channels of each head group kept exact for every token
+    n_kc: int = 4
+    post_rope_k: bool = False  # quantize keys after the rotary embedding
+
+
+@dataclass
+class SimQuantParams:
+    arrays: SimQuantArrays
+    config: SimQuantConfig
+
+
+def simquant_from_quantizers(qs, v_mode="topk", n_kv_heads=1,
+                             cap_per_side=2, head_group=1, post_rope_k=None,
+                             k_outliers="slots", n_kc=4,
+                             device="cuda") -> SimQuantParams:
+    """Stacked simulated-quant params from a ``QuantizerSet``, on
+    ``device``. ``n_kv_heads`` / ``cap_per_side`` / ``head_group`` set the
+    per-(token, head group) outlier budget as DeployConfig does, so the
+    oracle matches deployment."""
+    dev = resolve_device(device)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    def aff(vals, default):
+        return t([default if v is None else v for v in vals])
+
+    k_lower = np.stack([lq.k.lower for lq in qs.layers])
+    arrays = SimQuantArrays(
+        k_lower=t(k_lower),
+        k_upper=t(np.stack([lq.k.upper for lq in qs.layers])),
+        k_lut=t(np.stack([np.sort(lq.k.lut.reshape(-1)) for lq in qs.layers])),
+        v_lut=t(np.stack([np.sort(lq.v.lut.reshape(-1)) for lq in qs.layers])),
+        k_normscale=aff([lq.k.normscale for lq in qs.layers], 1.0),
+        k_normoffset=aff([lq.k.normoffset for lq in qs.layers], 0.0),
+        v_normscale=aff([lq.v.normscale for lq in qs.layers], 1.0),
+        v_normoffset=aff([lq.v.normoffset for lq in qs.layers], 0.0),
+        k_ressc=t(np.stack([
+            np.zeros_like(lq.k.upper) if lq.k.ressc is None
+            else np.asarray(lq.k.ressc, np.float32) for lq in qs.layers])),
+    )
+    C = k_lower.shape[-1]
+    assert n_kv_heads % head_group == 0, (n_kv_heads, head_group)
+    cfg = SimQuantConfig(
+        bits=qs.bits,
+        include_sparse=True,
+        sparsity_threshold=qs.sparsity_threshold,
+        cap_per_side=cap_per_side if qs.cap_outliers else 0,
+        n_kv_heads=n_kv_heads // head_group,
+        v_range_exclude=outlier_budget_per_side(C, qs.sparsity_threshold),
+        first_few_fp16=qs.first_few_fp16,
+        v_mode=v_mode,
+        qnorm=any(lq.k.normscale is not None for lq in qs.layers),
+        post_rope_k=(bool(qs.meta.get("post_rope_k", False))
+                     if post_rope_k is None else post_rope_k),
+        k_outliers=k_outliers,
+        n_kc=n_kc,
+    )
+    return SimQuantParams(arrays=arrays, config=cfg)
+
+
+def simquant_k(k, arrs: SimQuantArrays, cfg: SimQuantConfig):
+    """Fake-quantize keys (B, T, C) of one layer, per-channel static
+    scheme (pre-RoPE keys, or roped ones under ``post_rope_k``)."""
+    kf = k.to(torch.float32)
+    mask = None
+    if cfg.include_sparse:
+        if cfg.k_outliers == "channels":
+            # the deployed cache stores the full residual of each group's
+            # top-n_kc residual-energy channels: exact there for every token
+            C = kf.shape[-1]
+            gw = C // cfg.n_kv_heads
+            idx = top_k(arrs.k_ressc.reshape(cfg.n_kv_heads, gw), cfg.n_kc)[1]
+            chmask = (idx[..., None] == torch.arange(gw, device=kf.device)
+                      ).any(dim=-2).reshape(C)
+            mask = chmask.expand(kf.shape)
+        elif cfg.cap_per_side > 0:
+            mask = capped_outlier_mask_headwise(
+                kf, arrs.k_lower, arrs.k_upper, cfg.cap_per_side,
+                cfg.n_kv_heads)
+        else:
+            mask = static_outlier_mask(kf, arrs.k_lower, arrs.k_upper, axis=0)
+        mask = apply_sink_mask(mask, cfg.first_few_fp16, token_axis=-2)
+    deq = quant_lut(
+        kf, arrs.k_lut, axis=0, minval=arrs.k_lower, maxval=arrs.k_upper,
+        outlier_mask=mask,
+        normscale=arrs.k_normscale if cfg.qnorm else None,
+        normoffset=arrs.k_normoffset if cfg.qnorm else None,
+        sink=cfg.first_few_fp16, token_axis=-2)
+    return deq.to(k.dtype)
+
+
+def _topk_range(vf, r: int):
+    """(minval, maxval) (..., 1): the (r+1)-th largest value on each side."""
+    top_v = top_k(vf, r + 1)[0]
+    bot_v = top_k(-vf, r + 1)[0]
+    return -bot_v[..., -1:], top_v[..., -1:]
+
+
+def v_topk_range_and_mask(vf, r_exclude: int, cap_per_side: int,
+                          n_kv_heads: int):
+    """Deployed V semantics: range = the (r+1)-th global extreme on each
+    side; the stored outliers are the per-head top-cap beyond-range
+    elements. Returns (minval, maxval, mask)."""
+    minval, maxval = _topk_range(vf, r_exclude)
+    mask = headwise_range_outlier_mask(vf, minval, maxval, cap_per_side,
+                                       n_kv_heads)
+    return minval, maxval, mask
+
+
+def simquant_v(v, arrs: SimQuantArrays, cfg: SimQuantConfig):
+    """Fake-quantize values (B, T, C) of one layer, per-token dynamic
+    scheme."""
+    vf = v.to(torch.float32)
+    minval = maxval = mask = None
+    dynamic = True
+    if cfg.include_sparse:
+        if cfg.v_mode == "topk":
+            r = cfg.v_range_exclude or outlier_budget_per_side(
+                v.shape[-1], cfg.sparsity_threshold)
+            cap = cfg.cap_per_side or outlier_budget_per_side(
+                v.shape[-1] // cfg.n_kv_heads, cfg.sparsity_threshold)
+            if cfg.k_outliers == "channels" and cfg.cap_per_side == 0:
+                # V slots off: per-token range only, no stored V outliers
+                minval, maxval = _topk_range(vf, r)
+                mask = torch.zeros(vf.shape, dtype=torch.bool,
+                                   device=vf.device)
+            else:
+                minval, maxval, mask = v_topk_range_and_mask(
+                    vf, r, cap, cfg.n_kv_heads)
+            dynamic = False
+        else:
+            mask = dynamic_outlier_mask(vf, cfg.sparsity_threshold, axis=-1)
+        mask = apply_sink_mask(mask, cfg.first_few_fp16, token_axis=-2)
+    deq = quant_lut(
+        vf, arrs.v_lut, axis=-1, minval=minval, maxval=maxval,
+        dynamic=dynamic, outlier_mask=mask,
+        normscale=arrs.v_normscale if cfg.qnorm else None,
+        normoffset=arrs.v_normoffset if cfg.qnorm else None,
+        sink=cfg.first_few_fp16, token_axis=-2)
+    return deq.to(v.dtype)
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+
 def _mask(cfg: ModelConfig, pq, pk):
     """causal (+ optional sliding window) mask from absolute positions."""
     m = pk <= pq
@@ -233,10 +443,13 @@ def _attention(q, k, v, cfg: ModelConfig, positions, chunk=None):
 
 
 def forward(params: Llama, cfg: ModelConfig, tokens, *, positions=None,
-            capture_kv: bool = False, attn_chunk: int | None = None):
+            simquant: SimQuantParams | None = None, capture_kv: bool = False,
+            attn_chunk: int | None = None):
     """Full-sequence forward. Returns (logits fp32 (B,T,V), aux dict);
     aux["k_acts"]/aux["v_acts"]: (L, B, T, C) fp32 pre-RoPE k / v
-    projections when capture_kv=True."""
+    projections when capture_kv=True (captured before any simulated
+    quantization). ``simquant`` fake-quantizes every layer's keys (before
+    RoPE, or after it under ``post_rope_k``) and values."""
     B, T = tokens.shape
     dev = params.embed.device
     tokens = tokens.to(dev)
@@ -256,8 +469,17 @@ def forward(params: Llama, cfg: ModelConfig, tokens, *, positions=None,
         if capture_kv:
             k_acts.append(k.to(torch.float32))
             v_acts.append(v.to(torch.float32))
+        if simquant is not None:
+            sq, sc = simquant.arrays.layer(li), simquant.config
+            if not sc.post_rope_k:
+                k = simquant_k(k, sq, sc)
+            v = simquant_v(v, sq, sc)
         q = apply_rope(q.reshape(B, T, cfg.n_heads, cfg.d_head), cos, sin)
         k = apply_rope(k.reshape(B, T, cfg.n_kv_heads, cfg.d_head), cos, sin)
+        if simquant is not None and sc.post_rope_k:
+            # the post-RoPE scheme fake-quantizes the roped keys
+            k = simquant_k(k.reshape(B, T, cfg.kv_hidden), sq, sc).reshape(
+                B, T, cfg.n_kv_heads, cfg.d_head)
         v = v.reshape(B, T, cfg.n_kv_heads, cfg.d_head)
         attn = _attention(q, k, v, cfg, positions, chunk=attn_chunk)
         x = x + attn @ lp["wo"]

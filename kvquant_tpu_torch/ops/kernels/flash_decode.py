@@ -10,9 +10,10 @@ the exact sink tokens and the packed tokens up to its own position
 decode step (``flash_decode``); Tq > 1 a block of quantized chunked prefill.
 
 Storage modes: nuq bit planes (bits 2-4, any codebook), int4 / int8
-containers (affine codebook), keys pre- or post-RoPE, K outliers as slot
-words or static channels, V slot words. int4x2 (head-paired 2-bit) through
-this kernel is not ported yet and raises NotImplementedError.
+containers and the head-paired 2-bit int4x2 container (affine codebook;
+int4x2 pairs kv heads within a head group, so its head_group must be even,
+as the JAX kernel asserts), keys pre- or post-RoPE, K outliers as slot
+words or static channels, V slot words.
 
   - CPU tensors: the plain PyTorch version ``flash_attention_ref``.
   - CUDA tensors: the hand-written kernel ``csrc/flash_decode.cu``, or an
@@ -40,18 +41,16 @@ from .common import (MAX_KC, MAX_SINK, TILE_TOKENS, fold_affine,
                      signed_codes, channel_addend, check_operands, inv_freq,
                      n_splits)
 
-MODES = {"nuq": 0, "int4": 1, "int8": 2}
+MODES = {"nuq": 0, "int4": 1, "int8": 2, "int4x2": 3}
 TILE = 64  # key tokens per tile in the kernel
 ROWS = 64  # query rows per block when Q is not 1, 2, 4 or 8
 
 
 def _check_config(dcfg: DeployConfig):
-    if dcfg.codes == "int4x2":
-        raise NotImplementedError(
-            "codes='int4x2' through flash_attention (K1's head-paired 2-bit "
-            "path) is not ported yet (ROADMAP queue 2, K1); kernel="
-            "'flash_serial' decodes int4x2")
     assert dcfg.codes in MODES, dcfg.codes
+    if dcfg.codes == "int4x2":
+        assert dcfg.head_group % 2 == 0, \
+            "int4x2 flash kernel pairs heads within a group"
 
 
 def _dequant_layer(k_planes, v_planes, kv_out, k_range, k_offset, v_scale,
@@ -286,7 +285,8 @@ def _launch(q_rot, k_planes, v_planes, kv_out, k_range, k_offset, v_scale,
     if dcfg.codes == "nuq":
         code = ((L, B, Hkv, dcfg.bits, Tc // 32, D), torch.int32)
     else:
-        code = ((L, B, Hkv, Tc, dcfg.code_cols), dcfg.code_dtype)
+        code = ((L, B, dcfg.code_heads, Tc, dcfg.code_cols),
+                dcfg.code_dtype)
     expect = {
         "q_rot": (q_rot, (B, Hkv, Q, D), torch.float32),
         "k_planes": (k_planes, *code),

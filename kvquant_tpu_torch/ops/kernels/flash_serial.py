@@ -171,7 +171,7 @@ def _launch(q_rot, k_planes, v_planes, kv_out, k_range, k_offset, v_scale,
     L, Tc = k_planes.shape[0], k_planes.shape[-2]
     S, hg = dcfg.sink, dcfg.head_group
     dev = q_rot.device
-    Hc = Hkv // 2 if dcfg.codes == "int4x2" else Hkv
+    Hc = dcfg.code_heads
     NG = Hkv // hg
     J = kv_out.shape[-2]
 

@@ -16,9 +16,10 @@ Sinks stay per slot, (L, B, Hkv, S, D).
     kernel body instantiated with the paged addressing policy, or an
     exception; there is no fallback.
 
-``paged_flash_decode.launches`` counts kernel launches. int4x2 raises
-NotImplementedError as K1 does; a page must hold whole 128-token bit-plane
-groups, so ``page_tokens % 128 != 0`` raises ValueError.
+``paged_flash_decode.launches`` counts kernel launches. Every storage mode
+of K1 is taken, int4x2 included (pool code arrays (L, NP, Hkv/2, P, D/2));
+a page must hold whole 128-token bit-plane groups, so
+``page_tokens % 128 != 0`` raises ValueError.
 """
 
 from __future__ import annotations
@@ -137,7 +138,8 @@ def paged_flash_decode(q_rot, pool, page_table, dq, li, pos,
     if dcfg.codes == "nuq":
         code = ((L, NP, Hkv, bits, P // 32, D), torch.int32)
     else:
-        code = ((L, NP, Hkv, P, dcfg.code_cols), dcfg.code_dtype)
+        code = ((L, NP, dcfg.code_heads, P, dcfg.code_cols),
+                dcfg.code_dtype)
     expect = {
         "q_rot": (q_rot, (B, Hkv, G, D), torch.float32),
         "k_planes": (pool.k_planes, *code),

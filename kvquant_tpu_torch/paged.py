@@ -67,8 +67,8 @@ def create_paged_pool(dcfg: DeployConfig, n_layers: int, n_pages: int,
     if dcfg.codes == "nuq":
         planes = lambda: z((L, NP, H, dcfg.bits, P // 32, D), torch.int32)  # noqa: E731
     else:
-        Hc = H // 2 if dcfg.codes == "int4x2" else H
-        planes = lambda: z((L, NP, Hc, P, dcfg.code_cols), dcfg.code_dtype)  # noqa: E731
+        planes = lambda: z((L, NP, dcfg.code_heads, P, dcfg.code_cols),  # noqa: E731
+                           dcfg.code_dtype)
     return PagedPool(
         k_planes=planes(),
         v_planes=planes(),

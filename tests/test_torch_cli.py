@@ -11,6 +11,9 @@ evals, utils/toytokenizer.py, baseline_fp16.py) against the JAX package:
     --kernel pallas (the default) at the committed toy quantizers' widths;
   - cli.serve_demo serves every request its budget on the CPU, from the
     page pool (--paged) and from the slot pool;
+  - cli.calibrate writes an artifact the JAX package loads (uniform with
+    roped keys; k-means with Fisher weights), and cli.eval_ppl scores it
+    simulated and deployed through K1's plain version;
   - every option of the JAX CLIs' --help is an option of the port's.
 """
 
@@ -212,8 +215,53 @@ def _options(main, capsys):
                           capsys.readouterr().out))
 
 
+SMALL = ["--toy-layers", "2", "--toy-dmodel", "64", "--toy-heads", "4",
+         "--toy-kv-heads", "2", "--toy-vocab", "128", "--device", "cpu",
+         "--nsamples", "2", "--seqlen", "64"]
+
+
+@pytest.mark.parametrize("mode", ["uniform-post", "nuq-fisher"])
+def test_cli_calibrate_then_eval_ppl(mode, tmp_path, capsys):
+    """cli.calibrate writes an artifact the JAX package reads; cli.eval_ppl
+    scores it simulated and deployed (--kernel flash: K1's plain version
+    here)."""
+    from kvquant_tpu.quant.artifacts import load_quantizers as jload
+    from kvquant_tpu_torch.cli import calibrate, eval_ppl
+
+    out = str(tmp_path / "q.npz")
+    argv = SMALL + ["--abits", "2", "--output", out]
+    if mode == "uniform-post":
+        argv += ["--mode", "uniform", "--post-rope-k"]
+    else:
+        fisher = str(tmp_path / "f.npz")
+        rng = np.random.default_rng(0)
+        np.savez(fisher, fisher_k=rng.random((2, 128, 32), np.float32),
+                 fisher_v=rng.random((2, 128, 32), np.float32))
+        argv += ["--mode", "nuq", "--kmeans-iters", "5", "--fisher", fisher]
+    qs = calibrate.main(argv)
+    back = jload(out)
+    assert back.bits == qs.bits == 2 and len(back.layers) == 2
+    assert back.meta["post_rope_k"] == (mode == "uniform-post")
+    for a, b in zip(back.layers, qs.layers):
+        np.testing.assert_array_equal(a.k.lut, b.k.lut)
+        np.testing.assert_array_equal(a.k.upper, b.k.upper)
+
+    ppl, dep = eval_ppl.main(SMALL + ["--quantizers", out, "--deployed",
+                                      "--kernel", "flash", "--max-windows",
+                                      "2"])
+    fp16, none = eval_ppl.main(SMALL + ["--max-windows", "2"])
+    assert none is None and np.isfinite([ppl, dep, fp16]).all()
+    assert abs(np.log(ppl) - np.log(fp16)) < 0.5, (ppl, fp16)
+    assert abs(np.log(dep) - np.log(ppl)) < 0.5, (dep, ppl)
+    text = capsys.readouterr().out
+    assert "saved 2-layer 2-bit quantizers" in text
+    assert "quantized ppl over 2x64 tokens" in text
+    assert "deployed ppl (first window, kernel=flash)" in text
+    assert "fp16 ppl over 2x64 tokens" in text
+
+
 @pytest.mark.parametrize("name", ["generate", "passkey", "needle",
-                                  "serve_demo"])
+                                  "serve_demo", "eval_ppl", "calibrate"])
 def test_cli_options_cover_jax(name, capsys):
     import importlib
 

@@ -215,17 +215,18 @@ def test_temperature_sampling_is_seeded():
 
 @pytest.mark.parametrize("kernel", ["flash", "pallas"])
 def test_unported_kernels_raise(kernel, toy):
-    """Under kernel="flash" the head-paired int4x2 path of K1 is not ported
-    (NotImplementedError naming ROADMAP), for decode and chunked prefill;
-    kernel="pallas" refuses the storage its two-pass kernels do not read
-    (here int4 containers with post-RoPE keys and channel outliers), as the
-    JAX package asserts."""
+    """Under kernel="flash" K1 refuses the head-paired int4x2 container
+    with an odd head group (it pairs kv heads within a group, as JAX's
+    kernel asserts), for decode and chunked prefill (int4x2 parity:
+    tests/test_torch_int4x2.py); kernel="pallas" refuses the storage its
+    two-pass kernels do not read (here int4 containers with post-RoPE keys
+    and channel outliers), as the JAX package asserts."""
     params, cfg, dcfg, dq = toy["torch"]
     d = dataclasses.replace(dcfg, kernel=kernel)
     err, match = AssertionError, "two-pass kernels"
     if kernel == "flash":
-        d = dataclasses.replace(d, codes="int4x2", bits=2)
-        err, match = NotImplementedError, "ROADMAP"
+        d = dataclasses.replace(d, codes="int4x2", bits=2, head_group=1)
+        err, match = AssertionError, "pairs heads"
     with pytest.raises(err, match=match):
         engine.deployed_ppl(params, cfg, d, dq, torch.zeros((1, 8),
                             dtype=torch.int32), device="cpu")

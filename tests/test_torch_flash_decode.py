@@ -165,7 +165,9 @@ def test_plain_matches_jax_kernel_bf16_dots(Tq, pos):
 def test_wrapper_checks():
     """On CPU tensors the wrapper runs the plain version and counts no
     launch; the launch path refuses a capacity off the 128-token granule
-    before touching the card; int4x2 through K1 is not ported."""
+    before touching the card; int4x2 under an odd head group is refused as
+    JAX's kernel asserts (it pairs kv heads within a group; the int4x2
+    parity cases are tests/test_torch_int4x2.py)."""
     before = fd.flash_attention.launches
     want, got = _case("nuq3", False, "slots", 4, 5)
     assert fd.flash_attention.launches == before == 0
@@ -188,9 +190,9 @@ def test_wrapper_checks():
     assert fd.flash_attention.launches == 0
 
     t2 = DeployConfig.create(bits=2, n_kv_heads=Hkv, d_head=D, max_len=261,
-                             sink=5, kernel="flash", head_group=2,
+                             sink=5, kernel="flash", head_group=1,
                              codes="int4x2", post_rope_k=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(AssertionError, match="pairs heads"):
         fd.flash_decode(f(B, Hkv, G, D), planes, planes, None, None, None,
                         None, None, None, None, None, None, 0,
                         torch.zeros(B, dtype=torch.int32), t2, tm)

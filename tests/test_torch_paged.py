@@ -7,6 +7,10 @@ P = 256:
   (a) paged_flash_decode_ref against JAX paged_flash_decode on random pool
       operands: nuq3 and int4 x pre/post-RoPE x slots/channels x sink 0/5,
       B = 3 at unequal positions, permuted pages, junk trailing table ids;
+      int4x2 (the head-paired 2-bit container) with pre-RoPE keys the
+      same way, with post-RoPE keys against JAX's contiguous
+      flash_attention over the same tokens (JAX's paged kernel fails on
+      its paired path: its scratch is sized for Q rows, not a pair's 2Q);
   (b) K5's plain version equals K1's plain version on the same tokens laid
       out contiguously (JAX's own ground truth, tests/test_paged.py:48);
   (c) paged_append_token and write_pages_from_cache bitwise equal to JAX's,
@@ -15,8 +19,8 @@ P = 256:
   (d) paged_decode_step logits against JAX over 6 steps that cross a page
       boundary, from a 258-token prefill copied into permuted pages;
   (e) the port's PagedServer (sync; chunked; bursts against per-step with
-      EOS inside a burst) token-identical to the port's isolated generate,
-      with every page returned;
+      EOS inside a burst; int4x2 pre / post-RoPE) token-identical to the
+      port's isolated generate, with every page returned;
   (f) on the committed toy checkpoint, PagedServer tokens equal JAX
       engine.generate's (kernel="xla").
 
@@ -75,6 +79,7 @@ JUNK = 10 ** 6  # trailing table ids past the last live page: never read
 TABLE = [[4, JUNK, JUNK], [1, 5, JUNK], [3, 0, 2]]
 POS = [5 + 10, 5 + 256 + 3, 5 + 2 * 256 + 200]
 BITS = {"nuq3": ("nuq", 3), "int4": ("int4", 4)}
+INT4X2 = {"int4x2": ("int4x2", 2)}  # the head-paired 2-bit container
 
 
 def _words(rng, shape, hg):
@@ -86,7 +91,7 @@ def _words(rng, shape, hg):
 
 
 def _configs(mode, post, k_out, sink, dot_bf16=False, hg=None):
-    codes, bits = BITS[mode]
+    codes, bits = {**BITS, **INT4X2}[mode]
     hg = hg or (4 if k_out == "slots" else 2)
     kw = dict(bits=bits, n_kv_heads=Hkv, d_head=D, max_len=MP * PAGE + sink,
               sink=sink, kernel="flash", dot_bf16=dot_bf16, head_group=hg,
@@ -108,6 +113,16 @@ def _random_pool(td, B, rng):
         kp, vp = (rng.integers(-2 ** 31, 2 ** 31, shape, dtype=np.int64)
                   .astype(np.int32) for _ in range(2))
         planes = {"k_planes": (kp, kp), "v_planes": (vp, vp)}
+    elif codes == "int4x2":
+        planes = {}
+        for name in ("k_planes", "v_planes"):
+            # head axis -2 for the pairing, then the container's (H/2, P)
+            c = rng.integers(0, 4, (L, NP, PAGE, Hkv, D))
+            planes[name] = (
+                np.moveaxis(np.asarray(jpk.pair_codes_int4x2(
+                    jnp.asarray(c))), -2, -3),
+                torch.movedim(tpk.pair_codes_int4x2(torch.as_tensor(c)), -2,
+                              -3).contiguous().numpy())
     else:
         planes = {}
         for name in ("k_planes", "v_planes"):
@@ -237,10 +252,54 @@ def test_paged_equals_contiguous(mode):
     torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
 
 
+@pytest.mark.parametrize("sink", [0, 5])
+@pytest.mark.parametrize("k_out", ["slots", "channels"])
+def test_int4x2_pre_rope_matches_jax_kernel(k_out, sink):
+    """int4x2 with pre-RoPE keys against JAX's paged kernel itself."""
+    want, got = _k5("int4x2", False, k_out, sink)
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+
+def _port_to_jax_int4(t):
+    """The port's nibble-pair container (..., D/2) -> JAX's int4 (..., D)."""
+    return jnp.asarray(tpk.unpack_nibbles(t).numpy(), jnp.int4)
+
+
+@pytest.mark.parametrize("sink", [0, 5])
+@pytest.mark.parametrize("k_out", ["slots", "channels"])
+def test_int4x2_post_rope_matches_jax_contiguous(k_out, sink):
+    """int4x2 with post-RoPE keys: JAX's paged kernel fails on its paired
+    path (its m / l scratch and mask are sized for Q rows, not the 2Q a
+    head pair stacks), so K5's plain version is held against what the paged
+    result is defined to be: JAX's contiguous flash_attention over each
+    slot's live pages laid out in order (tests/test_paged.py:1-6)."""
+    from kvquant_tpu.ops.pallas.flash_decode import flash_attention as jfa
+
+    jd, td, jm, tm = _configs("int4x2", True, k_out, sink)
+    _, (pool, dq), q = _both(td, 3, seed=4)
+    table = torch.as_tensor(np.array(TABLE, np.int32))
+    pos = torch.as_tensor(np.array(POS, np.int32))
+    got = pdk.paged_flash_decode(torch.as_tensor(q), pool, table, dq, 1, pos,
+                                 td, tm)
+    g = pdk.gather_layer(pool, pdk.live_pages(table, pos, td), 1, td)
+    one = lambda t: jnp.asarray(t[1][None].numpy())  # noqa: E731
+    want = jfa(jnp.asarray(q), _port_to_jax_int4(g["k_planes"][None]),
+               _port_to_jax_int4(g["v_planes"][None]),
+               jnp.asarray(g["kv_out"][None].numpy()), one(dq.k_range),
+               one(dq.k_offset), jnp.asarray(g["v_scale"][None].numpy()),
+               jnp.asarray(g["v_offset"][None].numpy()), one(pool.k_sink),
+               one(pool.v_sink), one(dq.k_lut_dec), one(dq.v_lut_dec),
+               jnp.int32(0), jnp.asarray(pos), jd, jm, block_tokens=PAGE,
+               k_ressc=one(dq.k_ressc))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-5)
+
+
 def test_wrapper_refusals():
-    """int4x2 raises NotImplementedError naming ROADMAP; a page of 200
-    tokens (not whole 128-token groups) raises ValueError; on CPU tensors
-    the wrapper runs the plain version and counts no launch."""
+    """int4x2 under an odd head group raises as JAX's kernel asserts (it
+    pairs heads within a group); a page of 200 tokens (not whole 128-token
+    groups) raises ValueError; on CPU tensors the wrapper runs the plain
+    version and counts no launch."""
     before = pdk.paged_flash_decode.launches
     want, got = _k5("nuq3", False, "slots", 5)
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
@@ -252,10 +311,12 @@ def test_wrapper_refusals():
         pdk.paged_flash_decode(*args, dataclasses.replace(td, page_tokens=200),
                                tm)
     t2 = DeployConfig.create(bits=2, n_kv_heads=Hkv, d_head=D, max_len=261,
-                             sink=5, kernel="flash", head_group=2,
+                             sink=5, kernel="flash", head_group=1,
                              codes="int4x2", post_rope_k=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pdk.paged_flash_decode(*args, t2, tm)
+    with pytest.raises(AssertionError, match="pairs heads"):
+        pdk.paged_flash_decode(*args, dataclasses.replace(t2,
+                                                         page_tokens=PAGE),
+                               tm)
     assert pdk.paged_flash_decode.launches == 0
 
 
@@ -455,6 +516,41 @@ def test_server_matches_isolated_generation(tiny, admit_mode):
     for r in reqs:
         assert comps[r.rid].tokens == _isolated(tiny, td, r, mode), r.rid
     assert sorted(srv.free) == list(range(n_pages))
+
+
+@pytest.mark.parametrize("post", [False, True], ids=["pre", "post"])
+def test_int4x2_server_matches_isolated_generation(tiny, post):
+    """The head-paired 2-bit container through PagedServer (chunked
+    admission through K1, K5 decode steps, page copies): the same tokens as
+    the port's isolated quantized-prefill generate. Uniform 2-bit
+    quantizers fitted by the port from the tiny model's activations."""
+    from kvquant_tpu_torch.quant.calibration import (
+        collect_kv_activations as tcollect, fit_quantizers as tfit)
+
+    tp, _ = tiny[1]
+    cal = torch.as_tensor(np.random.default_rng(7).integers(
+        0, 256, (2, 40), dtype=np.int32))
+    k, v = tcollect(tp, TINY_LLAMA, [cal], rope_k=post)
+    qs = tfit(k, v, bits=2, sparsity_threshold=0.99, cap_outliers=True,
+              first_few_fp16=5, sample_seqlen=40, mode="uniform")
+    tq = deployed_from_quantizers(qs, 4, 16, device="cpu")
+    td = dataclasses.replace(DeployConfig.create(
+        bits=2, n_kv_heads=4, d_head=16, max_len=2 * PAGE + 5, sink=5,
+        kernel="flash", dot_bf16=False, head_group=4, codes="int4x2",
+        post_rope_k=post, k_outliers="channels" if post else "slots",
+        n_kc=2, cap_per_side=0 if post else 2), page_tokens=PAGE)
+    reqs = _requests([(150, 5), (40, 4), (200, 6)], 4)
+    srv = paged.PagedServer(tp, TINY_LLAMA, td, tq, n_pages=4, n_slots=2,
+                            max_pages_per_slot=2, admit_mode="chunked",
+                            admit_chunk=128, device="cpu")
+    comps = srv.run(list(reqs), max_steps=300)
+    for r in reqs:
+        out, _ = engine.generate(
+            tp, TINY_LLAMA, td, tq, torch.as_tensor(r.prompt)[None],
+            engine.GenerateConfig(max_new_tokens=r.max_new_tokens),
+            prefill_mode="quantized", device="cpu")
+        assert comps[r.rid].tokens == out[0].tolist(), r.rid
+    assert sorted(srv.free) == list(range(4))
 
 
 class _BurstLog(paged.PagedServer):
