@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --phases 1,6 --verbose-build   # build + K1 check
+    python3 chip_smoke.py --phases 1,6,9,14,17,18,21     # K1 / K5 decode body
     python3 chip_smoke.py --phases 1,10 --verbose-build  # build + K3/K4
 
 Phases (each prints its own lines; any failure raises and exits non-zero).
@@ -29,7 +30,12 @@ K2 is csrc/flash_serial.cu (flash_serial_decode), K1 csrc/flash_decode.cu
   6. K1 against its plain version: nuq 2/3/4 bits, int4, int8 x pre / post
      RoPE x slots / channels x sink 0 / 5 x (decode at B=2, unequal
      positions; a first prefill chunk; a later chunk), a sliding window and
-     other widths, fp32 and bf16 dots;
+     other widths, fp32 and bf16 dots; then the decode body's edge grid
+     (every mode x pre / post x G 1/2/4/8, head groups 1-16, D 32/64/128,
+     slots / channels / none x sink 0 / 5, a window; B=3 rows at ragged
+     positions: one with no packed token, a live length that is not a
+     multiple of a tile, splits with no tile) and the cached RoPE table
+     against rope_cos_sin on the card;
   7. the reference-faithful main path at LLaMA-2-7B width (nuq3, pre-RoPE
      K, slots cap 2, head_group 4, sink 5, kernel "flash"): quantized
      chunked prefill of 2048 tokens (chunk 256) and 64 greedy tokens; K1
@@ -40,7 +46,8 @@ K2 is csrc/flash_serial.cu (flash_serial_decode), K1 csrc/flash_decode.cu
      prefill;
   9. K1 alone at one LLaMA-2-7B layer: decode at 32K and 128K, a 256-row
      prefill chunk at 2K and 32K; times as in phase 5, bound from bytes
-     and bf16 tensor-core operations.
+     and bf16 tensor-core operations, the previous decode body's time beside
+     each.
 K3 (qk_fused) and K4 (pv_fused) are csrc/attention.cu, kernel="pallas":
  10. K3 and K4 against their plain versions: bits 2/3/4 x head group
      1/2/4 x cap 0/2 at R = G and R = G*261 rows, G 1/4, D 32/64/128,
@@ -57,13 +64,14 @@ K3 (qk_fused) and K4 (pv_fused) are csrc/attention.cu, kernel="pallas":
  13. K3 and K4 alone at one LLaMA-2-7B layer: decode rows at 32K and 128K,
      a 261-row prefill chunk at 2K; times, plain, bound as in phase 9.
 K5 (paged_flash_decode) is fd_paged_attention in csrc/flash_decode.cu:
-K1's body addressed through a page table:
+K1's decode body (fd_decode) addressed through a page table:
  14. K5 against its plain version: nuq 2/3/4, int4, int8 x pre / post RoPE
      x slots / channels x sink 0 / 5 x page 256 / 1024, three live slots
      at unequal positions (inside page 0, just past a page boundary, deep
      in the last live page) over permuted pages with junk trailing table
      ids, and an inactive slot aliasing another's pages; fp32 and bf16
-     dots; and K5 == K1 on the same tokens laid out contiguously;
+     dots; and K5 == K1 on the same tokens laid out contiguously; then the
+     decode body's edge grid of phase 6 over permuted pages;
  15. the serving main path through the user's entry point: cli.serve_demo
      --paged at LLaMA-2-7B width (4 slots, 8 requests, 2048-token prompts,
      64 new tokens, pages of 1024, chunked admission, bursts of 32): every
@@ -75,14 +83,16 @@ K1's body addressed through a page table:
      slots, 4 requests, chunked admission, bursts) gives the same tokens
      on both, and the same as the port's isolated generate on the card;
  17. K5 alone at one LLaMA-2-7B layer: B=1 at 32K (32 permuted pages) and
-     B=4 at 8K each; kernel, plain, bytes bound, K1 on the same tokens.
+     B=4 at 8K each; kernel, plain, bytes bound, K1 on the same tokens,
+     the previous decode body's time beside each.
 int4x2 (the head-paired 2-bit container) through K1 and K5:
  18. K1 and K5 int4x2 against their plain versions: pre / post RoPE x
      channels (n_kc 4) / slots (cap 2) / no sparse x sink 0 / 5 x head group
      2 / 4 (and 16 with channels) x D 64 / 128; K1 decode at B=2 with
      unequal positions, a first and a later prefill chunk, a sliding
      window; K5 over pages of 256 / 1024 as phase 14; fp32 and bf16 dots;
-     K5 == K1 on the same tokens;
+     K5 == K1 on the same tokens; the decode body's edge grid for int4x2
+     (even head groups) through K1 and K5;
  19. the 2-bit exact-density main path at LLaMA-2-7B width (int4x2, post-
      RoPE K, 4 static K channels per head group of 4, no V slots, sink 5,
      kernel "flash"): quantized chunked prefill of 2048 tokens (chunk 256)
@@ -97,7 +107,8 @@ int4x2 (the head-paired 2-bit container) through K1 and K5:
      --kernel flash at LLaMA-2-7B width (K1 32 x 256 times);
  21. K1 (decode at 32K / 128K / 512K, a 256-row chunk at 32K) and K5 (B=4
      x 8K) on int4x2 at one LLaMA-2-7B layer: kernel, plain, bound; K1 on
-     int4 containers and K2 on the same int4x2 tokens as context.
+     int4 containers and K2 on the same int4x2 tokens as context; the
+     previous decode body's times beside.
 The line before the last lists every ported kernel as JSON; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -119,6 +130,30 @@ BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak, data sheet
 FP32_TOL = 1e-4  # fp32 dots: |kernel - plain| <= FP32_TOL * (1 + max|plain|)
 SOURCES = ("flash_serial", "flash_decode", "attention")  # csrc/<name>.cu
 VERBOSE_BUILD = False  # --verbose-build: nvcc's register / spill report
+# the kernels' device times with the previous decode body (PERF.md §6, the
+# bracketed times; an H100 80GB HBM3 at 700 W), printed beside this run's:
+# (kernel, storage, kind or B, tokens) -> ms
+BEFORE_MS = {("K1", "nuq3", "decode", 32768): 0.5724,
+             ("K1", "nuq3", "decode", 131072): 2.2660,
+             ("K1", "nuq3", "prefill", 2048): 0.9302,
+             ("K1", "nuq3", "prefill", 32768): 11.3344,
+             ("K5", "nuq3", 1, 32768): 0.5798, ("K5", "nuq3", 4, 8192): 0.5662,
+             ("K1", "int4x2", "decode", 32768): 0.6123,
+             ("K1", "int4x2", "decode", 131072): 2.2008,
+             ("K1", "int4x2", "decode", 524288): 8.6246,
+             ("K1", "int4x2", "prefill", 32768): 14.6815,
+             ("K5", "int4x2", 4, 8192): 0.6314,
+             ("K1", "int4", "decode", 32768): 0.8689,
+             ("K1", "int4", "decode", 131072): 3.2566}
+
+
+def vs_before(key, ms):
+    """'; before x ms, y.yyx faster' for a time of BEFORE_MS, else ''."""
+    old = BEFORE_MS.get(key)
+    return "" if old is None else \
+        f"; before {old:.4f} ms (PERF.md), {old / ms:.2f}x faster"
+
+
 BF16_TOL = 1e-2  # bf16 dot operands: |kernel - plain| <= BF16_TOL * max|plain|;
 # the kernel rounds each split's probabilities against the split's own
 # maximum, the plain version against the row's
@@ -689,6 +724,139 @@ def phase_k1_vs_plain(report):
         f"{worst[False]:.3f} (bound 1e-4*(1+max|plain|)), bf16 dots "
         f"{worst[True]:.3f} (bound 1e-2*max|plain|)")
     report["k1_grid_worst_ratio"] = worst
+    report["k1_decode_edges"] = decode_edge_grid(
+        "[6]", (("nuq", 2), ("nuq", 3), ("nuq", 4), ("int4", 4),
+                ("int8", 8)), paged=False)
+    rope_table_check("[6]")
+
+
+def decode_widths(codes):
+    """(G, head group, d_head, K outliers) of the decode-body edge grid:
+    G 1/2/4/8, head groups 1-16 and d_head 32/64/128 as the mode allows
+    (int4x2 pairs heads: even groups; slot words carry a 2-bit head index
+    and hg * D <= 512: slots only at hg <= 4)."""
+    if codes == "int4x2":
+        return [(1, 2, 128, "slots"), (2, 4, 64, "slots"),
+                (4, 2, 32, "slots"), (8, 4, 128, "none"),
+                (1, 8, 128, "channels"), (2, 16, 64, "channels"),
+                (4, 4, 32, "channels")]
+    return [(1, 4, 128, "slots"), (2, 2, 64, "slots"), (4, 1, 32, "slots"),
+            (8, 4, 32, "slots"), (1, 8, 128, "channels"),
+            (2, 16, 64, "channels"), (8, 1, 128, "channels"),
+            (4, 2, 128, "none")]
+
+
+def decode_edge_grid(tag, modes, paged):
+    """The decode body (fd_decode) against the plain version over its edge
+    cases, fp32 and bf16 dots: each mode x pre / post RoPE x the widths of
+    ``decode_widths`` x sink 0 / 5, and a sliding window; B = 3 rows at
+    ragged positions: one with no packed token (pos < S; pos 0 at sink 0),
+    one whose live length 201 is not a multiple of a tile, one deep; the
+    card's splits beyond a row's live tiles hold no tile. ``paged``: K5
+    over permuted pages of 256 (with an inactive fourth slot aliasing the
+    third's pages), also held to K1 on the same tokens. Returns the worst
+    |err| / bound per dot mode."""
+    from kvquant_tpu_torch.ops.kernels import flash_decode as fd
+    from kvquant_tpu_torch.ops.kernels import paged_decode as pdk
+
+    dev = torch.device("cuda")
+    L, Tc, P = 2, 1024, 256
+    worst = {False: 0.0, True: 0.0}
+    k1_diff, n = 0.0, 0
+    t0 = time.perf_counter()
+    for dot_bf16 in (False, True):
+        for codes, bits in modes:
+            widths = decode_widths(codes)
+            for post in (False, True):
+                for i, (G, hg, D, k_out) in enumerate(widths):
+                    for sink in (0, 5):
+                        for window in (None, 300) if i == 0 else (None,):
+                            Hkv = max(4, hg)
+                            dcfg, mcfg = k1_config(
+                                codes, bits, Hkv, D, G, 3 * P if paged else Tc,
+                                sink, post, k_out, hg, window, dot_bf16, L=L,
+                                n_kc=4 if codes == "int4x2" else None)
+                            gen = torch.Generator(device=dev).manual_seed(
+                                61 + n)
+                            case = (f"{tag} edge {codes}{bits} "
+                                    f"{'post' if post else 'pre'} {k_out} "
+                                    f"G{G} hg{hg} D{D} sink{sink} "
+                                    f"win{window}")
+                            if paged:
+                                dcfg = dataclasses.replace(dcfg,
+                                                           page_tokens=P)
+                                pool, ops, table, pos = paged_case(
+                                    dcfg, L, P, gen, dev)
+                                pos[0] = max(sink - 2, 0)
+                                pos[1] = sink + 200
+                                dq = paged_dq(ops)
+                                q = torch.randn((4, Hkv, G, D), generator=gen,
+                                                device=dev)
+                                got = pdk.paged_flash_decode(
+                                    q, pool, table, dq, 1, pos, dcfg, mcfg)
+                                torch.cuda.synchronize()
+                                want = pdk.paged_flash_decode_ref(
+                                    q, pool, table, dq, 1, pos, dcfg, mcfg)
+                                k1 = k1_on_pages(q, pool, table, dq, 1, pos,
+                                                 dcfg, mcfg,
+                                                 fd.flash_attention)
+                                diff = float((got - k1).abs().max())
+                                if not diff <= FP32_TOL * (
+                                        1 + float(want.abs().max())):
+                                    raise AssertionError(
+                                        f"{case}: K5 != K1 on the same "
+                                        f"tokens ({diff:.3e})")
+                                k1_diff = max(k1_diff, diff)
+                            else:
+                                ops = k1_operands(dcfg, L, 3, Tc, gen, dev)
+                                q = torch.randn((3, Hkv, G, D), generator=gen,
+                                                device=dev)
+                                pos = torch.tensor(
+                                    [max(sink - 2, 0), sink + 200,
+                                     sink + Tc - 4], dtype=torch.int32,
+                                    device=dev)
+                                got = call(fd.flash_attention, q, ops, 1, pos,
+                                           dcfg, mcfg)
+                                torch.cuda.synchronize()
+                                want = call(fd.flash_attention_ref, q, ops, 1,
+                                            pos, dcfg, mcfg)
+                            check_case(case, got, want, dot_bf16, worst)
+                            n += 1
+    log(f"{tag} decode body edge grid ({'K5' if paged else 'K1'}): "
+        f"{n // 2} cases x 2 dot modes in {time.perf_counter() - t0:.1f} s; "
+        f"worst |err| / bound: fp32 dots {worst[False]:.3f}, bf16 dots "
+        f"{worst[True]:.3f}" + (f"; max |K5 - K1 on the same tokens| "
+                                f"{k1_diff:.3e}" if paged else ""))
+    return dict(worst)
+
+
+def rope_table_check(tag):
+    """The kernels' cached (cos, sin) table on the card: bitwise the plain
+    version's rope_cos_sin on the card, one tensor per key. Its distance
+    to the CPU's table is printed, not held: torch.pow rounds the RoPE
+    frequencies an ulp apart on the two devices, an ulp of a 1e5-radian
+    angle."""
+    from kvquant_tpu_torch.models.llama import rope_cos_sin
+    from kvquant_tpu_torch.ops.kernels import flash_decode as fd
+
+    _, mcfg = k1_config("nuq", 3, 32, 128, 1, 131072, 5, False, "slots", 4,
+                        None, True, L=1)
+    S, Tc = 5, 131072
+    tab = fd.rope_table(mcfg, S, Tc, "cuda")
+    half = mcfg.d_head // 2
+    cos, sin = rope_cos_sin(S + torch.arange(Tc, dtype=torch.int32,
+                                             device="cuda"), mcfg)
+    same = bool(torch.equal(tab[..., 0], cos[:, :half])
+                and torch.equal(tab[..., 1], sin[:, :half]))
+    cc, sc = rope_cos_sin(S + torch.arange(Tc, dtype=torch.int32), mcfg)
+    cpu = float(torch.stack([cc[:, :half], sc[:, :half]], -1).sub(
+        tab.cpu()).abs().max())
+    again = fd.rope_table(mcfg, S, Tc, torch.device("cuda")) is tab
+    log(f"{tag} cached RoPE table ({Tc} x {half}): == rope_cos_sin on the "
+        f"card bitwise: {same}; the same tensor on a second call: {again}; "
+        f"max |card - CPU| {cpu:.2e}")
+    if not (same and again):
+        raise AssertionError("cached RoPE table")
 
 
 # a fixed non-affine 3-bit codebook, normalized to [-1, 1]
@@ -863,9 +1031,15 @@ def phase_k1_main_path(report):
                                     device="cuda")
     cache = filled_cache(dcfg32, cfg.n_layers, ctx, 3)
     tok = torch.zeros((1,), dtype=torch.int32, device="cuda")
+    builds = fd._rope_table.cache_info().misses
     tps32, idle = decode_profile(
         f"[7] {ctx} ctx", lambda i: engine.decode_step(
             params, cfg32, dcfg32, dq32, cache, tok, ctx + i), steps)
+    builds = fd._rope_table.cache_info().misses - builds
+    log(f"[7] (cos, sin) tables built over the {steps + 5} decode steps of "
+        f"32 layers: {builds} (one per capacity and sink)")
+    if builds > 1:
+        raise AssertionError("the RoPE table was rebuilt within a run")
     report["k1_decode_tps_32k"] = tps32
     report["k1_idle_32k"] = idle
     del cache, params
@@ -985,7 +1159,8 @@ def phase_k1_times(report):
             f"{bound_ms:.4f} ms by {row['bound_by']} ({nbytes / 1e6:.1f} MB "
             f"at 3.35 TB/s = {b_bytes:.4f} ms; {flops / 1e9:.2f} GFLOP at "
             f"989 TFLOP/s = {b_ops:.4f} ms), |err| {err:.2e}; context only: "
-            f"SDPA over bf16 K/V {sdpa_ms:.4f} ms")
+            f"SDPA over bf16 K/V {sdpa_ms:.4f} ms"
+            f"{vs_before(('K1', 'nuq3', kind, ctx), row['ms'])}")
         rows.append(row)
         del ops
         torch.cuda.empty_cache()
@@ -1452,6 +1627,9 @@ def phase_k5_vs_plain(report):
         f"same tokens| {k1_diff:.3e}")
     report["k5_grid_worst_ratio"] = worst
     report["k5_vs_k1_max_diff"] = k1_diff
+    report["k5_decode_edges"] = decode_edge_grid(
+        "[14]", (("nuq", 2), ("nuq", 3), ("nuq", 4), ("int4", 4),
+                 ("int8", 8)), paged=True)
 
 
 def demo_requests(n, prompt_len, max_new, vocab, seed=0):
@@ -1716,7 +1894,8 @@ def phase_k5_times(report):
             f"{call_ms:.4f} ms per call with the wrapper's host time), plain "
             f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms by bytes "
             f"({nbytes / 1e6:.1f} MB at 3.35 TB/s), |err| {err:.2e}; "
-            f"context: K1 on the same tokens contiguous {k1_ms:.4f} ms")
+            f"context: K1 on the same tokens contiguous {k1_ms:.4f} ms"
+            f"{vs_before(('K5', 'nuq3', B, ctx), row['ms'])}")
         rows.append(row)
         del ops, pool, g, k1_args
         torch.cuda.empty_cache()
@@ -1824,6 +2003,9 @@ def phase_x2_vs_plain(report):
         f"on the same tokens| {k1_diff:.3e}")
     report["x2_k5_grid_worst_ratio"] = dict(worst5)
     report["x2_k5_vs_k1_max_diff"] = k1_diff
+    report["x2_decode_edges"] = {
+        "K1": decode_edge_grid("[18]", (("int4x2", 2),), paged=False),
+        "K5": decode_edge_grid("[18]", (("int4x2", 2),), paged=True)}
 
 
 def speed2_config(max_len, n_layers, cfg=None):
@@ -2188,13 +2370,15 @@ def phase_x2_times(report):
             ctx_note = (f"; context: K2 on the same int4x2 tokens "
                         f"{row['k2_same_tokens_ms']:.4f} ms, K1 on int4 "
                         f"containers of the same length "
-                        f"{row['k1_int4_same_tokens_ms']:.4f} ms")
+                        f"{row['k1_int4_same_tokens_ms']:.4f} ms" + vs_before(
+                            ('K1', 'int4', kind, ctx),
+                            row['k1_int4_same_tokens_ms']))
         log(f"[21] K1 int4x2 {kind} Tq {tq} ctx {ctx}: kernel "
             f"{row['ms']:.4f} ms (runs {ms:.4f}, {ms2:.4f}), plain "
             f"{plain_ms:.3f} ms, bound {row['bound_ms']:.4f} ms by "
             f"{row['bound_by']} ({nbytes / 1e6:.1f} MB = {b_bytes:.4f} ms; "
             f"{flops / 1e9:.2f} GFLOP = {b_ops:.4f} ms), |err| {err:.2e}"
-            f"{ctx_note}")
+            f"{vs_before(('K1', 'int4x2', kind, ctx), row['ms'])}{ctx_note}")
         rows.append(row)
         del ops
         torch.cuda.empty_cache()
@@ -2251,7 +2435,8 @@ def phase_x2_times(report):
         f"kernel {row['ms']:.4f} ms (runs {ms:.4f}, {ms2:.4f}), plain "
         f"{plain_ms:.3f} ms, bound {row['bound_ms']:.4f} ms by bytes "
         f"({nbytes / 1e6:.1f} MB), |err| {err:.2e}; context: K1 on the same "
-        f"tokens contiguous {k1_ms:.4f} ms")
+        f"tokens contiguous {k1_ms:.4f} ms"
+        f"{vs_before(('K5', 'int4x2', B, ctx), row['ms'])}")
     rows.append(row)
     del ops, pool, g, k1_args
     torch.cuda.empty_cache()

@@ -3,88 +3,107 @@
 // chunked prefill (Tq > 1).
 //
 // Replaces kvquant_tpu/ops/pallas/flash_decode.py:_flash_kernel (the TPU
-// kernel behind flash_attention / flash_decode): one layer `li` of the full
-// (L, ...) cache arrays; codes as nuq bit planes (2-4 bits, any codebook),
-// int4 / int8 containers (affine codebook) or the head-paired 2-bit int4x2
-// container (affine codebook); keys stored pre-RoPE (rotated
-// here at their absolute positions) or post-RoPE; K outliers as slot words
-// or static-channel residuals, V outliers as slot words; an exact sink
-// prefix; per-row causal and sliding-window masks; per-sample positions.
-// Query rows r = 0..Q-1 are g-major over (G, Tq); row r of batch b sits at
-// position pos[b] + r % Tq and sees the sink tokens k <= its position and
-// the packed tokens t with S + t <= its position.
+// kernel behind flash_attention / flash_decode, K1) and, through a page
+// table, kvquant_tpu/paged.py:paged_flash_decode (K5), which on the TPU
+// reuses _flash_kernel and only remaps the token-block index. One layer
+// `li` of the full (L, ...) cache arrays; codes as nuq bit planes (2-4
+// bits, any codebook), int4 / int8 containers (affine codebook) or the
+// head-paired 2-bit int4x2 container (affine codebook); keys stored
+// pre-RoPE (rotated here at their absolute positions) or post-RoPE; K
+// outliers as slot words or static-channel residuals, V outliers as slot
+// words; an exact sink prefix; causal and sliding-window masks; per-sample
+// positions. Query rows r = 0..Q-1 are g-major over (G, Tq); row r of
+// batch b sits at position pos[b] + r % Tq and sees the sink tokens
+// k <= its position and the packed tokens t with S + t <= its position.
+// Addressing: Contig (K1) reads the (L, B, ..., Tc) cache of batch row b;
+// Paged (K5) reads the tile at logical packed position t0 from page
+// table[b, min(t0 / P, last live page)] of the (L, NP, ..., P) pool, at
+// row t0 % P. In fd_decode only the producer thread addresses memory, so
+// the policy is chosen at run time there (K5 passes a table, K1 none).
 //
-// What bounds it. At Tq = 1 device-memory bytes: each live token costs
-// 2*Hkv*D*bits/8 code bytes, its head groups' outlier rows and 8 bytes of V
-// scale/offset per layer (LLaMA-2-7B, nuq3, hg 4, cap 2: 3336 B), against
-// ~2*Hkv*D*(bits + 6) integer and float operations to decode it and
-// rotate it under pre-RoPE storage: the decode work is close to the byte
-// time, so both must stay lean. At Tq = 256 the two contractions
-// dominate (4*Q*live*D*Hkv flops per call), far above the bytes: fp32 FMA
-// rate bounds this version (the tensor-core rate is a later change).
+// Three kernels:
+//  - fd_decode, the decode body of K1 (Tq = 1, G = 1/2/4/8 rows per kv
+//    head) and all of K5;
+//  - fd_partial, the multi-row body of K1's prefill chunks (64 rows);
+//  - fd_merge, which merges the token splits of either with the sink
+//    prefix by log-sum-exp (a split of zero weight is not read).
 //
+// fd_decode. What bounds it: device-memory bytes. Each live token costs
+// 2*Hkv*D*bits/8 code bytes, its head groups' outlier rows and 8 bytes of
+// V scale / offset per layer (LLaMA-2-7B: 3336 B nuq3 with slots cap 2,
+// hg 4; 2184 B int4x2 with 4 static K channels), read once: 0.0327 ms
+// (nuq3) and 0.0214 ms (int4x2) at 32K tokens on an H100 (3.35 TB/s).
+// Second, instruction issue: every one of the 2*D codes of a (token, kv
+// head) is dequantized (bit planes: integer bit gathering, a LUT load and
+// an fma), rotated under pre-RoPE storage, rounded to bf16 and used in a
+// dot, so at G = 1 the issue rate, not the bytes, sets the time (PERF.md
+// gives the measured times). Third, the (cos, sin) table: 512 B per token
+// for every kv head block that reads it.
 // What the design does about it:
-//  - a block owns one kv head, one tile of up to 64 query rows and one
-//    split of the live 64-token key tiles; it dequantizes each tile of K
-//    and V ONCE into shared memory (fp32, rows padded against bank
-//    conflicts) and every query row of the tile reuses it (GQA rows and the
-//    Tq rows of a prefill block alike);
-//  - the token axis is split across blocks (grid = splits x (Hkv * row
-//    tiles) x B), each block deriving its share of the live range from
-//    pos[b] on the device, so a batch of one fills the card and cost tracks
-//    the filled prefix, not the capacity; a second small kernel merges the
-//    splits' (m, l, acc) with the sink prefix by log-sum-exp;
-//  - a nuq code is `bits` shift-and-masks over the 4*bits words that hold a
-//    128-token group of one d column (neighbouring threads take
-//    neighbouring d, so the word loads coalesce), then one indexed load of
-//    the 2**bits-entry LUT in shared memory (the TPU kernel's 19-op mux
-//    tree exists only because its vector unit has no indexed load);
-//  - keys are rotated in registers while they are dequantized, one thread
-//    per (d, d + D/2) pair, from a (cos, sin) table that a first small
-//    kernel writes once per call for the live positions (one sincosf per
-//    position and pair instead of one per position, pair and kv head);
-//    the angles are ((S + t) / scaling) * inv_freq[d] in the plain
-//    version's fp32 order, and sincosf, not __sinf/__cosf or fast-math,
-//    which are wrong at the ~1e5-radian angles of long contexts;
-//  - outlier slots (and static-channel residuals) are added into the
-//    rotated tile at (head, dim) with shared-memory atomics, rotated by
-//    linearity: v at dim d adds v*cos at d and +-v*sin at d +- D/2 (the
-//    TPU kernel's one-hot E-tiles and score corrections work around its
-//    lack of scatters);
-//  - rows with no valid key in a split report m = -inf, l = 0, acc = 0 and
-//    carry zero weight in the merge;
-//  - int4x2 (two 2-bit codes per nibble, kv heads 2j and 2j + 1 sharing
-//    container head j): the block of head h reads container head h >> 1
-//    and takes its own two bits of each nibble, so a pair's container is
-//    read by two blocks (the second read mostly from L2). The TPU kernel's
-//    distributed even-head dot (c_even = x - 4 c_odd + 8) and its stacked
-//    per-pair softmax balance its matrix and vector units; here each block
-//    dequantizes its own head's code into the shared tile, as for int4.
+//  - one block per (batch row, hb kv heads of one head group, token
+//    split): the hb heads' codes, the group's outlier rows, the tile's V
+//    scale / offset and, under int4x2, the pair containers are read once
+//    per block (hb = hg, or a slice of it when the stage would not fit);
+//  - a ring of 2-4 tile stages in shared memory, filled by one producer
+//    thread with TMA bulk copies (cp.async.bulk ... complete_tx, L2
+//    evict-first so the streamed codes leave the table in L2), one
+//    contiguous piece of >= 256 B per (head, plane) or row; eight consumer
+//    warps wait on each stage's mbarrier and release it through a second
+//    one, so the loads of the next tiles are in flight while a tile is
+//    consumed. A tile is 128 tokens for bit planes (one packing group: 4
+//    word rows per plane) and 64 for the containers;
+//  - no dequantized tile in shared memory: a consumer warp takes one head
+//    and 32/G-token chunks of the tile; lane l owns columns 2l, 2l+1 and
+//    their RoPE partners 2l+D/2, 2l+D/2+1 (lanes past D/2 idle at D < 128)
+//    and keeps its G rows' query values in registers. Per word row of a
+//    chunk it spreads each plane's bits to bytes (one multiply per four
+//    tokens), so a nuq code is a byte permute and a LUT load; container
+//    codes become floats through the mantissa of 2**23 (conversion
+//    instructions issue at a sixteenth of the fma rate). Per token it
+//    rotates its pairs with one 16-byte load of the (cos, sin) table and
+//    takes G partial dots; a transposing butterfly over the 32 (row,
+//    token) partials of the chunk (31 shuffles) leaves lane l with the
+//    score of row l / C, token l % C. Online softmax and P.V run in the same
+//    registers; the warps of a head merge their (m, l, acc) through shared
+//    memory once, at the end;
+//  - outliers enter by linearity: a K slot or channel at (t, dim) adds
+//    q[dim]*rnd(v*cos) + q[partner]*rnd(+-v*sin) to the score of t; a V
+//    slot adds p*rnd(v) to the lane that owns dim, through a ballot over the
+//    chunk's slot words (no shared-memory atomics);
+//  - the (cos, sin) table (Tc, D/2) is built once per (capacity, sink,
+//    RoPE parameters, device) by the wrapper and reused by every layer and
+//    step; pre- and post-RoPE storage are separate instances, so the
+//    token loop carries no branch;
+//  - splits: grid.x fills the card's resident blocks once; each block
+//    derives its tiles from pos[b] on the device, with at least MIN_TPS
+//    tiles per split, so short live lengths use fewer splits and the
+//    launch reads no host value of pos.
+// Budget (chip_smoke.py --verbose-build: nvcc -Xptxas -v, sm_90a, 288
+// threads): G = 1 and 2 instances at 96 registers (two blocks per SM;
+// 0-32 B of spills at G = 1, up to 116 B at G = 2 with pre-RoPE keys),
+// G = 4 at 138-160 and G = 8 at 168 (one block per SM). Shared memory: the
+// ring (2-4 stages, <= 96 KB: 87 KB for LLaMA-2-7B nuq3, 70 KB for its
+// int4x2) plus hb * G * D query floats.
+//
+// fd_partial (prefill chunks). What bounds it: at Tq = 256 the two
+// contractions (4*Q*live*D*Hkv flops per call); fp32 FMA rate bounds this
+// version. A block owns one kv head, 64 query rows and one split; it
+// dequantizes each 64-token tile of K and V once into shared memory (keys
+// rotated, outliers added with shared-memory atomics) and every row reuses
+// it through 8x4 / 8x(D/16) register tiles.
 //
 // Numerics: with dot_bf16 the dot operands (queries, roped keys, the
 // dequantized values, the rotated outlier terms, the probabilities, the
 // sink rows) are rounded to bf16 and accumulated in fp32; otherwise all
-// fp32. Built without fast-math:
-// slot words are fp32 bit patterns whose zero-valued slots are denormals.
-//
-// The paged entry fd_paged_attention replaces kvquant_tpu/paged.py:
-// paged_flash_decode (K5), which on the TPU reuses _flash_kernel unchanged
-// and only remaps the token-block index through a scalar-prefetched
-// (B, MP) page table. Here too the body is shared: fd_partial takes its
-// addressing as a template policy. Contig (K1) reads the (L, B, ..., Tc)
-// cache of batch row b; Paged (K5) reads a 64-token tile at logical packed
-// position t0 from page table[b, min(t0 / P, last live page)] of the
-// (L, NP, ..., P) pool, at row t0 % P. Sinks stay per slot, the RoPE table
-// is indexed by logical position over MP * P tokens, and tiles past each
-// slot's position are skipped as in K1, so dead pages cost nothing. K5 is a
-// decode kernel (Tq = 1, G <= 8 query rows per kv head); its bound is K1's
-// decode bound: the live tokens' bytes.
+// fp32. The rotated key and its rotated outlier term are rounded
+// separately, as are the value and its slot term. Built without fast-math:
+// slot words are fp32 bit patterns whose zero-valued slots are denormals,
+// and the angles reach ~1e5 radians.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 #include <math.h>
-#include <type_traits>
 
 // Field order is mirrored by the ctypes Structure in
 // kvquant_tpu_torch/ops/kernels/flash_decode.py.
@@ -105,9 +124,8 @@ struct FdArgs {
   const float* v_sink;     // (L, B, Hkv, S, D)
   const float* k_lut;      // (L, 2**bits)
   const float* v_lut;      // (L, 2**bits)
-  const float* inv_freq;   // (D/2,) RoPE inverse frequencies
-  float2* rope;            // (Tc, D/2) scratch: (cos, sin) of packed token t
-                           //   (pre-RoPE storage only; written by fd_rope)
+  const float2* rope;      // (Tc, D/2) (cos, sin) of packed token t at
+                           //   position S + t (pre-RoPE storage only)
   const int* pos;          // (B,) position of query row 0
   const int* k_chan;       // (NG, n_kc) group-space channels of layer li
   float* part_m;           // (B, Hkv, NS, Q)
@@ -120,22 +138,24 @@ struct FdArgs {
   int n_kslots, n_vslots;  // live K / V slot rows
   int hg, mode, bits, window, post_rope, dot_bf16, li, n_split, n_rt;
   float inv;               // 1 / sqrt(D)
-  float scaling;           // linear RoPE position scaling
   const int* table;        // paged: (B, MP) page ids of each slot
   int MP, P, NP;           // paged: table width, tokens per page, pool pages
+  int hb;                  // decode: kv heads per block (divides hg)
+  int n_stage;             // decode: ring stages (2..MAX_STAGES)
 };
 
 namespace {
 
-constexpr int TT = 64;       // key tokens per tile
-constexpr int NT = 128;      // threads per block
+constexpr int TT = 64;       // key tokens per tile, prefill body
+constexpr int NT = 128;      // threads per block, prefill body and merge
 constexpr int NW = NT / 32;  // warps per block
 constexpr int MAXD = 128;
 constexpr int MAX_KC = 64;
 constexpr int MAX_SINK = 64;
-constexpr int PR = 64;       // query rows per block, multi-row instance
+constexpr int PR = 64;       // query rows per block, prefill body
 constexpr int MODE_NUQ = 0, MODE_INT4 = 1, MODE_INT8 = 2, MODE_INT4X2 = 3;
 constexpr int NEG_ROW = -(1 << 30);  // position of a padding row: sees nothing
+constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float rnd(float x, bool bf) {
   return bf ? __bfloat162float(__float2bfloat16_rn(x)) : x;
@@ -156,26 +176,10 @@ __device__ __forceinline__ bool key_ok(int t_abs, int rp, int S, int window) {
   return t_abs <= rp - S && (window <= 0 || t_abs + S > rp - window);
 }
 
-// floats / ints of the partial kernel's dynamic shared memory
-__host__ __device__ constexpr int smem_floats(int RT, int D) {
-  return TT * (D + 1)                 // sK  rotated, corrected keys
-         + TT * D                     // sV  dequantized values
-         + RT * (D + 1)               // sQ  queries
-         + RT * (TT + 1)              // sP  probabilities of the tile
-         + (RT <= 8 ? 2 * RT * TT : 0)  // sS  half-dot scores (few-row path)
-         + 3 * RT                     // sM, sL, sA  (few-row path)
-         + 32                         // sLutK, sLutV
-         + 2 * TT;                    // sVs, sVo  V scale / offset of the tile
-}
-__host__ __device__ constexpr int smem_ints(int RT) { return RT + MAX_KC; }
-size_t smem_bytes(int RT, int D) {
-  return sizeof(float) * smem_floats(RT, D) + sizeof(int) * smem_ints(RT);
-}
-
-// Addressing policies of fd_partial: where the cache rows of the 64-token
-// key tile at logical packed position t0 live. A slab is one entry of the
-// cache arrays' second axis (a batch row, or a pool page) and holds
-// tokens() rows; locate() returns (slab, row of t0 in it).
+// Addressing policies: where the cache rows of the key tile at logical
+// packed position t0 live. A slab is one entry of the cache arrays' second
+// axis (a batch row, or a pool page) and holds tokens() rows; locate()
+// returns (slab, row of t0 in it).
 struct Contig {  // K1: the (L, B, ..., Tc) cache of batch row b
   __device__ static int slabs(const FdArgs& a) { return a.B; }
   __device__ static int tokens(const FdArgs& a) { return a.Tc; }
@@ -199,10 +203,625 @@ struct Paged {  // K5: page table[b, t / P] of the (L, NP, ..., P) pool
   }
 };
 
+// ===========================================================================
+// fd_decode: Tq = 1, G rows per kv head
+// ===========================================================================
+
+constexpr int DW = 8;                // consumer warps per block
+constexpr int DNT = (DW + 1) * 32;   // + one producer warp
+constexpr int MAX_STAGES = 4;
+constexpr int MIN_TPS = 2;           // least tiles per live split
+constexpr int DECODE_SMEM_MAX = 200 * 1024;
+
+__host__ __device__ constexpr int tile_tokens(int mode) {
+  return mode == MODE_NUQ ? 128 : 64;
+}
+
+// bytes of one kind (K or V) of one tile for one head (int4x2: one pair)
+__host__ __device__ inline int code_bytes(int mode, int bits, int D) {
+  return mode == MODE_NUQ ? bits * 16 * D : mode == MODE_INT8 ? 64 * D : 32 * D;
+}
+
+__host__ __device__ inline int rows_copied(const FdArgs& a) {
+  return (a.n_kslots > 0 || a.n_kc > 0 || a.n_vslots > 0) ? a.J : 0;
+}
+
+// byte offsets within one ring stage: K codes of the block's heads (or
+// pairs), V codes, outlier rows, V scale, V offset
+struct Ring {
+  int k, v, rows, vs, vo, bytes;
+};
+
+__host__ __device__ inline Ring ring_layout(const FdArgs& a) {
+  const int units = a.mode == MODE_INT4X2 ? a.hb / 2 : a.hb;
+  const int cb = code_bytes(a.mode, a.bits, a.D), tt = tile_tokens(a.mode);
+  Ring r;
+  r.k = 0;
+  r.v = units * cb;
+  r.rows = 2 * units * cb;
+  r.vs = r.rows + rows_copied(a) * tt * 4;
+  r.vo = r.vs + tt * 4;
+  r.bytes = r.vo + tt * 4;
+  return r;
+}
+
+// the ring, or the end-of-block merge scratch [DW][G][D + 2] that reuses it
+__host__ __device__ inline int ring_span(const FdArgs& a) {
+  const int ring = a.n_stage * ring_layout(a).bytes;
+  const int merge = DW * a.Q * (a.D + 2) * 4;
+  return ring > merge ? ring : merge;
+}
+
+// dynamic shared memory: 128 B of mbarriers, the ring, the block's queries
+// (hb * G * D), the static-channel dims (hb * n_kc)
+__host__ __device__ inline int decode_smem(const FdArgs& a) {
+  return 128 + ring_span(a) + 4 * (a.hb * a.Q * a.D + a.hb * a.n_kc);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+// returns once the barrier's phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n\t.reg .pred P1;\n\t"
+      "LAB_WAIT:\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n\t"
+      "@P1 bra DONE;\n\t"
+      "bra LAB_WAIT;\n\t"
+      "DONE:\n\t}"
+      :: "r"(smem_u32(bar)), "r"(parity) : "memory");
+}
+// TMA 1-D bulk copy global -> shared; completion counted on `bar` in
+// bytes. The codes stream through L2 once: evict-first, so that they do
+// not push out the (cos, sin) table every layer and step reads again.
+__device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
+                                         uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "{\n\t.reg .b64 pol;\n\t"
+      "createpolicy.fractional.L2::evict_first.b64 pol, 1.0;\n\t"
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint "
+      "[%0], [%1], %2, [%3], pol;\n\t}"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// bf16 rounding of four dot operands where asked (two paired conversions)
+__device__ __forceinline__ void rnd4(float (&x)[4], bool bf) {
+  if (bf) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(x[0], x[1]);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(x[2], x[3]);
+    x[0] = __low2float(lo);
+    x[1] = __high2float(lo);
+    x[2] = __low2float(hi);
+    x[3] = __high2float(hi);
+  }
+}
+
+// Small integers to fp32 without a conversion instruction (those issue at
+// a sixteenth of the FMA rate): u < 2**23 in the mantissa of 2**23.
+__device__ __forceinline__ float small_uint(uint32_t u) {
+  return __uint_as_float(0x4B000000u | u) - 8388608.0f;
+}
+// the signed code of an int4 nibble n (two's complement), of an int8 byte b
+__device__ __forceinline__ float int4_code(uint32_t n) {
+  return __uint_as_float(0x4B000000u | (n ^ 8u)) - 8388616.0f;
+}
+__device__ __forceinline__ float int8_code(uint32_t b) {
+  return __uint_as_float(0x4B000000u | (b ^ 0x80u)) - 8388736.0f;
+}
+
+// byte i of w, zero-extended
+__device__ __forceinline__ uint32_t byte_of(uint32_t w, int i) {
+  return __byte_perm(w, 0u, 0x4440u | (uint32_t)i);
+}
+// A chunk's nuq codes of word row w4 for the lane's four columns (c0,
+// c0 + 1, c0 + D/2, c0 + D/2 + 1), from NB staged planes (4 word rows of D
+// words each): token 4*j + w4 of the chunk sits at bit b0 + j of every
+// plane's word; cw[col][j / 4] gets code * 4 (a LUT byte offset) in byte
+// j % 4. Four bits of a plane spread to four bytes with one multiply.
+template <int NB, int NWD>
+__device__ __forceinline__ void nuq_bytes(const unsigned char* planes, int w4, int D,
+                                          int c0, int half, int b0,
+                                          uint32_t (&cw)[4][NWD]) {
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+    for (int wi = 0; wi < NWD; ++wi) cw[jj][wi] = 0u;
+#pragma unroll
+  for (int bb = 0; bb < NB; ++bb) {
+    const uint32_t* pl = reinterpret_cast<const uint32_t*>(planes + bb * 16 * D) + w4 * D;
+    const uint2 lo = *reinterpret_cast<const uint2*>(pl + c0);
+    const uint2 hi = *reinterpret_cast<const uint2*>(pl + c0 + half);
+    const uint32_t wv[4] = {lo.x, lo.y, hi.x, hi.y};
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int wi = 0; wi < NWD; ++wi) {
+        const uint32_t nib = (wv[jj] >> (b0 + 4 * wi)) & 0xFu;
+        cw[jj][wi] |= (nib * (0x204081u << (2 + bb))) & (0x01010101u << (2 + bb));
+      }
+  }
+}
+
+// The lane's four codes (columns c0, c0 + 1, c0 + D/2, c0 + D/2 + 1) of
+// staged container row tt, as the folded dequant multiplies them: signed
+// (int4 / int8) or unsigned (int4x2, head parity `odd`) small integers.
+template <int MODE>
+__device__ __forceinline__ void container_codes(const unsigned char* codes, int tt, int D,
+                                                int c0, int half, int odd, float (&x)[4]) {
+  if (MODE == MODE_INT8) {
+    const unsigned char* row = codes + tt * D;
+    const uint32_t w0 = *reinterpret_cast<const uint16_t*>(row + c0);
+    const uint32_t w1 = *reinterpret_cast<const uint16_t*>(row + c0 + half);
+    x[0] = int8_code(w0 & 0xFFu);
+    x[1] = int8_code(w0 >> 8);
+    x[2] = int8_code(w1 & 0xFFu);
+    x[3] = int8_code(w1 >> 8);
+  } else {
+    const unsigned char* row = codes + tt * half;
+    const uint32_t b0 = row[c0 >> 1], b1 = row[(c0 + half) >> 1];
+    if (MODE == MODE_INT4X2) {
+      const int sh = 2 * odd;
+      x[0] = small_uint(((b0 ^ 8u) >> sh) & 3u);
+      x[1] = small_uint((((b0 >> 4) ^ 8u) >> sh) & 3u);
+      x[2] = small_uint(((b1 ^ 8u) >> sh) & 3u);
+      x[3] = small_uint((((b1 >> 4) ^ 8u) >> sh) & 3u);
+    } else {
+      x[0] = int4_code(b0 & 0xFu);
+      x[1] = int4_code(b0 >> 4);
+      x[2] = int4_code(b1 & 0xFu);
+      x[3] = int4_code(b1 >> 4);
+    }
+  }
+}
+
+// One step of transpose_reduce: lanes with bit H set keep the upper H of
+// their 2H partial sums and send the lower H to lane ^ H, the others the
+// reverse (constant indices: the vector stays in registers).
+template <int H>
+__device__ __forceinline__ void fold(float (&v)[32], int lane) {
+  const bool up = (lane & H) != 0;
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const float send = up ? v[i] : v[i + H];
+    const float keep = up ? v[i + H] : v[i];
+    v[i] = keep + __shfl_xor_sync(FULL, send, H);
+  }
+}
+
+// Sum of 32 per-lane vectors v[0..31] over the warp, transposed: returns
+// to lane l the full sum of entry l (31 shuffles in all).
+__device__ __forceinline__ float transpose_reduce(float (&v)[32], int lane) {
+  fold<16>(v, lane);
+  fold<8>(v, lane);
+  fold<4>(v, lane);
+  fold<2>(v, lane);
+  fold<1>(v, lane);
+  return v[0];
+}
+
+// One block: batch row b (blockIdx.z), kv heads [h0, h0 + hb) of one head
+// group (blockIdx.y), split s of the live key tiles (blockIdx.x). Warp DW
+// is the producer; consumer warp `warp` takes head slot warp / WPH and the
+// chunks c = warp % WPH (mod WPH) of each tile. MODE, NB (nuq planes; 0
+// for the containers), G rows per head, AP the addressing policy.
+template <int MODE, int NB, int G, bool PRE>
+__global__ void __launch_bounds__(DNT, G >= 4 ? 1 : 2) fd_decode(FdArgs a) {
+  extern __shared__ __align__(128) unsigned char dsm[];
+  constexpr int C = 32 / G;              // tokens per chunk
+  constexpr int NWD = (C / 4 + 3) / 4;   // code words per (column, word row)
+  constexpr int TILE = tile_tokens(MODE);
+  __shared__ float sLut[2][16];          // nuq K / V codebooks of layer li
+  const int D = a.D, half = D / 2, hb = a.hb, NS = a.n_stage;
+  const Ring R = ring_layout(a);
+  uint64_t* full = reinterpret_cast<uint64_t*>(dsm);
+  uint64_t* empty = full + MAX_STAGES;
+  unsigned char* ring = dsm + 128;
+  float* sQ = reinterpret_cast<float*>(ring + ring_span(a));
+  int* sCh = reinterpret_cast<int*>(sQ + hb * G * D);
+
+  const int s = blockIdx.x, h0 = blockIdx.y * hb, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int li = a.li, S = a.S, win = a.window, NSP = a.n_split;
+  const bool bf = a.dot_bf16 != 0;
+  const int pos = a.pos[b];
+
+  // ---- this block's live key tiles: packed tokens [lo, hi] ----
+  const int hi = min(pos - S, a.Tc - 1);
+  const int lo = win > 0 ? max(0, pos - win + 1 - S) : 0;
+  const int n_tiles = hi < lo ? 0 : hi / TILE - lo / TILE + 1;
+  const int tps = max(MIN_TPS, (n_tiles + NSP - 1) / NSP);
+  const int t_begin = lo / TILE + s * tps;
+  const int t_end = min(lo / TILE + n_tiles, t_begin + tps);
+  const size_t bh0 = (size_t)b * a.Hkv + h0;
+  if (t_begin >= t_end) {  // a split with no tile: zero weight in the merge
+    for (int i = tid; i < hb * G; i += DNT) {
+      const size_t pi = ((bh0 + i / G) * NSP + s) * G + i % G;
+      a.part_m[pi] = -INFINITY;
+      a.part_l[pi] = 0.f;
+    }
+    return;
+  }
+
+  // ---- per-block constants ----
+  const int grp = h0 / a.hg, jh0 = h0 % a.hg;
+  if (tid == 0) {
+    for (int i = 0; i < NS; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], DW);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  const float* qb = a.q + bh0 * G * D;
+  for (int i = tid; i < hb * G * D; i += DNT) sQ[i] = rnd(qb[i], bf);
+  const int K = 1 << a.bits;
+  if (MODE == MODE_NUQ && tid < K) {
+    sLut[0][tid] = a.k_lut[(size_t)li * K + tid];
+    sLut[1][tid] = a.v_lut[(size_t)li * K + tid];
+  }
+  for (int i = tid; i < hb * a.n_kc; i += DNT) {
+    const int k = i / a.n_kc;
+    const int ch = a.k_chan[grp * a.n_kc + i % a.n_kc];
+    sCh[i] = ch / D == jh0 + k ? ch % D : -1;
+  }
+  __syncthreads();
+
+  // consumer lane l owns columns 2l, 2l + 1 and their RoPE partners (lanes
+  // past D/2 hold zero queries and store nothing); its running state
+  const bool act = 2 * lane < half;
+  const int c0 = act ? 2 * lane : 0;
+  const int cols[4] = {c0, c0 + 1, c0 + half, c0 + half + 1};
+  float m[G], l[G], o[G][4];
+#pragma unroll
+  for (int r = 0; r < G; ++r) {
+    m[r] = -INFINITY;
+    l[r] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) o[r][j] = 0.f;
+  }
+
+  if (warp == DW) {
+    // ---- producer: one thread keeps the ring full ----
+    if (lane == 0) {
+      // the addressing policy: K5 passes a page table, K1 none
+      const bool paged = a.table != nullptr;
+      const size_t lay = (size_t)li * (paged ? Paged::slabs(a) : Contig::slabs(a));
+      const int TS = paged ? Paged::tokens(a) : Contig::tokens(a);
+      const int last = paged ? Paged::last_page(a, pos, S) : 0;
+      const bool paired = MODE == MODE_INT4X2;
+      const int Hc = paired ? a.Hkv / 2 : a.Hkv, hc0 = paired ? h0 / 2 : h0;
+      const int units = paired ? hb / 2 : hb;
+      const int cb = code_bytes(MODE, a.bits, D), NG = a.Hkv / a.hg;
+      const int nrows = rows_copied(a);
+      for (int i = t_begin; i < t_end; ++i) {
+        const int u = i - t_begin, st = u % NS;
+        if (u >= NS) mbar_wait(&empty[st], (u / NS - 1) & 1);
+        // under paging the page lookup comes before the copy through it
+        const int2 sr = paged ? Paged::locate(a, b, i * TILE, last)
+                              : Contig::locate(a, b, i * TILE, last);
+        const size_t slab = lay + sr.x;
+        unsigned char* dst = ring + st * R.bytes;
+        mbar_expect_tx(&full[st], R.bytes);
+        for (int c = 0; c < units; ++c) {
+          const size_t hs = slab * Hc + hc0 + c;
+          if (MODE == MODE_NUQ) {
+            // plane bb: word rows 4g .. 4g + 3 of the tile's 128-token group
+            const size_t TW = TS / 32;
+            for (int bb = 0; bb < a.bits; ++bb) {
+              const size_t w = (hs * a.bits + bb) * TW * D + (size_t)(sr.y / 32) * D;
+              bulk_g2s(dst + R.k + c * cb + bb * 16 * D,
+                       reinterpret_cast<const int32_t*>(a.kp) + w, 16 * D, &full[st]);
+              bulk_g2s(dst + R.v + c * cb + bb * 16 * D,
+                       reinterpret_cast<const int32_t*>(a.vp) + w, 16 * D, &full[st]);
+            }
+          } else {
+            const size_t rb = MODE == MODE_INT8 ? D : D / 2;
+            const size_t o = (hs * TS + sr.y) * rb;
+            bulk_g2s(dst + R.k + c * cb, reinterpret_cast<const uint8_t*>(a.kp) + o,
+                     cb, &full[st]);
+            bulk_g2s(dst + R.v + c * cb, reinterpret_cast<const uint8_t*>(a.vp) + o,
+                     cb, &full[st]);
+          }
+        }
+        for (int r = 0; r < nrows; ++r)
+          bulk_g2s(dst + R.rows + r * TILE * 4,
+                   a.kv_out + ((slab * NG + grp) * a.J + r) * TS + sr.y,
+                   TILE * 4, &full[st]);
+        bulk_g2s(dst + R.vs, a.v_scale + slab * TS + sr.y, TILE * 4, &full[st]);
+        bulk_g2s(dst + R.vo, a.v_offset + slab * TS + sr.y, TILE * 4, &full[st]);
+      }
+    }
+  } else {
+    // ---- consumers ----
+    const int WPH = DW / hb, k = warp / WPH, wk = warp % WPH;
+    const int h = h0 + k, jh = jh0 + k;
+    const int lgD = 31 - __clz(D);  // D is 32, 64 or 128
+    // per-column dequant constants: nuq (range, offset); the containers'
+    // affine codebook folded as in the plain version (common.fold_affine):
+    // code c_s -> c_s * step + zero, c_s signed (int4 / int8) or unsigned
+    // (int4x2, bias 0)
+    const float* kl = a.k_lut + (size_t)li * K;
+    const float* vl = a.v_lut + (size_t)li * K;
+    const float bias = MODE == MODE_INT4X2 ? 0.f : (float)(1 << (a.bits - 1));
+    const float kb = (kl[K - 1] - kl[0]) / (float)(K - 1);
+    const float ka = kl[0] + bias * kb;
+    const float vb = (vl[K - 1] - vl[0]) / (float)(K - 1);
+    const float va = vl[0] + bias * vb;
+    const size_t cidx = ((size_t)li * a.Hkv + h) * D;
+    float ks[4], kz[4], q[G][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float kr = a.k_range[cidx + cols[j]], ko = a.k_offset[cidx + cols[j]];
+      ks[j] = MODE == MODE_NUQ ? kr : kb * kr;
+      kz[j] = MODE == MODE_NUQ ? ko : ka * kr + ko;
+    }
+#pragma unroll
+    for (int r = 0; r < G; ++r)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) q[r][j] = act ? sQ[(k * G + r) * D + cols[j]] : 0.f;
+    const float* sQh = sQ + k * G * D;
+    const int odd = h & 1, cu = MODE == MODE_INT4X2 ? k / 2 : k;
+    const int cb = code_bytes(MODE, a.bits, D);
+    const int rlane = lane / C, tlane = lane % C;  // (row, token) of lane's score
+    const int rstr = half / 2;  // float4 of the (cos, sin) table per token
+
+    // an outlier value v at (token t_abs, dim) of this head's key, as a
+    // score term of the lane's row: RoPE is linear, so v at dim d adds
+    // v*cos at d and +-v*sin at its partner d +- D/2
+    auto kterm = [&](int t_abs, int dim, float v) {
+      const float* qr = sQh + rlane * D;
+      if (!PRE) return qr[dim] * rnd(v, bf);
+      const int i = dim & (half - 1);
+      const float2 cs = __ldg(a.rope + (size_t)t_abs * half + i);
+      const float t0v = rnd(v * cs.x, bf);
+      const float t1v = rnd(dim < half ? v * cs.y : -v * cs.y, bf);
+      return qr[dim] * t0v + qr[dim < half ? dim + half : i] * t1v;
+    };
+
+    for (int it = t_begin; it < t_end; ++it) {
+      const int u = it - t_begin, st = u % NS;
+      mbar_wait(&full[st], (u / NS) & 1);
+      const unsigned char* stg = ring + st * R.bytes;
+      const unsigned char* sKc = stg + R.k + cu * cb;
+      const unsigned char* sVc = stg + R.v + cu * cb;
+      const float* sRows = reinterpret_cast<const float*>(stg + R.rows);
+      const float* sVs = reinterpret_cast<const float*>(stg + R.vs);
+      const float* sVo = reinterpret_cast<const float*>(stg + R.vo);
+      const int t0 = it * TILE;
+      for (int ch = wk; ch < TILE / C; ch += WPH) {
+        const int tc = ch * C;  // chunk's first token in the tile
+        // the chunk's (cos, sin) rows, one 16-byte load per token and lane
+        const float4* rope_c = reinterpret_cast<const float4*>(a.rope) +
+                               ((size_t)(t0 + tc) * half + c0) / 2;
+
+        // ---- scores: partial dots of (row, token), then the butterfly ----
+        float part[32];
+#pragma unroll
+        for (int w4 = 0; w4 < 4; ++w4) {
+          uint32_t cw[4][NWD];
+          if (MODE == MODE_NUQ) nuq_bytes<NB>(sKc, w4, D, c0, half, tc / 4, cw);
+#pragma unroll
+          for (int j = 0; j < C / 4; ++j) {
+            const int t = 4 * j + w4, tt = tc + t;
+            float x[4];
+            if (MODE == MODE_NUQ) {
+#pragma unroll
+              for (int jj = 0; jj < 4; ++jj)
+                x[jj] = *reinterpret_cast<const float*>(
+                    reinterpret_cast<const char*>(sLut[0]) + byte_of(cw[jj][j / 4], j % 4));
+            } else {
+              container_codes<MODE>(sKc, tt, D, c0, half, odd, x);
+            }
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj) x[jj] = fmaf(x[jj], ks[jj], kz[jj]);
+            if (PRE) {  // rotate the pairs (c0, c0 + D/2), (c0 + 1, c0 + 1 + D/2)
+              const float4 cs = __ldg(rope_c + t * rstr);
+              const float r0 = x[0] * cs.x - x[2] * cs.y;
+              const float r2 = x[2] * cs.x + x[0] * cs.y;
+              const float r1 = x[1] * cs.z - x[3] * cs.w;
+              const float r3 = x[3] * cs.z + x[1] * cs.w;
+              x[0] = r0; x[1] = r1; x[2] = r2; x[3] = r3;
+            }
+            rnd4(x, bf);
+#pragma unroll
+            for (int r = 0; r < G; ++r) {
+              float acc = q[r][0] * x[0];
+#pragma unroll
+              for (int jj = 1; jj < 4; ++jj) acc = fmaf(q[r][jj], x[jj], acc);
+              part[r * C + t] = acc;
+            }
+          }
+        }
+        float sc = transpose_reduce(part, lane);
+
+        // ---- K outliers of the lane's (row, token) ----
+        const int tt_l = tc + tlane, ta_l = t0 + tt_l;
+        if (a.n_kc > 0) {
+          for (int n = 0; n < a.n_kc; ++n) {
+            const int dim = sCh[k * a.n_kc + n];
+            if (dim >= 0) sc += kterm(ta_l, dim, sRows[n * TILE + tt_l]);
+          }
+        } else {
+          for (int sl = 0; sl < a.n_kslots; ++sl) {
+            const uint32_t w = __float_as_uint(sRows[sl * TILE + tt_l]);
+            const int gidx = (int)((w >> 7) & 0x3u) * D + (int)(w & 0x7Fu);
+            if ((gidx >> lgD) == jh)
+              sc += kterm(ta_l, gidx & (D - 1), __uint_as_float(w & 0xFFFFFE00u));
+          }
+        }
+        sc = key_ok(ta_l, pos, S, win) ? sc * a.inv : -INFINITY;
+
+        // ---- online softmax over the chunk: C lanes per row ----
+        float mx = sc;
+#pragma unroll
+        for (int off = C / 2; off; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
+        float m_mine = -INFINITY;
+        float alpha[G];
+#pragma unroll
+        for (int r = 0; r < G; ++r) {
+          const float m_new = fmaxf(m[r], __shfl_sync(FULL, mx, r * C));
+          alpha[r] = m[r] == -INFINITY ? 0.f : expf(m[r] - m_new);
+          m[r] = m_new;
+          if (r == rlane) m_mine = m_new;
+        }
+        const float p = sc == -INFINITY ? 0.f : expf(sc - m_mine);
+        float sum = p;
+#pragma unroll
+        for (int off = C / 2; off; off >>= 1) sum += __shfl_xor_sync(FULL, sum, off);
+#pragma unroll
+        for (int r = 0; r < G; ++r) {
+          l[r] = l[r] * alpha[r] + __shfl_sync(FULL, sum, r * C);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) o[r][j] *= alpha[r];
+        }
+        const float pr = rnd(p, bf);
+
+        // ---- P.V over the chunk; a token past the live range gets a zero
+        // V scale and offset, so its value is 0 whatever its codes ----
+#pragma unroll
+        for (int w4 = 0; w4 < 4; ++w4) {
+          uint32_t cw[4][NWD];
+          if (MODE == MODE_NUQ) nuq_bytes<NB>(sVc, w4, D, c0, half, tc / 4, cw);
+#pragma unroll
+          for (int j = 0; j < C / 4; ++j) {
+            const int t = 4 * j + w4, tt = tc + t;
+            const bool live = t0 + tt <= hi;
+            const float sc_t = live ? sVs[tt] : 0.f, of_t = live ? sVo[tt] : 0.f;
+            const float vs_t = MODE == MODE_NUQ ? sc_t : sc_t * vb;
+            const float vo_t = MODE == MODE_NUQ ? of_t : sc_t * va + of_t;
+            float y[4];
+            if (MODE == MODE_NUQ) {
+#pragma unroll
+              for (int jj = 0; jj < 4; ++jj)
+                y[jj] = *reinterpret_cast<const float*>(
+                    reinterpret_cast<const char*>(sLut[1]) + byte_of(cw[jj][j / 4], j % 4));
+            } else {
+              container_codes<MODE>(sVc, tt, D, c0, half, odd, y);
+            }
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj) y[jj] = fmaf(y[jj], vs_t, vo_t);
+            rnd4(y, bf);
+#pragma unroll
+            for (int r = 0; r < G; ++r) {
+              const float pt = __shfl_sync(FULL, pr, r * C + t);
+#pragma unroll
+              for (int jj = 0; jj < 4; ++jj) o[r][jj] = fmaf(pt, y[jj], o[r][jj]);
+            }
+          }
+        }
+
+        // ---- V slots of the chunk, this head's words by ballot: entry
+        // e = slot * C + token, one per lane and round ----
+        if (a.n_vslots > 0) {
+          const int ne = C * a.n_vslots;
+          for (int e0 = 0; e0 < ne; e0 += 32) {
+            const int e = e0 + lane, tt = tc + (e & (C - 1));
+            uint32_t w = 0u;
+            bool mine = false;
+            if (e < ne) {
+              w = __float_as_uint(sRows[(a.spk + e / C) * TILE + tt]);
+              const int gidx = (int)((w >> 7) & 0x3u) * D + (int)(w & 0x7Fu);
+              mine = (gidx >> lgD) == jh && t0 + tt <= hi;
+            }
+            unsigned msk = __ballot_sync(FULL, mine);
+            while (msk) {
+              const int src = __ffs(msk) - 1;
+              msk &= msk - 1;
+              const uint32_t ws = __shfl_sync(FULL, w, src);
+              const int d = ((int)((ws >> 7) & 0x3u) * D + (int)(ws & 0x7Fu)) & (D - 1);
+              const float v = rnd(__uint_as_float(ws & 0xFFFFFE00u), bf);
+              const int t = src & (C - 1);  // e0 is a multiple of C
+#pragma unroll
+              for (int r = 0; r < G; ++r) {
+                const float pt = __shfl_sync(FULL, pr, r * C + t);
+#pragma unroll
+                for (int jj = 0; jj < 4; ++jj)
+                  if (act && cols[jj] == d) o[r][jj] = fmaf(pt, v, o[r][jj]);
+              }
+            }
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);  // the stage may be refilled
+    }
+  }
+
+  __syncthreads();  // every tile consumed: the ring becomes merge scratch
+  if (warp < DW) {
+    float* red = reinterpret_cast<float*>(ring) + (size_t)warp * G * (D + 2);
+#pragma unroll
+    for (int r = 0; r < G; ++r) {
+      if (act) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) red[r * (D + 2) + cols[j]] = o[r][j];
+      }
+      if (lane == 0) {
+        red[r * (D + 2) + D] = m[r];
+        red[r * (D + 2) + D + 1] = l[r];
+      }
+    }
+  }
+  __syncthreads();
+
+  // ---- merge the warps of each head: this split's partials ----
+  const int WPH = DW / hb;
+  const float* red = reinterpret_cast<const float*>(ring);
+  for (int i = tid; i < hb * G * D; i += DNT) {
+    const int k = i / (G * D), r = (i / D) % G, d = i % D;
+    const float* rw = red + ((size_t)k * WPH * G + r) * (D + 2);
+    const size_t wstride = (size_t)G * (D + 2);
+    float M = -INFINITY;
+    for (int w = 0; w < WPH; ++w) M = fmaxf(M, rw[w * wstride + D]);
+    float acc = 0.f, L = 0.f;
+    for (int w = 0; w < WPH; ++w) {
+      const float mw = rw[w * wstride + D];
+      const float e = mw == -INFINITY ? 0.f : expf(mw - M);
+      acc = fmaf(e, rw[w * wstride + d], acc);
+      L = fmaf(e, rw[w * wstride + D + 1], L);
+    }
+    const size_t pi = ((bh0 + k) * NSP + s) * G + r;
+    a.part_acc[pi * D + d] = acc;
+    if (d == 0) {
+      a.part_m[pi] = M;
+      a.part_l[pi] = L;
+    }
+  }
+}
+
+// ===========================================================================
+// fd_partial: prefill chunks, PR query rows per block
+// ===========================================================================
+
+// floats / ints of the partial kernel's dynamic shared memory
+__host__ __device__ constexpr int smem_floats(int RT, int D) {
+  return TT * (D + 1)                 // sK  rotated, corrected keys
+         + TT * D                     // sV  dequantized values
+         + RT * (D + 1)               // sQ  queries
+         + RT * (TT + 1)              // sP  probabilities of the tile
+         + 32                         // sLutK, sLutV
+         + 2 * TT;                    // sVs, sVo  V scale / offset of the tile
+}
+__host__ __device__ constexpr int smem_ints(int RT) { return RT + MAX_KC; }
+size_t smem_bytes(int RT, int D) {
+  return sizeof(float) * smem_floats(RT, D) + sizeof(int) * smem_ints(RT);
+}
+
 // One block: kv head h, query rows [r0, r0 + RT) of batch row b, split s of
-// the live key tiles. RT <= 8: the rows of a decode step (thread per token
-// for the scores, thread per d for P.V); RT == PR: 8x4 / 8x(D/16)
-// register tiles per thread for a prefill block. AP: Contig or Paged.
+// the live key tiles; thread (ty, tx) owns 8x4 scores and 8x(D/16) outputs.
 template <int MODE, int RT, class AP>
 __global__ void __launch_bounds__(NT) fd_partial(FdArgs a) {
   extern __shared__ __align__(16) float smem[];
@@ -211,11 +830,7 @@ __global__ void __launch_bounds__(NT) fd_partial(FdArgs a) {
   float* sV = sK + TT * DP;
   float* sQ = sV + TT * D;
   float* sP = sQ + RT * DP;
-  float* sS = sP + RT * (TT + 1);
-  float* sM = sS + (RT <= 8 ? 2 * RT * TT : 0);
-  float* sL = sM + RT;
-  float* sA = sL + RT;
-  float* sLutK = sA + RT;
+  float* sLutK = sP + RT * (TT + 1);
   float* sLutV = sLutK + 16;
   float* sVs = sLutV + 16;
   float* sVo = sVs + TT;
@@ -224,7 +839,7 @@ __global__ void __launch_bounds__(NT) fd_partial(FdArgs a) {
 
   const int s = blockIdx.x, h = blockIdx.y / a.n_rt, rt = blockIdx.y % a.n_rt;
   const int b = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x;
   const int li = a.li, Tc = a.Tc, S = a.S, Q = a.Q, win = a.window;
   const bool bf = a.dot_bf16 != 0;
   const int r0 = rt * RT, nrows = min(RT, Q - r0);
@@ -253,7 +868,6 @@ __global__ void __launch_bounds__(NT) fd_partial(FdArgs a) {
       pm[r] = -INFINITY;
       pl[r] = 0.f;
     }
-    for (int i = tid; i < nrows * D; i += NT) pacc[i] = 0.f;
     return;
   }
 
@@ -266,13 +880,7 @@ __global__ void __launch_bounds__(NT) fd_partial(FdArgs a) {
     sLutK[tid] = kl[tid];
     sLutV[tid] = vl[tid];
   }
-  if (tid < RT) {
-    sRpos[tid] = tid < nrows ? pos + (r0 + tid) % a.Tq : NEG_ROW;
-    if (RT <= 8) {
-      sM[tid] = -INFINITY;
-      sL[tid] = 0.f;
-    }
-  }
+  if (tid < RT) sRpos[tid] = tid < nrows ? pos + (r0 + tid) % a.Tq : NEG_ROW;
   const float* qb = a.q + (bh * Q + r0) * D;
   for (int i = tid; i < RT * D; i += NT) {
     const int r = i / D, d = i % D;
@@ -384,10 +992,7 @@ __global__ void __launch_bounds__(NT) fd_partial(FdArgs a) {
     }
   };
 
-  // Bit-plane words of columns c0 / c1 for K and V, [plane][word row]. In
-  // the decode instances the next tile's words load right after this
-  // tile's dequantization, under its outlier and contraction phases.
-  constexpr bool PF = RT <= 8;
+  // Bit-plane words of columns c0 / c1 for K and V, [plane][word row]
   uint32_t wk0[4][4], wk1[4][4], wv0[4][4], wv1[4][4];
   auto load_words = [&](int2 sr) {
     const int bits = a.bits, TW = TS / 32, g = sr.y / 128;
@@ -406,15 +1011,12 @@ __global__ void __launch_bounds__(NT) fd_partial(FdArgs a) {
         wv1[bb][w] = on ? (uint32_t)vpl[row + c1] : 0u;
       }
   };
-  if (MODE == MODE_NUQ && PF) load_words(cur);
 
-  // running state: few-row path in shared memory (sM, sL, sA) and o[];
-  // multi-row path in registers
-  constexpr int RM = RT <= 8 ? RT : 8;  // rows per thread
-  float o[RM][8];
-  float m_r[RM], l_r[RM];
+  // running state in registers: thread (ty, tx) owns rows ty*8 + i
+  float o[8][8];
+  float m_r[8], l_r[8];
 #pragma unroll
-  for (int i = 0; i < RM; ++i) {
+  for (int i = 0; i < 8; ++i) {
     m_r[i] = -INFINITY;
     l_r[i] = 0.f;
 #pragma unroll
@@ -429,7 +1031,7 @@ __global__ void __launch_bounds__(NT) fd_partial(FdArgs a) {
       ow[k] = tid + k * NT < n_ow ? load_ow(kvo, tid + k * NT) : 0.f;
     // ---- dequantize (and rotate) K and V of the tile into shared memory ----
     if (MODE == MODE_NUQ) {
-      if (!PF) load_words(cur);
+      load_words(cur);
       const int bit0 = ((t0 % 128) + tb) >> 2;
 #pragma unroll
       for (int kind = 0; kind < 2; ++kind) {
@@ -486,11 +1088,9 @@ __global__ void __launch_bounds__(NT) fd_partial(FdArgs a) {
     }
     __syncthreads();
     const bool more = tile + 1 < t_end;
-    // the next tile's slab and row: under paging its table lookup comes
-    // before the prefetch that reads through it
+    // the next tile's slab and row
     const int2 nxt = more ? at(t0 + TT) : cur;
     const float vso_next = more ? load_vso(nxt) : 0.f;
-    if (MODE == MODE_NUQ && PF && more) load_words(nxt);
 
     // ---- outliers, added to the rotated tile ----
     if (n_ow > 0) {
@@ -501,126 +1101,64 @@ __global__ void __launch_bounds__(NT) fd_partial(FdArgs a) {
       __syncthreads();
     }
 
-    if constexpr (RT <= 8) {
-      // ---- scores: thread (token t, half hh of d) ----
-      {
-        const int t = tid % TT, hh = tid / TT;
-        const float* kr = sK + t * DP + hh * half;
-        const float* qr = sQ + hh * half;
-        float acc[RT];
+    // ---- scores: thread (ty, tx) owns rows ty*8+i, tokens tx + 16j ----
+    const int ty = tid / 16, tx = tid % 16;
+    float sc[8][4];
 #pragma unroll
-        for (int r = 0; r < RT; ++r) acc[r] = 0.f;
-        for (int d = 0; d < half; ++d) {
-          const float kv = kr[d];
+    for (int i = 0; i < 8; ++i)
 #pragma unroll
-          for (int r = 0; r < RT; ++r) acc[r] = fmaf(qr[r * DP + d], kv, acc[r]);
-        }
+      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
+    for (int d = 0; d < D; ++d) {
+      float qv[8], kv[4];
 #pragma unroll
-        for (int r = 0; r < RT; ++r) sS[(hh * RT + r) * TT + t] = acc[r];
-      }
-      __syncthreads();
-      // ---- online softmax: warp w takes rows w, w + 4 ----
-      for (int r = warp; r < RT; r += NW) {
-        const int rp = sRpos[r];
-        float sc[2];
-        float tmax = -INFINITY;
+      for (int i = 0; i < 8; ++i) qv[i] = sQ[(ty * 8 + i) * DP + d];
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int t = lane + 32 * i;
-          const float v = (sS[r * TT + t] + sS[(RT + r) * TT + t]) * a.inv;
-          sc[i] = key_ok(t0 + t, rp, S, win) ? v : -INFINITY;
-          tmax = fmaxf(tmax, sc[i]);
-        }
-        for (int off = 16; off; off >>= 1) tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
-        const float m_old = sM[r], m_new = fmaxf(m_old, tmax);
-        const float alpha = m_old == -INFINITY ? 0.f : expf(m_old - m_new);
-        float sum = 0.f;
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const float p = sc[i] == -INFINITY ? 0.f : expf(sc[i] - m_new);
-          sum += p;
-          sP[r * (TT + 1) + lane + 32 * i] = rnd(p, bf);
-        }
-        for (int off = 16; off; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-        __syncwarp();
-        if (lane == 0) {
-          sM[r] = m_new;
-          sL[r] = sL[r] * alpha + sum;
-          sA[r] = alpha;
-        }
-      }
-      __syncthreads();
-      // ---- P.V: thread (d, token subset ts) ----
-      {
-        const int d = tid % D, ts = tid / D, nts = NT / D;
-#pragma unroll
-        for (int r = 0; r < RT; ++r) o[r][0] *= sA[r];
-        for (int t = ts; t < TT; t += nts) {
-          const float v = sV[t * D + d];
-#pragma unroll
-          for (int r = 0; r < RT; ++r) o[r][0] = fmaf(sP[r * (TT + 1) + t], v, o[r][0]);
-        }
-      }
-    } else {
-      // ---- scores: thread (ty, tx) owns rows ty*8+i, tokens tx + 16j ----
-      const int ty = tid / 16, tx = tid % 16;
-      float sc[8][4];
+      for (int j = 0; j < 4; ++j) kv[j] = sK[(tx + 16 * j) * DP + d];
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-      for (int d = 0; d < D; ++d) {
-        float qv[8], kv[4];
+        for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
+    }
+    // ---- online softmax over the 16 threads that share a row ----
 #pragma unroll
-        for (int i = 0; i < 8; ++i) qv[i] = sQ[(ty * 8 + i) * DP + d];
+    for (int i = 0; i < 8; ++i) {
+      const int r = ty * 8 + i, rp = sRpos[r];
+      float tmax = -INFINITY;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) kv[j] = sK[(tx + 16 * j) * DP + d];
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
+      for (int j = 0; j < 4; ++j) {
+        const int t = tx + 16 * j;
+        sc[i][j] = key_ok(t0 + t, rp, S, win) ? sc[i][j] * a.inv : -INFINITY;
+        tmax = fmaxf(tmax, sc[i][j]);
       }
-      // ---- online softmax over the 16 threads that share a row ----
+      for (int off = 8; off; off >>= 1) tmax = fmaxf(tmax, __shfl_xor_sync(FULL, tmax, off));
+      const float m_new = fmaxf(m_r[i], tmax);
+      const float alpha = m_r[i] == -INFINITY ? 0.f : expf(m_r[i] - m_new);
+      float sum = 0.f;
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int r = ty * 8 + i, rp = sRpos[r];
-        float tmax = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int t = tx + 16 * j;
-          sc[i][j] = key_ok(t0 + t, rp, S, win) ? sc[i][j] * a.inv : -INFINITY;
-          tmax = fmaxf(tmax, sc[i][j]);
-        }
-        for (int off = 8; off; off >>= 1) tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
-        const float m_new = fmaxf(m_r[i], tmax);
-        const float alpha = m_r[i] == -INFINITY ? 0.f : expf(m_r[i] - m_new);
-        float sum = 0.f;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float p = sc[i][j] == -INFINITY ? 0.f : expf(sc[i][j] - m_new);
-          sum += p;
-          sP[r * (TT + 1) + tx + 16 * j] = rnd(p, bf);
-        }
-        for (int off = 8; off; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-        m_r[i] = m_new;
-        l_r[i] = l_r[i] * alpha + sum;
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj) o[i][jj] *= alpha;
+      for (int j = 0; j < 4; ++j) {
+        const float p = sc[i][j] == -INFINITY ? 0.f : expf(sc[i][j] - m_new);
+        sum += p;
+        sP[r * (TT + 1) + tx + 16 * j] = rnd(p, bf);
       }
-      __syncthreads();
-      // ---- P.V: thread (ty, tx) owns rows ty*8+i, dims tx + 16jj ----
-      const int dj = D / 16;
-      for (int t = 0; t < TT; ++t) {
-        float pv[8], vv[8];
+      for (int off = 8; off; off >>= 1) sum += __shfl_xor_sync(FULL, sum, off);
+      m_r[i] = m_new;
+      l_r[i] = l_r[i] * alpha + sum;
 #pragma unroll
-        for (int i = 0; i < 8; ++i) pv[i] = sP[(ty * 8 + i) * (TT + 1) + t];
+      for (int jj = 0; jj < 8; ++jj) o[i][jj] *= alpha;
+    }
+    __syncthreads();
+    // ---- P.V: thread (ty, tx) owns rows ty*8+i, dims tx + 16jj ----
+    const int dj = D / 16;
+    for (int t = 0; t < TT; ++t) {
+      float pv[8], vv[8];
 #pragma unroll
-        for (int jj = 0; jj < 8; ++jj) vv[jj] = jj < dj ? sV[t * D + tx + 16 * jj] : 0.f;
+      for (int i = 0; i < 8; ++i) pv[i] = sP[(ty * 8 + i) * (TT + 1) + t];
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
+      for (int jj = 0; jj < 8; ++jj) vv[jj] = jj < dj ? sV[t * D + tx + 16 * jj] : 0.f;
 #pragma unroll
-          for (int jj = 0; jj < 8; ++jj) o[i][jj] = fmaf(pv[i], vv[jj], o[i][jj]);
-      }
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) o[i][jj] = fmaf(pv[i], vv[jj], o[i][jj]);
     }
     if (more) store_vso(vso_next);
     cur = nxt;
@@ -628,58 +1166,25 @@ __global__ void __launch_bounds__(NT) fd_partial(FdArgs a) {
   }
 
   // ---- this split's partials ----
-  if constexpr (RT <= 8) {
-    const int d = tid % D, ts = tid / D, nts = NT / D;
-    float* red = sK;  // [nts][RT][D]
+  const int ty = tid / 16, tx = tid % 16, dj = D / 16;
 #pragma unroll
-    for (int r = 0; r < RT; ++r) red[(ts * RT + r) * D + d] = o[r][0];
-    __syncthreads();
-    for (int i = tid; i < nrows * D; i += NT) {
-      const int r = i / D, dd = i % D;
-      float v = 0.f;
-      for (int u = 0; u < nts; ++u) v += red[(u * RT + r) * D + dd];
-      pacc[i] = v;
-    }
-    for (int r = tid; r < nrows; r += NT) {
-      pm[r] = sM[r];
-      pl[r] = sL[r];
-    }
-  } else {
-    const int ty = tid / 16, tx = tid % 16, dj = D / 16;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = ty * 8 + i;
-      if (r < nrows) {
-        if (tx == 0) {
-          pm[r] = m_r[i];
-          pl[r] = l_r[i];
-        }
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj)
-          if (jj < dj) pacc[(size_t)r * D + tx + 16 * jj] = o[i][jj];
+  for (int i = 0; i < 8; ++i) {
+    const int r = ty * 8 + i;
+    if (r < nrows) {
+      if (tx == 0) {
+        pm[r] = m_r[i];
+        pl[r] = l_r[i];
       }
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+        if (jj < dj) pacc[(size_t)r * D + tx + 16 * jj] = o[i][jj];
     }
   }
 }
 
-// The (cos, sin) table of the packed tokens' RoPE angles, once per call:
-// sincosf(((S + t) / scaling) * inv_freq[i]), the plain version's fp32 order
-// (sincosf, not __sinf / __cosf: angles reach ~1e5 radians at long
-// context). Rows past the last position any query row can see are skipped.
-__global__ void __launch_bounds__(256) fd_rope(FdArgs a) {
-  const int half = a.D / 2;
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int t = (int)(idx / half), i = (int)(idx % half);
-  int last = 0;
-  for (int b = 0; b < a.B; ++b) last = max(last, a.pos[b] + a.Tq - 1 - a.S);
-  if (t >= a.Tc || t > last) return;
-  float sn, cs;
-  sincosf(((float)(a.S + t) / a.scaling) * a.inv_freq[i], &sn, &cs);
-  a.rope[idx] = make_float2(cs, sn);
-}
-
 // One block per (query row, kv head, batch row): the sink prefix and every
-// split's partial merged by log-sum-exp, then 1/l.
+// split's partial merged by log-sum-exp, then 1/l. A split of zero weight
+// (no live key, or none of its tiles) is not read.
 __global__ void __launch_bounds__(NT) fd_merge(FdArgs a) {
   extern __shared__ float s_w[];  // [n_split] split weights
   __shared__ float red[NW];
@@ -698,13 +1203,13 @@ __global__ void __launch_bounds__(NT) fd_merge(FdArgs a) {
   for (int k = warp; k < S; k += NW) {
     float v = 0.f;
     for (int e = lane; e < D; e += 32) v += rnd(qg[e], bf) * rnd(ks[k * D + e], bf);
-    for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
     if (lane == 0) s_sc[k] = v * a.inv;
   }
   // split maxima (one split per thread), then the block maximum
   float mloc = -INFINITY;
   for (int sp = d; sp < NS; sp += NT) mloc = fmaxf(mloc, a.part_m[(bh * NS + sp) * Q + r]);
-  for (int o = 16; o; o >>= 1) mloc = fmaxf(mloc, __shfl_xor_sync(0xffffffffu, mloc, o));
+  for (int o = 16; o; o >>= 1) mloc = fmaxf(mloc, __shfl_xor_sync(FULL, mloc, o));
   if (lane == 0) red[warp] = mloc;
   __syncthreads();
   float m0 = -INFINITY;  // sink maximum
@@ -720,9 +1225,9 @@ __global__ void __launch_bounds__(NT) fd_merge(FdArgs a) {
     const float ms = a.part_m[pi];
     const float w = ms == -INFINITY ? 0.f : expf(ms - M);
     s_w[sp] = w;
-    lloc += w * a.part_l[pi];
+    if (w != 0.f) lloc += w * a.part_l[pi];
   }
-  for (int o = 16; o; o >>= 1) lloc += __shfl_xor_sync(0xffffffffu, lloc, o);
+  for (int o = 16; o; o >>= 1) lloc += __shfl_xor_sync(FULL, lloc, o);
   if (lane == 0) red[warp] = lloc;
   __syncthreads();
   float l = 0.f, acc = 0.f;
@@ -736,63 +1241,101 @@ __global__ void __launch_bounds__(NT) fd_merge(FdArgs a) {
   }
   if (d < D) {
     const float* pacc = a.part_acc + (bh * NS * Q + r) * D + d;
-    for (int sp = 0; sp < NS; ++sp) acc = fmaf(pacc[(size_t)sp * Q * D], s_w[sp], acc);
+    for (int sp = 0; sp < NS; ++sp)
+      if (s_w[sp] != 0.f) acc = fmaf(pacc[(size_t)sp * Q * D], s_w[sp], acc);
     a.out[(bh * Q + r) * D + d] = acc / l;
   }
 }
 
-template <int MODE, int RT, class AP>
-cudaError_t launch_partial(const FdArgs& a, cudaStream_t stream) {
+template <int MODE, int NB, int G, bool PRE>
+cudaError_t launch_decode(const FdArgs& a, cudaStream_t stream) {
   static bool configured = false;
   if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(fd_partial<MODE, RT, AP>,
+    cudaError_t e = cudaFuncSetAttribute(fd_decode<MODE, NB, G, PRE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem_bytes(RT, MAXD));
+                                         DECODE_SMEM_MAX);
     if (e != cudaSuccess) return e;
     configured = true;
   }
-  fd_partial<MODE, RT, AP><<<dim3(a.n_split, a.Hkv * a.n_rt, a.B), NT, smem_bytes(RT, a.D),
-                             stream>>>(a);
+  fd_decode<MODE, NB, G, PRE><<<dim3(a.n_split, a.Hkv / a.hb, a.B), DNT,
+                                decode_smem(a), stream>>>(a);
   return cudaGetLastError();
 }
 
-// The decode instances (all Q <= 8 rows of a kv head in one block) for
-// both policies; the multi-row prefill instance for the contiguous cache
-// only (paged attention is a decode step).
-template <int MODE, class AP>
-cudaError_t dispatch_rows(const FdArgs& a, cudaStream_t st) {
-  if (a.n_rt == 1) {
-    switch (a.Q) {
-      case 1: return launch_partial<MODE, 1, AP>(a, st);
-      case 2: return launch_partial<MODE, 2, AP>(a, st);
-      case 4: return launch_partial<MODE, 4, AP>(a, st);
-      case 8: return launch_partial<MODE, 8, AP>(a, st);
-    }
+template <int MODE, int NB, bool PRE>
+cudaError_t dispatch_g(const FdArgs& a, cudaStream_t st) {
+  switch (a.Q) {
+    case 1: return launch_decode<MODE, NB, 1, PRE>(a, st);
+    case 2: return launch_decode<MODE, NB, 2, PRE>(a, st);
+    case 4: return launch_decode<MODE, NB, 4, PRE>(a, st);
+    case 8: return launch_decode<MODE, NB, 8, PRE>(a, st);
   }
-  if constexpr (std::is_same<AP, Contig>::value) return launch_partial<MODE, PR, AP>(a, st);
   return cudaErrorInvalidValue;
 }
 
-// The RoPE table, the split kernel and the merge kernel on `stream`.
-template <class AP>
+template <int MODE, int NB>
+cudaError_t dispatch_rope(const FdArgs& a, cudaStream_t st) {
+  return a.post_rope ? dispatch_g<MODE, NB, false>(a, st) : dispatch_g<MODE, NB, true>(a, st);
+}
+
+cudaError_t dispatch_decode(const FdArgs& a, cudaStream_t st) {
+  const bool pair_ok = a.mode != MODE_INT4X2 || a.hb % 2 == 0;
+  if (a.hb < 1 || a.hb > DW || DW % a.hb || a.hg % a.hb || !pair_ok ||
+      a.n_stage < 2 || a.n_stage > MAX_STAGES || decode_smem(a) > DECODE_SMEM_MAX)
+    return cudaErrorInvalidValue;
+  switch (a.mode) {
+    case MODE_NUQ:
+      switch (a.bits) {
+        case 2: return dispatch_rope<MODE_NUQ, 2>(a, st);
+        case 3: return dispatch_rope<MODE_NUQ, 3>(a, st);
+        case 4: return dispatch_rope<MODE_NUQ, 4>(a, st);
+      }
+      return cudaErrorInvalidValue;
+    case MODE_INT4: return dispatch_rope<MODE_INT4, 0>(a, st);
+    case MODE_INT8: return dispatch_rope<MODE_INT8, 0>(a, st);
+    case MODE_INT4X2: return dispatch_rope<MODE_INT4X2, 0>(a, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <int MODE>
+cudaError_t launch_partial(const FdArgs& a, cudaStream_t stream) {
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(fd_partial<MODE, PR, Contig>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem_bytes(PR, MAXD));
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  fd_partial<MODE, PR, Contig><<<dim3(a.n_split, a.Hkv * a.n_rt, a.B), NT,
+                                 smem_bytes(PR, a.D), stream>>>(a);
+  return cudaGetLastError();
+}
+
+bool is_decode(const FdArgs& a) {
+  return a.Tq == 1 && a.n_rt == 1 && (a.Q == 1 || a.Q == 2 || a.Q == 4 || a.Q == 8);
+}
+
+// The split kernel (decode body, or prefill body over the contiguous
+// cache) and the merge on `stream`.
 int run(const FdArgs* a, void* stream) {
   if (a->S > MAX_SINK || a->n_kc > MAX_KC || a->D > MAXD || a->D % 32 ||
-      a->Tc % 128 || (a->mode == MODE_NUQ && (a->bits < 1 || a->bits > 4)) ||
-      (a->mode == MODE_INT4X2 && (a->bits != 2 || a->Hkv % 2 || a->hg % 2)))
+      a->Tc % 128 || (a->mode == MODE_NUQ && (a->bits < 2 || a->bits > 4)) ||
+      (a->mode == MODE_INT4X2 && (a->bits != 2 || a->Hkv % 2 || a->hg % 2)) ||
+      (!a->post_rope && !a->rope))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!a->post_rope) {
-    const size_t n = (size_t)a->Tc * (a->D / 2);
-    fd_rope<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(*a);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
   cudaError_t e = cudaErrorInvalidValue;
-  switch (a->mode) {
-    case MODE_NUQ: e = dispatch_rows<MODE_NUQ, AP>(*a, st); break;
-    case MODE_INT4: e = dispatch_rows<MODE_INT4, AP>(*a, st); break;
-    case MODE_INT8: e = dispatch_rows<MODE_INT8, AP>(*a, st); break;
-    case MODE_INT4X2: e = dispatch_rows<MODE_INT4X2, AP>(*a, st); break;
+  if (is_decode(*a)) {
+    e = dispatch_decode(*a, st);
+  } else if (!a->table) {
+    switch (a->mode) {
+      case MODE_NUQ: e = launch_partial<MODE_NUQ>(*a, st); break;
+      case MODE_INT4: e = launch_partial<MODE_INT4>(*a, st); break;
+      case MODE_INT8: e = launch_partial<MODE_INT8>(*a, st); break;
+      case MODE_INT4X2: e = launch_partial<MODE_INT4X2>(*a, st); break;
+    }
   }
   if (e != cudaSuccess) return (int)e;
   fd_merge<<<dim3(a->Q, a->Hkv, a->B), NT, a->n_split * sizeof(float), st>>>(*a);
@@ -801,17 +1344,19 @@ int run(const FdArgs* a, void* stream) {
 
 }  // namespace
 
-// K1 over the contiguous (L, B, ...) cache. Returns the cudaError_t of the
+// K1 over the contiguous (L, B, ...) cache: fd_decode at Tq = 1 with
+// G = Q in {1, 2, 4, 8}, else fd_partial. Returns the cudaError_t of the
 // launches (0 on success); nothing is synchronised.
 extern "C" int fd_attention(const FdArgs* a, void* stream) {
-  return run<Contig>(a, stream);
+  if (a->table) return (int)cudaErrorInvalidValue;
+  return run(a, stream);
 }
 
 // K5: decode attention (Tq = 1, Q <= 8 rows per kv head) over the
 // (L, NP, ...) page pool through the (B, MP) page table, Tc = MP * P.
 extern "C" int fd_paged_attention(const FdArgs* a, void* stream) {
   if (!a->table || a->P <= 0 || a->P % 128 || a->MP <= 0 || a->NP <= 0 ||
-      a->Tc != a->MP * a->P || a->Tq != 1 || a->n_rt != 1 || a->Q > 8)
+      a->Tc != a->MP * a->P || !is_decode(*a))
     return (int)cudaErrorInvalidValue;
-  return run<Paged>(a, stream);
+  return run(a, stream);
 }

@@ -19,6 +19,12 @@ words or static channels, V slot words.
   - CUDA tensors: the hand-written kernel ``csrc/flash_decode.cu``, or an
     exception when it cannot be built or launched; there is no fallback.
 
+On the card a decode step (Tq == 1, G = Q in {1, 2, 4, 8}) runs the
+decode body ``fd_decode`` (an async-copy tile ring, one block per head
+group slice); other calls run the 64-row prefill body ``fd_partial``. Both
+read the (cos, sin) table of ``rope_table``, built once per capacity, sink,
+RoPE parameters and device.
+
 ``flash_attention.launches`` counts kernel launches (one per call on the
 card, ``flash_decode`` included). The TPU kernel's constant-band packing
 (``prep_constants``) exists for a Mosaic operand limit and is not ported:
@@ -29,6 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import types
 
 import torch
 
@@ -38,12 +45,12 @@ from ...quant.nuq import lut_lookup
 from ..deployed import _outlier_addend
 from ..packing import unpack_codes
 from .common import (MAX_KC, MAX_SINK, TILE_TOKENS, fold_affine,
-                     signed_codes, channel_addend, check_operands, inv_freq,
-                     n_splits)
+                     signed_codes, channel_addend, check_operands, n_splits,
+                     sm_count)
 
 MODES = {"nuq": 0, "int4": 1, "int8": 2, "int4x2": 3}
-TILE = 64  # key tokens per tile in the kernel
-ROWS = 64  # query rows per block when Q is not 1, 2, 4 or 8
+TILE = 64  # key tokens per tile in the prefill body
+ROWS = 64  # query rows per prefill block
 
 
 def _check_config(dcfg: DeployConfig):
@@ -165,16 +172,16 @@ class _FdArgs(ctypes.Structure):
         ("q", _P), ("kp", _P), ("vp", _P), ("kv_out", _P),
         ("k_range", _P), ("k_offset", _P), ("v_scale", _P), ("v_offset", _P),
         ("k_sink", _P), ("v_sink", _P), ("k_lut", _P), ("v_lut", _P),
-        ("inv_freq", _P), ("rope", _P), ("pos", _P), ("k_chan", _P),
+        ("rope", _P), ("pos", _P), ("k_chan", _P),
         ("part_m", _P), ("part_l", _P), ("part_acc", _P), ("out", _P),
         ("L", _I), ("B", _I), ("Hkv", _I), ("Q", _I), ("Tq", _I), ("D", _I),
         ("Tc", _I), ("S", _I), ("J", _I), ("spk", _I), ("n_kc", _I),
         ("n_kslots", _I), ("n_vslots", _I),
         ("hg", _I), ("mode", _I), ("bits", _I), ("window", _I),
         ("post_rope", _I), ("dot_bf16", _I), ("li", _I), ("n_split", _I),
-        ("n_rt", _I),
-        ("inv", ctypes.c_float), ("scaling", ctypes.c_float),
+        ("n_rt", _I), ("inv", ctypes.c_float),
         ("table", _P), ("MP", _I), ("P", _I), ("NP", _I),
+        ("hb", _I), ("n_stage", _I),
     ]
 
 
@@ -187,6 +194,77 @@ def _lib():
         entry.argtypes = [ctypes.POINTER(_FdArgs), ctypes.c_void_p]
         entry.restype = ctypes.c_int
     return lib
+
+
+def rope_table(mcfg, sink: int, Tc: int, device) -> torch.Tensor:
+    """The kernels' (Tc, D/2, 2) fp32 (cos, sin) table of packed tokens
+    t = 0..Tc-1 at positions ``sink + t``: ``models.llama.rope_cos_sin``'s
+    values (the plain version's), computed on ``device``. Built once per
+    (capacity, sink, RoPE parameters, device) and shared by every layer and
+    step of K1 and K5."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return _rope_table(int(Tc), int(sink), int(mcfg.d_head),
+                       float(mcfg.rope_theta), float(mcfg.rope_scaling),
+                       device)
+
+
+@functools.lru_cache(maxsize=4)
+def _rope_table(Tc, sink, d_head, theta, scaling, device):
+    rope = types.SimpleNamespace(d_head=d_head, rope_theta=theta,
+                                 rope_scaling=scaling)
+    cos, sin = rope_cos_sin(
+        sink + torch.arange(Tc, dtype=torch.int32, device=device), rope)
+    half = d_head // 2
+    return torch.stack([cos[:, :half], sin[:, :half]], dim=-1).contiguous()
+
+
+STAGE_BYTES = 32 * 1024  # largest ring stage before heads per block shrink
+RING_BYTES = 96 * 1024  # ring per block: two blocks share an SM
+SMEM_PER_SM = 228 * 1024  # H100: shared memory of an SM, 1 KB kept per block
+DECODE_WAVES = 1  # resident waves of decode blocks per call
+
+
+def _stage_bytes(dcfg: DeployConfig, D: int, J: int, n_rows: bool, hb: int):
+    """Bytes of one ring stage: K and V codes of hb heads (int4x2: hb / 2
+    pair containers), the group's outlier rows if ``n_rows``, V scale and
+    offset of one tile."""
+    tt = 128 if dcfg.codes == "nuq" else 64
+    cb = {"nuq": dcfg.bits * 16 * D, "int8": 64 * D}.get(dcfg.codes, 32 * D)
+    units = hb // 2 if dcfg.codes == "int4x2" else hb
+    return 2 * units * cb + ((J if n_rows else 0) + 2) * tt * 4
+
+
+def decode_plan(dcfg: DeployConfig, D: int, J: int, n_rows: bool):
+    """The decode kernel's block shape: (heads per block hb, ring stages,
+    tile tokens). hb is the largest of 8/4/2/1 dividing the head group
+    (even for int4x2, whose pairs share a container) whose stage fits
+    STAGE_BYTES; the ring takes RING_BYTES in 2-4 stages."""
+    hbs = [h for h in (8, 4, 2, 1) if dcfg.head_group % h == 0
+           and (dcfg.codes != "int4x2" or h % 2 == 0)]
+    for hb in hbs:
+        stage = _stage_bytes(dcfg, D, J, n_rows, hb)
+        if stage <= STAGE_BYTES:
+            break
+    return (hb, max(2, min(4, RING_BYTES // stage)),
+            128 if dcfg.codes == "nuq" else 64)
+
+
+def decode_splits(dcfg: DeployConfig, B: int, Hkv: int, G: int, D: int,
+                  J: int, n_rows: bool, n_kc: int, Tc: int, sms: int) -> int:
+    """Token splits of a decode call: as many as fill the card's resident
+    blocks once (DECODE_WAVES) over B * Hkv / hb head blocks, at most one
+    per tile; the blocks take their live tiles from ``pos`` on the card.
+    Residents per SM: two blocks at G <= 2 (96 registers a thread), one
+    above, fewer if shared memory (the mirror of csrc's decode_smem, plus
+    the static LUTs) does not hold them."""
+    hb, n_stage, tt = decode_plan(dcfg, D, J, n_rows)
+    ring = max(n_stage * _stage_bytes(dcfg, D, J, n_rows, hb),
+               8 * G * (D + 2) * 4)
+    smem = 128 + ring + 4 * (hb * G * D + hb * n_kc) + 128
+    per_sm = max(1, min(2 if G <= 2 else 1, SMEM_PER_SM // (smem + 1024)))
+    return max(1, min(Tc // tt, DECODE_WAVES * per_sm * sms // (B * Hkv // hb)))
 
 
 def load_library():
@@ -222,22 +300,40 @@ def kernel_limits(dcfg: DeployConfig, D: int, J: int):
     return n_kc, n_kslots, n_vslots
 
 
+def is_decode(Q: int, Tq: int) -> bool:
+    """Whether the kernel runs its decode body (one step, G rows per kv
+    head, all in one block) rather than the 64-row prefill body."""
+    return Tq == 1 and Q in (1, 2, 4, 8)
+
+
 def run_kernel(entry, q_rot, arrays, pos, k_chan_l, dcfg, mcfg, *, L, Tc, J,
-               Tq, n_rt, li, per_sm, paged=(None, 0, 0, 0)):
-    """Allocate the output, the partials and the RoPE table, fill the
-    ``FdArgs`` struct and launch ``entry`` (fd_attention or
-    fd_paged_attention) on the current stream. ``arrays``: k_planes,
-    v_planes, kv_out, k_range, k_offset, v_scale, v_offset, k_sink, v_sink,
-    k_lut, v_lut, checked by the caller; ``paged``: (table, MP, P, NP).
-    Returns the (B, Hkv, Q, D) fp32 output."""
+               Tq, li, paged=(None, 0, 0, 0)):
+    """Allocate the output and the partials, fill the ``FdArgs`` struct
+    (the cached RoPE table under pre-RoPE keys) and launch ``entry``
+    (fd_attention or fd_paged_attention) on the current stream.
+    ``arrays``: k_planes, v_planes, kv_out, k_range, k_offset, v_scale,
+    v_offset, k_sink, v_sink, k_lut, v_lut, checked by the caller;
+    ``paged``: (table, MP, P, NP). Returns the (B, Hkv, Q, D) fp32
+    output."""
     B, Hkv, Q, D = q_rot.shape
     dev = q_rot.device
     n_kc, n_kslots, n_vslots = kernel_limits(dcfg, D, J)
-    ns = n_splits(B * Hkv * n_rt, Tc, dev, per_sm, TILE)
-    freqs = inv_freq(mcfg, dev)
-    # the kernel's (cos, sin) table of the packed positions (pre-RoPE keys)
-    rope = None if dcfg.post_rope_k else torch.empty(
-        (Tc, D // 2, 2), dtype=torch.float32, device=dev)
+    if is_decode(Q, Tq):
+        n_rt = 1
+        rows = bool(n_kc or n_kslots or n_vslots)
+        hb, n_stage, _ = decode_plan(dcfg, D, J, rows)
+        ns = decode_splits(dcfg, B, Hkv, Q, D, J, rows, n_kc, Tc,
+                           sm_count(dev))
+        # the ring's bulk copies need 16-byte aligned sources
+        for name, i in (("k_planes", 0), ("v_planes", 1), ("kv_out", 2),
+                        ("v_scale", 5), ("v_offset", 6)):
+            if arrays[i].data_ptr() % 16:
+                raise ValueError(f"flash_attention kernel: {name} is not "
+                                 f"16-byte aligned")
+    else:
+        n_rt, hb, n_stage = -(-Q // ROWS), 0, 0
+        ns = n_splits(B * Hkv * n_rt, Tc, dev, 4, TILE)
+    rope = None if dcfg.post_rope_k else rope_table(mcfg, dcfg.sink, Tc, dev)
     out = torch.empty((B, Hkv, Q, D), dtype=torch.float32, device=dev)
     part_m = torch.empty((B, Hkv, ns, Q), dtype=torch.float32, device=dev)
     part_l = torch.empty_like(part_m)
@@ -246,16 +342,15 @@ def run_kernel(entry, q_rot, arrays, pos, k_chan_l, dcfg, mcfg, *, L, Tc, J,
     table, MP, P, NP = paged
     args = _FdArgs(
         q_rot.data_ptr(), *(t.data_ptr() for t in arrays),
-        freqs.data_ptr(), None if rope is None else rope.data_ptr(),
-        pos.data_ptr(),
+        None if rope is None else rope.data_ptr(), pos.data_ptr(),
         k_chan_l.data_ptr() if n_kc else None,
         part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
         out.data_ptr(),
         L, B, Hkv, Q, Tq, D, Tc, dcfg.sink, J, dcfg.slots_per_kind, n_kc,
         n_kslots, n_vslots, dcfg.head_group, MODES[dcfg.codes], dcfg.bits,
         mcfg.sliding_window or 0, int(dcfg.post_rope_k), int(dcfg.dot_bf16),
-        int(li), ns, n_rt, 1.0 / (D ** 0.5), float(mcfg.rope_scaling),
-        None if table is None else table.data_ptr(), MP, P, NP,
+        int(li), ns, n_rt, 1.0 / (D ** 0.5),
+        None if table is None else table.data_ptr(), MP, P, NP, hb, n_stage,
     )
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -306,16 +401,11 @@ def _launch(q_rot, k_planes, v_planes, kv_out, k_range, k_offset, v_scale,
         expect["k_chan"] = (k_chan_l, (NG, n_kc), torch.int32)
     check_operands("flash_attention kernel", expect, q_rot.device)
 
-    few = Q in (1, 2, 4, 8)  # the decode instances: all rows in one block
-    # many short splits for decode blocks (measured on the H100: 24 per SM
-    # beat 4-16, which leave a ragged last wave); prefill blocks do more
-    # work per tile and keep 4 per SM
     out = run_kernel(
         _lib().fd_attention, q_rot,
         (k_planes, v_planes, kv_out, k_range, k_offset, v_scale, v_offset,
          k_sink, v_sink, k_lut, v_lut), pos, k_chan_l, dcfg, mcfg, L=L,
-        Tc=Tc, J=J, Tq=Tq, n_rt=1 if few else -(-Q // ROWS), li=li,
-        per_sm=24 if few else 4)
+        Tc=Tc, J=J, Tq=Tq, li=li)
     flash_attention.launches += 1
     return out
 

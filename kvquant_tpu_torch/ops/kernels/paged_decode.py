@@ -13,8 +13,8 @@ Sinks stay per slot, (L, B, Hkv, S, D).
     slot's pages into a contiguous (1, B, ...) layer and calls K1's plain
     version, so K1 and K5 share one oracle.
   - CUDA tensors: ``fd_paged_attention`` of ``csrc/flash_decode.cu``, K1's
-    kernel body instantiated with the paged addressing policy, or an
-    exception; there is no fallback.
+    decode kernel (``fd_decode``) instantiated with the paged addressing
+    policy, or an exception; there is no fallback.
 
 ``paged_flash_decode.launches`` counts kernel launches. Every storage mode
 of K1 is taken, int4x2 included (pool code arrays (L, NP, Hkv/2, P, D/2));
@@ -159,13 +159,12 @@ def paged_flash_decode(q_rot, pool, page_table, dq, li, pos,
     if n_kc:
         expect["k_chan"] = (k_chan_l, (NG, n_kc), torch.int32)
     check_operands("paged_flash_decode kernel", expect, dev)
-    # 24 splits per SM, as K1's decode instances
     out = run_kernel(
         _lib().fd_paged_attention, q_rot,
         (pool.k_planes, pool.v_planes, pool.kv_out, dq.k_range, dq.k_offset,
          pool.v_scale, pool.v_offset, pool.k_sink, pool.v_sink, dq.k_lut_dec,
          dq.v_lut_dec), pos, k_chan_l, dcfg, mcfg, L=L, Tc=MP * P, J=J,
-        Tq=1, n_rt=1, li=li, per_sm=24, paged=(page_table, MP, P, NP))
+        Tq=1, li=li, paged=(page_table, MP, P, NP))
     paged_flash_decode.launches += 1
     return out
 

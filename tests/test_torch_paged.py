@@ -15,7 +15,9 @@ P = 256:
       out contiguously (JAX's own ground truth, tests/test_paged.py:48);
   (c) paged_append_token and write_pages_from_cache bitwise equal to JAX's,
       with sink positions, a page-boundary crossing and an inactive slot
-      aliasing another slot's pages;
+      aliasing another slot's pages: nuq3 and int4, then the int8 (3-bit),
+      int4x2 and 2-bit int4 containers, each x pre / post-RoPE x slots /
+      channels;
   (d) paged_decode_step logits against JAX over 6 steps that cross a page
       boundary, from a 258-token prefill copied into permuted pages;
   (e) the port's PagedServer (sync; chunked; bursts against per-step with
@@ -325,15 +327,14 @@ def test_wrapper_refusals():
 # ---------------------------------------------------------------------------
 
 
-@pytest.fixture(scope="module")
-def tiny(tmp_path_factory):
-    """TINY_LLAMA with uniform 3-bit quantizers fitted by the JAX package,
-    handed to the port through numpy and an npz artifact."""
+def _fit_tiny(tmp_path_factory, bits):
+    """TINY_LLAMA with uniform ``bits``-bit quantizers fitted by the JAX
+    package, handed to the port through numpy and an npz artifact."""
     params = jinit(jax.random.PRNGKey(0), J_TINY, dtype=jnp.float32)
     cal = jax.random.randint(jax.random.PRNGKey(7), (2, 40), 0,
                              J_TINY.vocab_size)
     k_acts, v_acts = collect_kv_activations(params, J_TINY, [cal])
-    qs = fit_quantizers(k_acts, v_acts, bits=3, sparsity_threshold=0.99,
+    qs = fit_quantizers(k_acts, v_acts, bits=bits, sparsity_threshold=0.99,
                         cap_outliers=True, first_few_fp16=5, sample_seqlen=40,
                         kmeans_iters=10, mode="uniform")
     path = str(tmp_path_factory.mktemp("q") / "q.npz")
@@ -344,11 +345,25 @@ def tiny(tmp_path_factory):
     return (params, jdeployed(qs, 4, 16)), (tparams, tq)
 
 
-def _tiny_cfgs(codes="nuq", max_len=2 * PAGE + 5):
-    d = dict(bits=3 if codes == "nuq" else 4, n_kv_heads=4, d_head=16,
-             max_len=max_len, sink=5, kernel="flash", dot_bf16=False,
-             head_group=4, codes=codes, post_rope_k=False,
-             k_outliers="slots", cap_per_side=2)
+@pytest.fixture(scope="module")
+def tiny(tmp_path_factory):
+    """TINY_LLAMA with 3-bit quantizers (see _fit_tiny)."""
+    return _fit_tiny(tmp_path_factory, 3)
+
+
+@pytest.fixture(scope="module")
+def tiny2(tmp_path_factory):
+    """TINY_LLAMA with 2-bit quantizers, for the 2-bit containers."""
+    return _fit_tiny(tmp_path_factory, 2)
+
+
+def _tiny_cfgs(codes="nuq", max_len=2 * PAGE + 5, bits=None, post=False,
+               k_out="slots"):
+    d = dict(bits=bits or (3 if codes == "nuq" else 4), n_kv_heads=4,
+             d_head=16, max_len=max_len, sink=5, kernel="flash",
+             dot_bf16=False, head_group=4, codes=codes, post_rope_k=post,
+             k_outliers=k_out, n_kc=3,
+             cap_per_side=2 if k_out == "slots" else 0)
     return (dataclasses.replace(JDeployConfig.create(**d), page_tokens=PAGE),
             dataclasses.replace(DeployConfig.create(**d), page_tokens=PAGE))
 
@@ -357,12 +372,19 @@ def _assert_pools_equal(tpool, jpool, td):
     for name in ("k_planes", "v_planes"):
         got = getattr(tpool, name)
         want = np.asarray(getattr(jpool, name))
-        if td.codes != "nuq":  # int4 nibble pairs: compare the codes
+        if td.codes != "nuq":  # containers: compare the codes
             got = tpk.load_codes_int(got, td.bits)
             want = np.asarray(jpk.load_codes_int(jnp.asarray(want), td.bits))
         np.testing.assert_array_equal(np.asarray(got), want, name)
-    np.testing.assert_array_equal(tpool.kv_out.numpy().view(np.int32),
-                                  np.asarray(jpool.kv_out).view(np.int32))
+    got, want = tpool.kv_out.numpy(), np.asarray(jpool.kv_out)
+    if td.post_rope_k and td.k_outliers == "channels":
+        # channel residuals of roped keys: the RoPE frequencies may round
+        # an ulp apart (below); slot words keep only the top 23 bits
+        spk = td.slots_per_kind
+        np.testing.assert_allclose(got[:, :, :, :spk], want[:, :, :, :spk],
+                                   rtol=1e-6, atol=1e-7)
+        got, want = got[:, :, :, spk:], want[:, :, :, spk:]
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
     for name in ("v_scale", "v_offset", "v_sink"):
         np.testing.assert_array_equal(getattr(tpool, name).numpy(),
                                       np.asarray(getattr(jpool, name)), name)
@@ -372,10 +394,22 @@ def _assert_pools_equal(tpool, jpool, td):
                                rtol=1e-6, atol=1e-7)
 
 
-@pytest.mark.parametrize("codes", ["nuq", "int4"])
-def test_append_and_page_copy_match_jax(tiny, codes):
-    (_, jq), (_, tq) = tiny
-    jd, td = _tiny_cfgs(codes)
+# (codes, bits, post-RoPE K, K outliers): the two first cases keep their
+# ids; the int8 (3-bit), int4x2 and 2-bit int4 containers each x pre /
+# post-RoPE x slots / channels
+APPEND_CASES = [pytest.param("nuq", 3, False, "slots", id="nuq"),
+                pytest.param("int4", 4, False, "slots", id="int4")] + [
+    pytest.param(codes, bits, post, k_out,
+                 id=f"{codes}-{bits}bit-{'post' if post else 'pre'}-{k_out}")
+    for codes, bits in (("int8", 3), ("int4x2", 2), ("int4", 2))
+    for post in (False, True) for k_out in ("slots", "channels")]
+
+
+@pytest.mark.parametrize("codes,bits,post,k_out", APPEND_CASES)
+def test_append_and_page_copy_match_jax(tiny, tiny2, codes, bits, post,
+                                        k_out):
+    (_, jq), (_, tq) = tiny2 if bits == 2 else tiny
+    jd, td = _tiny_cfgs(codes, bits=bits, post=post, k_out=k_out)
     rng = np.random.default_rng(4)
     B, C = 3, 64
     jpool = jpaged.create_paged_pool(jd, 2, 4, B)
@@ -391,12 +425,15 @@ def test_append_and_page_copy_match_jax(tiny, codes):
         elif arr.dtype == torch.uint8:
             arr.copy_(torch.as_tensor(rng.integers(0, 256, arr.shape)
                                       .astype(np.uint8)))
+        elif arr.dtype == torch.int8:
+            arr.copy_(torch.as_tensor(rng.integers(-128, 128, arr.shape)
+                                      .astype(np.int8)))
         else:
             arr.copy_(torch.as_tensor(rng.standard_normal(arr.shape)
                                       .astype(np.float32)))
     jarrs = {}
     for name, arr in one.arrays().items():
-        if codes != "nuq" and name.endswith("_planes"):  # nibble pairs
+        if arr.dtype == torch.uint8:  # nibble pairs
             jarrs[name] = jnp.asarray(tpk.unpack_nibbles(arr).numpy()).astype(
                 jnp.int4)
         else:
