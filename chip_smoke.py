@@ -3,6 +3,7 @@
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --phases 1,6 --verbose-build   # build + K1 check
     python3 chip_smoke.py --phases 1,6,9,14,17,18,21     # K1 / K5 decode body
+    python3 chip_smoke.py --phases 1,6,9,18,21           # K1 chunk body
     python3 chip_smoke.py --phases 1,10 --verbose-build  # build + K3/K4
 
 Phases (each prints its own lines; any failure raises and exits non-zero).
@@ -34,20 +35,26 @@ K2 is csrc/flash_serial.cu (flash_serial_decode), K1 csrc/flash_decode.cu
      (every mode x pre / post x G 1/2/4/8, head groups 1-16, D 32/64/128,
      slots / channels / none x sink 0 / 5, a window; B=3 rows at ragged
      positions: one with no packed token, a live length that is not a
-     multiple of a tile, splits with no tile) and the cached RoPE table
-     against rope_cos_sin on the card;
+     multiple of a tile, splits with no tile), the chunk bodies' edge grid
+     (fd_chunk with bf16 dots, fd_partial with fp32: every mode x pre /
+     post x G 1/4 with rows straddling g boundaries, 256 / 261 rows, D
+     32/64/128, slots / channels / none, sink 0/5, a first chunk whose sink
+     rows see no packed token, B=2 at unequal positions, a partly masked
+     last tile, a window) and the cached RoPE table against rope_cos_sin on
+     the card;
   7. the reference-faithful main path at LLaMA-2-7B width (nuq3, pre-RoPE
      K, slots cap 2, head_group 4, sink 5, kernel "flash"): quantized
      chunked prefill of 2048 tokens (chunk 256) and 64 greedy tokens; K1
-     must have run 32 x (chunks + 64) times; K1 against plain on the live
+     must have run 32 x (chunks + 64) times, 32 x chunks of them through
+     the chunk body; K1 against plain on the live
      cache; decode tok/s at 2K and at 32K, a profiler pass at 32K;
   8. card against CPU through K1: the committed toy checkpoint and 3-bit
      quantizers give the same 32 greedy tokens on both, fp16 and quantized
      prefill;
   9. K1 alone at one LLaMA-2-7B layer: decode at 32K and 128K, a 256-row
      prefill chunk at 2K and 32K; times as in phase 5, bound from bytes
-     and bf16 tensor-core operations, the previous decode body's time beside
-     each.
+     and bf16 tensor-core operations, the previous PR's time beside each;
+     SDPA over bf16 K/V of the same length as context only.
 K3 (qk_fused) and K4 (pv_fused) are csrc/attention.cu, kernel="pallas":
  10. K3 and K4 against their plain versions: bits 2/3/4 x head group
      1/2/4 x cap 0/2 at R = G and R = G*261 rows, G 1/4, D 32/64/128,
@@ -92,7 +99,8 @@ int4x2 (the head-paired 2-bit container) through K1 and K5:
      unequal positions, a first and a later prefill chunk, a sliding
      window; K5 over pages of 256 / 1024 as phase 14; fp32 and bf16 dots;
      K5 == K1 on the same tokens; the decode body's edge grid for int4x2
-     (even head groups) through K1 and K5;
+     (even head groups) through K1 and K5; the chunk bodies' edge grid of
+     phase 6 for int4x2;
  19. the 2-bit exact-density main path at LLaMA-2-7B width (int4x2, post-
      RoPE K, 4 static K channels per head group of 4, no V slots, sink 5,
      kernel "flash"): quantized chunked prefill of 2048 tokens (chunk 256)
@@ -105,10 +113,15 @@ int4x2 (the head-paired 2-bit container) through K1 and K5:
      committed nuq3 quantizers through K3 / K4 == simulated; PagedServer
      with int4x2 card == CPU; cli.calibrate and cli.eval_ppl --deployed
      --kernel flash at LLaMA-2-7B width (K1 32 x 256 times);
- 21. K1 (decode at 32K / 128K / 512K, a 256-row chunk at 32K) and K5 (B=4
-     x 8K) on int4x2 at one LLaMA-2-7B layer: kernel, plain, bound; K1 on
-     int4 containers and K2 on the same int4x2 tokens as context; the
-     previous decode body's times beside.
+ 21. K1 (decode at 32K / 128K / 512K, a 256-row chunk at 2K and 32K) and
+     K5 (B=4 x 8K) on int4x2 at one LLaMA-2-7B layer: kernel, plain, bound;
+     K1 on int4 containers and K2 on the same int4x2 tokens as context; the
+     previous PR's times beside;
+ 22. the 2-bit config of phase 19 at LLaMA-2-7B width runs a 32K-token
+     quantized prefill (128 chunks of 256): K1 32 x 128 chunk launches,
+     wall seconds, a profiler window over the last four chunks (device ms
+     in K1 against the rest, idle share), K1 against plain on the live
+     cache at layers 0 and 31.
 The line before the last lists every ported kernel as JSON; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -130,21 +143,19 @@ BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak, data sheet
 FP32_TOL = 1e-4  # fp32 dots: |kernel - plain| <= FP32_TOL * (1 + max|plain|)
 SOURCES = ("flash_serial", "flash_decode", "attention")  # csrc/<name>.cu
 VERBOSE_BUILD = False  # --verbose-build: nvcc's register / spill report
-# the kernels' device times with the previous decode body (PERF.md §6, the
-# bracketed times; an H100 80GB HBM3 at 700 W), printed beside this run's:
-# (kernel, storage, kind or B, tokens) -> ms
-BEFORE_MS = {("K1", "nuq3", "decode", 32768): 0.5724,
-             ("K1", "nuq3", "decode", 131072): 2.2660,
-             ("K1", "nuq3", "prefill", 2048): 0.9302,
-             ("K1", "nuq3", "prefill", 32768): 11.3344,
-             ("K5", "nuq3", 1, 32768): 0.5798, ("K5", "nuq3", 4, 8192): 0.5662,
-             ("K1", "int4x2", "decode", 32768): 0.6123,
-             ("K1", "int4x2", "decode", 131072): 2.2008,
-             ("K1", "int4x2", "decode", 524288): 8.6246,
-             ("K1", "int4x2", "prefill", 32768): 14.6815,
-             ("K5", "int4x2", 4, 8192): 0.6314,
-             ("K1", "int4", "decode", 32768): 0.8689,
-             ("K1", "int4", "decode", 131072): 3.2566}
+# the kernels' device times before the tensor-core chunk body (PERF.md §6,
+# the bracketed times; an H100 80GB HBM3 at 700 W), printed beside this
+# run's: (kernel, storage, kind or B, tokens) -> ms
+BEFORE_MS = {("K1", "nuq3", "decode", 32768): 0.2927,
+             ("K1", "nuq3", "decode", 131072): 1.0844,
+             ("K1", "nuq3", "prefill", 2048): 0.9025,
+             ("K1", "nuq3", "prefill", 32768): 11.0661,
+             ("K5", "nuq3", 1, 32768): 0.2929, ("K5", "nuq3", 4, 8192): 0.2880,
+             ("K1", "int4x2", "decode", 32768): 0.2419,
+             ("K1", "int4x2", "decode", 131072): 0.7813,
+             ("K1", "int4x2", "decode", 524288): 2.8717,
+             ("K1", "int4x2", "prefill", 32768): 14.7080,
+             ("K5", "int4x2", 4, 8192): 0.2385}
 
 
 def vs_before(key, ms):
@@ -727,6 +738,9 @@ def phase_k1_vs_plain(report):
     report["k1_decode_edges"] = decode_edge_grid(
         "[6]", (("nuq", 2), ("nuq", 3), ("nuq", 4), ("int4", 4),
                 ("int8", 8)), paged=False)
+    report["k1_chunk_edges"] = chunk_edge_grid(
+        "[6]", (("nuq", 2), ("nuq", 3), ("nuq", 4), ("int4", 4),
+                ("int8", 8)))
     rope_table_check("[6]")
 
 
@@ -827,6 +841,68 @@ def decode_edge_grid(tag, modes, paged):
         f"worst |err| / bound: fp32 dots {worst[False]:.3f}, bf16 dots "
         f"{worst[True]:.3f}" + (f"; max |K5 - K1 on the same tokens| "
                                 f"{k1_diff:.3e}" if paged else ""))
+    return dict(worst)
+
+
+def chunk_edge_grid(tag, modes):
+    """The chunk bodies (fd_chunk with bf16 dots, fd_partial with fp32 dots)
+    against the plain version over their edge cases: each mode x pre / post
+    RoPE x G 1 / 4 (g-major rows, Q = G x 256 and G x 261: row blocks
+    straddle g boundaries, and 261 rows are no multiple of a block's rows),
+    cycling D 32 / 64 / 128 x slots / channels / none x sink 0 / 5; each
+    with a first chunk at pos 0 (its sink rows see no packed token), a
+    later 261-row chunk at unequal positions of B = 2 (its last tile partly
+    masked) and a 256-row chunk under a sliding window. Returns the worst
+    |err| / bound per dot mode."""
+    from kvquant_tpu_torch.ops.kernels import flash_decode as fd
+
+    dev = torch.device("cuda")
+    L, Tc = 2, 1024
+    if modes[0][0] == "int4x2":  # pairs heads: even head groups
+        widths = [(128, "slots", 4), (64, "channels", 2), (32, "none", 2),
+                  (128, "channels", 4)]
+    else:
+        widths = [(128, "slots", 4), (64, "channels", 2), (32, "none", 1),
+                  (128, "channels", 4)]
+    worst = {False: 0.0, True: 0.0}
+    n = 0
+    t0 = time.perf_counter()
+    for dot_bf16 in (False, True):
+        i = 0
+        for codes, bits in modes:
+            for post in (False, True):
+                for G in (1, 4):
+                    D, k_out, hg = widths[i % len(widths)]
+                    sink = (0, 5)[(i // len(widths)) % 2]
+                    i += 1
+                    for tq, pos, window in (
+                            (256 + sink, [0, 0], None),
+                            (261, [sink + 256, sink + 517], None),
+                            (256, [sink + 300, sink + 700], 200)):
+                        dcfg, mcfg = k1_config(
+                            codes, bits, 4, D, G, Tc, sink, post, k_out, hg,
+                            window, dot_bf16, L=L,
+                            n_kc=4 if codes == "int4x2" else None)
+                        gen = torch.Generator(device=dev).manual_seed(71 + n)
+                        ops = k1_operands(dcfg, L, 2, Tc, gen, dev)
+                        q = torch.randn((2, 4, G * tq, D), generator=gen,
+                                        device=dev)
+                        p = torch.tensor(pos, dtype=torch.int32, device=dev)
+                        got = call(lambda *a, **k: fd.flash_attention(
+                            *a, Tq=tq, **k), q, ops, 1, p, dcfg, mcfg)
+                        torch.cuda.synchronize()
+                        want = call(lambda *a, **k: fd.flash_attention_ref(
+                            *a, Tq=tq, **k), q, ops, 1, p, dcfg, mcfg)
+                        check_case(f"{tag} chunk edge {codes}{bits} "
+                                   f"{'post' if post else 'pre'} {k_out} "
+                                   f"G{G} hg{hg} D{D} sink{sink} Tq{tq} "
+                                   f"pos{pos} win{window}", got, want,
+                                   dot_bf16, worst)
+                        n += 1
+    log(f"{tag} chunk body edge grid (K1, Tq > 1): {n // 2} cases x 2 dot "
+        f"modes in {time.perf_counter() - t0:.1f} s; worst |err| / bound: "
+        f"fp32 dots (fd_partial) {worst[False]:.3f}, bf16 dots (fd_chunk) "
+        f"{worst[True]:.3f}")
     return dict(worst)
 
 
@@ -973,20 +1049,24 @@ def phase_k1_main_path(report):
     del cache
 
     gcfg = engine.GenerateConfig(max_new_tokens=N)
-    fd.flash_attention.launches = 0
+    read = reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     toks, cache = engine.generate(params, cfg, dcfg, dq, prompt, gcfg,
                                   prefill_mode="quantized", device="cuda")
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
-    launches = fd.flash_attention.launches
+    n = read()
+    launches = n["K1"]
     want = cfg.n_layers * (n_chunks + N)
     report["k1_launches"] = launches
+    report["k1_chunk_launches"] = n["K1_chunk"]
     log(f"[7] quantized prefill {T0} tokens ({n_chunks} chunks of {chunk}) "
         f"{prefill_s:.3f} s; generate (prefill + {N} decode steps) "
-        f"{gen_s:.3f} s; K1 launches {launches} (expected {want})")
-    if launches != want:
+        f"{gen_s:.3f} s; K1 launches {launches} (expected {want}), of them "
+        f"chunks (fd_chunk) {n['K1_chunk']} (expected "
+        f"{cfg.n_layers * n_chunks})")
+    if launches != want or n["K1_chunk"] != cfg.n_layers * n_chunks:
         raise AssertionError("main path did not run K1 per layer and chunk")
     if not (toks.shape == (1, N) and int(toks.min()) >= 0
             and int(toks.max()) < cfg.vocab_size):
@@ -1654,7 +1734,9 @@ def reset_launches():
                 "K5": pdk.paged_flash_decode}
     for fn in counters.values():
         fn.launches = 0
-    return lambda: {k: fn.launches for k, fn in counters.items()}
+    fd.flash_attention.chunk_launches = 0
+    return lambda: dict({k: fn.launches for k, fn in counters.items()},
+                        K1_chunk=fd.flash_attention.chunk_launches)
 
 
 def phase_paged_main_path(report):
@@ -2006,6 +2088,7 @@ def phase_x2_vs_plain(report):
     report["x2_decode_edges"] = {
         "K1": decode_edge_grid("[18]", (("int4x2", 2),), paged=False),
         "K5": decode_edge_grid("[18]", (("int4x2", 2),), paged=True)}
+    report["x2_chunk_edges"] = chunk_edge_grid("[18]", (("int4x2", 2),))
 
 
 def speed2_config(max_len, n_layers, cfg=None):
@@ -2086,10 +2169,12 @@ def phase_x2_main_path(report):
     n = read()
     want = cfg.n_layers * (n_chunks + N)
     report["x2_k1_launches"] = n["K1"]
+    report["x2_k1_chunk_launches"] = n["K1_chunk"]
     log(f"[19] quantized prefill {T0} tokens ({n_chunks} chunks of {chunk}) "
         f"{prefill_s:.3f} s; generate (prefill + {N} decode steps) "
         f"{gen_s:.3f} s; launches {n} (K1 expected {want})")
-    if not (n["K1"] == want and n["K2"] == n["K3"] == n["K4"] == n["K5"] == 0):
+    if not (n["K1"] == want and n["K1_chunk"] == cfg.n_layers * n_chunks
+            and n["K2"] == n["K3"] == n["K4"] == n["K5"] == 0):
         raise AssertionError("the 2-bit main path did not run K1 alone per "
                              "layer, chunk and step")
     if not (toks.shape == (1, N) and int(toks.min()) >= 0
@@ -2302,7 +2387,7 @@ def phase_x2_oracle(report):
 def phase_x2_times(report):
     """K1 and K5 on int4x2 at one LLaMA-2-7B layer (Hkv 32, D 128, hg 4,
     channels n_kc 4, cap 0, post-RoPE, bf16 dots): K1 decode at 32K, 128K
-    and 512K and a 256-row chunk at 32K; K5 at B=4 x 8K over permuted pages
+    and 512K and a 256-row chunk at 2K and 32K; K5 at B=4 x 8K over permuted pages
     of 1024. Context: K1 on int4 containers and K2 on the same int4x2
     tokens."""
     from kvquant_tpu_torch.ops.kernels import flash_decode as fd
@@ -2313,7 +2398,8 @@ def phase_x2_times(report):
     dev = torch.device("cuda")
     rows = []
     for kind, ctx in (("decode", 32768), ("decode", 131072),
-                      ("decode", 524288), ("prefill", 32768)):
+                      ("decode", 524288), ("prefill", 2048),
+                      ("prefill", 32768)):
         tq = 1 if kind == "decode" else 256
         cfg, dcfg, _ = speed2_config(ctx + tq + 8, 1)
         Hkv, D, S = cfg.n_kv_heads, cfg.d_head, dcfg.sink
@@ -2443,6 +2529,123 @@ def phase_x2_times(report):
     report["x2_times"] = rows
 
 
+def phase_long_prefill(report):
+    """The 2-bit speed config of phase 19 at LLaMA-2-7B width runs a
+    32K-token quantized prefill (128 chunks of 256): K1 32 x 128 chunk
+    launches and nothing else; wall seconds; a profiler window over the
+    last four chunks (run again on the same cache: device ms in K1 against
+    the rest, and the idle share); K1 against plain on the live cache at
+    layers 0 and 31, bf16 and fp32 dots."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kvquant_tpu_torch import engine
+    from kvquant_tpu_torch.cache import create_cache, deployed_from_quantizers
+    from kvquant_tpu_torch.models import init_params
+    from kvquant_tpu_torch.ops.kernels import flash_decode as fd
+
+    T0, chunk, last = 32768, 256, 4
+    cfg, dcfg, qs = speed2_config(T0 + 8, 32)
+    S = dcfg.sink
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         dtype=torch.bfloat16, device="cuda")
+    dq = deployed_from_quantizers(qs, cfg.n_kv_heads, cfg.d_head,
+                                  device="cuda")
+    prompt = torch.randint(0, cfg.vocab_size, (1, T0),
+                           generator=torch.Generator().manual_seed(22)).cuda()
+    n_chunks = -(-(T0 - S) // chunk)
+    cache = create_cache(dcfg, cfg.n_layers, 1, device="cuda")
+    # warm-up of the chunk shapes at a short prompt
+    engine.prefill_quantized(params, cfg, dcfg, dq, cache, prompt[:, :1029],
+                             chunk=chunk)
+    torch.cuda.synchronize()
+    read = reset_launches()
+    t0 = time.perf_counter()
+    _, logits = engine.prefill_quantized(params, cfg, dcfg, dq, cache, prompt,
+                                         chunk=chunk)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    n = read()
+    want = cfg.n_layers * n_chunks
+    log(f"[22] 2-bit int4x2 config, LLaMA-2-7B width, {cfg.n_layers} layers: "
+        f"quantized "
+        f"prefill of {T0} tokens ({n_chunks} chunks of {chunk}) {wall_s:.3f} "
+        f"s ({T0 / wall_s:.0f} tok/s); launches {n} (K1 chunks expected "
+        f"{want})")
+    if not (n["K1"] == n["K1_chunk"] == want
+            and n["K2"] == n["K3"] == n["K4"] == n["K5"] == 0):
+        raise AssertionError("the long prefill did not run K1 per layer and "
+                             "chunk")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("non-finite logits")
+
+    # the last four chunks again on the same cache (same tokens, same
+    # positions): unprofiled wall time, then one profiled pass
+    toks = torch.nn.functional.pad(prompt, (0, n_chunks * chunk - (T0 - S)))
+
+    def tail():
+        for c in range(n_chunks - last, n_chunks):
+            start = S + c * chunk
+            engine.prefill_chunk(params, cfg, dcfg, dq, cache,
+                                 toks[:, start:start + chunk], start, False)
+    tail()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tail()
+    torch.cuda.synchronize()
+    tail_s = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA], acc_events=True) as prof:
+        tail()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and e.self_device_time_total > 0]
+    k1_us = sum(e.self_device_time_total for e in ev
+                if "fd_chunk" in e.key or "fd_merge" in e.key)
+    dev_us = sum(e.self_device_time_total for e in ev)
+    idle = 1 - dev_us / 1e6 / tail_s
+    log(f"[22] last {last} chunks (context {T0 - last * chunk}-{T0}): "
+        f"{tail_s * 1e3 / last:.3f} ms/chunk host wall; profiler: device "
+        f"{dev_us / 1e3 / last:.3f} ms/chunk, of it K1 (fd_chunk + fd_merge) "
+        f"{k1_us / 1e3 / last:.3f} ms and the rest {(dev_us - k1_us) / 1e3 / last:.3f} "
+        f"ms; device idle share {idle:.3f}")
+    for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"[22]   {e.self_device_time_total / last / 1e3:8.3f} ms/chunk  "
+            f"x{e.count // last:5d}  {e.key[:90]}")
+
+    # the live cache: K1 against plain at the first and last layer, the
+    # last chunk's rows
+    arrs = cache.arrays()
+    k_chan = fd.k_channel_index(dq.k_ressc, dcfg).to(torch.int32)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    q = torch.randn((1, cfg.n_kv_heads, chunk, cfg.d_head), generator=gen,
+                    device="cuda")
+    pos = torch.tensor([S + (n_chunks - 1) * chunk], dtype=torch.int32,
+                       device="cuda")
+    worst = 0.0
+    for li in (0, cfg.n_layers - 1):
+        for d in (dcfg, dataclasses.replace(dcfg, dot_bf16=False)):
+            args = (q, arrs["k_planes"], arrs["v_planes"], arrs["kv_out"],
+                    dq.k_range, dq.k_offset, arrs["v_scale"],
+                    arrs["v_offset"], arrs["k_sink"], arrs["v_sink"],
+                    dq.k_lut_dec, dq.v_lut_dec, li, pos, d, cfg)
+            got = fd.flash_attention(*args, Tq=chunk, k_chan=k_chan)
+            want_ = fd.flash_attention_ref(*args, Tq=chunk, k_chan=k_chan)
+            worst = max(worst, agree(f"[22] live cache layer {li} Tq {chunk} "
+                                     f"pos {int(pos)}", got, want_,
+                                     d.dot_bf16))
+            del got, want_
+            torch.cuda.empty_cache()
+    report["long_prefill"] = dict(tokens=T0, wall_s=wall_s,
+                                  k1_chunk_launches=n["K1_chunk"],
+                                  tail_ms_per_chunk=tail_s * 1e3 / last,
+                                  device_ms_per_chunk=dev_us / 1e3 / last,
+                                  k1_ms_per_chunk=k1_us / 1e3 / last,
+                                  idle=idle, max_abs_err=worst)
+    del cache, arrs, params
+    torch.cuda.empty_cache()
+
+
 PHASES = {1: phase_device_and_build, 2: phase_kernel_vs_plain,
           3: phase_main_path, 4: phase_card_vs_cpu, 5: phase_times,
           6: phase_k1_vs_plain, 7: phase_k1_main_path,
@@ -2452,7 +2655,8 @@ PHASES = {1: phase_device_and_build, 2: phase_kernel_vs_plain,
           14: phase_k5_vs_plain, 15: phase_paged_main_path,
           16: phase_paged_card_vs_cpu, 17: phase_k5_times,
           18: phase_x2_vs_plain, 19: phase_x2_main_path,
-          20: phase_x2_oracle, 21: phase_x2_times}
+          20: phase_x2_oracle, 21: phase_x2_times,
+          22: phase_long_prefill}
 
 
 def main(argv=None) -> int:
@@ -2497,6 +2701,7 @@ def main(argv=None) -> int:
         })
     if 9 in phases and 7 in phases:
         t = report["k1_times"][0]  # decode at 32K
+        c = report["k1_times"][3]  # a 256-row chunk at 32K
         kernels.append({
             "name": "flash_attention",
             "route": "cuda",
@@ -2509,6 +2714,10 @@ def main(argv=None) -> int:
             "library_ms": None,
             "shape": f"B=1 Hkv=32 G=1 D=128 nuq3 pre-RoPE slots cap=2 hg=4 "
                      f"sink=5, {t['kind']} Tq={t['tq']}, {t['ctx']} tokens",
+            "chunk_ms": c["ms"], "chunk_bound_ms": c["bound_ms"],
+            "chunk_launches": report["k1_chunk_launches"],
+            "chunk_shape": f"nuq3 as above, prefill Tq={c['tq']} rows at "
+                           f"{c['ctx']} tokens (fd_chunk, tensor cores)",
         })
         if 21 in phases and 19 in phases:
             x = report["x2_times"][0]  # int4x2 decode at 32K
@@ -2521,6 +2730,9 @@ def main(argv=None) -> int:
                 "int4x2_shape": "B=1 Hkv=32 G=1 D=128 int4x2 post-RoPE "
                                 "channels n_kc=4 cap=0 hg=4 sink=5, decode "
                                 f"Tq=1, {x['ctx']} tokens",
+                "int4x2_chunk_ms": next(
+                    r["ms"] for r in report["x2_times"]
+                    if r.get("kind") == "prefill" and r["ctx"] == 32768),
             })
     if 13 in phases and 11 in phases:
         for name, body_line, launches in (

@@ -44,7 +44,7 @@ OUT = os.path.join(ROOT, "kvquant_tpu_torch", "_build", "ablation")
 
 
 def reduce(src: str) -> str:
-    """Only the G=1 nuq3 and int4x2 decode instances, no chunk body."""
+    """Only the G=1 nuq3 and int4x2 decode instances, no chunk bodies."""
     cut = [f"    case {g}: return launch_decode<MODE, NB, {g}, PRE>(a, st);\n"
            for g in (2, 4, 8)]
     cut += [f"        case {b}: return dispatch_rope<MODE_NUQ, {b}>(a, st);\n"
@@ -53,6 +53,10 @@ def reduce(src: str) -> str:
             for m in ("INT4", "INT8")]
     cut += [f"      case MODE_{m}: e = launch_partial<MODE_{m}>(*a, st); "
             f"break;\n" for m in ("NUQ", "INT4", "INT8", "INT4X2")]
+    cut += [f"        case {b}: return launch_chunk<MODE_NUQ, {b}>(a, st);\n"
+            for b in (2, 3, 4)]
+    cut += [f"    case MODE_{m}: return launch_chunk<MODE_{m}, 0>(a, st);\n"
+            for m in ("INT4", "INT8", "INT4X2")]
     for line in cut:
         if line not in src:
             raise SystemExit(f"decode_ablation: source changed: {line!r}")
@@ -83,23 +87,25 @@ EDITS = {
 }
 
 
-def build_copy(name: str) -> str:
+def build_copy(name: str, reduce=reduce, edits=EDITS, out=OUT) -> str:
+    """Compile the reduced source with the edits of copy ``name`` into
+    ``out``; returns the library's path."""
     from kvquant_tpu_torch.ops.kernels import build
 
     src = reduce(open(SRC).read())
-    for old, new in EDITS[name]:
+    for old, new in edits[name]:
         if old not in src:
-            raise SystemExit(f"decode_ablation: {name}: source changed: "
+            raise SystemExit(f"ablation: {name}: source changed: "
                              f"{old[:60]!r}")
         src = src.replace(old, new)
-    path = os.path.join(OUT, f"fd_{name}.cu")
+    path = os.path.join(out, f"fd_{name}.cu")
     with open(path, "w") as f:
         f.write(src)
     so = path[:-3] + ".so"
     res = subprocess.run([build.nvcc_path(), *build.ARCH_FLAGS, *build.FLAGS,
                           "-o", so, path], capture_output=True, text=True)
     if res.returncode:
-        raise SystemExit(f"decode_ablation: nvcc failed for {name}:\n"
+        raise SystemExit(f"ablation: nvcc failed for {name}:\n"
                          f"{res.stderr[-3000:]}")
     return so
 

@@ -21,11 +21,13 @@
 // row t0 % P. In fd_decode only the producer thread addresses memory, so
 // the policy is chosen at run time there (K5 passes a table, K1 none).
 //
-// Three kernels:
+// Four kernels:
 //  - fd_decode, the decode body of K1 (Tq = 1, G = 1/2/4/8 rows per kv
 //    head) and all of K5;
-//  - fd_partial, the multi-row body of K1's prefill chunks (64 rows);
-//  - fd_merge, which merges the token splits of either with the sink
+//  - fd_chunk, the multi-row body of K1 with bf16 dots (prefill chunks,
+//    every call that is not a decode step): mma.sync on the tensor cores;
+//  - fd_partial, the multi-row body of K1 with fp32 dots (64 rows, SIMT);
+//  - fd_merge, which merges the token splits of any of them with the sink
 //    prefix by log-sum-exp (a split of zero weight is not read).
 //
 // fd_decode. What bounds it: device-memory bytes. Each live token costs
@@ -85,12 +87,75 @@
 // ring (2-4 stages, <= 96 KB: 87 KB for LLaMA-2-7B nuq3, 70 KB for its
 // int4x2) plus hb * G * D query floats.
 //
-// fd_partial (prefill chunks). What bounds it: at Tq = 256 the two
-// contractions (4*Q*live*D*Hkv flops per call); fp32 FMA rate bounds this
-// version. A block owns one kv head, 64 query rows and one split; it
-// dequantizes each 64-token tile of K and V once into shared memory (keys
-// rotated, outliers added with shared-memory atomics) and every row reuses
-// it through 8x4 / 8x(D/16) register tiles.
+// fd_chunk (prefill chunks, bf16 dots). What bounds it: at Tq = 256 rows
+// the two contractions, 4*Q*live*D*Hkv flops per call (0.139 ms at 32K
+// tokens of a LLaMA-2-7B layer at 989 TFLOP/s), on mma.sync, which Hopper
+// runs well below wgmma's rate; beside them the dequantization and the
+// outlier tiles, whose instruction count does not shrink with the rows
+// (PERF.md gives chunk_ablation.py's split). What the design does:
+//  - one block per (batch row, kv head, up to 256 query rows, token split):
+//    every K / V tile is dequantized once for all rows of a 256-row chunk
+//    (the SIMT body dequantized it once per 64 rows);
+//  - warp specialisation: producer warpgroups (two for bit planes, one for
+//    the containers; setmaxnreg.dec to 40-56 registers) keep the ring full
+//    and dequantize while two consumer warpgroups (setmaxnreg.inc to
+//    216-224) multiply; 3 piece buffers with full / empty mbarriers hand the
+//    pieces over, so the dequantization of the next pieces overlaps the
+//    products of this one;
+//  - raw codes, outlier rows and V scale / offset of a 128-token tile (one
+//    nuq packing group) arrive through a ring of 2-3 stages; producer warp
+//    0 refills a stage with TMA bulk copies (one per lane, completing on the
+//    stage's mbarrier) once every producer has dequantized it (a named
+//    barrier of the producers);
+//  - the producers dequantize each 32-token piece into bf16 K and V tiles
+//    with fd_decode's code tricks (bit spreading by one multiply + byte
+//    permute + LUT for bit planes, the 2**23 mantissa for containers,
+//    paired bf16 conversion), a unit being 4 tokens x a column quad (c0,
+//    c0 + 1 and their RoPE partners); pre-RoPE keys are rotated with the
+//    cached (cos, sin) table before rounding;
+//  - each consumer warp owns 32 query rows as two m16 tiles: S = Q.K^T and
+//    O += P.V run as mma.sync.m16n8k16 (bf16 in, fp32 accumulate) with
+//    ldmatrix / ldmatrix.trans, each K / V fragment feeding both tiles;
+//    Q fragments are reloaded per piece from the block's bf16 queries; the
+//    online softmax runs in base 2 on the fp32 S fragments, P is repacked
+//    as the bf16 A operand in registers (no round trip through shared
+//    memory) and O is rescaled only when a row maximum moved; a warp skips
+//    a piece none of its rows sees and drops the per-element mask where
+//    all of them see all of it. Tile rows are 128 + 8 bf16 for every D
+//    (columns D .. 127 stay zero), so the product loops have fixed trip
+//    counts and pipeline their ldmatrix; the +8 keeps ldmatrix
+//    conflict-free;
+//  - outliers at the plain version's rounding points, as sparse bf16 tiles
+//    multiplied by the same operands: the K tile holds rnd(rope(kd)) and a
+//    second K tile rnd(rope(k_add)) (slots or static channels of one dim
+//    add before the rotation, a dim and its RoPE partner mix before the
+//    rounding), multiplied over the 16-dim k-steps it touches (the whole
+//    tile, pipelined, when it touches more than half); V slots as a tile
+//    rnd(v_add) multiplied by the same bf16 P where a piece holds one. Each
+//    producer warp builds its token rows, a few lanes a row (zero, then one
+//    entry a lane): no shared-memory atomics;
+//  - splits (chunk_plan / chunk_splits in ops/kernels/flash_decode.py):
+//    grid = n_split x Hkv * n_rt x B fills the SMs once (one block per SM:
+//    384-512 threads, 150-225 KB of shared memory); blocks derive their
+//    live tiles from pos on the device, as fd_decode.
+// Budget (chip_smoke.py --verbose-build: nvcc -Xptxas -v, sm_90a): the
+// launch bound gives 168 (containers) / 128 (bit planes) registers before
+// setmaxnreg; ptxas reports 168-196 B (containers) and 236-244 B (bit
+// planes) of spill stores for both roles together.
+// Shared memory at LLaMA-2-7B width, 256 rows, 3 buffers and 3 stages:
+// 221 KB nuq3 with slots, 202 KB int4x2 with 4 channels. Why not fewer
+// roles or more rows a warp: warps that dequantize and then multiply
+// between block barriers leave the tensor cores idle while they
+// dequantize, and 16 rows a warp would need 16 consumer warps, whose
+// 128-register cap spills the O fragments (PERF.md has the measurements).
+//
+// fd_partial (fp32 dots) stays the SIMT body: the fp32 reference
+// mode of the parity checks, which bf16 tensor cores cannot compute. The
+// dispatch picks the body by dot mode; a CUDA call launches one or raises.
+// A block owns one kv head, 64 query rows and one split; it dequantizes
+// each 64-token tile of K and V once into fp32 shared memory (keys rotated,
+// outliers added with shared-memory atomics) and every row reuses it
+// through 8x4 / 8x(D/16) register tiles.
 //
 // Numerics: with dot_bf16 the dot operands (queries, roped keys, the
 // dequantized values, the rotated outlier terms, the probabilities, the
@@ -141,7 +206,9 @@ struct FdArgs {
   const int* table;        // paged: (B, MP) page ids of each slot
   int MP, P, NP;           // paged: table width, tokens per page, pool pages
   int hb;                  // decode: kv heads per block (divides hg)
-  int n_stage;             // decode: ring stages (2..MAX_STAGES)
+  int n_stage;             // decode and tensor-core chunk: ring stages (2..MAX_STAGES)
+  int rows_blk;            // tensor-core chunk: query rows per block (16..128, of 16)
+  int n_buf;               // tensor-core chunk: dequantized half-tile buffers (1 or 2)
 };
 
 namespace {
@@ -1182,6 +1249,660 @@ __global__ void __launch_bounds__(NT) fd_partial(FdArgs a) {
   }
 }
 
+// ===========================================================================
+// fd_chunk: prefill chunks with bf16 dots, on the tensor cores
+// ===========================================================================
+
+constexpr int CW = 8;                 // consumer warps (two warpgroups): the products
+constexpr int MT = 2;                 // 16-row mma tiles per consumer warp
+constexpr int RW = 16 * MT;           // query rows per consumer warp
+constexpr int CT = 128;               // key tokens per ring stage (one nuq packing group)
+constexpr int PT = 32;                // key tokens per dequantized piece
+constexpr int MAX_BUF = 4;            // piece buffers
+
+// producer warps (whole warpgroups) beside the CW consumer warps: two
+// warpgroups for bit planes, whose dequantization costs the most, one for
+// the containers
+__host__ __device__ constexpr int chunk_pw(int mode) { return mode == MODE_NUQ ? 8 : 4; }
+constexpr int CHUNK_ROWS = CW * RW;   // most query rows per block
+constexpr int QS = MAXD + 8;          // bf16 row stride of the tiles for every D
+constexpr int CHUNK_SMEM_MAX = 225 * 1024;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// bytes of one kind (K or V) of one 128-token stage for one head (int4x2:
+// its pair container)
+__host__ __device__ inline int chunk_code_bytes(int mode, int bits, int D) {
+  return mode == MODE_NUQ ? bits * 16 * D : mode == MODE_INT8 ? CT * D : CT * D / 2;
+}
+
+// Dynamic shared memory of fd_chunk (mirrored by chunk_plan in
+// ops/kernels/flash_decode.py): 128 B of mbarriers (the ring's, then the
+// piece buffers' full and empty ones); the ring of raw 128-token stages;
+// the block's queries in bf16 [rows_blk][QS]; n_buf piece buffers of bf16
+// tiles [32][QS]: K, V, the K outlier tile (K slots or channels) and the V
+// slot tile (V slots), and the producer warps' masks of the outlier tiles'
+// nonzero 16-dim groups. Rows of QS = 128 + 8 bf16 keep
+// ldmatrix conflict-free and the products' loops free of D: columns from D
+// to 127 stay zero.
+struct ChunkLayout {
+  int cb, rows, vs, vo, stage;  // a stage: K codes, V codes at cb, outlier rows, V scale, V offset
+  int ring, q, buf0, buf;       // offsets in the block's shared memory; bytes of a buffer
+  int k, v, kc, vsl, mask;      // offsets in a buffer
+  int bytes;
+};
+
+__host__ __device__ inline ChunkLayout chunk_layout(const FdArgs& a) {
+  ChunkLayout c;
+  c.cb = chunk_code_bytes(a.mode, a.bits, a.D);
+  c.rows = 2 * c.cb;
+  c.vs = c.rows + rows_copied(a) * CT * 4;
+  c.vo = c.vs + CT * 4;
+  c.stage = c.vo + CT * 4;
+  c.ring = 128;
+  c.q = c.ring + a.n_stage * c.stage;
+  const int tb = PT * QS * 2;
+  c.buf0 = c.q + a.rows_blk * QS * 2;
+  c.k = 0;
+  c.v = tb;
+  c.kc = 2 * tb;
+  c.vsl = c.kc + (a.n_kc > 0 || a.n_kslots > 0 ? tb : 0);
+  c.mask = c.vsl + (a.n_vslots > 0 ? tb : 0);
+  c.buf = c.mask + 2 * chunk_pw(a.mode) * 4;
+  c.bytes = c.buf0 + a.n_buf * c.buf;
+  return c;
+}
+
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+// c += a.b: a 16x16 bf16 (row), b 16x8 bf16 (col), c 16x8 fp32
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// two floats as a bf16 pair (lo in the low half), rounded to nearest even
+__device__ __forceinline__ uint32_t bf2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+// positions of n query rows from r0 (row r sits at pos + r % Tq)
+__device__ __forceinline__ void row_span(int r0, int n, int Tq, int pos, int& pmin, int& pmax) {
+  const int last = r0 + n - 1;
+  if (last / Tq != r0 / Tq) {
+    pmin = pos;
+    pmax = pos + Tq - 1;
+  } else {
+    pmin = pos + r0 % Tq;
+    pmax = pos + last % Tq;
+  }
+}
+// (in-group dim index, value) of an outlier slot word, as the plain version
+// decodes it: group index head * D + dim, value with the index bits cleared
+__device__ __forceinline__ int slot_gidx(uint32_t w, int D) {
+  return (int)((w >> 7) & 0x3u) * D + (int)(w & 0x7Fu);
+}
+__device__ __forceinline__ float slot_value(uint32_t w) {
+  return __uint_as_float(w & 0xFFFFFE00u);
+}
+
+// One block: kv head h and query rows [r0, r0 + rows_blk) of batch row b
+// (blockIdx.y = h * n_rt + rt, blockIdx.z = b), split s of the live key
+// tiles (blockIdx.x). Producer warps 0 .. PW - 1 keep the ring full (warp 0
+// refills a stage once they have all dequantized it) and turn each 32-token
+// piece into bf16 tiles in a piece buffer; consumer warp c = warp - PW owns
+// rows r0 + RW c .. r0 + RW (c + 1) - 1 as MT mma row tiles (lane: rows
+// g = lane / 4 and g + 8 of each, columns 2 * (lane % 4) + {0, 1} of every
+// 8-wide tile). A buffer's full / empty mbarriers hand it over.
+template <int MODE, int NB>
+__global__ void __launch_bounds__((chunk_pw(MODE) + CW) * 32, 1) fd_chunk(FdArgs a) {
+  constexpr int PW = chunk_pw(MODE), CNT = (PW + CW) * 32;
+  // registers a producer / consumer thread holds after setmaxnreg:
+  // PW * 32 * P_REGS + CW * 32 * C_REGS <= 65536
+  constexpr int P_REGS = PW == 8 ? 40 : 56, C_REGS = PW == 8 ? 216 : 224;
+  constexpr int TPW = PT / PW;   // tokens per producer warp in the outlier tiles' build
+  constexpr int LPT = 32 / TPW;  // lanes per token there
+  extern __shared__ __align__(128) unsigned char csm[];
+  __shared__ float sLut[2][16];  // nuq K / V codebooks of layer li
+  __shared__ float sKs[MAXD];    // K dequant scale and offset per dim
+  __shared__ float sKz[MAXD];
+  __shared__ int sCh[MAX_KC];    // static channel n's dim in this head, or -1
+  const ChunkLayout Lc = chunk_layout(a);
+  const int D = a.D, half = D / 2, NS = a.n_stage, NSP = a.n_split;
+  const int S = a.S, win = a.window, li = a.li, Q = a.Q, Tq = a.Tq;
+  uint64_t* full = reinterpret_cast<uint64_t*>(csm);  // ring stages
+  uint64_t* pfull = full + MAX_STAGES;                 // piece buffers: dequantized
+  uint64_t* pempty = pfull + MAX_BUF;                  //   multiplied
+  unsigned char* ring = csm + Lc.ring;
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(csm + Lc.q);
+
+  const int s = blockIdx.x, h = blockIdx.y / a.n_rt, rt = blockIdx.y % a.n_rt;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int RB = a.rows_blk, r0 = rt * RB, nrows = min(RB, Q - r0);
+  const int pos = a.pos[b];
+
+  // ---- this block's live key tiles: packed tokens [lo, hi] ----
+  int pmin, pmax;
+  row_span(r0, nrows, Tq, pos, pmin, pmax);
+  const int hi = min(pmax - S, a.Tc - 1);
+  const int lo = win > 0 ? max(0, pmin - win + 1 - S) : 0;
+  const int n_tiles = hi < lo ? 0 : hi / CT - lo / CT + 1;
+  const int tps = (n_tiles + NSP - 1) / NSP;
+  const int t_begin = lo / CT + s * tps;
+  const int t_end = min(lo / CT + n_tiles, t_begin + tps);
+  const size_t bh = (size_t)b * a.Hkv + h;
+  float* pm = a.part_m + (bh * NSP + s) * Q + r0;
+  float* pl = a.part_l + (bh * NSP + s) * Q + r0;
+  float* pacc = a.part_acc + ((bh * NSP + s) * Q + r0) * D;
+  if (n_tiles == 0 || t_begin >= t_end) {  // zero weight in the merge
+    for (int r = tid; r < nrows; r += CNT) {
+      pm[r] = -INFINITY;
+      pl[r] = 0.f;
+    }
+    return;
+  }
+
+  // ---- per-block constants ----
+  const int hg = a.hg, jh = h % hg, grp = h / hg;
+  if (tid == 0) {
+    for (int i = 0; i < NS; ++i) mbar_init(&full[i], 1);
+    for (int i = 0; i < a.n_buf; ++i) {
+      mbar_init(&pfull[i], PW * 32);
+      mbar_init(&pempty[i], CW * 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  // the queries and every tile start at zero: columns D .. 127 stay so
+  for (int i = tid; i < (Lc.bytes - Lc.q) / 16; i += CNT)
+    reinterpret_cast<uint4*>(csm + Lc.q)[i] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+  const float* qb = a.q + (bh * Q + r0) * D;
+  for (int i = tid; i < nrows * half; i += CNT) {
+    const int r = i / half, d = 2 * (i % half);
+    const float2 v = *reinterpret_cast<const float2*>(qb + (size_t)r * D + d);
+    *reinterpret_cast<uint32_t*>(sQ + r * QS + d) = bf2(v.x, v.y);
+  }
+  const int K = 1 << a.bits;
+  const float* kl = a.k_lut + (size_t)li * K;
+  const float* vl = a.v_lut + (size_t)li * K;
+  if (MODE == MODE_NUQ && tid < K) {
+    sLut[0][tid] = kl[tid];
+    sLut[1][tid] = vl[tid];
+  }
+  // the containers' affine codebook folded as in the plain version
+  // (common.fold_affine): code c_s -> c_s * step + zero, c_s signed (int4 /
+  // int8) or unsigned (int4x2, bias 0)
+  const float bias = MODE == MODE_INT4X2 ? 0.f : (float)(1 << (a.bits - 1));
+  const float vb = (vl[K - 1] - vl[0]) / (float)(K - 1);
+  const float va = vl[0] + bias * vb;
+  if (tid < D) {
+    const float kb = (kl[K - 1] - kl[0]) / (float)(K - 1);
+    const float ka = kl[0] + bias * kb;
+    const size_t ci = ((size_t)li * a.Hkv + h) * D + tid;
+    const float kr = a.k_range[ci], ko = a.k_offset[ci];
+    sKs[tid] = MODE == MODE_NUQ ? kr : kb * kr;
+    sKz[tid] = MODE == MODE_NUQ ? ko : ka * kr + ko;
+  }
+  for (int i = tid; i < a.n_kc; i += CNT) {
+    const int ch = a.k_chan[grp * a.n_kc + i];
+    sCh[i] = ch / D == jh ? ch % D : -1;
+  }
+  __syncthreads();
+
+  // ---- the ring: tile i of the split into stage (i - t_begin) % NS, by
+  // warp 0, one TMA bulk copy per lane (K and V planes or containers,
+  // outlier rows, V scale, V offset), completing on the stage's mbarrier,
+  // which lane 0 arms with the stage's bytes ----
+  const int nrw = rows_copied(a);
+  auto fill = [&](int i, int st) {
+    const bool paired = MODE == MODE_INT4X2;
+    const int Hc = paired ? a.Hkv / 2 : a.Hkv, hc = paired ? h >> 1 : h;
+    const size_t slab = (size_t)li * a.B + b, hs = slab * Hc + hc;
+    const int t0 = i * CT, cb = Lc.cb;
+    unsigned char* dst = ring + st * Lc.stage;
+    constexpr int NP = MODE == MODE_NUQ ? NB : 1;  // code copies per kind
+    if (lane == 0) mbar_expect_tx(&full[st], Lc.stage);
+    for (int c = lane; c < 2 * NP + nrw + 2; c += 32) {
+      if (c < 2 * NP) {
+        const int kv = c / NP;  // 0: K, 1: V
+        const void* src = kv ? a.vp : a.kp;
+        if (MODE == MODE_NUQ) {
+          // plane bb: word rows t0 / 32 .. t0 / 32 + 3 (the 128-token group)
+          const int bb = c % NP;
+          const size_t w = ((hs * NB + bb) * (a.Tc / 32) + t0 / 32) * D;
+          bulk_g2s(dst + kv * cb + bb * 16 * D, reinterpret_cast<const int32_t*>(src) + w,
+                   16 * D, &full[st]);
+        } else {
+          const size_t o = (hs * a.Tc + t0) * (size_t)(cb / CT);
+          bulk_g2s(dst + kv * cb, reinterpret_cast<const uint8_t*>(src) + o, cb, &full[st]);
+        }
+      } else if (c < 2 * NP + nrw) {
+        const int r = c - 2 * NP;
+        bulk_g2s(dst + Lc.rows + r * CT * 4,
+                 a.kv_out + ((slab * (a.Hkv / hg) + grp) * a.J + r) * a.Tc + t0, CT * 4,
+                 &full[st]);
+      } else {
+        const bool scale = c == 2 * NP + nrw;
+        const float* src = (scale ? a.v_scale : a.v_offset) + slab * a.Tc + t0;
+        bulk_g2s(dst + (scale ? Lc.vs : Lc.vo), src, CT * 4, &full[st]);
+      }
+    }
+  };
+
+  // ---- the thread's dequantization units: kind (K or V), its column
+  // quad (c0, c0 + 1, c0 + D/2, c0 + D/2 + 1) and 4 tokens of a piece ----
+  const int lgD = 31 - __clz(D), lgq = lgD - 2;  // D and D/4 quads are powers of 2
+  const int upk = 8 << lgq;                      // units of one kind per piece
+  const int odd = h & 1;
+  const bool pre = !a.post_rope;
+  const bool kfix = a.n_kc > 0 || a.n_kslots > 0, vfix = a.n_vslots > 0;
+  const float4* rope4 = reinterpret_cast<const float4*>(a.rope);
+  const float2* rope2 = reinterpret_cast<const float2*>(a.rope);
+
+  if (warp < PW) {
+    // ---- producers: the ring's tiles into bf16 pieces, in order ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" :: "n"(P_REGS));
+    if (warp == 0)
+      for (int i = t_begin; i < min(t_end, t_begin + NS); ++i) fill(i, i - t_begin);
+    int ub = 0, urnd = 0;  // the piece buffer and the fills it had before
+    int st = 0, phase = 0;  // the ring stage and its parity
+    for (int it = t_begin; it < t_end; ++it) {
+      const int t0 = it * CT;
+      mbar_wait(&full[st], phase);
+      const unsigned char* stg = ring + st * Lc.stage;
+      const float* sRows = reinterpret_cast<const float*>(stg + Lc.rows);
+      const float* sVs = reinterpret_cast<const float*>(stg + Lc.vs);
+      const float* sVo = reinterpret_cast<const float*>(stg + Lc.vo);
+      const int last_pc = min(CT / PT - 1, (hi - t0) / PT);  // the stage's last live piece
+      for (int pc = 0; pc <= last_pc; ++pc) {
+        const int tb0 = t0 + PT * pc;  // the piece's first packed token
+        if (tb0 + PT - 1 < lo) continue;  // before the window: uniform over the block
+        if (urnd > 0) mbar_wait(&pempty[ub], (urnd - 1) & 1);  // its last piece multiplied
+        unsigned char* buf = csm + Lc.buf0 + ub * Lc.buf;
+        __nv_bfloat16* bK = reinterpret_cast<__nv_bfloat16*>(buf + Lc.k);
+        __nv_bfloat16* bV = reinterpret_cast<__nv_bfloat16*>(buf + Lc.v);
+        __nv_bfloat16* bKc = reinterpret_cast<__nv_bfloat16*>(buf + Lc.kc);
+        __nv_bfloat16* bVs = reinterpret_cast<__nv_bfloat16*>(buf + Lc.vsl);
+        uint32_t* bMask = reinterpret_cast<uint32_t*>(buf + Lc.mask);
+
+        // ---- dequantize the piece once for every row of the block: a unit
+        // is 4 tokens x 4 columns of K (rotated) or V, rounded to bf16 ----
+        for (int uu = tid; uu < 2 * upk; uu += PW * 32) {
+          const int kind = uu >= upk, un = uu - kind * upk;
+          const int c0 = 2 * (un & ((1 << lgq) - 1)), tu = un >> lgq;
+          const unsigned char* codes = stg + kind * Lc.cb;
+          float x[4][4];  // [token of the unit][column]
+          int tls[4];
+          if (MODE == MODE_NUQ) {
+            // token 16 nib + 4 jb + w4 of the piece sits at bit 8 pc + 4 nib +
+            // jb of word row w4 (the packing group's interleave)
+            const int w4 = tu & 3, nib = tu >> 2;
+            uint32_t cw[4][1];
+            nuq_bytes<NB, 1>(codes, w4, D, c0, half, 8 * pc + 4 * nib, cw);
+#pragma unroll
+            for (int jb = 0; jb < 4; ++jb) {
+              tls[jb] = 16 * nib + 4 * jb + w4;
+#pragma unroll
+              for (int jj = 0; jj < 4; ++jj)
+                x[jb][jj] = *reinterpret_cast<const float*>(
+                    reinterpret_cast<const char*>(sLut[kind]) + byte_of(cw[jj][0], jb));
+            }
+          } else {
+#pragma unroll
+            for (int jb = 0; jb < 4; ++jb) {
+              tls[jb] = 4 * tu + jb;
+              container_codes<MODE>(codes, PT * pc + tls[jb], D, c0, half, odd, x[jb]);
+            }
+          }
+          if (kind == 0) {
+            const float2 s01 = *reinterpret_cast<const float2*>(sKs + c0);
+            const float2 s23 = *reinterpret_cast<const float2*>(sKs + c0 + half);
+            const float2 z01 = *reinterpret_cast<const float2*>(sKz + c0);
+            const float2 z23 = *reinterpret_cast<const float2*>(sKz + c0 + half);
+#pragma unroll
+            for (int jb = 0; jb < 4; ++jb) {
+              const int tl = tls[jb];
+              float x0 = fmaf(x[jb][0], s01.x, z01.x), x1 = fmaf(x[jb][1], s01.y, z01.y);
+              float x2 = fmaf(x[jb][2], s23.x, z23.x), x3 = fmaf(x[jb][3], s23.y, z23.y);
+              if (pre) {  // rotate the pairs (c0, c0 + D/2), (c0 + 1, c0 + 1 + D/2)
+                const float4 cs = __ldg(rope4 + ((size_t)(tb0 + tl) * half + c0) / 2);
+                const float q0 = x0 * cs.x - x2 * cs.y;
+                const float q2 = x2 * cs.x + x0 * cs.y;
+                const float q1 = x1 * cs.z - x3 * cs.w;
+                const float q3 = x3 * cs.z + x1 * cs.w;
+                x0 = q0; x1 = q1; x2 = q2; x3 = q3;
+              }
+              *reinterpret_cast<uint32_t*>(bK + tl * QS + c0) = bf2(x0, x1);
+              *reinterpret_cast<uint32_t*>(bK + tl * QS + c0 + half) = bf2(x2, x3);
+            }
+          } else {
+#pragma unroll
+            for (int jb = 0; jb < 4; ++jb) {
+              const int tl = tls[jb], tt = PT * pc + tl;
+              // a token past the live range gets a zero V scale and offset,
+              // so its value is 0 whatever its codes
+              const bool live = tb0 + tl <= hi;
+              const float sc_t = live ? sVs[tt] : 0.f, of_t = live ? sVo[tt] : 0.f;
+              const float vs_t = MODE == MODE_NUQ ? sc_t : sc_t * vb;
+              const float vo_t = MODE == MODE_NUQ ? of_t : sc_t * va + of_t;
+              *reinterpret_cast<uint32_t*>(bV + tl * QS + c0) =
+                  bf2(fmaf(x[jb][0], vs_t, vo_t), fmaf(x[jb][1], vs_t, vo_t));
+              *reinterpret_cast<uint32_t*>(bV + tl * QS + c0 + half) =
+                  bf2(fmaf(x[jb][2], vs_t, vo_t), fmaf(x[jb][3], vs_t, vo_t));
+            }
+          }
+        }
+
+        // ---- the piece's outliers as sparse bf16 tiles, at the plain
+        // version's rounding points: K as rnd(rope(k_add)) (slots of one dim
+        // add before the rotation, a dim and its RoPE partner mix before the
+        // rounding), V as rnd(v_add). Warp w builds the rows of its TPW
+        // tokens, LPT lanes each (zero the row, then one entry per lane), and
+        // the masks of the 16-dim column groups its rows touch ----
+        if (kfix || vfix) {
+          const int tl = TPW * warp + lane / LPT, le = lane % LPT;
+          const int tt = PT * pc + tl, ta = tb0 + tl;
+          for (int i = le; i < MAXD / 8; i += LPT) {
+            if (kfix) *reinterpret_cast<uint4*>(bKc + tl * QS + 8 * i) = make_uint4(0u, 0u, 0u, 0u);
+            if (vfix) *reinterpret_cast<uint4*>(bVs + tl * QS + 8 * i) = make_uint4(0u, 0u, 0u, 0u);
+          }
+          __syncwarp();
+          uint32_t km = 0u, vm = 0u;
+          if (kfix && ta <= hi) {
+            const bool chan = a.n_kc > 0;
+            const int ne = chan ? a.n_kc : a.n_kslots;
+            // entry e's dim in this head (or -1) and value
+            auto dim_of = [&](int e) {
+              if (chan) return sCh[e];
+              const int gi = slot_gidx(__float_as_uint(sRows[e * CT + tt]), D);
+              return (gi >> lgD) == jh ? gi & (D - 1) : -1;
+            };
+            auto val_of = [&](int e) {
+              const float w = sRows[e * CT + tt];
+              return chan ? w : slot_value(__float_as_uint(w));
+            };
+            for (int e = le; e < ne; e += LPT) {
+              const int d = dim_of(e);
+              if (d < 0) continue;
+              // the dims whose addend this entry's positions read: d, and
+              // pre-RoPE its partner; the first entry among them writes
+              const int i = pre ? d & (half - 1) : d;
+              float s_lo = 0.f, s_hi = 0.f;
+              bool first = true;
+              for (int e2 = 0; e2 < ne && first; ++e2) {
+                const int d2 = dim_of(e2);
+                if (d2 < 0 || (pre ? d2 & (half - 1) : d2) != i) continue;
+                if (e2 < e) {
+                  first = false;
+                } else if (!pre || d2 < half) {
+                  s_lo += val_of(e2);
+                } else {
+                  s_hi += val_of(e2);
+                }
+              }
+              if (!first) continue;
+              if (pre) {
+                const float2 cs = __ldg(rope2 + (size_t)ta * half + i);
+                bKc[tl * QS + i] = __float2bfloat16_rn(
+                    __fsub_rn(__fmul_rn(s_lo, cs.x), __fmul_rn(s_hi, cs.y)));
+                bKc[tl * QS + i + half] = __float2bfloat16_rn(
+                    __fadd_rn(__fmul_rn(s_hi, cs.x), __fmul_rn(s_lo, cs.y)));
+                km |= (1u << (i >> 4)) | (1u << ((i + half) >> 4));
+              } else {
+                bKc[tl * QS + d] = __float2bfloat16_rn(s_lo);
+                km |= 1u << (d >> 4);
+              }
+            }
+          }
+          if (vfix && ta <= hi) {
+            const float* vw = sRows + a.spk * CT + tt;
+            for (int e = le; e < a.n_vslots; e += LPT) {
+              const int gi = slot_gidx(__float_as_uint(vw[e * CT]), D);
+              if ((gi >> lgD) != jh) continue;
+              // slots of one (token, dim) add before rounding: the first
+              // writes
+              float v = 0.f;
+              bool first = true;
+              for (int e2 = 0; e2 < a.n_vslots && first; ++e2) {
+                if (slot_gidx(__float_as_uint(vw[e2 * CT]), D) != gi) continue;
+                if (e2 < e) first = false;
+                else v += slot_value(__float_as_uint(vw[e2 * CT]));
+              }
+              if (!first) continue;
+              bVs[tl * QS + (gi & (D - 1))] = __float2bfloat16_rn(v);
+              vm |= 1u << ((gi & (D - 1)) >> 4);
+            }
+          }
+          km = __reduce_or_sync(FULL, km);
+          vm = __reduce_or_sync(FULL, vm);
+          if (lane == 0) {
+            bMask[warp] = km;
+            bMask[PW + warp] = vm;
+          }
+        }
+        mbar_arrive(&pfull[ub]);  // the piece's tiles are complete
+        if (++ub == a.n_buf) {
+          ub = 0;
+          ++urnd;
+        }
+        if (pc == last_pc) {  // every producer has read the stage: it takes tile it + NS
+          asm volatile("bar.sync 1, %0;" :: "n"(PW * 32) : "memory");
+          if (warp == 0 && it + NS < t_end) fill(it + NS, st);
+        }
+      }
+      if (++st == NS) {
+        st = 0;
+        phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: the products over each piece, in order ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" :: "n"(C_REGS));
+  // ---- the warp's rows (MT row tiles of 16): positions, ldmatrix lane
+  // offsets (bytes): Q as A, K as B of Q.K^T (rows = tokens), V as B of
+  // P.V (transposed) ----
+  const int g = lane >> 2, tq4 = lane & 3, wr0 = RW * (warp - PW);
+  const bool wact = wr0 < nrows;
+  int rp[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = wr0 + 16 * mt + 8 * hf + g;
+      rp[mt][hf] = r < nrows ? pos + (r0 + r) % Tq : NEG_ROW;
+    }
+  int wmin = 0, wmax = NEG_ROW;
+  if (wact) row_span(r0 + wr0, min(RW, nrows - wr0), Tq, pos, wmin, wmax);
+  const uint32_t qoff =
+      smem_u32(sQ) + ((wr0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * QS + 8 * (lane >> 4)) * 2;
+  const uint32_t koff = (((lane & 7) + 8 * (lane >> 4)) * QS + 8 * ((lane >> 3) & 1)) * 2;
+  const uint32_t voff = (((lane & 7) + 8 * ((lane >> 3) & 1)) * QS + 8 * (lane >> 4)) * 2;
+
+  float o[MT][16][4];
+  float m[MT][2], l[MT][2];  // base-2 running state of rows g and g + 8
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int n = 0; n < 16; ++n)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) o[mt][n][j] = 0.f;
+    m[mt][0] = m[mt][1] = -INFINITY;
+    l[mt][0] = l[mt][1] = 0.f;
+  }
+  const float sl2 = a.inv * LOG2E;
+
+  int ub = 0, urnd = 0;  // the piece buffer and the fills it had before
+  for (int it = t_begin; it < t_end; ++it) {
+    const int t0 = it * CT;
+    const int last_pc = min(CT / PT - 1, (hi - t0) / PT);
+    for (int pc = 0; pc <= last_pc; ++pc) {
+      const int tb0 = t0 + PT * pc;
+      if (tb0 + PT - 1 < lo) continue;
+      mbar_wait(&pfull[ub], urnd & 1);
+      unsigned char* buf = csm + Lc.buf0 + ub * Lc.buf;
+      __nv_bfloat16* bK = reinterpret_cast<__nv_bfloat16*>(buf + Lc.k);
+      __nv_bfloat16* bV = reinterpret_cast<__nv_bfloat16*>(buf + Lc.v);
+      __nv_bfloat16* bKc = reinterpret_cast<__nv_bfloat16*>(buf + Lc.kc);
+      __nv_bfloat16* bVs = reinterpret_cast<__nv_bfloat16*>(buf + Lc.vsl);
+      uint32_t* bMask = reinterpret_cast<uint32_t*>(buf + Lc.mask);
+
+      // ---- the warp's rows against the piece: S = Q.K^T (+ Q.Kc^T) ----
+      const bool wlive = wact && tb0 <= wmax - S && (win <= 0 || tb0 + PT - 1 + S > wmin - win);
+      if (wlive) {
+        const bool wfull = tb0 + PT - 1 <= wmin - S && (win <= 0 || tb0 + S > wmax - win);
+        float sc[MT][4][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sc[mt][j][e] = 0.f;
+        // the K tile, then the K outlier tile over the k-steps it touches
+        uint32_t kmask = 0u;
+        if (kfix)
+          for (int w = 0; w < PW; ++w) kmask |= bMask[w];
+        auto qk_step = [&](uint32_t kbase, int kk) {
+          uint32_t qa[MT][4], r[4];
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) ldsm4(qa[mt], qoff + (16 * mt * QS + 16 * kk) * 2);
+#pragma unroll
+          for (int jp = 0; jp < 2; ++jp) {
+            ldsm4(r, kbase + (16 * jp * QS + 16 * kk) * 2);
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) {
+              mma16816(sc[mt][2 * jp], qa[mt], r[0], r[1]);
+              mma16816(sc[mt][2 * jp + 1], qa[mt], r[2], r[3]);
+            }
+          }
+        };
+#pragma unroll
+        for (int kk = 0; kk < MAXD / 16; ++kk) qk_step(smem_u32(bK) + koff, kk);
+        if (__popc(kmask) > 4) {  // dense: the whole tile, pipelined
+#pragma unroll
+          for (int kk = 0; kk < MAXD / 16; ++kk) qk_step(smem_u32(bKc) + koff, kk);
+        } else {
+          for (uint32_t mk = kmask; mk; mk &= mk - 1) qk_step(smem_u32(bKc) + koff, __ffs(mk) - 1);
+        }
+
+        // ---- mask, online softmax (base 2) over the piece; P to bf16 A
+        // fragments in registers ----
+        uint32_t pa[MT][2][4];
+        bool moved = false;
+        float al[MT][2];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              float v = sc[mt][j][e] * sl2;
+              if (!wfull && !key_ok(tb0 + 8 * j + 2 * tq4 + (e & 1), rp[mt][e >> 1], S, win))
+                v = -INFINITY;
+              sc[mt][j][e] = v;
+              mx[e >> 1] = fmaxf(mx[e >> 1], v);
+            }
+          float mu[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(FULL, mx[hf], 1));
+            mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(FULL, mx[hf], 2));
+            const float mn = fmaxf(m[mt][hf], mx[hf]);
+            mu[hf] = mn == -INFINITY ? 0.f : mn;
+            al[mt][hf] = exp2f(m[mt][hf] - mu[hf]);
+            moved |= al[mt][hf] != 1.f;
+            m[mt][hf] = mn;
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float p0 = exp2f(sc[mt][j][0] - mu[0]), p1 = exp2f(sc[mt][j][1] - mu[0]);
+            const float p2 = exp2f(sc[mt][j][2] - mu[1]), p3 = exp2f(sc[mt][j][3] - mu[1]);
+            sum[0] += p0 + p1;
+            sum[1] += p2 + p3;
+            pa[mt][j >> 1][2 * (j & 1)] = bf2(p0, p1);
+            pa[mt][j >> 1][2 * (j & 1) + 1] = bf2(p2, p3);
+          }
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) l[mt][hf] = l[mt][hf] * al[mt][hf] + sum[hf];
+        }
+        if (__any_sync(FULL, moved)) {  // a row maximum moved: rescale O
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int n = 0; n < 16; ++n) {
+              o[mt][n][0] *= al[mt][0];
+              o[mt][n][1] *= al[mt][0];
+              o[mt][n][2] *= al[mt][1];
+              o[mt][n][3] *= al[mt][1];
+            }
+        }
+
+        // ---- O += P.V, then P.V_slots where the piece holds a V slot ----
+        bool vany = false;
+        if (vfix)
+          for (int w = 0; w < PW; ++w) vany |= bMask[PW + w] != 0u;
+        auto pv_pass = [&](uint32_t vbase) {
+#pragma unroll
+          for (int kq = 0; kq < 2; ++kq)
+#pragma unroll
+            for (int np = 0; np < MAXD / 16; ++np) {
+              uint32_t r[4];
+              ldsm4_t(r, vbase + (16 * kq * QS + 16 * np) * 2);
+#pragma unroll
+              for (int mt = 0; mt < MT; ++mt) {
+                mma16816(o[mt][2 * np], pa[mt][kq], r[0], r[1]);
+                mma16816(o[mt][2 * np + 1], pa[mt][kq], r[2], r[3]);
+              }
+            }
+        };
+        pv_pass(smem_u32(bV) + voff);
+        if (vany) pv_pass(smem_u32(bVs) + voff);
+      }
+      mbar_arrive(&pempty[ub]);  // the buffer may be refilled
+      if (++ub == a.n_buf) {
+        ub = 0;
+        ++urnd;
+      }
+    }
+  }
+
+  // ---- this split's partials, straight from the fragments ----
+  if (wact) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float lt = l[mt][hf];
+        lt += __shfl_xor_sync(FULL, lt, 1);
+        lt += __shfl_xor_sync(FULL, lt, 2);
+        const int r = wr0 + 16 * mt + 8 * hf + g;
+        if (r < nrows) {
+#pragma unroll
+          for (int n = 0; n < 16; ++n)
+            if (n < D / 8)
+              *reinterpret_cast<float2*>(pacc + (size_t)r * D + 8 * n + 2 * tq4) =
+                  make_float2(o[mt][n][2 * hf], o[mt][n][2 * hf + 1]);
+          if (tq4 == 0) {
+            pm[r] = m[mt][hf] == -INFINITY ? -INFINITY : m[mt][hf] * LN2;
+            pl[r] = lt;
+          }
+        }
+      }
+  }
+}
+
 // One block per (query row, kv head, batch row): the sink prefix and every
 // split's partial merged by log-sum-exp, then 1/l. A split of zero weight
 // (no live key, or none of its tiles) is not read.
@@ -1313,6 +2034,43 @@ cudaError_t launch_partial(const FdArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <int MODE, int NB>
+cudaError_t launch_chunk(const FdArgs& a, cudaStream_t stream) {
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(fd_chunk<MODE, NB>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         CHUNK_SMEM_MAX);
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  fd_chunk<MODE, NB><<<dim3(a.n_split, a.Hkv * a.n_rt, a.B), (chunk_pw(MODE) + CW) * 32,
+                       chunk_layout(a).bytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// the tensor-core chunk body (bf16 dots) over the contiguous cache
+cudaError_t dispatch_chunk(const FdArgs& a, cudaStream_t st) {
+  if (a.rows_blk < 16 || a.rows_blk > CHUNK_ROWS || a.rows_blk % 16 ||
+      a.n_rt * a.rows_blk < a.Q || (a.n_rt - 1) * a.rows_blk >= a.Q || a.n_stage < 2 ||
+      a.n_stage > MAX_STAGES || a.n_buf < 1 || a.n_buf > MAX_BUF ||
+      chunk_layout(a).bytes > CHUNK_SMEM_MAX)
+    return cudaErrorInvalidValue;
+  switch (a.mode) {
+    case MODE_NUQ:
+      switch (a.bits) {
+        case 2: return launch_chunk<MODE_NUQ, 2>(a, st);
+        case 3: return launch_chunk<MODE_NUQ, 3>(a, st);
+        case 4: return launch_chunk<MODE_NUQ, 4>(a, st);
+      }
+      return cudaErrorInvalidValue;
+    case MODE_INT4: return launch_chunk<MODE_INT4, 0>(a, st);
+    case MODE_INT8: return launch_chunk<MODE_INT8, 0>(a, st);
+    case MODE_INT4X2: return launch_chunk<MODE_INT4X2, 0>(a, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
 bool is_decode(const FdArgs& a) {
   return a.Tq == 1 && a.n_rt == 1 && (a.Q == 1 || a.Q == 2 || a.Q == 4 || a.Q == 8);
 }
@@ -1329,7 +2087,9 @@ int run(const FdArgs* a, void* stream) {
   cudaError_t e = cudaErrorInvalidValue;
   if (is_decode(*a)) {
     e = dispatch_decode(*a, st);
-  } else if (!a->table) {
+  } else if (!a->table && a->dot_bf16) {
+    e = dispatch_chunk(*a, st);
+  } else if (!a->table) {  // fp32 dots: the SIMT body
     switch (a->mode) {
       case MODE_NUQ: e = launch_partial<MODE_NUQ>(*a, st); break;
       case MODE_INT4: e = launch_partial<MODE_INT4>(*a, st); break;
@@ -1345,7 +2105,8 @@ int run(const FdArgs* a, void* stream) {
 }  // namespace
 
 // K1 over the contiguous (L, B, ...) cache: fd_decode at Tq = 1 with
-// G = Q in {1, 2, 4, 8}, else fd_partial. Returns the cudaError_t of the
+// G = Q in {1, 2, 4, 8}, else fd_chunk (bf16 dots) or fd_partial (fp32
+// dots). Returns the cudaError_t of the
 // launches (0 on success); nothing is synchronised.
 extern "C" int fd_attention(const FdArgs* a, void* stream) {
   if (a->table) return (int)cudaErrorInvalidValue;

@@ -21,12 +21,17 @@ words or static channels, V slot words.
 
 On the card a decode step (Tq == 1, G = Q in {1, 2, 4, 8}) runs the
 decode body ``fd_decode`` (an async-copy tile ring, one block per head
-group slice); other calls run the 64-row prefill body ``fd_partial``. Both
-read the (cos, sin) table of ``rope_table``, built once per capacity, sink,
-RoPE parameters and device.
+group slice). Other calls (prefill chunks) run the tensor-core body
+``fd_chunk`` with bf16 dots (``dot_bf16``, the default: up to 256 query
+rows per block, mma.sync), or the SIMT body ``fd_partial`` with fp32 dots
+(64 rows per block), the reference mode that bf16 tensor cores cannot
+compute; ``body`` says which and ``chunk_plan`` gives the block shape. All
+read the (cos, sin) table of ``rope_table``, built once per capacity,
+sink, RoPE parameters and device.
 
 ``flash_attention.launches`` counts kernel launches (one per call on the
-card, ``flash_decode`` included). The TPU kernel's constant-band packing
+card, ``flash_decode`` included), ``flash_attention.chunk_launches`` those
+of calls that are not a decode step. The TPU kernel's constant-band packing
 (``prep_constants``) exists for a Mosaic operand limit and is not ported:
 the CUDA kernel takes its operands in a struct.
 """
@@ -36,6 +41,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import types
+from typing import NamedTuple
 
 import torch
 
@@ -45,12 +51,11 @@ from ...quant.nuq import lut_lookup
 from ..deployed import _outlier_addend
 from ..packing import unpack_codes
 from .common import (MAX_KC, MAX_SINK, TILE_TOKENS, fold_affine,
-                     signed_codes, channel_addend, check_operands, n_splits,
-                     sm_count)
+                     signed_codes, channel_addend, check_operands, sm_count)
 
 MODES = {"nuq": 0, "int4": 1, "int8": 2, "int4x2": 3}
-TILE = 64  # key tokens per tile in the prefill body
-ROWS = 64  # query rows per prefill block
+TILE = 64  # key tokens per tile in the SIMT body (fp32 dots)
+ROWS = 64  # query rows per block in the SIMT body
 
 
 def _check_config(dcfg: DeployConfig):
@@ -181,7 +186,7 @@ class _FdArgs(ctypes.Structure):
         ("post_rope", _I), ("dot_bf16", _I), ("li", _I), ("n_split", _I),
         ("n_rt", _I), ("inv", ctypes.c_float),
         ("table", _P), ("MP", _I), ("P", _I), ("NP", _I),
-        ("hb", _I), ("n_stage", _I),
+        ("hb", _I), ("n_stage", _I), ("rows_blk", _I), ("n_buf", _I),
     ]
 
 
@@ -267,6 +272,106 @@ def decode_splits(dcfg: DeployConfig, B: int, Hkv: int, G: int, D: int,
     return max(1, min(Tc // tt, DECODE_WAVES * per_sm * sms // (B * Hkv // hb)))
 
 
+CHUNK_TILE = 128  # key tokens per ring stage of fd_chunk (a nuq packing group)
+CHUNK_PIECE = 32  # key tokens per dequantized bf16 piece
+CHUNK_ROWS = 256  # most query rows per fd_chunk block: 8 consumer warps x 32
+CHUNK_SMEM_MAX = 225 * 1024  # csrc CHUNK_SMEM_MAX: dynamic shared bytes
+CHUNK_BLOCKS_PER_SM = 1  # 384-512 threads, the consumers at 216-224 registers
+# (piece buffers, ring stages) in the order chunk_plan tries them: buffers
+# let the producers run ahead of the products, stages ahead of the codes
+CHUNK_SHAPES = ((3, 3), (3, 2), (2, 3), (2, 2), (1, 3), (1, 2))
+
+
+class ChunkPlan(NamedTuple):
+    """Block shape of a call that is not a decode step. ``body`` "mma"
+    (fd_chunk, bf16 dots) or "simt" (fd_partial, fp32 dots); ``rows`` query
+    rows per block, ``n_rt`` row blocks covering the Q rows; ``tile`` key
+    tokens per tile; ``stages`` ring stages and ``n_buf`` bf16 piece
+    buffers (mma); ``smem`` dynamic shared bytes per block."""
+    body: str
+    rows: int
+    n_rt: int
+    tile: int
+    stages: int
+    n_buf: int
+    smem: int
+
+
+def _simt_smem(D: int) -> int:
+    """csrc smem_bytes(ROWS, D) of fd_partial."""
+    floats = (TILE * (D + 1) + TILE * D + ROWS * (D + 1) + ROWS * (TILE + 1)
+              + 32 + 2 * TILE)
+    return 4 * floats + 4 * (ROWS + MAX_KC)
+
+
+def _chunk_smem(dcfg: DeployConfig, D: int, J: int, rows: int, stages: int,
+                n_buf: int, live: tuple) -> int:
+    """csrc chunk_layout(a).bytes: mbarriers, the ring, the bf16 queries and
+    the piece buffers (bf16 K, V, the K outlier tile, the V slot tile, the
+    producer warps' masks)."""
+    n_kc, n_kslots, n_vslots = live
+    cb = {"nuq": dcfg.bits * 16 * D,
+          "int8": CHUNK_TILE * D}.get(dcfg.codes, CHUNK_TILE * D // 2)
+    n_rows = J if (n_kc or n_kslots or n_vslots) else 0
+    stage = 2 * cb + (n_rows + 2) * CHUNK_TILE * 4
+    tiles = 2 + bool(n_kc or n_kslots) + bool(n_vslots)
+    row = (128 + 8) * 2  # bf16 tile rows of 128 + 8 columns for every D
+    producers = 8 if dcfg.codes == "nuq" else 4  # csrc chunk_pw
+    buf = tiles * CHUNK_PIECE * row + 2 * producers * 4
+    return 128 + stages * stage + rows * row + n_buf * buf
+
+
+def body(dcfg: DeployConfig, Q: int, Tq: int) -> str:
+    """The kernel body a call runs on the card: "decode" (fd_decode, one
+    step of G in 1/2/4/8 rows per kv head), else "mma" (fd_chunk) with
+    bf16 dots or "simt" (fd_partial) with fp32 dots."""
+    if is_decode(Q, Tq):
+        return "decode"
+    return "mma" if dcfg.dot_bf16 else "simt"
+
+
+def chunk_plan(dcfg: DeployConfig, D: int, J: int, Q: int,
+               Tq: int) -> ChunkPlan:
+    """Block shape of a call that is not a decode step (Q = G * Tq rows).
+    mma: the fewest row blocks of at most CHUNK_ROWS rows, their rows
+    spread evenly in tiles of 16 (mma's row tile); the first of
+    CHUNK_SHAPES (piece buffers, ring stages) that CHUNK_SMEM_MAX holds.
+    Raises ValueError for a decode call or a configuration whose smallest
+    shape does not fit."""
+    kind = body(dcfg, Q, Tq)
+    if kind == "decode":
+        raise ValueError(f"chunk_plan: Q={Q}, Tq={Tq} is a decode step")
+    if kind == "simt":
+        return ChunkPlan("simt", ROWS, -(-Q // ROWS), TILE, 0, 0,
+                         _simt_smem(D))
+    live = kernel_limits(dcfg, D, J)
+    tiles = -(-Q // 16)
+    n_rt = -(-tiles // (CHUNK_ROWS // 16))
+    rows = 16 * -(-tiles // n_rt)
+    for n_buf, stages in CHUNK_SHAPES:
+        smem = _chunk_smem(dcfg, D, J, rows, stages, n_buf, live)
+        if smem <= CHUNK_SMEM_MAX:
+            return ChunkPlan("mma", rows, n_rt, CHUNK_TILE, stages, n_buf,
+                             smem)
+    raise ValueError(f"flash_attention kernel: the chunk body's shared "
+                     f"memory ({smem} B at {rows} rows, one buffer, two "
+                     f"stages) exceeds {CHUNK_SMEM_MAX} B: {dcfg.codes} "
+                     f"D {D}, {J} outlier rows")
+
+
+def chunk_splits(plan: ChunkPlan, B: int, Hkv: int, Tc: int,
+                 sms: int) -> int:
+    """Token splits of a chunk call. mma: as many as fill the card's
+    resident blocks once over B * Hkv * n_rt blocks, at most one per
+    128-token tile of the capacity (the blocks take their live tiles from
+    ``pos`` on the card); simt: about four blocks per SM (common.n_splits)."""
+    blocks = B * Hkv * plan.n_rt
+    if plan.body == "simt":
+        return max(1, min(-(-4 * sms // blocks), Tc // TILE))
+    return max(1, min(Tc // plan.tile,
+                      CHUNK_BLOCKS_PER_SM * sms // blocks))
+
+
 def load_library():
     """Build (on first use) and load the kernel library."""
     return _lib()
@@ -302,7 +407,7 @@ def kernel_limits(dcfg: DeployConfig, D: int, J: int):
 
 def is_decode(Q: int, Tq: int) -> bool:
     """Whether the kernel runs its decode body (one step, G rows per kv
-    head, all in one block) rather than the 64-row prefill body."""
+    head, all in one block) rather than a multi-row body."""
     return Tq == 1 and Q in (1, 2, 4, 8)
 
 
@@ -318,21 +423,25 @@ def run_kernel(entry, q_rot, arrays, pos, k_chan_l, dcfg, mcfg, *, L, Tc, J,
     B, Hkv, Q, D = q_rot.shape
     dev = q_rot.device
     n_kc, n_kslots, n_vslots = kernel_limits(dcfg, D, J)
+    rows_blk = n_buf = 0
     if is_decode(Q, Tq):
         n_rt = 1
         rows = bool(n_kc or n_kslots or n_vslots)
         hb, n_stage, _ = decode_plan(dcfg, D, J, rows)
         ns = decode_splits(dcfg, B, Hkv, Q, D, J, rows, n_kc, Tc,
                            sm_count(dev))
+    else:
+        plan = chunk_plan(dcfg, D, J, Q, Tq)
+        n_rt, hb, n_stage = plan.n_rt, 0, plan.stages
+        rows_blk, n_buf = plan.rows, plan.n_buf
+        ns = chunk_splits(plan, B, Hkv, Tc, sm_count(dev))
+    if body(dcfg, Q, Tq) != "simt":
         # the ring's bulk copies need 16-byte aligned sources
         for name, i in (("k_planes", 0), ("v_planes", 1), ("kv_out", 2),
                         ("v_scale", 5), ("v_offset", 6)):
             if arrays[i].data_ptr() % 16:
                 raise ValueError(f"flash_attention kernel: {name} is not "
                                  f"16-byte aligned")
-    else:
-        n_rt, hb, n_stage = -(-Q // ROWS), 0, 0
-        ns = n_splits(B * Hkv * n_rt, Tc, dev, 4, TILE)
     rope = None if dcfg.post_rope_k else rope_table(mcfg, dcfg.sink, Tc, dev)
     out = torch.empty((B, Hkv, Q, D), dtype=torch.float32, device=dev)
     part_m = torch.empty((B, Hkv, ns, Q), dtype=torch.float32, device=dev)
@@ -351,6 +460,7 @@ def run_kernel(entry, q_rot, arrays, pos, k_chan_l, dcfg, mcfg, *, L, Tc, J,
         mcfg.sliding_window or 0, int(dcfg.post_rope_k), int(dcfg.dot_bf16),
         int(li), ns, n_rt, 1.0 / (D ** 0.5),
         None if table is None else table.data_ptr(), MP, P, NP, hb, n_stage,
+        rows_blk, n_buf,
     )
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -407,6 +517,8 @@ def _launch(q_rot, k_planes, v_planes, kv_out, k_range, k_offset, v_scale,
          k_sink, v_sink, k_lut, v_lut), pos, k_chan_l, dcfg, mcfg, L=L,
         Tc=Tc, J=J, Tq=Tq, li=li)
     flash_attention.launches += 1
+    if not is_decode(q_rot.shape[2], Tq):
+        flash_attention.chunk_launches += 1
     return out
 
 
@@ -418,9 +530,9 @@ def flash_attention(
     """Attention of Q = G*Tq query rows per kv head over sink + packed cache
     for layer ``li`` of the stacked arrays. ``pos`` (B,) int (or an int) is
     row 0's position. ``k_chan`` (L, n_groups, n_kc) may carry the static K
-    channels precomputed from ``k_ressc`` ("channels" mode). The kernel's
-    key tile is fixed at 64 tokens; ``block_tokens`` is accepted for
-    signature parity."""
+    channels precomputed from ``k_ressc`` ("channels" mode). The kernels'
+    key tiles are fixed (64 or 128 tokens); ``block_tokens`` is accepted
+    for signature parity."""
     _check_config(dcfg)
     if q_rot.device.type == "cpu":
         return flash_attention_ref(
@@ -446,6 +558,7 @@ def flash_attention(
 
 
 flash_attention.launches = 0
+flash_attention.chunk_launches = 0  # of them, calls that are not a decode step
 
 
 def flash_decode(q_rot, k_planes, v_planes, kv_out, k_range, k_offset,

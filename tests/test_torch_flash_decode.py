@@ -50,7 +50,7 @@ def _words(rng, shape, hg):
 
 
 def _case(mode, post, k_out, hg, sink, Tq=1, pos=(3, 300), window=None,
-          dot_bf16=False, seed=0):
+          dot_bf16=False, seed=0, G=G):
     codes, bits = BITS[mode]
     kw = dict(bits=bits, n_kv_heads=Hkv, d_head=D, max_len=Tc + sink,
               sink=sink, kernel="flash", dot_bf16=dot_bf16, head_group=hg,
@@ -152,6 +152,26 @@ def test_plain_matches_jax_kernel(mode, post, k_out, hg, sink, Tq, pos,
     want, got = _case(mode, post, k_out, hg, sink, Tq=Tq, pos=pos,
                       window=window)
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("mode,post,k_out,hg,pos", [
+    ("nuq3", False, "slots", 4, (0, 0)),
+    ("nuq3", False, "slots", 4, (261, 389)),
+    ("int4", True, "channels", 2, (0, 0)),
+    ("int8", False, "slots", 2, (133, 250)),
+], ids=["nuq3-first", "nuq3-later", "int4-post-channels-first",
+        "int8-later"])
+@pytest.mark.parametrize("dot_bf16", [False, True], ids=["fp32", "bf16"])
+def test_chunk_g4_rows_match_jax_kernel(mode, post, k_out, hg, pos,
+                                        dot_bf16):
+    """Chunks of Tq = 256 + sink rows per query head at G = 4 (Q = 1044
+    g-major rows, the layout the chunk body's row blocks cut across g
+    boundaries), a first chunk whose sink rows see no packed token and
+    later ones at unequal positions; both dot modes."""
+    want, got = _case(mode, post, k_out, hg, 5, Tq=261, pos=pos,
+                      dot_bf16=dot_bf16, G=4)
+    tol = 2e-2 if dot_bf16 else 1e-5
+    np.testing.assert_allclose(got, want, atol=tol, rtol=tol)
 
 
 @pytest.mark.parametrize("Tq,pos", [(1, (3, 300)), (128, (133, 261))],
