@@ -58,7 +58,11 @@ K2 is csrc/flash_serial.cu (flash_serial_decode), K1 csrc/flash_decode.cu
 K3 (qk_fused) and K4 (pv_fused) are csrc/attention.cu, kernel="pallas":
  10. K3 and K4 against their plain versions: bits 2/3/4 x head group
      1/2/4 x cap 0/2 at R = G and R = G*261 rows, G 1/4, D 32/64/128,
-     capacity 256 / 2304, B=2, fp32 and bf16 dots;
+     capacity 256 / 2304, B=2, fp32 and bf16 dots; then their edge grid
+     (R 1/2/4/8/261 x D 32/64/128 x head group 1/2/4 with slot words that
+     collide at one dim, at a dim and its RoPE partner, at dims >= D x
+     capacity 128 / 256 / 2304, B=2 with a tail of zero probabilities);
+     and each body refuses a plan whose shared-memory count is off;
  11. the main path through the user's entry point: cli.generate
      --kernel pallas --prefill-mode quantized at LLaMA-2-7B width (2048-word
      prompt, 64 new tokens); K3 and K4 must each have run 32 x (chunks +
@@ -69,7 +73,9 @@ K3 (qk_fused) and K4 (pv_fused) are csrc/attention.cu, kernel="pallas":
  12. card against CPU through K3 / K4: the toy checkpoint's 32 greedy
      tokens, fp16 and quantized prefill;
  13. K3 and K4 alone at one LLaMA-2-7B layer: decode rows at 32K and 128K,
-     a 261-row prefill chunk at 2K; times, plain, bound as in phase 9.
+     a 261-row prefill chunk at 2K; times, plain, bound as in phase 9, the
+     times before the redesign beside them, each call's plan and the
+     (cos, sin) table's reads per call.
 K5 (paged_flash_decode) is fd_paged_attention in csrc/flash_decode.cu:
 K1's decode body (fd_decode) addressed through a page table:
  14. K5 against its plain version: nuq 2/3/4, int4, int8 x pre / post RoPE
@@ -143,9 +149,11 @@ BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak, data sheet
 FP32_TOL = 1e-4  # fp32 dots: |kernel - plain| <= FP32_TOL * (1 + max|plain|)
 SOURCES = ("flash_serial", "flash_decode", "attention")  # csrc/<name>.cu
 VERBOSE_BUILD = False  # --verbose-build: nvcc's register / spill report
-# the kernels' device times before the tensor-core chunk body (PERF.md §6,
-# the bracketed times; an H100 80GB HBM3 at 700 W), printed beside this
-# run's: (kernel, storage, kind or B, tokens) -> ms
+# the kernels' device times before their last redesign (PERF.md §6; an
+# H100 80GB HBM3 at 700 W): K1 / K5 before fd_decode and fd_chunk, K3 / K4
+# before attention.cu's decode and mma bodies; printed in the log beside
+# this run's, never in the kernels line, which holds only this run's
+# measurements: (kernel, storage, kind or B, tokens) -> ms
 BEFORE_MS = {("K1", "nuq3", "decode", 32768): 0.2927,
              ("K1", "nuq3", "decode", 131072): 1.0844,
              ("K1", "nuq3", "prefill", 2048): 0.9025,
@@ -155,7 +163,14 @@ BEFORE_MS = {("K1", "nuq3", "decode", 32768): 0.2927,
              ("K1", "int4x2", "decode", 131072): 0.7813,
              ("K1", "int4x2", "decode", 524288): 2.8717,
              ("K1", "int4x2", "prefill", 32768): 14.7080,
-             ("K5", "int4x2", 4, 8192): 0.2385}
+             ("K5", "int4x2", 4, 8192): 0.2385,
+             # K3 / K4 before their redesign (PERF.md §6)
+             ("K3", "nuq3", "decode", 34816): 0.3528,
+             ("K3", "nuq3", "decode", 133120): 1.3341,
+             ("K3", "nuq3", "prefill", 2304): 0.6885,
+             ("K4", "nuq3", "decode", 34816): 0.3068,
+             ("K4", "nuq3", "decode", 133120): 1.0898,
+             ("K4", "nuq3", "prefill", 2304): 0.8329}
 
 
 def vs_before(key, ms):
@@ -1354,6 +1369,137 @@ def phase_k34_vs_plain(report):
         f"{worst[False]:.3f} (bound 1e-4*(1+max|plain|)), bf16 dots "
         f"{worst[True]:.3f} (bound 1e-2*max|plain|)")
     report["k34_grid_worst_ratio"] = worst
+    report["k34_edge_worst_ratio"] = k34_edge_grid()
+    k34_wrong_smem_refused()
+
+
+def k34_wrong_smem_refused():
+    """Each body of K3 and K4 (decode, mma, SIMT) refuses a plan whose
+    shared-memory count is 16 bytes off its own layout, and the refused
+    call counts no launch: the host plan and the kernel's layout cannot
+    drift apart unseen."""
+    from kvquant_tpu_torch.cache import DeployConfig
+    from kvquant_tpu_torch.models.config import ModelConfig
+    from kvquant_tpu_torch.ops.kernels import attention as at
+
+    def off(plan_fn):
+        return lambda *a: (lambda p: p._replace(smem=p.smem + 16))(
+            plan_fn(*a))
+
+    dev = torch.device("cuda")
+    plans, n = (at.qk_plan, at.pv_plan), 0
+    at.qk_plan, at.pv_plan = off(plans[0]), off(plans[1])
+    try:
+        for dot_bf16, r in ((True, 1), (True, 261), (False, 261)):
+            dcfg = DeployConfig.create(
+                bits=3, n_kv_heads=4, d_head=64, max_len=256 + 5, sink=5,
+                kernel="pallas", dot_bf16=dot_bf16, head_group=2,
+                cap_per_side=2)
+            mcfg = ModelConfig(vocab_size=64, d_model=256, n_layers=1,
+                               n_heads=4, n_kv_heads=4, d_head=64, d_ff=64,
+                               max_seq_len=256)
+            o = k34_operands(dcfg, 1, r, 256,
+                             torch.Generator(device=dev).manual_seed(5), dev)
+            for name, fn, call in (
+                    ("K3", at.qk_fused, lambda: run_qk(at.qk_fused, o, dcfg,
+                                                       mcfg)),
+                    ("K4", at.pv_fused, lambda: run_pv(at.pv_fused, o,
+                                                       dcfg))):
+                before = fn.launches
+                try:
+                    call()
+                except RuntimeError:
+                    n += 1
+                else:
+                    raise AssertionError(f"[10] {name} R {r} took a plan "
+                                         f"with a wrong shared-memory count")
+                if fn.launches != before:
+                    raise AssertionError(f"[10] {name}: a refused call "
+                                         f"counted a launch")
+    finally:
+        at.qk_plan, at.pv_plan = plans
+    log(f"[10] a plan's shared-memory count 16 B off the kernel's layout: "
+        f"refused by {n} of 6 bodies (K3 / K4 decode, mma, SIMT)")
+
+
+def colliding_words(dcfg, B, Tc, gen, dev):
+    """Slot words (B, NG, n_slots, Tc) built where a register design goes
+    wrong: per (row, group, token) one of four patterns, every slot of the
+    token at one head and dim; at a dim and its RoPE partner (d, d + D/2,
+    alternating); at dims >= D (nothing to add; D = 128 keeps random dims);
+    random heads and dims. A fifth of the values are zero."""
+    from kvquant_tpu_torch.ops import packing as pk
+
+    D, hg, n = dcfg.d_head, dcfg.head_group, dcfg.n_slots
+    shape = (B, dcfg.n_groups, 1, Tc)
+
+    def rint(lo, hi, shp=shape):
+        return torch.randint(lo, hi, shp, generator=gen, device=dev)
+
+    mode, head0, dim0 = rint(0, 4), rint(0, hg), rint(0, D)
+    j = torch.arange(n, device=dev)[None, None, :, None]
+    full = (B, dcfg.n_groups, n, Tc)
+    dims = torch.where(mode == 0, dim0.expand(full),
+                       torch.where(mode == 1, (dim0 + (j % 2) * (D // 2)) % D,
+                                   torch.where(mode == 2, rint(D, 128, full)
+                                               if D < 128 else rint(0, D, full),
+                                               rint(0, D, full))))
+    heads = torch.where(mode < 2, head0.expand(full), rint(0, hg, full))
+    vals = torch.randn(full, generator=gen, device=dev) * 0.5
+    vals = vals.masked_fill(torch.rand(full, generator=gen, device=dev) < 0.2,
+                            0.0)
+    return pk.encode_outlier_words(vals, (heads << 7) | dims).contiguous()
+
+
+def k34_edge_grid():
+    """K3 and K4 against their plain versions at the edges of their
+    bodies: R 1/2/4/8 (decode instances) and 261 (mma with bf16 dots, SIMT
+    with fp32) x D 32/64/128 x head group 1/2/4 with colliding slot words
+    (cap 2, or 4 at head group 2: eight slot rows of a kind) x capacity 128
+    / 256 (one or two ring stages, fewer tiles than splits) / 2304 (18
+    tiles); B = 2, the second row's probabilities zero past 60% of the
+    capacity; fp32 and bf16 dots. Returns the worst |err| / bound per mode."""
+    from kvquant_tpu_torch.cache import DeployConfig
+    from kvquant_tpu_torch.models.config import ModelConfig
+    from kvquant_tpu_torch.ops.kernels import attention as at
+
+    dev = torch.device("cuda")
+    B, Hkv = 2, 8
+    worst = {False: 0.0, True: 0.0}
+    n, t0 = 0, time.perf_counter()
+    for dot_bf16 in (False, True):
+        for r in (1, 2, 4, 8, 261):
+            for d in (32, 64, 128):
+                for hg in (1, 2, 4):
+                    for tc in (128, 256, 2304):
+                        dcfg = DeployConfig.create(
+                            bits=(2, 3, 4)[n % 3], n_kv_heads=Hkv, d_head=d,
+                            max_len=tc + 5, sink=5, kernel="pallas",
+                            dot_bf16=dot_bf16, head_group=hg,
+                            cap_per_side=4 if hg == 2 else 2)
+                        mcfg = ModelConfig(
+                            vocab_size=64, d_model=Hkv * d, n_layers=1,
+                            n_heads=Hkv, n_kv_heads=Hkv, d_head=d, d_ff=64,
+                            max_seq_len=tc, rope_scaling=2.0)
+                        gen = torch.Generator(device=dev).manual_seed(n)
+                        o = k34_operands(dcfg, B, r, tc, gen, dev)
+                        o["kv_out"] = colliding_words(dcfg, B, tc, gen, dev)
+                        o["probs"][1, ..., int(0.6 * tc):] = 0.0
+                        tag = (f"[10] edge R{r} D{d} hg{hg} Tc{tc} "
+                               f"nuq{dcfg.bits}")
+                        for name, got, want in (
+                                ("K3", run_qk(at.qk_fused, o, dcfg, mcfg),
+                                 run_qk(at.qk_fused_ref, o, dcfg, mcfg)),
+                                ("K4", run_pv(at.pv_fused, o, dcfg),
+                                 run_pv(at.pv_fused_ref, o, dcfg))):
+                            torch.cuda.synchronize()
+                            check_case(f"{tag} {name}", got, want, dot_bf16,
+                                       worst)
+                        n += 1
+    log(f"[10] K3 / K4 edge grid == plain on {n // 2} cases x 2 dot modes "
+        f"in {time.perf_counter() - t0:.1f} s; worst |err| / bound: fp32 "
+        f"dots {worst[False]:.3f}, bf16 dots {worst[True]:.3f}")
+    return worst
 
 
 def live_k34_check(tag, cache, dq, dcfg, cfg, li_list, gen):
@@ -1545,6 +1691,7 @@ def phase_k34_times(report):
     nuq3, hg 4, cap 2): decode rows (R=1) over 32K and 128K capacities and
     a 261-row prefill chunk over a 2K capacity."""
     from kvquant_tpu_torch.ops.kernels import attention as at
+    from kvquant_tpu_torch.ops.kernels.common import sm_count
 
     dev = torch.device("cuda")
     rows = []
@@ -1580,7 +1727,11 @@ def phase_k34_times(report):
             call_ms = median_ms(lambda: call(fn))
             b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             b_ops = flops / BF16_FLOPS * 1e3
+            plan = (at.qk_plan if name == "qk_fused" else at.pv_plan)(
+                dcfg, r, D, Tc, 1, Hkv, J, sm_count(dev))
+            key = ("K3" if name == "qk_fused" else "K4", "nuq3", kind, Tc)
             row = dict(name=name, kind=kind, ctx=ctx, Tc=Tc, R=r,
+                       plan=plan._asdict(),
                        ms=min(ms, ms2), ms_runs=[ms, ms2], call_ms=call_ms,
                        plain_ms=plain_ms, bound_ms=max(b_bytes, b_ops),
                        bound_by="bytes" if b_bytes >= b_ops else "operations",
@@ -1592,7 +1743,17 @@ def phase_k34_times(report):
                 f"ms, bound {row['bound_ms']:.4f} ms by {row['bound_by']} "
                 f"({nbytes / 1e6:.1f} MB at 3.35 TB/s = {b_bytes:.4f} ms; "
                 f"{flops / 1e9:.2f} GFLOP at 989 TFLOP/s = {b_ops:.4f} ms), "
-                f"|err| {err:.2e}")
+                f"|err| {err:.2e}{vs_before(key, row['ms'])}")
+            if plan.body == "decode" and name == "qk_fused":
+                log(f"[13] {name} plan {plan.body}: {plan.hc} kv heads a block, "
+                    f"{plan.stages} stages, {plan.n_split} splits, "
+                    f"{plan.smem} B shared; the (cos, sin) table "
+                    f"({Tc * D * 4 / 1e6:.1f} MB) is read by "
+                    f"{Hkv // plan.hc} head blocks per call")
+            else:
+                log(f"[13] {name} plan {plan.body}: {plan.rows} rows x "
+                    f"{plan.n_rt} row blocks, {plan.hc} kv heads, "
+                    f"{plan.n_split} splits, {plan.smem} B shared")
         # context only, never called by the port: a bf16 matmul of the
         # queries against a dense K of the same length
         kb = torch.randn((1, Hkv, Tc, D), device=dev, dtype=torch.bfloat16)
@@ -2740,6 +2901,8 @@ def main(argv=None) -> int:
                 ("pv_fused", 249, report["k4_launches"])):
             t = next(x for x in report["k34_times"]
                      if x["name"] == name and x["ctx"] == 32768)
+            c = next(x for x in report["k34_times"]
+                     if x["name"] == name and x["kind"] == "prefill")
             kernels.append({
                 "name": name, "route": "cuda",
                 "source": "kvquant_tpu_torch/csrc/attention.cu",
@@ -2753,6 +2916,9 @@ def main(argv=None) -> int:
                 "library_ms": None,
                 "shape": f"B=1 Hkv=32 G=1 D=128 nuq3 pre-RoPE slots cap=2 "
                          f"hg=4 sink=5, decode R=1, Tc={t['Tc']}",
+                "chunk_ms": c["ms"], "chunk_bound_ms": c["bound_ms"],
+                "chunk_shape": f"R={c['R']} rows over Tc={c['Tc']} (tensor "
+                               f"cores, bf16 dots)",
             })
     if 17 in phases and 15 in phases:
         t = report["k5_times"][-1]  # B=4 slots at 8K, as the main path

@@ -30,6 +30,7 @@ from __future__ import annotations
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -87,18 +88,31 @@ EDITS = {
 }
 
 
-def build_copy(name: str, reduce=reduce, edits=EDITS, out=OUT) -> str:
-    """Compile the reduced source with the edits of copy ``name`` into
-    ``out``; returns the library's path."""
+def flatten(path: str) -> str:
+    """The source at ``path`` with the csrc headers it includes pasted in,
+    so that a copy builds from any directory and its edits reach the
+    shared helpers too."""
+    d = os.path.dirname(path)
+    text = open(path).read().replace("#pragma once\n", "")
+    return re.sub(r'^#include "([^"]+)"$',
+                  lambda m: flatten(os.path.join(d, m.group(1))), text,
+                  flags=re.M)
+
+
+def build_copy(name: str, reduce=reduce, edits=EDITS, out=OUT,
+               src_path=SRC) -> str:
+    """Compile the reduced source ``src_path`` with the edits of copy
+    ``name`` into ``out``; returns the library's path."""
     from kvquant_tpu_torch.ops.kernels import build
 
-    src = reduce(open(SRC).read())
+    src = reduce(flatten(src_path))
     for old, new in edits[name]:
         if old not in src:
             raise SystemExit(f"ablation: {name}: source changed: "
                              f"{old[:60]!r}")
         src = src.replace(old, new)
-    path = os.path.join(out, f"fd_{name}.cu")
+    stem = os.path.basename(src_path)[:-3]
+    path = os.path.join(out, f"{stem}_{name}.cu")
     with open(path, "w") as f:
         f.write(src)
     so = path[:-3] + ".so"

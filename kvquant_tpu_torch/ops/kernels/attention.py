@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -46,10 +47,11 @@ from ...cache import DeployConfig
 from ...models.llama import rope_cos_sin, rotate_half
 from ...quant.nuq import lut_lookup
 from ..packing import decode_outlier_words, unpack_codes
-from .common import TILE_TOKENS, check_operands, inv_freq, n_splits
+from .common import TILE_TOKENS, check_operands, sm_count
+from .flash_decode import rope_table
 
-TILE = 64  # tokens per tile in both kernels
-ROWS = 64  # query rows per pass when R is not 1, 2, 4 or 8
+TILE = 64  # tokens per tile of the simt bodies and of K4's mma body
+ROWS = 64  # query rows per pass of the simt bodies
 MAX_SLOTS = 8  # slot rows of one kind per head group the kernels take
 
 
@@ -80,11 +82,12 @@ def _check_config(dcfg: DeployConfig, name: str):
                 f"head_group <= 4, not {dcfg.head_group}")
 
 
-def slot_addend(rows, n_heads: int, D: int, hg: int):
-    """Encoded slot rows (B, NG, n, Tc) -> dense (B, Hkv, Tc, D) fp32 of
-    the slots each head owns, as the TPU kernels decode a word u: value
-    ``u & 0xFFFFFE00``, dim ``u & 0x7F`` (dims >= D add nothing),
-    head-in-group ``(u >> 7) & 3`` (ignored at head_group 1)."""
+def slot_addend(rows, n_heads: int, D: int, hg: int, width: int = None):
+    """Encoded slot rows (B, NG, n, Tc) -> dense (B, Hkv, Tc, width) fp32
+    of the slots each head owns, as the TPU kernels decode a word u: value
+    ``u & 0xFFFFFE00``, dim ``u & 0x7F``, head-in-group ``(u >> 7) & 3``
+    (ignored at head_group 1). ``width`` (default D) columns of the 128 a
+    dim can name: the head's own are the first D."""
     B, NG, n, Tc = rows.shape
     vals, idx = decode_outlier_words(rows)
     dim = (idx & 0x7F).long().transpose(-1, -2)  # (B, NG, Tc, n)
@@ -97,7 +100,8 @@ def slot_addend(rows, n_heads: int, D: int, hg: int):
                                              torch.zeros_like(vals))
         dense[:, :, j].scatter_add_(-1, dim, v)
     assert NG * hg == n_heads, (NG, hg, n_heads)
-    return dense[..., :D].reshape(B, n_heads, Tc, D)
+    width = D if width is None else width
+    return dense[..., :width].reshape(B, n_heads, Tc, width)
 
 
 def _rounder(dcfg: DeployConfig):
@@ -116,7 +120,11 @@ def qk_fused_ref(q_rot, k_planes, kv_out, k_range, k_offset, lut,
     """Plain PyTorch version of K3: dequantize every packed key, rotate it
     and the K slot addend at position sink + t, add them in fp32, round the
     sum and the queries where ``dot_bf16`` asks, contract in fp32.
-    ``block_tokens`` is accepted for signature parity."""
+    ``block_tokens`` is accepted for signature parity.
+
+    A slot dim d >= D adds nothing at d; the TPU kernel still adds its
+    rotate-half term, -v * sin, at d - D/2 when that lies inside the head
+    (D <= d < 3D/2), and so does this version."""
     _check_config(dcfg, "qk_fused")
     B, Hkv, R, D = q_rot.shape
     rnd = _rounder(dcfg)
@@ -132,7 +140,14 @@ def qk_fused_ref(q_rot, k_planes, kv_out, k_range, k_offset, lut,
     kx = rope(k)
     rows = _slot_rows(dcfg, kv_out, "k")
     if rows is not None:
-        kx = kx + rope(slot_addend(rows, Hkv, D, dcfg.head_group))
+        half = D // 2
+        dense = slot_addend(rows, Hkv, D, dcfg.head_group,
+                            min(128, D + half))
+        beyond = dense[..., D:]  # dims D .. 3D/2 - 1: their partner term
+        kx = kx + rope(dense[..., :D])
+        w = beyond.shape[-1]
+        if w:
+            kx[..., half:half + w] -= beyond * sk[..., :w]
     return torch.einsum("bhrd,bhtd->bhrt", rnd(q_rot.to(torch.float32)),
                         rnd(kx))
 
@@ -160,6 +175,168 @@ def pv_fused_ref(probs, v_planes, v_scale, v_offset, kv_out, lut,
     return out
 
 
+
+
+# ---------------------------------------------------------------------------
+# the host plan: which body runs a call, and its block shape
+# ---------------------------------------------------------------------------
+
+DECODE_TILE = 128  # tokens per ring stage of the decode bodies and per K3 mma tile
+DECODE_WARPS = 8  # consumer warps of a decode block (+ one producer warp)
+STAGE_BYTES = 32 * 1024  # largest decode ring stage before heads per block shrink
+RING_BYTES = 96 * 1024  # decode ring per block: two blocks share an SM
+QK_MMA_ROWS = 272  # most query rows per K3 mma block (17 row tiles of 16)
+PV_MMA_ROWS = 144  # most rows per K4 mma block (9 row tiles in a warp's registers)
+ROW_STRIDE = (128 + 8) * 2  # bytes of a bf16 K / V / query tile row (csrc QS)
+P_STRIDE = (TILE + 8) * 2  # bytes of a bf16 row of K4's probability tiles (PS)
+SMEM_MAX = 227 * 1024  # H100: dynamic shared memory one block may use
+SMEM_PER_SM = 228 * 1024  # H100: shared memory of an SM, 1 KB kept per block
+BODIES = {"decode": 0, "mma": 1, "simt": 2}  # csrc BODY_*
+
+
+class K34Plan(NamedTuple):
+    """Block shape of one K3 or K4 call. ``body``: "decode" (R <= 8, both
+    dot modes), "mma" (R > 8, bf16 dots, tensor cores) or "simt" (R > 8,
+    fp32 dots). ``rows``: the decode instance's rows per head (1/2/4/8), or
+    query rows per block; ``n_rt`` row blocks; ``hc`` kv heads per block
+    (whole head groups); ``stages`` ring stages (decode); ``n_split`` token
+    splits; ``smem`` dynamic shared bytes per block (passed to the kernel,
+    which refuses a call whose count differs from its bodies' layout);
+    ``per_sm`` blocks an SM holds at once. Sized from the capacity Tc,
+    never from a live length."""
+    body: str
+    rows: int
+    n_rt: int
+    hc: int
+    stages: int
+    n_split: int
+    smem: int
+    per_sm: int
+
+
+def body(dcfg: DeployConfig, R: int) -> str:
+    """The kernel body a call of R query rows runs on the card."""
+    if R <= 8:
+        return "decode"
+    return "mma" if dcfg.dot_bf16 else "simt"
+
+
+def slot_counts(dcfg: DeployConfig, J: int) -> tuple:
+    """(K slot rows, V slot rows) the kernels apply for ``J`` kv_out rows
+    (0 where the configuration or the call carries no slots)."""
+    if not (dcfg.include_sparse and J > 0 and dcfg.cap_per_side > 0):
+        return 0, 0
+    return dcfg.slots_per_kind, J - dcfg.slots_per_kind
+
+
+def _decode_rows(R: int) -> int:
+    return next(g for g in (1, 2, 4, 8) if R <= g)
+
+
+def _stage_bytes(bits: int, D: int, hc: int, n_rows: int, pv: bool) -> int:
+    """csrc dring(...).bytes: hc heads' bit planes (4 word rows each), the
+    staged slot rows, and K4's V scale and offset, for one 128-token tile."""
+    return hc * bits * 16 * D + (n_rows + (2 if pv else 0)) * DECODE_TILE * 4
+
+
+def _decode_shape(dcfg: DeployConfig, D: int, Hkv: int, n_slot: int,
+                  pv: bool) -> tuple:
+    """(kv heads per block, ring stages, stage bytes) of a decode block: the
+    most of 8/4/2/1 heads that are whole head groups (when slots are staged)
+    and divide Hkv whose stage fits STAGE_BYTES, else the fewest; the ring
+    takes RING_BYTES in 2-4 stages."""
+    unit = dcfg.head_group if n_slot else 1
+    hcs = [h for h in (8, 4, 2, 1) if h % unit == 0 and Hkv % h == 0]
+    if not hcs:
+        raise ValueError(f"K3/K4 kernel: head_group {dcfg.head_group} with "
+                         f"slots does not fit a block of 8 heads")
+    for hc in hcs:
+        stage = _stage_bytes(dcfg.bits, D, hc,
+                             n_slot * (hc // dcfg.head_group) if n_slot else 0,
+                             pv)
+        if stage <= STAGE_BYTES:
+            break
+    return hc, max(2, min(4, RING_BYTES // stage)), stage
+
+
+def _splits(n_tiles: int, most: int) -> int:
+    """At most ``most`` token splits over ``n_tiles`` tiles, every split
+    holding tiles: the kernels give split s the tiles [s*tps, (s+1)*tps)."""
+    tps = -(-n_tiles // max(1, min(most, n_tiles)))
+    return -(-n_tiles // tps)
+
+
+def _per_sm(smem: int, most: int) -> int:
+    return max(1, min(most, SMEM_PER_SM // (smem + 1024)))
+
+
+def _row_blocks(R: int, most: int) -> tuple:
+    """(row blocks, rows per block): the fewest blocks of at most ``most``
+    rows, their rows spread evenly in tiles of 16."""
+    tiles = -(-R // 16)
+    n_rt = -(-tiles // (most // 16))
+    return n_rt, 16 * -(-tiles // n_rt)
+
+
+def qk_plan(dcfg: DeployConfig, R: int, D: int, Tc: int, B: int, Hkv: int,
+            J: int, sms: int) -> K34Plan:
+    """Block shape of a K3 call (R query rows per kv head, capacity Tc, J
+    kv_out rows, ``sms`` SMs on the card). decode: hc heads per block (the
+    (cos, sin) table is read B*Hkv/hc times per call, from L2 after the
+    first), splits filling the resident blocks once; mma: all rows of a
+    head in one block up to QK_MMA_ROWS, splits over 128-token tiles
+    filling the resident blocks once; simt: one block per 64-token tile."""
+    kind = body(dcfg, R)
+    nks, _ = slot_counts(dcfg, J)
+    if kind == "decode":
+        G = _decode_rows(R)
+        hc, stages, stage = _decode_shape(dcfg, D, Hkv, nks, False)
+        smem = 128 + stages * stage + 4 * hc * (G + 2) * D
+        per_sm = _per_sm(smem + 64, 2 if G <= 2 else 1)
+        n_split = _splits(Tc // DECODE_TILE, per_sm * sms // (B * Hkv // hc))
+        return K34Plan(kind, G, 1, hc, stages, n_split, smem, per_sm)
+    if kind == "mma":
+        n_rt, rows = _row_blocks(R, QK_MMA_ROWS)
+        smem = (rows + DECODE_TILE) * ROW_STRIDE + 64 * 4 * 4 \
+            + MAX_SLOTS * DECODE_TILE * 4 + 64
+        per_sm = _per_sm(smem, 2)
+        n_split = _splits(Tc // DECODE_TILE, per_sm * sms // (B * Hkv * n_rt))
+        return K34Plan(kind, rows, n_rt, 1, 0, n_split, smem, per_sm)
+    smem = 4 * (TILE * D + TILE * (D + 1) + ROWS * (D + 1) + 16)
+    return K34Plan(kind, ROWS, -(-R // ROWS), 1, 0, Tc // TILE, smem,
+                   _per_sm(smem, 4))
+
+
+def pv_plan(dcfg: DeployConfig, R: int, D: int, Tc: int, B: int, Hkv: int,
+            J: int, sms: int) -> K34Plan:
+    """Block shape of a K4 call, as ``qk_plan``: decode blocks of hc heads
+    whose warps meet in the ring's shared memory at the end; mma blocks of
+    at most PV_MMA_ROWS rows (9 row tiles of accumulators a warp) over
+    64-token tiles; simt blocks of 64 rows, about four per SM. Every body
+    writes split partials that pv_merge adds in split order."""
+    kind = body(dcfg, R)
+    _, nvs = slot_counts(dcfg, J)
+    if kind == "decode":
+        G = _decode_rows(R)
+        hc, stages, stage = _decode_shape(dcfg, D, Hkv, nvs, True)
+        smem = 128 + max(stages * stage, DECODE_WARPS * G * (D + 1) * 4)
+        per_sm = _per_sm(smem + 64, 2 if G <= 2 else 1)
+        n_split = _splits(Tc // DECODE_TILE, per_sm * sms // (B * Hkv // hc))
+        return K34Plan(kind, G, 1, hc, stages, n_split, smem, per_sm)
+    if kind == "mma":
+        n_rt, rows = _row_blocks(R, PV_MMA_ROWS)
+        tiles = 2 if nvs else 1
+        smem = tiles * (rows * P_STRIDE + TILE * ROW_STRIDE) + 2 * TILE * 4 \
+            + rows * 4 + MAX_SLOTS * TILE * 4 + 32 + 64
+        per_sm = _per_sm(smem, 2)
+        n_split = _splits(Tc // TILE, per_sm * sms // (B * Hkv * n_rt))
+        return K34Plan(kind, rows, n_rt, 1, 0, n_split, smem, per_sm)
+    n_rt = -(-R // ROWS)
+    smem = 4 * (2 * TILE * D + 2 * ROWS * (TILE + 1) + 2 * TILE + 16)
+    n_split = _splits(Tc // TILE, -(-4 * sms // (B * Hkv * n_rt)))
+    return K34Plan(kind, ROWS, n_rt, 1, 0, n_split, smem, _per_sm(smem, 4))
+
+
 # ---------------------------------------------------------------------------
 # the CUDA kernels
 # ---------------------------------------------------------------------------
@@ -172,11 +349,11 @@ class _QkArgs(ctypes.Structure):
     """Mirror of ``QkArgs`` in csrc/attention.cu (same field order)."""
     _fields_ = [
         ("q", _P), ("kp", _P), ("kv_out", _P), ("k_range", _P),
-        ("k_offset", _P), ("lut", _P), ("inv_freq", _P), ("out", _P),
-        ("B", _I), ("Hkv", _I), ("R", _I), ("D", _I), ("Tc", _I), ("S", _I),
-        ("J", _I), ("n_kslots", _I), ("hg", _I), ("bits", _I),
-        ("dot_bf16", _I), ("hc", _I),
-        ("scaling", ctypes.c_float),
+        ("k_offset", _P), ("lut", _P), ("rope", _P), ("out", _P),
+        ("B", _I), ("Hkv", _I), ("R", _I), ("D", _I), ("Tc", _I), ("J", _I),
+        ("n_kslots", _I), ("hg", _I), ("bits", _I), ("dot_bf16", _I),
+        ("body", _I), ("hc", _I), ("n_split", _I), ("n_stage", _I),
+        ("rows_blk", _I), ("n_rt", _I), ("smem", _I),
     ]
 
 
@@ -187,7 +364,9 @@ class _PvArgs(ctypes.Structure):
         ("kv_out", _P), ("lut", _P), ("part", _P), ("out", _P),
         ("B", _I), ("Hkv", _I), ("R", _I), ("D", _I), ("Tc", _I),
         ("p_ld", _I), ("J", _I), ("spk", _I), ("n_vslots", _I), ("hg", _I),
-        ("bits", _I), ("dot_bf16", _I), ("n_split", _I), ("n_rt", _I),
+        ("bits", _I), ("dot_bf16", _I), ("body", _I), ("hc", _I),
+        ("n_split", _I), ("n_stage", _I), ("rows_blk", _I), ("n_rt", _I),
+        ("smem", _I),
     ]
 
 
@@ -224,6 +403,19 @@ def _check_slots(name, n):
                          f"{MAX_SLOTS} (cap_per_side <= 4)")
 
 
+def _check_aligned(name, tensors):
+    """The decode bodies copy these with TMA bulk copies: 16-byte aligned."""
+    for key, t in tensors.items():
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name} kernel: {key} is not 16-byte aligned")
+
+
+def _check_plan(name, plan: K34Plan):
+    if plan.smem > SMEM_MAX:
+        raise ValueError(f"{name} kernel: {plan.body} body needs "
+                         f"{plan.smem} B of shared memory > {SMEM_MAX}")
+
+
 def _run(fn, args, dev, name):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -252,20 +444,24 @@ def _qk_launch(q_rot, k_planes, kv_out, k_range, k_offset, lut, dcfg, mcfg):
         _check_slots("qk_fused", rows.shape[-2])
         expect["kv_out"] = (kv_out, (B, Hkv // hg, J, Tc), torch.float32)
     check_operands("qk_fused kernel", expect, dev)
-    # decode steps (few rows) share each tile's rotation across up to 8
-    # kv heads of one block; prefill blocks take one head per block
-    hc = 1
-    if R <= 8:
-        hc = next(c for c in (8, 4, 2, 1) if Hkv % c == 0)
+    _check_aligned("qk_fused", {"k_planes": k_planes,
+                                "kv_out": kv_out if rows is not None else None})
+    if mcfg.d_head != D:
+        raise ValueError(f"qk_fused kernel: d_head {mcfg.d_head} of the "
+                         f"model, {D} of the queries")
+    plan = qk_plan(dcfg, R, D, Tc, B, Hkv, J, sm_count(dev))
+    _check_plan("qk_fused", plan)
+    # K1's cached (cos, sin) table: one build serves both kernels
+    rope = rope_table(mcfg, dcfg.sink, Tc, dev)
     out = torch.empty((B, Hkv, R, Tc), dtype=torch.float32, device=dev)
     args = _QkArgs(
         q_rot.data_ptr(), k_planes.data_ptr(),
         kv_out.data_ptr() if rows is not None else None,
         k_range.data_ptr(), k_offset.data_ptr(), lut.data_ptr(),
-        inv_freq(mcfg, dev).data_ptr(), out.data_ptr(),
-        B, Hkv, R, D, Tc, dcfg.sink, J,
-        rows.shape[-2] if rows is not None else 0, hg, bits,
-        int(dcfg.dot_bf16), hc, float(mcfg.rope_scaling),
+        rope.data_ptr(), out.data_ptr(),
+        B, Hkv, R, D, Tc, J, slot_counts(dcfg, J)[0], hg, bits,
+        int(dcfg.dot_bf16), BODIES[plan.body], plan.hc, plan.n_split,
+        plan.stages, plan.rows, plan.n_rt, plan.smem,
     )
     _run(_lib().qk_fused, args, dev, "qk_fused")
     qk_fused.launches += 1
@@ -279,7 +475,7 @@ def qk_fused(q_rot, k_planes, kv_out, k_range, k_offset, lut,
     int32; kv_out (B, Hkv/head_group, J, Tc) merged encoded slot words (K
     rows first) or None; k_range / k_offset (Hkv, D); lut (2**bits,).
     Unscaled; the caller applies 1/sqrt(D) and the validity mask. The
-    kernel's tile is fixed at 64 tokens; ``block_tokens`` is accepted for
+    kernel's tiles are fixed (``qk_plan``); ``block_tokens`` is accepted for
     signature parity."""
     _check_config(dcfg, "qk_fused")
     if q_rot.device.type == "cpu":
@@ -319,24 +515,28 @@ def _pv_launch(probs, v_planes, v_scale, v_offset, kv_out, lut, dcfg):
                          f"takes torch.float32")
     if probs.device != dev:
         raise ValueError(f"pv_fused kernel: probs on {probs.device}")
-    J = n_v = 0
+    J = 0
     if rows is not None:
-        J, n_v = kv_out.shape[-2], rows.shape[-2]
-        _check_slots("pv_fused", n_v)
+        J = kv_out.shape[-2]
+        _check_slots("pv_fused", rows.shape[-2])
         expect["kv_out"] = (kv_out, (B, Hkv // hg, J, Tc), torch.float32)
     check_operands("pv_fused kernel", expect, dev)
-    few = R <= 8  # the decode instances: all rows in one block
-    n_rt = 1 if few else -(-R // ROWS)
-    # many short splits for decode blocks (as K1), fewer for prefill
-    ns = n_splits(B * Hkv * n_rt, Tc, dev, 24 if few else 4, TILE)
-    part = torch.empty((B, Hkv, ns, R, D), dtype=torch.float32, device=dev)
+    _check_aligned("pv_fused", {
+        "v_planes": v_planes, "v_scale": v_scale, "v_offset": v_offset,
+        "kv_out": kv_out if rows is not None else None})
+    plan = pv_plan(dcfg, R, D, Tc, B, Hkv, J, sm_count(dev))
+    _check_plan("pv_fused", plan)
+    part = torch.empty((B, Hkv, plan.n_split, R, D), dtype=torch.float32,
+                       device=dev)
     out = torch.empty((B, Hkv, R, D), dtype=torch.float32, device=dev)
     args = _PvArgs(
         probs.data_ptr(), v_planes.data_ptr(), v_scale.data_ptr(),
         v_offset.data_ptr(), kv_out.data_ptr() if rows is not None else None,
         lut.data_ptr(), part.data_ptr(), out.data_ptr(),
-        B, Hkv, R, D, Tc, p_ld, J, dcfg.slots_per_kind, n_v, hg, bits,
-        int(dcfg.dot_bf16), ns, n_rt,
+        B, Hkv, R, D, Tc, p_ld, J, dcfg.slots_per_kind,
+        slot_counts(dcfg, J)[1], hg, bits, int(dcfg.dot_bf16),
+        BODIES[plan.body], plan.hc, plan.n_split, plan.stages, plan.rows,
+        plan.n_rt, plan.smem,
     )
     _run(_lib().pv_fused, args, dev, "pv_fused")
     pv_fused.launches += 1
@@ -350,7 +550,7 @@ def pv_fused(probs, v_planes, v_scale, v_offset, kv_out, lut,
     (B, Tc) per-token range; kv_out (B, Hkv/head_group, J, Tc) merged
     encoded slot words (V rows after the K rows) or None. probs must be
     zero at invalid positions; its rows may be strided (a column slice of
-    a wider tensor). The kernel's tile is fixed at 64 tokens;
+    a wider tensor). The kernel's tiles are fixed (``pv_plan``);
     ``block_tokens`` is accepted for signature parity."""
     _check_config(dcfg, "pv_fused")
     if probs.device.type == "cpu":

@@ -1,7 +1,7 @@
 """Helpers shared by the attention kernel wrappers (flash_serial, K2,
 flash_decode, K1, and attention, K3/K4): the affine-codebook fold, the
-codes and outlier addends their plain versions multiply, operand checks,
-the RoPE frequencies, the token-axis split count and the card's SM count.
+codes and outlier addends their plain versions multiply, operand checks
+and the card's SM count.
 
 ``fold_affine`` is the port of kvquant_tpu/ops/pallas/flash_decode.py:
 fold_affine for one layer. Both CUDA kernels fold the codebook themselves
@@ -16,7 +16,6 @@ import functools
 import torch
 
 from ...cache import DeployConfig
-from ...models.llama import rope_inv_freq
 from ..packing import unpack_nibbles, unpair_codes_int4x2
 
 TILE_TOKENS = 128  # the kernels' cache capacity granule
@@ -85,17 +84,3 @@ def _sm_count(index: int) -> int:
 def sm_count(device: torch.device) -> int:
     return _sm_count(device.index if device.index is not None
                      else torch.cuda.current_device())
-
-
-@functools.lru_cache(maxsize=16)
-def inv_freq(mcfg, device: torch.device) -> torch.Tensor:
-    """The RoPE inverse frequencies the kernels rotate with (the plain
-    versions' fp32 values, from models.llama.rope_inv_freq)."""
-    return rope_inv_freq(mcfg, device)
-
-
-def n_splits(blocks: int, Tc: int, device: torch.device, per_sm: int,
-             tile: int = 64) -> int:
-    """Token-axis splits for ``blocks`` blocks of one call: about
-    ``per_sm`` blocks per SM, at most one split per ``tile``-token tile."""
-    return max(1, min(-(-per_sm * sm_count(device) // blocks), Tc // tile))

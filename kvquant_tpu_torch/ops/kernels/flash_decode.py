@@ -364,7 +364,7 @@ def chunk_splits(plan: ChunkPlan, B: int, Hkv: int, Tc: int,
     """Token splits of a chunk call. mma: as many as fill the card's
     resident blocks once over B * Hkv * n_rt blocks, at most one per
     128-token tile of the capacity (the blocks take their live tiles from
-    ``pos`` on the card); simt: about four blocks per SM (common.n_splits)."""
+    ``pos`` on the card); simt: about four blocks per SM."""
     blocks = B * Hkv * plan.n_rt
     if plan.body == "simt":
         return max(1, min(-(-4 * sms // blocks), Tc // TILE))

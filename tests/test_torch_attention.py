@@ -34,19 +34,22 @@ from kvquant_tpu_torch.ops.kernels import attention as at
 torch.set_num_threads(1)
 
 B, HKV, D, G, TC = 2, 4, 16, 2, 256
-MK = dict(vocab_size=64, d_model=HKV * G * D, n_layers=1, n_heads=HKV * G,
-          n_kv_heads=HKV, d_head=D, d_ff=64, max_seq_len=512,
-          rope_scaling=2.0)
 
 
-def _cfgs(bits, hg, cap=2, include_sparse=True, dot_bf16=False):
+def _mk(D=D):
+    return dict(vocab_size=64, d_model=HKV * G * D, n_layers=1,
+                n_heads=HKV * G, n_kv_heads=HKV, d_head=D, d_ff=64,
+                max_seq_len=512, rope_scaling=2.0)
+
+
+def _cfgs(bits, hg, cap=2, include_sparse=True, dot_bf16=False, D=D):
     kw = dict(bits=bits, n_kv_heads=HKV, d_head=D, max_len=TC + 5, sink=5,
               head_group=hg, cap_per_side=cap, include_sparse=include_sparse,
               dot_bf16=dot_bf16, kernel="pallas")
     return JDeployConfig.create(**kw), DeployConfig.create(**kw)
 
 
-def _inputs(bits, hg, n_slots, R, seed):
+def _inputs(bits, hg, n_slots, R, seed, D=D):
     """Packed planes (B, Hkv, bits, TC/32, D), slot words (B, NG, n_slots,
     TC) and the dense operands, as numpy."""
     rng = np.random.default_rng(seed)
@@ -74,7 +77,8 @@ def _inputs(bits, hg, n_slots, R, seed):
 
 
 def _qk(jd, td, x, words):
-    jm, tm = JModelConfig(**MK), ModelConfig(**MK)
+    d = x["q"].shape[-1]
+    jm, tm = JModelConfig(**_mk(d)), ModelConfig(**_mk(d))
     want = np.stack([np.asarray(jax_qk(
         jnp.asarray(x["q"][b]), jnp.asarray(x["planes"][b]),
         None if words is None else jnp.asarray(words[b]),
@@ -158,7 +162,7 @@ def test_wrappers_on_cpu_count_no_launch_and_refuse_wide_head_groups():
                       cap_per_side=2, head_group=8, kernel="pallas")
     words = torch.zeros((B, 1, t8.n_slots, TC))
     planes = torch.zeros((B, 8, 3, TC // 32, D), dtype=torch.int32)
-    tm = ModelConfig(**MK)
+    tm = ModelConfig(**_mk())
     with pytest.raises(ValueError, match="head_group <= 4"):
         at.qk_fused(torch.zeros((B, 8, 1, D)), planes, words,
                     torch.ones((8, D)), torch.zeros((8, D)), torch.zeros(8),
@@ -187,7 +191,7 @@ def test_launch_path_refuses_before_touching_the_card():
     a capacity off the 128-token granule, a head width the kernels do not
     take."""
     jd, td = _cfgs(3, 2)
-    tm = ModelConfig(**MK)
+    tm = ModelConfig(**_mk())
     x = _inputs(3, 2, td.n_slots, G, seed=5)
     planes = torch.as_tensor(x["planes"])[..., :3, :]  # 96 tokens
     with pytest.raises(ValueError, match="multiple of 128"):
@@ -203,3 +207,65 @@ def test_launch_path_refuses_before_touching_the_card():
                       torch.as_tensor(x["v_offset"]),
                       torch.as_tensor(x["words"]), torch.zeros(4), td)
     assert at.qk_fused.launches == at.pv_fused.launches == 0
+
+
+def _colliding_words(pattern, hg, n_slots, seed, D=D):
+    """Slot words (B, NG, n_slots, TC) where a design that keeps the slots
+    in registers goes wrong: every slot of a token at one head and dim
+    ("dim"); at a dim and its RoPE partner, d and d + D/2 alternating
+    ("partner"); at dims D..127 ("beyond": nothing at the dim, but K3's
+    rotation adds -v * sin at d - D/2 for d < 3D/2)."""
+    rng = np.random.default_rng(seed)
+    shape = (B, HKV // hg, n_slots, TC)
+    head0 = rng.integers(0, hg, (B, HKV // hg, 1, TC))
+    d0 = rng.integers(0, D, (B, HKV // hg, 1, TC))
+    j = np.arange(n_slots)[None, None, :, None]
+    if pattern == "dim":
+        heads, dims = np.broadcast_to(head0, shape), np.broadcast_to(d0, shape)
+    elif pattern == "partner":
+        heads, dims = np.broadcast_to(head0, shape), (d0 + (j % 2) * (D // 2)) % D
+    else:
+        heads, dims = rng.integers(0, hg, shape), rng.integers(D, 128, shape)
+    vals = (rng.standard_normal(shape) * 0.5).astype(np.float32)
+    vals[rng.random(shape) < 0.2] = 0.0
+    idx = (heads << 7) | dims
+    return np.asarray(jpk.encode_outlier_words(jnp.asarray(vals),
+                                               jnp.asarray(idx)))
+
+
+@pytest.mark.parametrize("dot_bf16", [False, True], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("R", [1, 2, 4, 8])
+@pytest.mark.parametrize("pattern", ["dim", "partner", "beyond"])
+@pytest.mark.parametrize("kernel", list(KERNELS))
+def test_colliding_slots_match_jax_kernel(kernel, pattern, R, dot_bf16):
+    """Slot words that collide at one dim, at a dim and its RoPE partner,
+    or lie at dims >= D, at R = 1/2/4/8 rows (the decode instances' row
+    counts), head group 2, cap 2, in both dot modes: the plain version the
+    kernels are held to on the card equals the JAX kernel."""
+    jd, td = _cfgs(3, 2, dot_bf16=dot_bf16)
+    x = _inputs(3, 2, td.n_slots, R, seed=R * 7 + len(pattern))
+    words = _colliding_words(pattern, 2, td.n_slots, seed=R + 3)
+    want, got = KERNELS[kernel](jd, td, x, words)
+    if dot_bf16:
+        assert np.abs(got - want).max() <= 1e-2 * np.abs(want).max()
+    else:
+        np.testing.assert_allclose(got, want, atol=2e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dot_bf16", [False, True], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("kernel", list(KERNELS))
+def test_slot_dims_beyond_the_head_match_jax_kernel(kernel, d, dot_bf16):
+    """Slot words at dims D..127, which the quantizer never writes, at the
+    widths of the card's edge grid: the JAX kernel's one-hot rotation adds
+    -v * sin at d - D/2 for d < 3D/2 and nothing at d, and pv_fused drops
+    them. The plain versions do the same (the port's K3 once dropped them
+    too: ROADMAP queue 3)."""
+    jd, td = _cfgs(3, 2, dot_bf16=dot_bf16, D=d)
+    x = _inputs(3, 2, td.n_slots, 2, seed=d + dot_bf16, D=d)
+    words = _colliding_words("beyond", 2, td.n_slots, seed=d, D=d)
+    want, got = KERNELS[kernel](jd, td, x, words)
+    if dot_bf16:
+        assert np.abs(got - want).max() <= 1e-2 * np.abs(want).max()
+    else:
+        np.testing.assert_allclose(got, want, atol=2e-4, rtol=1e-4)

@@ -48,3 +48,12 @@ def test_library_path_of_the_repository_sources():
     assert len(set(paths)) == len(paths)
     with pytest.raises(FileNotFoundError):
         build.library_path("no_such_source")
+
+
+@pytest.mark.parametrize("name", ["flash_decode", "attention"])
+def test_shared_device_helpers_key_both_sources(name):
+    """K1 / K5 (flash_decode.cu) and K3 / K4 (attention.cu) take their
+    shared device helpers from csrc/hopper.cuh: the header is part of each
+    library's key, so an edit there rebuilds both."""
+    deps = build._sources(os.path.join(build.CSRC_DIR, f"{name}.cu"), [])
+    assert [os.path.basename(p) for p in deps] == [f"{name}.cu", "hopper.cuh"]
