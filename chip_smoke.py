@@ -1,6 +1,7 @@
 """Smoke test of the PyTorch/CUDA port (kvquant_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py            # every phase, one card
+    python3 chip_smoke.py --phases 1,2,3,5,21            # K2: both bodies
     python3 chip_smoke.py --phases 1,6 --verbose-build   # build + K1 check
     python3 chip_smoke.py --phases 1,6,9,14,17,18,21     # K1 / K5 decode body
     python3 chip_smoke.py --phases 1,6,9,18,21           # K1 chunk body
@@ -13,21 +14,30 @@ K2 is csrc/flash_serial.cu (flash_serial_decode), K1 csrc/flash_decode.cu
      kvquant_tpu_torch/csrc/*.cu source of this checkout, run in parallel;
   2. K2 against its plain PyTorch version on the card: int4 / int8 /
      int4x2 x channels / slots x sink 0 / 5, B=2 at unequal positions, and a
-     sliding window, with fp32 dots and with bf16 dot operands;
+     sliding window, with fp32 dots and with bf16 dot operands, each case
+     on the plan's body (fs_mma for bf16 dots on int4 / int4x2, fs_partial
+     otherwise) and on fs_partial forced; fs_mma's edge grid (int4 / int4x2
+     x G 1/2/4/8 x D 32/64/128 x head group 2/4/16 x channels / slots /
+     none x sink 0/5, a window; B=3 rows at ragged positions: no packed
+     token, a live length that is not a multiple of a tile, a split with no
+     tile); both bodies refuse a plan 16 B off their layout;
   3. the speed-config main path at full LLaMA-2-7B width (32 layers, random
      bf16 weights from a seed): prefill of a 2048-token prompt then greedy
      generate of 64 tokens (int4, post-RoPE K, 16 static K channels, no
      slots, head_group 16, sink 5, kernel "flash_serial"); K2 must have run
-     32 times per decode step; on the live cache K2 is held against the
+     32 times per decode step, every time through fs_mma (launches counted
+     per body); on the live cache K2 is held against the
      plain version at layers 0 and 31, with bf16 and with fp32 dots;
      decode tok/s, also at 32K context;
   4. card against CPU: a toy-sized random model gives the same 32 greedy
      tokens on the card and on the CPU through K2;
   5. K2 alone at one LLaMA-2-7B layer's shapes with a filled cache at 32K
      and 128K tokens: agreement with the plain version in both dot modes;
-     kernel, plain version, bound (CUDA events around back-to-back calls
-     queued behind a sleep kernel, median of 7 repeats after warm-up; and
-     the per-call time with host overhead);
+     fs_mma, fs_partial forced on the same bf16 call and fs_partial with
+     fp32 dots timed in turns (CUDA events around back-to-back calls queued
+     behind a sleep kernel, median of 7 repeats after warm-up; and the
+     per-call time with host overhead), the plain version, both plans and
+     the byte bound;
   6. K1 against its plain version: nuq 2/3/4 bits, int4, int8 x pre / post
      RoPE x slots / channels x sink 0 / 5 x (decode at B=2, unequal
      positions; a first prefill chunk; a later chunk), a sliding window and
@@ -121,8 +131,9 @@ int4x2 (the head-paired 2-bit container) through K1 and K5:
      --kernel flash at LLaMA-2-7B width (K1 32 x 256 times);
  21. K1 (decode at 32K / 128K / 512K, a 256-row chunk at 2K and 32K) and
      K5 (B=4 x 8K) on int4x2 at one LLaMA-2-7B layer: kernel, plain, bound;
-     K1 on int4 containers and K2 on the same int4x2 tokens as context; the
-     previous PR's times beside;
+     K1 on int4 containers and K2 on the same int4x2 tokens as context (K2
+     through fs_mma, held to its plain version, and fs_partial forced, with
+     the plan); the previous PR's times beside;
  22. the 2-bit config of phase 19 at LLaMA-2-7B width runs a 32K-token
      quantized prefill (128 chunks of 256): K1 32 x 128 chunk launches,
      wall seconds, a profiler window over the last four chunks (device ms
@@ -364,6 +375,10 @@ def phase_device_and_build(report):
 
 
 def phase_kernel_vs_plain(report):
+    """K2 against its plain version on both bodies: every case below runs
+    the plan's body (fs_mma for bf16 dots on int4 / int4x2, fs_partial
+    otherwise) and, where that is fs_mma, fs_partial forced as well; then
+    fs_mma's edge grid and the refusal of a plan 16 B off."""
     from kvquant_tpu_torch.cache import DeployConfig
     from kvquant_tpu_torch.models.config import ModelConfig
     from kvquant_tpu_torch.ops.kernels import flash_serial as fs
@@ -377,6 +392,7 @@ def phase_kernel_vs_plain(report):
             for sink in (0, 5):
                 cases.append((codes, k_out, sink, None))
     cases += [("int4", "channels", 5, 300), ("int4x2", "slots", 5, 300)]
+    routes = {b: 0 for b in fs.BODIES}
     for dot_bf16 in (False, True):
         for codes, k_out, sink, window in cases:
             bits = {"int4": 4, "int8": 8, "int4x2": 2}[codes]
@@ -397,15 +413,144 @@ def phase_kernel_vs_plain(report):
             # several 128-token tiles; with a window, both deep
             pos = torch.tensor([3, 700] if window is None else [700, 1001],
                                dtype=torch.int32, device=dev)
-            got = call(fs.flash_serial_decode, q, ops, 1, pos, dcfg, mcfg)
-            torch.cuda.synchronize()
             want = call(fs.flash_serial_decode_ref, q, ops, 1, pos, dcfg,
                         mcfg)
-            err = agree(f"[2] {codes}/{k_out}/sink{sink}/win{window}",
-                        got, want, dot_bf16)
-            if not dot_bf16:
-                worst = max(worst, err)
+            bodies = [fs.fs_body(dcfg)]
+            if bodies[0] == "fs_mma":
+                bodies.append("fs_partial")
+            for body in bodies:
+                got = call(lambda *a, **k: fs.flash_serial_decode(
+                    *a, body=body, **k), q, ops, 1, pos, dcfg, mcfg)
+                torch.cuda.synchronize()
+                err = agree(f"[2] {body} {codes}/{k_out}/sink{sink}/"
+                            f"win{window}", got, want, dot_bf16)
+                routes[body] += 1
+                if not dot_bf16:
+                    worst = max(worst, err)
+    log(f"[2] cases per body: {routes}")
     report["max_abs_err_fp32"] = worst
+    report["k2_edge_worst"] = k2_edge_grid()
+    k2_wrong_smem_refused()
+
+
+def k2_edge_grid():
+    """fs_mma against the plain version over its edge cases, bf16 dots:
+    int4 / int4x2 x G 1/2/4/8 x D 32/64/128 x head group 2/4/16 x static
+    channels (more than the 4 a tile stages at head groups 2 / 4; V slot
+    words beside them at head group 4) / slot words (head groups 2 / 4:
+    words carry a 2-bit head index) / none x sink 0/5, and a sliding window
+    at D 128 with the sink; B = 3 rows at ragged positions: one with no
+    packed token, one whose live length 201 is not a multiple of a 32-token
+    tile (its 7 tiles leave a split of the plan's 8 empty), one deep.
+    Returns the worst |err| / bound."""
+    from kvquant_tpu_torch.cache import DeployConfig
+    from kvquant_tpu_torch.models.config import ModelConfig
+    from kvquant_tpu_torch.ops.kernels import flash_serial as fs
+
+    dev = torch.device("cuda")
+    L, Tc = 2, 1024
+    worst = {False: 0.0, True: 0.0}
+    n, t0 = 0, time.perf_counter()
+    before = fs.flash_serial_decode.route_launches["fs_mma"]
+    for codes in ("int4", "int4x2"):
+        for G in (1, 2, 4, 8):
+            for D in (32, 64, 128):
+                for hg in (2, 4, 16):
+                    for k_out in ("channels", "slots", "none"):
+                        if k_out == "slots" and hg == 16:
+                            continue
+                        for sink in (0, 5):
+                            for window in ((None, 300) if D == 128 and sink
+                                           else (None,)):
+                                Hkv = max(4, hg)
+                                dcfg = DeployConfig.create(
+                                    bits=4 if codes == "int4" else 2,
+                                    n_kv_heads=Hkv, d_head=D,
+                                    max_len=Tc + sink, sink=sink,
+                                    kernel="flash_serial", dot_bf16=True,
+                                    head_group=hg, codes=codes,
+                                    post_rope_k=True,
+                                    k_outliers="slots" if k_out == "slots"
+                                    else "channels",
+                                    n_kc={2: 10, 4: 12, 16: 16}[hg],
+                                    include_sparse=k_out != "none",
+                                    cap_per_side=2 if k_out == "slots" or (
+                                        k_out == "channels" and hg == 4)
+                                    else 0)
+                                mcfg = ModelConfig(
+                                    vocab_size=64, d_model=Hkv * G * D,
+                                    n_layers=L, n_heads=Hkv * G,
+                                    n_kv_heads=Hkv, d_head=D, d_ff=64,
+                                    max_seq_len=Tc, sliding_window=window)
+                                gen = torch.Generator(device=dev).manual_seed(
+                                    91 + n)
+                                ops = kernel_operands(dcfg, mcfg, L, 3, G, Tc,
+                                                      gen, dev)
+                                q = torch.randn((3, Hkv, G, D), generator=gen,
+                                                device=dev)
+                                pos = torch.tensor(
+                                    [max(sink - 2, 0), sink + 200,
+                                     sink + Tc - 4], dtype=torch.int32,
+                                    device=dev)
+                                got = call(fs.flash_serial_decode, q, ops, 1,
+                                           pos, dcfg, mcfg)
+                                torch.cuda.synchronize()
+                                want = call(fs.flash_serial_decode_ref, q,
+                                            ops, 1, pos, dcfg, mcfg)
+                                check_case(
+                                    f"[2] fs_mma edge {codes} G{G} D{D} hg{hg}"
+                                    f" {k_out} sink{sink} win{window}", got,
+                                    want, True, worst)
+                                n += 1
+    ran = fs.flash_serial_decode.route_launches["fs_mma"] - before
+    if ran != n:
+        raise AssertionError(f"[2] edge grid: {ran} fs_mma launches for {n} "
+                             f"cases")
+    log(f"[2] fs_mma edge grid: {n} cases (bf16 dots) in "
+        f"{time.perf_counter() - t0:.1f} s, all through fs_mma; worst "
+        f"|err| / bound {worst[True]:.3f}")
+    return worst[True]
+
+
+def k2_wrong_smem_refused():
+    """Both bodies of K2 refuse a plan whose shared-memory count is 16
+    bytes off their own layout, and the refused call counts no launch."""
+    from kvquant_tpu_torch.cache import DeployConfig
+    from kvquant_tpu_torch.models.config import ModelConfig
+    from kvquant_tpu_torch.ops.kernels import flash_serial as fs
+
+    dev = torch.device("cuda")
+    plan_fn, n = fs.fs_plan, 0
+    fs.fs_plan = lambda *a, **k: (lambda p: p._replace(smem=p.smem + 16))(
+        plan_fn(*a, **k))
+    try:
+        for dot_bf16 in (True, False):
+            dcfg = DeployConfig.create(
+                bits=4, n_kv_heads=4, d_head=128, max_len=256 + 5, sink=5,
+                kernel="flash_serial", dot_bf16=dot_bf16, head_group=2,
+                codes="int4", post_rope_k=True, k_outliers="channels",
+                n_kc=3, cap_per_side=0)
+            mcfg = ModelConfig(vocab_size=64, d_model=512, n_layers=1,
+                               n_heads=4, n_kv_heads=4, d_head=128, d_ff=64,
+                               max_seq_len=256)
+            gen = torch.Generator(device=dev).manual_seed(5)
+            ops = kernel_operands(dcfg, mcfg, 1, 1, 1, 256, gen, dev)
+            q = torch.randn((1, 4, 1, 128), generator=gen, device=dev)
+            pos = torch.tensor([200], dtype=torch.int32, device=dev)
+            before = fs.flash_serial_decode.launches
+            try:
+                call(fs.flash_serial_decode, q, ops, 0, pos, dcfg, mcfg)
+            except RuntimeError:
+                n += 1
+            else:
+                raise AssertionError(f"[2] K2 {fs.fs_body(dcfg)} took a plan "
+                                     f"with a wrong shared-memory count")
+            if fs.flash_serial_decode.launches != before:
+                raise AssertionError("[2] K2: a refused call counted a launch")
+    finally:
+        fs.fs_plan = plan_fn
+    log(f"[2] a plan's shared-memory count 16 B off the body's layout: "
+        f"refused by {n} of 2 bodies (fs_mma, fs_partial)")
 
 
 def speed_config(max_len, n_layers):
@@ -465,6 +610,7 @@ def phase_main_path(report):
 
     gcfg = engine.GenerateConfig(max_new_tokens=N)
     fs.flash_serial_decode.launches = 0
+    fs.flash_serial_decode.route_launches = {b: 0 for b in fs.BODIES}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     toks, cache = engine.generate(params, cfg, dcfg, dq, prompt, gcfg,
@@ -472,12 +618,15 @@ def phase_main_path(report):
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     launches = fs.flash_serial_decode.launches
+    routes = dict(fs.flash_serial_decode.route_launches)
     report["launches"] = launches
+    report["route_launches"] = routes
     log(f"[3] prefill {T0} tokens {prefill_s:.3f} s; generate (prefill + "
         f"{N} decode steps) {gen_s:.3f} s; kernel launches {launches} "
-        f"(expected {cfg.n_layers * N})")
-    if launches != cfg.n_layers * N:
-        raise AssertionError("main path did not run the kernel per layer")
+        f"(expected {cfg.n_layers * N}, all through fs_mma): per body "
+        f"{routes}")
+    if launches != cfg.n_layers * N or routes["fs_mma"] != launches:
+        raise AssertionError("main path did not run fs_mma per layer")
     if not (toks.shape == (1, N) and int(toks.min()) >= 0
             and int(toks.max()) < cfg.vocab_size):
         raise AssertionError(f"bad tokens {toks.shape}")
@@ -575,6 +724,11 @@ def phase_card_vs_cpu(report):
 
 
 def phase_times(report):
+    """K2 alone at one LLaMA-2-7B layer (the speed config: int4, G 1, D 128,
+    hg 16, 16 static channels) at 32K and 128K: fs_mma (the plan's body for
+    bf16 dots), fs_partial forced on the same bf16 call, and fs_partial on
+    the fp32-dot call, timed in turns; each held to the plain version;
+    the plans and the byte bound."""
     from kvquant_tpu_torch.ops.kernels import flash_serial as fs
 
     dev = torch.device("cuda")
@@ -589,26 +743,44 @@ def phase_times(report):
         pos = torch.tensor([ctx - 1], dtype=torch.int32, device=dev)
         n_live = ctx - dcfg.sink
         chan = fs.k_channel_index(ops["k_ressc"], dcfg).to(torch.int32)
+        d32 = dataclasses.replace(dcfg, dot_bf16=False)
 
-        def kern(d=dcfg):
+        def kern(d=dcfg, body=None):
             return fs.flash_serial_decode(
                 q, ops["k_planes"], ops["v_planes"], ops["kv_out"],
                 ops["k_range"], ops["k_offset"], ops["v_scale"],
                 ops["v_offset"], ops["k_sink"], ops["v_sink"], ops["k_lut"],
-                ops["v_lut"], 0, pos, d, cfg, k_chan=chan)
+                ops["v_lut"], 0, pos, d, cfg, k_chan=chan, body=body)
 
         def plain(d=dcfg):
             return call(fs.flash_serial_decode_ref, q, ops, 0, pos, d, cfg)
 
-        d32 = dataclasses.replace(dcfg, dot_bf16=False)
-        err = max(agree(f"[5] K2 ctx {ctx}", kern(), plain(), True),
-                  agree(f"[5] K2 ctx {ctx}", kern(d32), plain(d32), False))
+        want, want32 = plain(), plain(d32)
+        err = max(agree(f"[5] K2 fs_mma ctx {ctx}", kern(), want, True),
+                  agree(f"[5] K2 fs_partial (forced) ctx {ctx}",
+                        kern(body="fs_partial"), want, True),
+                  agree(f"[5] K2 fs_partial ctx {ctx}", kern(d32), want32,
+                        False))
         report["max_abs_err_main"] = max(report.get("max_abs_err_main", 0.0),
                                          err)
-        ms = device_ms(kern)
+        shape = (1, cfg.n_kv_heads, 1, cfg.d_head, Tc)
+        plans = {"fs_mma": fs.fs_plan(dcfg, *shape, dev),
+                 "fs_partial": fs.fs_plan(dcfg, *shape, dev,
+                                          body="fs_partial")}
+        mma = lambda: kern()  # noqa: E731
+        part = lambda: kern(body="fs_partial")  # noqa: E731
+        p32 = lambda: kern(d32)  # noqa: E731
+        runs = {"fs_mma": [], "fs_partial": [], "fp32": []}
+        for _ in range(2):  # in turns: mma, partial, fp32, fp32, partial, mma
+            for name, fn in (("fs_mma", mma), ("fs_partial", part),
+                             ("fp32", p32)):
+                runs[name].append(device_ms(fn))
+            for name, fn in (("fp32", p32), ("fs_partial", part),
+                             ("fs_mma", mma)):
+                runs[name].append(device_ms(fn))
+        ms = {k: min(v) for k, v in runs.items()}
         plain_ms = device_ms(plain, n=3, reps=3, warmup=1)
-        ms2 = device_ms(kern)
-        call_ms = median_ms(kern)
+        call_ms = median_ms(mma)
         nbytes = (n_live * stored_bytes_per_token(dcfg)
                   + 4 * cfg.n_kv_heads * cfg.d_head * (2 * dcfg.sink + 2))
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -621,16 +793,29 @@ def phase_times(report):
         sdpa_ms = device_ms(lambda: torch.nn.functional.
                             scaled_dot_product_attention(qb, kb, kb))
         del kb
-        row = dict(ctx=ctx, ms=min(ms, ms2), ms_runs=[ms, ms2],
-                   call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                   bytes=nbytes, max_abs_err=err,
+        row = dict(ctx=ctx, body="fs_mma", ms=ms["fs_mma"],
+                   ms_runs=runs["fs_mma"], partial_ms=ms["fs_partial"],
+                   partial_runs=runs["fs_partial"], fp32_partial_ms=ms["fp32"],
+                   fp32_runs=runs["fp32"], call_ms=call_ms,
+                   plain_ms=plain_ms, bound_ms=bound_ms, bytes=nbytes,
+                   max_abs_err=err, plans={k: repr(v)
+                                           for k, v in plans.items()},
                    sdpa_bf16_kv_ms_context_only=sdpa_ms)
-        log(f"[5] K2 ctx {ctx}: kernel {row['ms']:.4f} ms device (runs "
-            f"{ms:.4f}, {ms2:.4f}; {call_ms:.4f} ms per call with the "
-            f"wrapper's host time), plain {plain_ms:.3f} ms, bound "
-            f"{bound_ms:.4f} ms "
+        log(f"[5] K2 ctx {ctx}: plans {plans['fs_mma']!r}; "
+            f"{plans['fs_partial']!r}")
+        log(f"[5] K2 ctx {ctx}: fs_mma {ms['fs_mma']:.4f} ms device (runs "
+            + ", ".join(f"{x:.4f}" for x in runs["fs_mma"])
+            + f"; {call_ms:.4f} ms per call with the wrapper's host time), "
+            f"{bound_ms / ms['fs_mma']:.0%} of bound; fs_partial on the same "
+            f"bf16 call {ms['fs_partial']:.4f} ms (runs "
+            + ", ".join(f"{x:.4f}" for x in runs["fs_partial"])
+            + f"), fs_partial with fp32 dots {ms['fp32']:.4f} ms (runs "
+            + ", ".join(f"{x:.4f}" for x in runs["fp32"])
+            + f"); plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
             f"({nbytes / 1e6:.1f} MB at 3.35 TB/s), |err| {err:.2e}; "
             f"context only: SDPA over bf16 K/V {sdpa_ms:.4f} ms")
+        if ms["fs_mma"] > ms["fs_partial"]:
+            log(f"[5] K2 ctx {ctx}: fs_mma is SLOWER than fs_partial")
         rows.append(row)
         del ops
         torch.cuda.empty_cache()
@@ -1896,6 +2081,7 @@ def reset_launches():
     for fn in counters.values():
         fn.launches = 0
     fd.flash_attention.chunk_launches = 0
+    fs.flash_serial_decode.route_launches = {b: 0 for b in fs.BODIES}
     return lambda: dict({k: fn.launches for k, fn in counters.items()},
                         K1_chunk=fd.flash_attention.chunk_launches)
 
@@ -2606,15 +2792,34 @@ def phase_x2_times(report):
             # K1 on int4 containers of the same token count
             d2 = dataclasses.replace(dcfg, kernel="flash_serial")
             chan = fs.k_channel_index(ops["k_ressc"], d2).to(torch.int32)
-            row["k2_same_tokens_ms"] = device_ms(lambda: call(
-                lambda *a, **k: fs.flash_serial_decode(*a, k_chan=chan),
-                q, ops, 0, pos, d2, cfg))
+
+            def k2(body=None):
+                return call(lambda *a, **k: fs.flash_serial_decode(
+                    *a, k_chan=chan, body=body), q, ops, 0, pos, d2, cfg)
+
+            before = fs.flash_serial_decode.route_launches["fs_mma"]
+            agree(f"[21] K2 fs_mma int4x2 ctx {ctx}", k2(),
+                  call(fs.flash_serial_decode_ref, q, ops, 0, pos, d2, cfg),
+                  True)
+            if fs.flash_serial_decode.route_launches["fs_mma"] != before + 1:
+                raise AssertionError("[21] K2 int4x2 did not run fs_mma")
+            k2_runs = [device_ms(k2), device_ms(lambda: k2("fs_partial")),
+                       device_ms(lambda: k2("fs_partial")), device_ms(k2)]
+            row["k2_same_tokens_ms"] = min(k2_runs[0], k2_runs[3])
+            row["k2_partial_same_tokens_ms"] = min(k2_runs[1], k2_runs[2])
+            plan = fs.fs_plan(d2, 1, Hkv, 1, D, dcfg.cache_tokens, dev)
+            log(f"[21] K2 int4x2 ctx {ctx}: {plan!r}: "
+                f"{row['k2_same_tokens_ms']:.4f} ms (runs "
+                f"{k2_runs[0]:.4f}, {k2_runs[3]:.4f}); fs_partial forced "
+                f"{row['k2_partial_same_tokens_ms']:.4f} ms (runs "
+                f"{k2_runs[1]:.4f}, {k2_runs[2]:.4f}); bound "
+                f"{row['bound_ms']:.4f} ms (K1's bytes of these tokens)")
             d4 = dataclasses.replace(dcfg, codes="int4", bits=4)
             ops4 = k1_operands(d4, 1, 1, dcfg.cache_tokens, gen, dev)
             row["k1_int4_same_tokens_ms"] = device_ms(
                 lambda: run(fd.flash_attention, d4, ops4))
             del ops4
-            ctx_note = (f"; context: K2 on the same int4x2 tokens "
+            ctx_note = (f"; context: K2 (fs_mma) on the same int4x2 tokens "
                         f"{row['k2_same_tokens_ms']:.4f} ms, K1 on int4 "
                         f"containers of the same length "
                         f"{row['k1_int4_same_tokens_ms']:.4f} ms" + vs_before(
@@ -2852,13 +3057,19 @@ def main(argv=None) -> int:
             "route": "cuda",
             "source": "kvquant_tpu_torch/csrc/flash_serial.cu",
             "replaces": "kvquant_tpu/ops/pallas/flash_serial.py:62",
+            "body": t["body"],
             "launches": report["launches"],
+            "launches_by_body": report["route_launches"],
             "max_abs_err": report["max_abs_err_main"],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": "bytes",
             "library_ms": None,
-            "shape": f"B=1 Hkv=32 G=1 D=128 hg=16 int4 n_kc=16 cap=0, "
-                     f"{t['ctx']} tokens",
+            "fs_partial_ms": t["partial_ms"],
+            "ms_32k": report["times"][0]["ms"],
+            "bound_ms_32k": report["times"][0]["bound_ms"],
+            "fs_partial_ms_32k": report["times"][0]["partial_ms"],
+            "shape": f"B=1 Hkv=32 G=1 D=128 hg=16 int4 n_kc=16 cap=0 "
+                     f"bf16 dots, {t['ctx']} tokens",
         })
     if 9 in phases and 7 in phases:
         t = report["k1_times"][0]  # decode at 32K
