@@ -6,6 +6,8 @@
     python3 chip_smoke.py --phases 1,6,9,14,17,18,21     # K1 / K5 decode body
     python3 chip_smoke.py --phases 1,6,9,18,21           # K1 chunk body
     python3 chip_smoke.py --phases 1,10 --verbose-build  # build + K3/K4
+    python3 chip_smoke.py --phases 1,23                  # calibrate -> deploy
+    python3 chip_smoke.py --phases 1,24                  # MISTRAL_7B via K1
 
 Phases (each prints its own lines; any failure raises and exits non-zero).
 K2 is csrc/flash_serial.cu (flash_serial_decode), K1 csrc/flash_decode.cu
@@ -139,6 +141,24 @@ int4x2 (the head-paired 2-bit container) through K1 and K5:
      wall seconds, a profiler window over the last four chunks (device ms
      in K1 against the rest, idle share), K1 against plain on the live
      cache at layers 0 and 31.
+The calibrate -> deploy chain and a second model:
+ 23. the CLIs at LLaMA-2-7B width (their random init, d_ff = 3 x d_model,
+     bf16): cli.fisher over 2 x 2048 tokens (wall s, peak GiB, shapes,
+     finite and >= 0), one Fisher step with remat beside a plain one (both
+     peaks, their difference), cli.calibrate nuq3 with those weights,
+     cli.deploy --check --prefill 2048 --benchmark 64 through K1 (32 x 64
+     launches in the timed pass), --kernel pallas --benchmark 16 through
+     K3 / K4 (32 x 16 each, K1 none), --benchmark 4 --profile (launches
+     and device ms per step from the trace), and cache_io on the card
+     (save / load of a 2048-token prefill: bitwise equal logits from the
+     restored cache; reset_cache and a fresh prefill give them again);
+ 24. MISTRAL_7B at full width (d_ff 14336, 32 / 8 heads, window 4096;
+     random bf16 weights) with phase 7's storage at kv_hidden 1024: a
+     6144-token quantized prefill (24 chunks of 256) and 32 greedy tokens,
+     K1 32 x (24 + 32) times, K1 against plain on the live cache at layers
+     0 and 31 (a decode row and a chunk, both dot modes), the window live
+     (K1 with it differs from K1 without it); prefill s, decode tok/s, a
+     profiler pass over decode steps past 6K (device ms, idle share).
 The line before the last lists every ported kernel as JSON; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -1140,16 +1160,16 @@ NUQ3_LUT = np.array([-1.0, -0.62, -0.33, -0.1, 0.09, 0.31, 0.6, 1.0],
                     np.float32)
 
 
-def faithful_config(max_len, n_layers):
-    """LLaMA-2-7B width and the reference-faithful scheme (the JAX
-    package's DeployConfig defaults): nuq3 bit planes, pre-RoPE K, slot
-    outliers with cap 2 per side per head group of 4, sink 5, K1."""
+def faithful_config(max_len, n_layers, cfg=None):
+    """LLaMA-2-7B width (or ``cfg``'s) and the reference-faithful scheme
+    (the JAX package's DeployConfig defaults): nuq3 bit planes, pre-RoPE
+    K, slot outliers with cap 2 per side per head group of 4, sink 5, K1."""
     from kvquant_tpu_torch.cache import DeployConfig
     from kvquant_tpu_torch.models.config import LLAMA2_7B
     from kvquant_tpu_torch.quant.artifacts import (
         KQuantizer, VQuantizer, LayerQuantizers, QuantizerSet)
 
-    cfg = LLAMA2_7B
+    cfg = cfg or LLAMA2_7B
     dcfg = DeployConfig.create(
         bits=3, n_kv_heads=cfg.n_kv_heads, d_head=cfg.d_head,
         max_len=max_len, sink=5, kernel="flash", head_group=4, codes="nuq",
@@ -3012,6 +3032,329 @@ def phase_long_prefill(report):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the calibrate -> deploy chain (cli.fisher, cli.calibrate --fisher,
+# cli.deploy, cache_io) and MISTRAL_7B through K1
+# ---------------------------------------------------------------------------
+
+
+def gib_peak():
+    """Peak device memory since the last reset, GiB."""
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def phase_calibrate_deploy(report):
+    """The calibrate -> deploy chain through the user's entry points at
+    LLaMA-2-7B width (the CLIs' random init: 32 layers, d_model 4096, 32
+    heads, vocab 32000, bf16, d_ff = 3 * d_model): cli.fisher over 2
+    windows of 2048 tokens, one remat step beside a plain one, cli.calibrate
+    nuq3 with those Fisher weights, cli.deploy --check through K1 and its
+    timed decode and profile through K3 / K4, and cache_io on the card."""
+    import argparse
+    import os
+    import shutil
+
+    from torch.utils.checkpoint import checkpoint
+
+    from kvquant_tpu_torch import cache_io, engine
+    from kvquant_tpu_torch.cache import (DeployConfig, create_cache,
+                                         deployed_from_quantizers,
+                                         reset_cache)
+    from kvquant_tpu_torch.cli import calibrate as calibrate_cli
+    from kvquant_tpu_torch.cli import common
+    from kvquant_tpu_torch.cli import deploy as deploy_cli
+    from kvquant_tpu_torch.cli import fisher as fisher_cli
+    from kvquant_tpu_torch.fisher.fisher import _fisher_step
+    from kvquant_tpu_torch.quant.artifacts import load_quantizers
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "kvquant_tpu_torch", "_build", "smoke_chain")
+    os.makedirs(work, exist_ok=True)
+    fpath = os.path.join(work, "fisher.npz")
+    qpath = os.path.join(work, "quantizers.npz")
+    big = ["--toy-layers", "32", "--toy-dmodel", "4096", "--toy-heads", "32",
+           "--toy-vocab", "32000", "--device", "cuda"]
+    data = ["--nsamples", "2", "--seqlen", "2048"]
+    out = {}
+
+    # 1. Fisher information through cli.fisher
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fk, fv = fisher_cli.main(big + data + ["--batch", "1", "--output", fpath])
+    out["fisher_s"] = time.perf_counter() - t0
+    out["fisher_peak_gib"] = gib_peak()
+    ok = all(bool(torch.isfinite(f).all()) and bool((f >= 0).all())
+             and bool(f.any()) for f in (fk, fv))
+    log(f"[23] LLaMA-2-7B width (the CLIs' random init, d_ff 3 x d_model "
+        f"12288, bf16): cli.fisher 2 x 2048 tokens, batch 1: "
+        f"{out['fisher_s']:.1f} s wall (model init included), peak "
+        f"{out['fisher_peak_gib']:.2f} GiB allocated; fisher_k "
+        f"{tuple(fk.shape)}, fisher_v {tuple(fv.shape)}; finite, >= 0, "
+        f"not all zero: {ok}")
+    if not (ok and fk.shape == fv.shape == (32, 4096, 4096)):
+        raise AssertionError("bad Fisher information")
+    del fk, fv
+
+    # one step with remat beside the plain step, at the same shape
+    ap = argparse.ArgumentParser()
+    common.add_model_args(ap)
+    common.add_data_args(ap)
+    args = ap.parse_args(big + data)
+    params, cfg = common.load_model(args)
+    train, test = common.load_data(args, cfg)
+    tokens = torch.as_tensor(train[:1])
+    # the first torch.utils.checkpoint call imports torch._dynamo: paid
+    # here, before the timed steps
+    t0 = time.perf_counter()
+    checkpoint(torch.square, torch.ones(1, device="cuda", requires_grad=True),
+               use_reentrant=False)
+    out["first_checkpoint_s"] = time.perf_counter() - t0
+    peaks, steps = {}, {}
+    for remat in (False, True):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        g = _fisher_step(params, cfg, tokens, remat=remat)
+        peaks[remat] = gib_peak()
+        steps[remat] = time.perf_counter() - t0
+        g = [x.cpu() for x in g] if not remat else g
+        if remat:
+            rel = max(float((a - b.cuda()).abs().max() / b.abs().max())
+                      for a, b in zip(g, plain))
+        else:
+            plain = g
+    del g, plain
+    out.update(step_peak_gib=peaks[False], remat_peak_gib=peaks[True],
+               step_s=steps[False], remat_step_s=steps[True], remat_rel=rel)
+    log(f"[23] one Fisher step (1 x 2048): peak {peaks[False]:.2f} GiB, "
+        f"{steps[False]:.2f} s; with remat {peaks[True]:.2f} GiB, "
+        f"{steps[True]:.2f} s (the first checkpoint call, before them: "
+        f"{out['first_checkpoint_s']:.1f} s); max |remat - plain| / "
+        f"max|plain| {rel:.2e}")
+    if not rel <= 1e-6:
+        raise AssertionError("remat changed the Fisher step")
+
+    # 2. cli.calibrate nuq3 with those Fisher weights
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    calibrate_cli.main(big + data + ["--abits", "3", "--mode", "nuq",
+                                     "--fisher", fpath, "--output", qpath])
+    torch.cuda.synchronize()
+    out["calibrate_s"] = time.perf_counter() - t0
+    log(f"[23] cli.calibrate --mode nuq --abits 3 --fisher over the same "
+        f"2 x 2048 tokens: {out['calibrate_s']:.1f} s (model init "
+        f"included)")
+    os.remove(fpath)
+
+    # 3. cli.deploy: --check and the timed decode through K1, then K3 / K4
+    #    with a profile of one decode pass
+    dep = big + ["--nsamples", "2", "--seqlen", "2304", "--quantizers",
+                 qpath, "--prefill", "2048"]
+    torch.cuda.empty_cache()
+    read = reset_launches()
+    t0 = time.perf_counter()
+    r = deploy_cli.main(dep + ["--check", "--benchmark", "64", "--kernel",
+                               "flash"])
+    wall = time.perf_counter() - t0
+    n = read()
+    log(f"[23] cli.deploy --check --prefill 2048 --benchmark 64 --kernel "
+        f"flash ({wall:.1f} s wall): {r['tok_s']:.2f} tok/s; timed-pass "
+        f"launches {r['launches']};"
+        f" whole run {n} (K1 expected 32 x 64 per pass: the check's 64 "
+        f"steps, the warm-up, the timed pass)")
+    if not (np.isfinite([r["sim_ppl"], r["dep_ppl"]]).all()
+            and r["launches"]["K1"] == 32 * 64
+            and n["K1"] == 3 * 32 * 64
+            and n["K2"] == n["K3"] == n["K4"] == n["K5"] == 0):
+        raise AssertionError("cli.deploy did not run through K1")
+    out["deploy_flash"] = {k: r[k] for k in ("cache_mib", "sim_ppl",
+                                             "dep_ppl", "tok_s")}
+    out["k1_launches"] = n["K1"]
+    read = reset_launches()
+    t0 = time.perf_counter()
+    r = deploy_cli.main(dep + ["--benchmark", "16", "--kernel", "pallas"])
+    wall = time.perf_counter() - t0
+    n = read()
+    log(f"[23] cli.deploy --benchmark 16 --kernel pallas ({wall:.1f} s "
+        f"wall): {r['tok_s']:.2f} tok/s; timed-pass launches "
+        f"{r['launches']}; whole run {n} (the warm-up, the timed pass)")
+    if not (r["launches"]["K3"] == r["launches"]["K4"] == 32 * 16
+            and r["launches"]["K1"] == 0 and n["K1"] == 0
+            and n["K3"] == n["K4"] == 2 * 32 * 16):
+        raise AssertionError("cli.deploy --kernel pallas did not run K3/K4")
+    out["k34_launches"] = n["K3"]
+    out["deploy_pallas_tok_s"] = r["tok_s"]
+    # the profile: a third run, 4 steps (a trace holds ~16 MB a step)
+    prof = os.path.join(work, "profile")
+    read = reset_launches()
+    t0 = time.perf_counter()
+    r = deploy_cli.main(dep + ["--benchmark", "4", "--kernel", "flash",
+                               "--profile", prof])
+    wall = time.perf_counter() - t0
+    n = read()
+    trace = os.path.join(prof, "trace.json")
+    size = os.path.getsize(trace) if os.path.exists(trace) else 0
+    p = r["profile"]
+    log(f"[23] cli.deploy --benchmark 4 --kernel flash --profile ({wall:.1f} "
+        f"s wall): {p['launches'] / 4:.0f} kernel launches/step, "
+        f"{p['kernel_ms'] / 4:.3f} device ms/step against "
+        f"{1e3 / r['tok_s']:.1f} ms/step unprofiled wall; trace {size} B; "
+        f"launches {n}")
+    for name, ms in p["by_kernel"][:6]:
+        log(f"[23]   {ms / 4:8.3f} ms/step  {name[:90]}")
+    if not (n["K1"] == 3 * 32 * 4 and size > 0 and p["device"] == "cuda"):
+        raise AssertionError("cli.deploy --profile wrote no trace of K1")
+    out["deploy_profile"] = dict(launches_per_step=p["launches"] / 4,
+                                 device_ms_per_step=p["kernel_ms"] / 4,
+                                 ms_per_step=1e3 / r["tok_s"])
+
+    # 4. cache_io on the card: save / load a 2048-token prefill
+    qs = load_quantizers(qpath)
+    dcfg = DeployConfig.create(
+        bits=qs.bits, n_kv_heads=cfg.n_kv_heads, d_head=cfg.d_head,
+        max_len=2048 + 64, sink=qs.first_few_fp16, kernel="flash",
+        head_group=4, sparsity_threshold=qs.sparsity_threshold)
+    dq = deployed_from_quantizers(qs, cfg.n_kv_heads, cfg.d_head,
+                                  device="cuda")
+    prompt = torch.as_tensor(test[:1, :2048]).cuda()
+    cache = create_cache(dcfg, cfg.n_layers, 1, device="cuda")
+    cache, logits = engine.prefill(params, cfg, dcfg, dq, cache, prompt)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    path = os.path.join(work, "cache.npz")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache_io.save_cache(path, cache, dcfg)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restored, d2 = cache_io.load_cache(path, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    mib = os.path.getsize(path) / 2 ** 20
+    _, want = engine.decode_step(params, cfg, dcfg, dq, cache, tok, 2048)
+    _, got = engine.decode_step(params, cfg, dcfg, dq, restored, tok, 2048)
+    same = bool(torch.equal(got, want))
+    reset_cache(cache)
+    zero = not any(bool(a.any()) for a in (*cache.arrays().values(),
+                                           cache.length))
+    cache, logits2 = engine.prefill(params, cfg, dcfg, dq, cache, prompt)
+    _, again = engine.decode_step(params, cfg, dcfg, dq, cache, tok, 2048)
+    fresh = bool(torch.equal(logits2, logits)) and bool(
+        torch.equal(again, want))
+    log(f"[23] cache_io: {mib:.1f} MiB file, save {save_s:.2f} s, load "
+        f"{load_s:.2f} s; decode step from the restored cache bitwise "
+        f"equal: {same}; reset_cache zeroed every array: {zero}; a fresh "
+        f"prefill after it gives the same logits: {fresh}")
+    if not (same and zero and fresh and d2 == dcfg):
+        raise AssertionError("cache_io / reset_cache round trip failed")
+    out.update(cache_mib=mib, save_s=save_s, load_s=load_s)
+    report["chain"] = out
+    del cache, restored, params
+    shutil.rmtree(work)
+    torch.cuda.empty_cache()
+
+
+def phase_mistral(report):
+    """MISTRAL_7B at its full widths (d_ff 14336, 32 / 8 heads, window
+    4096; random bf16 weights from a seed) with the reference-faithful
+    storage of phase 7 at kv_hidden 1024: a quantized chunked prefill of
+    6144 tokens (24 chunks of 256, past the window), then 32 greedy tokens,
+    all through K1."""
+    from kvquant_tpu_torch import engine
+    from kvquant_tpu_torch.cache import create_cache, deployed_from_quantizers
+    from kvquant_tpu_torch.models import init_params
+    from kvquant_tpu_torch.models.config import MISTRAL_7B
+    from kvquant_tpu_torch.ops.kernels import flash_decode as fd
+
+    T0, N, chunk = 6144, 32, 256
+    cfg, dcfg, qs = faithful_config(T0 + N + 5, 32, MISTRAL_7B)
+    S = dcfg.sink
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(24),
+                         dtype=torch.bfloat16, device="cuda")
+    dq = deployed_from_quantizers(qs, cfg.n_kv_heads, cfg.d_head,
+                                  device="cuda")
+    prompt = torch.randint(0, cfg.vocab_size, (1, T0),
+                           generator=torch.Generator().manual_seed(24)).cuda()
+    n_chunks = -(-(T0 - S) // chunk)
+    log(f"[24] MISTRAL_7B: {cfg.n_layers} layers, d_ff {cfg.d_ff}, "
+        f"{cfg.n_heads} / {cfg.n_kv_heads} heads (G {cfg.q_per_kv}), window "
+        f"{cfg.sliding_window}, bf16 weights; nuq3 pre-RoPE, slots cap 2, hg "
+        f"4, sink 5, kernel flash; capacity {dcfg.cache_tokens} tokens")
+
+    cache = create_cache(dcfg, cfg.n_layers, 1, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.prefill_quantized(params, cfg, dcfg, dq, cache, prompt,
+                             chunk=chunk)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    del cache
+
+    read = reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, cache = engine.generate(params, cfg, dcfg, dq, prompt,
+                                  engine.GenerateConfig(max_new_tokens=N),
+                                  prefill_mode="quantized", device="cuda")
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    n = read()
+    want = cfg.n_layers * (n_chunks + N)
+    tps = N / (gen_s - prefill_s)
+    log(f"[24] quantized prefill {T0} tokens ({n_chunks} chunks of {chunk}) "
+        f"{prefill_s:.3f} s; generate (prefill + {N} steps) {gen_s:.3f} s, "
+        f"decode {tps:.2f} tok/s; launches {n} (K1 expected {want}, "
+        f"{cfg.n_layers * n_chunks} of them chunks)")
+    if not (n["K1"] == want and n["K1_chunk"] == cfg.n_layers * n_chunks
+            and n["K2"] == n["K3"] == n["K4"] == n["K5"] == 0):
+        raise AssertionError("MISTRAL_7B did not run K1 per layer and chunk")
+    if not (toks.shape == (1, N) and int(toks.min()) >= 0
+            and int(toks.max()) < cfg.vocab_size):
+        raise AssertionError(f"bad tokens {toks.shape}")
+
+    # the live cache: K1 against plain at the first and last layer, the
+    # last decode position and the last chunk; the window is live
+    arrs = cache.arrays()
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    G = cfg.q_per_kv
+    worst, moved = 0.0, 0.0
+    for tq, p0 in ((1, T0 + N), (chunk, S + (n_chunks - 1) * chunk)):
+        q = torch.randn((1, cfg.n_kv_heads, G * tq, cfg.d_head),
+                        generator=gen, device="cuda")
+        pos = torch.tensor([p0], dtype=torch.int32, device="cuda")
+        for li in (0, cfg.n_layers - 1):
+            for d in (dcfg, dataclasses.replace(dcfg, dot_bf16=False)):
+                args = (q, arrs["k_planes"], arrs["v_planes"],
+                        arrs["kv_out"], dq.k_range, dq.k_offset,
+                        arrs["v_scale"], arrs["v_offset"], arrs["k_sink"],
+                        arrs["v_sink"], dq.k_lut_dec, dq.v_lut_dec, li, pos,
+                        d)
+                got = fd.flash_attention(*args, cfg, Tq=tq)
+                worst = max(worst, agree(
+                    f"[24] live cache layer {li} Tq {tq} pos {p0}", got,
+                    fd.flash_attention_ref(*args, cfg, Tq=tq), d.dot_bf16))
+                if tq == 1:
+                    full = fd.flash_attention(
+                        *args, dataclasses.replace(cfg, sliding_window=None),
+                        Tq=tq)
+                    moved = max(moved, float((got - full).abs().max()
+                                             / got.abs().max()))
+    log(f"[24] window live: K1 at position {T0 + N} with the window against "
+        f"the same call without it: max |diff| / max|out| {moved:.3e}")
+    if not moved > 1e-2:
+        raise AssertionError("the sliding window changed nothing")
+    tok = toks[:, -1]
+    _, idle = decode_profile(
+        f"[24] {T0 + N} ctx", lambda i: engine.decode_step(
+            params, cfg, dcfg, dq, cache, tok, T0 + N + i), 8)
+    report["mistral"] = dict(prefill_s=prefill_s, decode_tps=tps,
+                             k1_launches=n["K1"], max_abs_err=worst,
+                             idle=idle)
+    del cache, arrs, params
+    torch.cuda.empty_cache()
+
+
 PHASES = {1: phase_device_and_build, 2: phase_kernel_vs_plain,
           3: phase_main_path, 4: phase_card_vs_cpu, 5: phase_times,
           6: phase_k1_vs_plain, 7: phase_k1_main_path,
@@ -3022,7 +3365,8 @@ PHASES = {1: phase_device_and_build, 2: phase_kernel_vs_plain,
           16: phase_paged_card_vs_cpu, 17: phase_k5_times,
           18: phase_x2_vs_plain, 19: phase_x2_main_path,
           20: phase_x2_oracle, 21: phase_x2_times,
-          22: phase_long_prefill}
+          22: phase_long_prefill, 23: phase_calibrate_deploy,
+          24: phase_mistral}
 
 
 def main(argv=None) -> int:
@@ -3106,6 +3450,12 @@ def main(argv=None) -> int:
                     r["ms"] for r in report["x2_times"]
                     if r.get("kind") == "prefill" and r["ctx"] == 32768),
             })
+        if 23 in phases:  # cli.deploy --check + warm-up + timed pass
+            kernels[-1]["deploy_launches"] = report["chain"]["k1_launches"]
+        if 24 in phases:  # MISTRAL_7B, G 4, window 4096
+            kernels[-1].update({
+                "mistral_launches": report["mistral"]["k1_launches"],
+                "mistral_max_abs_err": report["mistral"]["max_abs_err"]})
     if 13 in phases and 11 in phases:
         for name, body_line, launches in (
                 ("qk_fused", 156, report["k3_launches"]),
@@ -3131,6 +3481,9 @@ def main(argv=None) -> int:
                 "chunk_shape": f"R={c['R']} rows over Tc={c['Tc']} (tensor "
                                f"cores, bf16 dots)",
             })
+            if 23 in phases:  # cli.deploy --kernel pallas, two passes
+                kernels[-1]["deploy_launches"] = \
+                    report["chain"]["k34_launches"]
     if 17 in phases and 15 in phases:
         t = report["k5_times"][-1]  # B=4 slots at 8K, as the main path
         kernels.append({

@@ -220,6 +220,15 @@ def create_cache(dcfg: DeployConfig, n_layers: int, batch: int,
     )
 
 
+def reset_cache(cache: KVCache) -> KVCache:
+    """Zero every array in place, ``length`` included, keeping devices and
+    dtypes (JAX's reset_cache returns a zeroed copy; the reference's
+    QuantK.reset / QuantV.reset). Returns ``cache``."""
+    for f in fields(cache):
+        getattr(cache, f.name).zero_()
+    return cache
+
+
 def cache_bytes(dcfg: DeployConfig, n_layers: int, batch: int) -> dict:
     """Memory accounting for the quantized cache vs an fp16 baseline."""
     C = dcfg.kv_hidden

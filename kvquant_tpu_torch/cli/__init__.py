@@ -8,7 +8,10 @@ same flags and defaults, plus ``--device``):
                                              page pool)
   python -m kvquant_tpu_torch.cli.calibrate  fit K / V quantizers
   python -m kvquant_tpu_torch.cli.eval_ppl   simulated (and deployed) ppl
+  python -m kvquant_tpu_torch.cli.fisher     Fisher information (npz)
+  python -m kvquant_tpu_torch.cli.deploy     cache size, --check, timed
+                                             decode, --profile
 
-deploy and fisher wait for parallelism and Fisher information (ROADMAP
-queue 1 items 9 and 12).
+deploy accepts the parallel flags and runs on one device only
+(parallelism is ROADMAP queue 1 item 12).
 """

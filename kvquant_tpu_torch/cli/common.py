@@ -9,7 +9,9 @@ card; ``cpu`` runs the kernels' plain PyTorch versions). Without
 the JAX CLIs' ``jax.random.PRNGKey(0)`` draws, and between the card's and
 the CPU's generators. ``--model`` (the HF loader) and ``--moe`` are not
 ported (ROADMAP queue 1 item 11) and raise NotImplementedError. The
-parallel flags arrive with the CLIs that use them (deploy, fisher).
+parallel flags (``add_parallel_args``) are accepted; anything but one
+device raises NotImplementedError until parallelism is ported (ROADMAP
+queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -92,6 +94,34 @@ def add_storage_args(ap: argparse.ArgumentParser):
     ap.add_argument("--n-kc", type=int, default=4,
                     help="static K outlier channels per head group "
                          "(--k-outliers channels)")
+
+
+def add_parallel_args(ap: argparse.ArgumentParser):
+    """The JAX CLIs' mesh / multi-host flags (data-parallel size,
+    tensor-parallel size, multi-host initialization)."""
+    ap.add_argument("--dp", type=int, default=1, help="data-parallel size")
+    ap.add_argument("--tp", type=int, default=None,
+                    help="tensor-parallel size (must divide the kv-head "
+                         "count). Only 1 is ported (ROADMAP queue 1 item 12)")
+    ap.add_argument("--distributed", action="store_true",
+                    help="multi-host initialization from the flags below. "
+                         "Not ported yet (ROADMAP queue 1 item 12)")
+    ap.add_argument("--coordinator", default=None,
+                    help="host:port of process 0")
+    ap.add_argument("--num-processes", type=int, default=None)
+    ap.add_argument("--process-id", type=int, default=None)
+
+
+def setup_parallel(args):
+    """None (one device) for dp 1, tp unset or 1 and no --distributed;
+    anything else raises until parallelism is ported."""
+    if (getattr(args, "distributed", False) or args.dp != 1
+            or args.tp not in (None, 1)):
+        raise NotImplementedError(
+            f"dp={args.dp} tp={args.tp} distributed="
+            f"{getattr(args, 'distributed', False)}: the port runs on one "
+            f"device; parallelism is ROADMAP queue 1 item 12")
+    return None
 
 
 def add_data_args(ap: argparse.ArgumentParser):

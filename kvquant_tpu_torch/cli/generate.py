@@ -30,15 +30,16 @@ def add_kernel_arg(ap: argparse.ArgumentParser):
                          "post-RoPE intN), xla (eager PyTorch)")
 
 
-def deploy_config(args, qs, cfg, max_len: int) -> DeployConfig:
-    """The CLIs' DeployConfig from the storage flags and the artifact."""
+def deploy_config(args, qs, cfg, max_len: int, **kw) -> DeployConfig:
+    """The CLIs' DeployConfig from the storage flags and the artifact
+    (``kw``: further ``DeployConfig.create`` arguments)."""
     return DeployConfig.create(
         bits=qs.bits, n_kv_heads=cfg.n_kv_heads, d_head=cfg.d_head,
         max_len=max_len, sink=qs.first_few_fp16, kernel=args.kernel,
         head_group=args.head_group, codes=args.codes,
         post_rope_k=(args.post_rope_k
                      or bool(qs.meta.get("post_rope_k", False))),
-        k_outliers=args.k_outliers, n_kc=args.n_kc,
+        k_outliers=args.k_outliers, n_kc=args.n_kc, **kw,
     )
 
 

@@ -41,6 +41,12 @@ class ModelConfig:
 
 LLAMA2_7B = ModelConfig()
 
+MISTRAL_7B = ModelConfig(
+    vocab_size=32000, d_model=4096, n_layers=32, n_heads=32, n_kv_heads=8,
+    d_head=128, d_ff=14336, rope_theta=10000.0, max_seq_len=32768,
+    sliding_window=4096,
+)
+
 # small configs for tests (CPU-friendly)
 TINY_LLAMA = ModelConfig(
     vocab_size=256, d_model=64, n_layers=2, n_heads=4, n_kv_heads=4,

@@ -1,5 +1,6 @@
-"""LLaMA-family transformer: full-precision forward and the simulated KV
-quantization hook (port of kvquant_tpu/models/llama.py:42-567).
+"""LLaMA-family transformer: full-precision forward, the simulated KV
+quantization hook and the Fisher probes (port of
+kvquant_tpu/models/llama.py:42-577).
 
 Parameters live in an ``nn.Module`` (``Llama``) holding the JAX package's
 stacked per-layer layout: weights (L, in, out) used as ``x @ W``, norms
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..quant.nuq import quant_lut
@@ -395,9 +397,12 @@ def _attention_full(q, k, v, cfg: ModelConfig, positions):
     return out.reshape(B, T, H * Dh).to(q.dtype)
 
 
-def _attention_chunked(q, k, v, cfg: ModelConfig, positions, chunk: int):
+def _attention_chunked(q, k, v, cfg: ModelConfig, positions, chunk: int,
+                       remat: bool = False):
     """Blockwise online-softmax causal attention: O(T*chunk) score memory
-    (the loop the JAX package runs as a lax.scan over KV chunks)."""
+    (the loop the JAX package runs as a lax.scan over KV chunks). ``remat``
+    recomputes each chunk's (T, chunk) score block in the backward instead
+    of keeping all of them (``jax.checkpoint`` of the scan body there)."""
     B, T, H, Dh = q.shape
     g = cfg.q_per_kv
     Hkv = cfg.n_kv_heads
@@ -408,13 +413,9 @@ def _attention_chunked(q, k, v, cfg: ModelConfig, positions, chunk: int):
     vb = v.to(torch.float32).reshape(B, nb, chunk, Hkv, Dh)
     pb = positions.reshape(B, nb, chunk)
 
-    dev = q.device
-    m = torch.full((B, Hkv, g, T), float("-inf"), device=dev)
-    l = torch.zeros((B, Hkv, g, T), device=dev)
-    acc = torch.zeros((B, Hkv, g, T, Dh), device=dev)
-    for i in range(nb):
-        s = torch.einsum("bqhgd,bkhd->bhgqk", qh, kb[:, i])
-        mask = _mask(cfg, positions[:, :, None], pb[:, i][:, None, :])
+    def body(m, l, acc, k_c, v_c, p_c):
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qh, k_c)
+        mask = _mask(cfg, positions[:, :, None], p_c[:, None, :])
         s = s.masked_fill(~mask[:, None, None], float("-inf"))
         m_new = torch.maximum(m, s.amax(dim=-1))
         # fully-masked rows keep m = -inf; exp(-inf - -inf) -> use 0
@@ -423,33 +424,50 @@ def _attention_chunked(q, k, v, cfg: ModelConfig, positions, chunk: int):
         p = torch.exp(s - m_new[..., None])
         p = torch.where(torch.isfinite(s), p, torch.zeros_like(p))
         l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum(
-            "bhgqk,bkhd->bhgqd", p, vb[:, i])
-        m = m_new
+        acc = acc * corr[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p,
+                                                   v_c)
+        return m_new, l, acc
+
+    dev = q.device
+    m = torch.full((B, Hkv, g, T), float("-inf"), device=dev)
+    l = torch.zeros((B, Hkv, g, T), device=dev)
+    acc = torch.zeros((B, Hkv, g, T, Dh), device=dev)
+    for i in range(nb):
+        blk = (m, l, acc, kb[:, i], vb[:, i], pb[:, i])
+        m, l, acc = (checkpoint(body, *blk, use_reentrant=False) if remat
+                     else body(*blk))
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     out = torch.movedim(out, 3, 1)  # (B,T,Hkv,g,Dh)
     return out.reshape(B, T, H * Dh).to(q.dtype)
 
 
-def _attention(q, k, v, cfg: ModelConfig, positions, chunk=None):
+def _attention(q, k, v, cfg: ModelConfig, positions, chunk=None,
+               remat=False):
     """Causal attention; the blockwise path for long sequences (T > 4096)
     or when ``chunk`` is forced."""
     T = q.shape[1]
     if chunk is None and T > 4096:
         chunk = 2048
     if chunk is not None and T % chunk == 0 and T > chunk:
-        return _attention_chunked(q, k, v, cfg, positions, chunk)
+        return _attention_chunked(q, k, v, cfg, positions, chunk,
+                                  remat=remat)
     return _attention_full(q, k, v, cfg, positions)
 
 
 def forward(params: Llama, cfg: ModelConfig, tokens, *, positions=None,
             simquant: SimQuantParams | None = None, capture_kv: bool = False,
-            attn_chunk: int | None = None):
+            kv_probes: dict | None = None, attn_chunk: int | None = None,
+            remat: bool = False):
     """Full-sequence forward. Returns (logits fp32 (B,T,V), aux dict);
     aux["k_acts"]/aux["v_acts"]: (L, B, T, C) fp32 pre-RoPE k / v
     projections when capture_kv=True (captured before any simulated
     quantization). ``simquant`` fake-quantizes every layer's keys (before
-    RoPE, or after it under ``post_rope_k``) and values."""
+    RoPE, or after it under ``post_rope_k``) and values. ``kv_probes``
+    (``make_kv_probes``) are added to the k / v projections before the
+    capture: their gradients are d(loss)/d(k / v activations), the Fisher
+    signal. ``remat`` runs each layer (and each attention chunk) under
+    ``torch.utils.checkpoint``: the backward keeps each layer's input and
+    recomputes the rest."""
     B, T = tokens.shape
     dev = params.embed.device
     tokens = tokens.to(dev)
@@ -458,17 +476,19 @@ def forward(params: Llama, cfg: ModelConfig, tokens, *, positions=None,
                                  device=dev).expand(B, T)
     cos, sin = rope_cos_sin(positions, cfg)
 
-    x = params.embed[tokens.long()]
-    k_acts, v_acts = [], []
-    for li in range(cfg.n_layers):
+    def layer(x, li, probe_k, probe_v):
         lp = params.layer(li)
         h = norm(x, lp["ln_attn"], cfg)
         q = h @ lp["wq"]
         k = h @ lp["wk"]
         v = h @ lp["wv"]
-        if capture_kv:
-            k_acts.append(k.to(torch.float32))
-            v_acts.append(v.to(torch.float32))
+        if probe_k is not None:
+            # fp32 probes promote k / v to fp32 for the rest of the layer,
+            # as in the JAX forward
+            k = k + probe_k
+            v = v + probe_v
+        captured = ((k.to(torch.float32), v.to(torch.float32)) if capture_kv
+                    else ())
         if simquant is not None:
             sq, sc = simquant.arrays.layer(li), simquant.config
             if not sc.post_rope_k:
@@ -481,10 +501,24 @@ def forward(params: Llama, cfg: ModelConfig, tokens, *, positions=None,
             k = simquant_k(k.reshape(B, T, cfg.kv_hidden), sq, sc).reshape(
                 B, T, cfg.n_kv_heads, cfg.d_head)
         v = v.reshape(B, T, cfg.n_kv_heads, cfg.d_head)
-        attn = _attention(q, k, v, cfg, positions, chunk=attn_chunk)
+        attn = _attention(q, k, v, cfg, positions, chunk=attn_chunk,
+                          remat=remat)
         x = x + attn @ lp["wo"]
         h = norm(x, lp["ln_mlp"], cfg)
         x = x + (F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])) @ lp["w_down"]
+        return (x,) + captured
+
+    x = params.embed[tokens.long()]
+    k_acts, v_acts = [], []
+    for li in range(cfg.n_layers):
+        probes = ((kv_probes["k"][li], kv_probes["v"][li])
+                  if kv_probes is not None else (None, None))
+        out = (checkpoint(layer, x, li, *probes, use_reentrant=False)
+               if remat else layer(x, li, *probes))
+        x = out[0]
+        if capture_kv:
+            k_acts.append(out[1])
+            v_acts.append(out[2])
 
     x = norm(x, params.final_norm, cfg)
     logits = (x @ params.head()).to(torch.float32)
@@ -493,3 +527,14 @@ def forward(params: Llama, cfg: ModelConfig, tokens, *, positions=None,
         aux["k_acts"] = torch.stack(k_acts)
         aux["v_acts"] = torch.stack(v_acts)
     return logits, aux
+
+
+def make_kv_probes(cfg: ModelConfig, batch: int, seq: int,
+                   device="cuda") -> dict:
+    """Zero fp32 probes {"k", "v"}, each (L, batch, seq, kv_hidden), for
+    ``forward(kv_probes=)``: their gradients are d(loss)/d(k_act) and
+    d(loss)/d(v_act). The caller sets ``requires_grad``."""
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, batch, seq, cfg.kv_hidden)
+    return {"k": torch.zeros(shape, dtype=torch.float32, device=dev),
+            "v": torch.zeros(shape, dtype=torch.float32, device=dev)}

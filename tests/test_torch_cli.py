@@ -14,7 +14,8 @@ evals, utils/toytokenizer.py, baseline_fp16.py) against the JAX package:
   - cli.calibrate writes an artifact the JAX package loads (uniform with
     roped keys; k-means with Fisher weights), and cli.eval_ppl scores it
     simulated and deployed through K1's plain version;
-  - every option of the JAX CLIs' --help is an option of the port's.
+  - every option of the JAX CLIs' --help is an option of the port's
+    (cli.fisher and cli.deploy included).
 """
 
 import json
@@ -261,7 +262,8 @@ def test_cli_calibrate_then_eval_ppl(mode, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("name", ["generate", "passkey", "needle",
-                                  "serve_demo", "eval_ppl", "calibrate"])
+                                  "serve_demo", "eval_ppl", "calibrate",
+                                  "fisher", "deploy"])
 def test_cli_options_cover_jax(name, capsys):
     import importlib
 
