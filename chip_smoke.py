@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases 1,10 --verbose-build  # build + K3/K4
     python3 chip_smoke.py --phases 1,23                  # calibrate -> deploy
     python3 chip_smoke.py --phases 1,24                  # MISTRAL_7B via K1
+    python3 chip_smoke.py --phases 1,25                  # DBRX (MoE, G 6)
 
 Phases (each prints its own lines; any failure raises and exits non-zero).
 K2 is csrc/flash_serial.cu (flash_serial_decode), K1 csrc/flash_decode.cu
@@ -159,6 +160,28 @@ The calibrate -> deploy chain and a second model:
      0 and 31 (a decode row and a chunk, both dot modes), the window live
      (K1 with it differs from K1 without it); prefill s, decode tok/s, a
      profiler pass over decode steps past 6K (device ms, idle share).
+The MoE family and the HF loader:
+ 25. DBRX: a DBRX-schema BF16 checkpoint (2 layers, narrow, G 6) written by
+     the script's own safetensors writer and loaded onto the card through
+     load_hf_checkpoint, equal to the same tensors in memory; then the
+     published DBRX config (d_model 6144, 48 / 8 heads, 16 experts top 4,
+     ffn 10752, vocab 100352) read through config_from_hf and cut from 40
+     to 8 layers, random bf16 weights from a seed: the faithful nuq3 config
+     through K1 (2048-token quantized prefill in 8 chunks of 256, 32
+     greedy tokens: K1 8 x (8 + 32), every call on the chunk body at G 6;
+     K1 == plain on the live cache at layers 0 and 7, a decode row and a
+     chunk, both dot modes), kernel pallas through K3 / K4 (16 tokens, 8 x
+     16 each, == plain at R 6 and 1536) and the speed config (int4,
+     post-RoPE, hg 8) through K2 (16 tokens, 8 x 16, all fs_mma at 8
+     padded rows, == plain); each path's decode tok/s and a profiler pass
+     over 3 steps (device ms split into the expert FFN, the attention
+     kernel and the rest; idle share) beside the step's weight-read bounds
+     (routed experts only, all experts); prefill s, the fp16-KV baseline's
+     tok/s on the same weights, peak GiB; the G 6 routes alone at one DBRX
+     layer (K1 decode on fd_chunk and padded to fd_decode, K2, K3 / K4 at
+     R 6, K5 at B=4 x 8K) against plain, with times and bounds; K2 at G 3 /
+     6 against plain; the decode edge grid at G 3 / 6 through K1 and K5;
+     a toy MoE's greedy tokens card == CPU through K1 and K2.
 The line before the last lists every ported kernel as JSON; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -980,7 +1003,7 @@ def decode_widths(codes):
             (4, 2, 128, "none")]
 
 
-def decode_edge_grid(tag, modes, paged):
+def decode_edge_grid(tag, modes, paged, odd_g=False):
     """The decode body (fd_decode) against the plain version over its edge
     cases, fp32 and bf16 dots: each mode x pre / post RoPE x the widths of
     ``decode_widths`` x sink 0 / 5, and a sliding window; B = 3 rows at
@@ -988,8 +1011,11 @@ def decode_edge_grid(tag, modes, paged):
     one whose live length 201 is not a multiple of a tile, one deep; the
     card's splits beyond a row's live tiles hold no tile. ``paged``: K5
     over permuted pages of 256 (with an inactive fourth slot aliasing the
-    third's pages), also held to K1 on the same tokens. Returns the worst
-    |err| / bound per dot mode."""
+    third's pages), also held to K1 on the same tokens. ``odd_g``: the
+    widths' G 1/2 become 3 and G 4/8 become 6, head ratios without a decode
+    instance (K1 runs them on its chunk body at Tq = 1, K5 pads them to
+    the next instance), and K5 == K1 is held to the dot mode's bound.
+    Returns the worst |err| / bound per dot mode."""
     from kvquant_tpu_torch.ops.kernels import flash_decode as fd
     from kvquant_tpu_torch.ops.kernels import paged_decode as pdk
 
@@ -1001,6 +1027,9 @@ def decode_edge_grid(tag, modes, paged):
     for dot_bf16 in (False, True):
         for codes, bits in modes:
             widths = decode_widths(codes)
+            if odd_g:
+                widths = [(3 if G < 4 else 6, hg, D, k)
+                          for G, hg, D, k in widths]
             for post in (False, True):
                 for i, (G, hg, D, k_out) in enumerate(widths):
                     for sink in (0, 5):
@@ -1035,8 +1064,11 @@ def decode_edge_grid(tag, modes, paged):
                                                  dcfg, mcfg,
                                                  fd.flash_attention)
                                 diff = float((got - k1).abs().max())
-                                if not diff <= FP32_TOL * (
-                                        1 + float(want.abs().max())):
+                                scale = float(want.abs().max())
+                                if not diff <= (
+                                        BF16_TOL * scale
+                                        if odd_g and dot_bf16
+                                        else FP32_TOL * (1 + scale)):
                                     raise AssertionError(
                                         f"{case}: K5 != K1 on the same "
                                         f"tokens ({diff:.3e})")
@@ -1707,15 +1739,15 @@ def k34_edge_grid():
     return worst
 
 
-def live_k34_check(tag, cache, dq, dcfg, cfg, li_list, gen):
+def live_k34_check(tag, cache, dq, dcfg, cfg, li_list, gen, rs=(1, 261)):
     """K3 and K4 against plain on layers of a live cache: random queries
-    and probabilities at R = 1 and R = 261, the main path's bf16 dots and
+    and probabilities at R rows of ``rs``, the main path's bf16 dots and
     fp32 dots. Returns the worst |err| of each kernel."""
     from kvquant_tpu_torch.ops.kernels import attention as at
 
     Hkv, D, Tc = cfg.n_kv_heads, cfg.d_head, dcfg.cache_tokens
     worst = {"qk_fused": 0.0, "pv_fused": 0.0}
-    for r in (1, 261):
+    for r in rs:
         q = torch.randn((1, Hkv, r, D), generator=gen, device="cuda")
         probs = torch.softmax(3 * torch.randn(
             (1, Hkv, r, dcfg.sink + Tc), generator=gen, device="cuda"),
@@ -3355,6 +3387,701 @@ def phase_mistral(report):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# DBRX (the MoE family, G 6) through K1, K2 and K3 / K4
+# ---------------------------------------------------------------------------
+
+# databricks/dbrx-base config.json (Hugging Face Hub): the widths phase 25
+# runs at; its depth (40 layers) is cut to DBRX_LAYERS so that one card
+# holds the bf16 weights
+DBRX_CONFIG = {
+    "model_type": "dbrx", "d_model": 6144, "n_heads": 48, "n_layers": 40,
+    "max_seq_len": 32768, "vocab_size": 100352,
+    "attn_config": {"kv_n_heads": 8, "rope_theta": 500000, "clip_qkv": 8},
+    "ffn_config": {"ffn_hidden_size": 10752, "moe_num_experts": 16,
+                   "moe_top_k": 4},
+}
+DBRX_LAYERS = 8
+_ST_DTYPES = {torch.bfloat16: "BF16", torch.float16: "F16",
+              torch.float32: "F32"}
+
+
+def write_safetensors(path, tensors):
+    """A .safetensors file without the safetensors package: an 8-byte
+    little-endian header length, the JSON header, the raw bytes."""
+    import struct
+
+    header, blobs, off = {}, [], 0
+    for name, t in tensors.items():
+        b = t.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes()
+        header[name] = {"dtype": _ST_DTYPES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [off, off + len(b)]}
+        blobs.append(b)
+        off += len(b)
+    h = json.dumps(header).encode()
+    h += b" " * (-len(h) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(h)) + h)
+        for b in blobs:
+            f.write(b)
+
+
+def dbrx_checkpoint_check(work):
+    """A DBRX-schema BF16 checkpoint of 2 layers at narrow widths (G 6),
+    written by ``write_safetensors`` and loaded onto the card through
+    ``load_hf_checkpoint``: every parameter equal to the same tensors
+    placed in memory; a forward on it is finite."""
+    import os
+
+    from kvquant_tpu_torch.models import get_forward
+    from kvquant_tpu_torch.models.hf_loader import load_hf_checkpoint
+
+    D, H, Hkv, L, E, Fd, V = 384, 12, 2, 2, 4, 128, 512
+    Dh = D // H
+    path = os.path.join(work, "dbrx_small")
+    os.makedirs(path, exist_ok=True)
+    cfgj = dict(DBRX_CONFIG, d_model=D, n_heads=H, n_layers=L, vocab_size=V,
+                attn_config=dict(DBRX_CONFIG["attn_config"], kv_n_heads=Hkv),
+                ffn_config=dict(DBRX_CONFIG["ffn_config"],
+                                ffn_hidden_size=Fd, moe_num_experts=E,
+                                moe_top_k=2))
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(cfgj, f)
+    g = torch.Generator().manual_seed(250)
+
+    def r(*shape):
+        return (torch.randn(shape, generator=g) * 0.05).to(torch.bfloat16)
+
+    t = {"transformer.wte.weight": r(V, D), "lm_head.weight": r(V, D),
+         "transformer.norm_f.weight": 1 + r(D)}
+    for i in range(L):
+        p = f"transformer.blocks.{i}."
+        t[p + "norm_attn_norm.attn.Wqkv.weight"] = r((H + 2 * Hkv) * Dh, D)
+        t[p + "norm_attn_norm.attn.out_proj.weight"] = r(D, H * Dh)
+        t[p + "norm_attn_norm.norm_1.weight"] = 1 + r(D)
+        t[p + "norm_attn_norm.norm_2.weight"] = 1 + r(D)
+        t[p + "ffn.router.layer.weight"] = r(E, D)
+        for n in ("w1", "v1", "w2"):
+            t[p + f"ffn.experts.mlp.{n}"] = r(E * Fd, D)
+    fname = os.path.join(path, "model.safetensors")
+    write_safetensors(fname, t)
+    params, cfg = load_hf_checkpoint(path, dtype=torch.bfloat16,
+                                     device="cuda")
+
+    def blk(name):
+        return torch.stack([t[f"transformer.blocks.{i}.{name}"]
+                            for i in range(L)])
+
+    want = {
+        "w_qkv": blk("norm_attn_norm.attn.Wqkv.weight").transpose(1, 2),
+        "wo": blk("norm_attn_norm.attn.out_proj.weight").transpose(1, 2),
+        "w_router": blk("ffn.router.layer.weight").transpose(1, 2),
+        "w_gate": blk("ffn.experts.mlp.w1").reshape(L, E, Fd, D)
+        .transpose(2, 3),
+        "w_up": blk("ffn.experts.mlp.v1").reshape(L, E, Fd, D)
+        .transpose(2, 3),
+        "w_down": blk("ffn.experts.mlp.w2").reshape(L, E, Fd, D),
+        "ln_attn": blk("norm_attn_norm.norm_1.weight").float(),
+        "ln_mlp": blk("norm_attn_norm.norm_2.weight").float(),
+    }
+    same = all(torch.equal(params.layers[k].cpu(), v)
+               for k, v in want.items())
+    same &= torch.equal(params.embed.cpu(), t["transformer.wte.weight"])
+    same &= torch.equal(params.lm_head.cpu(), t["lm_head.weight"].T)
+    same &= torch.equal(params.final_norm.cpu(),
+                        t["transformer.norm_f.weight"].float())
+    logits, _ = get_forward(cfg)(params, cfg, torch.randint(
+        0, V, (1, 32), generator=g).cuda())
+    log(f"[25] DBRX-schema checkpoint (2 layers, d {D}, {H} / {Hkv} heads, "
+        f"{E} experts top 2, BF16, {os.path.getsize(fname) / 1e6:.1f} MB) "
+        f"through load_hf_checkpoint onto the card: {type(params).__name__}, "
+        f"{cfg.ffn_mode} {cfg.norm_type}; every parameter equal to the "
+        f"tensors in memory: {same}; forward finite: "
+        f"{bool(torch.isfinite(logits).all())}")
+    if not (same and bool(torch.isfinite(logits).all())):
+        raise AssertionError("the loader's parameters differ from the file")
+
+
+def dbrx_speed_config(cfg, max_len, n_layers):
+    """The speed config at DBRX's 8 kv heads: int4, post-RoPE K, 16 static
+    K channels per head group of 8, no slots, sink 5, K2."""
+    from kvquant_tpu_torch.cache import DeployConfig
+    from kvquant_tpu_torch.quant.artifacts import (
+        KQuantizer, VQuantizer, LayerQuantizers, QuantizerSet)
+
+    dcfg = DeployConfig.create(
+        bits=4, n_kv_heads=cfg.n_kv_heads, d_head=cfg.d_head,
+        max_len=max_len, sink=5, kernel="flash_serial", head_group=8,
+        codes="int4", post_rope_k=True, k_outliers="channels", n_kc=16,
+        cap_per_side=0)
+    rng = np.random.default_rng(0)
+    lut = np.linspace(-1, 1, 16, dtype=np.float32)
+    layers = []
+    for _ in range(n_layers):
+        u = (np.abs(rng.normal(size=cfg.kv_hidden)) * 2 + 1).astype(np.float32)
+        layers.append(LayerQuantizers(
+            k=KQuantizer(upper=u, lower=(-u * 0.9).astype(np.float32),
+                         lut=lut.copy(),
+                         ressc=rng.random(cfg.kv_hidden).astype(np.float32)),
+            v=VQuantizer(lut=lut.copy())))
+    qs = QuantizerSet(layers=layers, bits=4, sparsity_threshold=0.99,
+                      cap_outliers=True, first_few_fp16=5)
+    return dcfg, qs
+
+
+ATTN_KERNEL = ("fd_", "fs_", "qk_", "pv_")  # the port's kernels' names
+
+
+def moe_profile(tag, step, steps, prof_steps=3):
+    """``decode_profile`` for an MoE model, with the device time of a step
+    split into the expert FFN (kernels launched inside ``moe.moe_ffn``,
+    marked by a profiler range), the attention kernel (the port's CUDA
+    kernels) and the rest. Returns (tok/s, dict of device ms per step and
+    the idle share)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from kvquant_tpu_torch.models import moe
+
+    for i in range(2):
+        step(i)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        step(2 + i)
+    torch.cuda.synchronize()
+    tps = steps / (time.perf_counter() - t0)
+    ffn = moe.moe_ffn
+
+    def marked(*a, **k):
+        with record_function("expert_ffn"):
+            return ffn(*a, **k)
+
+    moe.moe_ffn = marked
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(prof_steps):
+                step(2 + steps + i)
+            torch.cuda.synchronize()
+    finally:
+        moe.moe_ffn = ffn
+    # kernels only: the range's own device-side span is not a kernel
+    ev = [e for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and e.self_device_time_total > 0 and e.key != "expert_ffn"]
+    dev_ms = sum(e.self_device_time_total for e in ev) / prof_steps / 1e3
+    attn_ms = sum(e.self_device_time_total for e in ev
+                  if any(k in e.key for k in ATTN_KERNEL)) / prof_steps / 1e3
+    expert_ms = sum(e.device_time_total for e in prof.events()
+                    if e.name == "expert_ffn"
+                    and e.device_type == torch.autograd.DeviceType.CPU
+                    ) / prof_steps / 1e3
+    idle = 1 - dev_ms * tps / 1e3
+    log(f"{tag} decode {tps:.2f} tok/s (host wall time, {steps} steps); "
+        f"profiler over {prof_steps} steps: device {dev_ms:.3f} ms/step = "
+        f"expert FFN {expert_ms:.3f} + attention kernel {attn_ms:.3f} + rest "
+        f"{dev_ms - expert_ms - attn_ms:.3f}; {1e3 / tps:.3f} ms/step "
+        f"unprofiled wall (device idle share {idle:.3f}); "
+        f"{sum(e.count for e in ev) / prof_steps:.0f} kernels/step")
+    for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"{tag}   {e.self_device_time_total / prof_steps / 1e3:8.3f} "
+            f"ms/step  x{e.count // prof_steps:5d}  {e.key[:90]}")
+    return tps, dict(device_ms=dev_ms, expert_ms=expert_ms, attn_ms=attn_ms,
+                     rest_ms=dev_ms - expert_ms - attn_ms, idle=idle)
+
+
+def k2_odd_g_check(tag):
+    """K2 at G 3 and 6 (padded to the 4 / 8 row instances) against its
+    plain version: int4 / int4x2 / int8 x channels / slots x both dot
+    modes, B=2 at unequal positions, a sliding window on one case."""
+    from kvquant_tpu_torch.cache import DeployConfig
+    from kvquant_tpu_torch.models.config import ModelConfig
+    from kvquant_tpu_torch.ops.kernels import flash_serial as fs
+
+    dev = torch.device("cuda")
+    L, B, Hkv, D, Tc = 2, 2, 4, 128, 1024
+    worst = {False: 0.0, True: 0.0}
+    n = 0
+    read = reset_launches()
+    for dot_bf16 in (False, True):
+        for codes in ("int4", "int4x2", "int8"):
+            for k_out in ("channels", "slots"):
+                for G in (3, 6):
+                    bits = {"int4": 4, "int8": 8, "int4x2": 2}[codes]
+                    window = 300 if (codes, k_out) == ("int4", "slots") \
+                        else None
+                    dcfg = DeployConfig.create(
+                        bits=bits, n_kv_heads=Hkv, d_head=D, max_len=Tc + 5,
+                        sink=5, kernel="flash_serial", dot_bf16=dot_bf16,
+                        head_group=4, codes=codes, post_rope_k=True,
+                        k_outliers=k_out, n_kc=4,
+                        cap_per_side=0 if k_out == "channels" else 2)
+                    mcfg = ModelConfig(n_heads=Hkv * G, n_kv_heads=Hkv,
+                                       d_head=D, sliding_window=window)
+                    gen = torch.Generator(device=dev).manual_seed(260 + n)
+                    ops = kernel_operands(dcfg, mcfg, L, B, G, Tc, gen, dev)
+                    q = torch.randn((B, Hkv, G, D), generator=gen,
+                                    device=dev)
+                    pos = torch.tensor([5 + 200, 5 + Tc - 3],
+                                       dtype=torch.int32, device=dev)
+                    got = call(fs.flash_serial_decode, q, ops, 1, pos, dcfg,
+                               mcfg)
+                    want = call(fs.flash_serial_decode_ref, q, ops, 1, pos,
+                                dcfg, mcfg)
+                    check_case(f"{tag} K2 {codes} {k_out} G{G} "
+                               f"win{window}", got, want, dot_bf16, worst)
+                    n += 1
+    launches = read()["K2"]
+    log(f"{tag} K2 at G 3 / 6 == plain on {n // 2} cases x 2 dot modes "
+        f"({launches} launches, one per call); worst |err| / bound: fp32 "
+        f"dots {worst[False]:.3f}, bf16 dots {worst[True]:.3f}")
+    if launches != n:
+        raise AssertionError("K2 at G 3 / 6 did not launch once per call")
+    return worst
+
+
+def dbrx_kernel_times(tag, cfg):
+    """The kernels at one DBRX layer (8 kv heads, G 6, D 128) over a 32K
+    filled cache: K1 decode (the faithful nuq3, fd_chunk at Tq = 1, and the
+    same rows padded to 8 on fd_decode as context), K2 (speed config,
+    fs_mma at 8 rows), K3 / K4 decode (R = 6), K5 (B=4 x 8K); each held to
+    its plain version; bound by bytes as phases 5 / 9 / 13 / 17 count
+    them."""
+    from kvquant_tpu_torch.ops.kernels import attention as at
+    from kvquant_tpu_torch.ops.kernels import common
+    from kvquant_tpu_torch.ops.kernels import flash_decode as fd
+    from kvquant_tpu_torch.ops.kernels import flash_serial as fs
+    from kvquant_tpu_torch.ops.kernels import paged_decode as pdk
+    from kvquant_tpu_torch.paged import PagedPool
+
+    dev = torch.device("cuda")
+    ctx = 32768
+    Hkv, G, D = cfg.n_kv_heads, cfg.q_per_kv, cfg.d_head
+    one = dataclasses.replace(cfg, n_layers=1)
+    rows = {}
+
+    def timed(name, kern, plain, nbytes, tokens, extra=""):
+        ms = min(device_ms(kern), device_ms(kern))
+        plain_ms = device_ms(plain, n=2, reps=3, warmup=1)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                          bytes=nbytes, ctx=tokens, **rows.get(name, {}))
+        log(f"{tag} {name} at {tokens} tokens: kernel {ms:.4f} ms device, "
+            f"plain {plain_ms:.3f} ms, bound {bound:.4f} ms by bytes "
+            f"({nbytes / 1e6:.1f} MB at 3.35 TB/s){extra}")
+
+    # K1: the faithful config's decode row at G 6
+    _, dcfg, _ = faithful_config(ctx + 8, 1, one)
+    gen = torch.Generator(device=dev).manual_seed(251)
+    ops = k1_operands(dcfg, 1, 1, dcfg.cache_tokens, gen, dev)
+    q = torch.randn((1, Hkv, G, D), generator=gen, device=dev)
+    pos = torch.tensor([ctx - 1], dtype=torch.int32, device=dev)
+    d32 = dataclasses.replace(dcfg, dot_bf16=False)
+    err = max(agree(f"{tag} K1 G{G} decode", call(fd.flash_attention, q, ops,
+                                                  0, pos, dcfg, one),
+                    call(fd.flash_attention_ref, q, ops, 0, pos, dcfg, one),
+                    True),
+              agree(f"{tag} K1 G{G} decode", call(fd.flash_attention, q, ops,
+                                                  0, pos, d32, one),
+                    call(fd.flash_attention_ref, q, ops, 0, pos, d32, one),
+                    False))
+    rows["K1"] = dict(route=fd.body(dcfg, G, 1), max_abs_err=err)
+    n_live = ctx - dcfg.sink
+    k1_bytes = n_live * nuq_bytes_per_token(dcfg) + 4 * Hkv * D * (
+        2 * dcfg.sink + 2 * G)
+    q8 = torch.nn.functional.pad(q, (0, 0, 0, 8 - G))
+    pad8 = lambda: call(fd.flash_attention, q8, ops, 0, pos, dcfg,  # noqa
+                        one)[:, :, :G]
+    rows["K1"]["padded8_ms"] = min(device_ms(pad8), device_ms(pad8))
+    agree(f"{tag} K1 G{G} padded to fd_decode at 8 rows", pad8(),
+          call(fd.flash_attention_ref, q, ops, 0, pos, dcfg, one), True)
+    timed("K1", lambda: call(fd.flash_attention, q, ops, 0, pos, dcfg, one),
+          lambda: call(fd.flash_attention_ref, q, ops, 0, pos, dcfg, one),
+          k1_bytes, ctx, f" (route {rows['K1']['route']}; the same rows "
+          f"padded to 8 on fd_decode: {rows['K1']['padded8_ms']:.4f} ms)")
+
+    # K3 / K4: decode rows R = G over the same capacity (kernel "pallas")
+    dp = dataclasses.replace(dcfg, kernel="pallas")
+    o = k34_operands(dp, 1, G, dp.cache_tokens, gen, dev)
+    Tc = dp.cache_tokens
+    code_b = Hkv * D * dp.bits // 8
+    J, spk = dp.n_slots, dp.slots_per_kind
+    for name, fn, ref, run, nbytes in (
+            ("K3", at.qk_fused, at.qk_fused_ref,
+             lambda f, d=dp: run_qk(f, o, d, one),
+             Tc * (code_b + dp.n_groups * spk * 4 + Hkv * G * 4)
+             + 4 * Hkv * D * (G + 2) + 4 * 2 ** dp.bits),
+            ("K4", at.pv_fused, at.pv_fused_ref,
+             lambda f, d=dp: run_pv(f, o, d),
+             Tc * (code_b + dp.n_groups * (J - spk) * 4 + 8 + Hkv * G * 4)
+             + 4 * Hkv * D * G + 4 * 2 ** dp.bits)):
+        d32p = dataclasses.replace(dp, dot_bf16=False)
+        rows[name] = dict(max_abs_err=max(
+            agree(f"{tag} {name} R {G}", run(fn), run(ref), True),
+            agree(f"{tag} {name} R {G}", run(fn, d32p), run(ref, d32p),
+                  False)))
+        timed(name, lambda: run(fn), lambda: run(ref), nbytes, ctx)
+    del ops, o
+
+    # K2: the speed config's decode row at G 6 (padded to fs_mma's 8)
+    dcfg2, _ = dbrx_speed_config(one, ctx + 8, 1)
+    ops = kernel_operands(dcfg2, one, 1, 1, G, dcfg2.cache_tokens, gen, dev)
+    chan = fs.k_channel_index(ops["k_ressc"], dcfg2).to(torch.int32)
+
+    def k2(f, d=dcfg2):
+        return f(q, ops["k_planes"], ops["v_planes"], ops["kv_out"],
+                 ops["k_range"], ops["k_offset"], ops["v_scale"],
+                 ops["v_offset"], ops["k_sink"], ops["v_sink"], ops["k_lut"],
+                 ops["v_lut"], 0, pos, d, one, k_chan=chan)
+
+    d32 = dataclasses.replace(dcfg2, dot_bf16=False)
+    rows["K2"] = dict(
+        plan=repr(fs.fs_plan(dcfg2, 1, Hkv, G, D, dcfg2.cache_tokens, dev)),
+        max_abs_err=max(
+            agree(f"{tag} K2 G{G}", k2(fs.flash_serial_decode),
+                  k2(fs.flash_serial_decode_ref), True),
+            agree(f"{tag} K2 G{G}", k2(fs.flash_serial_decode, d32),
+                  k2(fs.flash_serial_decode_ref, d32), False)))
+    timed("K2", lambda: k2(fs.flash_serial_decode),
+          lambda: k2(fs.flash_serial_decode_ref),
+          n_live * stored_bytes_per_token(dcfg2)
+          + 4 * Hkv * D * (2 * dcfg2.sink + 2 * G), ctx,
+          f" ({rows['K2']['plan']})")
+    del ops
+
+    # K5: B=4 slots of 8K in permuted pages of 1024, the faithful config
+    B, P, c5 = 4, 1024, 8192
+    _, dcfg5, _ = faithful_config(c5 + 8, 1, one)
+    dcfg5 = dataclasses.replace(dcfg5, page_tokens=P)
+    MP = c5 // P
+    ops = k1_operands(dcfg5, 1, B * MP, P, gen, dev)
+    sinks = k1_operands(dcfg5, 1, B, 128, gen, dev)
+    pool = PagedPool(k_planes=ops["k_planes"], v_planes=ops["v_planes"],
+                     kv_out=ops["kv_out"], v_scale=ops["v_scale"],
+                     v_offset=ops["v_offset"], k_sink=sinks["k_sink"],
+                     v_sink=sinks["v_sink"])
+    dq = paged_dq(ops)
+    table = torch.randperm(B * MP, generator=torch.Generator().manual_seed(
+        252)).to(torch.int32).reshape(B, MP).to(dev)
+    pos5 = torch.full((B,), c5 - 1, dtype=torch.int32, device=dev)
+    q5 = torch.randn((B, Hkv, G, D), generator=gen, device=dev)
+    run5 = lambda f, d=dcfg5: f(q5, pool, table, dq, 0, pos5, d, one)  # noqa
+    d32 = dataclasses.replace(dcfg5, dot_bf16=False)
+    rows["K5"] = dict(
+        plan=repr(pdk.paged_plan(dcfg5, B, Hkv, G, D, dcfg5.n_slots, c5,
+                                 common.sm_count(dev))),
+        max_abs_err=max(
+            agree(f"{tag} K5 G{G}", run5(pdk.paged_flash_decode),
+                  run5(pdk.paged_flash_decode_ref), True),
+            agree(f"{tag} K5 G{G}", run5(pdk.paged_flash_decode, d32),
+                  run5(pdk.paged_flash_decode_ref, d32), False)))
+    timed("K5", lambda: run5(pdk.paged_flash_decode),
+          lambda: run5(pdk.paged_flash_decode_ref),
+          B * (c5 - dcfg5.sink) * nuq_bytes_per_token(dcfg5)
+          + 4 * Hkv * D * (2 * dcfg5.sink + 2 * G) * B + 4 * B * MP, c5,
+          f" per slot, B {B} ({rows['K5']['plan']})")
+    del ops, pool
+    torch.cuda.empty_cache()
+    return rows
+
+
+def toy_moe_card_vs_cpu(tag):
+    """A toy MoE (12 / 2 heads, G 6, 4 experts top 2, sparse, LayerNorm;
+    fp32 weights drawn on the CPU) gives the same 16 greedy tokens on the
+    card and on the CPU: through K2 (int4 post-RoPE channels) and through
+    K1 (nuq3 pre-RoPE slots) with the fp16 and the quantized prefill."""
+    from kvquant_tpu_torch import engine
+    from kvquant_tpu_torch.cache import DeployConfig, deployed_from_quantizers
+    from kvquant_tpu_torch.models import moe
+    from kvquant_tpu_torch.quant.artifacts import (
+        KQuantizer, VQuantizer, LayerQuantizers, QuantizerSet)
+
+    cfg = moe.MoEConfig(vocab_size=512, d_model=384, n_layers=2, n_heads=12,
+                        n_kv_heads=2, d_head=32, d_ff=128, n_experts=4,
+                        top_k=2, ffn_mode="sparse", norm_type="layernorm",
+                        rope_theta=500000.0, max_seq_len=512)
+    cpu = moe.init_params(cfg, torch.Generator().manual_seed(253),
+                          dtype=torch.float32, device="cpu")
+    tree = {"embed": cpu.embed.numpy(), "final_norm": cpu.final_norm.numpy(),
+            "lm_head": cpu.lm_head.numpy(),
+            "layers": {k: v.numpy() for k, v in cpu.layers.items()}}
+    gpu = moe.params_from_numpy(tree, cfg, device="cuda")
+    rng = np.random.default_rng(254)
+    prompt = torch.randint(0, cfg.vocab_size, (1, 16),
+                           generator=torch.Generator().manual_seed(255))
+    gcfg = engine.GenerateConfig(max_new_tokens=16)
+    storage = {
+        "flash_serial": (4, dict(codes="int4", post_rope_k=True,
+                                 k_outliers="channels", n_kc=4,
+                                 cap_per_side=0)),
+        "flash": (3, dict(codes="nuq", post_rope_k=False,
+                          k_outliers="slots", cap_per_side=2))}
+    for kernel, (bits, kw) in storage.items():
+        lut = np.linspace(-1, 1, 2 ** bits, dtype=np.float32)
+        layers = []
+        for _ in range(cfg.n_layers):
+            u = (np.abs(rng.normal(size=cfg.kv_hidden)) + 0.5).astype(
+                np.float32)
+            layers.append(LayerQuantizers(
+                k=KQuantizer(upper=u, lower=-u, lut=lut.copy(),
+                             ressc=rng.random(cfg.kv_hidden).astype(
+                                 np.float32)),
+                v=VQuantizer(lut=lut.copy())))
+        qs = QuantizerSet(layers=layers, bits=bits, sparsity_threshold=0.99,
+                          cap_outliers=True, first_few_fp16=5)
+        dcfg = DeployConfig.create(
+            bits=bits, n_kv_heads=cfg.n_kv_heads, d_head=cfg.d_head,
+            max_len=5 + 256 + 32, sink=5, kernel=kernel, head_group=2,
+            dot_bf16=False, **kw)
+        for mode in (("fp16",) if kernel == "flash_serial"
+                     else ("fp16", "quantized")):
+            out = {}
+            for dev, params in (("cuda", gpu), ("cpu", cpu)):
+                dq = deployed_from_quantizers(qs, cfg.n_kv_heads, cfg.d_head,
+                                              device=dev)
+                toks, _ = engine.generate(params, cfg, dcfg, dq, prompt,
+                                          gcfg, prefill_mode=mode,
+                                          device=dev)
+                out[dev] = toks.cpu().tolist()
+            same = out["cuda"] == out["cpu"]
+            log(f"{tag} toy MoE (G 6, sparse), kernel {kernel}, prefill "
+                f"{mode}, 16 greedy tokens: card == cpu: {same}")
+            if not same:
+                raise AssertionError(f"card {out['cuda']} != cpu "
+                                     f"{out['cpu']}")
+
+
+def phase_dbrx(report):
+    """DBRX at its published widths through the loader's config (G 6, 16
+    experts top 4, sparse dispatch, LayerNorm), cut to DBRX_LAYERS layers,
+    random bf16 weights from a seed: the faithful nuq3 config through K1
+    (2048-token quantized prefill, 32 greedy tokens), the speed config
+    through K2 and kernel "pallas" through K3 / K4 (16 tokens each), each
+    kernel held to its plain version on the live cache; then the G 6
+    routes alone, K1's and K5's edge grids at G 3 / 6, a toy MoE card ==
+    CPU, and the fp16-KV baseline on the same weights."""
+    import os
+    import shutil
+
+    from kvquant_tpu_torch import baseline_fp16, engine
+    from kvquant_tpu_torch.cache import create_cache, deployed_from_quantizers
+    from kvquant_tpu_torch.models import moe
+    from kvquant_tpu_torch.models.hf_loader import config_from_hf
+    from kvquant_tpu_torch.ops.kernels import attention as at
+    from kvquant_tpu_torch.ops.kernels import flash_decode as fd
+    from kvquant_tpu_torch.ops.kernels import flash_serial as fs
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "kvquant_tpu_torch", "_build", "smoke_dbrx")
+    os.makedirs(work, exist_ok=True)
+    dbrx_checkpoint_check(work)
+
+    # the published config, read through the port's loader; depth cut
+    with open(os.path.join(work, "config.json"), "w") as f:
+        json.dump(DBRX_CONFIG, f)
+    full = config_from_hf(work)
+    cfg = dataclasses.replace(full, n_layers=DBRX_LAYERS)
+    G = cfg.q_per_kv
+    if not (isinstance(cfg, moe.MoEConfig) and G == 6 and cfg.d_head == 128
+            and cfg.ffn_mode == "sparse" and cfg.norm_type == "layernorm"):
+        raise AssertionError(f"unexpected DBRX config {cfg}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = moe.init_params(cfg, torch.Generator(device="cuda")
+                             .manual_seed(25), dtype=torch.bfloat16,
+                             device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    nbytes = {k: v.numel() * v.element_size()
+              for k, v in params.named_parameters()}
+    w_gib = sum(nbytes.values()) / 2 ** 30
+    expert_b = sum(nbytes[f"layers.{k}"] for k in ("w_gate", "w_up",
+                                                   "w_down"))
+    other_b = sum(nbytes.values()) - expert_b - nbytes["embed"]
+    routed_b = expert_b * cfg.top_k // cfg.n_experts
+    log(f"[25] DBRX (databricks/dbrx-base config via config_from_hf): "
+        f"d_model {cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads "
+        f"(G {G}), {cfg.n_experts} experts top {cfg.top_k}, ffn "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.n_layers} of "
+        f"{full.n_layers} layers; bf16 weights {w_gib:.2f} GiB (experts "
+        f"{expert_b / 2 ** 30:.2f} GiB) initialised in {init_s:.1f} s, "
+        f"peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    # a decode step's weight reads (B=1): the routed experts only, or all
+    step_routed = (routed_b + other_b) / HBM_BYTES_PER_S * 1e3
+    step_all = (expert_b + other_b) / HBM_BYTES_PER_S * 1e3
+    ffn_routed = routed_b / HBM_BYTES_PER_S * 1e3
+    ffn_all = expert_b / HBM_BYTES_PER_S * 1e3
+    log(f"[25] bounds of a decode step's weight reads at 3.35 TB/s: routed "
+        f"experts only {(routed_b + other_b) / 1e9:.1f} GB = "
+        f"{step_routed:.2f} ms (expert FFN {routed_b / 1e9:.1f} GB = "
+        f"{ffn_routed:.2f} ms); all experts "
+        f"{(expert_b + other_b) / 1e9:.1f} GB = {step_all:.2f} ms (expert "
+        f"FFN {expert_b / 1e9:.1f} GB = {ffn_all:.2f} ms)")
+    out = dict(weights_gib=w_gib, init_s=init_s,
+               bound_step_routed_ms=step_routed, bound_step_all_ms=step_all,
+               bound_ffn_routed_ms=ffn_routed, bound_ffn_all_ms=ffn_all)
+
+    T0, N, N2, chunk = 2048, 32, 16, 256
+    max_len = T0 + N + 24
+    prompt = torch.randint(0, cfg.vocab_size, (1, T0),
+                           generator=torch.Generator().manual_seed(26)).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(27)
+
+    # ---- the faithful nuq3 config through K1 ----
+    _, dcfg, qs = faithful_config(max_len, cfg.n_layers, cfg)
+    dq = deployed_from_quantizers(qs, cfg.n_kv_heads, cfg.d_head,
+                                  device="cuda")
+    S = dcfg.sink
+    n_chunks = -(-(T0 - S) // chunk)
+    cache = create_cache(dcfg, cfg.n_layers, 1, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.prefill_quantized(params, cfg, dcfg, dq, cache, prompt,
+                             chunk=chunk)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    del cache
+    read = reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, cache = engine.generate(params, cfg, dcfg, dq, prompt,
+                                  engine.GenerateConfig(max_new_tokens=N),
+                                  prefill_mode="quantized", device="cuda")
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    n = read()
+    want = cfg.n_layers * (n_chunks + N)
+    log(f"[25] faithful nuq3 (pre-RoPE, slots cap 2, hg 4, sink 5), kernel "
+        f"flash: quantized prefill {T0} tokens ({n_chunks} chunks of "
+        f"{chunk}, {G * chunk} rows a kv head) {prefill_s:.3f} s; generate "
+        f"(prefill + {N} steps) {gen_s:.3f} s, decode "
+        f"{N / (gen_s - prefill_s):.2f} tok/s; launches {n} (K1 expected "
+        f"{want}: at G {G} every call runs the chunk body, decode steps at "
+        f"Tq = 1 included)")
+    if not (n["K1"] == want == n["K1_chunk"]
+            and n["K2"] == n["K3"] == n["K4"] == n["K5"] == 0):
+        raise AssertionError("DBRX did not run K1 per layer, chunk and step")
+    if not (toks.shape == (1, N) and int(toks.min()) >= 0
+            and int(toks.max()) < cfg.vocab_size):
+        raise AssertionError(f"bad tokens {toks.shape}")
+    arrs = cache.arrays()
+    worst = 0.0
+    for tq, p0 in ((1, T0 + N), (chunk, S + (n_chunks - 1) * chunk)):
+        q = torch.randn((1, cfg.n_kv_heads, G * tq, cfg.d_head),
+                        generator=gen, device="cuda")
+        pos = torch.tensor([p0], dtype=torch.int32, device="cuda")
+        for li in (0, cfg.n_layers - 1):
+            for d in (dcfg, dataclasses.replace(dcfg, dot_bf16=False)):
+                args = (q, arrs["k_planes"], arrs["v_planes"],
+                        arrs["kv_out"], dq.k_range, dq.k_offset,
+                        arrs["v_scale"], arrs["v_offset"], arrs["k_sink"],
+                        arrs["v_sink"], dq.k_lut_dec, dq.v_lut_dec, li, pos,
+                        d, cfg)
+                worst = max(worst, agree(
+                    f"[25] K1 live cache layer {li} Tq {tq} pos {p0}",
+                    fd.flash_attention(*args, Tq=tq),
+                    fd.flash_attention_ref(*args, Tq=tq), d.dot_bf16))
+    tok = toks[:, -1]
+    tps, prof = moe_profile(f"[25] flash {T0 + N} ctx", lambda i: engine.
+                            decode_step(params, cfg, dcfg, dq, cache, tok,
+                                        T0 + N + i), 8)
+    out["flash"] = dict(prefill_s=prefill_s, decode_tps=tps,
+                        k1_launches=n["K1"], max_abs_err=worst, **prof)
+    del cache, arrs
+    torch.cuda.empty_cache()
+
+    # ---- kernel "pallas": K3 / K4 on the same storage ----
+    dcfg_p = dataclasses.replace(dcfg, kernel="pallas")
+    read = reset_launches()
+    toks, cache = engine.generate(params, cfg, dcfg_p, dq, prompt,
+                                  engine.GenerateConfig(max_new_tokens=N2),
+                                  device="cuda")
+    torch.cuda.synchronize()
+    n = read()
+    log(f"[25] kernel pallas, fp16 prefill {T0} + {N2} greedy tokens: "
+        f"launches {n} (K3 / K4 expected {cfg.n_layers * N2} each)")
+    if not (n["K3"] == n["K4"] == cfg.n_layers * N2
+            and n["K1"] == n["K2"] == n["K5"] == 0):
+        raise AssertionError("DBRX pallas did not run K3 / K4 per step")
+    k34 = live_k34_check("[25] live cache", cache, dq, dcfg_p, cfg,
+                         (0, cfg.n_layers - 1), gen, rs=(G, G * chunk))
+    tok = toks[:, -1]
+    tps, prof = moe_profile(f"[25] pallas {T0 + N2} ctx", lambda i: engine.
+                            decode_step(params, cfg, dcfg_p, dq, cache, tok,
+                                        T0 + N2 + i), 8)
+    out["pallas"] = dict(decode_tps=tps, k3_launches=n["K3"],
+                         k4_launches=n["K4"], max_abs_err=k34, **prof)
+    del cache
+    torch.cuda.empty_cache()
+
+    # ---- the speed config through K2 (G 6 padded to fs_mma's 8 rows) ----
+    dcfg2, qs2 = dbrx_speed_config(cfg, max_len, cfg.n_layers)
+    dq2 = deployed_from_quantizers(qs2, cfg.n_kv_heads, cfg.d_head,
+                                   device="cuda")
+    read = reset_launches()
+    toks, cache = engine.generate(params, cfg, dcfg2, dq2, prompt,
+                                  engine.GenerateConfig(max_new_tokens=N2),
+                                  device="cuda")
+    torch.cuda.synchronize()
+    n = read()
+    routes = dict(fs.flash_serial_decode.route_launches)
+    log(f"[25] speed config (int4, post-RoPE, 16 static K channels, hg 8), "
+        f"kernel flash_serial, fp16 prefill {T0} + {N2} greedy tokens: "
+        f"launches {n}, per body {routes} (K2 expected "
+        f"{cfg.n_layers * N2}, all fs_mma)")
+    if not (n["K2"] == cfg.n_layers * N2 == routes["fs_mma"]
+            and n["K1"] == n["K3"] == n["K4"] == n["K5"] == 0):
+        raise AssertionError("DBRX speed config did not run K2 per step")
+    arrs = cache.arrays()
+    q = torch.randn((1, cfg.n_kv_heads, G, cfg.d_head), generator=gen,
+                    device="cuda")
+    pos = torch.tensor([T0 + N2], dtype=torch.int32, device="cuda")
+    worst = 0.0
+    for li in (0, cfg.n_layers - 1):
+        for d in (dcfg2, dataclasses.replace(dcfg2, dot_bf16=False)):
+            args = (q, arrs["k_planes"], arrs["v_planes"], arrs["kv_out"],
+                    dq2.k_range, dq2.k_offset, arrs["v_scale"],
+                    arrs["v_offset"], arrs["k_sink"], arrs["v_sink"],
+                    dq2.k_lut_dec, dq2.v_lut_dec, li, pos, d, cfg)
+            worst = max(worst, agree(
+                f"[25] K2 live cache layer {li}",
+                fs.flash_serial_decode(*args, k_ressc=dq2.k_ressc),
+                fs.flash_serial_decode_ref(*args, k_ressc=dq2.k_ressc),
+                d.dot_bf16))
+    tok = toks[:, -1]
+    tps, prof = moe_profile(f"[25] flash_serial {T0 + N2} ctx", lambda i:
+                            engine.decode_step(params, cfg, dcfg2, dq2, cache,
+                                               tok, T0 + N2 + i), 8)
+    out["flash_serial"] = dict(decode_tps=tps, k2_launches=n["K2"],
+                               max_abs_err=worst, **prof)
+    del cache, arrs
+    torch.cuda.empty_cache()
+
+    # ---- the fp16-KV baseline on the same weights (context only) ----
+    fcache = baseline_fp16.create_fp16_cache(cfg, max_len, 1, device="cuda")
+    baseline_fp16.prefill(params, cfg, fcache, prompt)
+    tok = torch.zeros((1,), dtype=torch.int32, device="cuda")
+    out["fp16_baseline_tps"], _ = decode_profile(
+        f"[25] fp16-KV baseline {T0} ctx", lambda i: baseline_fp16.
+        decode_step(params, cfg, fcache, tok, T0 + i), 8, prof_steps=0)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[25] peak device memory {out['peak_gib']:.2f} GiB")
+    del fcache, params
+    torch.cuda.empty_cache()
+
+    # ---- the G 6 routes alone; edge grids at G 3 / 6; toy card == CPU ----
+    out["times"] = dbrx_kernel_times("[25]", cfg)
+    out["k2_odd_g"] = k2_odd_g_check("[25]")
+    modes = (("nuq", 3), ("int4", 4), ("int8", 8))
+    out["k1_edges"] = decode_edge_grid("[25]", modes, paged=False, odd_g=True)
+    out["k5_edges"] = decode_edge_grid("[25]", modes, paged=True, odd_g=True)
+    toy_moe_card_vs_cpu("[25]")
+    report["dbrx"] = out
+    shutil.rmtree(work)
+
+
 PHASES = {1: phase_device_and_build, 2: phase_kernel_vs_plain,
           3: phase_main_path, 4: phase_card_vs_cpu, 5: phase_times,
           6: phase_k1_vs_plain, 7: phase_k1_main_path,
@@ -3366,7 +4093,7 @@ PHASES = {1: phase_device_and_build, 2: phase_kernel_vs_plain,
           18: phase_x2_vs_plain, 19: phase_x2_main_path,
           20: phase_x2_oracle, 21: phase_x2_times,
           22: phase_long_prefill, 23: phase_calibrate_deploy,
-          24: phase_mistral}
+          24: phase_mistral, 25: phase_dbrx}
 
 
 def main(argv=None) -> int:
@@ -3512,6 +4239,27 @@ def main(argv=None) -> int:
                                 f"{x['ctx']} tokens per slot in "
                                 f"{x['pages']} permuted pages of 1024",
             })
+    if 25 in phases:  # DBRX (G 6): its launches and errors, G 6 times
+        d = report["dbrx"]
+        path = {"flash_attention": ("K1", d["flash"]["k1_launches"],
+                                    d["flash"]["max_abs_err"]),
+                "flash_serial_decode": ("K2", d["flash_serial"]["k2_launches"],
+                                        d["flash_serial"]["max_abs_err"]),
+                "qk_fused": ("K3", d["pallas"]["k3_launches"],
+                             d["pallas"]["max_abs_err"]["qk_fused"]),
+                "pv_fused": ("K4", d["pallas"]["k4_launches"],
+                             d["pallas"]["max_abs_err"]["pv_fused"]),
+                "paged_flash_decode": ("K5", 0, 0.0)}
+        for k in kernels:
+            key, launches, err = path[k["name"]]
+            t = d["times"][key]
+            k.update({"dbrx_launches": launches,
+                      "dbrx_max_abs_err": max(err, t["max_abs_err"]),
+                      "dbrx_g6_ms": t["ms"], "dbrx_g6_plain_ms": t["plain_ms"],
+                      "dbrx_g6_bound_ms": t["bound_ms"],
+                      "dbrx_g6_ctx": t["ctx"]})
+            if key == "K1":
+                k["dbrx_g6_padded8_fd_decode_ms"] = t["padded8_ms"]
     if kernels:
         log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -8,8 +8,10 @@ engine differences. Attention is plain PyTorch and, as in the JAX function,
 casts the cache to fp32 (scores and values contract in fp32).
 
 Differences from the JAX module: the cache is updated in place (and
-returned); ``pos`` is a host int; MoE configs are not ported (ROADMAP
-queue 1 item 11) and raise NotImplementedError.
+returned); ``pos`` is a host int; ``prefill`` runs the model family's
+forward (``models.get_forward``), so it also prefills an MoE model, where
+the JAX function calls the Llama forward whatever the family and fails on
+MoE parameters.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import torch
 
 from .device import resolve_device
 from .models.config import ModelConfig
-from .models import llama
+from .models import get_forward, llama
 
 
 @dataclass
@@ -28,13 +30,6 @@ class Fp16Cache:
     k: torch.Tensor  # (L, B, Hkv, T, Dh) post-RoPE keys
     v: torch.Tensor  # (L, B, Hkv, T, Dh)
     length: torch.Tensor  # (B,) int32
-
-
-def _no_moe(cfg):
-    if hasattr(cfg, "n_experts"):
-        raise NotImplementedError(
-            "the fp16 baseline for MoE configs is not ported (ROADMAP queue "
-            "1 item 11, MoE and the HF loader)")
 
 
 def create_fp16_cache(cfg: ModelConfig, max_len: int, batch: int,
@@ -53,10 +48,9 @@ def prefill(params, cfg: ModelConfig, cache: Fp16Cache, tokens,
     """Full forward over the prompt; store post-RoPE K and V in place.
     ``attn_chunk`` forwards to the blockwise attention of models.llama (long
     prompts). Returns (cache, logits_last (B, V) fp32)."""
-    _no_moe(cfg)
     B, T0 = tokens.shape
-    logits, aux = llama.forward(params, cfg, tokens, capture_kv=True,
-                                attn_chunk=attn_chunk)
+    logits, aux = get_forward(cfg)(params, cfg, tokens, capture_kv=True,
+                                   attn_chunk=attn_chunk)
     dev = cache.k.device
     cos, sin = llama.rope_cos_sin(
         torch.arange(T0, dtype=torch.int32, device=dev), cfg)
@@ -73,7 +67,6 @@ def decode_step(params, cfg: ModelConfig, cache: Fp16Cache, token, pos: int):
     """Single-token decode against the fp16 cache at position ``pos`` (an
     int, the same for every sequence): one row written per layer in place,
     attention over positions 0..pos. Returns (cache, logits (B, V) fp32)."""
-    _no_moe(cfg)
     B = token.shape[0]
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     G = H // Hkv
@@ -87,10 +80,11 @@ def decode_step(params, cfg: ModelConfig, cache: Fp16Cache, token, pos: int):
     valid = torch.arange(T, device=dev) <= pos
     for li in range(cfg.n_layers):
         lp = params.layer(li)
-        h = llama.norm(x, lp["ln_attn"], cfg)
-        q = (h @ lp["wq"]).reshape(B, Hkv, G, Dh).to(torch.float32)
-        k = (h @ lp["wk"]).reshape(B, Hkv, Dh).to(torch.float32)
-        v = (h @ lp["wv"]).reshape(B, Hkv, Dh)
+        q, k, v = llama.project_qkv(llama.norm(x, lp["ln_attn"], cfg), lp,
+                                    cfg)
+        q = q.reshape(B, Hkv, G, Dh).to(torch.float32)
+        k = k.reshape(B, Hkv, Dh).to(torch.float32)
+        v = v.reshape(B, Hkv, Dh)
         q = q * cos + llama.rotate_half(q) * sin
         k = k * cos + llama.rotate_half(k) * sin
         cache.k[li, :, :, pos] = k.to(cache.k.dtype)
@@ -103,9 +97,7 @@ def decode_step(params, cfg: ModelConfig, cache: Fp16Cache, token, pos: int):
         attn = torch.einsum("bhgt,bhtd->bhgd", probs,
                             cache.v[li].to(torch.float32))
         x = x + attn.reshape(B, H * Dh).to(x.dtype) @ lp["wo"]
-        h = llama.norm(x, lp["ln_mlp"], cfg)
-        x = x + (torch.nn.functional.silu(h @ lp["w_gate"])
-                 * (h @ lp["w_up"])) @ lp["w_down"]
+        x = x + llama.ffn(llama.norm(x, lp["ln_mlp"], cfg), lp, cfg)
 
     x = llama.norm(x, params.final_norm, cfg)
     logits = (x @ params.head()).to(torch.float32)

@@ -7,11 +7,12 @@ card; ``cpu`` runs the kernels' plain PyTorch versions). Without
 ``torch.Generator`` seeded 0, with the JAX CLIs' ``--toy-*`` shape formulas
 (d_head = d_model / heads, d_ff = 3 * d_model); its weights differ from
 the JAX CLIs' ``jax.random.PRNGKey(0)`` draws, and between the card's and
-the CPU's generators. ``--model`` (the HF loader) and ``--moe`` are not
-ported (ROADMAP queue 1 item 11) and raise NotImplementedError. The
-parallel flags (``add_parallel_args``) are accepted; anything but one
-device raises NotImplementedError until parallelism is ported (ROADMAP
-queue 1 item 12).
+the CPU's generators. ``--moe`` makes the random model a DBRX-style MoE
+(``--toy-experts`` / ``--toy-top-k``); ``--model DIR`` loads a local HF
+checkpoint (LLaMA / Mistral / DBRX safetensors, ``models.hf_loader``) onto
+the device. The parallel flags (``add_parallel_args``) are accepted;
+anything but one device raises NotImplementedError until parallelism is
+ported (ROADMAP queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -28,8 +29,7 @@ from ..models import llama
 def add_model_args(ap: argparse.ArgumentParser):
     ap.add_argument("--model", default=None,
                     help="local HF checkpoint dir (safetensors); omit for a "
-                         "random-init model (--toy-* flags). Not ported yet "
-                         "(ROADMAP queue 1 item 11)")
+                         "random-init model (--toy-* flags)")
     ap.add_argument("--maxseqlen", type=int, default=None,
                     help="extend context via linear RoPE scaling "
                          "(quant/llama_simquant.py:35-38)")
@@ -42,8 +42,7 @@ def add_model_args(ap: argparse.ArgumentParser):
     ap.add_argument("--toy-vocab", type=int, default=32000)
     ap.add_argument("--moe", action="store_true",
                     help="toy model is a DBRX-style MoE (fused Wqkv + "
-                         "top-k experts). Not ported yet (ROADMAP queue 1 "
-                         "item 11)")
+                         "top-k experts)")
     ap.add_argument("--toy-experts", type=int, default=4)
     ap.add_argument("--toy-top-k", type=int, default=2)
     ap.add_argument("--device", default="cuda",
@@ -147,34 +146,48 @@ def load_data(args, cfg):
 
 
 def load_model(args):
-    """(params, cfg): a random-init model on ``args.device``."""
-    if args.model:
-        raise NotImplementedError(
-            "--model (the HF checkpoint loader) is not ported yet (ROADMAP "
-            "queue 1 item 11); omit it for a random-init model")
-    if getattr(args, "moe", False):
-        raise NotImplementedError(
-            "--moe (DBRX-style MoE) is not ported yet (ROADMAP queue 1 item "
-            "11)")
+    """(params, cfg) on ``args.device``: the HF checkpoint of ``--model``,
+    or a random-init model (an MoE one under ``--moe``)."""
     dev = resolve_device(args.device)
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
-    cfg = ModelConfig(
+    if args.model:
+        from ..models.hf_loader import load_hf_checkpoint
+
+        return load_hf_checkpoint(args.model, dtype=dtype,
+                                  max_seq_len=args.maxseqlen, device=dev)
+    common_kw = dict(
         vocab_size=args.toy_vocab, d_model=args.toy_dmodel,
         n_layers=args.toy_layers, n_heads=args.toy_heads,
         n_kv_heads=args.toy_kv_heads or args.toy_heads,
         d_head=args.toy_dmodel // args.toy_heads,
         d_ff=args.toy_dmodel * 3,
     )
+    if getattr(args, "moe", False):
+        from ..models import moe
+
+        cfg = moe.MoEConfig(n_experts=args.toy_experts,
+                            top_k=args.toy_top_k, **common_kw)
+        init = moe.init_params
+    else:
+        cfg = ModelConfig(**common_kw)
+        init = llama.init_params
     if args.maxseqlen:
         cfg = cfg.scaled(args.maxseqlen)
-    params = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
-                               dtype=dtype, device=dev)
+    params = init(cfg, torch.Generator(device=dev).manual_seed(0),
+                  dtype=dtype, device=dev)
     return params, cfg
 
 
 def load_tokenizer(args):
-    """The whitespace word tokenizer (a HF tokenizer arrives with
-    ``--model``)."""
+    """``transformers.AutoTokenizer`` of ``--model`` when that loads, else
+    the whitespace word tokenizer."""
+    if args.model:
+        try:
+            from transformers import AutoTokenizer
+
+            return AutoTokenizer.from_pretrained(args.model)
+        except Exception:  # no transformers, or no tokenizer files in DIR
+            pass
     from ..utils.toytokenizer import WordTokenizer
 
     return WordTokenizer()

@@ -5,9 +5,10 @@ the deployment config, generate).
   python -m kvquant_tpu_torch.cli.generate --quantizers q.npz \
       --prompt "..." --max-new-tokens 64 [--device cpu]
 
-The model is a random init (see cli/common.py): its weights are drawn from
-a torch generator, not the JAX CLI's PRNGKey(0), so the text differs from
-the JAX CLI's for the same flags.
+Without ``--model`` the model is a random init (see cli/common.py): its
+weights are drawn from a torch generator, not the JAX CLI's PRNGKey(0), so
+the text differs from the JAX CLI's for the same flags; with ``--model DIR``
+both CLIs load the same checkpoint and print the same text.
 """
 
 from __future__ import annotations

@@ -15,6 +15,10 @@ kvquant_tpu/engine.py: prefill, decode_step, generate, deployed_ppl).
     chunk scan is a Python loop.
   - ``generate`` / ``deployed_ppl``: Python loops over decode_step.
 
+Both model families run here: the MoE family's fused projection and
+expert FFN come in through ``models.llama.project_qkv`` / ``ffn`` (the
+JAX engine's ``is_moe`` branches).
+
 The cache is updated in place (the JAX engine threads an immutable pytree).
 Positions are host integers; the JAX engine's ``lax.scan`` loops become
 Python loops. Entry points that allocate take ``device`` (default "cuda",
@@ -30,7 +34,7 @@ import torch
 from .cache import (KVCache, DeployConfig, DeployedQuant, create_cache,
                     check_intn_codebook, k_channel_index)
 from .models.config import ModelConfig
-from .models import llama
+from .models import get_forward, llama
 from .ops import deployed
 
 
@@ -49,7 +53,7 @@ def prefill(params, cfg: ModelConfig, dcfg: DeployConfig, dq: DeployedQuant,
     """Full-precision prompt forward + parallel pack of every layer's cache
     (in place). tokens (B, T0) int. Returns (cache, logits_last (B, V))."""
     check_intn_codebook(dcfg, dq)
-    logits, aux = llama.forward(params, cfg, tokens, capture_kv=True)
+    logits, aux = get_forward(cfg)(params, cfg, tokens, capture_kv=True)
     for li in range(cfg.n_layers):
         deployed.prefill_pack(cache.layer(li), dq.layer(li), dcfg, cfg,
                               aux["k_acts"][li], aux["v_acts"][li])
@@ -62,9 +66,8 @@ def prefill(params, cfg: ModelConfig, dcfg: DeployConfig, dq: DeployedQuant,
 
 
 def _mlp(x, lp, cfg):
-    h = llama.norm(x, lp["ln_mlp"], cfg)
-    return x + (torch.nn.functional.silu(h @ lp["w_gate"])
-                * (h @ lp["w_up"])) @ lp["w_down"]
+    """x plus the feed-forward block (SwiGLU, or the MoE family's experts)."""
+    return x + llama.ffn(llama.norm(x, lp["ln_mlp"], cfg), lp, cfg)
 
 
 def _logits(params, x, cfg):
@@ -87,10 +90,9 @@ def decode_step(params, cfg: ModelConfig, dcfg: DeployConfig,
     x = params.embed[token.to(params.embed.device).long()]
     for li in range(cfg.n_layers):
         lp = params.layer(li)
-        h = llama.norm(x, lp["ln_attn"], cfg)
-        q = (h @ lp["wq"]).reshape(B, H, Dh)
-        k = h @ lp["wk"]
-        v = h @ lp["wv"]
+        q, k, v = llama.project_qkv(llama.norm(x, lp["ln_attn"], cfg), lp,
+                                    cfg)
+        q = q.reshape(B, H, Dh)
         _, attn = deployed.decode_attention(cache.layer(li), dq.layer(li),
                                             dcfg, cfg, q, k, v, pos)
         x = x + attn.reshape(B, H * Dh).to(x.dtype) @ lp["wo"]
@@ -125,10 +127,9 @@ def _decode_step_flash(params, cfg: ModelConfig, dcfg: DeployConfig,
     x = params.embed[token.to(dev).long()]
     for li in range(cfg.n_layers):
         lp = params.layer(li)
-        h = llama.norm(x, lp["ln_attn"], cfg)
-        q = (h @ lp["wq"]).reshape(B, H, Dh)
-        k = h @ lp["wk"]
-        v = h @ lp["wv"]
+        q, k, v = llama.project_qkv(llama.norm(x, lp["ln_attn"], cfg), lp,
+                                    cfg)
+        q = q.reshape(B, H, Dh)
         deployed.append_token_flash(arrs, dq.layer(li), dcfg, cfg, k, v,
                                     pos, li)
         q_h = q.reshape(B, Hkv, G, Dh).to(torch.float32)
@@ -268,10 +269,9 @@ def prefill_chunk(params, cfg: ModelConfig, dcfg: DeployConfig,
     x = params.embed[tok_blk.to(params.embed.device).long()]
     for li in range(cfg.n_layers):
         lp = params.layer(li)
-        h = llama.norm(x, lp["ln_attn"], cfg)
-        q = (h @ lp["wq"]).reshape(B, T, H, Dh)
-        k = h @ lp["wk"]
-        v = h @ lp["wv"]
+        q, k, v = llama.project_qkv(llama.norm(x, lp["ln_attn"], cfg), lp,
+                                    cfg)
+        q = q.reshape(B, T, H, Dh)
         _, attn = deployed.block_attention(cache.layer(li), dq.layer(li),
                                            dcfg, cfg, q, k, v, pos0,
                                            sink_fill=sink_fill)

@@ -5,15 +5,18 @@ from __future__ import annotations
 
 import torch
 
-from ..models.llama import forward
+from ..models import get_forward
 
 
-def perplexity(params, cfg, token_windows, simquant=None) -> float:
+def perplexity(params, cfg, token_windows, simquant=None,
+               forward_fn=None) -> float:
     """Perplexity over every next-token position of ``token_windows``: an
     (N, T) int array or tensor (one window per row), or an iterable of
     (B, T) batches. ``simquant`` (``models.SimQuantParams``) fake-quantizes
-    the KV projections. Runs under ``torch.no_grad`` on the params'
+    the KV projections. ``forward_fn`` defaults to the model family's
+    (``models.get_forward``). Runs under ``torch.no_grad`` on the params'
     device."""
+    forward = forward_fn or get_forward(cfg)
     if hasattr(token_windows, "shape"):
         token_windows = [token_windows[i:i + 1]
                          for i in range(token_windows.shape[0])]

@@ -18,14 +18,15 @@ from .llama import (
     simquant_v,
     v_topk_range_and_mask,
 )
+from .hf_loader import load_hf_checkpoint, config_from_hf
 
 
 def get_forward(cfg):
     """The forward of ``cfg``'s model family (kvquant_tpu/models/__init__.py
-    get_forward): the Llama forward for a ModelConfig. The MoE family is not
-    ported yet (ROADMAP queue 1 item 11)."""
-    if type(cfg) is not ModelConfig:
-        raise NotImplementedError(
-            f"no forward for {type(cfg).__name__}: only the Llama family is "
-            f"ported (the MoE family is ROADMAP queue 1 item 11)")
+    get_forward): ``moe.forward`` for a ``MoEConfig``, else the Llama
+    forward; both return (logits, aux) under the same keywords."""
+    from . import moe
+
+    if isinstance(cfg, moe.MoEConfig):
+        return moe.forward
     return forward

@@ -16,6 +16,9 @@ projections of every layer: keys per channel with static calibrated
 thresholds (before RoPE, or after it for the post-RoPE scheme), values per
 token with a dynamic range; the accuracy oracle the deployed cache is held
 to (``evals.ppl.perplexity`` against ``engine.deployed_ppl``).
+
+The MoE family (``models.moe``) runs this forward too: ``project_qkv`` and
+``ffn`` pick its fused projection and expert FFN from the config.
 """
 
 from __future__ import annotations
@@ -48,7 +51,10 @@ LAYER_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
 
 class Llama(nn.Module):
     """Parameter container: ``embed`` (V, D), ``final_norm`` (D,),
-    ``lm_head`` (D, V) or None when tied, ``layers[name]`` (L, ...)."""
+    ``lm_head`` (D, V) or None when tied, ``layers[name]`` (L, ...) for
+    each name of ``LAYER_KEYS``."""
+
+    LAYER_KEYS = LAYER_KEYS
 
     def __init__(self, cfg: ModelConfig, embed, final_norm, layers: dict,
                  lm_head=None):
@@ -61,7 +67,8 @@ class Llama(nn.Module):
         self.embed = p(embed)
         self.final_norm = p(final_norm)
         self.lm_head = None if lm_head is None else p(lm_head)
-        self.layers = nn.ParameterDict({k: p(layers[k]) for k in LAYER_KEYS})
+        self.layers = nn.ParameterDict({k: p(layers[k])
+                                        for k in self.LAYER_KEYS})
 
     def head(self) -> torch.Tensor:
         return self.embed.T if self.lm_head is None else self.lm_head
@@ -454,6 +461,28 @@ def _attention(q, k, v, cfg: ModelConfig, positions, chunk=None,
     return _attention_full(q, k, v, cfg, positions)
 
 
+def project_qkv(h, lp: dict, cfg: ModelConfig):
+    """(q, k, v) projections of the normed hidden state ``h`` (..., D):
+    ``wq`` / ``wk`` / ``wv``, or the MoE family's fused ``w_qkv`` sliced by
+    ``moe.split_qkv``."""
+    from .moe import MoEConfig, split_qkv
+
+    if isinstance(cfg, MoEConfig):
+        return split_qkv(h @ lp["w_qkv"], cfg)
+    return h @ lp["wq"], h @ lp["wk"], h @ lp["wv"]
+
+
+def ffn(h, lp: dict, cfg: ModelConfig):
+    """The feed-forward block's output for the normed hidden state ``h``
+    (..., D), in h's dtype: the SwiGLU MLP, or the MoE family's
+    ``moe.moe_ffn``."""
+    from .moe import MoEConfig, moe_ffn
+
+    if isinstance(cfg, MoEConfig):
+        return moe_ffn(h, lp, cfg)
+    return (F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])) @ lp["w_down"]
+
+
 def forward(params: Llama, cfg: ModelConfig, tokens, *, positions=None,
             simquant: SimQuantParams | None = None, capture_kv: bool = False,
             kv_probes: dict | None = None, attn_chunk: int | None = None,
@@ -479,9 +508,7 @@ def forward(params: Llama, cfg: ModelConfig, tokens, *, positions=None,
     def layer(x, li, probe_k, probe_v):
         lp = params.layer(li)
         h = norm(x, lp["ln_attn"], cfg)
-        q = h @ lp["wq"]
-        k = h @ lp["wk"]
-        v = h @ lp["wv"]
+        q, k, v = project_qkv(h, lp, cfg)
         if probe_k is not None:
             # fp32 probes promote k / v to fp32 for the rest of the layer,
             # as in the JAX forward
@@ -504,8 +531,7 @@ def forward(params: Llama, cfg: ModelConfig, tokens, *, positions=None,
         attn = _attention(q, k, v, cfg, positions, chunk=attn_chunk,
                           remat=remat)
         x = x + attn @ lp["wo"]
-        h = norm(x, lp["ln_mlp"], cfg)
-        x = x + (F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])) @ lp["w_down"]
+        x = x + ffn(norm(x, lp["ln_mlp"], cfg), lp, cfg)
         return (x,) + captured
 
     x = params.embed[tokens.long()]

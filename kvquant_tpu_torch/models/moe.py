@@ -1,0 +1,223 @@
+"""DBRX-style Mixture-of-Experts transformer with a fused Wqkv projection
+(port of kvquant_tpu/models/moe.py:38-247).
+
+The attention block is the LLaMA family's (``models.llama``: norm, RoPE,
+causal attention, the simulated-quantization hook and the Fisher probes);
+only the projection and the FFN differ:
+
+  - one fused ``w_qkv`` (D, (H + 2 Hkv) Dh) whose output is sliced into
+    q / k / v (``split_qkv``);
+  - a top-k gated expert FFN (``moe_ffn``): a router (D, E), then each
+    token's top_k experts (SwiGLU, (E, D, F) gate / up, (E, F, D) down)
+    weighted by the softmax of its top_k router logits.
+
+``ffn_mode="dense"`` computes every expert and combines them with the
+masked router weights (exact; the JAX function's einsums).
+``ffn_mode="sparse"`` is the JAX package's capacity dispatch: each expert
+takes at most C = min(N, ceil(N K / E) * max(1, round(capacity_factor)))
+tokens in arrival order, and a token past an expert's capacity loses that
+expert, without renormalisation. The JAX function dispatches with one-hot
+einsums over (N, E, C), which suit the TPU; here the kept (token, expert)
+pairs are gathered per expert and summed back with ``index_add``, so only
+routed experts run and only on their own tokens: the same pairs are kept
+and the same products summed (in fp32, with one cast at the end, as the
+bf16 einsum does). Reading which pairs are kept costs one device-to-host
+copy of the (N, E) mask per call.
+
+Router ties: the top_k experts come from ``utils.topk.top_k``, which orders
+as ``jax.lax.top_k`` does (ties to the lower index), not ``torch.topk``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..device import resolve_device
+from ..utils.topk import top_k
+from . import llama
+from .config import ModelConfig
+
+LAYER_KEYS = ("w_qkv", "wo", "w_router", "w_gate", "w_up", "w_down",
+              "ln_attn", "ln_mlp")
+
+
+@dataclass(frozen=True)
+class MoEConfig(ModelConfig):
+    n_experts: int = 8
+    top_k: int = 2
+    # "dense": every expert computed, mask-combined (exact); "sparse":
+    # capacity dispatch, expert work scales with top_k, not E
+    ffn_mode: str = "dense"
+    capacity_factor: float = 2.0
+
+
+TINY_MOE = MoEConfig(
+    vocab_size=256, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
+    d_head=16, d_ff=96, max_seq_len=256, n_experts=4, top_k=2,
+)
+
+
+class MoE(llama.Llama):
+    """Parameter container of the MoE family: ``embed``, ``final_norm``,
+    ``lm_head`` (None when tied), ``head()``, ``layer(i)`` as
+    ``llama.Llama``, with the layer keys ``w_qkv`` (L, D, (H + 2 Hkv) Dh),
+    ``wo``, ``w_router`` (L, D, E), ``w_gate`` / ``w_up`` (L, E, D, F),
+    ``w_down`` (L, E, F, D), ``ln_attn``, ``ln_mlp``."""
+
+    LAYER_KEYS = LAYER_KEYS
+
+
+def layer_shapes(cfg: MoEConfig) -> dict:
+    """Per-layer shape of every matmul weight."""
+    D, H, Hkv, Dh, Fd, E = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                            cfg.d_head, cfg.d_ff, cfg.n_experts)
+    return dict(w_qkv=(D, (H + 2 * Hkv) * Dh), wo=(H * Dh, D),
+                w_router=(D, E), w_gate=(E, D, Fd), w_up=(E, D, Fd),
+                w_down=(E, Fd, D))
+
+
+def init_params(cfg: MoEConfig, generator: torch.Generator | None = None,
+                dtype=torch.bfloat16, device="cuda", seed: int = 0) -> MoE:
+    """Random-init model on ``device`` from ``generator`` (a fresh one
+    seeded with ``seed`` when None). Same distributions as the JAX init
+    (normal / sqrt(fan_in), embed 0.02, unit norms); the draws differ from
+    jax.random's. Each (layer, expert) matrix is drawn in fp32 and written
+    into the preallocated (L, ...) tensors, so the model never exists
+    twice."""
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(seed)
+    L, D, V = cfg.n_layers, cfg.d_model, cfg.vocab_size
+
+    def fill(dst, scale=None):
+        scale = scale or 1.0 / dst.shape[-2] ** 0.5
+        dst.copy_(torch.randn(dst.shape, generator=generator, device=dev,
+                              dtype=torch.float32) * scale)
+        return dst
+
+    layers = {k: torch.empty((L, *s), dtype=dtype, device=dev)
+              for k, s in layer_shapes(cfg).items()}
+    for li in range(L):
+        for w in layers.values():
+            for m in (w[li] if w.dim() == 4 else [w[li]]):  # expert by expert
+                fill(m)
+    layers["ln_attn"] = torch.ones((L, D), dtype=torch.float32, device=dev)
+    layers["ln_mlp"] = torch.ones((L, D), dtype=torch.float32, device=dev)
+    embed = fill(torch.empty((V, D), dtype=dtype, device=dev), scale=0.02)
+    head = None if cfg.tie_embeddings else fill(
+        torch.empty((D, V), dtype=dtype, device=dev))
+    return MoE(cfg, embed, torch.ones((D,), dtype=torch.float32, device=dev),
+               layers, head)
+
+
+def params_from_numpy(tree: dict, cfg: MoEConfig, device="cuda",
+                      dtype=None) -> MoE:
+    """The JAX MoE parameter pytree, as nested dicts of numpy arrays, as
+    the port's module. ``dtype`` casts the matmul weights (norms stay
+    fp32)."""
+    dev = resolve_device(device)
+
+    def t(a, cast=True):
+        x = torch.tensor(np.asarray(a), device=dev)
+        return x.to(dtype) if (cast and dtype is not None) else x
+
+    layers = {k: t(tree["layers"][k], cast=not k.startswith("ln_"))
+              for k in LAYER_KEYS}
+    head = tree.get("lm_head")
+    return MoE(cfg, t(tree["embed"]), t(tree["final_norm"], cast=False),
+               layers, None if head is None else t(head))
+
+
+# ---------------------------------------------------------------------------
+# router and experts
+# ---------------------------------------------------------------------------
+
+
+def _router_weights(h, lp, cfg: MoEConfig):
+    """(fp32 router logits, softmax over each token's top_k logits with the
+    other experts at exactly 0, in h's dtype), each (..., E)."""
+    logits = (h @ lp["w_router"]).to(torch.float32)
+    # a strict top-k mask from the indices: a >= threshold compare would
+    # route a token through more than top_k experts on exact ties
+    idx = top_k(logits, cfg.top_k)[1]
+    sel = torch.zeros_like(logits, dtype=torch.bool).scatter_(-1, idx, True)
+    masked = logits.masked_fill(~sel, float("-inf"))
+    return logits, torch.softmax(masked, dim=-1).to(h.dtype)
+
+
+def _expert(x, lp, e: int):
+    """SwiGLU expert ``e`` on rows x (n, D)."""
+    gate, up, down = lp["w_gate"][e], lp["w_up"][e], lp["w_down"][e]
+    return (F.silu(x @ gate) * (x @ up)) @ down
+
+
+def moe_ffn(h, lp, cfg: MoEConfig):
+    """Top-k gated expert FFN of h (..., D), by ``cfg.ffn_mode``."""
+    if cfg.ffn_mode == "sparse":
+        return moe_ffn_sparse(h, lp, cfg)
+    _, w = _router_weights(h, lp, cfg)
+    gate = torch.einsum("...d,edf->...ef", h, lp["w_gate"])
+    up = torch.einsum("...d,edf->...ef", h, lp["w_up"])
+    y = torch.einsum("...ef,efd->...ed", F.silu(gate) * up, lp["w_down"])
+    return torch.einsum("...e,...ed->...d", w, y)
+
+
+def capacity(n_tokens: int, cfg: MoEConfig) -> int:
+    """Tokens an expert takes in one call (Python's round: half to even)."""
+    return min(n_tokens, -(-n_tokens * cfg.top_k // cfg.n_experts)
+               * max(1, int(round(cfg.capacity_factor))))
+
+
+def dispatch(w, C: int):
+    """(N, E) bool: the (token, expert) pairs kept under capacity C. A pair
+    is routed where its weight is > 0; each expert keeps its first C routed
+    tokens in token order (the exclusive cumsum of the JAX function)."""
+    routed = (w > 0).to(torch.int32)
+    pos_in_e = torch.cumsum(routed, dim=0) - routed
+    return (routed > 0) & (pos_in_e < C)
+
+
+def moe_ffn_sparse(h, lp, cfg: MoEConfig):
+    """Capacity dispatch of h (..., D) over the flattened N tokens: expert
+    e runs on its kept tokens only (``dispatch``), and each token sums its
+    kept experts' outputs times their router weights in fp32, cast once
+    to h's dtype."""
+    shape = h.shape
+    hf = h.reshape(-1, shape[-1])
+    N = hf.shape[0]
+    _, w = _router_weights(hf, lp, cfg)
+    keep = dispatch(w, capacity(N, cfg))
+    # the kept pairs, expert-major and in token order within an expert
+    exp, tok = torch.nonzero(keep.T.cpu(), as_tuple=True)
+    counts = torch.bincount(exp, minlength=cfg.n_experts).tolist()
+    rows = tok.to(h.device)
+    out = torch.zeros((N, shape[-1]), dtype=torch.float32, device=h.device)
+    start = 0
+    for e, n in enumerate(counts):
+        if n == 0:
+            continue
+        r = rows[start:start + n]
+        start += n
+        y = _expert(hf[r], lp, e).to(torch.float32)
+        out = out.index_add(0, r, y * w[r, e].to(torch.float32)[:, None])
+    return out.to(h.dtype).reshape(shape)
+
+
+def split_qkv(y, cfg: MoEConfig):
+    """The fused projection's output sliced into (q, k, v)."""
+    q_dim = cfg.n_heads * cfg.d_head
+    kv = cfg.n_kv_heads * cfg.d_head
+    return y[..., :q_dim], y[..., q_dim:q_dim + kv], y[..., q_dim + kv:]
+
+
+def forward(params: MoE, cfg: MoEConfig, tokens, **kw):
+    """Full-sequence forward with the contract of ``llama.forward`` (the
+    same keywords: ``positions``, ``simquant``, ``capture_kv``,
+    ``kv_probes``, ``attn_chunk``, ``remat``; the same (logits, aux)):
+    the LLaMA block with the fused projection and the expert FFN
+    (``llama.project_qkv`` / ``llama.ffn`` dispatch on the config)."""
+    return llama.forward(params, cfg, tokens, **kw)

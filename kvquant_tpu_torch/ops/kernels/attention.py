@@ -47,7 +47,7 @@ from ...cache import DeployConfig
 from ...models.llama import rope_cos_sin, rotate_half
 from ...quant.nuq import lut_lookup
 from ..packing import decode_outlier_words, unpack_codes
-from .common import TILE_TOKENS, check_operands, sm_count
+from .common import TILE_TOKENS, check_operands, decode_rows, sm_count
 from .flash_decode import rope_table
 
 TILE = 64  # tokens per tile of the simt bodies and of K4's mma body
@@ -229,10 +229,6 @@ def slot_counts(dcfg: DeployConfig, J: int) -> tuple:
     return dcfg.slots_per_kind, J - dcfg.slots_per_kind
 
 
-def _decode_rows(R: int) -> int:
-    return next(g for g in (1, 2, 4, 8) if R <= g)
-
-
 def _stage_bytes(bits: int, D: int, hc: int, n_rows: int, pv: bool) -> int:
     """csrc dring(...).bytes: hc heads' bit planes (4 word rows each), the
     staged slot rows, and K4's V scale and offset, for one 128-token tile."""
@@ -289,7 +285,7 @@ def qk_plan(dcfg: DeployConfig, R: int, D: int, Tc: int, B: int, Hkv: int,
     kind = body(dcfg, R)
     nks, _ = slot_counts(dcfg, J)
     if kind == "decode":
-        G = _decode_rows(R)
+        G = decode_rows(R)
         hc, stages, stage = _decode_shape(dcfg, D, Hkv, nks, False)
         smem = 128 + stages * stage + 4 * hc * (G + 2) * D
         per_sm = _per_sm(smem + 64, 2 if G <= 2 else 1)
@@ -317,7 +313,7 @@ def pv_plan(dcfg: DeployConfig, R: int, D: int, Tc: int, B: int, Hkv: int,
     kind = body(dcfg, R)
     _, nvs = slot_counts(dcfg, J)
     if kind == "decode":
-        G = _decode_rows(R)
+        G = decode_rows(R)
         hc, stages, stage = _decode_shape(dcfg, D, Hkv, nvs, True)
         smem = 128 + max(stages * stage, DECODE_WARPS * G * (D + 1) * 4)
         per_sm = _per_sm(smem + 64, 2 if G <= 2 else 1)

@@ -62,6 +62,32 @@ def channel_addend(rows, chan, dcfg: DeployConfig):
         B, NG * hg, Tc, D)
 
 
+def decode_rows(G: int) -> int:
+    """Query rows per kv head of the decode instance that runs G rows: the
+    least of 1/2/4/8 that holds them (zero rows pad the rest), 8 when
+    G > 8 (``padded_launches`` then runs ceil(G / 8) launches)."""
+    if G < 1:
+        raise ValueError(f"{G} query rows per kv head")
+    return next(r for r in (1, 2, 4, 8) if r >= min(G, 8))
+
+
+def padded_launches(q_rot, launch):
+    """``launch`` (queries (B, Hkv, R, D) -> output of the same shape) on
+    the decode instances: the G rows of ``q_rot`` zero-padded to
+    ``decode_rows(G)`` rows (a zero query row scores 0 against every key:
+    a finite, uniform softmax, then discarded), one launch per R rows.
+    Returns the (B, Hkv, G, D) output of the G real rows."""
+    G = q_rot.shape[2]
+    R = decode_rows(G)
+    n = -(-G // R)
+    if n * R == G == R:
+        return launch(q_rot)
+    q = torch.nn.functional.pad(q_rot, (0, 0, 0, n * R - G))
+    out = torch.cat([launch(q[:, :, i * R:(i + 1) * R].contiguous())
+                     for i in range(n)], dim=2)
+    return out[:, :, :G]
+
+
 def check_operands(kernel: str, expect: dict, dev: torch.device):
     """Raise ValueError unless every ``name: (tensor, shape, dtype)`` lies
     on ``dev`` with that shape and dtype and is contiguous."""

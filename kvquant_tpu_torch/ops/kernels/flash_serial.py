@@ -14,8 +14,12 @@ position, over the exact sink prefix and the packed tokens [0, pos - S]
     (tensor cores, one wave of blocks) for bf16 dots on int4 / int4x2
     containers, ``fs_partial`` (SIMT) for fp32 dots and int8 containers.
 
-``flash_serial_decode.launches`` counts kernel launches (one per call on
-the card), ``flash_serial_decode.route_launches`` the same per body. The
+The kernel is instantiated for 1, 2, 4 and 8 query rows per kv head;
+other head ratios run the next instance up, their rows padded with zero
+queries and the padding's output dropped (``common.padded_launches``; G > 8
+in launches of 8 rows). ``flash_serial_decode.launches`` counts kernel
+launches (one per call on the card for G <= 8),
+``flash_serial_decode.route_launches`` the same per body. The
 TPU kernel's constant-band packing (``prep_constants``) works around a
 Mosaic operand limit and is not ported: the CUDA kernel takes its
 operands plainly, folds the affine codebook itself and reads the static K
@@ -34,7 +38,8 @@ import torch
 from ...cache import DeployConfig, k_channel_index
 from ..deployed import _outlier_addend
 from .common import (MAX_KC, MAX_SINK, TILE_TOKENS, fold_affine,
-                     signed_codes, channel_addend, check_operands, sm_count)
+                     signed_codes, channel_addend, check_operands,
+                     decode_rows, padded_launches, sm_count)
 
 CODES = {"int4": 0, "int8": 1, "int4x2": 2}
 
@@ -253,17 +258,16 @@ def mma_split(n_tiles: int, n_split: int, s: int) -> tuple:
 def fs_plan(dcfg: DeployConfig, B: int, Hkv: int, G: int, D: int, Tc: int,
             device=None, sms: int = None, body: str = None,
             J: int = None) -> FsPlan:
-    """The plan of a K2 call: its body (``fs_body``, or ``body`` when a
-    caller forces one for timing) and grid. fs_mma: the resident blocks an
-    SM holds (from the body's shared memory and its register bound), and
-    as many token splits as fill them once, at most one per 128 tokens of
-    the capacity so that each of a block's warps has a tile; fs_partial:
-    about eight blocks an SM, at most one split per 128-token tile.
-    ``sms`` defaults to the SM count of ``device``; ``J`` (kv_out rows) to
-    the configuration's."""
-    if G not in (1, 2, 4, 8):
-        raise ValueError(f"flash_serial kernel: {G} query rows per kv head "
-                         f"not in 1/2/4/8")
+    """The plan of a K2 call of G query rows per kv head: its body
+    (``fs_body``, or ``body`` when a caller forces one for timing) and grid,
+    for the instance of ``decode_rows(G)`` rows that runs them. fs_mma:
+    the resident blocks an SM holds (from the body's shared memory and its
+    register bound), and as many token splits as fill them once, at most
+    one per 128 tokens of the capacity so that each of a block's warps has
+    a tile; fs_partial: about eight blocks an SM, at most one split per
+    128-token tile. ``sms`` defaults to the SM count of ``device``; ``J``
+    (kv_out rows) to the configuration's."""
+    G = decode_rows(G)
     if D not in (32, 64, 128):
         raise ValueError(f"flash_serial kernel: d_head {D} not in 32/64/128")
     kind = body or fs_body(dcfg)
@@ -408,9 +412,10 @@ def flash_serial_decode(
         k_chan_l = (k_chan[li] if k_chan is not None
                     else k_channel_index(k_ressc[li], dcfg))
         k_chan_l = k_chan_l.to(torch.int32).contiguous()
-    return _launch(q_rot.contiguous(), k_planes, v_planes, kv_out, k_range,
-                   k_offset, v_scale, v_offset, k_sink, v_sink, k_lut, v_lut,
-                   li, pos, dcfg, mcfg, k_chan_l, body=body)
+    return padded_launches(q_rot.contiguous(), lambda q: _launch(
+        q, k_planes, v_planes, kv_out, k_range, k_offset, v_scale, v_offset,
+        k_sink, v_sink, k_lut, v_lut, li, pos, dcfg, mcfg, k_chan_l,
+        body=body))
 
 
 flash_serial_decode.launches = 0

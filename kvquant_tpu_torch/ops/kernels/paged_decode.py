@@ -16,6 +16,9 @@ Sinks stay per slot, (L, B, Hkv, S, D).
     decode kernel (``fd_decode``) instantiated with the paged addressing
     policy, or an exception; there is no fallback.
 
+The decode body is instantiated for 1, 2, 4 and 8 query rows per kv head;
+other head ratios are padded with zero queries to the next instance
+(``paged_plan``, ``common.padded_launches``).
 ``paged_flash_decode.launches`` counts kernel launches. Every storage mode
 of K1 is taken, int4x2 included (pool code arrays (L, NP, Hkv/2, P, D/2));
 a page must hold whole 128-token bit-plane groups, so
@@ -24,13 +27,15 @@ a page must hold whole 128-token bit-plane groups, so
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from ...cache import DeployConfig, k_channel_index
 from ..packing import GROUP
-from .common import check_operands
-from .flash_decode import (_check_config, _lib, flash_attention_ref,
-                           kernel_limits, run_kernel)
+from .common import check_operands, decode_rows, padded_launches
+from .flash_decode import (_check_config, _lib, decode_plan, decode_splits,
+                           flash_attention_ref, kernel_limits, run_kernel)
 
 
 def _check(dcfg: DeployConfig):
@@ -39,6 +44,36 @@ def _check(dcfg: DeployConfig):
         raise ValueError(f"paged_flash_decode: page_tokens "
                          f"{dcfg.page_tokens} is not a multiple of {GROUP} "
                          f"(a page holds whole bit-plane groups)")
+
+
+class PagedPlan(NamedTuple):
+    """A K5 call of G query rows per kv head on the card: ``rows`` per
+    launch of the decode body (``decode_rows(G)``, zero rows padding G),
+    ``launches`` of them, and each launch's block shape (heads per block
+    ``hb``, ring ``stages``, ``tile`` tokens) and token splits
+    ``n_split``."""
+    rows: int
+    launches: int
+    hb: int
+    stages: int
+    tile: int
+    n_split: int
+
+
+def paged_plan(dcfg: DeployConfig, B: int, Hkv: int, G: int, D: int, J: int,
+               Tc: int, sms: int) -> PagedPlan:
+    """The plan of a K5 call over ``Tc`` = MP * P table tokens per slot,
+    as the wrapper launches it (``flash_decode.run_kernel``'s decode block
+    shape and splits at the padded rows). Raises ValueError for a
+    configuration the kernel does not take."""
+    _check(dcfg)
+    R = decode_rows(G)
+    n_kc, n_ks, n_vs = kernel_limits(dcfg, D, J)
+    rows = bool(n_kc or n_ks or n_vs)
+    hb, stages, tile = decode_plan(dcfg, D, J, rows)
+    return PagedPlan(R, -(-G // R), hb, stages, tile,
+                     decode_splits(dcfg, B, Hkv, R, D, J, rows, n_kc, Tc,
+                                   sms))
 
 
 def live_pages(page_table, pos, dcfg: DeployConfig):
@@ -118,9 +153,6 @@ def paged_flash_decode(q_rot, pool, page_table, dq, li, pos,
     q_rot = q_rot.contiguous()
     B, Hkv, G, D = q_rot.shape
     dev = q_rot.device
-    if G not in (1, 2, 4, 8):
-        raise ValueError(f"paged_flash_decode kernel: {G} query heads per "
-                         f"kv head, kernel takes 1/2/4/8")
     if not isinstance(pos, torch.Tensor):
         pos = torch.tensor(pos, dtype=torch.int32).reshape(-1)
     pos = pos.to(device=dev, dtype=torch.int32).expand(B).contiguous()
@@ -159,14 +191,19 @@ def paged_flash_decode(q_rot, pool, page_table, dq, li, pos,
     if n_kc:
         expect["k_chan"] = (k_chan_l, (NG, n_kc), torch.int32)
     check_operands("paged_flash_decode kernel", expect, dev)
-    out = run_kernel(
-        _lib().fd_paged_attention, q_rot,
-        (pool.k_planes, pool.v_planes, pool.kv_out, dq.k_range, dq.k_offset,
-         pool.v_scale, pool.v_offset, pool.k_sink, pool.v_sink, dq.k_lut_dec,
-         dq.v_lut_dec), pos, k_chan_l, dcfg, mcfg, L=L, Tc=MP * P, J=J,
-        Tq=1, li=li, paged=(page_table, MP, P, NP))
-    paged_flash_decode.launches += 1
-    return out
+
+    def launch(q):
+        out = run_kernel(
+            _lib().fd_paged_attention, q,
+            (pool.k_planes, pool.v_planes, pool.kv_out, dq.k_range,
+             dq.k_offset, pool.v_scale, pool.v_offset, pool.k_sink,
+             pool.v_sink, dq.k_lut_dec, dq.v_lut_dec), pos, k_chan_l, dcfg,
+            mcfg, L=L, Tc=MP * P, J=J, Tq=1, li=li,
+            paged=(page_table, MP, P, NP))
+        paged_flash_decode.launches += 1
+        return out
+
+    return padded_launches(q_rot, launch)
 
 
 paged_flash_decode.launches = 0

@@ -40,8 +40,9 @@ def collect_kv_activations(params, cfg, batches, rope_k: bool = False):
     device, token rows concatenated across batches. ``rope_k`` rotates the
     captured keys at their sequence positions first (the calibration signal
     of post-RoPE K storage)."""
-    from ..models.llama import forward
+    from ..models import get_forward
 
+    forward = get_forward(cfg)
     dev = params.embed.device
     ks, vs = [], []
     with torch.no_grad():

@@ -166,14 +166,10 @@ def test_remat_gives_the_same_gradients(which):
 
 
 def test_get_forward():
+    from kvquant_tpu_torch.models import moe
+
     assert get_forward(TINY_LLAMA) is forward
-
-    @dataclasses.dataclass(frozen=True)
-    class OtherConfig(ModelConfig):
-        n_experts: int = 4
-
-    with pytest.raises(NotImplementedError, match="item 11"):
-        get_forward(OtherConfig())
+    assert get_forward(moe.TINY_MOE) is moe.forward
 
 
 # ---------------------------------------------------------------------------
