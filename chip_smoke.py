@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases 1,23                  # calibrate -> deploy
     python3 chip_smoke.py --phases 1,24                  # MISTRAL_7B via K1
     python3 chip_smoke.py --phases 1,25                  # DBRX (MoE, G 6)
+    python3 chip_smoke.py --phases 1,26                  # tp 2 over gloo
 
 Phases (each prints its own lines; any failure raises and exits non-zero).
 K2 is csrc/flash_serial.cu (flash_serial_decode), K1 csrc/flash_decode.cu
@@ -182,6 +183,25 @@ The MoE family and the HF loader:
      R 6, K5 at B=4 x 8K) against plain, with times and bounds; K2 at G 3 /
      6 against plain; the decode edge grid at G 3 / 6 through K1 and K5;
      a toy MoE's greedy tokens card == CPU through K1 and K2.
+Tensor parallelism (kvquant_tpu_torch/parallel):
+ 26. tp 2 on the one card: two rank processes on cuda:0 joined over gloo
+     (backend="gloo", set explicitly: NCCL takes one card per rank, and
+     gloo's collectives on CUDA tensors go through host memory), each
+     holding its half of the heads (and of DBRX's experts) of weights drawn
+     from the same seed; LLaMA-2-7B at full width through K1 (faithful
+     nuq3, 2048-token quantized prefill, 32 steps; 16 kv heads a rank) and
+     K2 (the speed config, one head group of 16 a rank, 16 steps), DBRX at
+     its published widths cut to 2 of 40 layers through K1 (hg 4, 8 of 16
+     experts a rank, 16 steps). A tp 1 run of the same weights in this
+     process comes first (then freed). Each rank prefills and decodes the
+     tp 1 tokens (launches == layers x (chunks + steps), the kernel ==
+     plain on its live cache, its prefill codes within 5% of tp 1's), then
+     decodes them again from its shards of tp 1's cache after the prefill;
+     those steps hold max |dlogit| <= 0.05 max |logit_tp1| and the argmax
+     at every step whose tp 1 top-2 margin exceeds 1% of max |logit|. The
+     own-prefill steps' agreement, the router's flips (DBRX) and, per
+     rank, ms per step, device ms per step, the collectives' ms per step,
+     launches per step, peak GiB and tok/s beside tp 1's are printed.
 The line before the last lists every ported kernel as JSON; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -4082,6 +4102,459 @@ def phase_dbrx(report):
     shutil.rmtree(work)
 
 
+# ---------------------------------------------------------------------------
+# tensor parallelism (kvquant_tpu_torch/parallel): tp 2 as two rank
+# processes sharing the card over gloo
+# ---------------------------------------------------------------------------
+
+TP_WORKLOADS = ("llama_k1", "llama_k2", "dbrx_k1")
+
+
+def tp_workload(name, work):
+    """(model config, deploy config, quantizers, prompt, decode steps,
+    prefill mode, kernel, weight seed) of a phase-26 workload: LLaMA-2-7B
+    through K1 (faithful nuq3, 2048-token quantized prefill, 32 steps) and
+    K2 (the speed config, one head group of 16 on each rank, 1024-token
+    prefill, 16 steps); DBRX at its published widths cut to 2 of 40
+    layers through K1 (faithful, head group 4, 1024-token quantized
+    prefill, 16 steps; 8 of its 16 experts on each rank)."""
+    import os
+
+    from kvquant_tpu_torch.models.hf_loader import config_from_hf
+
+    if name == "llama_k1":
+        T0, N = 2048, 32
+        cfg, dcfg, qs = faithful_config(T0 + N + 16, 32)
+        mode, kernel, seed = "quantized", "K1", 0
+    elif name == "llama_k2":
+        T0, N = 1024, 16
+        cfg, dcfg, qs = speed_config(T0 + N + 16, 32)
+        mode, kernel, seed = "fp16", "K2", 0
+    else:
+        T0, N = 1024, 16
+        d = os.path.join(work, f"dbrx_{os.getpid()}")  # one per process
+        os.makedirs(d, exist_ok=True)
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(DBRX_CONFIG, f)
+        cfg = dataclasses.replace(config_from_hf(d), n_layers=2)
+        _, dcfg, qs = faithful_config(T0 + N + 16, 2, cfg)
+        mode, kernel, seed = "quantized", "K1", 25
+    prompt = torch.randint(0, cfg.vocab_size, (1, T0),
+                           generator=torch.Generator().manual_seed(26))
+    return cfg, dcfg, qs, prompt, N, mode, kernel, seed
+
+
+def tp_params(cfg, seed):
+    from kvquant_tpu_torch.models import init_params, moe
+
+    init = moe.init_params if isinstance(cfg, moe.MoEConfig) else init_params
+    return init(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                dtype=torch.bfloat16, device="cuda")
+
+
+def tp_run(params, cfg, dcfg, dq, prompt, steps, mode, forced=None,
+           start=None, snapshot=False):
+    """Prefill, then ``steps`` decode steps: greedy, or teacher-forced on
+    ``forced`` (steps,) tokens. ``start`` (a cache holding the prompt)
+    skips the prefill: the steps decode from that state. Returns a dict:
+    the logits of every step on the host (the prefill's first, unless
+    ``start``), the tokens fed, the decode wall seconds, the prefill
+    seconds, the live cache and, with ``snapshot``, a host copy of the
+    cache's arrays after the prefill."""
+    from kvquant_tpu_torch import engine
+    from kvquant_tpu_torch.cache import create_cache
+    from kvquant_tpu_torch.parallel import collectives
+
+    T0 = prompt.shape[1]
+    outs, snap, prefill_s = [], None, 0.0
+    if start is None:
+        cache = create_cache(dcfg, cfg.n_layers, 1, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if mode == "quantized":
+            cache, logits = engine.prefill_quantized(
+                params, cfg, dcfg, dq, cache, prompt.cuda(), chunk=256)
+        else:
+            cache, logits = engine.prefill(params, cfg, dcfg, dq, cache,
+                                           prompt.cuda())
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        outs.append(logits[0])
+        if snapshot:
+            snap = {f.name: getattr(cache, f.name).cpu()
+                    for f in dataclasses.fields(cache)}
+    else:
+        cache = start
+    collectives.reset_stats()  # count the decode steps' alone
+    toks = []
+    t0 = time.perf_counter()
+    for i in range(steps):
+        tok = (torch.argmax(logits, -1).to(torch.int32) if forced is None
+               else forced[i:i + 1].cuda())
+        toks.append(tok)
+        cache, logits = engine.decode_step(params, cfg, dcfg, dq, cache, tok,
+                                           T0 + i)
+        outs.append(logits[0])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return dict(logits=torch.stack(outs).float().cpu(),
+                toks=torch.cat(toks).cpu(), wall=wall, prefill_s=prefill_s,
+                cache=cache, snap=snap)
+
+
+def code_agreement(mine, want, dcfg, live):
+    """Share of the ``live`` packed tokens' K and V codes that differ
+    between two caches' arrays of the same shards: over every layer, and
+    per layer."""
+    from kvquant_tpu_torch.ops.deployed import _stored_codes
+
+    diff = [(_stored_codes(mine[f], dcfg)[..., :live, :]
+             != _stored_codes(want[f], dcfg)[..., :live, :])
+            for f in ("k_planes", "v_planes")]
+    per_layer = torch.stack([d.flatten(1).float().mean(1) for d in diff])
+    return float(per_layer.mean()), per_layer.mean(0).tolist()
+
+
+class RouteLog:
+    """Records which experts the MoE router keeps on every call (a
+    (tokens, experts) bool mask each), to tell routing flips between the
+    tp 1 and tp 2 runs from other differences."""
+
+    def __enter__(self):
+        from kvquant_tpu_torch.models import moe
+
+        self.moe, self.orig, self.calls = moe, moe._router_weights, []
+
+        def recorded(h, lp, cfg):
+            logits, w = self.orig(h, lp, cfg)
+            self.calls.append((w > 0).reshape(-1, w.shape[-1]).cpu())
+            return logits, w
+
+        moe._router_weights = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._router_weights = self.orig
+
+
+def tp_live_check(tag, kernel, cache, dq, dcfg, cfg, pos):
+    """K1 (resp. K2) against its plain version on this rank's live cache
+    at the first and last layer, a decode row, both dot modes."""
+    from kvquant_tpu_torch.ops.kernels import flash_decode as fd
+    from kvquant_tpu_torch.ops.kernels import flash_serial as fs
+
+    G = cfg.q_per_kv
+    q = torch.randn((1, dcfg.n_kv_heads, G, cfg.d_head), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(3))
+    p = torch.tensor([pos], dtype=torch.int32, device="cuda")
+    arrs = cache.arrays()
+    worst = 0.0
+    for li in (0, cfg.n_layers - 1):
+        for d in (dcfg, dataclasses.replace(dcfg, dot_bf16=False)):
+            args = (q, arrs["k_planes"], arrs["v_planes"], arrs["kv_out"],
+                    dq.k_range, dq.k_offset, arrs["v_scale"],
+                    arrs["v_offset"], arrs["k_sink"], arrs["v_sink"],
+                    dq.k_lut_dec, dq.v_lut_dec, li, p, d, cfg)
+            if kernel == "K2":
+                got = fs.flash_serial_decode(*args, k_ressc=dq.k_ressc)
+                want = fs.flash_serial_decode_ref(*args, k_ressc=dq.k_ressc)
+            else:
+                got = fd.flash_attention(*args, k_ressc=dq.k_ressc)
+                want = fd.flash_attention_ref(*args, k_ressc=dq.k_ressc)
+            worst = max(worst, agree(f"{tag} {kernel} live cache layer {li}",
+                                     got, want, d.dot_bf16))
+    return worst
+
+
+def tp_rank_main(rank_dir):
+    """One rank of phase 26 (``--tp-rank``): joins the gloo world from
+    KVQ_*, runs every workload teacher-forced on the tp 1 tokens in
+    ``rank_dir`` over its shards, writes its numbers (and rank 0 its
+    logits) there."""
+    import os
+
+    from kvquant_tpu_torch import engine
+    from kvquant_tpu_torch.cache import KVCache as KVCacheT
+    from kvquant_tpu_torch.cache import deployed_from_quantizers
+    from kvquant_tpu_torch.parallel import collectives, shardings
+    from kvquant_tpu_torch.parallel.distributed import (
+        init_distributed, make_multihost_mesh)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if not init_distributed(backend="gloo", device="cuda", timeout_s=300):
+        raise RuntimeError("--tp-rank needs the KVQ_* variables")
+    mesh = make_multihost_mesh(tp=2, device="cuda")
+    r = mesh.rank
+    log(f"[26] rank {r}: mesh {mesh.shape} on {mesh.device}, backend "
+        f"{torch.distributed.get_backend()}")
+    params_by_seed = {}
+    for name in TP_WORKLOADS:
+        cfg, dcfg, qs, prompt, N, mode, kernel, seed = tp_workload(
+            name, rank_dir)
+        forced = torch.load(os.path.join(rank_dir, f"{name}_tp1.pt"))["toks"]
+        if seed not in params_by_seed:
+            params_by_seed.clear()
+            torch.cuda.empty_cache()
+            full = tp_params(cfg, seed)  # the tp 1 run's weights
+            params_by_seed[seed] = shardings.shard_params(mesh, full)
+            del full
+            torch.cuda.empty_cache()
+        params = params_by_seed[seed]
+        lcfg = params.cfg
+        ldcfg = shardings.shard_config(mesh, dcfg)
+        dq = shardings.shard_quant(mesh, deployed_from_quantizers(
+            qs, cfg.n_kv_heads, cfg.d_head, device="cuda"))
+        torch.cuda.reset_peak_memory_stats()
+        tp_run(params, lcfg, ldcfg, dq, prompt, 2, mode,
+               forced=forced)  # warm-up
+        read = reset_launches()
+        collectives.timing(True)
+        run = tp_run(params, lcfg, ldcfg, dq, prompt, N, mode,
+                     forced=forced, snapshot=True)
+        collectives.timing(False)
+        n = read()
+        st = dict(collectives.STATS)
+        wall, prefill_s, cache = run["wall"], run["prefill_s"], run["cache"]
+        # the same steps decoded from tp 1's own cache after its prefill
+        # (this rank's shards of it): the state teacher-forced as well
+        snap_path = os.path.join(rank_dir, f"{name}_cache.pt")
+
+        def tp1_state(device):
+            mine = shardings.shard_cache(
+                mesh, KVCacheT(**torch.load(snap_path)))
+            return KVCacheT(**{f.name: getattr(mine, f.name).to(device)
+                               for f in dataclasses.fields(mine)})
+
+        codes_differ, codes_by_layer = code_agreement(
+            run["snap"], tp1_state("cpu").__dict__, ldcfg,
+            prompt.shape[1] - dcfg.sink)
+        forced_state = tp_run(params, lcfg, ldcfg, dq, prompt, N, mode,
+                              forced=forced,
+                              start=tp1_state("cuda"))["logits"]
+        if hasattr(lcfg, "n_experts"):  # the routing of both runs
+            for tag, start in (("routes", None),
+                               ("routes_state", tp1_state("cuda"))):
+                with RouteLog() as routes:
+                    tp_run(params, lcfg, ldcfg, dq, prompt, N, mode,
+                           forced=forced, start=start)
+                if r == 0:
+                    torch.save(routes.calls, os.path.join(
+                        rank_dir, f"{name}_{tag}.pt"))
+        n_chunks = -(-(prompt.shape[1] - dcfg.sink) // 256)
+        want = lcfg.n_layers * (N + (n_chunks if mode == "quantized" else 0))
+        err = tp_live_check(f"[26] rank {r} {name}", kernel, cache, dq,
+                            ldcfg, lcfg, prompt.shape[1] + N)
+        # device time of decode steps past the run (both ranks in step)
+        T1 = prompt.shape[1] + N
+        tok = forced[-1:].cuda()
+        try:
+            tps, idle = decode_profile(
+                f"[26] rank {r} {name}", lambda i: engine.decode_step(
+                    params, lcfg, ldcfg, dq, cache, tok, T1 + i), 4,
+                prof_steps=2)
+            dev_ms = (1 - idle) * 1e3 / tps
+        except RuntimeError as e:  # a second process tracing the card
+            log(f"[26] rank {r} {name}: profiler failed ({e}); device ms "
+                f"not measured")
+            tps = idle = dev_ms = None
+        res = dict(
+            launches=n[kernel], launches_expected=want,
+            launches_per_step=n[kernel] / (N + (n_chunks if mode ==
+                                               "quantized" else 0)),
+            max_abs_err=err, wall_s=wall, prefill_s=prefill_s,
+            tok_s=N / wall, ms_per_step=wall * 1e3 / N,
+            collective_calls_per_step=st["calls"] / N,
+            collective_ms_per_step=st["seconds"] * 1e3 / N,
+            peak_gib=gib_peak(), profiled_tps=tps, idle=idle,
+            device_ms_per_step=dev_ms, prefill_codes_differ=codes_differ,
+            prefill_codes_differ_by_layer=codes_by_layer,
+            local_kv_heads=ldcfg.n_kv_heads, local_heads=lcfg.n_heads,
+            local_experts=getattr(lcfg, "n_experts", None))
+        log(f"[26] rank {r} {name}: {kernel} launches {n[kernel]} "
+            f"(expected {want}), {N} forced steps {res['ms_per_step']:.2f} "
+            f"ms/step ({res['tok_s']:.2f} tok/s), collectives "
+            f"{res['collective_calls_per_step']:.0f}/step "
+            f"{res['collective_ms_per_step']:.3f} ms/step (gloo through "
+            f"host memory), peak {res['peak_gib']:.2f} GiB")
+        if n[kernel] != want:
+            raise AssertionError(f"rank {r} {name}: {kernel} launches "
+                                 f"{n[kernel]} != {want}")
+        with open(os.path.join(rank_dir, f"{name}_rank{r}.json"), "w") as f:
+            json.dump(res, f)
+        if r == 0:
+            torch.save({"tokens": run["logits"], "state": forced_state},
+                       os.path.join(rank_dir, f"{name}_tp2.pt"))
+        del cache, dq, run
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_tp(report):
+    """Tensor parallelism on the card: tp 1 runs of each workload
+    (``tp_workload``) in this process, then two rank processes on cuda:0
+    over gloo. Each rank prefills the prompt itself and decodes the tp 1
+    tokens (its launches held to layers x (chunks + steps), its kernel to
+    the plain version on its live cache, its prefill codes to tp 1's),
+    then decodes the same tokens from its shards of tp 1's cache after
+    the prefill: those steps' logits are held to tp 1's (max |dlogit| <=
+    0.05 max |logit|, the argmax at every step with a clear margin). The
+    own-prefill steps' logits are printed beside them: bf16 rounding parts
+    the two caches' codes over a 2048-token prefill, and the parting
+    compounds."""
+    import os
+    import shutil
+    import socket
+
+    from kvquant_tpu_torch.cache import deployed_from_quantizers
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "kvquant_tpu_torch", "_build", "smoke_tp")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    log("[26] tp 2 = two rank processes sharing cuda:0, backend=\"gloo\" "
+        "(NCCL takes one card per rank): the collectives go through host "
+        "memory, so their times are gloo's, not NCCL's")
+    tp1 = {}
+    params, seed_now = None, None
+    for name in TP_WORKLOADS:
+        cfg, dcfg, qs, prompt, N, mode, kernel, seed = tp_workload(name, work)
+        if seed != seed_now:
+            params = None
+            torch.cuda.empty_cache()
+            params, seed_now = tp_params(cfg, seed), seed
+        dq = deployed_from_quantizers(qs, cfg.n_kv_heads, cfg.d_head,
+                                      device="cuda")
+        tp_run(params, cfg, dcfg, dq, prompt, 2, mode)  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        run = tp_run(params, cfg, dcfg, dq, prompt, N, mode, snapshot=True)
+        wall = run["wall"]
+        tp1[name] = dict(logits=run["logits"], tok_s=N / wall,
+                         prefill_s=run["prefill_s"], peak_gib=gib_peak(),
+                         n_layers=cfg.n_layers)
+        if hasattr(cfg, "n_experts"):  # the routing of the same tokens
+            with RouteLog() as routes:
+                tp_run(params, cfg, dcfg, dq, prompt, N, mode,
+                       forced=run["toks"])
+            tp1[name]["routes"] = routes.calls
+        torch.save({"toks": run["toks"]},
+                   os.path.join(work, f"{name}_tp1.pt"))
+        torch.save(run["snap"], os.path.join(work, f"{name}_cache.pt"))
+        log(f"[26] tp 1 {name}: prefill {prompt.shape[1]} tokens "
+            f"({mode}) {run['prefill_s']:.3f} s, {N} greedy steps "
+            f"{wall * 1e3 / N:.2f} ms/step ({N / wall:.2f} tok/s), peak "
+            f"{tp1[name]['peak_gib']:.2f} GiB")
+        del run, dq
+    params = None
+    torch.cuda.empty_cache()
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, KVQ_COORDINATOR=f"localhost:{port}",
+               KVQ_NUM_PROCESSES="2")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--tp-rank", work],
+        env=dict(env, KVQ_PROCESS_ID=str(r))) for r in range(2)]
+    try:
+        # a rank that fails leaves the other waiting in a collective: stop
+        # both at the first failure
+        deadline = time.monotonic() + 600
+        while (any(p.poll() is None for p in procs)
+               and not any(p.poll() for p in procs)
+               and time.monotonic() < deadline):
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode for p in procs):
+        raise AssertionError(f"[26] rank processes exited with "
+                             f"{[p.returncode for p in procs]}")
+    log(f"[26] rank processes done in {time.perf_counter() - t0:.1f} s")
+
+    def compare(tag, got, want):
+        """Per-step |dlogit| / max|logit_tp1|, the clear-margin steps and
+        the argmax agreement of ``got`` against ``want`` (steps, V)."""
+        scale = want.abs().amax(-1)
+        rel = (got - want).abs().amax(-1) / scale
+        top2 = torch.topk(want, 2, dim=-1).values
+        margin = (top2[:, 0] - top2[:, 1]) / scale
+        clear = margin > 0.01
+        same = torch.argmax(got, -1) == torch.argmax(want, -1)
+        log(f"{tag}: per step |dlogit| / max|logit_tp1| "
+            f"{[round(float(x), 4) for x in rel]}; tp 1 top-2 margin / "
+            f"max|logit| {[round(float(x), 4) for x in margin]}; argmax "
+            f"equal {same.int().tolist()}")
+        log(f"{tag}: max |dlogit| / max|logit_tp1| {float(rel.max()):.4f}; "
+            f"argmax equal at {int((same & clear).sum())} of "
+            f"{int(clear.sum())} steps with a top-2 margin > 1% of "
+            f"max|logit|, {int((~clear).sum())} other steps (argmax equal "
+            f"at {int((same & ~clear).sum())} of them)")
+        ok = (float(rel.max()) <= 0.05 and bool(same[clear].all())
+              and bool(torch.isfinite(got).all()))
+        return ok, dict(max_rel_dlogit=float(rel.max()),
+                        clear_steps=int(clear.sum()),
+                        clear_equal=int((same & clear).sum()),
+                        other_steps=int((~clear).sum()))
+
+    out, failed = {}, []
+    for name in TP_WORKLOADS:
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(work, f"{name}_rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        want = tp1[name]["logits"]
+        got = torch.load(os.path.join(work, f"{name}_tp2.pt"))
+        # gated: the steps decoded from tp 1's cache (state and tokens
+        # forced), each step's own arithmetic alone
+        ok, gates = compare(f"[26] {name} from tp 1's cache", got["state"],
+                            want[1:])
+        # printed: tp 2's own prefill, then the steps (tokens forced); the
+        # caches part by rounding, and the parting compounds
+        _, own = compare(f"[26] {name} own prefill", got["tokens"], want)
+        differ = max(x["prefill_codes_differ"] for x in ranks)
+        by_layer = ranks[0]["prefill_codes_differ_by_layer"]
+        log(f"[26] {name}: prefill K / V codes that differ from tp 1's "
+            f"(rank shards, live tokens): {differ:.5f} (gate 0.05); rank 0 "
+            f"by layer {[round(x, 5) for x in by_layer]}")
+        if "routes" in tp1[name]:
+            decode_calls = tp1[name]["n_layers"] * (len(want) - 1)
+            for tag, base in (("routes", tp1[name]["routes"]),
+                              ("routes_state",
+                               tp1[name]["routes"][-decode_calls:])):
+                mine = torch.load(os.path.join(work, f"{name}_{tag}.pt"))
+                flips = [int((a != b).any(-1).sum())
+                         for a, b in zip(base, mine)]
+                log(f"[26] {name} {tag}: tokens whose experts differ from "
+                    f"tp 1's, per router call: {flips}")
+        log(f"[26] {name}: tok/s tp 1 {tp1[name]['tok_s']:.2f}, tp 2 "
+            f"rank 0 {ranks[0]['tok_s']:.2f}, rank 1 {ranks[1]['tok_s']:.2f}")
+        for r, x in enumerate(ranks):
+            dev = ("not measured" if x["device_ms_per_step"] is None
+                   else f"{x['device_ms_per_step']:.3f} ms/step")
+            log(f"[26] {name} rank {r}: {x['ms_per_step']:.2f} ms/step wall, "
+                f"device kernel time {dev}, collectives "
+                f"{x['collective_ms_per_step']:.3f} ms/step "
+                f"({x['collective_calls_per_step']:.0f} calls, gloo), "
+                f"launches/step {x['launches_per_step']:.0f}, peak "
+                f"{x['peak_gib']:.2f} GiB, {x['local_kv_heads']} kv heads"
+                + (f", {x['local_experts']} experts" if x["local_experts"]
+                   else ""))
+        if not (ok and differ <= 0.05):
+            failed.append(name)
+        out[name] = dict(tp1=dict((k, v) for k, v in tp1[name].items()
+                                  if k not in ("logits", "routes")),
+                         ranks=ranks, gated=gates, own_prefill=own,
+                         prefill_codes_differ=differ)
+    if failed:
+        raise AssertionError(f"[26] tp 2 logits fail the gates: {failed}")
+    report["tp"] = out
+    shutil.rmtree(work, ignore_errors=True)
+
+
 PHASES = {1: phase_device_and_build, 2: phase_kernel_vs_plain,
           3: phase_main_path, 4: phase_card_vs_cpu, 5: phase_times,
           6: phase_k1_vs_plain, 7: phase_k1_main_path,
@@ -4093,7 +4566,7 @@ PHASES = {1: phase_device_and_build, 2: phase_kernel_vs_plain,
           18: phase_x2_vs_plain, 19: phase_x2_main_path,
           20: phase_x2_oracle, 21: phase_x2_times,
           22: phase_long_prefill, 23: phase_calibrate_deploy,
-          24: phase_mistral, 25: phase_dbrx}
+          24: phase_mistral, 25: phase_dbrx, 26: phase_tp}
 
 
 def main(argv=None) -> int:
@@ -4102,6 +4575,8 @@ def main(argv=None) -> int:
                     help="comma-separated subset, for debugging")
     ap.add_argument("--verbose-build", action="store_true",
                     help="print nvcc's register / spill report")
+    ap.add_argument("--tp-rank", default=None, metavar="DIR",
+                    help="run as one rank of phase 26 (started by it)")
     args = ap.parse_args(argv)
     global VERBOSE_BUILD
     VERBOSE_BUILD = args.verbose_build
@@ -4110,6 +4585,8 @@ def main(argv=None) -> int:
               "False)", file=sys.stderr)
         return 2
     import kvquant_tpu_torch  # noqa: F401  (fails outside a checkout)
+    if args.tp_rank:
+        return tp_rank_main(args.tp_rank)
 
     phases = [int(p) for p in args.phases.split(",")]
     report: dict = {}
@@ -4260,6 +4737,28 @@ def main(argv=None) -> int:
                       "dbrx_g6_ctx": t["ctx"]})
             if key == "K1":
                 k["dbrx_g6_padded8_fd_decode_ms"] = t["padded8_ms"]
+    if 26 in phases:  # tp 2 on the card: per-rank launches and errors
+        tp = report["tp"]
+        for k in kernels:
+            if k["name"] == "flash_attention":
+                k.update({
+                    "tp2_launches_per_rank": [
+                        x["launches"] for x in tp["llama_k1"]["ranks"]],
+                    "tp2_max_abs_err": max(
+                        x["max_abs_err"] for w in ("llama_k1", "dbrx_k1")
+                        for x in tp[w]["ranks"]),
+                    "tp2_dbrx_launches_per_rank": [
+                        x["launches"] for x in tp["dbrx_k1"]["ranks"]],
+                    "tp2_ms_per_step": [
+                        x["ms_per_step"] for x in tp["llama_k1"]["ranks"]]})
+            if k["name"] == "flash_serial_decode":
+                k.update({
+                    "tp2_launches_per_rank": [
+                        x["launches"] for x in tp["llama_k2"]["ranks"]],
+                    "tp2_max_abs_err": max(
+                        x["max_abs_err"] for x in tp["llama_k2"]["ranks"]),
+                    "tp2_ms_per_step": [
+                        x["ms_per_step"] for x in tp["llama_k2"]["ranks"]]})
     if kernels:
         log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

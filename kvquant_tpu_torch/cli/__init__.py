@@ -12,6 +12,7 @@ same flags and defaults, plus ``--device``):
   python -m kvquant_tpu_torch.cli.deploy     cache size, --check, timed
                                              decode, --profile
 
-deploy accepts the parallel flags and runs on one device only
-(parallelism is ROADMAP queue 1 item 12).
+deploy takes the parallel flags: --tp / --dp with --distributed run this
+process as one rank of a torch.distributed group (KVQ_* variables);
+without --distributed it starts the dp * tp local ranks itself.
 """

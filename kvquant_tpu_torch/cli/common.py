@@ -10,9 +10,11 @@ the JAX CLIs' ``jax.random.PRNGKey(0)`` draws, and between the card's and
 the CPU's generators. ``--moe`` makes the random model a DBRX-style MoE
 (``--toy-experts`` / ``--toy-top-k``); ``--model DIR`` loads a local HF
 checkpoint (LLaMA / Mistral / DBRX safetensors, ``models.hf_loader``) onto
-the device. The parallel flags (``add_parallel_args``) are accepted;
-anything but one device raises NotImplementedError until parallelism is
-ported (ROADMAP queue 1 item 12).
+the device. The parallel flags (``add_parallel_args``): ``--tp`` /
+``--dp`` with ``--distributed`` make this process one rank of a
+torch.distributed process group (``setup_parallel``); without
+``--distributed`` the CLI starts the dp * tp local ranks itself
+(``spawn_ranks``), as the JAX CLIs mesh their local devices.
 """
 
 from __future__ import annotations
@@ -96,31 +98,131 @@ def add_storage_args(ap: argparse.ArgumentParser):
 
 
 def add_parallel_args(ap: argparse.ArgumentParser):
-    """The JAX CLIs' mesh / multi-host flags (data-parallel size,
-    tensor-parallel size, multi-host initialization)."""
+    """Mesh / multi-process flags (``parallel.mesh`` and
+    ``parallel.distributed``): data-parallel size, tensor-parallel size,
+    and the process group of ``--distributed``."""
     ap.add_argument("--dp", type=int, default=1, help="data-parallel size")
     ap.add_argument("--tp", type=int, default=None,
                     help="tensor-parallel size (must divide the kv-head "
-                         "count). Only 1 is ported (ROADMAP queue 1 item 12)")
+                         "count, in whole head groups)")
     ap.add_argument("--distributed", action="store_true",
-                    help="multi-host initialization from the flags below. "
-                         "Not ported yet (ROADMAP queue 1 item 12)")
+                    help="this process is one rank: join the process group "
+                         "from KVQ_COORDINATOR / KVQ_NUM_PROCESSES / "
+                         "KVQ_PROCESS_ID or the flags below. Without it, "
+                         "dp * tp > 1 starts that many local ranks, one "
+                         "per device")
     ap.add_argument("--coordinator", default=None,
                     help="host:port of process 0")
     ap.add_argument("--num-processes", type=int, default=None)
     ap.add_argument("--process-id", type=int, default=None)
+    ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                    help="torch.distributed backend (default nccl on cuda, "
+                         "gloo on cpu); ranks sharing one card need gloo")
+
+
+def n_ranks(args) -> int:
+    """Ranks a run without --distributed needs: dp * tp."""
+    return args.dp * (args.tp or 1)
 
 
 def setup_parallel(args):
-    """None (one device) for dp 1, tp unset or 1 and no --distributed;
-    anything else raises until parallelism is ported."""
-    if (getattr(args, "distributed", False) or args.dp != 1
-            or args.tp not in (None, 1)):
-        raise NotImplementedError(
-            f"dp={args.dp} tp={args.tp} distributed="
-            f"{getattr(args, 'distributed', False)}: the port runs on one "
-            f"device; parallelism is ROADMAP queue 1 item 12")
+    """This rank's mesh, or None for one process on one device. With
+    ``--distributed`` it joins the process group (``init_distributed``)
+    and lays out the multi-host mesh (tp from ``--tp``, dp across the
+    rest); otherwise only one rank may be asked for (``spawn_ranks``
+    starts the ranks of a larger mesh)."""
+    from ..parallel.distributed import init_distributed, make_multihost_mesh
+
+    if getattr(args, "distributed", False):
+        if not init_distributed(args.coordinator, args.num_processes,
+                                args.process_id, backend=args.dist_backend,
+                                device=args.device):
+            raise ValueError("--distributed needs --coordinator or "
+                             "KVQ_COORDINATOR")
+        mesh = make_multihost_mesh(tp=args.tp or 1, device=args.device)
+        if mesh.dp != args.dp and args.dp != 1:
+            raise ValueError(f"--dp {args.dp} with --tp {args.tp or 1} over "
+                             f"{mesh.size} ranks gives dp {mesh.dp}")
+        return mesh
+    if n_ranks(args) != 1:
+        raise ValueError(f"dp {args.dp} x tp {args.tp} needs "
+                         f"{n_ranks(args)} ranks: pass --distributed to "
+                         f"each rank, or let spawn_ranks start them")
     return None
+
+
+def _rank_entry(rank: int, fn, argv: list, port: int, n: int, results):
+    import os
+
+    os.environ.update(LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(n))
+    try:
+        out = fn(argv + ["--distributed", "--coordinator",
+                         f"localhost:{port}", "--num-processes", str(n),
+                         "--process-id", str(rank)])
+        results.put((rank, "ok", out))
+    except BaseException as e:
+        results.put((rank, "error", (type(e).__name__, str(e))))
+        raise
+
+
+def spawn_ranks(fn, argv: list, n: int, timeout_s: float = 3600.0):
+    """Run ``fn(argv + --distributed flags)`` in ``n`` local rank
+    processes (torch.multiprocessing, one process group on a free
+    localhost port) and return rank 0's result. A rank's ValueError /
+    RuntimeError / NotImplementedError is raised here with its message;
+    the ranks are stopped on any failure."""
+    import socket
+    import time
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    results = ctx.SimpleQueue()
+    procs = [ctx.Process(target=_rank_entry,
+                         args=(r, fn, list(argv), port, n, results))
+             for r in range(n)]
+    for p in procs:
+        p.start()
+    got = {}
+
+    def drain():
+        while not results.empty():
+            r, status, val = results.get()
+            got[r] = (status, val)
+
+    deadline = time.monotonic() + timeout_s
+    try:
+        # a failed rank leaves the others waiting in a collective: stop
+        # waiting at the first failure
+        while (any(p.is_alive() for p in procs)
+               and time.monotonic() < deadline
+               and not any(p.exitcode for p in procs)):
+            drain()
+            time.sleep(0.05)
+        for p in procs:
+            p.join(1.0)
+        drain()
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    errors = {r: v for r, (st, v) in got.items() if st == "error"}
+    if errors:
+        r = min(errors)
+        name, msg = errors[r]
+        exc = {"ValueError": ValueError,
+               "NotImplementedError": NotImplementedError}.get(
+                   name, RuntimeError)
+        raise exc(f"rank {r}: {msg}" if exc is not RuntimeError
+                  else f"rank {r}: {name}: {msg}")
+    codes = [p.exitcode for p in procs]
+    if any(codes) or 0 not in got:
+        raise RuntimeError(f"rank processes exited with {codes}")
+    return got[0][1]
 
 
 def add_data_args(ap: argparse.ArgumentParser):

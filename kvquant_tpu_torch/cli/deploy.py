@@ -12,15 +12,24 @@ the timed pass between two ``torch.cuda.synchronize()``. The cache is
 updated in place, so each pass rewrites the rows of the one before from
 the same prefilled state. ``--profile DIR`` traces one more pass with
 ``torch.profiler`` into DIR/trace.json and prints kernel launches and
-device ms per step in place of XLA's cost analysis. The parallel flags
-are accepted; anything but one device raises NotImplementedError (ROADMAP
-queue 1 item 12).
+device ms per step in place of XLA's cost analysis.
+
+The mesh path (``--tp`` / ``--dp``, JAX's cli/deploy.py:90-97): after the
+check, which runs on the whole model, every rank takes its shards of the
+params, the quantizers and the cache (``parallel.shardings``) and runs the
+timed decode on them. With ``--distributed`` this process is one rank
+(KVQ_* variables or ``--coordinator`` / ``--num-processes`` /
+``--process-id``); without it the CLI starts the dp * tp local ranks
+itself. Each rank prints its own decode time and its collectives' share;
+rank 0 prints the totals. The decode batch is 1, so ``--dp`` above 1
+raises, as the JAX CLI's cache sharding does.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import sys
 import time
 
 import torch
@@ -32,6 +41,7 @@ from ..cache import cache_bytes, create_cache, deployed_from_quantizers
 from ..evals.ppl import perplexity
 from ..models.llama import simquant_from_quantizers
 from ..ops.kernels import launch_counts
+from ..parallel import collectives, shardings
 from ..quant.artifacts import load_quantizers
 from ..utils.profiling import kernel_summary, trace
 
@@ -74,7 +84,24 @@ def main(argv=None):
                          "print kernel launches and device ms per step")
     args = ap.parse_args(argv)
 
-    common.setup_parallel(args)
+    if args.dp > 1:
+        raise ValueError(f"the decode batch of 1 is split over dp: dp "
+                         f"{args.dp} does not divide 1")
+    if not args.distributed and common.n_ranks(args) > 1:
+        return common.spawn_ranks(main, list(argv if argv is not None
+                                             else sys.argv[1:]),
+                                  common.n_ranks(args))
+    mesh = common.setup_parallel(args)
+    try:
+        return _run(args, mesh)
+    finally:
+        if mesh is not None:
+            torch.distributed.destroy_process_group()
+
+
+def _run(args, mesh):
+    if mesh is not None:
+        args.device = str(mesh.device)
     params, cfg = common.load_model(args)
     qs = load_quantizers(args.quantizers)
     maxlen = args.maxlen or (args.prefill + args.benchmark + 32)
@@ -109,6 +136,15 @@ def main(argv=None):
 
     steps = args.benchmark
     t0 = max(args.prefill, 1)
+    if mesh is not None:
+        # this rank's shards (JAX: shard_params / shard_quant / shard_cache)
+        dcfg = shardings.shard_config(mesh, dcfg)
+        params = shardings.shard_params(mesh, params)
+        dq = shardings.shard_quant(mesh, dq)
+        cfg = params.cfg
+        collectives.timing(True)
+        print(f"mesh: {mesh.shape} rank {mesh.rank} of {mesh.size} on "
+              f"{mesh.device} ({torch.distributed.get_backend()})")
     cache = create_cache(dcfg, cfg.n_layers, 1, device=args.device)
     if args.prefill > dcfg.sink:
         cache, logits = engine.prefill(params, cfg, dcfg, dq, cache,
@@ -125,6 +161,8 @@ def main(argv=None):
 
     run()  # warm-up
     if args.profile:
+        if mesh is not None:
+            args.profile = os.path.join(args.profile, f"rank{mesh.rank}")
         with trace(args.profile) as prof:
             run()
         s = out["profile"] = kernel_summary(prof, cuda)
@@ -133,6 +171,7 @@ def main(argv=None):
               f"{s['kernel_ms'] / steps:.3f} ms/step kernel time; trace "
               f"written to {os.path.join(args.profile, 'trace.json')}")
     before = launch_counts()
+    collectives.reset_stats()
     t = time.perf_counter()
     logits = run()
     dt = time.perf_counter() - t
@@ -140,7 +179,24 @@ def main(argv=None):
     out["tok_s"] = steps / dt
     if not bool(torch.isfinite(logits).all()):
         raise RuntimeError("non-finite logits in the timed decode")
-    print(f"decode: {steps/dt:.2f} tok/s ({dt/steps*1e3:.2f} ms/token "
+    if mesh is not None:
+        st = collectives.STATS
+        out["rank_tok_s"] = steps / dt
+        out["collective_ms_per_step"] = st["seconds"] * 1e3 / steps
+        ran = ", ".join(f"{k} {v}" for k, v in out["launches"].items() if v)
+        print(f"rank {mesh.rank}: decode {steps/dt:.2f} tok/s "
+              f"({dt/steps*1e3:.2f} ms/token), collectives "
+              f"{st['calls'] / steps:.0f}/step "
+              f"{st['seconds'] * 1e3 / steps:.3f} ms/step, kernel launches "
+              f"{ran or 'none'}", flush=True)
+        slow = torch.tensor([dt], dtype=torch.float64, device=mesh.device)
+        torch.distributed.all_reduce(slow, op=torch.distributed.ReduceOp.MAX)
+        dt = float(slow)
+        out["tok_s"] = mesh.dp * steps / dt
+        out["mesh"] = mesh.shape
+        if mesh.rank != 0:
+            return out
+    print(f"decode: {out['tok_s']:.2f} tok/s ({dt/steps*1e3:.2f} ms/token "
           f"mean, kernel={args.kernel})")
     ran = ", ".join(f"{k} {v}" for k, v in out["launches"].items() if v)
     print(f"kernel launches in the timed pass: "

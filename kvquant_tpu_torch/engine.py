@@ -19,6 +19,14 @@ Both model families run here: the MoE family's fused projection and
 expert FFN come in through ``models.llama.project_qkv`` / ``ffn`` (the
 JAX engine's ``is_moe`` branches).
 
+Tensor parallelism: with rank-local params and configs
+(``parallel.shardings``), every entry point runs this rank's heads and its
+part of the FFN over its shard of the cache, and sums the row-sharded
+output projections over the tp group where GSPMD inserts that sum in the
+JAX engine (after ``wo`` here, after the FFN in ``llama.ffn``); the V
+range is exchanged inside ``ops.deployed.quantize_v``. The logits come out
+whole on every rank of a tp group.
+
 The cache is updated in place (the JAX engine threads an immutable pytree).
 Positions are host integers; the JAX engine's ``lax.scan`` loops become
 Python loops. Entry points that allocate take ``device`` (default "cuda",
@@ -36,6 +44,7 @@ from .cache import (KVCache, DeployConfig, DeployedQuant, create_cache,
 from .models.config import ModelConfig
 from .models import get_forward, llama
 from .ops import deployed
+from .parallel.collectives import row_parallel, tp_group
 
 
 def _check_kernel(dcfg: DeployConfig):
@@ -66,7 +75,8 @@ def prefill(params, cfg: ModelConfig, dcfg: DeployConfig, dq: DeployedQuant,
 
 
 def _mlp(x, lp, cfg):
-    """x plus the feed-forward block (SwiGLU, or the MoE family's experts)."""
+    """x plus the feed-forward block (SwiGLU, or the MoE family's experts;
+    summed over the tp group in ``llama.ffn`` under a rank-local config)."""
     return x + llama.ffn(llama.norm(x, lp["ln_mlp"], cfg), lp, cfg)
 
 
@@ -95,7 +105,8 @@ def decode_step(params, cfg: ModelConfig, dcfg: DeployConfig,
         q = q.reshape(B, H, Dh)
         _, attn = deployed.decode_attention(cache.layer(li), dq.layer(li),
                                             dcfg, cfg, q, k, v, pos)
-        x = x + attn.reshape(B, H * Dh).to(x.dtype) @ lp["wo"]
+        x = x + row_parallel(attn.reshape(B, H * Dh).to(x.dtype),
+                             lp["wo"], tp_group(cfg))
         x = _mlp(x, lp, cfg)
     return cache, _logits(params, x, cfg)
 
@@ -141,7 +152,8 @@ def _decode_step_flash(params, cfg: ModelConfig, dcfg: DeployConfig,
             arrs["k_sink"], arrs["v_sink"], dq.k_lut_dec, dq.v_lut_dec,
             li, posb, dcfg, cfg, k_ressc=dq.k_ressc, k_chan=k_chan,
         )  # (B, Hkv, G, Dh)
-        x = x + attn.reshape(B, H * Dh).to(x.dtype) @ lp["wo"]
+        x = x + row_parallel(attn.reshape(B, H * Dh).to(x.dtype),
+                             lp["wo"], tp_group(cfg))
         x = _mlp(x, lp, cfg)
     cache.length.copy_(posb + 1)
     return cache, _logits(params, x, cfg)
@@ -275,7 +287,7 @@ def prefill_chunk(params, cfg: ModelConfig, dcfg: DeployConfig,
         _, attn = deployed.block_attention(cache.layer(li), dq.layer(li),
                                            dcfg, cfg, q, k, v, pos0,
                                            sink_fill=sink_fill)
-        x = x + attn.to(x.dtype) @ lp["wo"]
+        x = x + row_parallel(attn.to(x.dtype), lp["wo"], tp_group(cfg))
         x = _mlp(x, lp, cfg)
     return cache, _logits(params, x, cfg)
 

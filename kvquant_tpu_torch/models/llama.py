@@ -32,6 +32,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..parallel.collectives import copy_to_tp, row_parallel, tp_group
 from ..quant.nuq import quant_lut
 from ..quant.outliers import (apply_sink_mask, capped_outlier_mask_headwise,
                               dynamic_outlier_mask,
@@ -475,12 +476,15 @@ def project_qkv(h, lp: dict, cfg: ModelConfig):
 def ffn(h, lp: dict, cfg: ModelConfig):
     """The feed-forward block's output for the normed hidden state ``h``
     (..., D), in h's dtype: the SwiGLU MLP, or the MoE family's
-    ``moe.moe_ffn``."""
+    ``moe.moe_ffn``. Under a rank-local config the rank's partial output
+    is summed over the tp group here (``w_down`` is row-sharded; the MoE
+    family sums inside ``moe_ffn``)."""
     from .moe import MoEConfig, moe_ffn
 
     if isinstance(cfg, MoEConfig):
         return moe_ffn(h, lp, cfg)
-    return (F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])) @ lp["w_down"]
+    return row_parallel(F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"]),
+                        lp["w_down"], tp_group(cfg))
 
 
 def forward(params: Llama, cfg: ModelConfig, tokens, *, positions=None,
@@ -496,7 +500,12 @@ def forward(params: Llama, cfg: ModelConfig, tokens, *, positions=None,
     capture: their gradients are d(loss)/d(k / v activations), the Fisher
     signal. ``remat`` runs each layer (and each attention chunk) under
     ``torch.utils.checkpoint``: the backward keeps each layer's input and
-    recomputes the rest."""
+    recomputes the rest. Under a rank-local config
+    (``parallel.shardings.shard_config``) the rank runs its heads and its
+    part of the FFN: the row-sharded outputs are summed over the tp group
+    and the gradients entering the column-sharded blocks likewise
+    (``parallel.collectives``), so the probes' gradients are the rank's
+    channels of the unsharded ones."""
     B, T = tokens.shape
     dev = params.embed.device
     tokens = tokens.to(dev)
@@ -505,9 +514,14 @@ def forward(params: Llama, cfg: ModelConfig, tokens, *, positions=None,
                                  device=dev).expand(B, T)
     cos, sin = rope_cos_sin(positions, cfg)
 
+    group = tp_group(cfg)
+    if simquant is not None and group is not None:
+        raise NotImplementedError(
+            "simulated quantization runs on the unsharded model")
+
     def layer(x, li, probe_k, probe_v):
         lp = params.layer(li)
-        h = norm(x, lp["ln_attn"], cfg)
+        h = copy_to_tp(norm(x, lp["ln_attn"], cfg), group)
         q, k, v = project_qkv(h, lp, cfg)
         if probe_k is not None:
             # fp32 probes promote k / v to fp32 for the rest of the layer,
@@ -530,8 +544,8 @@ def forward(params: Llama, cfg: ModelConfig, tokens, *, positions=None,
         v = v.reshape(B, T, cfg.n_kv_heads, cfg.d_head)
         attn = _attention(q, k, v, cfg, positions, chunk=attn_chunk,
                           remat=remat)
-        x = x + attn @ lp["wo"]
-        x = x + ffn(norm(x, lp["ln_mlp"], cfg), lp, cfg)
+        x = x + row_parallel(attn, lp["wo"], group)
+        x = x + ffn(copy_to_tp(norm(x, lp["ln_mlp"], cfg), group), lp, cfg)
         return (x,) + captured
 
     x = params.embed[tokens.long()]

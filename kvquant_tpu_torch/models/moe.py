@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from ..parallel.collectives import reduce_from_tp, tp_group
 from ..utils.topk import top_k
 from . import llama
 from .config import ModelConfig
@@ -155,20 +156,39 @@ def _expert(x, lp, e: int):
     return (F.silu(x @ gate) * (x @ up)) @ down
 
 
+def _local_experts(cfg: MoEConfig) -> tuple[int, int]:
+    """(first global expert, count) of this rank's experts: all of them
+    unsharded; under a rank-local config (experts split over tp) the
+    ``cfg.n_experts`` experts from ``tp_rank * cfg.n_experts``."""
+    return getattr(cfg, "tp_rank", 0) * cfg.n_experts, cfg.n_experts
+
+
 def moe_ffn(h, lp, cfg: MoEConfig):
-    """Top-k gated expert FFN of h (..., D), by ``cfg.ffn_mode``."""
+    """Top-k gated expert FFN of h (..., D), by ``cfg.ffn_mode``. Under a
+    rank-local config the router (replicated) routes over every expert,
+    the rank runs its own and the fp32 partial sums are summed over the tp
+    group before the one cast to h's dtype."""
     if cfg.ffn_mode == "sparse":
         return moe_ffn_sparse(h, lp, cfg)
     _, w = _router_weights(h, lp, cfg)
     gate = torch.einsum("...d,edf->...ef", h, lp["w_gate"])
     up = torch.einsum("...d,edf->...ef", h, lp["w_up"])
     y = torch.einsum("...ef,efd->...ed", F.silu(gate) * up, lp["w_down"])
-    return torch.einsum("...e,...ed->...d", w, y)
+    group = tp_group(cfg)
+    if group is None:
+        return torch.einsum("...e,...ed->...d", w, y)
+    e0, n = _local_experts(cfg)
+    part = torch.einsum("...e,...ed->...d",
+                        w[..., e0:e0 + n].to(torch.float32),
+                        y.to(torch.float32))
+    return reduce_from_tp(part, group).to(h.dtype)
 
 
 def capacity(n_tokens: int, cfg: MoEConfig) -> int:
-    """Tokens an expert takes in one call (Python's round: half to even)."""
-    return min(n_tokens, -(-n_tokens * cfg.top_k // cfg.n_experts)
+    """Tokens an expert takes in one call (Python's round: half to even),
+    from the count of every expert, a rank-local config's included."""
+    n_experts = cfg.n_experts * getattr(cfg, "tp_size", 1)
+    return min(n_tokens, -(-n_tokens * cfg.top_k // n_experts)
                * max(1, int(round(cfg.capacity_factor))))
 
 
@@ -185,15 +205,20 @@ def moe_ffn_sparse(h, lp, cfg: MoEConfig):
     """Capacity dispatch of h (..., D) over the flattened N tokens: expert
     e runs on its kept tokens only (``dispatch``), and each token sums its
     kept experts' outputs times their router weights in fp32, cast once
-    to h's dtype."""
+    to h's dtype. Under a rank-local config every rank computes the global
+    routing and capacity dispatch, runs its own experts, and the fp32 sums
+    are summed over the tp group before the cast."""
     shape = h.shape
     hf = h.reshape(-1, shape[-1])
     N = hf.shape[0]
     _, w = _router_weights(hf, lp, cfg)
     keep = dispatch(w, capacity(N, cfg))
-    # the kept pairs, expert-major and in token order within an expert
-    exp, tok = torch.nonzero(keep.T.cpu(), as_tuple=True)
-    counts = torch.bincount(exp, minlength=cfg.n_experts).tolist()
+    e0, n_local = _local_experts(cfg)
+    # the kept pairs of this rank's experts, expert-major and in token
+    # order within an expert
+    exp, tok = torch.nonzero(keep[:, e0:e0 + n_local].T.cpu(),
+                             as_tuple=True)
+    counts = torch.bincount(exp, minlength=n_local).tolist()
     rows = tok.to(h.device)
     out = torch.zeros((N, shape[-1]), dtype=torch.float32, device=h.device)
     start = 0
@@ -203,8 +228,8 @@ def moe_ffn_sparse(h, lp, cfg: MoEConfig):
         r = rows[start:start + n]
         start += n
         y = _expert(hf[r], lp, e).to(torch.float32)
-        out = out.index_add(0, r, y * w[r, e].to(torch.float32)[:, None])
-    return out.to(h.dtype).reshape(shape)
+        out = out.index_add(0, r, y * w[r, e0 + e].to(torch.float32)[:, None])
+    return reduce_from_tp(out, tp_group(cfg)).to(h.dtype).reshape(shape)
 
 
 def split_qkv(y, cfg: MoEConfig):

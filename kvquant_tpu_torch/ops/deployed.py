@@ -15,7 +15,10 @@ Differences from the JAX functions:
   - caches are updated IN PLACE (``cache_l`` is a set of views of the
     stacked arrays, see KVCache.layer) and also returned;
   - positions are host integers: ``pos`` is an int (every sequence at the
-    same position) or a sequence/tensor of B ints (per-sample positions).
+    same position) or a sequence/tensor of B ints (per-sample positions);
+  - under a rank-local ``mcfg`` (``parallel.shardings.shard_config``) the
+    arrays hold this rank's heads and ``quantize_v`` exchanges the per-token
+    V range over the tp group.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch
 from ..cache import KVCache, DeployConfig, DeployedQuant, k_channel_index
 from ..models.config import ModelConfig
 from ..models.llama import rope_cos_sin, rotate_half
+from ..parallel.collectives import topk_range, tp_group
 from ..quant.nuq import nearest_codes, lut_lookup
 from ..utils.topk import top_k
 from .packing import (
@@ -151,16 +155,15 @@ def quantize_k(k, lq: DeployedQuant, dcfg: DeployConfig):
     return codes, out_words
 
 
-def quantize_v(v, lq: DeployedQuant, dcfg: DeployConfig):
+def quantize_v(v, lq: DeployedQuant, dcfg: DeployConfig, group=None):
     """Quantize values (..., C) -> (codes (..., Hkv, D), outlier words
     (..., n_groups, n_slots - slots_per_kind) or None, scale (...,),
-    offset (...,)); the range is the (r+1)-th global extreme each side."""
+    offset (...,)); the range is the (r+1)-th global extreme each side,
+    over the channels of every rank of the tp ``group`` when ``v`` holds
+    this rank's heads (``parallel.collectives.topk_range``)."""
     Hkv, D = dcfg.n_kv_heads, dcfg.d_head
     vf = v.to(torch.float32)
-    r = dcfg.v_range_exclude
-    # values only: torch.topk's tie order does not matter here
-    maxval = torch.topk(vf, r + 1, dim=-1).values[..., -1:]
-    minval = -torch.topk(-vf, r + 1, dim=-1).values[..., -1:]
+    minval, maxval = topk_range(vf, dcfg.v_range_exclude + 1, group)
     offset = (maxval + minval) * 0.5
     scale = (maxval - minval) * 0.5
 
@@ -335,7 +338,8 @@ def decode_attention(cache_l: KVCache, lq: DeployedQuant, dcfg: DeployConfig,
     probs = torch.softmax(scores, dim=-1)
 
     # ---- append V ----
-    codes_v, v_words, v_sc, v_off = quantize_v(v_new, lq, dcfg)
+    codes_v, v_words, v_sc, v_off = quantize_v(v_new, lq, dcfg,
+                                                tp_group(mcfg))
     v_h = v_new.reshape(B, Hkv, Dh).to(torch.float32)
     for b in range(B):
         if not_sink[b]:
@@ -387,7 +391,8 @@ def append_token_flash(arrs: dict, lq: DeployedQuant, dcfg: DeployConfig,
     k_roped = k_h * cos[:, None] + rotate_half(k_h) * sin[:, None]
     k_store = k_roped.reshape(B, Hkv * Dh) if dcfg.post_rope_k else k_new
     codes_k, k_words = quantize_k(k_store, lq, dcfg)
-    codes_v, v_words, v_sc, v_off = quantize_v(v_new, lq, dcfg)
+    codes_v, v_words, v_sc, v_off = quantize_v(v_new, lq, dcfg,
+                                                tp_group(mcfg))
     nuq = dcfg.codes == "nuq"
     rows_k = codes_k if nuq else _encode_rows(codes_k, dcfg)  # (B, H', Dc)
     rows_v = codes_v if nuq else _encode_rows(codes_v, dcfg)
@@ -463,7 +468,8 @@ def prefill_pack(cache_l: KVCache, lq: DeployedQuant, dcfg: DeployConfig,
     k_store = kh.reshape(B, T0, Hkv * Dh)[:, S:] if dcfg.post_rope_k \
         else k[:, S:]
     codes_k, k_words = quantize_k(k_store, lq, dcfg)
-    codes_v, v_words, v_sc, v_off = quantize_v(v[:, S:], lq, dcfg)
+    codes_v, v_words, v_sc, v_off = quantize_v(v[:, S:], lq, dcfg,
+                                                tp_group(mcfg))
     _place_codes(cache_l.k_planes, codes_k, 0, dcfg)
     _place_codes(cache_l.v_planes, codes_v, 0, dcfg)
     if dcfg.include_sparse:
@@ -528,7 +534,8 @@ def block_attention(cache_l: KVCache, lq: DeployedQuant, dcfg: DeployConfig,
         kh = kh * cos[:, None] + rotate_half(kh) * sin[:, None]
         kq = kh.reshape(B, Tq_all, Hkv * Dh)[:, ns:]
     codes_k, k_words = quantize_k(kq, lq, dcfg)  # (B, Tq, Hkv, D)
-    codes_v, v_words, v_sc, v_off = quantize_v(vq, lq, dcfg)
+    codes_v, v_words, v_sc, v_off = quantize_v(vq, lq, dcfg,
+                                                tp_group(mcfg))
 
     p0 = max(pos0 - S, 0)  # packed offset of the block
     assert p0 + Tq <= Tc, f"block [{p0}, {p0 + Tq}) exceeds capacity {Tc}"

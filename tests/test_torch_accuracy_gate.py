@@ -169,3 +169,54 @@ def test_int4x2_speed_config_oracle(setup):
     dep = _deployed(setup, qs, ev, codes="int4x2", post_rope_k=True,
                     k_outliers="channels", kernel="flash", cap_per_side=0)
     assert abs(np.log(dep) - np.log(sim)) < 0.02, (dep, sim)
+
+
+def test_qnorm_first_difference_pinned(setup, tmp_path):
+    """Where test_qnorm_envelope_and_oracle's two scores part: layer 0's
+    keys. JAX's Q-Norm fit scores the port's calibration activations, so
+    its thresholds are values of the port's own layer-0 keys, which depend
+    on the token alone and recur in the eval windows: at window 0, token
+    8, channel 71 the port's key equals k_upper (2.344048) and stays an
+    inlier, clamped to the codebook's end (1.3803622), while JAX's forward
+    computes that key some ulps above (RMSNorm's reduction, XLA's rsqrt
+    and the matmul each round in another order) and keeps it as an
+    outlier (2.3440487). The quantizers themselves agree: fed the same
+    captured activations, the port's and JAX's simulated K / V of layer 0
+    are equal elementwise to an ulp, for either package's activations."""
+    import jax
+
+    from kvquant_tpu.models import llama as jl
+    from kvquant_tpu_torch.models import llama as pl
+
+    ev = setup["eval"][:1]
+    _, jqs = _fits(setup, bits=2, kmeans_iters=10, qnorm=True)
+    path = str(tmp_path / "jax_qnorm.npz")
+    jsave(path, jqs)
+    kw = dict(v_mode="topk", n_kv_heads=C.n_kv_heads, head_group=4)
+    psq = simquant_from_quantizers(load_quantizers(path), device="cpu", **kw)
+    jsq = jsimquant(jqs, **kw)
+
+    _, paux = pl.forward(setup["params"], C, ev, simquant=psq,
+                         capture_kv=True)
+    _, jaux = jax.jit(lambda p, t, a: jl.forward(
+        p, J_TOY, t, simquant=jl.SimQuantParams(arrays=a, config=jsq.config),
+        capture_kv=True))(setup["jparams"], jnp.asarray(ev.numpy()),
+                          jsq.arrays)
+    pk, pv = (paux[k][0].numpy() for k in ("k_acts", "v_acts"))
+    jk, jv = (np.asarray(jaux[k][0]) for k in ("k_acts", "v_acts"))
+    # the activations entering layer 0's quantizers: a few ulps apart
+    np.testing.assert_allclose(pk, jk, rtol=0, atol=1e-5)
+    upper = psq.arrays.layer(0).k_upper.numpy()
+    assert abs(pk[0, 8, 71] - upper[71]) <= 4e-7 * abs(upper[71])
+
+    parr = psq.arrays.layer(0)
+    jarr = jax.tree.map(lambda a: a[0], jsq.arrays)
+    jk_fn = jax.jit(lambda x, a: jl.simquant_k(x, a, jsq.config))
+    jv_fn = jax.jit(lambda x, a: jl.simquant_v(x, a, jsq.config))
+    for k_in, v_in in ((pk, pv), (jk, jv)):
+        got_k = pl.simquant_k(torch.tensor(k_in), parr, psq.config).numpy()
+        got_v = pl.simquant_v(torch.tensor(v_in), parr, psq.config).numpy()
+        np.testing.assert_allclose(got_k, np.asarray(jk_fn(k_in, jarr)),
+                                   rtol=0, atol=1e-6)
+        np.testing.assert_allclose(got_v, np.asarray(jv_fn(v_in, jarr)),
+                                   rtol=0, atol=1e-6)

@@ -9,7 +9,8 @@ and a sliding-window trajectory through K1's plain version:
     (with one, as in the JAX CLI, the simulated ppl scores every position
     and the deployed one only those after the prefill); the timed decode
     runs, launches no kernel on the CPU, and --profile writes a Chrome
-    trace; --tp 2, --dp 2 and --distributed raise NotImplementedError;
+    trace; --tp 2 and --distributed run two gloo ranks on the CPU, --dp 2
+    refuses the batch of 1 as the JAX CLI does;
   - utils.profiling on the CPU (tests/test_aux.py:102-108's case):
     cost_analysis returns a dict (launches and time of the ATen
     operators, no XLA keys), device_timed a positive time, trace a file;
@@ -49,8 +50,8 @@ from kvquant_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
-ART = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "artifacts")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ART = os.path.join(REPO, "artifacts")
 Q3 = os.path.join(ART, "toy_quantizers_3bit.npz")
 TOY = ["--toy-layers", "4", "--toy-dmodel", "256", "--toy-heads", "8",
        "--toy-kv-heads", "4", "--toy-vocab", "512", "--device", "cpu",
@@ -95,13 +96,71 @@ def test_cli_deploy_on_cpu(kernel, prefill, tmp_path, capsys):
         assert json.load(fh)["traceEvents"]
 
 
+def _run_ranks(cmds, envs, timeout=180):
+    """Run the commands together (each in its own session, so a rank's own
+    children go with it) and return their (returncode, output); a command
+    still running after ``timeout`` seconds is killed and fails the test."""
+    import signal
+    import subprocess
+
+    procs = [subprocess.Popen(c, env=e, cwd=REPO, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True,
+                              start_new_session=True)
+             for c, e in zip(cmds, envs)]
+    try:
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+        return [(p.returncode, out) for p, out in zip(procs, outs)]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.communicate()
+
+
 @pytest.mark.parametrize("flags", [["--tp", "2"], ["--dp", "2"],
                                    ["--distributed"]])
 def test_cli_deploy_refuses_parallel(flags):
+    """The parallel flags. --tp 2 starts two gloo ranks on the CPU (each
+    prints its shard of the timing, rank 0 the totals); --distributed runs
+    one rank per process from the KVQ_* variables; --dp 2 splits the
+    decode batch of 1, which both CLIs refuse with a ValueError (JAX's at
+    its cache sharding). Only the head group 4 of the toy width is
+    refused at tp 2 (the head-group rule), so the tp runs take 2."""
+    import socket
+    import sys
+
+    from kvquant_tpu.cli import deploy as jdeploy
     from kvquant_tpu_torch.cli import deploy
 
-    with pytest.raises(NotImplementedError, match="item 12"):
-        deploy.main(TOY + ["--benchmark", "1"] + flags)
+    if flags == ["--dp", "2"]:
+        with pytest.raises(ValueError, match="divisible by 2"):
+            jdeploy.main([a for a in TOY if a not in ("--device", "cpu")]
+                         + ["--benchmark", "1"] + flags)
+        with pytest.raises(ValueError, match="does not divide 1"):
+            deploy.main(TOY + ["--benchmark", "1"] + flags)
+        return
+    argv = TOY + ["--benchmark", "2", "--head-group", "2", "--tp", "2"]
+    cmd = [sys.executable, "-m", "kvquant_tpu_torch.cli.deploy"] + argv
+    env = dict(os.environ, PYTHONPATH=REPO)
+    if flags == ["--tp", "2"]:
+        (rc, out), = _run_ranks([cmd], [env])
+    else:
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        env.update(KVQ_COORDINATOR=f"localhost:{port}", KVQ_NUM_PROCESSES="2")
+        res = _run_ranks([cmd + flags] * 2, [dict(env, KVQ_PROCESS_ID=str(i))
+                                             for i in range(2)])
+        assert all(r == 0 for r, _ in res), res[0][1][-3000:] + \
+            res[1][1][-3000:]
+        assert "decode:" not in res[1][1]
+        rc, out = res[0][0], res[0][1] + res[1][1]
+    assert rc == 0, out[-4000:]
+    for r in range(2):
+        assert f"mesh: {{'dp': 1, 'tp': 2}} rank {r} of 2 on cpu (gloo)" in out
+        assert f"rank {r}: decode " in out
+    assert "collectives 12/step" in out  # wo, FFN, V range x 4 layers
+    assert "decode: " in out and "kernel=flash)" in out
 
 
 def test_setup_parallel_one_device():
