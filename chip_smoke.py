@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases 1,24                  # MISTRAL_7B via K1
     python3 chip_smoke.py --phases 1,25                  # DBRX (MoE, G 6)
     python3 chip_smoke.py --phases 1,26                  # tp 2 over gloo
+    python3 chip_smoke.py --phases 1,27                  # training
 
 Phases (each prints its own lines; any failure raises and exits non-zero).
 K2 is csrc/flash_serial.cu (flash_serial_decode), K1 csrc/flash_decode.cu
@@ -202,6 +203,23 @@ Tensor parallelism (kvquant_tpu_torch/parallel):
      own-prefill steps' agreement, the router's flips (DBRX) and, per
      rank, ms per step, device ms per step, the collectives' ms per step,
      launches per step, peak GiB and tok/s beside tp 1's are printed.
+Training (utils/toymodel, utils/induction; no kernel of its own):
+ 27. the toy model's JAX recipe on the card (train_toy_model(): TOY_CFG,
+     1200 steps of 16 x 256, fp32 Adam 1e-3, seed 0): wall s, ms a step,
+     device ms a step and idle share over profiled steps, peak GiB, the
+     final loss beside the committed checkpoint's, ppl below 1.5 x the
+     bigram floor (the JAX gate); 1, 2 and 3 steps from the committed
+     weights on the card and on the CPU (losses within 1e-4 relative); the
+     checkpoint written with save_toy_checkpoint and read back bitwise; the
+     card-trained model's nuq3 fit (ppl_table's recipe) deployed through
+     K1 == simulated within 0.02 in log (K1 layers x 256 decode launches);
+     the retrieval model at IND_CFG's widths and the JAX batch shapes,
+     steps cut to 200 / 125 / 20 (stage 1, stage 2, robust fine-tune at
+     long_T 8192 with chunked attention and remat): ms and device ms a
+     step, idle share, peak GiB per stage, the full recipe's projected
+     wall time; then a nuq3 fit on copy haystacks and greedy tokens
+     through K1 at 2048 context (quantized prefill, fp32 dots), card ==
+     CPU (launches layers x (8 chunks + 8 steps) per prompt).
 The line before the last lists every ported kernel as JSON; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -4555,6 +4573,322 @@ def phase_tp(report):
     shutil.rmtree(work, ignore_errors=True)
 
 
+def profiled_ms(step, n=3):
+    """Device kernel ms per call of ``step()`` over ``n`` calls under
+    torch.profiler (utils.profiling.kernel_summary), after one warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kvquant_tpu_torch.utils.profiling import kernel_summary
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    return kernel_summary(prof, cuda=True)["kernel_ms"] / n
+
+
+def host_syncs(step):
+    """Times one call of ``step()`` (after a warm-up call) made the host
+    wait for the card: torch.cuda's sync debug mode warns at each
+    synchronizing operation. Returns (count, the first warning or None)."""
+    import warnings
+
+    step()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message) for w in caught
+             if "called a synchronizing" in str(w.message)]
+    return len(syncs), (syncs[0][:160] if syncs else None)
+
+
+def phase_training(report):
+    """The training slice on the card: the toy model's full JAX recipe,
+    card against CPU from the same weights, the checkpoint written and read
+    back, the card-trained model calibrated and served through K1; then the
+    retrieval model at IND_CFG's widths and batch shapes, with the step
+    counts cut, calibrated on copy haystacks and served through K1 at 2048
+    context, card == CPU."""
+    import os
+    import shutil
+
+    from kvquant_tpu_torch import engine
+    from kvquant_tpu_torch.cache import DeployConfig, deployed_from_quantizers
+    from kvquant_tpu_torch.evals import perplexity
+    from kvquant_tpu_torch.fisher import clm_loss, fisher_info
+    from kvquant_tpu_torch.models import params_from_numpy, params_to_numpy
+    from kvquant_tpu_torch.models import trainable
+    from kvquant_tpu_torch.quant.calibration import (collect_kv_activations,
+                                                     fit_quantizers)
+    from kvquant_tpu_torch.utils import induction as ind
+    from kvquant_tpu_torch.utils.toymodel import TOY_CFG as cfg
+    from kvquant_tpu_torch.utils.toymodel import (_flatten, adam,
+                                                  load_toy_checkpoint,
+                                                  save_toy_checkpoint,
+                                                  to_device, train_step,
+                                                  train_toy_model)
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "kvquant_tpu_torch", "_build", "smoke_train")
+    os.makedirs(work, exist_ok=True)
+    ck_tree, ck_loss, _ = load_toy_checkpoint(
+        os.path.join(root, "artifacts", "toy_model.npz"))
+    out = {}
+
+    # 1. the toy model: train_toy_model's defaults (1200 steps, batch 16,
+    #    T 256, lr 1e-3, seed 0) on the card
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, lm, loss = train_toy_model()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ms = wall / 1200 * 1e3
+    peak = gib_peak()
+    tree = params_to_numpy(params)
+    t_params = trainable(params)
+    t_opt = adam(t_params, 1e-3)
+
+    def toy_step():  # train_toy_model's loop body
+        train_step(t_opt, clm_loss(t_params, cfg, to_device(
+            lm.sample(16, 256, 1200), torch.device("cuda"))))
+
+    dev_ms = profiled_ms(toy_step)
+    syncs = {"toy": host_syncs(toy_step)}
+    t_host = time.perf_counter()
+    for i in range(20):
+        lm.sample(16, 256, i)
+    sample_ms = (time.perf_counter() - t_host) / 20 * 1e3
+    # the same step with its batch already on the card: the host's launches
+    staged = to_device(lm.sample(16, 256, 1200), torch.device("cuda"))
+    torch.cuda.synchronize()
+    t_host = time.perf_counter()
+    for _ in range(50):
+        train_step(t_opt, clm_loss(t_params, cfg, staged))
+    torch.cuda.synchronize()
+    staged_ms = (time.perf_counter() - t_host) / 50 * 1e3
+    del t_params, t_opt, staged
+    ppl = perplexity(params, cfg, lm.sample(4, 256, seed=10_001))
+    floor = lm.ideal_ppl
+    log(f"[27] toy model (TOY_CFG: vocab 512, d 256, 4 layers, 8 / 4 heads, "
+        f"d_ff 512, fp32) trained on the card, 1200 steps of 16 x 256: "
+        f"{wall:.2f} s wall, {ms:.3f} ms/step; profiled steps: "
+        f"{dev_ms:.3f} device ms/step (idle share {1 - dev_ms / ms:.3f}); "
+        f"the batch's numpy draw alone {sample_ms:.3f} ms on the host, a "
+        f"step with its batch already on the card {staged_ms:.3f} ms; "
+        f"peak {peak:.3f} GiB; final loss {loss:.4f} (the committed "
+        f"checkpoint's {ck_loss:.4f}); ppl {ppl:.4f} against the bigram "
+        f"floor {floor:.4f} (gate: below 1.5 x = {1.5 * floor:.4f})")
+    if not (np.isfinite(loss) and ppl < 1.5 * floor):
+        raise AssertionError("the card-trained toy model did not learn")
+    out["toy"] = dict(wall_s=wall, ms_per_step=ms, device_ms_per_step=dev_ms,
+                      idle_share=1 - dev_ms / ms, sample_ms=sample_ms,
+                      staged_ms=staged_ms,
+                      peak_gib=peak, loss=loss, committed_loss=ck_loss,
+                      ppl=ppl, floor=floor)
+
+    # 2. card against CPU: 1, 2, 3 steps from the committed checkpoint's
+    #    weights (the loss of an n-step run is step n's)
+    losses = {dev: [train_toy_model(steps=n, init=ck_tree, device=dev)[2]
+                    for n in (1, 2, 3)] for dev in ("cuda", "cpu")}
+    rel = max(abs(a / b - 1) for a, b in zip(losses["cuda"], losses["cpu"]))
+    log(f"[27] 3 steps from the committed weights: card {losses['cuda']}, "
+        f"cpu {losses['cpu']}; max relative difference {rel:.2e} (tol 1e-4)")
+    if not rel <= 1e-4:
+        raise AssertionError("card and CPU training steps disagree")
+    out["card_vs_cpu_rel"] = rel
+
+    # 3. the checkpoint written and read back
+    path = os.path.join(work, "toy_model.npz")
+    save_toy_checkpoint(path, params, loss, seed=0)
+    back, bloss, bseed = load_toy_checkpoint(path)
+    flat, bflat = _flatten(tree), _flatten(back)
+    same = flat.keys() == bflat.keys() and all(
+        np.array_equal(flat[k], bflat[k]) for k in flat)
+    reloaded = params_from_numpy(back, cfg, device="cuda")
+    same_dev = all(torch.equal(a, b) for a, b in zip(
+        reloaded.parameters(), params.parameters()))
+    log(f"[27] save_toy_checkpoint / load_toy_checkpoint "
+        f"({os.path.getsize(path)} B): {len(flat)} arrays bitwise equal: "
+        f"{same}; on the card again: {same_dev}; loss {bloss:.4f}, seed "
+        f"{bseed}")
+    if not (same and same_dev and bloss == np.float32(loss) and bseed == 0):
+        raise AssertionError("the checkpoint did not round-trip")
+
+    # 4. calibrate the card-trained model as benchmarks/ppl_table.py makes
+    #    the committed quantizers, deploy through K1
+    cal = lm.sample(4, 256, seed=20_002)
+    fk, fv = fisher_info(params, cfg, [cal])
+    k, v = collect_kv_activations(params, cfg, [cal])
+    qs = fit_quantizers(k, v, bits=3, sparsity_threshold=0.99,
+                        cap_outliers=True, first_few_fp16=5, sample_seqlen=256,
+                        kmeans_iters=30, fisher_k=fk, fisher_v=fv)
+    del fk, fv, k, v
+    d3 = DeployConfig.create(bits=3, n_kv_heads=cfg.n_kv_heads,
+                             d_head=cfg.d_head, max_len=261, sink=5,
+                             head_group=4, kernel="flash")
+    ev = lm.sample(4, 256, seed=10_001)[:2]
+    read = reset_launches()
+    dep, sim = toy_deployed_and_simulated("cuda", qs, d3, ev, tree)
+    n = read()
+    gap = abs(np.log(dep) - np.log(sim))
+    want = cfg.n_layers * ev.shape[1]
+    log(f"[27] the card-trained model, nuq3 (Fisher-weighted, fitted on the "
+        f"card) hg 4 through K1: simulated ppl {sim:.4f}, deployed "
+        f"{dep:.4f} (|log gap| {gap:.2e}, bound 0.02; fp16 {ppl:.4f}); "
+        f"launches {n} (K1 expected {cfg.n_layers} x {ev.shape[1]})")
+    if not (gap < 0.02 and n["K1"] == want
+            and n["K2"] == n["K3"] == n["K4"] == n["K5"] == 0):
+        raise AssertionError("deployed != simulated, or not through K1")
+    out.update(sim_ppl=sim, dep_ppl=dep, k1_launches=n["K1"])
+    del params
+
+    # 5. the retrieval model at IND_CFG's widths and the JAX batch shapes
+    #    (stage 1: 32 x 512; stage 2: 16 x 1024; robust: 2 x 8192 long and
+    #    8 x 1024 blocks), step counts cut; every log line follows a host
+    #    read of the loss, so its time marks the end of a stage
+    marks = []
+
+    def mark(msg):
+        marks.append((time.perf_counter(), gib_peak()))
+        torch.cuda.reset_peak_memory_stats()
+        log(f"[27] {msg}")
+
+    s1 = 200
+    s2 = s1 * 5 // 8
+    s3 = 20
+    icfg = ind.IND_CFG
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    iparams, iloss = ind.train_induction_model(steps=s1, segment=s1,
+                                               log=mark)
+    t1 = time.perf_counter()
+    iparams = ind.finetune_retrieval_robust(iparams, steps=s3, log=mark)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    stages = {"stage1": (s1, marks[0][0] - t0, marks[0][1]),
+              "stage2": (s2, marks[1][0] - marks[0][0], marks[1][1]),
+              "robust": (s3, t3 - t1, marks[2][1])}
+    # device ms of each stage's step (its loop body), profiled
+    tp = trainable(iparams)
+    opt = adam(tp, 1e-3)
+    gen = ind.generator(123)
+    kstd, vstd = ind.kv_stds(tp, icfg)
+
+    def robust_step():
+        for b, chunk, remat in ((ind.sample_long_batch(gen, 2, 8192), 1024,
+                                 True),
+                                (ind.sample_blocks_batch(gen, 8, 1024, 1.0),
+                                 None, False)):
+            probes = ind.noise_probes(gen, icfg, *b[0].shape, 0.08 * kstd,
+                                      0.05 * vstd)
+            train_step(opt, ind.noisy_loss(tp, icfg, *b, probes, chunk,
+                                           remat))
+
+    bodies = {
+        "stage1": lambda: train_step(opt, ind.masked_loss(
+            tp, icfg, *ind.sample_mixed_batch(gen, 32, 512, 131072, 1.0))),
+        "stage2": lambda: train_step(opt, ind.masked_loss(
+            tp, icfg, *ind.sample_blocks_batch(gen, 16, 1024, 1.0))),
+        "robust": robust_step}
+    rows = {}
+    for name, (steps, wall_s, peak) in stages.items():
+        ms = wall_s / steps * 1e3
+        dms = profiled_ms(bodies[name], n=2 if name == "robust" else 3)
+        syncs[name] = host_syncs(bodies[name])
+        rows[name] = dict(steps=steps, ms_per_step=ms, device_ms=dms,
+                          idle_share=1 - dms / ms, peak_gib=peak)
+        log(f"[27] {name}: {steps} steps, {ms:.2f} ms/step (host wall), "
+            f"{dms:.2f} device ms/step profiled (idle share "
+            f"{1 - dms / ms:.3f}), peak {peak:.3f} GiB")
+    del tp, opt
+    # the detector's control: reading a device scalar must count
+    control = host_syncs(lambda: float(torch.ones((), device="cuda")))[0]
+    log(f"[27] host waits for the card in one step of each loop body "
+        f"(sampling, loss, backward, Adam; torch.cuda sync debug mode): "
+        f"{ {k: v[0] for k, v in syncs.items()} } (a float() of a device "
+        f"scalar: {control})"
+        + "".join(f"; {k}: {v[1]}" for k, v in syncs.items() if v[0]))
+    if any(v[0] for v in syncs.values()) or control < 1:
+        raise AssertionError("a training step waits for the card")
+    out["host_syncs"] = {k: v[0] for k, v in syncs.items()}
+    proj = (16000 * rows["stage1"]["ms_per_step"]
+            + 10000 * rows["stage2"]["ms_per_step"]
+            + 3000 * rows["robust"]["ms_per_step"]) / 1e3
+    log(f"[27] projection, not a measurement: the full recipe (16000 + "
+        f"10000 + 3000 steps) at these ms/step would take {proj:.0f} s "
+        f"({proj / 3600:.2f} h) on this card")
+    out["induction"] = dict(stages=rows, projected_full_s=proj,
+                            final_loss=iloss)
+
+    # calibrate on copy haystacks (benchmarks/retrieval_demo.py's recipe at
+    # 2048 tokens), serve through K1 at 2048 context, card == CPU
+    ctx = 2048
+    hay = np.stack([ind.build_copy_prompt(ctx, (s % 4) / 4.0, seed=s)[0]
+                    for s in range(4)])
+    k, v = collect_kv_activations(iparams, icfg, [hay])
+    qs = fit_quantizers(k, v, bits=3, sparsity_threshold=0.95,
+                        cap_outliers=True, first_few_fp16=5,
+                        sample_seqlen=ctx, kmeans_iters=20)
+    del k, v
+    dcfg = DeployConfig.create(bits=3, n_kv_heads=icfg.n_kv_heads,
+                               d_head=icfg.d_head, max_len=ctx + 16, sink=5,
+                               kernel="flash", head_group=4,
+                               sparsity_threshold=0.95, dot_bf16=False)
+    new = 8
+    prompts = [ind.build_copy_prompt(ctx, depth, seed=ctx + i)
+               for i, depth in enumerate((0.0, 0.5, 1.0))]
+    itree = params_to_numpy(iparams)
+    toks, secs = {}, {}
+    for dev in ("cuda", "cpu"):
+        p = params_from_numpy(itree, icfg, device=dev)
+        dq = deployed_from_quantizers(qs, icfg.n_kv_heads, icfg.d_head,
+                                      device=dev)
+        read = reset_launches()
+        t0 = time.perf_counter()
+        toks[dev] = [engine.generate(
+            p, icfg, dcfg, dq, torch.as_tensor(ids[None]),
+            engine.GenerateConfig(max_new_tokens=new),
+            prefill_mode="quantized", device=dev)[0][0].cpu().numpy()
+            for ids, _ in prompts]
+        secs[dev] = time.perf_counter() - t0
+        if dev == "cuda":
+            n = read()
+    same = all(np.array_equal(a, b) for a, b in zip(toks["cuda"],
+                                                    toks["cpu"]))
+    hits = sum(bool(np.array_equal(t[:ind.VL], ans))
+               for t, (_, ans) in zip(toks["cuda"], prompts))
+    chunks = -(-(ctx - 5) // 256)
+    want = icfg.n_layers * (chunks + new) * len(prompts)
+    log(f"[27] retrieval model, nuq3 (sparsity 0.95, fitted on 4 x {ctx} "
+        f"copy haystacks) through K1 at {ctx} context: {len(prompts)} "
+        f"prompts, quantized prefill + {new} greedy tokens each, card "
+        f"{secs['cuda']:.2f} s, CPU {secs['cpu']:.2f} s; card == CPU: "
+        f"{same}; launches "
+        f"{n} (K1 expected {icfg.n_layers} x ({chunks} + {new}) x "
+        f"{len(prompts)} = {want}); retrieval {hits}/{len(prompts)} (context "
+        f"only: {s1} + {s2} + {s3} steps of 16000 + 10000 + 3000)")
+    if not (same and n["K1"] == want
+            and n["K2"] == n["K3"] == n["K4"] == n["K5"] == 0):
+        raise AssertionError(f"card {toks['cuda']} cpu {toks['cpu']}")
+    out["retrieval"] = dict(card_eq_cpu=same, hits=hits, n=len(prompts),
+                            k1_launches=n["K1"])
+    out["k1_launches"] += n["K1"]
+    report["training"] = out
+    del iparams
+    shutil.rmtree(work)
+    torch.cuda.empty_cache()
+
+
 PHASES = {1: phase_device_and_build, 2: phase_kernel_vs_plain,
           3: phase_main_path, 4: phase_card_vs_cpu, 5: phase_times,
           6: phase_k1_vs_plain, 7: phase_k1_main_path,
@@ -4566,7 +4900,8 @@ PHASES = {1: phase_device_and_build, 2: phase_kernel_vs_plain,
           18: phase_x2_vs_plain, 19: phase_x2_main_path,
           20: phase_x2_oracle, 21: phase_x2_times,
           22: phase_long_prefill, 23: phase_calibrate_deploy,
-          24: phase_mistral, 25: phase_dbrx, 26: phase_tp}
+          24: phase_mistral, 25: phase_dbrx, 26: phase_tp,
+          27: phase_training}
 
 
 def main(argv=None) -> int:
@@ -4656,6 +4991,9 @@ def main(argv=None) -> int:
             })
         if 23 in phases:  # cli.deploy --check + warm-up + timed pass
             kernels[-1]["deploy_launches"] = report["chain"]["k1_launches"]
+        if 27 in phases:  # the card-trained toy model and retrieval model
+            kernels[-1]["training_launches"] = \
+                report["training"]["k1_launches"]
         if 24 in phases:  # MISTRAL_7B, G 4, window 4096
             kernels[-1].update({
                 "mistral_launches": report["mistral"]["k1_launches"],

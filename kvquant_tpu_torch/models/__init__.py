@@ -3,6 +3,8 @@ from .llama import (
     Llama,
     init_params,
     params_from_numpy,
+    params_to_numpy,
+    trainable,
     forward,
     make_kv_probes,
     rope_cos_sin,

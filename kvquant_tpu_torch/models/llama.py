@@ -130,6 +130,34 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda",
                  layers, None if head is None else t(head))
 
 
+def params_to_numpy(params: Llama) -> dict:
+    """The inverse of ``params_from_numpy``: the JAX parameter pytree as
+    nested dicts of numpy arrays (``embed``, ``final_norm``,
+    ``layers/{name}``, ``lm_head`` when untied). bf16 weights come back
+    as fp32 (numpy has no bf16)."""
+    def a(x):
+        x = x.detach().cpu()
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+
+    tree = {"embed": a(params.embed), "final_norm": a(params.final_norm),
+            "layers": {k: a(v) for k, v in params.layers.items()}}
+    if params.lm_head is not None:
+        tree["lm_head"] = a(params.lm_head)
+    return tree
+
+
+def trainable(params: Llama) -> Llama:
+    """An fp32 copy of ``params`` whose parameters, norms included, require
+    grad (the JAX package trains ``init_params(..., dtype=float32)``)."""
+    def c(x):
+        return x.detach().to(torch.float32).clone()
+
+    m = Llama(params.cfg, c(params.embed), c(params.final_norm),
+              {k: c(v) for k, v in params.layers.items()},
+              None if params.lm_head is None else c(params.lm_head))
+    return m.requires_grad_(True)
+
+
 # ---------------------------------------------------------------------------
 # building blocks
 # ---------------------------------------------------------------------------

@@ -1,13 +1,14 @@
 """The trained toy model harness (port of kvquant_tpu/utils/toymodel.py): the
 synthetic bigram language with a known entropy floor, the committed
-checkpoint's config and an npz reader of the port's own.
+checkpoint's config, training and the npz checkpoint format.
 
 Without network access there is no wikitext and no LLaMA checkpoint, so
 quantization quality is measured as ppl deltas of a small LLaMA trained
 near the floor of this language (the reference's wikitext protocol).
-Training the toy model stays with the JAX package (it needs optax):
-``cached_toy_model`` loads the committed checkpoint and raises where the
-JAX package would train one.
+``train_toy_model`` trains it with ``torch.optim.Adam`` (optax.adam's
+update); ``save_toy_checkpoint`` writes the JAX package's npz keys, so
+either package loads what the other wrote; ``cached_toy_model`` loads the
+checkpoint, or trains and saves one on a miss.
 """
 
 from __future__ import annotations
@@ -17,7 +18,11 @@ import os
 import numpy as np
 import torch
 
+from ..device import resolve_device
+from ..fisher.fisher import clm_loss
 from ..models.config import ModelConfig
+from ..models.llama import (Llama, init_params, params_from_numpy,
+                            params_to_numpy, trainable)
 
 TOY_CFG = ModelConfig(
     vocab_size=512, d_model=256, n_layers=4, n_heads=8, n_kv_heads=4,
@@ -34,6 +39,10 @@ class BigramLM:
         self.trans = rng.dirichlet(
             np.full(vocab_size, alpha), size=vocab_size
         ).astype(np.float32)
+        # each row's cumsum once: the same float32 values the JAX package
+        # recomputes for every drawn token (a row's cumsum does not depend
+        # on the other rows), so the same tokens
+        self._cum = self.trans.cumsum(1)
         self.vocab_size = vocab_size
 
     @property
@@ -52,10 +61,67 @@ class BigramLM:
         out[:, 0] = r.integers(0, self.vocab_size, n)
         u = r.random((seq_len, n, 1), np.float32)
         for t in range(1, seq_len):
-            out[:, t] = (
-                self.trans[out[:, t - 1]].cumsum(1) > u[t]
-            ).argmax(1)
+            out[:, t] = (self._cum[out[:, t - 1]] > u[t]).argmax(1)
         return torch.from_numpy(out)
+
+
+def adam(params: Llama, lr: float) -> torch.optim.Adam:
+    """optax.adam(lr): m_hat / (sqrt(v_hat) + eps), eps outside the root."""
+    return torch.optim.Adam(params.parameters(), lr=lr, betas=(0.9, 0.999),
+                            eps=1e-8)
+
+
+def train_step(opt: torch.optim.Optimizer, loss: torch.Tensor):
+    """One update of ``opt``'s parameters down the gradient of ``loss``;
+    returns ``loss``, detached (still on the device)."""
+    opt.zero_grad(set_to_none=True)
+    loss.backward()
+    opt.step()
+    return loss.detach()
+
+
+def to_device(tokens: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """A host batch on ``dev`` without waiting for the device: a plain
+    copy to a card synchronizes the stream, so the batch goes through
+    pinned memory with a non-blocking copy, and the host draws the next
+    batch while the card runs this step."""
+    if dev.type != "cuda":
+        return tokens.to(dev)
+    return tokens.pin_memory().to(dev, non_blocking=True)
+
+
+def train_toy_model(cfg: ModelConfig = TOY_CFG, steps: int = 1200,
+                    batch: int = 16, seq_len: int = 256, lr: float = 1e-3,
+                    seed: int = 0, device="cuda", init: dict | None = None):
+    """Train a small LLaMA on the bigram language, in fp32, on ``device``.
+    Returns (params (frozen), lm, final loss). ``init`` (a nested dict of
+    numpy arrays, e.g. ``load_toy_checkpoint``'s) gives the initial
+    weights; without it they are drawn from ``seed`` (torch's draws, not
+    jax.random's). The batches are the JAX package's numpy draws. Nothing
+    waits for the device until the end: the batches go over
+    asynchronously (``to_device``) and the loss is read once."""
+    dev = resolve_device(device)
+    lm = BigramLM(cfg.vocab_size, seed=seed)
+    params = trainable(
+        init_params(cfg, dtype=torch.float32, device=dev, seed=seed)
+        if init is None else params_from_numpy(init, cfg, device=dev))
+    opt = adam(params, lr)
+    loss = None
+    for i in range(steps):
+        tokens = to_device(lm.sample(batch, seq_len, i), dev)
+        loss = train_step(opt, clm_loss(params, cfg, tokens))
+    return params.requires_grad_(False), lm, float(loss)
+
+
+def _flatten(params: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in params.items():
+        key = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(_flatten(v, key + "/"))
+        else:
+            out[key] = np.asarray(v)
+    return out
 
 
 def _unflatten(flat: dict) -> dict:
@@ -67,6 +133,19 @@ def _unflatten(flat: dict) -> dict:
             d = d.setdefault(p, {})
         d[parts[-1]] = v
     return out
+
+
+def save_toy_checkpoint(path: str, params, loss: float, seed: int):
+    """npz checkpoint (slash-joined pytree paths, the JAX package's keys
+    and no-pickle policy) of ``params``: a ``Llama`` or its nested dict of
+    numpy arrays."""
+    if isinstance(params, Llama):
+        params = params_to_numpy(params)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez_compressed(
+        path, __loss__=np.float32(loss), __seed__=np.int32(seed),
+        **_flatten(params),
+    )
 
 
 def load_toy_checkpoint(path: str):
@@ -81,16 +160,14 @@ def load_toy_checkpoint(path: str):
 
 
 def cached_toy_model(path: str = "artifacts/toy_model.npz", cfg=TOY_CFG,
-                     device="cuda"):
-    """(params on ``device``, BigramLM, final training loss) of the trained
-    checkpoint at ``path``; a missing checkpoint raises (train it with the
-    JAX package: kvquant_tpu.utils.toymodel.cached_toy_model)."""
-    from ..models.llama import params_from_numpy
-
+                     device="cuda", **kw):
+    """(params on ``device``, BigramLM, final training loss) of the
+    checkpoint at ``path``; on a miss, ``train_toy_model(cfg, **kw)`` on
+    ``device`` and save its result there first."""
     if not os.path.exists(path):
-        raise FileNotFoundError(
-            f"{path}: no toy checkpoint; training it needs the JAX package "
-            f"(kvquant_tpu.utils.toymodel.cached_toy_model)")
+        params, lm, loss = train_toy_model(cfg, device=device, **kw)
+        save_toy_checkpoint(path, params, loss, kw.get("seed", 0))
+        return params, lm, loss
     tree, loss, seed = load_toy_checkpoint(path)
     return (params_from_numpy(tree, cfg, device=device),
             BigramLM(cfg.vocab_size, seed=seed), loss)
