@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phases 1,25                  # DBRX (MoE, G 6)
     python3 chip_smoke.py --phases 1,26                  # tp 2 over gloo
     python3 chip_smoke.py --phases 1,27                  # training
+    python3 chip_smoke.py --phases 1,28                  # graphed decode
 
 Phases (each prints its own lines; any failure raises and exits non-zero).
 K2 is csrc/flash_serial.cu (flash_serial_decode), K1 csrc/flash_decode.cu
@@ -220,6 +221,22 @@ Training (utils/toymodel, utils/induction; no kernel of its own):
      wall time; then a nuq3 fit on copy haystacks and greedy tokens
      through K1 at 2048 context (quantized prefill, fp32 dots), card ==
      CPU (launches layers x (8 chunks + 8 steps) per prompt).
+The compiled decode step (engine.DecodeGraph, one CUDA graph per step;
+generate, deployed_ppl, cli.deploy and serve.Server step through it on
+the card, so phases 3, 7, 11, 19, 20, 23 and 27 replay graphs):
+ 28. at LLaMA-2-7B width (random bf16 weights from a seed, B=1) for the
+     speed config (K2), faithful nuq3 through K1 and K3 / K4, 2-bit int4x2
+     through K1 and the eager xla oracle: from clones of one filled 2K
+     cache, 64 greedy steps graphed and eager (8 for xla) give the same
+     tokens, bitwise the same logits at every step and bitwise the same
+     caches; launches per step graphed == eager == layers (x2 for K3 /
+     K4); no host wait in either step (torch.cuda's sync debug mode);
+     tok/s, device ms a step (the graph's replays back to back between
+     CUDA events) and idle share, eager and graphed in turn, at 2K and 32K
+     (and 128K for int4x2), with capture seconds and the graph pool's
+     MiB; at 32K the profiler's kernel ms and kernels a step, which must
+     be the same for a replay as for an eager step; serve.Server with 4 slots and 6 requests
+     through K1, graphed tokens == eager tokens.
 The line before the last lists every ported kernel as JSON; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -4573,9 +4590,10 @@ def phase_tp(report):
     shutil.rmtree(work, ignore_errors=True)
 
 
-def profiled_ms(step, n=3):
-    """Device kernel ms per call of ``step()`` over ``n`` calls under
-    torch.profiler (utils.profiling.kernel_summary), after one warm-up."""
+def step_profile(step, n=3):
+    """(device kernel ms, kernels) per call of ``step()`` over ``n`` calls
+    under torch.profiler (utils.profiling.kernel_summary, the reading of
+    ``cli.deploy --profile``), after one warm-up call."""
     from torch.profiler import ProfilerActivity, profile
 
     from kvquant_tpu_torch.utils.profiling import kernel_summary
@@ -4587,7 +4605,13 @@ def profiled_ms(step, n=3):
         for _ in range(n):
             step()
         torch.cuda.synchronize()
-    return kernel_summary(prof, cuda=True)["kernel_ms"] / n
+    s = kernel_summary(prof, cuda=True)
+    return s["kernel_ms"] / n, s["launches"] / n
+
+
+def profiled_ms(step, n=3):
+    """Device kernel ms per call of ``step()`` (``step_profile``)."""
+    return step_profile(step, n)[0]
 
 
 def host_syncs(step):
@@ -4889,6 +4913,214 @@ def phase_training(report):
     torch.cuda.empty_cache()
 
 
+# (tag, config of LLaMA-2-7B width, kernel, {context: greedy steps}): the
+# token and cache comparison runs at 2K, the timings at every context
+GRAPH_PATHS = (
+    ("K2 speed int4", "speed_config", "flash_serial", {2048: 64, 32768: 8}),
+    ("K1 nuq3", "faithful_config", "flash", {2048: 64, 32768: 8}),
+    ("K3/K4 nuq3", "faithful_config", "pallas", {2048: 64, 32768: 8}),
+    ("K1 int4x2", "speed2_config", "flash",
+     {2048: 64, 32768: 8, 131072: 8}),
+    ("xla nuq3", "faithful_config", "xla", {2048: 8}),
+)
+
+
+def clone_cache(cache):
+    from kvquant_tpu_torch.cache import KVCache
+
+    return KVCache(**{f.name: getattr(cache, f.name).clone()
+                      for f in dataclasses.fields(cache)})
+
+
+def caches_equal(a, b) -> bool:
+    """Every array of two caches bitwise (fp32 compared as bit patterns)."""
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        if not torch.equal(x, y):
+            return False
+    return True
+
+
+def greedy_run(step, ctx, steps):
+    """``steps`` greedy steps of ``step(token, pos) -> logits`` from token 0
+    at position ``ctx`` (positions made on the card, as a server holds
+    them): (tokens (1, steps), the logits of every step, wall seconds
+    between two synchronizes, launches by kernel)."""
+    from kvquant_tpu_torch.ops.kernels import launch_counts
+
+    tok = torch.zeros((1,), dtype=torch.int32, device="cuda")
+    toks, logits_all = [], []
+    before = launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        pos = torch.full((1,), ctx + i, dtype=torch.int32, device="cuda")
+        logits = step(tok, pos)
+        logits_all.append(logits.clone())
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        toks.append(tok)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = {k: v - before[k] for k, v in launch_counts().items()}
+    return torch.stack(toks, dim=1), torch.stack(logits_all), wall, n
+
+
+def phase_graphed_decode(report):
+    """One CUDA graph per decode step (engine.DecodeGraph) against the
+    eager step at LLaMA-2-7B width (random bf16 weights from a seed, B=1):
+    greedy tokens, every step's logits and the caches afterwards bitwise
+    from clones of one filled 2K cache; tok/s, device ms and kernels per
+    step, idle share, launches per step, host waits per step, capture
+    seconds and the graph pool's MiB, eager and graphed in turn, at 2K and
+    32K (128K for int4x2); serve.Server with 4 slots, graphed tokens ==
+    eager tokens."""
+    from kvquant_tpu_torch import engine, serve
+    from kvquant_tpu_torch.cache import deployed_from_quantizers
+    from kvquant_tpu_torch.models import init_params
+    from kvquant_tpu_torch.models.config import LLAMA2_7B
+    from kvquant_tpu_torch.ops.kernels import launch_counts
+
+    cfg = LLAMA2_7B
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         dtype=torch.bfloat16, device="cuda")
+    makers = {"speed_config": speed_config, "faithful_config":
+              faithful_config, "speed2_config": speed2_config}
+    out = {}
+    for tag, make, kernel, runs in GRAPH_PATHS:
+        res = out[tag] = {}
+        for ctx, steps in runs.items():
+            t_case = time.perf_counter()
+            _, dcfg, qs = makers[make](ctx + steps + 8, cfg.n_layers)
+            dcfg = dataclasses.replace(dcfg, kernel=kernel)
+            dq = deployed_from_quantizers(qs, cfg.n_kv_heads, cfg.d_head,
+                                          device="cuda")
+            base = filled_cache(dcfg, cfg.n_layers, ctx, 3)
+            compare = ctx == 2048
+            cache_g = clone_cache(base) if compare else base
+            graph = engine.DecodeGraph(params, cfg, dcfg, dq, cache_g)
+
+            def eager(tok, pos, c=base):
+                return engine.decode_step(params, cfg, dcfg, dq, c, tok,
+                                          pos)[1]
+
+            r = {"capture_s": graph.capture_s, "pool_mib": graph.pool_mib,
+                 "setup_launches": graph.setup_launches}
+            tok_e, lg_e, wall_e, n_e = greedy_run(eager, ctx, steps)
+            tok_g, lg_g, wall_g, n_g = greedy_run(graph, ctx, steps)
+            pos_end = torch.full((1,), ctx + steps, dtype=torch.int32,
+                                 device="cuda")
+            if compare:
+                r["tokens_equal"] = bool(torch.equal(tok_e, tok_g))
+                r["logits_bitwise"] = bool(torch.equal(
+                    lg_e.view(torch.int32), lg_g.view(torch.int32)))
+                r["logits_max_abs_diff"] = float((lg_e - lg_g).abs().max())
+                r["caches_equal"] = caches_equal(base, cache_g)
+                r["finite"] = bool(torch.isfinite(lg_g).all())
+                r["host_waits"] = {
+                    "eager": host_syncs(lambda: eager(tok_e[:, -1],
+                                                      pos_end))[0],
+                    "graphed": host_syncs(lambda: graph(tok_e[:, -1],
+                                                        pos_end))[0]}
+            if n_e != n_g:
+                raise AssertionError(f"[28] {tag} {ctx}: launches eager "
+                                     f"{n_e} graphed {n_g}")
+            per = {k: v / steps for k, v in n_g.items() if v}
+            want = {"flash": {"K1": 32}, "flash_serial": {"K2": 32},
+                    "pallas": {"K3": 32, "K4": 32}, "xla": {}}[kernel]
+            if per != want:
+                raise AssertionError(f"[28] {tag} {ctx}: launches per step "
+                                     f"{per}, expected {want}")
+            # device ms a step: the graph's replays back to back between
+            # CUDA events (the eager step runs the same kernels); at 32K
+            # also the profiler's kernel sum and count, eager and graphed
+            dev = device_ms(lambda: graph(tok_e[:, -1], pos_end), n=8,
+                            reps=3)
+            for mode, step, wall in (("eager", eager, wall_e),
+                                     ("graphed", graph, wall_g)):
+                wall_ms = wall / steps * 1e3
+                r[mode] = {"tok_s": steps / wall, "wall_ms": wall_ms,
+                           "device_ms": dev, "idle": 1 - dev / wall_ms}
+                if ctx == 32768:
+                    kms, kern = step_profile(lambda: step(tok_e[:, -1],
+                                                          pos_end), n=2)
+                    r[mode].update(kernel_ms=kms, kernels=kern)
+            r["launches_per_step"] = per
+            res[ctx] = r
+            e, g = r["eager"], r["graphed"]
+            prof = "" if ctx != 32768 else (
+                f"; profiler kernel ms / kernels a step: eager "
+                f"{e['kernel_ms']:.3f} / {e['kernels']:.0f}, graphed "
+                f"{g['kernel_ms']:.3f} / {g['kernels']:.0f}")
+            log(f"[28] {tag} {ctx} ctx, {steps} steps: device {dev:.3f} ms "
+                f"a step (graph replays); eager {e['tok_s']:.2f} tok/s "
+                f"(wall {e['wall_ms']:.3f} ms, {e['wall_ms'] / dev:.3f} x "
+                f"device, idle {e['idle']:.3f}); graphed {g['tok_s']:.2f} "
+                f"tok/s (wall {g['wall_ms']:.3f} ms, {g['wall_ms'] / dev:.3f}"
+                f" x device, idle {g['idle']:.3f}); launches a step {per}; "
+                f"capture {graph.capture_s:.3f} s, pool "
+                f"{graph.pool_mib:.1f} MiB, warm-up launches "
+                f"{graph.setup_launches}{prof}; {time.perf_counter() - t_case:.1f} s")
+            if compare:
+                log(f"[28] {tag}: tokens equal {r['tokens_equal']}, logits "
+                    f"bitwise {r['logits_bitwise']} (max |diff| "
+                    f"{r['logits_max_abs_diff']:.3e}), caches equal "
+                    f"{r['caches_equal']}, host waits a step {r['host_waits']}")
+                if not (r["tokens_equal"] and r["caches_equal"]
+                        and r["logits_bitwise"] and r["finite"]):
+                    raise AssertionError(f"[28] {tag}: graphed != eager")
+                if r["host_waits"] != {"eager": 0, "graphed": 0}:
+                    raise AssertionError(f"[28] {tag}: the step waits for "
+                                         f"the card")
+            # a replay's trace holds the graph's kernels (and the copies
+            # of the token and the position into the graph)
+            if ctx == 32768 and not (0 < e["kernels"] - 2 <= g["kernels"]):
+                raise AssertionError(f"[28] {tag}: the profiler's trace "
+                                     f"holds {g['kernels']} kernels a "
+                                     f"replay, {e['kernels']} an eager step")
+            del graph, eager, base, cache_g, lg_e, lg_g
+            torch.cuda.empty_cache()
+
+    # the slot pool: 4 slots, 6 requests, graphed against eager (K1)
+    _, dcfg, qs = faithful_config(320, cfg.n_layers)
+    dq = deployed_from_quantizers(qs, cfg.n_kv_heads, cfg.d_head,
+                                  device="cuda")
+    rng = np.random.default_rng(28)
+    reqs = [(rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32),
+             int(m)) for n, m in zip(rng.integers(40, 160, 6),
+                                     rng.integers(6, 20, 6))]
+    served = {}
+    for graphed in (False, True):
+        srv = serve.Server(params, cfg, dcfg, dq, n_slots=4, seed=0,
+                           device="cuda", graph=graphed)
+        before = launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = srv.run([serve.Request(rid=i, prompt=p, max_new_tokens=m)
+                        for i, (p, m) in enumerate(reqs)])
+        torch.cuda.synchronize()
+        k1 = launch_counts()["K1"] - before["K1"]
+        served[graphed] = {rid: c.tokens for rid, c in done.items()}
+        out[f"serve_{'graphed' if graphed else 'eager'}"] = dict(
+            wall_s=time.perf_counter() - t0, steps=srv.decode_steps, k1=k1)
+        if k1 != cfg.n_layers * srv.decode_steps:
+            raise AssertionError(f"[28] serve: K1 {k1}, steps "
+                                 f"{srv.decode_steps}")
+        del srv
+    same = served[True] == served[False]
+    se, sg = out["serve_eager"], out["serve_graphed"]
+    log(f"[28] serve.Server 4 slots, {len(reqs)} requests: graphed tokens == "
+        f"eager {same}; {sg['steps']} decode steps, K1 {sg['k1']}; wall "
+        f"eager {se['wall_s']:.3f} s, graphed {sg['wall_s']:.3f} s")
+    if not same:
+        raise AssertionError("[28] serve: graphed tokens != eager")
+    out["serve_equal"] = same
+    report["graphed"] = out
+    del params
+    torch.cuda.empty_cache()
+
+
 PHASES = {1: phase_device_and_build, 2: phase_kernel_vs_plain,
           3: phase_main_path, 4: phase_card_vs_cpu, 5: phase_times,
           6: phase_k1_vs_plain, 7: phase_k1_main_path,
@@ -4901,7 +5133,7 @@ PHASES = {1: phase_device_and_build, 2: phase_kernel_vs_plain,
           20: phase_x2_oracle, 21: phase_x2_times,
           22: phase_long_prefill, 23: phase_calibrate_deploy,
           24: phase_mistral, 25: phase_dbrx, 26: phase_tp,
-          27: phase_training}
+          27: phase_training, 28: phase_graphed_decode}
 
 
 def main(argv=None) -> int:
@@ -5097,6 +5329,18 @@ def main(argv=None) -> int:
                         x["max_abs_err"] for x in tp["llama_k2"]["ranks"]),
                     "tp2_ms_per_step": [
                         x["ms_per_step"] for x in tp["llama_k2"]["ranks"]]})
+    if 28 in phases:  # launches per replay of the captured decode step
+        g = report["graphed"]
+        for k in kernels:
+            key, path = {"flash_attention": ("K1", "K1 nuq3"),
+                         "flash_serial_decode": ("K2", "K2 speed int4"),
+                         "qk_fused": ("K3", "K3/K4 nuq3"),
+                         "pv_fused": ("K4", "K3/K4 nuq3")}.get(
+                             k["name"], (None, None))
+            if key:
+                r = g[path][2048]
+                k["graphed_launches_per_step"] = r["launches_per_step"][key]
+                k["graphed_tok_s_2k"] = r["graphed"]["tok_s"]
     if kernels:
         log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

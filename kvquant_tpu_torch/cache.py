@@ -269,8 +269,14 @@ class DeployedQuant:
     k_ressc: torch.Tensor  # (L, C) per-channel K residual energy
 
     def layer(self, i) -> "DeployedQuant":
-        return DeployedQuant(**{f.name: getattr(self, f.name)[i]
-                                for f in fields(self)})
+        """Layer ``i``'s arrays, with layer ``i`` of the static K channels
+        already computed on this object (``channel_index``)."""
+        out = DeployedQuant(**{f.name: getattr(self, f.name)[i]
+                               for f in fields(self)})
+        memo = self.__dict__.get("_k_chan")
+        if memo:
+            out._k_chan = {key: v[i] for key, v in memo.items()}
+        return out
 
 
 def k_channel_index(k_ressc: torch.Tensor, dcfg: DeployConfig) -> torch.Tensor:
@@ -281,6 +287,19 @@ def k_channel_index(k_ressc: torch.Tensor, dcfg: DeployConfig) -> torch.Tensor:
     gw = dcfg.head_group * dcfg.d_head
     g = k_ressc.reshape(*k_ressc.shape[:-1], -1, gw)
     return top_k(g, dcfg.n_kc)[1]
+
+
+def channel_index(dq: "DeployedQuant", dcfg: DeployConfig,
+                  dtype=torch.int64) -> torch.Tensor:
+    """``k_channel_index(dq.k_ressc, dcfg)`` in ``dtype``, computed once per
+    DeployedQuant and (head_group, d_head, n_kc) and kept on ``dq``: the
+    selection is static for a run, so a decode step does not sort again.
+    ``dq.layer(i)`` carries layer i of what is kept."""
+    key = (dcfg.head_group, dcfg.d_head, dcfg.n_kc, dtype)
+    memo = dq.__dict__.setdefault("_k_chan", {})
+    if key not in memo:
+        memo[key] = k_channel_index(dq.k_ressc, dcfg).to(dtype).contiguous()
+    return memo[key]
 
 
 def k_channel_onehot(k_ressc: torch.Tensor, dcfg: DeployConfig) -> torch.Tensor:

@@ -6,9 +6,11 @@ perplexity through the real packed-cache datapath).
   python -m kvquant_tpu_torch.cli.deploy --quantizers q.npz --benchmark 64 \
       --check --kernel flash [--prefill N] [--profile DIR] [--device cpu]
 
-The timed decode is an eager loop of ``engine.decode_step`` with greedy
-argmax (the JAX CLI jits a scan of the same steps): one warm-up pass, then
-the timed pass between two ``torch.cuda.synchronize()``. The cache is
+The timed decode is a loop of greedy steps through one
+``engine.DecodeGraph`` on a card (``engine.decode_stepper``; the JAX CLI
+jits a scan of the same steps; ``engine.decode_step`` on the CPU and on a
+mesh): one warm-up pass, then the timed pass between two
+``torch.cuda.synchronize()``. The cache is
 updated in place, so each pass rewrites the rows of the one before from
 the same prefilled state. ``--profile DIR`` traces one more pass with
 ``torch.profiler`` into DIR/trace.json and prints kernel launches and
@@ -46,12 +48,11 @@ from ..quant.artifacts import load_quantizers
 from ..utils.profiling import kernel_summary, trace
 
 
-def _decode(params, cfg, dcfg, dq, cache, tok, t0: int, steps: int):
-    """``steps`` greedy decode steps from ``tok`` at position ``t0``;
-    returns the last logits."""
+def _decode(step, tok, t0: int, steps: int):
+    """``steps`` greedy decode steps of ``step`` (``engine.decode_stepper``)
+    from ``tok`` at position ``t0``; returns the last logits."""
     for i in range(steps):
-        cache, logits = engine.decode_step(params, cfg, dcfg, dq, cache, tok,
-                                           t0 + i)
+        logits = step(tok, t0 + i)
         tok = torch.argmax(logits, dim=-1).to(torch.int32)
     return logits
 
@@ -153,8 +154,10 @@ def _run(args, mesh):
     else:
         tok = tokens[:, 0]
 
+    step = engine.decode_stepper(params, cfg, dcfg, dq, cache)
+
     def run():
-        logits = _decode(params, cfg, dcfg, dq, cache, tok, t0, steps)
+        logits = _decode(step, tok, t0, steps)
         if cuda:
             torch.cuda.synchronize()
         return logits

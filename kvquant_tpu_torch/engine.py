@@ -13,7 +13,13 @@ kvquant_tpu/engine.py: prefill, decode_step, generate, deployed_ppl).
     quantized datapath (ops.deployed.block_attention: K1 with Tq > 1 under
     "flash" / "flash_serial", K3 / K4 under "pallas"); the JAX engine's
     chunk scan is a Python loop.
-  - ``generate`` / ``deployed_ppl``: Python loops over decode_step.
+  - ``DecodeGraph``: one decode step captured as a CUDA graph, the
+    counterpart of the JAX engine's ``jax.jit(decode_step)``: static token
+    and position buffers, one replay per step.
+  - ``generate`` / ``deployed_ppl``: Python loops over one DecodeGraph on
+    a card (over decode_step on the CPU, and for the configurations a
+    graph cannot capture: tp > 1, the MoE family); sampling, EOS and
+    ``done`` stay outside the graph.
 
 Both model families run here: the MoE family's fused projection and
 expert FFN come in through ``models.llama.project_qkv`` / ``ffn`` (the
@@ -28,19 +34,23 @@ range is exchanged inside ``ops.deployed.quantize_v``. The logits come out
 whole on every rank of a tp group.
 
 The cache is updated in place (the JAX engine threads an immutable pytree).
-Positions are host integers; the JAX engine's ``lax.scan`` loops become
-Python loops. Entry points that allocate take ``device`` (default "cuda",
-which raises when no card is present).
+A decode step takes its positions as a (B,) int32 tensor on the cache's
+device and reads nothing back to the host; the JAX engine's ``lax.scan``
+over layers is a Python loop inside the captured step, its scan over steps
+a loop of replays. Entry points that allocate take ``device`` (default
+"cuda", which raises when no card is present).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import gc
+import time
+from dataclasses import dataclass, fields
 
 import torch
 
 from .cache import (KVCache, DeployConfig, DeployedQuant, create_cache,
-                    check_intn_codebook, k_channel_index)
+                    check_intn_codebook, channel_index)
 from .models.config import ModelConfig
 from .models import get_forward, llama
 from .ops import deployed
@@ -87,24 +97,31 @@ def _logits(params, x, cfg):
 
 def decode_step(params, cfg: ModelConfig, dcfg: DeployConfig,
                 dq: DeployedQuant, cache: KVCache, token, pos):
-    """Append ``token`` (B,) at ``pos`` (int, or B ints) to every layer's
-    cache in place and return (cache, logits (B, V) fp32) for the next
-    position."""
+    """Append ``token`` (B,) at ``pos`` to every layer's cache in place and
+    return (cache, logits (B, V) fp32) for the next position. ``pos`` is a
+    (B,) int32 tensor on the cache's device (an int or B ints are
+    converted once); the step reads nothing back to the host."""
     _check_kernel(dcfg)
     check_intn_codebook(dcfg, dq)
+    B = token.shape[0]
+    pos = deployed.device_positions(pos, B, cache.length.device)
+    if dcfg.include_sparse and dcfg.k_outliers == "channels":
+        channel_index(dq, dcfg)  # kept on dq: layer views slice it
     if dcfg.kernel in ("flash", "flash_serial"):
         return _decode_step_flash(params, cfg, dcfg, dq, cache, token, pos)
 
-    B = token.shape[0]
     H, Dh = cfg.n_heads, cfg.d_head
+    rows = deployed.token_rows(pos, dcfg)
+    cos_sin = llama.rope_cos_sin(pos, cfg)
     x = params.embed[token.to(params.embed.device).long()]
     for li in range(cfg.n_layers):
         lp = params.layer(li)
         q, k, v = llama.project_qkv(llama.norm(x, lp["ln_attn"], cfg), lp,
                                     cfg)
         q = q.reshape(B, H, Dh)
-        _, attn = deployed.decode_attention(cache.layer(li), dq.layer(li),
-                                            dcfg, cfg, q, k, v, pos)
+        _, attn = deployed.decode_attention(
+            cache.layer(li), dq.layer(li), dcfg, cfg, q, k, v, pos,
+            rows=rows, cos_sin=cos_sin)
         x = x + row_parallel(attn.reshape(B, H * Dh).to(x.dtype),
                              lp["wo"], tp_group(cfg))
         x = _mlp(x, lp, cfg)
@@ -127,12 +144,11 @@ def _decode_step_flash(params, cfg: ModelConfig, dcfg: DeployConfig,
     H, Dh, Hkv = cfg.n_heads, cfg.d_head, cfg.n_kv_heads
     G = H // Hkv
     dev = params.embed.device
-    pl = deployed.host_positions(pos, B)
-    posb = torch.tensor(pl, dtype=torch.int32, device=dev)
-    cos, sin = llama.rope_cos_sin(posb, cfg)  # (B, Dh)
+    cos, sin = llama.rope_cos_sin(pos, cfg)  # (B, Dh)
+    rows = deployed.token_rows(pos, dcfg)
     k_chan = None
     if dcfg.include_sparse and dcfg.k_outliers == "channels":
-        k_chan = k_channel_index(dq.k_ressc, dcfg).to(torch.int32)
+        k_chan = channel_index(dq, dcfg, torch.int32)
 
     arrs = cache.arrays()
     x = params.embed[token.to(dev).long()]
@@ -142,7 +158,7 @@ def _decode_step_flash(params, cfg: ModelConfig, dcfg: DeployConfig,
                                     cfg)
         q = q.reshape(B, H, Dh)
         deployed.append_token_flash(arrs, dq.layer(li), dcfg, cfg, k, v,
-                                    pos, li)
+                                    pos, li, rows=rows, cos_sin=(cos, sin))
         q_h = q.reshape(B, Hkv, G, Dh).to(torch.float32)
         q_rot = q_h * cos[:, None, None] + (
             llama.rotate_half(q_h) * sin[:, None, None])
@@ -150,13 +166,138 @@ def _decode_step_flash(params, cfg: ModelConfig, dcfg: DeployConfig,
             q_rot, arrs["k_planes"], arrs["v_planes"], arrs["kv_out"],
             dq.k_range, dq.k_offset, arrs["v_scale"], arrs["v_offset"],
             arrs["k_sink"], arrs["v_sink"], dq.k_lut_dec, dq.v_lut_dec,
-            li, posb, dcfg, cfg, k_ressc=dq.k_ressc, k_chan=k_chan,
+            li, pos, dcfg, cfg, k_ressc=dq.k_ressc, k_chan=k_chan,
         )  # (B, Hkv, G, Dh)
         x = x + row_parallel(attn.reshape(B, H * Dh).to(x.dtype),
                              lp["wo"], tp_group(cfg))
         x = _mlp(x, lp, cfg)
-    cache.length.copy_(posb + 1)
+    cache.length.copy_(pos + 1)
     return cache, _logits(params, x, cfg)
+
+
+# ---------------------------------------------------------------------------
+# the compiled decode step: one CUDA graph per decode step
+# ---------------------------------------------------------------------------
+
+
+def graph_unsupported(cfg: ModelConfig) -> str | None:
+    """Why a decode step of ``cfg`` cannot be captured in a CUDA graph, or
+    None when it can."""
+    from .models.moe import MoEConfig
+
+    if tp_group(cfg) is not None:
+        return ("tensor parallelism: the tp group's collectives run over "
+                "gloo on the host")
+    if isinstance(cfg, MoEConfig):
+        return ("the MoE family: the expert dispatch reads the routing mask "
+                "to the host (models/moe.py)")
+    return None
+
+
+class DecodeGraph:
+    """One ``decode_step`` captured as a CUDA graph over a cache on a card:
+    the counterpart of ``jax.jit(decode_step)``.
+
+    It holds static (B,) int32 ``token`` and ``pos`` buffers (B is the
+    cache's batch) and the step's ``logits`` (B, V) fp32. ``graph(token,
+    pos)`` copies the inputs in, replays the step (which appends to
+    ``cache`` in place, as decode_step does) and returns ``logits``, which
+    the next call overwrites. ``pos`` is an int, B ints or a tensor.
+
+    Before the capture, ``warmup`` eager steps run on a side stream over a
+    clone of the cache, which is left as it was found: they load the kernel
+    libraries, set the kernels' shared-memory limits, build the RoPE table
+    and set up cuBLAS. Their launches are not counted (``setup_launches``
+    keeps them). The capture's launches (``launches``) are added to the
+    counters at each replay (``ops.kernels.add_launches``): they are the
+    launches a replay makes. ``capture_s`` is the wall time of the warm-up
+    and the capture, ``pool_mib`` the memory the graph's private pool took.
+
+    Raises ValueError for a cache that is not on a card and for the
+    configurations ``graph_unsupported`` names; a capture that fails
+    raises. Nothing falls back to the eager step."""
+
+    def __init__(self, params, cfg: ModelConfig, dcfg: DeployConfig,
+                 dq: DeployedQuant, cache: KVCache, warmup: int = 2):
+        from .ops.kernels import counted
+        from .ops.kernels.flash_decode import rope_table
+
+        _check_kernel(dcfg)
+        why = graph_unsupported(cfg)
+        if why is not None:
+            raise ValueError(f"DecodeGraph: cannot capture {why}")
+        dev = cache.length.device
+        if dev.type != "cuda":
+            raise ValueError(f"DecodeGraph: the cache is on {dev}; a CUDA "
+                             f"graph needs a card (call decode_step)")
+        t0 = time.perf_counter()
+        # the graph reads and writes these tensors' memory: they live as
+        # long as it does
+        self._inputs = (params, dq, cache)
+        self.token = torch.zeros_like(cache.length)
+        self.pos = cache.length.clone()
+
+        def step(c):
+            return decode_step(params, cfg, dcfg, dq, c, self.token,
+                               self.pos)[1]
+
+        def warm():
+            scratch = KVCache(**{f.name: getattr(cache, f.name).clone()
+                                 for f in fields(cache)})
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                for _ in range(warmup):
+                    step(scratch)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            torch.cuda.synchronize(dev)
+
+        _, self.setup_launches = counted(warm)
+        # the kernels read the RoPE table from a bounded cache of tables;
+        # the graph holds its own reference, so the table outlives eviction
+        self._rope = None
+        if dcfg.kernel == "pallas" or (dcfg.kernel == "flash"
+                                       and not dcfg.post_rope_k):
+            self._rope = rope_table(cfg, dcfg.sink, dcfg.cache_tokens, dev)
+        # torch.cuda.graph empties the allocator's cache as it enters; so
+        # does this, first, so that the growth is the graph's own pool
+        gc.collect()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        self.graph = torch.cuda.CUDAGraph()
+
+        def capture():
+            with torch.cuda.graph(self.graph):
+                return step(cache)
+
+        self.logits, self.launches = counted(capture)
+        torch.cuda.synchronize(dev)
+        self.pool_mib = (torch.cuda.memory_reserved(dev) - reserved) / 2 ** 20
+        self.capture_s = time.perf_counter() - t0
+
+    def __call__(self, token, pos):
+        from .ops.kernels import add_launches
+
+        self.token.copy_(token)
+        if isinstance(pos, int):
+            self.pos.fill_(pos)
+        else:
+            self.pos.copy_(torch.as_tensor(pos, dtype=torch.int32))
+        self.graph.replay()
+        add_launches(self.launches)
+        return self.logits
+
+
+def decode_stepper(params, cfg: ModelConfig, dcfg: DeployConfig,
+                   dq: DeployedQuant, cache: KVCache, graph: bool = True):
+    """``step(token, pos) -> logits (B, V)`` over ``cache``: a DecodeGraph
+    when ``graph`` and the cache lies on a card, unless
+    ``graph_unsupported(cfg)`` (tp > 1, the MoE family: those run
+    decode_step); on the CPU decode_step."""
+    if graph and cache.length.is_cuda and graph_unsupported(cfg) is None:
+        return DecodeGraph(params, cfg, dcfg, dq, cache)
+    return lambda token, pos: decode_step(params, cfg, dcfg, dq, cache,
+                                          token, pos)[1]
 
 
 # ---------------------------------------------------------------------------
@@ -195,9 +336,11 @@ def generate(params, cfg: ModelConfig, dcfg: DeployConfig, dq: DeployedQuant,
              prompt, gcfg: GenerateConfig, *, cache: KVCache | None = None,
              generator: torch.Generator | None = None,
              prefill_mode: str = "fp16", device="cuda"):
-    """Prefill + ``max_new_tokens`` decode steps. Returns (tokens (B, N)
-    int32, cache). Positions past ``dcfg.max_len`` or after EOS emit
-    ``eos`` (or 0). ``device`` places a cache created here.
+    """Prefill + ``max_new_tokens`` decode steps (``decode_stepper``: one
+    DecodeGraph on a card). Returns (tokens (B, N) int32, cache).
+    Positions past ``dcfg.max_len`` or after EOS emit ``eos`` (or 0); the
+    sampling, with the caller's ``generator``, runs outside the graph.
+    ``device`` places a cache created here.
     ``prefill_mode`` "fp16" packs a full-precision prompt forward (the
     reference's semantics); "quantized" runs ``prefill_quantized``."""
     if prefill_mode not in ("fp16", "quantized"):
@@ -215,11 +358,13 @@ def generate(params, cfg: ModelConfig, dcfg: DeployConfig, dq: DeployedQuant,
     pad_id = gcfg.eos_token_id if gcfg.eos_token_id is not None else 0
     done = torch.zeros((B,), dtype=torch.bool, device=logits.device)
     toks = []
+    step = decode_stepper(params, cfg, dcfg, dq, cache) \
+        if gcfg.max_new_tokens else None
     for i in range(gcfg.max_new_tokens):
         pos = T0 + i
         tok = _sample(logits, gcfg, generator)
         tok = torch.where(done, torch.full_like(tok, pad_id), tok)
-        cache, logits = decode_step(params, cfg, dcfg, dq, cache, tok, pos)
+        logits = step(tok, pos)
         done = done | (pos + 1 >= dcfg.max_len)
         if gcfg.eos_token_id is not None:
             done = done | (tok == gcfg.eos_token_id)
@@ -237,25 +382,26 @@ def deployed_ppl(params, cfg: ModelConfig, dcfg: DeployConfig,
                  dq: DeployedQuant, tokens, *, prefill_tokens: int = 0,
                  device="cuda") -> float:
     """Perplexity of ``tokens`` (B, T) decoded token by token through the
-    quantized cache; ``prefill_tokens`` > sink runs that prefix through the
-    fp16 prefill first."""
+    quantized cache (``decode_stepper``: one DecodeGraph on a card);
+    ``prefill_tokens`` > sink runs that prefix through the fp16 prefill
+    first."""
     _check_kernel(dcfg)
     B, T = tokens.shape
     cache = create_cache(dcfg, cfg.n_layers, B, device=device)
     tokens = tokens.to(cache.length.device)
-    if prefill_tokens > dcfg.sink:
-        t0 = prefill_tokens
+    prefilled = prefill_tokens > dcfg.sink
+    t0 = prefill_tokens if prefilled else 1
+    if prefilled:
         cache, logits = prefill(params, cfg, dcfg, dq, cache, tokens[:, :t0])
-    else:
-        t0 = 1
-        cache, logits = decode_step(params, cfg, dcfg, dq, cache,
-                                    tokens[:, 0], 0)
+    step = decode_stepper(params, cfg, dcfg, dq, cache)
+    if not prefilled:
+        logits = step(tokens[:, 0], 0)
     total = torch.zeros((), dtype=torch.float32, device=logits.device)
     for t in range(t0, T):
         tgt = tokens[:, t]
         logp = torch.log_softmax(logits, dim=-1)
         total = total - torch.gather(logp, -1, tgt[:, None].long())[:, 0].sum()
-        cache, logits = decode_step(params, cfg, dcfg, dq, cache, tgt, t)
+        logits = step(tgt, t)
     n = (T - t0) * B
     return float(torch.exp(total / n))
 

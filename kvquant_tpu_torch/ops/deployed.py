@@ -14,8 +14,10 @@ and softmax here, K4 ``pv_fused`` for the weighted values).
 Differences from the JAX functions:
   - caches are updated IN PLACE (``cache_l`` is a set of views of the
     stacked arrays, see KVCache.layer) and also returned;
-  - positions are host integers: ``pos`` is an int (every sequence at the
-    same position) or a sequence/tensor of B ints (per-sample positions);
+  - a decode step's ``pos`` is a (B,) int32 tensor on the cache's device
+    (an int or B ints are converted once, ``device_positions``); its rows
+    are written by device-indexed, predicated writes (``_write_token``, as
+    JAX's ``_write_row_b``), so the step reads nothing back to the host;
   - under a rank-local ``mcfg`` (``parallel.shardings.shard_config``) the
     arrays hold this rank's heads and ``quantize_v`` exchanges the per-token
     V range over the tp group.
@@ -23,32 +25,37 @@ Differences from the JAX functions:
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
-from ..cache import KVCache, DeployConfig, DeployedQuant, k_channel_index
+from ..cache import KVCache, DeployConfig, DeployedQuant, channel_index
 from ..models.config import ModelConfig
 from ..models.llama import rope_cos_sin, rotate_half
 from ..parallel.collectives import topk_range, tp_group
 from ..quant.nuq import nearest_codes, lut_lookup
 from ..utils.topk import top_k
 from .packing import (
-    unpack_codes, set_token_codes, set_token_codes_at_layer,
-    set_token_codes_at_layer_uniform, place_planes,
+    unpack_codes, set_token_bits, token_word_bit, place_planes,
     store_codes_int, load_codes_int, place_codes_int,
     pair_codes_int4x2, unpair_codes_int4x2, place_codes_int4x2,
-    set_token_rows, set_token_rows_at_layer,
+    write_rows,
     encode_outlier_words, decode_outlier_words, OUTLIER_DIM_MASK,
 )
 
 
-def host_positions(pos, B: int) -> list[int]:
-    """``pos`` (int, sequence or tensor) as B host integers."""
-    if isinstance(pos, torch.Tensor):
-        pos = pos.tolist()
-    if isinstance(pos, (list, tuple)):
-        assert len(pos) == B, (len(pos), B)
-        return [int(p) for p in pos]
-    return [int(pos)] * B
+def device_positions(pos, B: int, device) -> torch.Tensor:
+    """``pos`` (an int, B ints, or a () / (B,) tensor) as a (B,) int32
+    tensor on ``device``; a tensor already there is used as it is."""
+    if not isinstance(pos, torch.Tensor):
+        pos = torch.tensor(pos, dtype=torch.int32)
+    pos = pos.to(device=device, dtype=torch.int32)
+    if pos.dim() == 0:
+        pos = pos.expand(B)
+    if pos.shape != (B,):
+        raise ValueError(f"positions of shape {tuple(pos.shape)} for a "
+                         f"batch of {B}")
+    return pos
 
 
 def _stored_codes(planes, dcfg: DeployConfig):
@@ -62,7 +69,7 @@ def _stored_codes(planes, dcfg: DeployConfig):
 
 def _encode_rows(codes, dcfg: DeployConfig):
     """Unsigned codes (..., Hkv, D) -> container rows (..., H', Dc) for
-    the integer containers (bit planes are written by set_token_codes)."""
+    the integer containers (bit planes are written by set_token_bits)."""
     if dcfg.codes == "int4x2":
         return pair_codes_int4x2(codes)
     return store_codes_int(codes, dcfg.bits, dcfg.code_dtype)
@@ -143,7 +150,7 @@ def quantize_k(k, lq: DeployedQuant, dcfg: DeployConfig):
     if dcfg.include_sparse:
         gshape = (*k.shape[:-1], dcfg.n_groups, dcfg.head_group * D)
         if dcfg.k_outliers == "channels":
-            idx = k_channel_index(lq.k_ressc, dcfg)  # (G, n_kc)
+            idx = channel_index(lq, dcfg)  # (G, n_kc)
             resid = (kf - deq).reshape(gshape)
             out_words = torch.gather(
                 resid, -1, idx.expand(*resid.shape[:-1], idx.shape[-1]))
@@ -212,7 +219,7 @@ def dequant_k_full(cache_l: KVCache, lq: DeployedQuant, dcfg: DeployConfig,
         if dcfg.k_outliers == "channels":
             B, Gp, N, Tc = rows.shape
             D, hg = dcfg.d_head, dcfg.head_group
-            idx = k_channel_index(lq.k_ressc, dcfg)  # (G, n_kc)
+            idx = channel_index(lq, dcfg)  # (G, n_kc)
             dense = torch.zeros((B, Gp, Tc, hg * D), dtype=torch.float32,
                                 device=rows.device)
             dense.scatter_add_(
@@ -242,20 +249,73 @@ def dequant_v_full(cache_l: KVCache, lq: DeployedQuant, dcfg: DeployConfig,
 # ---------------------------------------------------------------------------
 
 
-def _append_layer(cache_l: KVCache, dcfg: DeployConfig, codes, words, row0,
-                  planes_name, p: list[int], not_sink: list[bool]):
-    """Per-sample row writes of one kind (K or V) into a layer cache."""
-    planes = getattr(cache_l, planes_name)
-    if dcfg.codes == "nuq":
-        for b, (pb, ok) in enumerate(zip(p, not_sink)):
-            set_token_codes(planes[b], codes[b], pb, ok)
-    else:
-        rows = _encode_rows(codes, dcfg)
-        for b, (pb, ok) in enumerate(zip(p, not_sink)):
-            set_token_rows(planes[b], rows[b], pb, ok)
-    for b, (pb, ok) in enumerate(zip(p, not_sink)):
-        if ok and words is not None:
-            cache_l.kv_out[b, :, row0:row0 + words.shape[-1], pb] = words[b]
+class TokenRows(NamedTuple):
+    """Where each sample's token lands, from its position pos (B,):
+    ``packed`` pos >= S; ``p`` the packed row clamp(pos - S, 0, Tc - 1)
+    (int64) and, for bit planes, its ``word`` row and ``bit``; ``s`` the
+    sink row min(pos, S - 1) (None without a sink). A decode step computes
+    it once and every layer's writes share it."""
+    packed: torch.Tensor
+    p: torch.Tensor
+    word: torch.Tensor | None
+    bit: torch.Tensor | None
+    s: torch.Tensor | None
+
+
+def token_rows(pos, dcfg: DeployConfig) -> TokenRows:
+    """The ``TokenRows`` of positions ``pos`` (B,) int32."""
+    S, Tc = dcfg.sink, dcfg.cache_tokens
+    p = (pos - S).clamp(0, Tc - 1).long()
+    word, bit = token_word_bit(p) if dcfg.codes == "nuq" else (None, None)
+    return TokenRows(pos >= S, p, word, bit,
+                     pos.clamp(max=S - 1).long() if S > 0 else None)
+
+
+def _write_token(c: dict, dcfg: DeployConfig, at: TokenRows, codes_k,
+                 codes_v, k_words, v_words, v_sc, v_off, k_roped, v_h):
+    """Write each sample's token into one layer's arrays ``c`` (name ->
+    (B, ...) views) at its rows ``at``, in place, predicated as JAX's
+    ``_write_row_b``: codes, outlier rows and V range at the packed row,
+    which keeps its old value where pos < S; the exact sink rows, which
+    keep theirs where pos >= S. Device-indexed: no host read."""
+    for name, codes in (("k_planes", codes_k), ("v_planes", codes_v)):
+        if dcfg.codes == "nuq":
+            set_token_bits(c[name], codes, at.word, at.bit, at.packed)
+        else:
+            write_rows(c[name], _encode_rows(codes, dcfg), at.p, at.packed,
+                       axis=-2)
+    if dcfg.include_sparse:
+        row0 = 0
+        for words in (k_words, v_words):
+            if words is not None and words.shape[-1]:
+                n = words.shape[-1]
+                write_rows(c["kv_out"][:, :, row0:row0 + n], words, at.p,
+                           at.packed, axis=3)
+            row0 = dcfg.slots_per_kind
+    write_rows(c["v_scale"], v_sc, at.p, at.packed, axis=1)
+    write_rows(c["v_offset"], v_off, at.p, at.packed, axis=1)
+    if at.s is not None:
+        sink = ~at.packed
+        write_rows(c["k_sink"], k_roped, at.s, sink, axis=2)
+        write_rows(c["v_sink"], v_h, at.s, sink, axis=2)
+
+
+def _quantize_token(lq: DeployedQuant, dcfg: DeployConfig,
+                    mcfg: ModelConfig, k_new, v_new, cos, sin):
+    """One token per sample quantized for the append: (codes_k, codes_v,
+    k_words, v_words, v_scale, v_offset, roped keys (B, Hkv, Dh), values
+    (B, Hkv, Dh)), the positional arguments of ``_write_token`` after
+    ``at``."""
+    B = k_new.shape[0]
+    Hkv, Dh = dcfg.n_kv_heads, dcfg.d_head
+    k_h = k_new.reshape(B, Hkv, Dh).to(torch.float32)
+    k_roped = k_h * cos[:, None] + rotate_half(k_h) * sin[:, None]
+    k_store = k_roped.reshape(B, Hkv * Dh) if dcfg.post_rope_k else k_new
+    codes_k, k_words = quantize_k(k_store, lq, dcfg)
+    codes_v, v_words, v_sc, v_off = quantize_v(v_new, lq, dcfg,
+                                                tp_group(mcfg))
+    v_h = v_new.reshape(B, Hkv, Dh).to(torch.float32)
+    return codes_k, codes_v, k_words, v_words, v_sc, v_off, k_roped, v_h
 
 
 def _assert_two_pass(dcfg: DeployConfig):
@@ -280,12 +340,17 @@ def _roped_keys(k_full, dcfg: DeployConfig, mcfg: ModelConfig):
 
 
 def decode_attention(cache_l: KVCache, lq: DeployedQuant, dcfg: DeployConfig,
-                     mcfg: ModelConfig, q, k_new, v_new, pos):
+                     mcfg: ModelConfig, q, k_new, v_new, pos, *, rows=None,
+                     cos_sin=None):
     """Append each sample's token at its position to the single-layer cache
     (in place) and attend over positions 0..pos. q (B, H, Dh) un-roped,
-    k_new/v_new (B, C). Returns (cache_l, out (B, H, Dh)). kernel "pallas"
-    scores through K3 and weights the values through K4; every other
-    kernel attends over the eagerly dequantized cache."""
+    k_new/v_new (B, C), pos (B,) int32 on the device (or an int / B ints).
+    Returns (cache_l, out (B, H, Dh)). kernel "pallas" scores through K3
+    and weights the values through K4; every other kernel attends over the
+    eagerly dequantized cache. The token's K and V rows are both written
+    before the scores: the scores read no V row. ``rows`` (``token_rows``)
+    and ``cos_sin`` (``rope_cos_sin(pos)``) may come precomputed, once a
+    step."""
     pallas = dcfg.kernel == "pallas"
     if pallas:
         _assert_two_pass(dcfg)
@@ -295,23 +360,11 @@ def decode_attention(cache_l: KVCache, lq: DeployedQuant, dcfg: DeployConfig,
     G = q.shape[1] // Hkv
     dev = q.device
 
-    pl = host_positions(pos, B)
-    not_sink = [p >= S for p in pl]
-    p = [min(max(x - S, 0), Tc - 1) for x in pl]
-    post = torch.tensor(pl, dtype=torch.int32, device=dev)
-    cos, sin = rope_cos_sin(post, mcfg)  # (B, Dh)
-
-    # ---- append K ----
-    k_h = k_new.reshape(B, Hkv, Dh).to(torch.float32)
-    k_roped = k_h * cos[:, None] + rotate_half(k_h) * sin[:, None]
-    k_store = k_roped.reshape(B, Hkv * Dh) if dcfg.post_rope_k else k_new
-    codes_k, k_words = quantize_k(k_store, lq, dcfg)
-    for b in range(B):
-        if S > 0 and not not_sink[b]:
-            cache_l.k_sink[b, :, pl[b]] = k_roped[b]
-    _append_layer(cache_l, dcfg, codes_k,
-                  k_words if dcfg.include_sparse else None, 0,
-                  "k_planes", p, not_sink)
+    post = device_positions(pos, B, dev)
+    cos, sin = cos_sin or rope_cos_sin(post, mcfg)  # (B, Dh)
+    _write_token(cache_l.arrays(), dcfg, rows or token_rows(post, dcfg),
+                 *_quantize_token(lq, dcfg, mcfg, k_new, v_new, cos, sin))
+    cache_l.length.copy_(post + 1)
 
     # ---- scores ----
     q_h = q.reshape(B, Hkv, G, Dh).to(torch.float32)
@@ -337,21 +390,6 @@ def decode_attention(cache_l: KVCache, lq: DeployedQuant, dcfg: DeployConfig,
     scores = scores.masked_fill(~valid[:, None, None, :], float("-inf"))
     probs = torch.softmax(scores, dim=-1)
 
-    # ---- append V ----
-    codes_v, v_words, v_sc, v_off = quantize_v(v_new, lq, dcfg,
-                                                tp_group(mcfg))
-    v_h = v_new.reshape(B, Hkv, Dh).to(torch.float32)
-    for b in range(B):
-        if not_sink[b]:
-            cache_l.v_scale[b, p[b]] = v_sc[b]
-            cache_l.v_offset[b, p[b]] = v_off[b]
-        elif S > 0:
-            cache_l.v_sink[b, :, pl[b]] = v_h[b]
-    _append_layer(cache_l, dcfg, codes_v,
-                  v_words if dcfg.include_sparse else None,
-                  dcfg.slots_per_kind, "v_planes", p, not_sink)
-    cache_l.length.copy_(post + 1)
-
     # ---- weighted values ----
     if pallas:
         from .kernels.attention import pv_fused
@@ -373,69 +411,21 @@ def decode_attention(cache_l: KVCache, lq: DeployedQuant, dcfg: DeployConfig,
 
 
 def append_token_flash(arrs: dict, lq: DeployedQuant, dcfg: DeployConfig,
-                       mcfg: ModelConfig, k_new, v_new, pos, li: int) -> dict:
-    """Append one token at layer ``li`` directly into the stacked (L, B, ...)
-    arrays (in place; ``arrs`` is returned). An int ``pos`` takes one
-    batch-wide row write per array; per-sample positions write each
-    sample's row in turn. Tokens inside the sink prefix go to the exact
-    sink rows and leave the packed arrays untouched."""
+                       mcfg: ModelConfig, k_new, v_new, pos, li: int, *,
+                       rows=None, cos_sin=None) -> dict:
+    """Append one token per sample at layer ``li`` directly into the
+    stacked (L, B, ...) arrays (in place; ``arrs`` is returned). ``pos``
+    (B,) int32 on the device (or an int / B ints): one device-indexed,
+    predicated write per array serves a uniform and per-sample positions.
+    Tokens inside the sink prefix go to the exact sink rows and leave the
+    packed arrays untouched. ``rows`` (``token_rows``) and ``cos_sin``
+    (``rope_cos_sin(pos)``) may come precomputed, once a step."""
     B = k_new.shape[0]
-    S, Tc = dcfg.sink, dcfg.cache_tokens
-    Hkv, Dh = dcfg.n_kv_heads, dcfg.d_head
-    dev = k_new.device
-
-    pl = host_positions(pos, B)
-    cos, sin = rope_cos_sin(torch.tensor(pl, dtype=torch.int32, device=dev),
-                            mcfg)
-    k_h = k_new.reshape(B, Hkv, Dh).to(torch.float32)
-    k_roped = k_h * cos[:, None] + rotate_half(k_h) * sin[:, None]
-    k_store = k_roped.reshape(B, Hkv * Dh) if dcfg.post_rope_k else k_new
-    codes_k, k_words = quantize_k(k_store, lq, dcfg)
-    codes_v, v_words, v_sc, v_off = quantize_v(v_new, lq, dcfg,
-                                                tp_group(mcfg))
-    nuq = dcfg.codes == "nuq"
-    rows_k = codes_k if nuq else _encode_rows(codes_k, dcfg)  # (B, H', Dc)
-    rows_v = codes_v if nuq else _encode_rows(codes_v, dcfg)
-    put_uniform = set_token_codes_at_layer_uniform if nuq else (
-        lambda a, r, li_, p_: set_token_rows(a[li_], r, p_))
-    put_sample = set_token_codes_at_layer if nuq else set_token_rows_at_layer
-    v_h = v_new.reshape(B, Hkv, Dh).to(torch.float32)
-    spk = dcfg.slots_per_kind
-
-    if not isinstance(pos, (list, tuple, torch.Tensor)):
-        # uniform position: one batch-wide row write per array
-        p0 = min(max(pl[0] - S, 0), Tc - 1)
-        if pl[0] >= S:
-            put_uniform(arrs["k_planes"], rows_k, li, p0)
-            put_uniform(arrs["v_planes"], rows_v, li, p0)
-            if dcfg.include_sparse:
-                arrs["kv_out"][li, :, :, :spk, p0] = k_words
-                if v_words is not None:
-                    arrs["kv_out"][li, :, :, spk:spk + v_words.shape[-1],
-                                   p0] = v_words
-            arrs["v_scale"][li, :, p0] = v_sc
-            arrs["v_offset"][li, :, p0] = v_off
-        elif S > 0:
-            arrs["k_sink"][li, :, :, pl[0], :] = k_roped
-            arrs["v_sink"][li, :, :, pl[0], :] = v_h
-        return arrs
-
-    # per-sample positions (serving slot pools): one row write per sample
-    for b in range(B):
-        if pl[b] >= S:
-            pb = min(pl[b] - S, Tc - 1)
-            put_sample(arrs["k_planes"][:, b], rows_k[b], li, pb)
-            put_sample(arrs["v_planes"][:, b], rows_v[b], li, pb)
-            if dcfg.include_sparse:
-                arrs["kv_out"][li, b, :, :spk, pb] = k_words[b]
-                if v_words is not None:
-                    arrs["kv_out"][li, b, :, spk:spk + v_words.shape[-1],
-                                   pb] = v_words[b]
-            arrs["v_scale"][li, b, pb] = v_sc[b]
-            arrs["v_offset"][li, b, pb] = v_off[b]
-        elif S > 0:
-            arrs["k_sink"][li, b, :, pl[b], :] = k_roped[b]
-            arrs["v_sink"][li, b, :, pl[b], :] = v_h[b]
+    pos = device_positions(pos, B, k_new.device)
+    cos, sin = cos_sin or rope_cos_sin(pos, mcfg)
+    _write_token({name: a[li] for name, a in arrs.items()}, dcfg,
+                 rows or token_rows(pos, dcfg),
+                 *_quantize_token(lq, dcfg, mcfg, k_new, v_new, cos, sin))
     return arrs
 
 

@@ -11,7 +11,10 @@ torch has no int4 dtype. The JAX package's int4 arrays become uint8 nibble
 pairs along d_head: byte j of a row holds dims 2j (low nibble) and 2j+1
 (high nibble), each a 4-bit two's-complement value. int8 containers stay
 int8. The write helpers update their target in place (the JAX functions
-return a new array) and take host-side positions and predicates.
+return a new array). ``set_token_codes`` / ``set_token_rows`` take a host
+position and predicate; ``set_token_bits`` / ``write_rows`` take (B,)
+tensors of both on the target's device (JAX's ``_write_row_b``): the
+decode step's writes, which read nothing back to the host.
 """
 
 from __future__ import annotations
@@ -32,8 +35,12 @@ def _to_int32(words: torch.Tensor) -> torch.Tensor:
     return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32)
 
 
-def token_word_bit(pos: int) -> tuple[int, int]:
-    """Word row index and bit position of packed token ``pos``."""
+def token_word_bit(pos):
+    """Word row index and bit position of packed token ``pos``: host ints
+    for an int, tensors of its dtype for a tensor of positions."""
+    if isinstance(pos, torch.Tensor):
+        r = pos % GROUP
+        return (pos - r) // (GROUP // WPG) + r % WPG, r // WPG
     g, r = divmod(int(pos), GROUP)
     return g * WPG + r % WPG, r // WPG
 
@@ -69,7 +76,8 @@ def set_token_codes(planes: torch.Tensor, codes: torch.Tensor, pos: int,
                     pred: bool = True) -> torch.Tensor:
     """Write one token's codes at packed position ``pos`` in place: clear
     then set its bit in its word row of every plane, unless ``pred`` is
-    False. planes (..., bits, TW, D) int32; codes (..., D)."""
+    False. planes (..., bits, TW, D) int32; codes (..., D). The form at
+    position tensors is ``set_token_bits``."""
     if not pred:
         return planes
     bits = planes.shape[-3]
@@ -80,6 +88,25 @@ def set_token_codes(planes: torch.Tensor, codes: torch.Tensor, pos: int,
                           device=planes.device)[:, None]
     bitvals = ((codes.to(torch.int64)[..., None, :] >> shifts) & 1) << j
     planes[..., w, :] = _to_int32((row & ~(1 << j)) | bitvals)
+    return planes
+
+
+def set_token_bits(planes, codes, word, bit, pred):
+    """``set_token_codes`` at tensor positions given as their word rows and
+    bits ((B,) int64, ``token_word_bit``), in place: sample b's word row
+    of planes (B, ..., bits, TW, D) is gathered, its bit set from codes
+    (B, ..., D) where pred[b], and scattered back. int32 throughout: the
+    bit operations give the same 32-bit words as the host path's int64."""
+    B, bits = planes.shape[0], planes.shape[-3]
+    lead = (B,) + (1,) * (planes.dim() - 1)
+    index = word.view(lead).expand(*planes.shape[:-2], 1, planes.shape[-1])
+    old = torch.gather(planes, -2, index)  # (B, ..., bits, 1, D)
+    j = bit.to(torch.int32).view(lead)
+    shifts = torch.arange(bits, dtype=torch.int32,
+                          device=planes.device)[:, None]
+    bitvals = (codes.to(torch.int32)[..., None, :] >> shifts) & 1
+    new = (old & ~(torch.ones_like(j) << j)) | (bitvals[..., None, :] << j)
+    planes.scatter_(-2, index, torch.where(pred.view(lead), new, old))
     return planes
 
 
@@ -201,21 +228,34 @@ def place_codes_int4x2(arr, codes, p0: int):
 # ---------------------------------------------------------------------------
 
 
+def write_rows(arr, rows, idx, pred, axis: int):
+    """Per-sample predicated row write along ``axis``, in place (JAX's
+    ``_write_row_b``): arr (B, ...); rows (B, ...) arr's shape without
+    ``axis``; idx (B,) int64 tensor in [0, arr.shape[axis]); pred (B,)
+    bool tensor: sample b's row keeps its old value where pred[b] is
+    False. Gathered and scattered on the device; one call serves a uniform
+    and per-sample positions."""
+    axis = axis % arr.dim()
+    B = arr.shape[0]
+    lead = (B,) + (1,) * (arr.dim() - 1)
+    shape = list(arr.shape)
+    shape[axis] = 1
+    index = idx.view(lead).expand(shape)
+    old = torch.gather(arr, axis, index)
+    new = rows.unsqueeze(axis).to(arr.dtype)
+    arr.scatter_(axis, index, torch.where(pred.view(lead), new, old))
+    return arr
+
+
 def set_token_rows(arr, rows, pos: int, pred: bool = True):
     """Write one token's encoded container rows at position ``pos`` (clipped
     to the capacity) in place, unless ``pred`` is False.
 
-    arr: (..., Tc, Dc); rows: (..., Dc) in the container dtype."""
+    arr: (..., Tc, Dc); rows: (..., Dc) in the container dtype. The form at
+    position tensors is ``write_rows``."""
     if pred:
         pos = min(max(int(pos), 0), arr.shape[-2] - 1)
         arr[..., pos, :] = rows.to(arr.dtype)
-    return arr
-
-
-def set_token_rows_at_layer(arr, rows, li: int, pos: int, pred: bool = True):
-    """Write one token's encoded rows into layer ``li`` of the stacked
-    array in place: arr (L, H', Tc, Dc); rows (H', Dc)."""
-    set_token_rows(arr[li], rows, pos, pred)
     return arr
 
 

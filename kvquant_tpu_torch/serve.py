@@ -2,8 +2,11 @@
 kvquant_tpu/serve.py).
 
   - a fixed pool of ``n_slots`` batch slots shares ONE batched KVCache;
-    every decode step advances ALL slots in one ``engine.decode_step`` at
-    per-sample positions (each slot an independent sequence);
+    every decode step advances ALL slots in one decode step at per-sample
+    positions (each slot an independent sequence): on a card one replay
+    of an ``engine.DecodeGraph`` (the JAX server's jitted step), its
+    positions copied to the card each step; with ``graph=False``, or on
+    the CPU, ``engine.decode_step``;
   - requests queue on the host; a finished or empty slot is re-admitted by
     prefilling the new prompt into a 1-sequence cache and copying it into
     the slot's batch row. admit_mode="chunked" spreads that prefill over
@@ -67,7 +70,7 @@ class Server:
     def __init__(self, params, cfg: ModelConfig, dcfg: DeployConfig,
                  dq: DeployedQuant, n_slots: int = 4, seed: int = 0,
                  admit_mode: str = "sync", admit_chunk: int = 256,
-                 device="cuda"):
+                 device="cuda", graph: bool = True):
         self.params = params
         self.cfg = cfg
         self.dcfg = dcfg
@@ -88,6 +91,8 @@ class Server:
         self.remaining = np.zeros(n_slots, np.int32)
         self._rng = np.random.default_rng(seed)
         self.decode_steps = 0  # telemetry: decode advanced this many steps
+        self.graph = graph
+        self._step = None  # engine.decode_stepper, built at the first step
 
     # ------------------------------------------------------------------
     def submit(self, req: Request):
@@ -223,9 +228,11 @@ class Server:
         if all(a is None for a in self.active):
             return bool(self.queue) or bool(self.admitting)
 
-        self.cache, logits = engine.decode_step(
-            self.params, self.cfg, self.dcfg, self.dq, self.cache,
-            self._prompt(self.last_tok), self.pos.tolist())
+        if self._step is None:
+            self._step = engine.decode_stepper(
+                self.params, self.cfg, self.dcfg, self.dq, self.cache,
+                graph=self.graph)
+        logits = self._step(self._prompt(self.last_tok), self.pos)
         self.decode_steps += 1
         logits_np = logits.cpu().numpy()
         for b in range(self.n):
