@@ -234,9 +234,12 @@ the card, so phases 3, 7, 11, 19, 20, 23 and 27 replay graphs):
      tok/s, device ms a step (the graph's replays back to back between
      CUDA events) and idle share, eager and graphed in turn, at 2K and 32K
      (and 128K for int4x2), with capture seconds and the graph pool's
-     MiB; at 32K the profiler's kernel ms and kernels a step, which must
-     be the same for a replay as for an eager step; serve.Server with 4 slots and 6 requests
-     through K1, graphed tokens == eager tokens.
+     MiB; the profiler's kernel ms and kernels a step (printed), and the
+     port's kernels it saw by name (fd_* / fs_* / qk_* / pv_*), which must
+     equal the counters' launches a step for a replay and for an eager
+     step; serve.Server with 4 slots and 6
+     requests through K1, graphed tokens == the tokens of the same server
+     stepping eagerly.
 The line before the last lists every ported kernel as JSON; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -4590,10 +4593,14 @@ def phase_tp(report):
     shutil.rmtree(work, ignore_errors=True)
 
 
-def step_profile(step, n=3):
-    """(device kernel ms, kernels) per call of ``step()`` over ``n`` calls
-    under torch.profiler (utils.profiling.kernel_summary, the reading of
-    ``cli.deploy --profile``), after one warm-up call."""
+def step_trace(step, n=3):
+    """(device kernel ms, kernels, the port's kernels by wrapper) per call
+    of ``step()`` over ``n`` calls under torch.profiler (utils.profiling.
+    kernel_summary, the reading of ``cli.deploy --profile``), after one
+    warm-up call. The third counts the trace's kernels named in
+    OWN_KERNELS: what the card ran, whatever the counters say."""
+    import re
+
     from torch.profiler import ProfilerActivity, profile
 
     from kvquant_tpu_torch.utils.profiling import kernel_summary
@@ -4606,7 +4613,29 @@ def step_profile(step, n=3):
             step()
         torch.cuda.synchronize()
     s = kernel_summary(prof, cuda=True)
-    return s["kernel_ms"] / n, s["launches"] / n
+    own = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        m = re.search(r"::(\w+)[<(]", e.key)
+        for k, names in OWN_KERNELS.items():
+            if m and m.group(1) in names:
+                own[k] = own.get(k, 0) + e.count / n
+    return s["kernel_ms"] / n, s["launches"] / n, own
+
+
+# the port's kernels in a profiler trace, by the wrapper that launches
+# them: one of these a wrapper call (the merges that may follow are left
+# out)
+OWN_KERNELS = {"K1": ("fd_decode", "fd_chunk", "fd_partial"),
+               "K2": ("fs_mma", "fs_partial"),
+               "K3": ("qk_decode", "qk_mma", "qk_simt"),
+               "K4": ("pv_decode", "pv_mma", "pv_simt")}
+
+
+def step_profile(step, n=3):
+    """(device kernel ms, kernels) per call of ``step()`` (``step_trace``)."""
+    return step_trace(step, n)[:2]
 
 
 def profiled_ms(step, n=3):
@@ -4972,12 +5001,14 @@ def phase_graphed_decode(report):
     eager step at LLaMA-2-7B width (random bf16 weights from a seed, B=1):
     greedy tokens, every step's logits and the caches afterwards bitwise
     from clones of one filled 2K cache; tok/s, device ms and kernels per
-    step, idle share, launches per step, host waits per step, capture
+    step, idle share, launches per step (the counters, and the port's
+    kernels by name in the profiler's trace), host waits per step, capture
     seconds and the graph pool's MiB, eager and graphed in turn, at 2K and
     32K (128K for int4x2); serve.Server with 4 slots, graphed tokens ==
-    eager tokens."""
+    the tokens of the same server stepping eagerly."""
     from kvquant_tpu_torch import engine, serve
-    from kvquant_tpu_torch.cache import deployed_from_quantizers
+    from kvquant_tpu_torch.cache import (deployed_from_quantizers,
+                                         static_channels)
     from kvquant_tpu_torch.models import init_params
     from kvquant_tpu_torch.models.config import LLAMA2_7B
     from kvquant_tpu_torch.ops.kernels import launch_counts
@@ -5000,10 +5031,13 @@ def phase_graphed_decode(report):
             compare = ctx == 2048
             cache_g = clone_cache(base) if compare else base
             graph = engine.DecodeGraph(params, cfg, dcfg, dq, cache_g)
+            # the eager step as decode_stepper builds it off the card: the
+            # static K channels computed once, as the graph has them
+            k_chan = static_channels(dq, dcfg)
 
             def eager(tok, pos, c=base):
                 return engine.decode_step(params, cfg, dcfg, dq, c, tok,
-                                          pos)[1]
+                                          pos, k_chan=k_chan)[1]
 
             r = {"capture_s": graph.capture_s, "pool_mib": graph.pool_mib,
                  "setup_launches": graph.setup_launches}
@@ -5033,26 +5067,28 @@ def phase_graphed_decode(report):
                 raise AssertionError(f"[28] {tag} {ctx}: launches per step "
                                      f"{per}, expected {want}")
             # device ms a step: the graph's replays back to back between
-            # CUDA events (the eager step runs the same kernels); at 32K
-            # also the profiler's kernel sum and count, eager and graphed
+            # CUDA events (the eager step runs the same kernels); the
+            # profiler's kernel sum and count, and the port's kernels it
+            # saw by name, eager and graphed
             dev = device_ms(lambda: graph(tok_e[:, -1], pos_end), n=8,
                             reps=3)
             for mode, step, wall in (("eager", eager, wall_e),
                                      ("graphed", graph, wall_g)):
                 wall_ms = wall / steps * 1e3
+                kms, kern, own = step_trace(lambda: step(tok_e[:, -1],
+                                                         pos_end), n=2)
                 r[mode] = {"tok_s": steps / wall, "wall_ms": wall_ms,
-                           "device_ms": dev, "idle": 1 - dev / wall_ms}
-                if ctx == 32768:
-                    kms, kern = step_profile(lambda: step(tok_e[:, -1],
-                                                          pos_end), n=2)
-                    r[mode].update(kernel_ms=kms, kernels=kern)
+                           "device_ms": dev, "idle": 1 - dev / wall_ms,
+                           "kernel_ms": kms, "kernels": kern,
+                           "trace_launches": own}
             r["launches_per_step"] = per
             res[ctx] = r
             e, g = r["eager"], r["graphed"]
-            prof = "" if ctx != 32768 else (
-                f"; profiler kernel ms / kernels a step: eager "
-                f"{e['kernel_ms']:.3f} / {e['kernels']:.0f}, graphed "
-                f"{g['kernel_ms']:.3f} / {g['kernels']:.0f}")
+            prof = (f"; profiler kernel ms / kernels a step: eager "
+                    f"{e['kernel_ms']:.3f} / {e['kernels']:.0f}, graphed "
+                    f"{g['kernel_ms']:.3f} / {g['kernels']:.0f}; the port's "
+                    f"kernels in the trace a step: eager "
+                    f"{e['trace_launches']}, graphed {g['trace_launches']}")
             log(f"[28] {tag} {ctx} ctx, {steps} steps: device {dev:.3f} ms "
                 f"a step (graph replays); eager {e['tok_s']:.2f} tok/s "
                 f"(wall {e['wall_ms']:.3f} ms, {e['wall_ms'] / dev:.3f} x "
@@ -5073,12 +5109,17 @@ def phase_graphed_decode(report):
                 if r["host_waits"] != {"eager": 0, "graphed": 0}:
                     raise AssertionError(f"[28] {tag}: the step waits for "
                                          f"the card")
-            # a replay's trace holds the graph's kernels (and the copies
-            # of the token and the position into the graph)
-            if ctx == 32768 and not (0 < e["kernels"] - 2 <= g["kernels"]):
-                raise AssertionError(f"[28] {tag}: the profiler's trace "
-                                     f"holds {g['kernels']} kernels a "
-                                     f"replay, {e['kernels']} an eager step")
+            # a replay's trace holds the graph's kernels, and the card ran
+            # the port's kernels as often as the counters say. The totals
+            # are printed, not held: the trace's count of one graph's
+            # replays varies by a kernel or two (4029 and 4030 for the
+            # same int4x2 replay), so eager and graphed totals part by
+            # as much
+            if not (e["trace_launches"] == g["trace_launches"] == per):
+                raise AssertionError(
+                    f"[28] {tag} {ctx}: the port's kernels in the trace a "
+                    f"step, eager {e['trace_launches']}, graphed "
+                    f"{g['trace_launches']}; counters {per}")
             del graph, eager, base, cache_g, lg_e, lg_g
             torch.cuda.empty_cache()
 
@@ -5093,7 +5134,11 @@ def phase_graphed_decode(report):
     served = {}
     for graphed in (False, True):
         srv = serve.Server(params, cfg, dcfg, dq, n_slots=4, seed=0,
-                           device="cuda", graph=graphed)
+                           device="cuda")
+        if not graphed:  # the reference: the eager step in the graph's place
+            srv._step = lambda t, p, srv=srv: engine.decode_step(
+                params, cfg, dcfg, dq, srv.cache, t, p,
+                k_chan=static_channels(dq, dcfg))[1]
         before = launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -5340,6 +5385,8 @@ def main(argv=None) -> int:
             if key:
                 r = g[path][2048]
                 k["graphed_launches_per_step"] = r["launches_per_step"][key]
+                k["graphed_trace_launches_per_step"] = (
+                    r["graphed"]["trace_launches"][key])
                 k["graphed_tok_s_2k"] = r["graphed"]["tok_s"]
     if kernels:
         log(json.dumps({"kernels": kernels}))

@@ -269,14 +269,8 @@ class DeployedQuant:
     k_ressc: torch.Tensor  # (L, C) per-channel K residual energy
 
     def layer(self, i) -> "DeployedQuant":
-        """Layer ``i``'s arrays, with layer ``i`` of the static K channels
-        already computed on this object (``channel_index``)."""
-        out = DeployedQuant(**{f.name: getattr(self, f.name)[i]
-                               for f in fields(self)})
-        memo = self.__dict__.get("_k_chan")
-        if memo:
-            out._k_chan = {key: v[i] for key, v in memo.items()}
-        return out
+        return DeployedQuant(**{f.name: getattr(self, f.name)[i]
+                                for f in fields(self)})
 
 
 def k_channel_index(k_ressc: torch.Tensor, dcfg: DeployConfig) -> torch.Tensor:
@@ -289,17 +283,14 @@ def k_channel_index(k_ressc: torch.Tensor, dcfg: DeployConfig) -> torch.Tensor:
     return top_k(g, dcfg.n_kc)[1]
 
 
-def channel_index(dq: "DeployedQuant", dcfg: DeployConfig,
-                  dtype=torch.int64) -> torch.Tensor:
-    """``k_channel_index(dq.k_ressc, dcfg)`` in ``dtype``, computed once per
-    DeployedQuant and (head_group, d_head, n_kc) and kept on ``dq``: the
-    selection is static for a run, so a decode step does not sort again.
-    ``dq.layer(i)`` carries layer i of what is kept."""
-    key = (dcfg.head_group, dcfg.d_head, dcfg.n_kc, dtype)
-    memo = dq.__dict__.setdefault("_k_chan", {})
-    if key not in memo:
-        memo[key] = k_channel_index(dq.k_ressc, dcfg).to(dtype).contiguous()
-    return memo[key]
+def static_channels(dq: "DeployedQuant", dcfg: DeployConfig):
+    """The static K channels of every layer, ``k_channel_index(dq.k_ressc,
+    dcfg)`` (L, n_groups, n_kc) int64, under "channels" outliers; else
+    None. A step builder computes them once and passes them down: they are
+    fixed for a run, so no decode step sorts."""
+    if dcfg.include_sparse and dcfg.k_outliers == "channels":
+        return k_channel_index(dq.k_ressc, dcfg)
+    return None
 
 
 def k_channel_onehot(k_ressc: torch.Tensor, dcfg: DeployConfig) -> torch.Tensor:

@@ -43,14 +43,13 @@ a loop of replays. Entry points that allocate take ``device`` (default
 
 from __future__ import annotations
 
-import gc
 import time
-from dataclasses import dataclass, fields
+from dataclasses import dataclass
 
 import torch
 
 from .cache import (KVCache, DeployConfig, DeployedQuant, create_cache,
-                    check_intn_codebook, channel_index)
+                    check_intn_codebook, static_channels)
 from .models.config import ModelConfig
 from .models import get_forward, llama
 from .ops import deployed
@@ -96,19 +95,23 @@ def _logits(params, x, cfg):
 
 
 def decode_step(params, cfg: ModelConfig, dcfg: DeployConfig,
-                dq: DeployedQuant, cache: KVCache, token, pos):
+                dq: DeployedQuant, cache: KVCache, token, pos, *,
+                k_chan=None):
     """Append ``token`` (B,) at ``pos`` to every layer's cache in place and
     return (cache, logits (B, V) fp32) for the next position. ``pos`` is a
     (B,) int32 tensor on the cache's device (an int or B ints are
-    converted once); the step reads nothing back to the host."""
+    converted once); the step reads nothing back to the host. ``k_chan``:
+    the static K channels (``static_channels``), computed here when not
+    given (``decode_stepper`` computes them once)."""
     _check_kernel(dcfg)
     check_intn_codebook(dcfg, dq)
     B = token.shape[0]
     pos = deployed.device_positions(pos, B, cache.length.device)
-    if dcfg.include_sparse and dcfg.k_outliers == "channels":
-        channel_index(dq, dcfg)  # kept on dq: layer views slice it
+    if k_chan is None:
+        k_chan = static_channels(dq, dcfg)
     if dcfg.kernel in ("flash", "flash_serial"):
-        return _decode_step_flash(params, cfg, dcfg, dq, cache, token, pos)
+        return _decode_step_flash(params, cfg, dcfg, dq, cache, token, pos,
+                                  k_chan)
 
     H, Dh = cfg.n_heads, cfg.d_head
     rows = deployed.token_rows(pos, dcfg)
@@ -121,7 +124,8 @@ def decode_step(params, cfg: ModelConfig, dcfg: DeployConfig,
         q = q.reshape(B, H, Dh)
         _, attn = deployed.decode_attention(
             cache.layer(li), dq.layer(li), dcfg, cfg, q, k, v, pos,
-            rows=rows, cos_sin=cos_sin)
+            rows=rows, cos_sin=cos_sin,
+            k_chan=None if k_chan is None else k_chan[li])
         x = x + row_parallel(attn.reshape(B, H * Dh).to(x.dtype),
                              lp["wo"], tp_group(cfg))
         x = _mlp(x, lp, cfg)
@@ -129,7 +133,8 @@ def decode_step(params, cfg: ModelConfig, dcfg: DeployConfig,
 
 
 def _decode_step_flash(params, cfg: ModelConfig, dcfg: DeployConfig,
-                       dq: DeployedQuant, cache: KVCache, token, pos):
+                       dq: DeployedQuant, cache: KVCache, token, pos,
+                       k_chan):
     """decode_step for kernel="flash" (K1, flash_decode) and "flash_serial"
     (K2): per layer a row-level append into the stacked (L, ...) arrays,
     then the kernel over layer ``li`` of those arrays (no layer slice of the
@@ -146,9 +151,7 @@ def _decode_step_flash(params, cfg: ModelConfig, dcfg: DeployConfig,
     dev = params.embed.device
     cos, sin = llama.rope_cos_sin(pos, cfg)  # (B, Dh)
     rows = deployed.token_rows(pos, dcfg)
-    k_chan = None
-    if dcfg.include_sparse and dcfg.k_outliers == "channels":
-        k_chan = channel_index(dq, dcfg, torch.int32)
+    k_chan32 = None if k_chan is None else k_chan.to(torch.int32)
 
     arrs = cache.arrays()
     x = params.embed[token.to(dev).long()]
@@ -157,8 +160,9 @@ def _decode_step_flash(params, cfg: ModelConfig, dcfg: DeployConfig,
         q, k, v = llama.project_qkv(llama.norm(x, lp["ln_attn"], cfg), lp,
                                     cfg)
         q = q.reshape(B, H, Dh)
-        deployed.append_token_flash(arrs, dq.layer(li), dcfg, cfg, k, v,
-                                    pos, li, rows=rows, cos_sin=(cos, sin))
+        deployed.append_token_flash(
+            arrs, dq.layer(li), dcfg, cfg, k, v, pos, li, rows=rows,
+            cos_sin=(cos, sin), k_chan=None if k_chan is None else k_chan[li])
         q_h = q.reshape(B, Hkv, G, Dh).to(torch.float32)
         q_rot = q_h * cos[:, None, None] + (
             llama.rotate_half(q_h) * sin[:, None, None])
@@ -166,7 +170,7 @@ def _decode_step_flash(params, cfg: ModelConfig, dcfg: DeployConfig,
             q_rot, arrs["k_planes"], arrs["v_planes"], arrs["kv_out"],
             dq.k_range, dq.k_offset, arrs["v_scale"], arrs["v_offset"],
             arrs["k_sink"], arrs["v_sink"], dq.k_lut_dec, dq.v_lut_dec,
-            li, pos, dcfg, cfg, k_ressc=dq.k_ressc, k_chan=k_chan,
+            li, pos, dcfg, cfg, k_ressc=dq.k_ressc, k_chan=k_chan32,
         )  # (B, Hkv, G, Dh)
         x = x + row_parallel(attn.reshape(B, H * Dh).to(x.dtype),
                              lp["wo"], tp_group(cfg))
@@ -194,6 +198,11 @@ def graph_unsupported(cfg: ModelConfig) -> str | None:
     return None
 
 
+# eager steps before a capture (torch.cuda.graphs asks for warm-up on a side
+# stream): the first loads the kernel libraries and sets up cuBLAS
+_WARMUP_STEPS = 1
+
+
 class DecodeGraph:
     """One ``decode_step`` captured as a CUDA graph over a cache on a card:
     the counterpart of ``jax.jit(decode_step)``.
@@ -204,21 +213,23 @@ class DecodeGraph:
     ``cache`` in place, as decode_step does) and returns ``logits``, which
     the next call overwrites. ``pos`` is an int, B ints or a tensor.
 
-    Before the capture, ``warmup`` eager steps run on a side stream over a
-    clone of the cache, which is left as it was found: they load the kernel
-    libraries, set the kernels' shared-memory limits, build the RoPE table
-    and set up cuBLAS. Their launches are not counted (``setup_launches``
-    keeps them). The capture's launches (``launches``) are added to the
-    counters at each replay (``ops.kernels.add_launches``): they are the
-    launches a replay makes. ``capture_s`` is the wall time of the warm-up
-    and the capture, ``pool_mib`` the memory the graph's private pool took.
+    Before the capture, ``_WARMUP_STEPS`` eager steps run on a side stream
+    over the cache itself at position S (``dcfg.sink``); what they write
+    (``ops.deployed.first_row_keeper``) is put back after them. They load
+    the kernel libraries, set the kernels' shared-memory limits, build the
+    RoPE table and set up cuBLAS. Their launches are not counted
+    (``setup_launches`` keeps them). The capture's launches (``launches``)
+    are added to the counters at each replay (``ops.kernels.add_launches``):
+    they are the wrapper calls a replay makes. ``capture_s`` is the wall
+    time of the warm-up and the capture, ``pool_mib`` the memory the
+    graph's private pool took.
 
     Raises ValueError for a cache that is not on a card and for the
     configurations ``graph_unsupported`` names; a capture that fails
     raises. Nothing falls back to the eager step."""
 
     def __init__(self, params, cfg: ModelConfig, dcfg: DeployConfig,
-                 dq: DeployedQuant, cache: KVCache, warmup: int = 2):
+                 dq: DeployedQuant, cache: KVCache):
         from .ops.kernels import counted
         from .ops.kernels.flash_decode import rope_table
 
@@ -231,25 +242,26 @@ class DecodeGraph:
             raise ValueError(f"DecodeGraph: the cache is on {dev}; a CUDA "
                              f"graph needs a card (call decode_step)")
         t0 = time.perf_counter()
+        k_chan = static_channels(dq, dcfg)
         # the graph reads and writes these tensors' memory: they live as
         # long as it does
-        self._inputs = (params, dq, cache)
+        self._inputs = (params, dq, cache, k_chan)
         self.token = torch.zeros_like(cache.length)
-        self.pos = cache.length.clone()
+        self.pos = torch.full_like(cache.length, dcfg.sink)
 
-        def step(c):
-            return decode_step(params, cfg, dcfg, dq, c, self.token,
-                               self.pos)[1]
+        def step():
+            return decode_step(params, cfg, dcfg, dq, cache, self.token,
+                               self.pos, k_chan=k_chan)[1]
 
         def warm():
-            scratch = KVCache(**{f.name: getattr(cache, f.name).clone()
-                                 for f in fields(cache)})
+            restore = deployed.first_row_keeper(cache)
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):
-                for _ in range(warmup):
-                    step(scratch)
+                for _ in range(_WARMUP_STEPS):
+                    step()
             torch.cuda.current_stream(dev).wait_stream(side)
+            restore()
             torch.cuda.synchronize(dev)
 
         _, self.setup_launches = counted(warm)
@@ -261,14 +273,13 @@ class DecodeGraph:
             self._rope = rope_table(cfg, dcfg.sink, dcfg.cache_tokens, dev)
         # torch.cuda.graph empties the allocator's cache as it enters; so
         # does this, first, so that the growth is the graph's own pool
-        gc.collect()
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
         self.graph = torch.cuda.CUDAGraph()
 
         def capture():
             with torch.cuda.graph(self.graph):
-                return step(cache)
+                return step()
 
         self.logits, self.launches = counted(capture)
         torch.cuda.synchronize(dev)
@@ -289,15 +300,16 @@ class DecodeGraph:
 
 
 def decode_stepper(params, cfg: ModelConfig, dcfg: DeployConfig,
-                   dq: DeployedQuant, cache: KVCache, graph: bool = True):
+                   dq: DeployedQuant, cache: KVCache):
     """``step(token, pos) -> logits (B, V)`` over ``cache``: a DecodeGraph
-    when ``graph`` and the cache lies on a card, unless
-    ``graph_unsupported(cfg)`` (tp > 1, the MoE family: those run
-    decode_step); on the CPU decode_step."""
-    if graph and cache.length.is_cuda and graph_unsupported(cfg) is None:
+    when the cache lies on a card, unless ``graph_unsupported(cfg)`` (tp >
+    1, the MoE family); else decode_step, with the static K channels
+    computed once."""
+    if cache.length.is_cuda and graph_unsupported(cfg) is None:
         return DecodeGraph(params, cfg, dcfg, dq, cache)
+    k_chan = static_channels(dq, dcfg)
     return lambda token, pos: decode_step(params, cfg, dcfg, dq, cache,
-                                          token, pos)[1]
+                                          token, pos, k_chan=k_chan)[1]
 
 
 # ---------------------------------------------------------------------------

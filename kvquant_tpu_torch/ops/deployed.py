@@ -29,7 +29,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..cache import KVCache, DeployConfig, DeployedQuant, channel_index
+from ..cache import KVCache, DeployConfig, DeployedQuant, k_channel_index
 from ..models.config import ModelConfig
 from ..models.llama import rope_cos_sin, rotate_half
 from ..parallel.collectives import topk_range, tp_group
@@ -134,10 +134,11 @@ def _group_outlier_words(x_g, xn_g, deq_g, dcfg: DeployConfig,
     )
 
 
-def quantize_k(k, lq: DeployedQuant, dcfg: DeployConfig):
+def quantize_k(k, lq: DeployedQuant, dcfg: DeployConfig, k_chan=None):
     """Quantize keys (..., C) -> (codes (..., Hkv, D) int32, outlier rows
     (..., n_groups, slots_per_kind) fp32 or None). "channels" mode: the rows
-    are the plain residuals x - dequant at the layer's static channels."""
+    are the plain residuals x - dequant at the layer's static channels
+    ``k_chan`` (n_groups, n_kc), computed here when not given."""
     Hkv, D = dcfg.n_kv_heads, dcfg.d_head
     kf = k.to(torch.float32).reshape(*k.shape[:-1], Hkv, D)
     zp = ((lq.k_upper + lq.k_lower) * 0.5).reshape(Hkv, D)
@@ -150,7 +151,8 @@ def quantize_k(k, lq: DeployedQuant, dcfg: DeployConfig):
     if dcfg.include_sparse:
         gshape = (*k.shape[:-1], dcfg.n_groups, dcfg.head_group * D)
         if dcfg.k_outliers == "channels":
-            idx = channel_index(lq, dcfg)  # (G, n_kc)
+            idx = (k_chan if k_chan is not None
+                   else k_channel_index(lq.k_ressc, dcfg))  # (G, n_kc)
             resid = (kf - deq).reshape(gshape)
             out_words = torch.gather(
                 resid, -1, idx.expand(*resid.shape[:-1], idx.shape[-1]))
@@ -209,8 +211,9 @@ def _outlier_addend(out_words, dcfg: DeployConfig):
 
 
 def dequant_k_full(cache_l: KVCache, lq: DeployedQuant, dcfg: DeployConfig,
-                   with_outliers: bool = True):
-    """(B, Hkv, Tc, D) fp32 keys (dense [+ sparse])."""
+                   with_outliers: bool = True, k_chan=None):
+    """(B, Hkv, Tc, D) fp32 keys (dense [+ sparse]); ``k_chan`` as in
+    ``quantize_k``."""
     codes = _stored_codes(cache_l.k_planes, dcfg)
     deq = lut_lookup(lq.k_lut_dec, codes) * lq.k_range[:, None, :] + (
         lq.k_offset[:, None, :])
@@ -219,7 +222,8 @@ def dequant_k_full(cache_l: KVCache, lq: DeployedQuant, dcfg: DeployConfig,
         if dcfg.k_outliers == "channels":
             B, Gp, N, Tc = rows.shape
             D, hg = dcfg.d_head, dcfg.head_group
-            idx = channel_index(lq, dcfg)  # (G, n_kc)
+            idx = (k_chan if k_chan is not None
+                   else k_channel_index(lq.k_ressc, dcfg))  # (G, n_kc)
             dense = torch.zeros((B, Gp, Tc, hg * D), dtype=torch.float32,
                                 device=rows.device)
             dense.scatter_add_(
@@ -300,8 +304,31 @@ def _write_token(c: dict, dcfg: DeployConfig, at: TokenRows, codes_k,
         write_rows(c["v_sink"], v_h, at.s, sink, axis=2)
 
 
+# the axis of each stacked (L, B, ...) array that _write_token indexes by a
+# token's packed row (the bit planes by its word)
+_ROW_AXIS = {"k_planes": -2, "v_planes": -2, "kv_out": -1, "v_scale": -1,
+             "v_offset": -1}
+
+
+def first_row_keeper(cache: KVCache):
+    """Keep what a decode step at position S (``dcfg.sink``) writes: the
+    first packed row of every array (word 0 of the bit planes), the sinks
+    and the length. Returns a function that puts them back in place."""
+    views = [getattr(cache, n).narrow(ax, 0, 1)
+             for n, ax in _ROW_AXIS.items()]
+    views += [cache.k_sink, cache.v_sink, cache.length]
+    kept = [(view, view.clone()) for view in views]
+
+    def restore():
+        for view, old in kept:
+            view.copy_(old)
+
+    return restore
+
+
 def _quantize_token(lq: DeployedQuant, dcfg: DeployConfig,
-                    mcfg: ModelConfig, k_new, v_new, cos, sin):
+                    mcfg: ModelConfig, k_new, v_new, cos, sin,
+                    k_chan=None):
     """One token per sample quantized for the append: (codes_k, codes_v,
     k_words, v_words, v_scale, v_offset, roped keys (B, Hkv, Dh), values
     (B, Hkv, Dh)), the positional arguments of ``_write_token`` after
@@ -311,7 +338,7 @@ def _quantize_token(lq: DeployedQuant, dcfg: DeployConfig,
     k_h = k_new.reshape(B, Hkv, Dh).to(torch.float32)
     k_roped = k_h * cos[:, None] + rotate_half(k_h) * sin[:, None]
     k_store = k_roped.reshape(B, Hkv * Dh) if dcfg.post_rope_k else k_new
-    codes_k, k_words = quantize_k(k_store, lq, dcfg)
+    codes_k, k_words = quantize_k(k_store, lq, dcfg, k_chan)
     codes_v, v_words, v_sc, v_off = quantize_v(v_new, lq, dcfg,
                                                 tp_group(mcfg))
     v_h = v_new.reshape(B, Hkv, Dh).to(torch.float32)
@@ -341,16 +368,16 @@ def _roped_keys(k_full, dcfg: DeployConfig, mcfg: ModelConfig):
 
 def decode_attention(cache_l: KVCache, lq: DeployedQuant, dcfg: DeployConfig,
                      mcfg: ModelConfig, q, k_new, v_new, pos, *, rows=None,
-                     cos_sin=None):
+                     cos_sin=None, k_chan=None):
     """Append each sample's token at its position to the single-layer cache
     (in place) and attend over positions 0..pos. q (B, H, Dh) un-roped,
     k_new/v_new (B, C), pos (B,) int32 on the device (or an int / B ints).
     Returns (cache_l, out (B, H, Dh)). kernel "pallas" scores through K3
     and weights the values through K4; every other kernel attends over the
     eagerly dequantized cache. The token's K and V rows are both written
-    before the scores: the scores read no V row. ``rows`` (``token_rows``)
-    and ``cos_sin`` (``rope_cos_sin(pos)``) may come precomputed, once a
-    step."""
+    before the scores: the scores read no V row. ``rows`` (``token_rows``),
+    ``cos_sin`` (``rope_cos_sin(pos)``) and the layer's static K channels
+    ``k_chan`` (``quantize_k``) may come precomputed."""
     pallas = dcfg.kernel == "pallas"
     if pallas:
         _assert_two_pass(dcfg)
@@ -363,7 +390,8 @@ def decode_attention(cache_l: KVCache, lq: DeployedQuant, dcfg: DeployConfig,
     post = device_positions(pos, B, dev)
     cos, sin = cos_sin or rope_cos_sin(post, mcfg)  # (B, Dh)
     _write_token(cache_l.arrays(), dcfg, rows or token_rows(post, dcfg),
-                 *_quantize_token(lq, dcfg, mcfg, k_new, v_new, cos, sin))
+                 *_quantize_token(lq, dcfg, mcfg, k_new, v_new, cos, sin,
+                                  k_chan))
     cache_l.length.copy_(post + 1)
 
     # ---- scores ----
@@ -377,7 +405,8 @@ def decode_attention(cache_l: KVCache, lq: DeployedQuant, dcfg: DeployConfig,
                           lq.k_range, lq.k_offset, lq.k_lut_dec, dcfg,
                           mcfg) * inv
     else:
-        k_full = _roped_keys(dequant_k_full(cache_l, lq, dcfg), dcfg, mcfg)
+        k_full = _roped_keys(dequant_k_full(cache_l, lq, dcfg, k_chan=k_chan),
+                             dcfg, mcfg)
         scores = torch.einsum("bhgd,bhtd->bhgt", q_rot, k_full) * inv
     if S > 0:
         sink_sc = torch.einsum("bhgd,bhsd->bhgs", q_rot, cache_l.k_sink) * inv
@@ -412,20 +441,22 @@ def decode_attention(cache_l: KVCache, lq: DeployedQuant, dcfg: DeployConfig,
 
 def append_token_flash(arrs: dict, lq: DeployedQuant, dcfg: DeployConfig,
                        mcfg: ModelConfig, k_new, v_new, pos, li: int, *,
-                       rows=None, cos_sin=None) -> dict:
+                       rows=None, cos_sin=None, k_chan=None) -> dict:
     """Append one token per sample at layer ``li`` directly into the
     stacked (L, B, ...) arrays (in place; ``arrs`` is returned). ``pos``
     (B,) int32 on the device (or an int / B ints): one device-indexed,
     predicated write per array serves a uniform and per-sample positions.
     Tokens inside the sink prefix go to the exact sink rows and leave the
-    packed arrays untouched. ``rows`` (``token_rows``) and ``cos_sin``
-    (``rope_cos_sin(pos)``) may come precomputed, once a step."""
+    packed arrays untouched. ``rows`` (``token_rows``), ``cos_sin``
+    (``rope_cos_sin(pos)``) and the layer's static K channels ``k_chan``
+    (``quantize_k``) may come precomputed."""
     B = k_new.shape[0]
     pos = device_positions(pos, B, k_new.device)
     cos, sin = cos_sin or rope_cos_sin(pos, mcfg)
     _write_token({name: a[li] for name, a in arrs.items()}, dcfg,
                  rows or token_rows(pos, dcfg),
-                 *_quantize_token(lq, dcfg, mcfg, k_new, v_new, cos, sin))
+                 *_quantize_token(lq, dcfg, mcfg, k_new, v_new, cos, sin,
+                                  k_chan))
     return arrs
 
 

@@ -5,8 +5,8 @@ kvquant_tpu/serve.py).
     every decode step advances ALL slots in one decode step at per-sample
     positions (each slot an independent sequence): on a card one replay
     of an ``engine.DecodeGraph`` (the JAX server's jitted step), its
-    positions copied to the card each step; with ``graph=False``, or on
-    the CPU, ``engine.decode_step``;
+    positions copied to the card each step; on the CPU, and for the
+    configurations a graph cannot capture, ``engine.decode_step``;
   - requests queue on the host; a finished or empty slot is re-admitted by
     prefilling the new prompt into a 1-sequence cache and copying it into
     the slot's batch row. admit_mode="chunked" spreads that prefill over
@@ -70,7 +70,7 @@ class Server:
     def __init__(self, params, cfg: ModelConfig, dcfg: DeployConfig,
                  dq: DeployedQuant, n_slots: int = 4, seed: int = 0,
                  admit_mode: str = "sync", admit_chunk: int = 256,
-                 device="cuda", graph: bool = True):
+                 device="cuda"):
         self.params = params
         self.cfg = cfg
         self.dcfg = dcfg
@@ -91,7 +91,6 @@ class Server:
         self.remaining = np.zeros(n_slots, np.int32)
         self._rng = np.random.default_rng(seed)
         self.decode_steps = 0  # telemetry: decode advanced this many steps
-        self.graph = graph
         self._step = None  # engine.decode_stepper, built at the first step
 
     # ------------------------------------------------------------------
@@ -230,8 +229,7 @@ class Server:
 
         if self._step is None:
             self._step = engine.decode_stepper(
-                self.params, self.cfg, self.dcfg, self.dq, self.cache,
-                graph=self.graph)
+                self.params, self.cfg, self.dcfg, self.dq, self.cache)
         logits = self._step(self._prompt(self.last_tok), self.pos)
         self.decode_steps += 1
         logits_np = logits.cpu().numpy()

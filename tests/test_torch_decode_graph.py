@@ -21,8 +21,12 @@ against the JAX package on the same numpy inputs:
   - DecodeGraph refuses the CPU, tp > 1 and the MoE family; the launch
     counters' record-and-add logic (ops.kernels.counted / add_launches)
     with a stub capture, since a replay cannot run here;
-  - the static K channels kept on the DeployedQuant (cache.channel_index)
-    == k_channel_index == JAX's k_channel_onehot, ties included.
+  - a step at position S, DecodeGraph's warm-up, leaves the cache bitwise
+    as it found it once ``ops.deployed.first_row_keeper`` puts back what
+    it wrote;
+  - the static K channels (cache.static_channels) == k_channel_index ==
+    JAX's k_channel_onehot, ties included; a step builder
+    (engine.decode_stepper) computes them once and its steps sort no more.
 
 A CUDA graph's capture and replay run only on a card (chip_smoke.py phase
 28).
@@ -473,7 +477,45 @@ def test_launch_counters_record_and_replay(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# the static K channels, computed once per DeployedQuant
+# the graph's warm-up over the cache itself
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kernel,case", [(k, c) for k, cs in GUARDED.items()
+                                         for c in cs])
+def test_warmup_rows_put_back(kernel, case):
+    """A decode step at position S, the warm-up step of DecodeGraph, writes
+    nothing that ``first_row_keeper`` does not put back: after it the
+    cache equals, bitwise, the prefilled cache it started from."""
+    codes, bits, post, outliers = case
+    cfg = TINY_LLAMA
+    _, tq = _quantizers(cfg, codes, bits, seed=2)
+    _, td = _configs(codes, bits, post, outliers, kernel, cfg)
+    params = params_from_numpy(jax.tree.map(
+        np.asarray, jinit(jax.random.PRNGKey(2), J_TINY,
+                          dtype=jnp.float32)), cfg, device="cpu")
+    B = 2
+    cache = tcache.create_cache(td, cfg.n_layers, B, device="cpu")
+    prompt = torch.as_tensor(np.random.default_rng(6).integers(
+        0, 256, (B, T0), np.int32))
+    engine.prefill(params, cfg, td, tq, cache, prompt)
+    before = tcache.KVCache(**{f.name: getattr(cache, f.name).clone()
+                               for f in dataclasses.fields(cache)})
+    restore = tdep.first_row_keeper(cache)
+    engine.decode_step(params, cfg, td, tq, cache,
+                       torch.tensor([9, 4], dtype=torch.int32),
+                       torch.full((B,), S, dtype=torch.int32))
+    assert cache.length.tolist() == [S + 1] * B
+    written = [f for f in FIELDS if not torch.equal(getattr(cache, f),
+                                                    getattr(before, f))]
+    assert {"k_planes", "v_planes", "v_scale"} <= set(written)
+    restore()
+    _bitwise(cache.arrays(), before.arrays(), f"{kernel} {case}")
+    assert torch.equal(cache.length, before.length)
+
+
+# ---------------------------------------------------------------------------
+# the static K channels, computed once by the step builder
 # ---------------------------------------------------------------------------
 
 
@@ -494,14 +536,39 @@ def test_channel_index_kept_once(hg, n_kc):
         k_lut_enc=torch.zeros(L, 8), k_lut_dec=torch.zeros(L, 8),
         v_lut_enc=torch.zeros(L, 8), v_lut_dec=torch.zeros(L, 8),
         k_ressc=torch.as_tensor(ressc))
-    idx = tcache.channel_index(dq, td)
-    assert idx is tcache.channel_index(dq, td)  # kept: no second sort
+    idx = tcache.static_channels(dq, td)
     want = np.argmax(np.asarray(jcache.k_channel_onehot(
         jnp.asarray(ressc), jd)), axis=-1)
     _eq(idx, want)
     _eq(idx, tcache.k_channel_index(torch.as_tensor(ressc), td))
-    i32 = tcache.channel_index(dq, td, torch.int32)
-    assert i32.dtype == torch.int32 and i32.is_contiguous()
-    _eq(i32, want)
-    for li in range(L):  # a layer view carries its layer of the selection
-        assert torch.equal(tcache.channel_index(dq.layer(li), td), idx[li])
+    assert tcache.static_channels(
+        dq, dataclasses.replace(td, k_outliers="slots")) is None
+    for li in range(L):  # a layer's slice is that layer's selection
+        _eq(idx[li], tcache.k_channel_index(dq.layer(li).k_ressc, td))
+
+
+@pytest.mark.parametrize("kernel", ["flash", "flash_serial", "xla"])
+def test_step_builder_sorts_once(kernel, monkeypatch):
+    """``decode_stepper`` computes the static K channels once; its steps
+    sort no more, and give what a step that computes them gives."""
+    codes, bits, post = ("int4", 4, True) if kernel == "flash_serial" \
+        else ("nuq", 3, False)
+    cfg = TINY_LLAMA
+    _, tq = _quantizers(cfg, codes, bits, seed=3)
+    _, td = _configs(codes, bits, post, "channels", kernel, cfg)
+    params = params_from_numpy(jax.tree.map(
+        np.asarray, jinit(jax.random.PRNGKey(3), J_TINY,
+                          dtype=jnp.float32)), cfg, device="cpu")
+    caches = [tcache.create_cache(td, cfg.n_layers, 1, device="cpu")
+              for _ in range(2)]
+    tok = torch.tensor([5], dtype=torch.int32)
+    _, want = engine.decode_step(params, cfg, td, tq, caches[0], tok, 0)
+    step = engine.decode_stepper(params, cfg, td, tq, caches[1])
+    sorts = []
+    for mod in (tcache, tdep, fd, fs):
+        monkeypatch.setattr(mod, "k_channel_index",
+                            lambda *a: sorts.append(a))
+    got = step(tok, 0)
+    assert not sorts
+    _eq(got, want)
+    _bitwise(caches[1].arrays(), caches[0].arrays(), kernel)
