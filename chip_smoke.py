@@ -12,6 +12,7 @@
     python3 chip_smoke.py --phases 1,26                  # tp 2 over gloo
     python3 chip_smoke.py --phases 1,27                  # training
     python3 chip_smoke.py --phases 1,28                  # graphed decode
+    python3 chip_smoke.py --phases 1,15,29               # graphed paged step
 
 Phases (each prints its own lines; any failure raises and exits non-zero).
 K2 is csrc/flash_serial.cu (flash_serial_decode), K1 csrc/flash_decode.cu
@@ -106,8 +107,9 @@ K1's decode body (fd_decode) addressed through a page table:
      64 new tokens, pages of 1024, chunked admission, bursts of 32): every
      budget served, every page returned, K5 32 times per decode step, K1
      32 times per admission chunk, K2 / K3 / K4 never; pool MiB, aggregate
-     tok/s, a profiler pass over steady-state steps with 4 active slots;
-     then cli.serve_demo without --paged (slot pool, K1) at toy width;
+     tok/s, a profiler pass over steady-state eager steps with 4 active
+     slots (the server itself replays its step graph, phase 29); then
+     cli.serve_demo without --paged (slot pool, K1) at toy width;
  16. card against CPU through PagedServer: the toy checkpoint (P 256, 2
      slots, 4 requests, chunked admission, bursts) gives the same tokens
      on both, and the same as the port's isolated generate on the card;
@@ -240,6 +242,27 @@ the card, so phases 3, 7, 11, 19, 20, 23 and 27 replay graphs):
      step; serve.Server with 4 slots and 6
      requests through K1, graphed tokens == the tokens of the same server
      stepping eagerly.
+The page pool's compiled step (paged.PagedGraph: PagedServer's greedy step
+as one CUDA graph, replayed once a step and H times a burst; phases 15, 16
+and 20 serve through it):
+ 29. phase 15's requests (cli.serve_demo's draws: 8 requests, 2048-token
+     prompts, 64 new tokens, 4 slots, pages of 1024, chunked admission of
+     256, bursts of 32) at LLaMA-2-7B width, faithful nuq3 and the 2-bit
+     int4x2 config through K5, once through the graphed server and once
+     with the eager PagedStep in its place: tokens, the whole pool and the
+     free list bitwise equal; wall s, aggregate tok/s and the admission's
+     share of the wall time apart; then 4 active slots at 35-65% of their
+     pages: device ms a step (the graph's replays back to back between
+     CUDA events), wall ms a server step (copy in, replay, read the
+     logits) and a burst step (copy in once, 8 replays, one read) and
+     the idle share, eager and graphed; kernels a step and K5's kernels
+     (fd_decode) by name in the profiler's trace == the counters'; capture
+     s and the graph pool's MiB; the device ms of a step's appends against
+     their quantization alone (the pool writes' cost, each captured as a
+     graph); then an inactive slot that aliases an
+     active slot's page row (and one a row further), 64 appends, the pool
+     bitwise equal to the same appends with those slots' table rows on a
+     spare page.
 The line before the last lists every ported kernel as JSON; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -2168,15 +2191,24 @@ def phase_k5_vs_plain(report):
                  ("int8", 8)), paged=True)
 
 
-def demo_requests(n, prompt_len, max_new, vocab, seed=0):
-    """The (prompt length, budget) pairs cli.serve_demo draws."""
+def demo_prompts(n, prompt_len, max_new, vocab, seed=0):
+    """The requests cli.serve_demo draws (its numpy draws from ``seed``)."""
+    from kvquant_tpu_torch.serve import Request
+
     rng = np.random.default_rng(seed)
     out = []
-    for _ in range(n):
-        t0 = len(rng.integers(0, vocab, size=int(prompt_len
-                                                 * rng.uniform(0.5, 1.0))))
-        out.append((t0, int(max_new * rng.uniform(0.5, 1.0))))
+    for i in range(n):
+        prompt = rng.integers(0, vocab, size=int(
+            prompt_len * rng.uniform(0.5, 1.0))).astype(np.int32)
+        out.append(Request(rid=i, prompt=prompt, max_new_tokens=int(
+            max_new * rng.uniform(0.5, 1.0))))
     return out
+
+
+def demo_requests(n, prompt_len, max_new, vocab, seed=0):
+    """The (prompt length, budget) pairs cli.serve_demo draws."""
+    return [(len(r.prompt), r.max_new_tokens)
+            for r in demo_prompts(n, prompt_len, max_new, vocab, seed)]
 
 
 def reset_launches():
@@ -4593,12 +4625,13 @@ def phase_tp(report):
     shutil.rmtree(work, ignore_errors=True)
 
 
-def step_trace(step, n=3):
+def step_trace(step, n=3, kernels=None):
     """(device kernel ms, kernels, the port's kernels by wrapper) per call
     of ``step()`` over ``n`` calls under torch.profiler (utils.profiling.
     kernel_summary, the reading of ``cli.deploy --profile``), after one
     warm-up call. The third counts the trace's kernels named in
-    OWN_KERNELS: what the card ran, whatever the counters say."""
+    ``kernels`` (default OWN_KERNELS): what the card ran, whatever the
+    counters say."""
     import re
 
     from torch.profiler import ProfilerActivity, profile
@@ -4618,7 +4651,7 @@ def step_trace(step, n=3):
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         m = re.search(r"::(\w+)[<(]", e.key)
-        for k, names in OWN_KERNELS.items():
+        for k, names in (kernels or OWN_KERNELS).items():
             if m and m.group(1) in names:
                 own[k] = own.get(k, 0) + e.count / n
     return s["kernel_ms"] / n, s["launches"] / n, own
@@ -5166,6 +5199,293 @@ def phase_graphed_decode(report):
     torch.cuda.empty_cache()
 
 
+# (tag, config of LLaMA-2-7B width): the paged server's storage modes, both
+# through K5
+PAGED_GRAPH_PATHS = (("K5 nuq3", "faithful_config"),
+                     ("K5 int4x2", "speed2_config"))
+
+
+def pools_equal(a, b) -> bool:
+    """Every array of two page pools bitwise (fp32 as bit patterns)."""
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        if not torch.equal(x, y):
+            return False
+    return True
+
+
+def paged_alias_check(tag, cfg, dcfg, dq, repeats=64):
+    """One layer's appends (paged_append_token) with slots 1 and 3 inactive:
+    slot 1's table row and position alias active slot 0's page row, slot
+    3's lie one row past active slot 2's (the same bit-plane word). Each
+    append must leave the pool bitwise as the same append leaves a copy
+    whose inactive slots point at a spare page. Returns the repeats that
+    differed (0)."""
+    from kvquant_tpu_torch import paged
+
+    dev = torch.device("cuda")
+    S, P = dcfg.sink, dcfg.page_tokens
+    gen = torch.Generator(device=dev).manual_seed(29)
+    pool = paged.create_paged_pool(dcfg, 1, 5, 4, device="cuda")
+    for f in dataclasses.fields(pool):
+        a = getattr(pool, f.name)
+        if a.dtype == torch.float32:
+            a.copy_(torch.randn(a.shape, generator=gen, device=dev))
+        else:
+            a.copy_(torch.randint(-2 ** 31, 2 ** 31 - 1, a.shape,
+                                  generator=gen, device=dev,
+                                  dtype=torch.int64).to(a.dtype))
+    ref = paged.PagedPool(**{f.name: getattr(pool, f.name).clone()
+                             for f in dataclasses.fields(pool)})
+    table = torch.tensor([[0, 1], [0, 1], [2, 3], [2, 3]], dtype=torch.int32,
+                         device=dev)
+    spare = table.clone()
+    spare[1] = spare[3] = 4
+    act = torch.tensor([True, False, True, False], device=dev)
+    lq, C = dq.layer(0), cfg.kv_hidden
+    bad = 0
+    for i in range(repeats):
+        p0, p2 = S + P - 32 + i, S + 100 + i  # slot 0 crosses its page
+        pos = torch.tensor([p0, p0, p2, p2 + 1], dtype=torch.int32,
+                           device=dev)
+        k = torch.randn((4, C), generator=gen, device=dev) * 2
+        v = torch.randn((4, C), generator=gen, device=dev)
+        paged.paged_append_token(pool, table, lq, dcfg, cfg, k, v, pos, 0,
+                                 act)
+        paged.paged_append_token(ref, spare, lq, dcfg, cfg, k, v, pos, 0, act)
+        bad += not pools_equal(pool, ref)
+    torch.cuda.synchronize()
+    log(f"[29] {tag}: aliasing inactive slots, {repeats} appends: pool == "
+        f"the same appends without the aliases in {repeats - bad} of "
+        f"{repeats}")
+    return bad
+
+
+def paged_write_ms(cfg, dcfg, dq, pool, host):
+    """Device ms of one step's pool writes: every layer's paged_append_token
+    (the step's page_rows included) against the same layers' quantization
+    alone, each captured as a CUDA graph (engine.CapturedStep) and timed
+    over back-to-back replays; returns (appends ms, quantization ms)."""
+    from kvquant_tpu_torch import paged
+    from kvquant_tpu_torch.cache import static_channels
+    from kvquant_tpu_torch.engine import CapturedStep
+    from kvquant_tpu_torch.models import llama
+    from kvquant_tpu_torch.ops.deployed import _quantize_token
+
+    dev = torch.device("cuda")
+    _, pos, act, table = (torch.as_tensor(a, device=dev) for a in host)
+    B = pos.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(30)
+    k = torch.randn((B, cfg.kv_hidden), generator=gen, device=dev).to(
+        torch.bfloat16)
+    v = torch.randn((B, cfg.kv_hidden), generator=gen, device=dev).to(
+        torch.bfloat16)
+    cos_sin = llama.rope_cos_sin(pos, cfg)
+    k_chan = static_channels(dq, dcfg)
+    chan = [None if k_chan is None else k_chan[li]
+            for li in range(cfg.n_layers)]
+
+    def appends():
+        at = paged.page_rows(pool, table, pos, act, dcfg)
+        for li in range(cfg.n_layers):
+            paged.paged_append_token(pool, table, dq.layer(li), dcfg, cfg, k,
+                                     v, pos, li, rows=at, cos_sin=cos_sin,
+                                     k_chan=chan[li])
+
+    def quantize():
+        for li in range(cfg.n_layers):
+            _quantize_token(dq.layer(li), dcfg, cfg, k, v, *cos_sin, chan[li])
+
+    return tuple(device_ms(CapturedStep(fn, dev).replay, n=8, reps=3)
+                 for fn in (appends, quantize))
+
+
+def paged_step_walls(st, host, burst, reps):
+    """Wall ms of a server decode step on the stepper ``st`` (copy the host
+    state in, one step, read the logits: PagedServer.step) and of a burst
+    step (copy in once, ``burst`` steps, one read of the tokens:
+    PagedServer._step_burst), over ``reps`` of each after a warm-up."""
+    emitted = torch.zeros((burst, st.token.shape[0]), dtype=torch.int32,
+                          device="cuda")
+
+    def one():
+        st.load(*host)
+        return st().cpu()
+
+    def burst_run():
+        st.load(*host)
+        for h in range(burst):
+            emitted[h].copy_(st.token)
+            st()
+        return torch.cat([emitted, st.token[None], st.pos[None]]).cpu()
+
+    out = {}
+    for name, fn, steps in (("step", one, 1), ("burst", burst_run, burst)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        out[name] = (time.perf_counter() - t0) / (reps * steps) * 1e3
+    return out
+
+
+def phase_paged_graph(report):
+    """PagedServer's step graph (paged.PagedGraph) against the eager
+    PagedStep swapped into the same server, at LLaMA-2-7B width with phase
+    15's requests (random bf16 weights from a seed): tokens, pool and free
+    list bitwise; wall, tok/s and the admission's share; a steady-state
+    4-slot step's device ms, wall ms a step and a burst step, idle share,
+    kernels and K5 by name in the trace; the aliasing appends."""
+    from kvquant_tpu_torch import paged
+    from kvquant_tpu_torch.cache import deployed_from_quantizers
+    from kvquant_tpu_torch.models import init_params
+    from kvquant_tpu_torch.models.config import LLAMA2_7B
+    from kvquant_tpu_torch.ops.kernels import launch_counts
+
+    cfg = LLAMA2_7B
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         dtype=torch.bfloat16, device="cuda")
+    makers = {"faithful_config": faithful_config,
+              "speed2_config": speed2_config}
+    n_req, T, N, P, slots, chunk, burst = 8, 2048, 64, 1024, 4, 256, 32
+    maxlen = T + N + 64  # cli.serve_demo's default
+    mp = -(-(maxlen - 5) // P)
+    k5_names = {"K5": ("fd_decode",)}
+    out = {}
+    for tag, make in PAGED_GRAPH_PATHS:
+        t_case = time.perf_counter()
+        _, dcfg, qs = makers[make](maxlen, cfg.n_layers)
+        dcfg = dataclasses.replace(dcfg, page_tokens=P, kernel="flash")
+        dq = deployed_from_quantizers(qs, cfg.n_kv_heads, cfg.d_head,
+                                      device="cuda")
+        r = out[tag] = {}
+        servers = {}
+        for mode in ("graphed", "eager"):
+            srv = paged.PagedServer(params, cfg, dcfg, dq,
+                                    n_pages=slots * mp, n_slots=slots,
+                                    max_pages_per_slot=mp,
+                                    admit_mode="chunked", admit_chunk=chunk,
+                                    burst=burst, device="cuda")
+            if mode == "graphed":
+                g = srv._step
+                r.update(capture_s=g.capture_s, pool_mib=g.pool_mib,
+                         setup_launches=g.setup_launches,
+                         launches_per_step=g.launches)
+            else:  # the reference: the eager step in the graph's place
+                srv._step = paged.PagedStep(params, cfg, dcfg, dq, srv.pool,
+                                            srv.MP)
+            admit = [0.0]
+
+            def timed_admit(inner=srv._admit, admit=admit):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                inner()
+                torch.cuda.synchronize()
+                admit[0] += time.perf_counter() - t0
+
+            srv._admit = timed_admit
+            reqs = demo_prompts(n_req, T, N, cfg.vocab_size)
+            before = launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            comps = srv.run(reqs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n = {k: v - before[k] for k, v in launch_counts().items()}
+            tokens = {rid: c.tokens for rid, c in comps.items()}
+            n_tok = sum(len(t) for t in tokens.values())
+            r[mode] = dict(wall_s=wall, admit_s=admit[0], tokens=n_tok,
+                           tok_s=n_tok / wall,
+                           decode_tok_s=n_tok / (wall - admit[0]),
+                           launches=n)
+            servers[mode] = (srv, tokens)
+            if [len(tokens[q.rid]) for q in reqs] != \
+                    [q.max_new_tokens for q in reqs]:
+                raise AssertionError(f"[29] {tag} {mode}: a budget was not "
+                                     f"served")
+        (sg, tg), (se, te) = servers["graphed"], servers["eager"]
+        r["tokens_equal"] = tg == te
+        r["pools_equal"] = pools_equal(sg.pool, se.pool)
+        r["free_equal"] = sg.free == se.free
+        g_run, e_run = r["graphed"], r["eager"]
+        if g_run["launches"] != e_run["launches"] or \
+                g_run["launches"]["K5"] % cfg.n_layers:
+            raise AssertionError(f"[29] {tag}: launches graphed "
+                                 f"{g_run['launches']} eager "
+                                 f"{e_run['launches']}")
+        if r["launches_per_step"] != {"K5": cfg.n_layers}:
+            raise AssertionError(f"[29] {tag}: a replay launches "
+                                 f"{r['launches_per_step']}")
+        log(f"[29] {tag}: graphed == eager: tokens {r['tokens_equal']}, "
+            f"pool {r['pools_equal']}, free list {r['free_equal']}; "
+            f"{g_run['tokens']} tokens, "
+            f"{g_run['launches']['K5'] // cfg.n_layers} decode steps, "
+            f"launches {g_run['launches']}; capture {r['capture_s']:.3f} s, "
+            f"graph pool {r['pool_mib']:.1f} MiB, warm-up launches "
+            f"{r['setup_launches']}")
+        for mode in ("eager", "graphed"):
+            x = r[mode]
+            log(f"[29] {tag} {mode} server: {x['wall_s']:.3f} s, "
+                f"{x['tok_s']:.2f} tok/s aggregate; admission "
+                f"{x['admit_s']:.3f} s ({x['admit_s'] / x['wall_s']:.3f} of "
+                f"the wall), decode {x['wall_s'] - x['admit_s']:.3f} s "
+                f"({x['decode_tok_s']:.2f} tok/s)")
+        if not (r["tokens_equal"] and r["pools_equal"] and r["free_equal"]):
+            raise AssertionError(f"[29] {tag}: graphed != eager")
+        del servers, se, te, tg
+
+        # steady state: 4 active slots over the pool's pages, at 35-65% of
+        # their capacity, positions reloaded at every server step
+        pos0 = (5 + mp * P * np.linspace(0.35, 0.65, slots)).astype(np.int32)
+        host = (np.zeros(slots, np.int32), pos0, np.ones(slots, bool),
+                np.arange(slots * mp, dtype=np.int32).reshape(slots, mp))
+        steppers = {"graphed": sg._step, "eager": paged.PagedStep(
+            params, cfg, dcfg, dq, sg.pool, sg.MP)}
+        steppers["graphed"].load(*host)
+        dev_ms = device_ms(steppers["graphed"], n=8, reps=3)
+        r["device_ms"] = dev_ms
+        for mode, st in steppers.items():
+            walls = paged_step_walls(st, host, 8,
+                                     reps=1 if mode == "eager" else 10)
+            st.load(*host)
+            kms, kern, own = step_trace(st, n=2, kernels=k5_names)
+            r[f"{mode}_steady"] = x = dict(
+                step_wall_ms=walls["step"], burst_wall_ms=walls["burst"],
+                step_idle=1 - dev_ms / walls["step"],
+                burst_idle=1 - dev_ms / walls["burst"], kernel_ms=kms,
+                kernels=kern, trace_launches=own)
+            log(f"[29] {tag} {mode}, {slots} active slots at "
+                f"{pos0.min()}-{pos0.max()}: device {dev_ms:.3f} ms a step "
+                f"(graph replays); wall {x['step_wall_ms']:.3f} ms a server "
+                f"step (idle {x['step_idle']:.3f}), {x['burst_wall_ms']:.3f} "
+                f"ms a burst step (idle {x['burst_idle']:.3f}); profiler "
+                f"kernel ms {kms:.3f}, {kern:.0f} kernels a step, K5 in the "
+                f"trace {own}")
+            if own != {"K5": float(cfg.n_layers)}:
+                raise AssertionError(f"[29] {tag} {mode}: K5 kernels in "
+                                     f"the trace a step {own}")
+        r["append_ms"], r["quantize_ms"] = paged_write_ms(
+            cfg, dcfg, dq, sg.pool, host)
+        log(f"[29] {tag}: a step's {cfg.n_layers} appends {r['append_ms']:.3f}"
+            f" device ms, their quantization alone {r['quantize_ms']:.3f}: "
+            f"the pool writes {r['append_ms'] - r['quantize_ms']:.3f} ms "
+            f"({(r['append_ms'] - r['quantize_ms']) / dev_ms:.3f} of the "
+            f"step)")
+        r["alias_mismatches"] = paged_alias_check(tag, cfg, dcfg, dq)
+        if r["alias_mismatches"]:
+            raise AssertionError(f"[29] {tag}: an inactive slot's scatter "
+                                 f"changed the pool")
+        log(f"[29] {tag}: {time.perf_counter() - t_case:.1f} s")
+        del steppers, sg
+        torch.cuda.empty_cache()
+    report["paged_graph"] = out
+    del params
+    torch.cuda.empty_cache()
+
+
 PHASES = {1: phase_device_and_build, 2: phase_kernel_vs_plain,
           3: phase_main_path, 4: phase_card_vs_cpu, 5: phase_times,
           6: phase_k1_vs_plain, 7: phase_k1_main_path,
@@ -5178,7 +5498,8 @@ PHASES = {1: phase_device_and_build, 2: phase_kernel_vs_plain,
           20: phase_x2_oracle, 21: phase_x2_times,
           22: phase_long_prefill, 23: phase_calibrate_deploy,
           24: phase_mistral, 25: phase_dbrx, 26: phase_tp,
-          27: phase_training, 28: phase_graphed_decode}
+          27: phase_training, 28: phase_graphed_decode,
+          29: phase_paged_graph}
 
 
 def main(argv=None) -> int:
@@ -5388,6 +5709,14 @@ def main(argv=None) -> int:
                 k["graphed_trace_launches_per_step"] = (
                     r["graphed"]["trace_launches"][key])
                 k["graphed_tok_s_2k"] = r["graphed"]["tok_s"]
+    if 29 in phases:  # launches per replay of the paged step graph
+        g = report["paged_graph"]["K5 nuq3"]
+        for k in kernels:
+            if k["name"] == "paged_flash_decode":
+                k["graphed_launches_per_step"] = g["launches_per_step"]["K5"]
+                k["graphed_trace_launches_per_step"] = (
+                    g["graphed_steady"]["trace_launches"]["K5"])
+                k["graphed_serve_tok_s"] = g["graphed"]["tok_s"]
     if kernels:
         log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -203,74 +203,39 @@ def graph_unsupported(cfg: ModelConfig) -> str | None:
 _WARMUP_STEPS = 1
 
 
-class DecodeGraph:
-    """One ``decode_step`` captured as a CUDA graph over a cache on a card:
-    the counterpart of ``jax.jit(decode_step)``.
+class CapturedStep:
+    """``step()`` captured as one CUDA graph on the card ``dev``: the
+    counterpart of ``jax.jit``. The graph reads and writes the memory of
+    the tensors ``step`` closes over, so they must live as long as it.
 
-    It holds static (B,) int32 ``token`` and ``pos`` buffers (B is the
-    cache's batch) and the step's ``logits`` (B, V) fp32. ``graph(token,
-    pos)`` copies the inputs in, replays the step (which appends to
-    ``cache`` in place, as decode_step does) and returns ``logits``, which
-    the next call overwrites. ``pos`` is an int, B ints or a tensor.
-
-    Before the capture, ``_WARMUP_STEPS`` eager steps run on a side stream
-    over the cache itself at position S (``dcfg.sink``); what they write
-    (``ops.deployed.first_row_keeper``) is put back after them. They load
-    the kernel libraries, set the kernels' shared-memory limits, build the
-    RoPE table and set up cuBLAS. Their launches are not counted
+    Before the capture, ``_WARMUP_STEPS`` eager calls run on a side stream,
+    then ``restore()`` (when given) puts back what they wrote. They load the
+    kernel libraries, set the kernels' shared-memory limits, build the
+    cached tables and set up cuBLAS; their launches are not counted
     (``setup_launches`` keeps them). The capture's launches (``launches``)
     are added to the counters at each replay (``ops.kernels.add_launches``):
-    they are the wrapper calls a replay makes. ``capture_s`` is the wall
-    time of the warm-up and the capture, ``pool_mib`` the memory the
-    graph's private pool took.
+    they are the wrapper calls a replay makes. ``out`` is what ``step()``
+    returned while captured, overwritten by each replay; ``capture_s`` the
+    wall time of the warm-up and the capture, ``pool_mib`` the memory the
+    graph's private pool took. A capture that fails raises."""
 
-    Raises ValueError for a cache that is not on a card and for the
-    configurations ``graph_unsupported`` names; a capture that fails
-    raises. Nothing falls back to the eager step."""
-
-    def __init__(self, params, cfg: ModelConfig, dcfg: DeployConfig,
-                 dq: DeployedQuant, cache: KVCache):
+    def __init__(self, step, dev: torch.device, restore=None):
         from .ops.kernels import counted
-        from .ops.kernels.flash_decode import rope_table
 
-        _check_kernel(dcfg)
-        why = graph_unsupported(cfg)
-        if why is not None:
-            raise ValueError(f"DecodeGraph: cannot capture {why}")
-        dev = cache.length.device
-        if dev.type != "cuda":
-            raise ValueError(f"DecodeGraph: the cache is on {dev}; a CUDA "
-                             f"graph needs a card (call decode_step)")
         t0 = time.perf_counter()
-        k_chan = static_channels(dq, dcfg)
-        # the graph reads and writes these tensors' memory: they live as
-        # long as it does
-        self._inputs = (params, dq, cache, k_chan)
-        self.token = torch.zeros_like(cache.length)
-        self.pos = torch.full_like(cache.length, dcfg.sink)
-
-        def step():
-            return decode_step(params, cfg, dcfg, dq, cache, self.token,
-                               self.pos, k_chan=k_chan)[1]
 
         def warm():
-            restore = deployed.first_row_keeper(cache)
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):
                 for _ in range(_WARMUP_STEPS):
                     step()
             torch.cuda.current_stream(dev).wait_stream(side)
-            restore()
+            if restore is not None:
+                restore()
             torch.cuda.synchronize(dev)
 
         _, self.setup_launches = counted(warm)
-        # the kernels read the RoPE table from a bounded cache of tables;
-        # the graph holds its own reference, so the table outlives eviction
-        self._rope = None
-        if dcfg.kernel == "pallas" or (dcfg.kernel == "flash"
-                                       and not dcfg.post_rope_k):
-            self._rope = rope_table(cfg, dcfg.sink, dcfg.cache_tokens, dev)
         # torch.cuda.graph empties the allocator's cache as it enters; so
         # does this, first, so that the growth is the graph's own pool
         torch.cuda.empty_cache()
@@ -281,22 +246,90 @@ class DecodeGraph:
             with torch.cuda.graph(self.graph):
                 return step()
 
-        self.logits, self.launches = counted(capture)
+        self.out, self.launches = counted(capture)
         torch.cuda.synchronize(dev)
         self.pool_mib = (torch.cuda.memory_reserved(dev) - reserved) / 2 ** 20
         self.capture_s = time.perf_counter() - t0
 
-    def __call__(self, token, pos):
+    def replay(self):
+        """Replay the step and count its launches; returns ``out``."""
         from .ops.kernels import add_launches
 
+        self.graph.replay()
+        add_launches(self.launches)
+        return self.out
+
+
+def _hold_rope_table(cfg: ModelConfig, dcfg: DeployConfig, cache_tokens: int,
+                     dev):
+    """The RoPE table the kernels read under pre-RoPE keys (K1, K5 and
+    K3 / K4 rotate in the kernel), or None. The kernels take it from a
+    bounded cache of tables; a graph holds this reference so that its table
+    outlives eviction."""
+    from .ops.kernels.flash_decode import rope_table
+
+    if dcfg.kernel == "pallas" or (dcfg.kernel == "flash"
+                                   and not dcfg.post_rope_k):
+        return rope_table(cfg, dcfg.sink, cache_tokens, dev)
+    return None
+
+
+class DecodeGraph:
+    """One ``decode_step`` captured as a CUDA graph over a cache on a card
+    (``CapturedStep``): the counterpart of ``jax.jit(decode_step)``.
+
+    It holds static (B,) int32 ``token`` and ``pos`` buffers (B is the
+    cache's batch) and the step's ``logits`` (B, V) fp32. ``graph(token,
+    pos)`` copies the inputs in, replays the step (which appends to
+    ``cache`` in place, as decode_step does) and returns ``logits``, which
+    the next call overwrites. ``pos`` is an int, B ints or a tensor.
+
+    The warm-up steps run over the cache itself at position S
+    (``dcfg.sink``); what they write (``ops.deployed.first_row_keeper``) is
+    put back after them. ``launches``, ``setup_launches``, ``capture_s``
+    and ``pool_mib`` are the capture's (``CapturedStep``).
+
+    Raises ValueError for a cache that is not on a card and for the
+    configurations ``graph_unsupported`` names; a capture that fails
+    raises. Nothing falls back to the eager step."""
+
+    def __init__(self, params, cfg: ModelConfig, dcfg: DeployConfig,
+                 dq: DeployedQuant, cache: KVCache):
+        _check_kernel(dcfg)
+        why = graph_unsupported(cfg)
+        if why is not None:
+            raise ValueError(f"DecodeGraph: cannot capture {why}")
+        dev = cache.length.device
+        if dev.type != "cuda":
+            raise ValueError(f"DecodeGraph: the cache is on {dev}; a CUDA "
+                             f"graph needs a card (call decode_step)")
+        t0 = time.perf_counter()
+        k_chan = static_channels(dq, dcfg)
+        self.token = torch.zeros_like(cache.length)
+        self.pos = torch.full_like(cache.length, dcfg.sink)
+        self._rope = _hold_rope_table(cfg, dcfg, dcfg.cache_tokens, dev)
+        # the graph reads and writes these tensors' memory: they live as
+        # long as it does
+        self._inputs = (params, dq, cache, k_chan)
+
+        def step():
+            return decode_step(params, cfg, dcfg, dq, cache, self.token,
+                               self.pos, k_chan=k_chan)[1]
+
+        self._captured = CapturedStep(step, dev,
+                                      deployed.first_row_keeper(cache))
+        c = self._captured
+        self.logits, self.launches = c.out, c.launches
+        self.setup_launches, self.pool_mib = c.setup_launches, c.pool_mib
+        self.capture_s = time.perf_counter() - t0
+
+    def __call__(self, token, pos):
         self.token.copy_(token)
         if isinstance(pos, int):
             self.pos.fill_(pos)
         else:
             self.pos.copy_(torch.as_tensor(pos, dtype=torch.int32))
-        self.graph.replay()
-        add_launches(self.launches)
-        return self.logits
+        return self._captured.replay()
 
 
 def decode_stepper(params, cfg: ModelConfig, dcfg: DeployConfig,

@@ -97,17 +97,23 @@ def set_token_bits(planes, codes, word, bit, pred):
     of planes (B, ..., bits, TW, D) is gathered, its bit set from codes
     (B, ..., D) where pred[b], and scattered back. int32 throughout: the
     bit operations give the same 32-bit words as the host path's int64."""
-    B, bits = planes.shape[0], planes.shape[-3]
+    B = planes.shape[0]
     lead = (B,) + (1,) * (planes.dim() - 1)
     index = word.view(lead).expand(*planes.shape[:-2], 1, planes.shape[-1])
     old = torch.gather(planes, -2, index)  # (B, ..., bits, 1, D)
-    j = bit.to(torch.int32).view(lead)
-    shifts = torch.arange(bits, dtype=torch.int32,
-                          device=planes.device)[:, None]
-    bitvals = (codes.to(torch.int32)[..., None, :] >> shifts) & 1
-    new = (old & ~(torch.ones_like(j) << j)) | (bitvals[..., None, :] << j)
-    planes.scatter_(-2, index, torch.where(pred.view(lead), new, old))
+    planes.scatter_(-2, index, torch.where(pred.view(lead),
+                                           token_bits(old, codes, bit), old))
     return planes
+
+
+def token_bits(old, codes, bit):
+    """Word rows ``old`` (B, ..., bits, 1, D) int32 with sample b's bit
+    ``bit[b]`` of every plane set from its codes (B, ..., D)."""
+    bits = old.shape[-3]
+    j = bit.to(torch.int32).view((old.shape[0],) + (1,) * (old.dim() - 1))
+    shifts = torch.arange(bits, dtype=torch.int32, device=old.device)[:, None]
+    bitvals = (codes.to(torch.int32)[..., None, :] >> shifts) & 1
+    return (old & ~(torch.ones_like(j) << j)) | (bitvals[..., None, :] << j)
 
 
 def set_token_codes_at_layer(planes, codes, li: int, pos: int,

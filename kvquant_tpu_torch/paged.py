@@ -19,28 +19,34 @@ Attention goes through ``paged_flash_decode`` (the K5 kernel, K1's body
 addressed through the page table; ``ops/kernels/paged_decode.py``).
 
 Differences from the JAX module: the pool is updated IN PLACE (JAX donates
-it to each jitted step); page tables, positions and the active mask are
-host values (numpy), as the server keeps them; the JAX package's jitted
-step and its ``lax.scan`` burst become Python loops whose kernels run on
-the card.
+it to each jitted step). A step takes the page table, positions and active
+mask as tensors on the pool's device and reads nothing back to the host;
+the server keeps them on the host (numpy) and copies them in. On a card the
+server's greedy step is one CUDA graph (``PagedGraph``), the counterpart of
+the JAX server's jitted step, replayed once per step and H times for a
+burst, where JAX scans its burst; the JAX step's ``lax.scan`` over layers
+is a Python loop inside the captured step.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, fields, replace
+from functools import partial
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from .cache import (DeployConfig, DeployedQuant, check_intn_codebook,
-                    create_cache, k_channel_index)
+                    create_cache, static_channels)
 from .device import resolve_device
 from .models import llama
 from .models.config import ModelConfig
-from .ops.deployed import _encode_rows, quantize_k, quantize_v
+from .ops.deployed import _encode_rows, _quantize_token, device_positions
 # the paged kernel K5, here under its JAX name (paged.paged_flash_decode)
 from .ops.kernels.paged_decode import paged_flash_decode
-from .ops.packing import set_token_codes, set_token_rows
+from .ops.packing import token_bits, token_word_bit, write_rows
 
 
 @dataclass
@@ -88,78 +94,148 @@ def paged_pool_bytes(dcfg: DeployConfig, n_layers: int, n_pages: int,
                for t in (getattr(pool, f.name) for f in fields(PagedPool)))
 
 
-def _host(a) -> np.ndarray:
-    """A page table, position vector or mask as a host numpy array."""
-    if isinstance(a, torch.Tensor):
-        return a.cpu().numpy()
-    return np.asarray(a)
-
-
-def _positions(pos, B: int) -> list[int]:
-    """``pos`` (an int or B values, host or tensor) as B host integers."""
-    return [int(p) for p in np.broadcast_to(_host(pos).reshape(-1), (B,))]
-
-
 # ---------------------------------------------------------------------------
 # append + page-granular writes
 # ---------------------------------------------------------------------------
 
 
+class PageRows(NamedTuple):
+    """Where each slot's token lands in the pool, from its position, its
+    page-table row and the active mask; a step computes it once and every
+    layer's writes share it. ``packed`` (B,) bool: the slot writes its
+    packed row (pos >= S and active); ``sink``: it writes its exact sink
+    row ``s`` (pos < S and active; ``s`` is None without a sink). ``bit``:
+    its bit in the bit planes' word (nuq). ``offsets``: by pool array
+    ("planes", "k_out", "v_out", "scalars"), the flat element offsets
+    (B, ...) of the slot's row (the bit planes' word row) within one layer,
+    and the same offsets with every slot that does not write sent to the
+    first slot that does (``_scatter_targets``)."""
+    packed: torch.Tensor
+    sink: torch.Tensor
+    s: torch.Tensor | None
+    bit: torch.Tensor | None
+    src: torch.Tensor
+    offsets: dict
+
+
+def _row_offsets(shape, axis: int, page, idx, part=None):
+    """Flat element offsets (B, ...) into one layer, of contiguous shape
+    ``shape`` (NP, ...), of a pool array: slot b's page ``page[b]`` at
+    index ``idx[b]`` along ``axis`` (size 1 there), every element of the
+    other axes (``part`` = (axis, start, stop) keeps that range of one)."""
+    n = len(shape)
+    stride = [1] * n
+    for d in range(n - 2, -1, -1):
+        stride[d] = stride[d + 1] * shape[d + 1]
+    lead = (-1,) + (1,) * (n - 1)
+    off = page.view(lead) * stride[0] + idx.view(lead) * stride[axis]
+    for d in range(1, n):
+        if d != axis:
+            lo, hi = part[1:] if part and part[0] == d else (0, shape[d])
+            view = [1] * n
+            view[d] = hi - lo
+            off = off + (torch.arange(lo, hi, device=page.device)
+                         * stride[d]).view(view)
+    return off
+
+
+def page_rows(pool: PagedPool, page_table, pos, active,
+              dcfg: DeployConfig) -> PageRows:
+    """The ``PageRows`` of a step, as JAX's paged_append_token locates its
+    rows (``kvquant_tpu/paged.py:324-334``): packed position p = max(pos -
+    S, 0) lies in page ``page_table[b, clip(p // P, 0, MP - 1)]`` at row
+    p % P. ``page_table`` (B, MP), ``pos`` (B,) and ``active`` (B,) bool
+    (None: every slot) on the pool's device; host values are copied there,
+    nothing is read back."""
+    dev = pool.k_planes.device
+    table = torch.as_tensor(page_table, dtype=torch.int32, device=dev)
+    B, MP = table.shape
+    pos = device_positions(pos, B, dev)
+    act = (torch.ones(B, dtype=torch.bool, device=dev) if active is None
+           else torch.as_tensor(active, device=dev).to(torch.bool))
+    S, P = dcfg.sink, dcfg.page_tokens
+    p = (pos - S).clamp(min=0).long()
+    page = torch.gather(table, 1, (p // P).clamp(max=MP - 1)[:, None])[:, 0]
+    page, row = page.long(), p % P
+    packed = (pos >= S) & act
+    # the pool has no batch axis and a slot that does not write may alias
+    # a row that another slot writes (a retired slot keeps its position and
+    # its table row reads page 0): its scatter repeats the first writing
+    # slot's, element for element, so no element gets two values
+    src = torch.where(packed, torch.arange(B, device=dev),
+                      packed.to(torch.int32).argmax())
+    nuq = dcfg.codes == "nuq"
+    word, bit = token_word_bit(row) if nuq else (row, None)
+    # (one layer's shape (NP, ...), the row axis, its index[, a range])
+    planes = pool.k_planes.shape[1:]
+    where = {"planes": (planes, len(planes) - 2, word),
+             "scalars": (pool.v_scale.shape[1:], 1, row)}
+    J, spk = pool.kv_out.shape[-2], dcfg.slots_per_kind
+    if dcfg.include_sparse and spk:
+        where["k_out"] = (pool.kv_out.shape[1:], 3, row, (2, 0, spk))
+    if dcfg.include_sparse and J > spk:
+        where["v_out"] = (pool.kv_out.shape[1:], 3, row, (2, spk, J))
+    offsets = {}
+    for name, (shape, axis, idx, *part) in where.items():
+        off = _row_offsets(shape, axis, page, idx, *part)
+        offsets[name] = (off, off.index_select(0, src))
+    return PageRows(packed, (pos < S) & act,
+                    pos.clamp(max=S - 1).long() if S > 0 else None, bit,
+                    src, offsets)
+
+
+def _scatter_targets(arr, off, at: PageRows, new):
+    """Write each slot's row into one layer ``arr`` (contiguous) of a pool
+    array, in place: gathered at its flat offsets ``off[0]``, replaced by
+    ``new`` (its rows, or a function of the old rows) where the slot writes
+    its packed row, scattered at ``off[1]`` with the values of the slot
+    each one repeats. A slot that does not write puts back the value its
+    target row gets anyway, so the scatter is the same whichever of two
+    writes to an element lands."""
+    flat = arr.view(-1)
+    frm, to = off
+    old = torch.gather(flat, 0, frm.reshape(-1)).view(frm.shape)
+    lead = (-1,) + (1,) * (old.dim() - 1)
+    val = torch.where(at.packed.view(lead),
+                      new(old) if callable(new) else new.to(old.dtype), old)
+    flat.scatter_(0, to.reshape(-1), val.index_select(0, at.src).reshape(-1))
+
+
 def paged_append_token(pool: PagedPool, page_table, lq: DeployedQuant,
                        dcfg: DeployConfig, mcfg: ModelConfig, k_new, v_new,
-                       pos, li: int, active=None) -> PagedPool:
+                       pos, li: int, active=None, *, rows=None, cos_sin=None,
+                       k_chan=None) -> PagedPool:
     """Append one token per slot at layer ``li``, in place: packed position
-    p maps to (page_table[b, p // P], p % P). Row-level writes through
-    views of ``pool[li, page]`` (``packing.set_token_codes`` /
-    ``set_token_rows``), as the contiguous append. ``active`` (B,) bool:
-    slots that are False write NOTHING (a paged slot's table row may alias
-    pages that now belong to another request). ``page_table`` (B, MP),
-    ``pos`` and ``active`` are host values."""
-    B = k_new.shape[0]
-    S, P = dcfg.sink, dcfg.page_tokens
-    Hkv, Dh = dcfg.n_kv_heads, dcfg.d_head
-    table = _host(page_table)
-    MP = table.shape[1]
-    pl = _positions(pos, B)
-    act = [True] * B if active is None else \
-        [bool(x) for x in _host(active).reshape(-1)]
-    in_sink = [p < S and a for p, a in zip(pl, act)]
-    not_sink = [p >= S and a for p, a in zip(pl, act)]
-    pk = [max(p - S, 0) for p in pl]
-    page_of = [int(table[b, min(pk[b] // P, MP - 1)]) for b in range(B)]
-    row = [x % P for x in pk]
-
-    dev = k_new.device
-    cos, sin = llama.rope_cos_sin(
-        torch.tensor(pl, dtype=torch.int32, device=dev), mcfg)
-    k_h = k_new.reshape(B, Hkv, Dh).to(torch.float32)
-    k_roped = k_h * cos[:, None] + llama.rotate_half(k_h) * sin[:, None]
-    k_store = k_roped.reshape(B, Hkv * Dh) if dcfg.post_rope_k else k_new
-    codes_k, k_words = quantize_k(k_store, lq, dcfg)
-    codes_v, v_words, v_sc, v_off = quantize_v(v_new, lq, dcfg)
-    nuq = dcfg.codes == "nuq"
-    rows_k = codes_k if nuq else _encode_rows(codes_k, dcfg)  # (B, H', Dc)
-    rows_v = codes_v if nuq else _encode_rows(codes_v, dcfg)
-    put = set_token_codes if nuq else set_token_rows
-    v_h = v_new.reshape(B, Hkv, Dh).to(torch.float32)
-    spk = dcfg.slots_per_kind
-
-    # two active slots never share a page row, so the order is irrelevant
-    for b in range(B):
-        if not_sink[b]:
-            pg, r = page_of[b], row[b]
-            put(pool.k_planes[li, pg], rows_k[b], r)
-            put(pool.v_planes[li, pg], rows_v[b], r)
-            if dcfg.include_sparse:
-                pool.kv_out[li, pg, :, :spk, r] = k_words[b]
-                if v_words is not None:
-                    pool.kv_out[li, pg, :, spk:spk + v_words.shape[-1],
-                                r] = v_words[b]
-            pool.v_scale[li, pg, r] = v_sc[b]
-            pool.v_offset[li, pg, r] = v_off[b]
-        elif in_sink[b] and S > 0:
-            pool.k_sink[li, b, :, pl[b]] = k_roped[b]
-            pool.v_sink[li, b, :, pl[b]] = v_h[b]
+    p maps to (page_table[b, p // P], p % P). ``page_table`` (B, MP) int32,
+    ``pos`` (B,) int32 and ``active`` (B,) bool on the pool's device (host
+    values are copied there); nothing is read back to the host. Row-level
+    predicated writes by device-indexed gathers and scatters, one per pool
+    array: slots that are not active write NOTHING (a paged slot's table
+    row may alias pages that now belong to another request), and the sink
+    rows go to the per-slot sinks. ``rows`` (``page_rows``), ``cos_sin``
+    (``rope_cos_sin(pos)``) and the layer's static K channels ``k_chan``
+    (``quantize_k``) may come precomputed."""
+    at = rows or page_rows(pool, page_table, pos, active, dcfg)
+    if cos_sin is None:
+        cos_sin = llama.rope_cos_sin(
+            device_positions(pos, k_new.shape[0], k_new.device), mcfg)
+    (codes_k, codes_v, k_words, v_words, v_sc, v_off, k_roped,
+     v_h) = _quantize_token(lq, dcfg, mcfg, k_new, v_new, *cos_sin, k_chan)
+    off = at.offsets
+    for arr, codes in ((pool.k_planes, codes_k), (pool.v_planes, codes_v)):
+        new = (partial(token_bits, codes=codes, bit=at.bit)
+               if dcfg.codes == "nuq"
+               else _encode_rows(codes, dcfg).unsqueeze(2))
+        _scatter_targets(arr[li], off["planes"], at, new)
+    for name, words in (("k_out", k_words), ("v_out", v_words)):
+        if name in off and words is not None:
+            _scatter_targets(pool.kv_out[li], off[name], at,
+                             words.unsqueeze(-1))
+    for arr, val in ((pool.v_scale, v_sc), (pool.v_offset, v_off)):
+        _scatter_targets(arr[li], off["scalars"], at, val.unsqueeze(1))
+    if at.s is not None:
+        write_rows(pool.k_sink[li], k_roped, at.s, at.sink, axis=2)
+        write_rows(pool.v_sink[li], v_h, at.s, at.sink, axis=2)
     return pool
 
 
@@ -172,7 +248,7 @@ def write_pages_from_cache(pool: PagedPool, cache_l_arrays: dict, page_ids,
     (masked dead in attention). The sequence's sink rows go to the slot's
     row of the per-slot sinks."""
     P = dcfg.page_tokens
-    ids = [int(i) for i in _host(page_ids).reshape(-1)]
+    ids = torch.as_tensor(page_ids).reshape(-1).tolist()
     # (token axis once the batch axis is dropped, rows per page) by array
     code = (3, P // 32) if dcfg.codes == "nuq" else (2, P)
     blocks = {"k_planes": code, "v_planes": code, "kv_out": (3, P),
@@ -194,27 +270,28 @@ def write_pages_from_cache(pool: PagedPool, cache_l_arrays: dict, page_ids,
 
 def paged_decode_step(params, cfg: ModelConfig, dcfg: DeployConfig,
                       dq: DeployedQuant, pool: PagedPool, page_table, token,
-                      pos, active=None):
+                      pos, active=None, *, k_chan=None):
     """One decode step over the paged pool: append at each slot's position
     and attend through its page table, every layer (the pool in place).
-    token (B,) int (on the card a device tensor, so a burst's tokens never
-    leave it); page_table (B, MP), pos (B,) and active (B,) are host
-    values. Returns (pool, logits (B, V) fp32)."""
+    token (B,) int; page_table (B, MP) int32, pos (B,) int32 and active
+    (B,) bool as tensors on the pool's device (host values are copied
+    there); the step reads nothing back to the host. ``k_chan``: the static
+    K channels (``static_channels``), computed here when not given (a
+    server computes them once). Returns (pool, logits (B, V) fp32)."""
     from .engine import _logits, _mlp
 
     check_intn_codebook(dcfg, dq)
     B = token.shape[0]
     H, Dh, Hkv = cfg.n_heads, cfg.d_head, cfg.n_kv_heads
     G = H // Hkv
-    dev = params.embed.device
-    table = _host(page_table).astype(np.int32)
-    pl = _positions(pos, B)
-    posb = torch.tensor(pl, dtype=torch.int32, device=dev)
-    table_d = torch.as_tensor(table, device=dev)
-    cos, sin = llama.rope_cos_sin(posb, cfg)
-    k_chan = None
-    if dcfg.include_sparse and dcfg.k_outliers == "channels":
-        k_chan = k_channel_index(dq.k_ressc, dcfg).to(torch.int32)
+    dev = pool.k_planes.device
+    table = torch.as_tensor(page_table, dtype=torch.int32, device=dev)
+    pos = device_positions(pos, B, dev)
+    if k_chan is None:
+        k_chan = static_channels(dq, dcfg)
+    k_chan32 = None if k_chan is None else k_chan.to(torch.int32)
+    at = page_rows(pool, table, pos, active, dcfg)
+    cos, sin = llama.rope_cos_sin(pos, cfg)
 
     x = params.embed[token.to(dev).long()]
     for li in range(cfg.n_layers):
@@ -223,16 +300,94 @@ def paged_decode_step(params, cfg: ModelConfig, dcfg: DeployConfig,
         q = (h @ lp["wq"]).reshape(B, H, Dh)
         k = h @ lp["wk"]
         v = h @ lp["wv"]
-        paged_append_token(pool, table, dq.layer(li), dcfg, cfg, k, v, pl, li,
-                           active)
+        paged_append_token(pool, table, dq.layer(li), dcfg, cfg, k, v, pos,
+                           li, rows=at, cos_sin=(cos, sin),
+                           k_chan=None if k_chan is None else k_chan[li])
         q_h = q.reshape(B, Hkv, G, Dh).to(torch.float32)
         q_rot = q_h * cos[:, None, None] + (
             llama.rotate_half(q_h) * sin[:, None, None])
-        attn = paged_flash_decode(q_rot, pool, table_d, dq, li, posb, dcfg,
-                                  cfg, k_chan=k_chan)
+        attn = paged_flash_decode(q_rot, pool, table, dq, li, pos, dcfg,
+                                  cfg, k_chan=k_chan32)
         x = x + attn.reshape(B, H * Dh).to(x.dtype) @ lp["wo"]
         x = _mlp(x, lp, cfg)
     return pool, _logits(params, x, cfg)
+
+
+# ---------------------------------------------------------------------------
+# the server's greedy step: eager, or one CUDA graph
+# ---------------------------------------------------------------------------
+
+
+class PagedStep:
+    """The greedy paged step over static device buffers, JAX's burst body
+    (``kvquant_tpu/paged.py:823-834``): ``token`` (B,) int32, ``pos`` (B,)
+    int32, ``active`` (B,) bool and ``table`` (B, MP) int32 on the pool's
+    device. A call runs ``paged_decode_step`` over them, then where a slot
+    is active advances it in place (``token`` <- the logits' argmax,
+    ``pos`` += 1) and returns the logits (B, V) fp32. ``load`` copies host
+    values in. The static K channels are computed once. This class steps
+    eagerly; ``PagedGraph`` replays the same body."""
+
+    def __init__(self, params, cfg: ModelConfig, dcfg: DeployConfig,
+                 dq: DeployedQuant, pool: PagedPool, max_pages: int):
+        dev = pool.k_planes.device
+        B = pool.k_sink.shape[1]
+        self.token = torch.zeros((B,), dtype=torch.int32, device=dev)
+        self.pos = torch.zeros((B,), dtype=torch.int32, device=dev)
+        self.active = torch.zeros((B,), dtype=torch.bool, device=dev)
+        self.table = torch.zeros((B, max_pages), dtype=torch.int32,
+                                 device=dev)
+        self._args = (params, cfg, dcfg, dq, pool)
+        self.k_chan = static_channels(dq, dcfg)
+
+    def load(self, token, pos, active, table):
+        """Copy host values (numpy) into the buffers."""
+        for buf, a in ((self.token, token), (self.pos, pos),
+                       (self.active, active), (self.table, table)):
+            buf.copy_(torch.from_numpy(np.ascontiguousarray(a)))
+
+    def body(self):
+        _, logits = paged_decode_step(*self._args, self.table, self.token,
+                                      self.pos, self.active,
+                                      k_chan=self.k_chan)
+        nxt = torch.argmax(logits, -1).to(torch.int32)
+        self.token.copy_(torch.where(self.active, nxt, self.token))
+        self.pos.copy_(torch.where(self.active, self.pos + 1, self.pos))
+        return logits
+
+    def __call__(self):
+        return self.body()
+
+
+class PagedGraph(PagedStep):
+    """``PagedStep``'s body captured as one CUDA graph over a pool on a
+    card (``engine.CapturedStep``): the counterpart of the JAX server's
+    jitted step and of its scanned burst, whose body it is. A call replays
+    it and returns ``logits``, which the next call overwrites. The warm-up
+    runs with every slot inactive, so it writes nothing to the pool.
+    ``launches``, ``setup_launches``, ``capture_s`` and ``pool_mib`` are
+    the capture's. Raises ValueError for a pool that is not on a card; a
+    capture that fails raises."""
+
+    def __init__(self, params, cfg: ModelConfig, dcfg: DeployConfig,
+                 dq: DeployedQuant, pool: PagedPool, max_pages: int):
+        from .engine import CapturedStep, _hold_rope_table
+
+        dev = pool.k_planes.device
+        if dev.type != "cuda":
+            raise ValueError(f"PagedGraph: the pool is on {dev}; a CUDA "
+                             f"graph needs a card (use PagedStep)")
+        t0 = time.perf_counter()
+        super().__init__(params, cfg, dcfg, dq, pool, max_pages)
+        self._rope = _hold_rope_table(cfg, dcfg,
+                                      max_pages * dcfg.page_tokens, dev)
+        self._captured = c = CapturedStep(self.body, dev)
+        self.logits, self.launches = c.out, c.launches
+        self.setup_launches, self.pool_mib = c.setup_launches, c.pool_mib
+        self.capture_s = time.perf_counter() - t0
+
+    def __call__(self):
+        return self._captured.replay()
 
 
 # ---------------------------------------------------------------------------
@@ -253,7 +408,10 @@ class PagedServer:
     Host state: the free list, each slot's page-table row (int32 numpy),
     positions and budgets. The pool is updated in place by every step (the
     JAX server donates it to its jitted step). ``device`` places the pool
-    and the temporary caches (default "cuda")."""
+    and the temporary caches (default "cuda"). The decode step is the
+    greedy ``PagedStep``: on a card one ``PagedGraph`` captured here and
+    replayed once per step, H times per burst; on the CPU the same body
+    steps eagerly."""
 
     def __init__(self, params, cfg, dcfg: DeployConfig, dq, n_pages: int,
                  n_slots: int, max_pages_per_slot: int, seed: int = 0,
@@ -286,6 +444,11 @@ class PagedServer:
         self._engine = engine
         self._rng = np.random.default_rng(seed)
         self._last_tok = np.zeros((n_slots,), np.int32)
+        stepper = PagedGraph if self.device.type == "cuda" else PagedStep
+        self._step = stepper(params, cfg, dcfg, dq, self.pool, self.MP)
+        # row h: the tokens a burst's step h appended, kept on the device
+        self._emitted = torch.zeros((max(burst, 1), n_slots),
+                                    dtype=torch.int32, device=self.device)
 
     def submit(self, req):
         self.queue.append(req)
@@ -411,13 +574,13 @@ class PagedServer:
     def _step_burst(self) -> int:
         """Run one burst: H = largest power of two <= min remaining budget
         over active slots (so no slot overshoots its reserved pages),
-        capped at ``self.burst``; H greedy steps whose argmax and next
-        token stay on the device, then ONE host read of the H tokens per
-        slot. The page table and active mask are fixed for the burst.
-        Falls back to a single hosted step when no slot is active, H < 2,
-        or any active request samples with a temperature (host RNG). EOS
-        inside a burst wastes the slot's tail steps (junk appends land in
-        the slot's own reserved pages); the tokens after it are discarded
+        capped at ``self.burst``; H greedy steps (H replays on a card) whose
+        argmax and next token stay on the device, then ONE host read of the
+        H tokens per slot. The page table and active mask are fixed for the
+        burst. Falls back to a single hosted step when no slot is active, H
+        < 2, or any active request samples with a temperature (host RNG).
+        EOS inside a burst wastes the slot's tail steps (junk appends land
+        in the slot's own reserved pages); the tokens after it are discarded
         and the slot retires exactly as in step(). Returns the number of
         decode steps executed (0 when idle)."""
         act_idx = [b for b in range(self.n_slots) if self.active[b]]
@@ -432,21 +595,16 @@ class PagedServer:
         H = 1
         while H * 2 <= min(rem, self.burst):
             H *= 2
-        act = self.active.copy()
-        act_d = torch.as_tensor(act, device=self.device)
-        tok = torch.as_tensor(self._last_tok, device=self.device)
-        emitted = []
+        st = self._step
+        st.load(self._last_tok, self.pos, self.active, self.table)
         for h in range(H):
-            _, logits = paged_decode_step(
-                self.params, self.cfg, self.dcfg, self.dq, self.pool,
-                self.table, tok, self.pos + h * act, act)
-            emitted.append(tok)  # the token APPENDED this step
-            nxt = torch.argmax(logits, -1).to(torch.int32)
-            tok = torch.where(act_d, nxt, tok)
-        out = torch.stack(emitted + [tok]).cpu().numpy()  # the one read
+            self._emitted[h].copy_(st.token)  # the token APPENDED this step
+            st()
+        out = torch.cat([self._emitted[:H], st.token[None],
+                         st.pos[None]]).cpu().numpy()  # the one read
         toks = out[:H]  # (H, n_slots)
-        self._last_tok = out[H].astype(np.int32)
-        self.pos = (self.pos + H * act).astype(np.int32)
+        self._last_tok = out[H].copy()
+        self.pos = out[H + 1].copy()
         for b in act_idx:
             req = self.slot_req[b]
             comp = self.completions[req.rid]
@@ -472,11 +630,10 @@ class PagedServer:
         self._admit()
         if not self.active.any() and not self.queue and not self.admitting:
             return False
-        _, logits = paged_decode_step(
-            self.params, self.cfg, self.dcfg, self.dq, self.pool, self.table,
-            torch.as_tensor(self._last_tok, device=self.device), self.pos,
-            self.active)
-        logits = logits.cpu().numpy()
+        # one greedy step: its token and position updates are not read
+        # (the next load overwrites them); the host samples from the logits
+        self._step.load(self._last_tok, self.pos, self.active, self.table)
+        logits = self._step().cpu().numpy()
         for b in range(self.n_slots):
             if not self.active[b]:
                 continue

@@ -73,9 +73,11 @@ def _eq(got, want, name=""):
                                   err_msg=name)
 
 
-def _quantizers(mcfg, codes, bits, seed=0):
+def _quantizers(mcfg, codes, bits, seed=0, v_ends=False):
     """Random per-channel K ranges, codebooks (affine for the integer
-    containers) and K residual scores, for both packages."""
+    containers) and K residual scores, for both packages. ``v_ends``: the
+    nuq V codebook's ends sit at -1 and 1, where each token's own V range
+    puts its extremes (ROADMAP queue 3)."""
     rng = np.random.default_rng(seed)
     L, C = mcfg.n_layers, mcfg.n_kv_heads * mcfg.d_head
     up = (np.abs(rng.standard_normal((L, C))) * 2 + 1).astype(np.float32)
@@ -84,6 +86,8 @@ def _quantizers(mcfg, codes, bits, seed=0):
     if codes == "nuq":
         kl = np.sort(rng.uniform(-1, 1, (L, K)), axis=1).astype(np.float32)
         vl = np.sort(rng.uniform(-1, 1, (L, K)), axis=1).astype(np.float32)
+        if v_ends:
+            vl[:, 0], vl[:, -1] = -1.0, 1.0
     else:
         kl = np.stack([np.linspace(-1, 1, K, dtype=np.float32)] * L)
         vl = kl.copy()
@@ -273,10 +277,10 @@ STORAGES = {  # name -> (codes, bits, post-RoPE K, outliers), the port's kernels
 B_TRAJ, PROMPT, STEPS = 2, 12, 10
 
 
-def _model(which, storage, kernel):
+def _model(which, storage, kernel, v_ends=False):
     jcfg, tcfg = (J_TINY, TINY_LLAMA) if which == "mha" else (J_GQA, TINY_GQA)
     codes, bits, post, outliers = STORAGES[storage][0]
-    jq, tq = _quantizers(tcfg, codes, bits, seed=5)
+    jq, tq = _quantizers(tcfg, codes, bits, seed=5, v_ends=v_ends)
     jd, td = _configs(codes, bits, post, outliers, kernel, tcfg)
     params = jinit(jax.random.PRNGKey(0), jcfg, dtype=jnp.float32)
     tparams = params_from_numpy(jax.tree.map(np.asarray, params), tcfg,
@@ -284,19 +288,28 @@ def _model(which, storage, kernel):
     return (params, jcfg, jd, jq), (tparams, tcfg, td, tq)
 
 
+PPL_TOKS = np.random.default_rng(4).integers(0, 256, (1, 24), np.int32)
+
+
 @functools.lru_cache(maxsize=None)
-def _jax_reference(which, storage):
+def _jax_reference(which, storage, v_ends=False):
     """JAX's greedy generate tokens and deployed_ppl through its xla
     datapath, its oracle (JAX's flash path departs from its own xla path
     at TINY_GQA's d_head 8 by 0.02 in the first step's logits)."""
-    jm, _ = _model(which, storage, "xla")
+    jm, _ = _model(which, storage, "xla", v_ends)
     prompt = np.random.default_rng(2).integers(0, 256, (B_TRAJ, PROMPT),
                                                np.int32)
     toks, _ = jeng.generate(*jm, jnp.asarray(prompt),
                             jeng.GenerateConfig(max_new_tokens=STEPS))
-    ppl_toks = np.random.default_rng(4).integers(0, 256, (1, 24), np.int32)
-    return (prompt, np.asarray(toks), ppl_toks,
-            jeng.deployed_ppl(*jm, jnp.asarray(ppl_toks)))
+    return prompt, np.asarray(toks), jeng.deployed_ppl(
+        *jm, jnp.asarray(PPL_TOKS))
+
+
+@functools.lru_cache(maxsize=None)
+def _port_ppl(which, storage, kernel, v_ends=False):
+    _, (params, cfg, td, tq) = _model(which, storage, kernel, v_ends)
+    return engine.deployed_ppl(params, cfg, td, tq, torch.as_tensor(PPL_TOKS),
+                               device="cpu")
 
 
 @pytest.mark.parametrize("storage,kernel", [(s, k) for s, (_, ks)
@@ -305,8 +318,13 @@ def _jax_reference(which, storage):
 def test_trajectory_at_device_positions_matches_jax(which, storage, kernel):
     """Prefill of 12 tokens, then 10 greedy steps driven through
     decode_step with (B,) int32 position tensors == JAX's generate; the
-    port's deployed_ppl within 1e-3 of JAX's."""
-    prompt, want, ppl_toks, jppl = _jax_reference(which, storage)
+    port's deployed_ppl within 1e-5 of its other paths' on the same
+    random codebooks, and within 1e-3 of JAX's on codebooks whose V ends
+    sit at -1 and 1. (With random V ends, an ulp of matmul rounding that
+    moves a token's extreme across the outlier threshold |x_norm| = 1
+    changes its residual by ~0.15, and JAX's own paths part by 0.02 in
+    logits: ROADMAP queue 3.)"""
+    prompt, want, _ = _jax_reference(which, storage)
     _, (params, cfg, td, tq) = _model(which, storage, kernel)
     B, P = prompt.shape
     cache = tcache.create_cache(td, cfg.n_layers, B, device="cpu")
@@ -321,8 +339,12 @@ def test_trajectory_at_device_positions_matches_jax(which, storage, kernel):
                                            pos)
     np.testing.assert_array_equal(np.stack(got, axis=1), want)
     assert cache.length.tolist() == [P + STEPS] * B
-    tppl = engine.deployed_ppl(params, cfg, td, tq,
-                               torch.as_tensor(ppl_toks), device="cpu")
+    tppl = _port_ppl(which, storage, kernel)
+    for other in STORAGES[storage][1]:
+        oppl = _port_ppl(which, storage, other)
+        assert abs(tppl - oppl) <= 1e-5 * oppl, (kernel, tppl, other, oppl)
+    jppl = _jax_reference(which, storage, v_ends=True)[2]
+    tppl = _port_ppl(which, storage, kernel, v_ends=True)
     assert abs(tppl - jppl) <= 1e-3 * jppl, (tppl, jppl)
 
 

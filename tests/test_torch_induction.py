@@ -18,8 +18,9 @@ against the JAX package:
     its gradient likewise with the same numpy probes, chunked attention
     and remat on (JAX's loss is the closure of
     kvquant_tpu/utils/induction.py:441-455, restated here); one stage-1
-    Adam step from the same weights and batch gives JAX's loss and
-    parameters (within 1e-5 absolute, 1% of the lr);
+    step from the same weights and batch gives JAX's loss and gradients,
+    and the port's Adam on JAX's gradients gives optax's parameters
+    (within 1e-5 absolute, 1% of the lr);
   - the training loops run both stages and the fine-tune at a tiny width,
     and cached_induction_model loads a checkpoint JAX also reads.
 """
@@ -389,6 +390,14 @@ def test_noisy_loss_and_grad_match_jax_chunked_with_remat(small):
 
 
 def test_one_stage1_step_matches_jax(small):
+    """One stage-1 step in two checks that do not hang on the host's
+    rounding: the port's loss and gradients against JAX's (``train_step``
+    keeps the gradients of the weights it started from), then the port's
+    Adam applied to JAX's own gradients against optax's parameters. Adam's
+    first update is lr * g / (|g| + eps): where |g| is near eps (1e-8) an
+    ulp of gradient rounding moves the update by percents of the lr, so
+    the parameters after the port's own gradients would test the rounding
+    of such elements, not the port."""
     jp, tree = small
     toks, pos, mask = _np(*J.sample_mixed_batch(jax.random.PRNGKey(1000), 4,
                                                 128, 131072, 0.0))
@@ -403,6 +412,17 @@ def test_one_stage1_step_matches_jax(small):
         tp, SMALL, torch.as_tensor(toks), torch.as_tensor(pos),
         torch.as_tensor(mask)))
     np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=1e-5)
+    _grad_close(tp, g)
+
+    tp = trainable(params_from_numpy(tree, SMALL, device="cpu"))
+    jgrad = params_from_numpy(jax.tree.map(np.asarray, g), SMALL,
+                              device="cpu")
+    opt_t = toymodel.adam(tp, 1e-3)
+    for (name, p), (gname, gp) in zip(tp.named_parameters(),
+                                      jgrad.named_parameters()):
+        assert name == gname
+        p.grad = gp.detach().to(torch.float32).clone()
+    opt_t.step()
     a = toymodel._flatten(jnew)
     b = toymodel._flatten(params_to_numpy(tp))
     for k in a:

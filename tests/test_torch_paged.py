@@ -24,7 +24,17 @@ P = 256:
       EOS inside a burst; int4x2 pre / post-RoPE) token-identical to the
       port's isolated generate, with every page returned;
   (f) on the committed toy checkpoint, PagedServer tokens equal JAX
-      engine.generate's (kernel="xla").
+      engine.generate's (kernel="xla");
+  (g) the step at device positions: paged_append_token with the table,
+      positions and active mask as tensors bitwise equal to JAX's (nuq3,
+      int4, int4x2 x sink 0 / 5; a sink-row slot, an inactive slot at an
+      active slot's very page row and one a row further); paged_decode_step
+      reads nothing back to the host, K5's plain version included; the
+      greedy step (paged.PagedStep, the body PagedGraph captures on a
+      card) with every slot inactive, its warm-up, leaves a live pool
+      bitwise unchanged; PagedGraph refuses a CPU pool; PagedServer with
+      bursts of 8 gives the JAX PagedServer's tokens, an EOS inside a
+      burst included.
 
 Tolerances: (a) atol = rtol = 1e-5 with fp32 dots, as
 tests/test_torch_flash_decode.py (the sides sum in different orders);
@@ -32,7 +42,7 @@ with bf16 dot operands the sides round at different points (the TPU kernel
 the probabilities against its running maximum and the slot corrections as
 separate dots), 2e-2. (d) atol 3e-4 / rtol 1e-4, the decode-trajectory
 tolerance of tests/test_torch_engine.py (fp32 matmul rounding), with
-uniform codebooks (ROADMAP queue 3 explains why). (b), (c), (e), (f):
+uniform codebooks (ROADMAP queue 3 explains why). (b), (c), (e), (f), (g):
 exact.
 """
 
@@ -59,7 +69,8 @@ from kvquant_tpu.quant.calibration import (collect_kv_activations,
 
 from kvquant_tpu_torch import engine, paged
 from kvquant_tpu_torch.cache import (DeployConfig, DeployedQuant,
-                                     create_cache, deployed_from_quantizers)
+                                     create_cache, deployed_from_quantizers,
+                                     static_channels)
 from kvquant_tpu_torch.models import TINY_LLAMA, params_from_numpy
 from kvquant_tpu_torch.models.config import ModelConfig
 from kvquant_tpu_torch.ops import packing as tpk
@@ -676,3 +687,196 @@ def test_pool_bytes_match_jax():
         jd, td = _tiny_cfgs(codes)
         assert paged.paged_pool_bytes(td, 2, 5, 3) == \
             jpaged.paged_pool_bytes(jd, 2, 5, 3)
+
+
+# ---------------------------------------------------------------------------
+# device positions and the server's step graph
+# ---------------------------------------------------------------------------
+
+
+APPEND_DEVICE_CASES = [("nuq", 3), ("int4", 4), ("int4x2", 2)]
+
+
+@pytest.mark.parametrize("sink", [0, 5])
+@pytest.mark.parametrize("codes,bits", APPEND_DEVICE_CASES,
+                         ids=[c for c, _ in APPEND_DEVICE_CASES])
+def test_append_at_device_positions_matches_jax(tiny, tiny2, codes, bits,
+                                                sink):
+    """paged_append_token with the table, positions and active mask as
+    tensors == JAX's, bitwise over the pool, 4 steps: slot 0 from position
+    2 (the sink rows under sink 5), slot 1 across its page boundary, slot 2
+    inactive at slot 1's very (page, row), slot 3 inactive one row further
+    in slot 1's page (the same bit-plane word). The inactive slots must
+    write nothing, whatever the order of the device's scatters."""
+    (_, jq), (_, tq) = tiny2 if bits == 2 else tiny
+    jd, td = (dataclasses.replace(c, sink=sink)
+              for c in _tiny_cfgs(codes, bits=bits))
+    rng = np.random.default_rng(11)
+    B, C = 4, 64
+    jpool = jpaged.create_paged_pool(jd, 2, 4, B)
+    tpool = paged.create_paged_pool(td, 2, 4, B, device="cpu")
+    table = np.array([[0, 2], [3, 1], [3, 1], [3, 1]], np.int32)
+    act = np.array([True, True, False, False])
+    jlq = jax.tree.map(lambda a: a[1], jq)
+    for i in range(4):
+        p1 = sink + 254 + i
+        pos = np.array([2 + i, p1, p1, p1 + 1], np.int32)
+        k = rng.standard_normal((B, C)).astype(np.float32) * 2
+        v = rng.standard_normal((B, C)).astype(np.float32)
+        jpool = jpaged.paged_append_token(
+            jpool, jnp.asarray(table), jlq, jd, J_TINY, jnp.asarray(k),
+            jnp.asarray(v), jnp.asarray(pos), jnp.int32(1), jnp.asarray(act))
+        paged.paged_append_token(
+            tpool, torch.as_tensor(table), tq.layer(1), td, TINY_LLAMA,
+            torch.as_tensor(k), torch.as_tensor(v), torch.as_tensor(pos), 1,
+            torch.as_tensor(act))
+    _assert_pools_equal(tpool, jpool, td)
+    # slot 1 wrote its 4 rows (2 in page 3, 2 in page 1), slot 3 none
+    assert int(tpool.v_scale[1, [3, 1]].count_nonzero()) == 4
+
+
+def _filled_pool(td, n_pages, B, seed):
+    """A pool of random codes, slot words and values (every row
+    live-looking)."""
+    rng = np.random.default_rng(seed)
+    pool = paged.create_paged_pool(td, TINY_LLAMA.n_layers, n_pages, B,
+                                   device="cpu")
+    for f in dataclasses.fields(pool):
+        a = getattr(pool, f.name)
+        if f.name == "kv_out":
+            a.copy_(torch.as_tensor(_words(rng, a.shape, td.head_group)))
+        elif a.dtype == torch.float32:
+            a.copy_(torch.as_tensor(rng.standard_normal(a.shape)
+                                    .astype(np.float32)))
+        else:
+            info = torch.iinfo(a.dtype)
+            a.copy_(torch.as_tensor(rng.integers(
+                info.min, info.max, a.shape, dtype=np.int64)).to(a.dtype))
+    return pool
+
+
+def _pool_clone(pool):
+    return paged.PagedPool(**{f.name: getattr(pool, f.name).clone()
+                              for f in dataclasses.fields(pool)})
+
+
+def _pools_bitwise(a, b):
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        assert torch.equal(x, y), f.name
+
+
+@pytest.mark.parametrize("codes", ["nuq", "int4x2"])
+def test_decode_step_makes_no_host_read(tiny, tiny2, codes, monkeypatch):
+    """paged_decode_step with tensor table, positions and active mask reads
+    nothing back to the host, K5's plain version included: under a
+    TorchDispatchMode that fails on aten._local_scalar_dense, with
+    Tensor.tolist / numpy / cpu patched to raise (the guard of
+    tests/test_torch_decode_graph.py)."""
+    from test_torch_decode_graph import _NoHostRead, _raise_if_not_exempt
+
+    (_, tq), bits = ((tiny2[1], 2) if codes == "int4x2" else (tiny[1], 3))
+    tp = tiny[1][0]
+    _, td = _tiny_cfgs(codes, bits=bits)
+    B = 3
+    pool = _filled_pool(td, 4, B, seed=3)
+    table = torch.tensor([[3, 1], [0, 2], [3, 1]], dtype=torch.int32)
+    tok = torch.tensor([3, 7, 11], dtype=torch.int32)
+    act = torch.tensor([True, True, False])
+    # the first step checks an intN codebook once (a host read per
+    # DeployedQuant, outside the step that a graph captures)
+    paged.paged_decode_step(tp, TINY_LLAMA, td, tq, pool, table, tok,
+                            torch.tensor([4, 5, 6], dtype=torch.int32), act)
+    k_chan = static_channels(tq, td)
+    for name in ("tolist", "numpy", "cpu"):
+        monkeypatch.setattr(torch.Tensor, name, _raise_if_not_exempt(
+            name, getattr(torch.Tensor, name)))
+    with _NoHostRead():
+        for pl in ([4, 5 + 300, 5 + 255], [5 + 256, 5 + 2, 5 + 256]):
+            _, logits = paged.paged_decode_step(
+                tp, TINY_LLAMA, td, tq, pool, table, tok,
+                torch.tensor(pl, dtype=torch.int32), act, k_chan=k_chan)
+        with pytest.raises(AssertionError, match="host read"):
+            bool(logits.sum() > 0)  # the guard sees a host read
+    assert torch.isfinite(logits).all()
+
+
+@pytest.mark.parametrize("codes", ["nuq", "int4"])
+def test_greedy_step_warmup_writes_nothing(tiny, codes):
+    """PagedGraph's warm-up, the greedy body with every slot inactive,
+    leaves a live pool bitwise as it was: at the buffers' zeros (the
+    warm-up) and at positions and table rows that alias live pages. With
+    slots active, the body advances only their token and position."""
+    tp, tq = tiny[1]
+    _, td = _tiny_cfgs(codes)
+    B = 3
+    pool = _filled_pool(td, 4, B, seed=4)
+    before = _pool_clone(pool)
+    st = paged.PagedStep(tp, TINY_LLAMA, td, tq, pool, 2)
+    logits = st()
+    _pools_bitwise(pool, before)
+    assert torch.isfinite(logits).all()
+    host = dict(token=np.array([3, 7, 11], np.int32),
+                pos=np.array([5 + 300, 5 + 255, 5 + 256], np.int32),
+                table=np.array([[3, 1], [3, 1], [0, 2]], np.int32))
+    st.load(host["token"], host["pos"], np.zeros(B, bool), host["table"])
+    st()
+    _pools_bitwise(pool, before)
+    assert st.token.tolist() == [3, 7, 11]
+    assert st.pos.tolist() == host["pos"].tolist()
+    act = np.array([True, False, True])
+    st.load(host["token"], host["pos"], act, host["table"])
+    logits = st()
+    nxt = torch.argmax(logits, -1)
+    assert st.token.tolist() == [int(nxt[0]), 7, int(nxt[2])]
+    assert st.pos.tolist() == (host["pos"] + act).tolist()
+
+
+def test_paged_graph_refuses_cpu(tiny):
+    tp, tq = tiny[1]
+    _, td = _tiny_cfgs()
+    pool = paged.create_paged_pool(td, TINY_LLAMA.n_layers, 2, 2,
+                                   device="cpu")
+    with pytest.raises(ValueError, match="needs a card"):
+        paged.PagedGraph(tp, TINY_LLAMA, td, tq, pool, 2)
+    srv = paged.PagedServer(tp, TINY_LLAMA, td, tq, n_pages=2, n_slots=2,
+                            max_pages_per_slot=1, device="cpu")
+    assert type(srv._step) is paged.PagedStep
+
+
+def test_burst_server_matches_jax_server(tiny):
+    """The port's PagedServer with bursts of 8 gives the JAX PagedServer's
+    tokens on the same requests (uniform 3-bit codebooks, chunked
+    admission of 128, 2 slots over 4 pages), with an EOS that stops a
+    request inside a burst; every page comes back."""
+    (jp, jq), (tp, tq) = tiny
+    jd, td = _tiny_cfgs()
+    spec = [(30, 12), (55, 9), (20, 16), (41, 7)]
+
+    def run(side, eos=None):
+        if side == "jax":
+            srv = jpaged.PagedServer(jp, J_TINY, jd, jq, n_pages=4,
+                                     n_slots=2, max_pages_per_slot=2,
+                                     admit_mode="chunked", admit_chunk=128,
+                                     burst=8)
+        else:
+            srv = _BurstLog(tp, TINY_LLAMA, td, tq, n_pages=4, n_slots=2,
+                            max_pages_per_slot=2, admit_mode="chunked",
+                            admit_chunk=128, burst=8, device="cpu")
+            srv.log = []
+        comps = srv.run(_requests(spec, 5, eos), max_steps=300)
+        assert sorted(srv.free) == [0, 1, 2, 3]
+        return {rid: c.tokens for rid, c in comps.items()}, srv
+
+    free, _ = run("torch")
+    t = free[2]
+    k = next(i for i in range(3, len(t)) if t[i] not in t[:i])
+    eos = {2: t[k]}
+    got, srv = run("torch", eos)
+    want, _ = run("jax", eos)
+    assert got == want
+    assert got[2] == t[:k + 1]
+    assert any(H > 1 and 2 in before and after[2] - before[2] < H
+               and after[2] == k + 1 for H, before, after in srv.log), srv.log
