@@ -13,6 +13,8 @@
     python3 chip_smoke.py --phases 1,27                  # training
     python3 chip_smoke.py --phases 1,28                  # graphed decode
     python3 chip_smoke.py --phases 1,15,29               # graphed paged step
+    python3 chip_smoke.py --phases 1,22,30,31            # graphed prefill,
+                                                         # fp16-KV graph
 
 Phases (each prints its own lines; any failure raises and exits non-zero).
 K2 is csrc/flash_serial.cu (flash_serial_decode), K1 csrc/flash_decode.cu
@@ -85,8 +87,8 @@ K3 (qk_fused) and K4 (pv_fused) are csrc/attention.cu, kernel="pallas":
      prompt, 64 new tokens); K3 and K4 must each have run 32 x (chunks +
      64) times and K1 never; engine-level quantized prefill seconds, decode
      tok/s at 2K and 32K (profiler pass), K3 / K4 against plain on the live
-     cache; the fp16-KV baseline's tok/s on the same weights; cli.passkey
-     and cli.needle at toy width;
+     cache (the fp16-KV baseline's tok/s: phase 31); cli.passkey and
+     cli.needle at toy width;
  12. card against CPU through K3 / K4: the toy checkpoint's 32 greedy
      tokens, fp16 and quantized prefill;
  13. K3 and K4 alone at one LLaMA-2-7B layer: decode rows at 32K and 128K,
@@ -107,8 +109,10 @@ K1's decode body (fd_decode) addressed through a page table:
      64 new tokens, pages of 1024, chunked admission, bursts of 32): every
      budget served, every page returned, K5 32 times per decode step, K1
      32 times per admission chunk, K2 / K3 / K4 never; pool MiB, aggregate
-     tok/s, a profiler pass over steady-state eager steps with 4 active
-     slots (the server itself replays its step graph, phase 29); then
+     tok/s, the chunked admission's share of the serving wall (its chunks
+     replay the held admission cache's two chunk graphs), a profiler pass
+     over steady-state eager steps with 4 active slots (the server itself
+     replays its step graph, phase 29); then
      cli.serve_demo without --paged (slot pool, K1) at toy width;
  16. card against CPU through PagedServer: the toy checkpoint (P 256, 2
      slots, 4 requests, chunked admission, bursts) gives the same tokens
@@ -143,10 +147,11 @@ int4x2 (the head-paired 2-bit container) through K1 and K5:
      through fs_mma, held to its plain version, and fs_partial forced, with
      the plan); the previous PR's times beside;
  22. the 2-bit config of phase 19 at LLaMA-2-7B width runs a 32K-token
-     quantized prefill (128 chunks of 256): K1 32 x 128 chunk launches,
-     wall seconds, a profiler window over the last four chunks (device ms
-     in K1 against the rest, idle share), K1 against plain on the live
-     cache at layers 0 and 31.
+     quantized prefill (128 chunks of 256), graphed and eager: K1 32 x 128
+     chunk launches in each, wall seconds of each, the last token's logits
+     bitwise equal, a profiler window over the last four chunks, eager and
+     replayed (device ms in K1 against the rest, idle share), K1 against
+     plain on the live cache at layers 0 and 31.
 The calibrate -> deploy chain and a second model:
  23. the CLIs at LLaMA-2-7B width (their random init, d_ff = 3 x d_model,
      bf16): cli.fisher over 2 x 2048 tokens (wall s, peak GiB, shapes,
@@ -193,10 +198,10 @@ Tensor parallelism (kvquant_tpu_torch/parallel):
      gloo's collectives on CUDA tensors go through host memory), each
      holding its half of the heads (and of DBRX's experts) of weights drawn
      from the same seed; LLaMA-2-7B at full width through K1 (faithful
-     nuq3, 2048-token quantized prefill, 32 steps; 16 kv heads a rank) and
-     K2 (the speed config, one head group of 16 a rank, 16 steps), DBRX at
+     nuq3, 2048-token quantized prefill, 16 steps; 16 kv heads a rank) and
+     K2 (the speed config, one head group of 16 a rank, 8 steps), DBRX at
      its published widths cut to 2 of 40 layers through K1 (hg 4, 8 of 16
-     experts a rank, 16 steps). A tp 1 run of the same weights in this
+     experts a rank, 8 steps). A tp 1 run of the same weights in this
      process comes first (then freed). Each rank prefills and decodes the
      tp 1 tokens (launches == layers x (chunks + steps), the kernel ==
      plain on its live cache, its prefill codes within 5% of tp 1's), then
@@ -217,7 +222,7 @@ Training (utils/toymodel, utils/induction; no kernel of its own):
      card-trained model's nuq3 fit (ppl_table's recipe) deployed through
      K1 == simulated within 0.02 in log (K1 layers x 256 decode launches);
      the retrieval model at IND_CFG's widths and the JAX batch shapes,
-     steps cut to 200 / 125 / 20 (stage 1, stage 2, robust fine-tune at
+     steps cut to 200 / 125 / 10 (stage 1, stage 2, robust fine-tune at
      long_T 8192 with chunked attention and remat): ms and device ms a
      step, idle share, peak GiB per stage, the full recipe's projected
      wall time; then a nuq3 fit on copy haystacks and greedy tokens
@@ -236,10 +241,10 @@ the card, so phases 3, 7, 11, 19, 20, 23 and 27 replay graphs):
      tok/s, device ms a step (the graph's replays back to back between
      CUDA events) and idle share, eager and graphed in turn, at 2K and 32K
      (and 128K for int4x2), with capture seconds and the graph pool's
-     MiB; the profiler's kernel ms and kernels a step (printed), and the
-     port's kernels it saw by name (fd_* / fs_* / qk_* / pv_*), which must
-     equal the counters' launches a step for a replay and for an eager
-     step; serve.Server with 4 slots and 6
+     MiB; at 2K the profiler's kernel ms and kernels a step (printed),
+     and the port's kernels it saw by name (fd_* / fs_* / qk_* / pv_*),
+     which must equal the counters' launches a step for a replay and for
+     an eager step; serve.Server with 4 slots and 6
      requests through K1, graphed tokens == the tokens of the same server
      stepping eagerly.
 The page pool's compiled step (paged.PagedGraph: PagedServer's greedy step
@@ -262,7 +267,37 @@ and 20 serve through it):
      graph); then an inactive slot that aliases an
      active slot's page row (and one a row further), 64 appends, the pool
      bitwise equal to the same appends with those slots' table rows on a
-     spare page.
+     spare page. The eager reference also runs its admission chunks
+     eagerly, so the admission's share compares graphed chunks with eager.
+     Then (nuq3) prompts of 1 to 6 pages of 256, 5 temporary capacities
+     out of their first-use order, through a graphed and an eager server:
+     tokens and pool equal, the admission caches of every capacity in one
+     buffer, the graphed server's peak memory beside the eager one's.
+The compiled prefill chunk (engine.ChunkGraph: on a card prefill_quantized
+replays one graph for the chunks after the first, and serve.Server's and
+PagedServer's chunked admission two graphs over a held admission cache, so
+phases 7, 11, 15, 16, 19, 20, 22, 24, 27 and 29 replay chunk graphs) and
+the fp16-KV baseline's compiled step (baseline_fp16.DecodeGraph):
+ 30. at LLaMA-2-7B width (random bf16 weights from a seed, B=1) for nuq3
+     through K1 and through K3 / K4, the 2-bit int4x2 config and the speed
+     config (chunks through K1): a 2048-token prompt (8 chunks of 256)
+     through prefill_quantized eager and graphed, and the chunk loop eager
+     and through one graph: every chunk's logits, the last token's and the
+     caches bitwise; launches (layers x chunks of K1, or of K3 and K4);
+     wall s, capture s, the graph pool's MiB; device ms a chunk (replays
+     back to back between CUDA events) and host wall ms a chunk eager and
+     graphed with their idle shares over the last 4 chunks; kernels a
+     replay and the port's kernels by name in its profiler trace == the
+     graph's counters; then prompts of 2 to 5 chunks (512 to 1280 tokens)
+     through prefill_quantized eager and with its chunk graph forced: the
+     wall of each, and what prefill_quantized chooses
+     (engine.CHUNK_GRAPH_MIN_REPLAYS);
+ 31. the fp16-KV baseline at LLaMA-2-7B width (bf16 cache read in fp32):
+     64 greedy steps after a 2048-token prefill, graphed == eager bitwise
+     (tokens, logits, caches), no host wait a step; tok/s, device ms a
+     step, idle share and kernels a step, eager and graphed, at 2K and 32K
+     (a cache drawn at random), capture s and pool MiB; cli.passkey
+     without --quantizers at toy width replays the graph.
 The line before the last lists every ported kernel as JSON; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -270,6 +305,7 @@ is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -1854,12 +1890,13 @@ def phase_pallas_main_path(report):
     user's entry point: cli.generate at LLaMA-2-7B width (the CLI's own
     random init, d_ff = 3 * d_model) with quantized prefill of a 2048-word
     prompt and 64 greedy tokens; then engine-level timings at LLAMA2_7B
-    with the faithful scheme, the fp16-KV baseline on the same weights,
-    and short card runs of cli.passkey and cli.needle at toy width."""
+    with the faithful scheme (the fp16-KV baseline on the same weights is
+    phase 31's), and short card runs of cli.passkey and cli.needle at toy
+    width."""
     import os
     import shutil
 
-    from kvquant_tpu_torch import baseline_fp16, engine
+    from kvquant_tpu_torch import engine
     from kvquant_tpu_torch.cache import create_cache, deployed_from_quantizers
     from kvquant_tpu_torch.cli import generate as generate_cli
     from kvquant_tpu_torch.cli import needle as needle_cli
@@ -1956,29 +1993,9 @@ def phase_pallas_main_path(report):
     del cache
     torch.cuda.empty_cache()
 
-    # ---- the fp16-KV baseline on the same weights (context only) ----
-    base = {}
-    fcache = baseline_fp16.create_fp16_cache(cfg, T0 + 32, 1, device="cuda")
-    baseline_fp16.prefill(params, cfg, fcache, toks)
-    base["2k"], _ = decode_profile(
-        f"[11] fp16-KV baseline {T0} ctx", lambda i: baseline_fp16.
-        decode_step(params, cfg, fcache, tok, T0 + i), 16)
-    del fcache
-    fcache = baseline_fp16.create_fp16_cache(cfg, ctx + 32, 1, device="cuda")
-    for t in (fcache.k, fcache.v):  # a filled cache, drawn layer by layer
-        for li in range(cfg.n_layers):
-            t[li].normal_(generator=torch.Generator(device="cuda")
-                          .manual_seed(li))
-    base["32k"], _ = decode_profile(
-        f"[11] fp16-KV baseline {ctx} ctx", lambda i: baseline_fp16.
-        decode_step(params, cfg, fcache, tok, ctx + i), 16)
-    del fcache, params
+    # the fp16-KV baseline on the same weights: phase 31, graphed and eager
+    del params
     torch.cuda.empty_cache()
-    report["fp16_baseline_tps"] = base
-    log(f"[11] fp16-KV baseline (bf16 cache cast to fp32 in its attention, "
-        f"as the JAX baseline does): {base['2k']:.2f} tok/s at {T0}, "
-        f"{base['32k']:.2f} tok/s at {ctx}; kernel pallas: {tps2:.2f} / "
-        f"{tps32:.2f} tok/s")
 
     # ---- the other CLIs at toy width on the card ----
     toy = ["--toy-layers", "4", "--toy-dmodel", "256", "--toy-heads", "8",
@@ -2251,6 +2268,17 @@ def phase_paged_main_path(report):
 
     def recording_run(self, requests, max_steps=10_000):
         servers.append(self)
+        self.admit_s = 0.0
+        admit = self._admit
+
+        def timed_admit():  # the admission's share of the wall time
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            admit()
+            torch.cuda.synchronize()
+            self.admit_s += time.perf_counter() - t0
+
+        self._admit = timed_admit
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = run(self, requests, max_steps)
@@ -2287,7 +2315,10 @@ def phase_paged_main_path(report):
         f"{pool_b / 2 ** 20:.1f} MiB; {tokens} tokens in {srv.run_s:.3f} s "
         f"of serving = {tokens / srv.run_s:.2f} tok/s aggregate "
         f"({cli_s:.3f} s with model init); launches {n} (K1 expected 32 x "
-        f"{chunks} admission chunks)")
+        f"{chunks} admission chunks); chunked admission {srv.admit_s:.3f} s "
+        f"({srv.admit_s / srv.run_s:.3f} of the serving wall) through "
+        f"{sum(len(h.graphs) for h in srv._adm_caches.values())} chunk "
+        f"graphs")
     budgets_ok = [len(comps[i].tokens) for i in range(n_req)] == \
         [w[1] for w in want]
     if not (budgets_ok and sorted(srv.free) == list(range(len(srv.free)))
@@ -2298,8 +2329,11 @@ def phase_paged_main_path(report):
             and n["K1"] == 32 * chunks
             and n["K2"] == n["K3"] == n["K4"] == 0):
         raise AssertionError(f"serving main path launches {n}")
+    if not all(len(h.graphs) == 2 for h in srv._adm_caches.values()):
+        raise AssertionError("the admission chunks did not run as graphs")
     report["k5_launches"] = n["K5"]
     report["serve_tps"] = tokens / srv.run_s
+    report["serve_admit_share"] = srv.admit_s / srv.run_s
     report["serve_pool_mib"] = pool_b / 2 ** 20
 
     # steady state: 4 active slots over the pool's pages, at a third to
@@ -3039,11 +3073,14 @@ def phase_x2_times(report):
 
 def phase_long_prefill(report):
     """The 2-bit speed config of phase 19 at LLaMA-2-7B width runs a
-    32K-token quantized prefill (128 chunks of 256): K1 32 x 128 chunk
-    launches and nothing else; wall seconds; a profiler window over the
-    last four chunks (run again on the same cache: device ms in K1 against
-    the rest, and the idle share); K1 against plain on the live cache at
-    layers 0 and 31, bf16 and fp32 dots."""
+    32K-token quantized prefill (128 chunks of 256), graphed (the chunks
+    after the first replay one engine.ChunkGraph) and eager: K1 32 x 128
+    chunk launches and nothing else in each; wall seconds of each and the
+    last token's logits bitwise equal; a profiler window over the last
+    four chunks (run again on the same cache, eager chunks and a chunk
+    graph's replays: device ms in K1 against the rest, and the idle
+    share); K1 against plain on the live cache at layers 0 and 31, bf16
+    and fp32 dots."""
     from torch.profiler import ProfilerActivity, profile
 
     from kvquant_tpu_torch import engine
@@ -3062,64 +3099,103 @@ def phase_long_prefill(report):
                            generator=torch.Generator().manual_seed(22)).cuda()
     n_chunks = -(-(T0 - S) // chunk)
     cache = create_cache(dcfg, cfg.n_layers, 1, device="cuda")
-    # warm-up of the chunk shapes at a short prompt
+    # warm-up of the chunk shapes at a short prompt, eager and graphed
+    with eager_prefill():
+        engine.prefill_quantized(params, cfg, dcfg, dq, cache,
+                                 prompt[:, :1029], chunk=chunk)
     engine.prefill_quantized(params, cfg, dcfg, dq, cache, prompt[:, :1029],
                              chunk=chunk)
     torch.cuda.synchronize()
-    read = reset_launches()
-    t0 = time.perf_counter()
-    _, logits = engine.prefill_quantized(params, cfg, dcfg, dq, cache, prompt,
-                                         chunk=chunk)
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
-    n = read()
+    # the same prefill graphed (prefill_quantized on a card) and eager, over
+    # the same cache: the second writes what the first wrote
+    walls, last_logits = {}, {}
     want = cfg.n_layers * n_chunks
-    log(f"[22] 2-bit int4x2 config, LLaMA-2-7B width, {cfg.n_layers} layers: "
-        f"quantized "
-        f"prefill of {T0} tokens ({n_chunks} chunks of {chunk}) {wall_s:.3f} "
-        f"s ({T0 / wall_s:.0f} tok/s); launches {n} (K1 chunks expected "
-        f"{want})")
-    if not (n["K1"] == n["K1_chunk"] == want
-            and n["K2"] == n["K3"] == n["K4"] == n["K5"] == 0):
-        raise AssertionError("the long prefill did not run K1 per layer and "
-                             "chunk")
-    if not bool(torch.isfinite(logits).all()):
-        raise AssertionError("non-finite logits")
+    for mode in ("graphed", "eager"):
+        read = reset_launches()
+        with (eager_prefill() if mode == "eager"
+              else contextlib.nullcontext()):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, logits = engine.prefill_quantized(params, cfg, dcfg, dq,
+                                                 cache, prompt, chunk=chunk)
+            torch.cuda.synchronize()
+            walls[mode] = time.perf_counter() - t0
+        n = read()
+        last_logits[mode] = logits
+        log(f"[22] 2-bit int4x2 config, LLaMA-2-7B width, {cfg.n_layers} "
+            f"layers: quantized prefill of {T0} tokens ({n_chunks} chunks of "
+            f"{chunk}), {mode}: {walls[mode]:.3f} s "
+            f"({T0 / walls[mode]:.0f} tok/s); launches {n} (K1 chunks "
+            f"expected {want})")
+        if not (n["K1"] == n["K1_chunk"] == want
+                and n["K2"] == n["K3"] == n["K4"] == n["K5"] == 0):
+            raise AssertionError("the long prefill did not run K1 per layer "
+                                 "and chunk")
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError("non-finite logits")
+    same = bitwise(last_logits["graphed"], last_logits["eager"])
+    log(f"[22] graphed / eager wall {walls['graphed'] / walls['eager']:.3f}; "
+        f"last-token logits graphed == eager bitwise: {same}")
+    if not same:
+        raise AssertionError("[22] the graphed prefill != eager")
+    wall_s = walls["graphed"]
 
     # the last four chunks again on the same cache (same tokens, same
-    # positions): unprofiled wall time, then one profiled pass
+    # positions): eager chunks and a chunk graph's replays, unprofiled
+    # wall time, then one profiled pass of each
     toks = torch.nn.functional.pad(prompt, (0, n_chunks * chunk - (T0 - S)))
+    p_tail = S + (n_chunks - last) * chunk
+    graph = engine.ChunkGraph(params, cfg, dcfg, dq, cache,
+                              toks[:, p_tail:p_tail + chunk], p_tail, False)
 
     def tail():
         for c in range(n_chunks - last, n_chunks):
             start = S + c * chunk
             engine.prefill_chunk(params, cfg, dcfg, dq, cache,
                                  toks[:, start:start + chunk], start, False)
-    tail()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    tail()
-    torch.cuda.synchronize()
-    tail_s = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA], acc_events=True) as prof:
-        tail()
+
+    def tail_graphed():
+        for c in range(n_chunks - last, n_chunks):
+            start = S + c * chunk
+            graph(toks[:, start:start + chunk], start)
+
+    tails = {}
+    for mode, fn in (("eager", tail), ("graphed", tail_graphed)):
+        fn()
         torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages()
-          if e.device_type == torch.autograd.DeviceType.CUDA
-          and e.self_device_time_total > 0]
-    k1_us = sum(e.self_device_time_total for e in ev
-                if "fd_chunk" in e.key or "fd_merge" in e.key)
-    dev_us = sum(e.self_device_time_total for e in ev)
-    idle = 1 - dev_us / 1e6 / tail_s
-    log(f"[22] last {last} chunks (context {T0 - last * chunk}-{T0}): "
-        f"{tail_s * 1e3 / last:.3f} ms/chunk host wall; profiler: device "
-        f"{dev_us / 1e3 / last:.3f} ms/chunk, of it K1 (fd_chunk + fd_merge) "
-        f"{k1_us / 1e3 / last:.3f} ms and the rest {(dev_us - k1_us) / 1e3 / last:.3f} "
-        f"ms; device idle share {idle:.3f}")
-    for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:6]:
-        log(f"[22]   {e.self_device_time_total / last / 1e3:8.3f} ms/chunk  "
-            f"x{e.count // last:5d}  {e.key[:90]}")
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        tail_s = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0]
+        k1_us = sum(e.self_device_time_total for e in ev
+                    if "fd_chunk" in e.key or "fd_merge" in e.key)
+        dev_us = sum(e.self_device_time_total for e in ev)
+        idle = 1 - dev_us / 1e6 / tail_s
+        tails[mode] = dict(ms=tail_s * 1e3 / last, dev_ms=dev_us / 1e3 / last,
+                           k1_ms=k1_us / 1e3 / last, idle=idle)
+        log(f"[22] last {last} chunks (context {T0 - last * chunk}-{T0}), "
+            f"{mode}: {tail_s * 1e3 / last:.3f} ms/chunk host wall; "
+            f"profiler: device {dev_us / 1e3 / last:.3f} ms/chunk, of it K1 "
+            f"(fd_chunk + fd_merge) {k1_us / 1e3 / last:.3f} ms and the rest "
+            f"{(dev_us - k1_us) / 1e3 / last:.3f} ms; device idle share "
+            f"{idle:.3f}")
+        if mode == "eager":
+            for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:6]:
+                log(f"[22]   {e.self_device_time_total / last / 1e3:8.3f} "
+                    f"ms/chunk  x{e.count // last:5d}  {e.key[:90]}")
+    del graph
+    tail_s = tails["eager"]["ms"] * last / 1e3
+    dev_us = tails["eager"]["dev_ms"] * last * 1e3
+    k1_us = tails["eager"]["k1_ms"] * last * 1e3
+    idle = tails["eager"]["idle"]
 
     # the live cache: K1 against plain at the first and last layer, the
     # last chunk's rows
@@ -3145,6 +3221,7 @@ def phase_long_prefill(report):
             del got, want_
             torch.cuda.empty_cache()
     report["long_prefill"] = dict(tokens=T0, wall_s=wall_s,
+                                  eager_wall_s=walls["eager"], tails=tails,
                                   k1_chunk_launches=n["K1_chunk"],
                                   tail_ms_per_chunk=tail_s * 1e3 / last,
                                   device_ms_per_chunk=dev_us / 1e3 / last,
@@ -4183,25 +4260,25 @@ TP_WORKLOADS = ("llama_k1", "llama_k2", "dbrx_k1")
 def tp_workload(name, work):
     """(model config, deploy config, quantizers, prompt, decode steps,
     prefill mode, kernel, weight seed) of a phase-26 workload: LLaMA-2-7B
-    through K1 (faithful nuq3, 2048-token quantized prefill, 32 steps) and
+    through K1 (faithful nuq3, 2048-token quantized prefill, 16 steps) and
     K2 (the speed config, one head group of 16 on each rank, 1024-token
-    prefill, 16 steps); DBRX at its published widths cut to 2 of 40
+    prefill, 8 steps); DBRX at its published widths cut to 2 of 40
     layers through K1 (faithful, head group 4, 1024-token quantized
-    prefill, 16 steps; 8 of its 16 experts on each rank)."""
+    prefill, 8 steps; 8 of its 16 experts on each rank)."""
     import os
 
     from kvquant_tpu_torch.models.hf_loader import config_from_hf
 
     if name == "llama_k1":
-        T0, N = 2048, 32
+        T0, N = 2048, 16
         cfg, dcfg, qs = faithful_config(T0 + N + 16, 32)
         mode, kernel, seed = "quantized", "K1", 0
     elif name == "llama_k2":
-        T0, N = 1024, 16
+        T0, N = 1024, 8
         cfg, dcfg, qs = speed_config(T0 + N + 16, 32)
         mode, kernel, seed = "fp16", "K2", 0
     else:
-        T0, N = 1024, 16
+        T0, N = 1024, 8
         d = os.path.join(work, f"dbrx_{os.getpid()}")  # one per process
         os.makedirs(d, exist_ok=True)
         with open(os.path.join(d, "config.json"), "w") as f:
@@ -4850,7 +4927,7 @@ def phase_training(report):
 
     s1 = 200
     s2 = s1 * 5 // 8
-    s3 = 20
+    s3 = 10
     icfg = ind.IND_CFG
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -5034,11 +5111,11 @@ def phase_graphed_decode(report):
     eager step at LLaMA-2-7B width (random bf16 weights from a seed, B=1):
     greedy tokens, every step's logits and the caches afterwards bitwise
     from clones of one filled 2K cache; tok/s, device ms and kernels per
-    step, idle share, launches per step (the counters, and the port's
-    kernels by name in the profiler's trace), host waits per step, capture
-    seconds and the graph pool's MiB, eager and graphed in turn, at 2K and
-    32K (128K for int4x2); serve.Server with 4 slots, graphed tokens ==
-    the tokens of the same server stepping eagerly."""
+    step, idle share, launches per step (the counters, and at 2K the
+    port's kernels by name in the profiler's trace), host waits per step,
+    capture seconds and the graph pool's MiB, eager and graphed in turn,
+    at 2K and 32K (128K for int4x2); serve.Server with 4 slots, graphed
+    tokens == the tokens of the same server stepping eagerly."""
     from kvquant_tpu_torch import engine, serve
     from kvquant_tpu_torch.cache import (deployed_from_quantizers,
                                          static_channels)
@@ -5108,8 +5185,11 @@ def phase_graphed_decode(report):
             for mode, step, wall in (("eager", eager, wall_e),
                                      ("graphed", graph, wall_g)):
                 wall_ms = wall / steps * 1e3
+                # the profiler's trace at 2K (the kernels a step do not
+                # change with the context; the counters are read at each)
                 kms, kern, own = step_trace(lambda: step(tok_e[:, -1],
-                                                         pos_end), n=2)
+                                                         pos_end), n=2) \
+                    if compare else (None, None, None)
                 r[mode] = {"tok_s": steps / wall, "wall_ms": wall_ms,
                            "device_ms": dev, "idle": 1 - dev / wall_ms,
                            "kernel_ms": kms, "kernels": kern,
@@ -5121,7 +5201,8 @@ def phase_graphed_decode(report):
                     f"{e['kernel_ms']:.3f} / {e['kernels']:.0f}, graphed "
                     f"{g['kernel_ms']:.3f} / {g['kernels']:.0f}; the port's "
                     f"kernels in the trace a step: eager "
-                    f"{e['trace_launches']}, graphed {g['trace_launches']}")
+                    f"{e['trace_launches']}, graphed {g['trace_launches']}"
+                    if compare else "")
             log(f"[28] {tag} {ctx} ctx, {steps} steps: device {dev:.3f} ms "
                 f"a step (graph replays); eager {e['tok_s']:.2f} tok/s "
                 f"(wall {e['wall_ms']:.3f} ms, {e['wall_ms'] / dev:.3f} x "
@@ -5148,7 +5229,8 @@ def phase_graphed_decode(report):
             # replays varies by a kernel or two (4029 and 4030 for the
             # same int4x2 replay), so eager and graphed totals part by
             # as much
-            if not (e["trace_launches"] == g["trace_launches"] == per):
+            if compare and not (e["trace_launches"] == g["trace_launches"]
+                                == per):
                 raise AssertionError(
                     f"[28] {tag} {ctx}: the port's kernels in the trace a "
                     f"step, eager {e['trace_launches']}, graphed "
@@ -5332,13 +5414,103 @@ def paged_step_walls(st, host, burst, reps):
     return out
 
 
+def paged_varied_admission(params, cfg, dcfg, dq):
+    """PagedServer with prompts of 1 to 6 pages of 256 (5 temporary
+    capacities, out of their first-use order, one used three times), 2
+    slots, 8 tokens each: graphed tokens and pool == an eager server's
+    (its step and its admission chunks eager); the admission caches view
+    one buffer; the graphed server's peak memory over its run, the
+    admission buffer, the growth of the chunk graphs' shared pool, and
+    what one cache for each capacity would hold."""
+    from kvquant_tpu_torch import paged
+    from kvquant_tpu_torch.cache import cache_storage_bytes
+    from kvquant_tpu_torch.serve import Request
+
+    P, N, slots, chunk = 256, 8, 2, 256
+    lens = (200, 900, 450, 1400, 200, 700, 200)  # 1, 4, 2, 6, 1, 3, 1 pages
+    rng = np.random.default_rng(29)
+    prompts = [rng.integers(0, cfg.vocab_size, t).astype(np.int32)
+               for t in lens]
+    mp = max(-(-(t + N - dcfg.sink) // P) for t in lens)
+    dcfg = dataclasses.replace(dcfg, page_tokens=P,
+                               max_len=dcfg.sink + mp * P)
+    res = {}
+    for mode in ("graphed", "eager"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        srv = paged.PagedServer(params, cfg, dcfg, dq, n_pages=slots * mp,
+                                n_slots=slots, max_pages_per_slot=mp,
+                                admit_mode="chunked", admit_chunk=chunk,
+                                burst=4, device="cuda")
+        if mode == "eager":
+            srv._step = paged.PagedStep(params, cfg, dcfg, dq, srv.pool,
+                                        srv.MP)
+            held = srv._admission_cache
+
+            def eager_held(tmp_dcfg, held=held):
+                h = held(tmp_dcfg)
+                h.graphed = False
+                return h
+
+            srv._admission_cache = eager_held
+        t0 = time.perf_counter()
+        comps = srv.run([Request(rid=i, prompt=p, max_new_tokens=N)
+                         for i, p in enumerate(prompts)])
+        torch.cuda.synchronize()
+        res[mode] = dict(
+            srv=srv, wall_s=time.perf_counter() - t0,
+            tokens={rid: c.tokens for rid, c in comps.items()},
+            peak_mib=(torch.cuda.max_memory_allocated() - base) / 2 ** 20)
+    g, e = res["graphed"], res["eager"]
+    srv = g["srv"]
+    mem = srv._adm_memory
+    caps = sorted(srv._adm_caches)
+    graphs = [x for h in srv._adm_caches.values() for x in h.graphs.values()]
+    one_buffer = all(
+        getattr(h.cache, f.name).untyped_storage().data_ptr()
+        == mem.storage.untyped_storage().data_ptr()
+        for h in srv._adm_caches.values()
+        for f in dataclasses.fields(h.cache))
+    per_cap = sum(cache_storage_bytes(h.dcfg, cfg.n_layers, 1)
+                  for h in srv._adm_caches.values())
+    out = dict(capacities=caps, graphs=len(graphs), one_buffer=one_buffer,
+               tokens_equal=g["tokens"] == e["tokens"],
+               pools_equal=pools_equal(srv.pool, e["srv"].pool),
+               storage_mib=mem.storage.numel() / 2 ** 20,
+               per_capacity_mib=per_cap / 2 ** 20,
+               pool_mib=sum(x.pool_mib for x in graphs),
+               capture_s=sum(x.capture_s for x in graphs),
+               peak_mib={m: res[m]["peak_mib"] for m in res},
+               wall_s={m: res[m]["wall_s"] for m in res})
+    log(f"[29] varied prompts {lens} ({len(caps)} capacities "
+        f"{[c // P for c in caps]} pages of {P}, MP {mp}): graphed == "
+        f"eager tokens {out['tokens_equal']}, pool {out['pools_equal']}; "
+        f"{out['graphs']} chunk graphs, capture {out['capture_s']:.3f} s, "
+        f"one admission buffer {out['one_buffer']} "
+        f"({out['storage_mib']:.1f} MiB; a cache for each capacity would "
+        f"hold {out['per_capacity_mib']:.1f} MiB), the graphs' shared pool "
+        f"{out['pool_mib']:.1f} MiB; the server's peak over its run: "
+        f"graphed {out['peak_mib']['graphed']:.1f} MiB, eager "
+        f"{out['peak_mib']['eager']:.1f} MiB; wall graphed "
+        f"{out['wall_s']['graphed']:.3f} s, eager "
+        f"{out['wall_s']['eager']:.3f} s")
+    if not (out["tokens_equal"] and out["pools_equal"] and one_buffer
+            and len(caps) == 5):
+        raise AssertionError("[29] varied prompts: graphed != eager, or "
+                             "the admission caches do not share one buffer")
+    return out
+
+
 def phase_paged_graph(report):
     """PagedServer's step graph (paged.PagedGraph) against the eager
     PagedStep swapped into the same server, at LLaMA-2-7B width with phase
     15's requests (random bf16 weights from a seed): tokens, pool and free
     list bitwise; wall, tok/s and the admission's share; a steady-state
     4-slot step's device ms, wall ms a step and a burst step, idle share,
-    kernels and K5 by name in the trace; the aliasing appends."""
+    kernels and K5 by name in the trace; the aliasing appends; then the
+    admission of prompts of varied length (paged_varied_admission)."""
     from kvquant_tpu_torch import paged
     from kvquant_tpu_torch.cache import deployed_from_quantizers
     from kvquant_tpu_torch.models import init_params
@@ -5378,6 +5550,15 @@ def phase_paged_graph(report):
                 srv._step = paged.PagedStep(params, cfg, dcfg, dq, srv.pool,
                                             srv.MP)
             admit = [0.0]
+            if mode == "eager":  # and eager admission chunks
+                held = srv._admission_cache
+
+                def eager_held(tmp_dcfg, held=held):
+                    h = held(tmp_dcfg)
+                    h.graphed = False
+                    return h
+
+                srv._admission_cache = eager_held
 
             def timed_admit(inner=srv._admit, admit=admit):
                 torch.cuda.synchronize()
@@ -5402,6 +5583,15 @@ def phase_paged_graph(report):
                            decode_tok_s=n_tok / (wall - admit[0]),
                            launches=n)
             servers[mode] = (srv, tokens)
+            if mode == "graphed":  # the admission chunks' graphs
+                gs = [g for h in srv._adm_caches.values()
+                      for g in h.graphs.values()]
+                if len(gs) != 2 * len(srv._adm_caches):
+                    raise AssertionError(f"[29] {tag}: admission graphs "
+                                         f"{len(gs)}")
+                r.update(adm_graphs=len(gs),
+                         adm_capture_s=sum(g.capture_s for g in gs),
+                         adm_pool_mib=sum(g.pool_mib for g in gs))
             if [len(tokens[q.rid]) for q in reqs] != \
                     [q.max_new_tokens for q in reqs]:
                 raise AssertionError(f"[29] {tag} {mode}: a budget was not "
@@ -5425,7 +5615,10 @@ def phase_paged_graph(report):
             f"{g_run['launches']['K5'] // cfg.n_layers} decode steps, "
             f"launches {g_run['launches']}; capture {r['capture_s']:.3f} s, "
             f"graph pool {r['pool_mib']:.1f} MiB, warm-up launches "
-            f"{r['setup_launches']}")
+            f"{r['setup_launches']}; admission: {r['adm_graphs']} chunk "
+            f"graphs, capture {r['adm_capture_s']:.3f} s, pools "
+            f"{r['adm_pool_mib']:.1f} MiB (the eager server's admission "
+            f"runs eager chunks)")
         for mode in ("eager", "graphed"):
             x = r[mode]
             log(f"[29] {tag} {mode} server: {x['wall_s']:.3f} s, "
@@ -5478,12 +5671,391 @@ def phase_paged_graph(report):
         if r["alias_mismatches"]:
             raise AssertionError(f"[29] {tag}: an inactive slot's scatter "
                                  f"changed the pool")
-        log(f"[29] {tag}: {time.perf_counter() - t_case:.1f} s")
         del steppers, sg
         torch.cuda.empty_cache()
+        if tag == PAGED_GRAPH_PATHS[0][0]:
+            r["varied"] = paged_varied_admission(params, cfg, dcfg, dq)
+        log(f"[29] {tag}: {time.perf_counter() - t_case:.1f} s")
     report["paged_graph"] = out
     del params
     torch.cuda.empty_cache()
+
+
+# (tag, config of LLaMA-2-7B width, kernel): the quantized prefill's chunk
+# graph (the int4x2 config's 32K prefill, graphed and eager, is phase 22's)
+PREFILL_GRAPH_PATHS = (
+    ("K1 nuq3", "faithful_config", "flash"),
+    ("K3/K4 nuq3", "faithful_config", "pallas"),
+    ("K1 int4x2", "speed2_config", "flash"),
+    ("K1 speed int4", "speed_config", "flash_serial"),
+)
+
+
+@contextlib.contextmanager
+def eager_prefill():
+    """engine.prefill_quantized and the servers' chunked admission run
+    every chunk as an eager prefill_chunk call inside this context: the
+    reference the chunk graph is held to."""
+    from kvquant_tpu_torch import engine
+
+    graphable = engine.chunk_graphable
+    engine.chunk_graphable = lambda cache, cfg: False
+    try:
+        yield
+    finally:
+        engine.chunk_graphable = graphable
+
+
+def chunk_loop(params, cfg, dcfg, dq, cache, toks, chunk, graphed):
+    """The chunks of a quantized prefill of the padded tokens ``toks``
+    (1, S + n x chunk), as prefill_quantized runs them: chunk 0 eager,
+    then prefill_chunk calls or one engine.ChunkGraph (its warm-up chunk
+    1, replays after). Returns (every chunk's logits, cloned; the graph or
+    None)."""
+    from kvquant_tpu_torch import engine
+
+    S = dcfg.sink
+    out = [engine.prefill_chunk(params, cfg, dcfg, dq, cache,
+                                toks[:, :S + chunk], S, True)[1].clone()]
+    graph = None
+    for c in range(1, (toks.shape[1] - S) // chunk):
+        blk, pos0 = toks[:, S + c * chunk:S + (c + 1) * chunk], S + c * chunk
+        if not graphed:
+            lg = engine.prefill_chunk(params, cfg, dcfg, dq, cache, blk,
+                                      pos0, False)[1]
+        elif graph is None:
+            graph = engine.ChunkGraph(params, cfg, dcfg, dq, cache, blk,
+                                      pos0, False)
+            lg = graph.first
+        else:
+            lg = graph(blk, pos0)
+        out.append(lg.clone())
+    return out, graph
+
+
+def bitwise(a, b) -> bool:
+    """Two fp32 tensors bit for bit."""
+    return bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+
+
+def tail_walls(params, cfg, dcfg, dq, cache, toks, chunk, graph, last):
+    """The last ``last`` chunks of a prefill again over its cache (the same
+    tokens at the same positions write the same values): host wall ms a
+    chunk of eager prefill_chunk calls and of ``graph``'s replays, and
+    device ms a chunk (the replays back to back between CUDA events)."""
+    from kvquant_tpu_torch import engine
+
+    S = dcfg.sink
+    n = (toks.shape[1] - S) // chunk
+    blks = [(toks[:, S + c * chunk:S + (c + 1) * chunk], S + c * chunk)
+            for c in range(n - last, n)]
+
+    def eager():
+        for blk, p in blks:
+            engine.prefill_chunk(params, cfg, dcfg, dq, cache, blk, p, False)
+
+    def replays():
+        for blk, p in blks:
+            graph(blk, p)
+
+    out = {}
+    for mode, fn in (("eager", eager), ("graphed", replays)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out[mode] = (time.perf_counter() - t0) * 1e3 / last
+    out["device"] = device_ms(replays, n=1, reps=3, warmup=1) / last
+    return out
+
+
+def phase_graphed_prefill(report):
+    """The quantized prefill's chunk graph (engine.ChunkGraph) against the
+    eager chunks at LLaMA-2-7B width (random bf16 weights from a seed,
+    B=1), for nuq3 through K1 and through K3 / K4, the 2-bit int4x2 config
+    and the speed config (its chunks through K1): a 2048-token prompt (8
+    chunks of 256) through engine.prefill_quantized eager and graphed,
+    and the chunk loop eager and through one graph: every chunk's logits,
+    the last token's and the four caches bitwise; launches; wall s,
+    capture s, the graph pool's MiB; device ms a chunk (replays back to
+    back between CUDA events), host wall ms a chunk eager and graphed and
+    the idle shares over the last 4 chunks; kernels a replay and the
+    port's kernels in its profiler trace == the graph's counters. Then
+    short prompts, 2 to 5 chunks, through prefill_quantized eager and with
+    the chunk graph forced (engine.CHUNK_GRAPH_MIN_REPLAYS 0): the wall of
+    each beside what prefill_quantized chooses."""
+    from kvquant_tpu_torch import engine
+    from kvquant_tpu_torch.cache import (create_cache, deployed_from_quantizers,
+                                         reset_cache)
+    from kvquant_tpu_torch.models import init_params
+    from kvquant_tpu_torch.models.config import LLAMA2_7B
+
+    cfg = LLAMA2_7B
+    L = cfg.n_layers
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         dtype=torch.bfloat16, device="cuda")
+    makers = {"speed_config": speed_config, "faithful_config":
+              faithful_config, "speed2_config": speed2_config}
+    T0, chunk, last = 2048, 256, 4
+    short = (512, 768, 1024, 1280)  # 2, 3, 4 and 5 chunks
+    out = report["graphed_prefill"] = {}
+    for tag, make, kernel in PREFILL_GRAPH_PATHS:
+        r = out[tag] = {}
+        t_case = time.perf_counter()
+        _, dcfg, qs = makers[make](T0 + 64, L)
+        dcfg = dataclasses.replace(dcfg, kernel=kernel)
+        dq = deployed_from_quantizers(qs, cfg.n_kv_heads, cfg.d_head,
+                                      device="cuda")
+        S = dcfg.sink
+        n_chunks = -(-(T0 - S) // chunk)
+        prompt = torch.randint(
+            0, cfg.vocab_size, (1, T0),
+            generator=torch.Generator().manual_seed(30)).cuda()
+        toks = torch.nn.functional.pad(prompt,
+                                       (0, n_chunks * chunk - (T0 - S)))
+
+        def launches(n_chunks):
+            return ({"K3": L * n_chunks, "K4": L * n_chunks}
+                    if kernel == "pallas" else
+                    {"K1": L * n_chunks, "K1_chunk": L * n_chunks})
+
+        want = launches(n_chunks)
+        runs = {}
+        for mode in ("eager", "graphed"):
+            cache = create_cache(dcfg, L, 1, device="cuda")
+            read = reset_launches()
+            ctx = eager_prefill() if mode == "eager" \
+                else contextlib.nullcontext()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with ctx:
+                _, lg = engine.prefill_quantized(params, cfg, dcfg, dq,
+                                                 cache, prompt,
+                                                 chunk=chunk)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n = {k: v for k, v in read().items() if v}
+            if n != want:
+                raise AssertionError(f"[30] {tag} {mode}: launches {n}, "
+                                     f"expected {want}")
+            if not bool(torch.isfinite(lg).all()):
+                raise AssertionError(f"[30] {tag}: non-finite")
+            runs[mode] = (cache, lg)
+            r[f"{mode}_wall_s"] = wall
+        r["launches"] = want
+        # every chunk's logits, eager loop against the graph's
+        ce = create_cache(dcfg, L, 1, device="cuda")
+        lg_e, _ = chunk_loop(params, cfg, dcfg, dq, ce, toks, chunk, False)
+        cache = create_cache(dcfg, L, 1, device="cuda")
+        lg_g, graph = chunk_loop(params, cfg, dcfg, dq, cache, toks, chunk,
+                                 True)
+        for c in (ce, cache):
+            c.length.fill_(T0)
+        lpos = (T0 - 1) - (S + (n_chunks - 1) * chunk)
+        r["chunk_logits_bitwise"] = all(
+            bitwise(a, b) for a, b in zip(lg_e, lg_g))
+        r["last_logits_bitwise"] = (
+            bitwise(runs["eager"][1], runs["graphed"][1])
+            and bitwise(lg_e[-1][:, lpos], runs["eager"][1]))
+        r["caches_equal"] = (caches_equal(ce, cache)
+                             and caches_equal(ce, runs["eager"][0])
+                             and caches_equal(ce, runs["graphed"][0]))
+        del ce, lg_e, lg_g, runs
+        r.update(capture_s=graph.capture_s, pool_mib=graph.pool_mib,
+                 launches_per_replay={k: v for k, v in
+                                      graph.launches.items()
+                                      if k in ("K1", "K3", "K4")})
+        r.update(tail_walls(params, cfg, dcfg, dq, cache, toks, chunk,
+                            graph, last))
+        blk = toks[:, S + (n_chunks - 1) * chunk:]
+        p_last = S + (n_chunks - 1) * chunk
+        kms, kern, own = step_trace(lambda: graph(blk, p_last), n=2)
+        r.update(kernel_ms=kms, kernels=kern, trace_launches=own)
+        log(f"[30] {tag} {T0}-token prefill ({n_chunks} chunks of "
+            f"{chunk}): wall eager {r['eager_wall_s']:.3f} s, graphed "
+            f"{r['graphed_wall_s']:.3f} s; launches {want}; capture "
+            f"{graph.capture_s:.3f} s, pool {graph.pool_mib:.1f} MiB; last "
+            f"{last} chunks: device {r['device']:.3f} ms a chunk (graph "
+            f"replays), host wall eager {r['eager']:.3f} ms (idle "
+            f"{1 - r['device'] / r['eager']:.3f}), graphed "
+            f"{r['graphed']:.3f} ms (idle "
+            f"{1 - r['device'] / r['graphed']:.3f}); a replay: "
+            f"{kern:.0f} kernels, {kms:.3f} kernel ms, the port's "
+            f"kernels in the trace {own}, counters "
+            f"{r['launches_per_replay']}")
+        log(f"[30] {tag}: graphed == eager: chunk logits bitwise "
+            f"{r['chunk_logits_bitwise']}, caches equal "
+            f"{r['caches_equal']}, last-token logits bitwise "
+            f"{r['last_logits_bitwise']}")
+        if not (r["chunk_logits_bitwise"] and r["caches_equal"]
+                and r["last_logits_bitwise"]):
+            raise AssertionError(f"[30] {tag}: graphed != eager")
+        per = {k: float(v) for k, v in r["launches_per_replay"].items()}
+        if own != per or not per:
+            raise AssertionError(f"[30] {tag}: the port's kernels in the "
+                                 f"trace {own}, counters {per}")
+        del graph
+        # short prompts: eager, the chunk graph forced, and the choice
+        keep = engine.CHUNK_GRAPH_MIN_REPLAYS
+        r["short"] = {}
+        for t in short:
+            n_c = -(-(t - S) // chunk)
+            walls = {}
+            for mode in ("eager", "forced"):
+                reset_cache(cache)
+                read = reset_launches()
+                ctx = eager_prefill() if mode == "eager" \
+                    else contextlib.nullcontext()
+                engine.CHUNK_GRAPH_MIN_REPLAYS = 0
+                try:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    with ctx:
+                        _, lg = engine.prefill_quantized(
+                            params, cfg, dcfg, dq, cache, prompt[:, :t],
+                            chunk=chunk)
+                    torch.cuda.synchronize()
+                    walls[mode] = time.perf_counter() - t0
+                finally:
+                    engine.CHUNK_GRAPH_MIN_REPLAYS = keep
+                n = {k: v for k, v in read().items() if v}
+                if n != launches(n_c) or not bool(torch.isfinite(lg).all()):
+                    raise AssertionError(f"[30] {tag} {t} {mode}: launches "
+                                         f"{n}, expected {launches(n_c)}")
+            walls["chosen"] = "graphed" if n_c - 2 >= keep else "eager"
+            r["short"][t] = walls
+        log(f"[30] {tag} short prompts, wall s eager / chunk graph forced "
+            f"(prefill_quantized's choice at CHUNK_GRAPH_MIN_REPLAYS "
+            f"{keep}): " + ", ".join(
+                f"{t} ({-(-(t - S) // chunk)} chunks) {w['eager']:.3f} / "
+                f"{w['forced']:.3f} ({w['chosen']})"
+                for t, w in r["short"].items())
+            + f"; {time.perf_counter() - t_case:.1f} s")
+        del cache
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+
+
+def phase_fp16_graph(report):
+    """The fp16-KV baseline's step as one CUDA graph (baseline_fp16.
+    DecodeGraph) against its eager step at LLaMA-2-7B width (random bf16
+    weights, B=1, the bf16 cache read in fp32): 64 greedy steps after a
+    2048-token prefill from clones of one cache, tokens, every step's
+    logits and the caches bitwise, no host wait in either step; tok/s,
+    device ms a step (replays back to back between CUDA events), idle
+    share and the profiler's kernels a step, eager and graphed, at 2K and
+    at 32K (a cache drawn at random, as the fp16 prefill of 32K tokens
+    does not fit); capture s and pool MiB; cli.passkey without
+    --quantizers at toy width replays the graph."""
+    from kvquant_tpu_torch import baseline_fp16, engine
+    from kvquant_tpu_torch.cli import passkey as passkey_cli
+    from kvquant_tpu_torch.models import init_params
+    from kvquant_tpu_torch.models.config import LLAMA2_7B
+
+    cfg = LLAMA2_7B
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         dtype=torch.bfloat16, device="cuda")
+    out = {}
+    for ctx, steps in ((2048, 64), (32768, 8)):
+        t_case = time.perf_counter()
+        fcache = baseline_fp16.create_fp16_cache(cfg, ctx + steps + 8, 1,
+                                                 device="cuda")
+        compare = ctx == 2048
+        if compare:
+            prompt = torch.randint(
+                0, cfg.vocab_size, (1, ctx),
+                generator=torch.Generator().manual_seed(31)).cuda()
+            baseline_fp16.prefill(params, cfg, fcache, prompt)
+        else:
+            for t in (fcache.k, fcache.v):  # drawn layer by layer
+                for li in range(cfg.n_layers):
+                    t[li].normal_(generator=torch.Generator(device="cuda")
+                                  .manual_seed(li))
+            fcache.length.fill_(ctx)
+        ref = baseline_fp16.Fp16Cache(
+            **{f.name: getattr(fcache, f.name).clone()
+               for f in dataclasses.fields(fcache)}) if compare else fcache
+        graph = baseline_fp16.DecodeGraph(params, cfg, fcache)
+
+        def eager(tok, pos, c=ref):
+            return baseline_fp16.decode_step(params, cfg, c, tok, pos)[1]
+
+        tok_e, lg_e, wall_e, _ = greedy_run(eager, ctx, steps)
+        tok_g, lg_g, wall_g, _ = greedy_run(graph, ctx, steps)
+        r = out[ctx] = {"capture_s": graph.capture_s,
+                        "pool_mib": graph.pool_mib}
+        pos_end = torch.full((1,), ctx + steps, dtype=torch.int32,
+                             device="cuda")
+        if compare:
+            r["tokens_equal"] = bool(torch.equal(tok_e, tok_g))
+            r["logits_bitwise"] = bitwise(lg_e, lg_g)
+            r["caches_equal"] = all(
+                torch.equal(getattr(ref, n), getattr(fcache, n))
+                for n in ("k", "v", "length"))
+            r["host_waits"] = {
+                "eager": host_syncs(lambda: eager(tok_e[:, -1], pos_end))[0],
+                "graphed": host_syncs(lambda: graph(tok_e[:, -1],
+                                                    pos_end))[0]}
+        dev = device_ms(lambda: graph(tok_e[:, -1], pos_end), n=8, reps=3)
+        for mode, step, wall in (("eager", eager, wall_e),
+                                 ("graphed", graph, wall_g)):
+            wall_ms = wall / steps * 1e3
+            kms, kern = step_profile(lambda: step(tok_e[:, -1], pos_end), n=2)
+            r[mode] = {"tok_s": steps / wall, "wall_ms": wall_ms,
+                       "device_ms": dev, "idle": 1 - dev / wall_ms,
+                       "kernel_ms": kms, "kernels": kern}
+        e, g = r["eager"], r["graphed"]
+        log(f"[31] fp16-KV baseline {ctx} ctx, {steps} steps: device "
+            f"{dev:.3f} ms a step (graph replays); eager {e['tok_s']:.2f} "
+            f"tok/s (wall {e['wall_ms']:.3f} ms, idle {e['idle']:.3f}, "
+            f"{e['kernels']:.0f} kernels, {e['kernel_ms']:.3f} kernel ms); "
+            f"graphed {g['tok_s']:.2f} tok/s (wall {g['wall_ms']:.3f} ms, "
+            f"idle {g['idle']:.3f}, {g['kernels']:.0f} kernels, "
+            f"{g['kernel_ms']:.3f} kernel ms); capture {graph.capture_s:.3f}"
+            f" s, pool {graph.pool_mib:.1f} MiB; "
+            f"{time.perf_counter() - t_case:.1f} s")
+        if compare:
+            log(f"[31] fp16-KV baseline: graphed == eager: tokens "
+                f"{r['tokens_equal']}, logits bitwise {r['logits_bitwise']},"
+                f" caches equal {r['caches_equal']}, host waits a step "
+                f"{r['host_waits']}")
+            if not (r["tokens_equal"] and r["logits_bitwise"]
+                    and r["caches_equal"]
+                    and bool(torch.isfinite(lg_g).all())):
+                raise AssertionError("[31] the baseline graph != eager")
+            if r["host_waits"] != {"eager": 0, "graphed": 0}:
+                raise AssertionError("[31] the baseline step waits for the "
+                                     "card")
+        del graph, fcache, ref, lg_e, lg_g
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+
+    # cli.passkey's baseline (no --quantizers) replays the graph
+    replays = [0]
+    replay = engine.CapturedStep.replay
+
+    def counting(self):
+        replays[0] += 1
+        return replay(self)
+
+    engine.CapturedStep.replay = counting
+    try:
+        res = passkey_cli.main(
+            ["--toy-layers", "4", "--toy-dmodel", "256", "--toy-heads", "8",
+             "--toy-kv-heads", "4", "--toy-vocab", "512", "--device", "cuda",
+             "--ctx", "512", "--trials", "2"])
+    finally:
+        engine.CapturedStep.replay = replay
+    log(f"[31] cli.passkey (fp16-KV baseline) ctx 512 x 2 trials: accuracy "
+        f"{res[0].accuracy:.2f}, {replays[0]} graph replays")
+    if replays[0] == 0:
+        raise AssertionError("[31] cli.passkey's baseline did not replay "
+                             "its graph")
+    out["passkey_replays"] = replays[0]
+    report["fp16_graph"] = out
 
 
 PHASES = {1: phase_device_and_build, 2: phase_kernel_vs_plain,
@@ -5499,7 +6071,8 @@ PHASES = {1: phase_device_and_build, 2: phase_kernel_vs_plain,
           22: phase_long_prefill, 23: phase_calibrate_deploy,
           24: phase_mistral, 25: phase_dbrx, 26: phase_tp,
           27: phase_training, 28: phase_graphed_decode,
-          29: phase_paged_graph}
+          29: phase_paged_graph, 30: phase_graphed_prefill,
+          31: phase_fp16_graph}
 
 
 def main(argv=None) -> int:
@@ -5717,6 +6290,21 @@ def main(argv=None) -> int:
                 k["graphed_trace_launches_per_step"] = (
                     g["graphed_steady"]["trace_launches"]["K5"])
                 k["graphed_serve_tok_s"] = g["graphed"]["tok_s"]
+    if 30 in phases:  # launches per replay of the prefill chunk graph
+        g = report["graphed_prefill"]
+        for k in kernels:
+            key, path = {"flash_attention": ("K1", "K1 nuq3"),
+                         "qk_fused": ("K3", "K3/K4 nuq3"),
+                         "pv_fused": ("K4", "K3/K4 nuq3")}.get(
+                             k["name"], (None, None))
+            if key:
+                r = g[path]
+                k["graphed_chunk_launches_per_replay"] = (
+                    r["launches_per_replay"][key])
+                k["graphed_chunk_trace_launches_per_replay"] = (
+                    r["trace_launches"][key])
+                k["prefill_wall_s_2k"] = {"eager": r["eager_wall_s"],
+                                          "graphed": r["graphed_wall_s"]}
     if kernels:
         log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

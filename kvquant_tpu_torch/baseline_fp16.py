@@ -8,10 +8,13 @@ engine differences. Attention is plain PyTorch and, as in the JAX function,
 casts the cache to fp32 (scores and values contract in fp32).
 
 Differences from the JAX module: the cache is updated in place (and
-returned); ``pos`` is a host int; ``prefill`` runs the model family's
-forward (``models.get_forward``), so it also prefills an MoE model, where
-the JAX function calls the Llama forward whatever the family and fails on
-MoE parameters.
+returned); ``decode_step`` takes ``pos`` as an int or as an int32 tensor
+on the card and then reads nothing back to the host, and
+``decode_stepper`` replays it as one CUDA graph on a card (JAX's bench
+jits the baseline's loop); ``prefill`` runs the model family's forward
+(``models.get_forward``), so it also prefills an MoE model, where the JAX
+function calls the Llama forward whatever the family and fails on MoE
+parameters.
 """
 
 from __future__ import annotations
@@ -63,21 +66,23 @@ def prefill(params, cfg: ModelConfig, cache: Fp16Cache, tokens,
     return cache, logits[:, -1].to(torch.float32)
 
 
-def decode_step(params, cfg: ModelConfig, cache: Fp16Cache, token, pos: int):
-    """Single-token decode against the fp16 cache at position ``pos`` (an
-    int, the same for every sequence): one row written per layer in place,
+def decode_step(params, cfg: ModelConfig, cache: Fp16Cache, token, pos):
+    """Single-token decode against the fp16 cache at position ``pos``, the
+    same for every sequence: an int, or a 0-d / (1,) int32 tensor on the
+    cache's device (then the step reads nothing back to the host). One row
+    written per layer in place (``index_copy_`` along the token axis),
     attention over positions 0..pos. Returns (cache, logits (B, V) fp32)."""
     B = token.shape[0]
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     G = H // Hkv
     T = cache.k.shape[3]
-    pos = int(pos)
     dev = params.embed.device
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=dev).reshape(1)
 
     x = params.embed[token.to(dev).long()]
-    cos, sin = llama.rope_cos_sin(
-        torch.tensor([pos], dtype=torch.int32, device=dev), cfg)  # (1, Dh)
+    cos, sin = llama.rope_cos_sin(pos, cfg)  # (1, Dh)
     valid = torch.arange(T, device=dev) <= pos
+    row = pos.long()
     for li in range(cfg.n_layers):
         lp = params.layer(li)
         q, k, v = llama.project_qkv(llama.norm(x, lp["ln_attn"], cfg), lp,
@@ -87,8 +92,8 @@ def decode_step(params, cfg: ModelConfig, cache: Fp16Cache, token, pos: int):
         v = v.reshape(B, Hkv, Dh)
         q = q * cos + llama.rotate_half(q) * sin
         k = k * cos + llama.rotate_half(k) * sin
-        cache.k[li, :, :, pos] = k.to(cache.k.dtype)
-        cache.v[li, :, :, pos] = v.to(cache.v.dtype)
+        cache.k[li].index_copy_(2, row, k.to(cache.k.dtype)[:, :, None])
+        cache.v[li].index_copy_(2, row, v.to(cache.v.dtype)[:, :, None])
 
         scores = torch.einsum("bhgd,bhtd->bhgt", q,
                               cache.k[li].to(torch.float32)) / (Dh ** 0.5)
@@ -101,5 +106,74 @@ def decode_step(params, cfg: ModelConfig, cache: Fp16Cache, token, pos: int):
 
     x = llama.norm(x, params.final_norm, cfg)
     logits = (x @ params.head()).to(torch.float32)
-    cache.length.fill_(pos + 1)
+    cache.length.copy_((pos + 1).expand_as(cache.length))
     return cache, logits
+
+
+def first_row_keeper(cache: Fp16Cache):
+    """Keep what a decode step at position 0 writes (row 0 of every
+    layer's K and V, and the length); returns a function that puts it back
+    in place (``ops.deployed.first_row_keeper``'s counterpart)."""
+    kept = [(view, view.clone()) for view in
+            (cache.k.narrow(3, 0, 1), cache.v.narrow(3, 0, 1), cache.length)]
+
+    def restore():
+        for view, old in kept:
+            view.copy_(old)
+
+    return restore
+
+
+class DecodeGraph:
+    """One baseline ``decode_step`` captured as a CUDA graph over a cache
+    on a card (``engine.CapturedStep``): the counterpart of the JAX bench's
+    jitted baseline step. Static (B,) int32 ``token`` and (1,) int32
+    ``pos`` buffers; ``graph(token, pos)`` copies them in, replays (writing
+    ``cache`` in place) and returns the (B, V) ``logits``, which the next
+    call overwrites. The warm-up step runs at position 0 and what it wrote
+    is put back (``first_row_keeper``). ``launches``, ``capture_s`` and
+    ``pool_mib`` are the capture's. Raises ValueError for a cache that is
+    not on a card and for the configurations that
+    ``engine.graph_unsupported`` names; a capture that fails raises."""
+
+    def __init__(self, params, cfg: ModelConfig, cache: Fp16Cache):
+        from .engine import CapturedStep, graph_unsupported
+
+        why = graph_unsupported(cfg)
+        if why is not None:
+            raise ValueError(f"baseline DecodeGraph: cannot capture {why}")
+        dev = cache.k.device
+        if dev.type != "cuda":
+            raise ValueError(f"baseline DecodeGraph: the cache is on {dev}; "
+                             f"a CUDA graph needs a card (call decode_step)")
+        self.token = torch.zeros_like(cache.length)
+        self.pos = torch.zeros((1,), dtype=torch.int32, device=dev)
+        # the graph reads and writes these tensors' memory: they live as
+        # long as it does
+        self._inputs = (params, cache)
+
+        def step():
+            return decode_step(params, cfg, cache, self.token, self.pos)[1]
+
+        self._captured = c = CapturedStep(step, dev, first_row_keeper(cache))
+        self.logits, self.launches = c.out, c.launches
+        self.capture_s, self.pool_mib = c.capture_s, c.pool_mib
+
+    def __call__(self, token, pos):
+        self.token.copy_(token)
+        if isinstance(pos, int):
+            self.pos.fill_(pos)
+        else:
+            self.pos.copy_(torch.as_tensor(pos).reshape(1))
+        return self._captured.replay()
+
+
+def decode_stepper(params, cfg: ModelConfig, cache: Fp16Cache):
+    """``step(token, pos) -> logits (B, V)`` over ``cache``: a DecodeGraph
+    when the cache lies on a card, unless ``engine.graph_unsupported(cfg)``
+    names the configuration; else decode_step."""
+    from .engine import graph_unsupported
+
+    if cache.k.is_cuda and graph_unsupported(cfg) is None:
+        return DecodeGraph(params, cfg, cache)
+    return lambda token, pos: decode_step(params, cfg, cache, token, pos)[1]

@@ -191,33 +191,64 @@ class KVCache:
                 if f.name != "length"}
 
 
-def create_cache(dcfg: DeployConfig, n_layers: int, batch: int,
-                 device="cuda") -> KVCache:
-    dev = resolve_device(device)
+def _cache_layout(dcfg: DeployConfig, n_layers: int, batch: int) -> dict:
+    """{field: (shape, dtype)} of a cache, ``length`` included."""
     L, B = n_layers, batch
     H, D, S = dcfg.n_kv_heads, dcfg.d_head, dcfg.sink
     Tc = dcfg.cache_tokens
-    ns = dcfg.n_slots
-
-    def z(shape, dt):
-        return torch.zeros(shape, dtype=dt, device=dev)
-
     assert D <= 128, "outlier words encode a 7-bit in-head dim"
     if dcfg.codes == "nuq":
         code_shape, code_dt = (L, B, H, dcfg.bits, Tc // 32, D), torch.int32
     else:
         code_shape = (L, B, dcfg.code_heads, Tc, dcfg.code_cols)
         code_dt = dcfg.code_dtype
-    return KVCache(
-        k_planes=z(code_shape, code_dt),
-        v_planes=z(code_shape, code_dt),
-        kv_out=z((L, B, dcfg.n_groups, ns, Tc), torch.float32),
-        v_scale=z((L, B, Tc), torch.float32),
-        v_offset=z((L, B, Tc), torch.float32),
-        k_sink=z((L, B, H, S, D), torch.float32),
-        v_sink=z((L, B, H, S, D), torch.float32),
-        length=z((B,), torch.int32),
+    return dict(
+        k_planes=(code_shape, code_dt),
+        v_planes=(code_shape, code_dt),
+        kv_out=((L, B, dcfg.n_groups, dcfg.n_slots, Tc), torch.float32),
+        v_scale=((L, B, Tc), torch.float32),
+        v_offset=((L, B, Tc), torch.float32),
+        k_sink=((L, B, H, S, D), torch.float32),
+        v_sink=((L, B, H, S, D), torch.float32),
+        length=((B,), torch.int32),
     )
+
+
+_ALIGN = 256  # bytes: each array of a cache in a storage starts aligned
+
+
+def _nbytes(shape, dt) -> int:
+    return -(-int(np.prod(shape)) * dt.itemsize // _ALIGN) * _ALIGN
+
+
+def cache_storage_bytes(dcfg: DeployConfig, n_layers: int,
+                        batch: int) -> int:
+    """The bytes of a ``storage`` that holds a cache of this shape
+    (``create_cache``); a storage of a larger capacity holds it too."""
+    return sum(_nbytes(*x)
+               for x in _cache_layout(dcfg, n_layers, batch).values())
+
+
+def create_cache(dcfg: DeployConfig, n_layers: int, batch: int,
+                 device="cuda", storage: torch.Tensor | None = None
+                 ) -> KVCache:
+    """A zeroed cache. With ``storage`` (1-D uint8, at least
+    ``cache_storage_bytes``) its arrays are views of that buffer's prefix,
+    not allocations of their own, so caches of several capacities can take
+    turns in one buffer."""
+    layout = _cache_layout(dcfg, n_layers, batch)
+    if storage is None:
+        dev = resolve_device(device)
+        return KVCache(**{k: torch.zeros(shape, dtype=dt, device=dev)
+                          for k, (shape, dt) in layout.items()})
+    assert storage.dtype == torch.uint8 and storage.dim() == 1
+    assert storage.numel() >= cache_storage_bytes(dcfg, n_layers, batch)
+    arrays, off = {}, 0
+    for k, (shape, dt) in layout.items():
+        n = int(np.prod(shape)) * dt.itemsize
+        arrays[k] = storage[off:off + n].view(dt).view(shape)
+        off += _nbytes(shape, dt)
+    return reset_cache(KVCache(**arrays))
 
 
 def reset_cache(cache: KVCache) -> KVCache:

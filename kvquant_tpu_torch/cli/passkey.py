@@ -4,7 +4,8 @@ the reference's quant/eval_passkey_simquant.py).
   python -m kvquant_tpu_torch.cli.passkey --quantizers q.npz \
       --ctx 2048,4096 --trials 50 [--device cpu]
 
-Without --quantizers the fp16 baseline (baseline_fp16) decodes instead.
+Without --quantizers the fp16 baseline (baseline_fp16) decodes instead, one
+CUDA graph of its step on a card (baseline_fp16.decode_stepper).
 """
 
 from __future__ import annotations
@@ -67,13 +68,14 @@ def main(argv=None):
                 device=args.device)
             cache, logits = baseline_fp16.prefill(
                 params, cfg, cache, torch.as_tensor(ids, dtype=torch.int32))
+            # one CUDA graph of the step on a card
+            step = baseline_fp16.decode_stepper(params, cfg, cache)
             toks = []
             pos = ids.shape[1]
             for _ in range(max_new_tokens):
                 t = torch.argmax(logits, -1).to(torch.int32)
                 toks.append(int(t[0]))
-                cache, logits = baseline_fp16.decode_step(params, cfg, cache,
-                                                          t, pos)
+                logits = step(t, pos)
                 pos += 1
             return toks
 

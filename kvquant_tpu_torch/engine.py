@@ -11,8 +11,10 @@ kvquant_tpu/engine.py: prefill, decode_step, generate, deployed_ppl).
     append into and attend over the stacked arrays.
   - ``prefill_chunk`` / ``prefill_quantized``: chunked prefill through the
     quantized datapath (ops.deployed.block_attention: K1 with Tq > 1 under
-    "flash" / "flash_serial", K3 / K4 under "pallas"); the JAX engine's
-    chunk scan is a Python loop.
+    "flash" / "flash_serial", K3 / K4 under "pallas") at a device ``pos0``;
+    on a card the chunks after the first replay one ``ChunkGraph`` (for a
+    prompt of ``CHUNK_GRAPH_MIN_REPLAYS`` + 2 chunks or more), where the
+    JAX engine scans its jitted chunk.
   - ``DecodeGraph``: one decode step captured as a CUDA graph, the
     counterpart of the JAX engine's ``jax.jit(decode_step)``: static token
     and position buffers, one replay per step.
@@ -217,9 +219,11 @@ class CapturedStep:
     they are the wrapper calls a replay makes. ``out`` is what ``step()``
     returned while captured, overwritten by each replay; ``capture_s`` the
     wall time of the warm-up and the capture, ``pool_mib`` the memory the
-    graph's private pool took. A capture that fails raises."""
+    graph's private pool took (its growth, where ``pool``, a
+    ``torch.cuda.graph_pool_handle()``, is shared with graphs that never
+    replay at the same time). A capture that fails raises."""
 
-    def __init__(self, step, dev: torch.device, restore=None):
+    def __init__(self, step, dev: torch.device, restore=None, pool=None):
         from .ops.kernels import counted
 
         t0 = time.perf_counter()
@@ -229,13 +233,14 @@ class CapturedStep:
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):
                 for _ in range(_WARMUP_STEPS):
-                    step()
+                    out = step()
             torch.cuda.current_stream(dev).wait_stream(side)
             if restore is not None:
                 restore()
             torch.cuda.synchronize(dev)
+            return out
 
-        _, self.setup_launches = counted(warm)
+        self.warm_out, self.setup_launches = counted(warm)
         # torch.cuda.graph empties the allocator's cache as it enters; so
         # does this, first, so that the growth is the graph's own pool
         torch.cuda.empty_cache()
@@ -243,7 +248,7 @@ class CapturedStep:
         self.graph = torch.cuda.CUDAGraph()
 
         def capture():
-            with torch.cuda.graph(self.graph):
+            with torch.cuda.graph(self.graph, pool=pool):
                 return step()
 
         self.out, self.launches = counted(capture)
@@ -459,15 +464,21 @@ def deployed_ppl(params, cfg: ModelConfig, dcfg: DeployConfig,
 
 
 def prefill_chunk(params, cfg: ModelConfig, dcfg: DeployConfig,
-                  dq: DeployedQuant, cache: KVCache, tok_blk, pos0: int,
+                  dq: DeployedQuant, cache: KVCache, tok_blk, pos0,
                   sink_fill: bool):
     """One chunk of quantized prefill: embed, every layer's block_attention
     (pack + attend over the quantized cache, in place), the MLP. tok_blk
     (B, Tq) holds the chunk's tokens (after the ``sink`` leading sink
     tokens when ``sink_fill``); ``pos0`` is the absolute position of its
-    first non-sink token. Returns (cache, logits (B, Tq, V) fp32)."""
+    first non-sink token, an int or a 0-d / (1,) int32 tensor on the
+    cache's device (then the chunk reads nothing back to the host, and
+    its caller checks that the chunk fits the cache; an int is checked
+    here and made a tensor once for every layer). Returns (cache, logits
+    (B, Tq, V) fp32)."""
     _check_kernel(dcfg)
     B, T = tok_blk.shape
+    pos0 = deployed.block_pos0(pos0, T - (dcfg.sink if sink_fill else 0),
+                               dcfg, cache.length.device)
     H, Dh = cfg.n_heads, cfg.d_head
     x = params.embed[tok_blk.to(params.embed.device).long()]
     for li in range(cfg.n_layers):
@@ -483,15 +494,111 @@ def prefill_chunk(params, cfg: ModelConfig, dcfg: DeployConfig,
     return cache, _logits(params, x, cfg)
 
 
+class ChunkGraph:
+    """One ``prefill_chunk`` captured as a CUDA graph over a cache on a card
+    (``CapturedStep``): the counterpart of the JAX engine's jitted chunk,
+    ``sink_fill`` static, and of its ``rest_chunks`` scan body.
+
+    It holds static (B, Tq_all) int32 ``tokens`` and 0-d int32 ``pos0``
+    buffers and the chunk's ``logits`` (B, Tq_all, V) fp32. It is built
+    from the first chunk it runs, ``tok_blk`` at ``pos0``: the warm-up is
+    that real chunk, so nothing is put back, its launches are counted, and
+    ``first`` holds its logits. ``graph(tok_blk, pos0)`` then copies a
+    chunk in, replays (writing ``cache`` in place, as prefill_chunk does)
+    and returns ``logits``, which the next call overwrites. K1's split
+    count depends on the capacity, not on ``pos0``, so one capture serves
+    every position. ``launches``, ``setup_launches``, ``capture_s`` and
+    ``pool_mib`` are the capture's.
+
+    Graphs that take turns over one memory (``serve.AdmissionCache``) pass
+    ``out``, a (B, Tq_all, V) fp32 buffer on the card that the chunk's
+    logits are copied into (``logits`` and ``first`` are then that
+    buffer), and ``pool``, a graph pool handle they share.
+
+    Raises ValueError for a cache that is not on a card and for the
+    configurations ``graph_unsupported`` names; a capture that fails
+    raises. Nothing falls back to the eager chunk."""
+
+    def __init__(self, params, cfg: ModelConfig, dcfg: DeployConfig,
+                 dq: DeployedQuant, cache: KVCache, tok_blk, pos0,
+                 sink_fill: bool, out: torch.Tensor | None = None,
+                 pool=None):
+        from .ops.kernels import add_launches
+
+        _check_kernel(dcfg)
+        why = graph_unsupported(cfg)
+        if why is not None:
+            raise ValueError(f"ChunkGraph: cannot capture {why}")
+        dev = cache.length.device
+        if dev.type != "cuda":
+            raise ValueError(f"ChunkGraph: the cache is on {dev}; a CUDA "
+                             f"graph needs a card (call prefill_chunk)")
+        t0 = time.perf_counter()
+        self.tokens = torch.zeros(tuple(tok_blk.shape), dtype=torch.int32,
+                                  device=dev)
+        self.pos0 = torch.zeros((), dtype=torch.int32, device=dev)
+        self._load(tok_blk, pos0)
+        self._rope = _hold_rope_table(cfg, dcfg, dcfg.cache_tokens, dev)
+        # the graph reads and writes these tensors' memory: they live as
+        # long as it does
+        self._inputs = (params, dq, cache)
+
+        def step():
+            logits = prefill_chunk(params, cfg, dcfg, dq, cache, self.tokens,
+                                   self.pos0, sink_fill)[1]
+            return logits if out is None else out.copy_(logits)
+
+        self._captured = c = CapturedStep(step, dev, pool=pool)
+        add_launches(c.setup_launches)  # the warm-up ran the real chunk
+        self.first = c.warm_out
+        self.logits, self.launches = c.out, c.launches
+        self.setup_launches, self.pool_mib = c.setup_launches, c.pool_mib
+        self.capture_s = time.perf_counter() - t0
+
+    def _load(self, tok_blk, pos0):
+        self.tokens.copy_(tok_blk)
+        if isinstance(pos0, int):
+            self.pos0.fill_(pos0)
+        else:
+            self.pos0.copy_(torch.as_tensor(pos0).reshape(()))
+
+    def __call__(self, tok_blk, pos0):
+        self._load(tok_blk, pos0)
+        return self._captured.replay()
+
+
+# the replays a prompt must leave (its chunks beyond the first two, the
+# eager sink chunk and the graph's warm-up) before prefill_quantized
+# captures a ChunkGraph: a shorter prompt runs its chunks eagerly, since
+# the capture would cost more than its replays save. chip_smoke.py phase
+# 30 times prompts of 2 to 5 chunks of 256 both ways at LLaMA-2-7B width
+# on an H100: eager was faster at 2 and 3 chunks, at 4 on the "pallas"
+# route, and the graph at 5 on every route.
+CHUNK_GRAPH_MIN_REPLAYS = 3
+
+
+def chunk_graphable(cache: KVCache, cfg: ModelConfig) -> bool:
+    """Whether the chunks over ``cache`` run through a ChunkGraph: the
+    cache lies on a card and ``graph_unsupported(cfg)`` is None."""
+    return cache.length.is_cuda and graph_unsupported(cfg) is None
+
+
 def prefill_quantized(params, cfg: ModelConfig, dcfg: DeployConfig,
                       dq: DeployedQuant, cache: KVCache, tokens,
                       chunk: int = 256, max_scan_chunks: int | None = None):
     """Chunked prefill through the quantized datapath (in place). Returns
     (cache, logits_last (B, V) fp32). Pad tokens beyond T0 (to reach chunk
     alignment) are packed but masked from every real query and overwritten
-    by later decode steps. ``max_scan_chunks`` splits the JAX engine's
-    device scan into host dispatches; the chunks here run as a Python loop
-    already, so it is accepted and has no effect."""
+    by later decode steps. Chunk 0, which carries the sink prefix, runs
+    eagerly: it runs once. On a card (``chunk_graphable``) the rest go
+    through one ``ChunkGraph`` of the ``chunk``-token chunk, the JAX
+    engine's scan: its warm-up is chunk 1, chunks 2... are replays at
+    device positions. Elsewhere, and for a prompt that leaves fewer than
+    ``CHUNK_GRAPH_MIN_REPLAYS`` replays, they run as prefill_chunk
+    calls.
+    ``max_scan_chunks`` splits the JAX engine's device scan into host
+    dispatches; the replays here are dispatched one by one already, so it
+    is accepted and has no effect."""
     check_intn_codebook(dcfg, dq)
     B, T0 = tokens.shape
     S = dcfg.sink
@@ -507,13 +614,20 @@ def prefill_quantized(params, cfg: ModelConfig, dcfg: DeployConfig,
     # chunk 0 carries the sink prefix
     cache, logits = prefill_chunk(params, cfg, dcfg, dq, cache,
                                   toks[:, :S + chunk], S, True)
-    for c in range(1, n_chunks):
-        start = S + c * chunk
-        cache, logits = prefill_chunk(params, cfg, dcfg, dq, cache,
-                                      toks[:, start:start + chunk], start,
-                                      False)
+    blk = lambda c: toks[:, S + c * chunk:S + (c + 1) * chunk]  # noqa: E731
+    if n_chunks - 2 >= CHUNK_GRAPH_MIN_REPLAYS and \
+            chunk_graphable(cache, cfg):
+        graph = ChunkGraph(params, cfg, dcfg, dq, cache, blk(1), S + chunk,
+                           False)
+        logits = graph.first
+        for c in range(2, n_chunks):
+            logits = graph(blk(c), S + c * chunk)
+    else:
+        for c in range(1, n_chunks):
+            cache, logits = prefill_chunk(params, cfg, dcfg, dq, cache,
+                                          blk(c), S + c * chunk, False)
     # logits of the last REAL token (pad-safe)
     last = (T0 - 1) - (S + (n_chunks - 1) * chunk) if n_chunks > 1 \
         else T0 - 1
     cache.length.fill_(T0)
-    return cache, logits[:, last]
+    return cache, logits[:, last].clone()  # the graph's buffer goes with it

@@ -18,6 +18,8 @@ Differences from the JAX functions:
     (an int or B ints are converted once, ``device_positions``); its rows
     are written by device-indexed, predicated writes (``_write_token``, as
     JAX's ``_write_row_b``), so the step reads nothing back to the host;
+    likewise ``block_attention`` takes its ``pos0`` as a device tensor and
+    writes its block at a device offset (``packing.write_block``);
   - under a rank-local ``mcfg`` (``parallel.shardings.shard_config``) the
     arrays hold this rank's heads and ``quantize_v`` exchanges the per-token
     V range over the tp group.
@@ -39,7 +41,7 @@ from .packing import (
     unpack_codes, set_token_bits, token_word_bit, place_planes,
     store_codes_int, load_codes_int, place_codes_int,
     pair_codes_int4x2, unpair_codes_int4x2, place_codes_int4x2,
-    write_rows,
+    write_block, write_rows,
     encode_outlier_words, decode_outlier_words, OUTLIER_DIM_MASK,
 )
 
@@ -56,6 +58,22 @@ def device_positions(pos, B: int, device) -> torch.Tensor:
         raise ValueError(f"positions of shape {tuple(pos.shape)} for a "
                          f"batch of {B}")
     return pos
+
+
+def block_pos0(pos0, n_packed: int, dcfg: DeployConfig, device
+               ) -> torch.Tensor:
+    """A block's ``pos0`` (block_attention) as a 0-d int32 tensor on
+    ``device``. A host int is first checked on the host: the block's
+    ``n_packed`` tokens at the packed offset max(pos0 - sink, 0) fit the
+    capacity; it becomes a tensor by a fill, with no copy from the host.
+    A tensor is taken as it is: its caller has checked it."""
+    if isinstance(pos0, torch.Tensor):
+        return pos0.reshape(())
+    p0 = max(int(pos0) - dcfg.sink, 0)
+    assert p0 + n_packed <= dcfg.cache_tokens, (
+        f"block [{p0}, {p0 + n_packed}) exceeds capacity "
+        f"{dcfg.cache_tokens}")
+    return torch.full((), int(pos0), dtype=torch.int32, device=device)
 
 
 def _stored_codes(planes, dcfg: DeployConfig):
@@ -75,10 +93,10 @@ def _encode_rows(codes, dcfg: DeployConfig):
     return store_codes_int(codes, dcfg.bits, dcfg.code_dtype)
 
 
-def _place_codes(arr, codes, p0: int, dcfg: DeployConfig):
+def _place_codes(arr, codes, p0, dcfg: DeployConfig):
     """Aligned block write of unsigned codes (..., T, Hkv, D) into the code
     storage (..., H', Tc, Dc) or bit planes (..., Hkv, bits, TW, D), in
-    place."""
+    place, at a host int or a device tensor ``p0``."""
     if dcfg.codes == "nuq":
         return place_planes(arr, codes, p0, dcfg.bits)
     if dcfg.codes == "int4x2":
@@ -512,7 +530,7 @@ def prefill_pack(cache_l: KVCache, lq: DeployedQuant, dcfg: DeployConfig,
 
 
 def block_attention(cache_l: KVCache, lq: DeployedQuant, dcfg: DeployConfig,
-                    mcfg: ModelConfig, q, k_new, v_new, pos0: int,
+                    mcfg: ModelConfig, q, k_new, v_new, pos0,
                     sink_fill: bool = False):
     """Pack a block of tokens into the single-layer cache (in place) and
     attend for every query of the block over cache positions 0..its own,
@@ -520,9 +538,14 @@ def block_attention(cache_l: KVCache, lq: DeployedQuant, dcfg: DeployConfig,
 
     q (B, Tq_all, H, Dh) un-roped; k_new / v_new (B, Tq_all, C) pre-RoPE;
     ``pos0`` is the absolute position of the block's first NON-sink token
-    (``pos0 - sink`` 128-aligned); with ``sink_fill`` the first ``sink``
-    rows are the sink tokens (block 0 of a prefill). kernel "flash" /
-    "flash_serial" attends through K1 (``kernels.flash_decode.
+    (``pos0 - sink`` 128-aligned), an int or a 0-d / (1,) int32 tensor on
+    the device; with ``sink_fill`` the first ``sink`` rows are the sink
+    tokens (block 0 of a prefill). The block is written at the packed
+    offset max(pos0 - sink, 0) by device-indexed writes and nothing is read
+    back to the host, so a CUDA graph captures the call at a device
+    ``pos0`` (a tensor's caller checks that the block fits the capacity,
+    an int is checked here, ``block_pos0``). kernel
+    "flash" / "flash_serial" attends through K1 (``kernels.flash_decode.
     flash_attention``), "pallas" through the two-pass kernels K3 / K4
     (``kernels.attention``), "xla" over the eagerly dequantized cache.
     Returns (cache_l, out (B, Tq_all, H*Dh) fp32)."""
@@ -537,7 +560,7 @@ def block_attention(cache_l: KVCache, lq: DeployedQuant, dcfg: DeployConfig,
     Tq = Tq_all - ns  # packed tokens
     assert Tq % 128 == 0, Tq
     dev = q.device
-    pos0 = int(pos0)
+    pos0 = block_pos0(pos0, Tq, dcfg, dev)
     positions = (pos0 - ns) + torch.arange(Tq_all, dtype=torch.int32,
                                            device=dev)
     cos, sin = rope_cos_sin(positions, mcfg)  # (Tq_all, Dh)
@@ -558,19 +581,18 @@ def block_attention(cache_l: KVCache, lq: DeployedQuant, dcfg: DeployConfig,
     codes_v, v_words, v_sc, v_off = quantize_v(vq, lq, dcfg,
                                                 tp_group(mcfg))
 
-    p0 = max(pos0 - S, 0)  # packed offset of the block
-    assert p0 + Tq <= Tc, f"block [{p0}, {p0 + Tq}) exceeds capacity {Tc}"
+    p0 = (pos0 - S).clamp(min=0)  # packed offset of the block
     _place_codes(cache_l.k_planes, codes_k, p0, dcfg)
     _place_codes(cache_l.v_planes, codes_v, p0, dcfg)
     if dcfg.include_sparse:
         kv_words = k_words if v_words is None else torch.cat(
             [k_words, v_words], dim=-1)
         # (B, Tq, G, J) -> (B, G, J, Tq) token axis last
-        cache_l.kv_out[..., :kv_words.shape[-1], p0:p0 + Tq] = \
-            kv_words.permute(0, 2, 3, 1)
-    cache_l.v_scale[:, p0:p0 + Tq] = v_sc
-    cache_l.v_offset[:, p0:p0 + Tq] = v_off
-    cache_l.length.fill_(pos0 + Tq)
+        write_block(cache_l.kv_out[..., :kv_words.shape[-1], :],
+                    kv_words.permute(0, 2, 3, 1), p0, axis=-1)
+    write_block(cache_l.v_scale, v_sc, p0, axis=1)
+    write_block(cache_l.v_offset, v_off, p0, axis=1)
+    cache_l.length.copy_((pos0 + Tq).expand(B))
 
     # ---- attention for every query of the block ----
     q_h = q.reshape(B, Tq_all, Hkv, G, Dh).to(torch.float32)
@@ -583,7 +605,7 @@ def block_attention(cache_l: KVCache, lq: DeployedQuant, dcfg: DeployConfig,
         # g-major, row r at position pos_first + r % Tq_all
         from .kernels.flash_decode import flash_attention
 
-        pos_first = torch.full((B,), pos0 - ns, dtype=torch.int32, device=dev)
+        pos_first = (pos0 - ns).expand(B)
         out = flash_attention(
             q_rot.reshape(B, Hkv, G * Tq_all, Dh).contiguous(),
             cache_l.k_planes[None], cache_l.v_planes[None],

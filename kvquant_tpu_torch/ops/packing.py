@@ -14,7 +14,10 @@ int8. The write helpers update their target in place (the JAX functions
 return a new array). ``set_token_codes`` / ``set_token_rows`` take a host
 position and predicate; ``set_token_bits`` / ``write_rows`` take (B,)
 tensors of both on the target's device (JAX's ``_write_row_b``): the
-decode step's writes, which read nothing back to the host.
+decode step's writes, which read nothing back to the host. The block
+writes of a prefill chunk (``place_planes``, ``place_codes_int``,
+``place_codes_int4x2``, ``write_block``) take their start as a host int or
+as an int tensor on the device (JAX's ``dynamic_update_slice``).
 """
 
 from __future__ import annotations
@@ -132,21 +135,37 @@ def set_token_codes_at_layer_uniform(planes, codes, li: int, pos: int,
     return planes
 
 
-def place_planes(planes, codes, p0: int, bits: int):
+def write_block(arr, block, p0, axis: int = -2):
+    """Set ``arr``'s rows p0 .. p0 + n - 1 along ``axis`` to ``block`` (n
+    rows along that axis) in place: JAX's ``dynamic_update_slice``.
+    ``p0`` is a host int (a slice, which must fit) or a 0-d / (1,) int
+    tensor on ``arr``'s device (``index_copy_`` at p0 + arange(n), which
+    reads nothing back to the host; the caller checks that the block fits).
+    Both give the same array."""
+    n = block.shape[axis]
+    block = block.to(arr.dtype)
+    if isinstance(p0, torch.Tensor):
+        idx = p0.reshape(()).long() + torch.arange(n, device=arr.device)
+        return arr.index_copy_(axis % arr.dim(), idx, block)
+    assert 0 <= p0 and p0 + n <= arr.shape[axis], (p0, n, arr.shape)
+    arr.narrow(axis, p0, n).copy_(block)
+    return arr
+
+
+def place_planes(planes, codes, p0, bits: int):
     """Write an aligned token block in place: planes (..., H, bits, TW, D),
-    codes (..., T, H, D) unsigned, block start ``p0`` (a multiple of 128).
-    The block pads to whole 128-token groups with code 0, as the JAX
-    package's prompt pack does."""
-    assert p0 % GROUP == 0, p0
+    codes (..., T, H, D) unsigned, block start ``p0`` (a multiple of 128,
+    which the caller checks; a host int or a 0-d / (1,) int tensor on the
+    device, ``write_block``). The block pads to whole 128-token groups
+    with code 0, as the JAX package's prompt pack does."""
+    if not isinstance(p0, torch.Tensor):
+        assert p0 % GROUP == 0, p0
     c = torch.movedim(codes, -3, -2)  # (..., H, T, D)
     T = c.shape[-2]
     pad = -T % GROUP
     if pad:
         c = torch.nn.functional.pad(c, (0, 0, 0, pad))
-    words = pack_codes(c, bits)
-    w0 = p0 // 32
-    planes[..., w0:w0 + words.shape[-2], :] = words
-    return planes
+    return write_block(planes, pack_codes(c, bits), p0 // 32, axis=-2)
 
 
 # ---------------------------------------------------------------------------
@@ -190,13 +209,13 @@ def load_codes_int(arr: torch.Tensor, bits: int) -> torch.Tensor:
     return s + (1 << (bits - 1))
 
 
-def place_codes_int(arr, codes, p0: int, bits: int):
+def place_codes_int(arr, codes, p0, bits: int):
     """Write an aligned token block in place: arr (..., H, Tc, Dc), codes
-    (..., T, H, D) int32 unsigned, block start ``p0``. Returns ``arr``."""
+    (..., T, H, D) int32 unsigned, block start ``p0`` (a host int or a
+    0-d / (1,) int tensor on the device, ``write_block``). Returns
+    ``arr``."""
     c = torch.movedim(codes, -3, -2)  # (..., H, T, D)
-    T = c.shape[-2]
-    arr[..., p0:p0 + T, :] = store_codes_int(c, bits, arr.dtype)
-    return arr
+    return write_block(arr, store_codes_int(c, bits, arr.dtype), p0)
 
 
 # ---------------------------------------------------------------------------
@@ -220,13 +239,12 @@ def unpair_codes_int4x2(arr: torch.Tensor) -> torch.Tensor:
     return st.reshape(*arr.shape[:-3], -1, *st.shape[-2:])
 
 
-def place_codes_int4x2(arr, codes, p0: int):
+def place_codes_int4x2(arr, codes, p0):
     """Write an aligned token block of paired codes in place: arr
-    (..., H//2, Tc, D/2) uint8, codes (..., T, H, D) int32 unsigned."""
+    (..., H//2, Tc, D/2) uint8, codes (..., T, H, D) int32 unsigned,
+    ``p0`` as in ``place_codes_int``."""
     c = torch.movedim(pair_codes_int4x2(codes), -3, -2)  # (..., H//2, T, D/2)
-    T = c.shape[-2]
-    arr[..., p0:p0 + T, :] = c
-    return arr
+    return write_block(arr, c, p0)
 
 
 # ---------------------------------------------------------------------------

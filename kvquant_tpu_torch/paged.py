@@ -25,7 +25,9 @@ the server keeps them on the host (numpy) and copies them in. On a card the
 server's greedy step is one CUDA graph (``PagedGraph``), the counterpart of
 the JAX server's jitted step, replayed once per step and H times for a
 burst, where JAX scans its burst; the JAX step's ``lax.scan`` over layers
-is a Python loop inside the captured step.
+is a Python loop inside the captured step. Chunked admission replays the
+chunk graphs of a held admission cache (``serve.AdmissionCache``), where
+JAX jits one chunk function per temporary capacity.
 """
 
 from __future__ import annotations
@@ -411,7 +413,12 @@ class PagedServer:
     and the temporary caches (default "cuda"). The decode step is the
     greedy ``PagedStep``: on a card one ``PagedGraph`` captured here and
     replayed once per step, H times per burst; on the CPU the same body
-    steps eagerly."""
+    steps eagerly. Chunked admission runs in a held temporary cache per
+    temporary capacity (``serve.AdmissionCache``), owned by the admission
+    that advances and reset as it starts; on a card its chunks replay that
+    cache's two ``engine.ChunkGraph``s (the sink chunk, a later chunk).
+    The caches of every capacity view one buffer of ``MP`` pages and their
+    graphs share one pool (``serve.AdmissionMemory``)."""
 
     def __init__(self, params, cfg, dcfg: DeployConfig, dq, n_pages: int,
                  n_slots: int, max_pages_per_slot: int, seed: int = 0,
@@ -429,6 +436,8 @@ class PagedServer:
         # admission is pending
         self.burst = burst
         self.admitting = []
+        self._adm_caches = {}  # cache_tokens -> serve.AdmissionCache
+        self._adm_memory = None  # serve.AdmissionMemory, which they share
         assert admit_chunk % 128 == 0
         self.device = resolve_device(device)
         self.pool = create_paged_pool(dcfg, cfg.n_layers, n_pages, n_slots,
@@ -526,23 +535,45 @@ class PagedServer:
             toks[0, :T0] = req.prompt
             self.admitting.append(dict(
                 req=req, slot=b, pages=pages, tmp_dcfg=tmp_dcfg,
-                cache=create_cache(tmp_dcfg, self.cfg.n_layers, 1,
-                                   device=self.device),
                 toks=toks, n_chunks=n_chunks, ci=0,
             ))
 
+    def _admission_cache(self, tmp_dcfg: DeployConfig):
+        """The held admission cache (``serve.AdmissionCache``: the cache
+        and, on a card, its sink-chunk and later-chunk graphs) of the
+        temporary capacity ``tmp_dcfg.cache_tokens``, as JAX's chunk
+        functions are keyed; at most ``MP`` of them. They share one
+        ``serve.AdmissionMemory``: a cache of ``MP`` pages, one graph pool
+        and one logits buffer for each chunk shape."""
+        from .serve import AdmissionCache, AdmissionMemory
+
+        key = tmp_dcfg.cache_tokens
+        if key not in self._adm_caches:
+            if self._adm_memory is None:
+                self._adm_memory = AdmissionMemory.create(
+                    replace(self.dcfg, max_len=self.dcfg.sink
+                            + self.MP * self.dcfg.page_tokens),
+                    self.cfg.n_layers, self.device)
+            self._adm_caches[key] = AdmissionCache(
+                self.params, self.cfg, tmp_dcfg, self.dq, self.device,
+                memory=self._adm_memory)
+        return self._adm_caches[key]
+
     def _step_admission(self, adm) -> bool:
-        """Run ONE quantized-trajectory prompt chunk; True when finished."""
+        """Run ONE quantized-trajectory prompt chunk into the admission
+        cache of its capacity (reset at the admission's first chunk); True
+        when finished."""
         S, chunk = self.dcfg.sink, self.admit_chunk
+        held = self._admission_cache(adm["tmp_dcfg"])
         ci = adm["ci"]
         if ci == 0:
+            held.start()
             blk, pos0, sf = adm["toks"][:, :S + chunk], S, True
         else:
             a = S + ci * chunk
             blk, pos0, sf = adm["toks"][:, a:a + chunk], a, False
-        adm["cache"], logits = self._engine.prefill_chunk(
-            self.params, self.cfg, adm["tmp_dcfg"], self.dq, adm["cache"],
-            torch.as_tensor(blk, device=self.device), pos0, sf)
+        logits = held.chunk(torch.as_tensor(blk, device=self.device), pos0,
+                            sf)
         adm["ci"] += 1
         if adm["ci"] < adm["n_chunks"]:
             return False
@@ -561,8 +592,11 @@ class PagedServer:
         adm = self.admitting[0]
         if self._step_admission(adm):
             self.admitting.pop(0)
+            # copied into the pages on the stream, before the next
+            # admission's reset
             self._activate(adm["req"], adm["slot"], adm["pages"],
-                           adm["cache"], adm["last_logits"])
+                           self._admission_cache(adm["tmp_dcfg"]).cache,
+                           adm["last_logits"])
 
     def _admit(self):
         if self.admit_mode == "chunked":

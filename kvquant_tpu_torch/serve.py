@@ -12,7 +12,11 @@ kvquant_tpu/serve.py).
     the slot's batch row. admit_mode="chunked" spreads that prefill over
     server steps, ONE quantized-trajectory prompt chunk per step
     (engine.prefill_chunk), so active slots keep decoding while a long
-    prompt streams in;
+    prompt streams in. The server holds one admission cache, which the
+    admission that advances owns (reset as it starts), and on a card two
+    ``engine.ChunkGraph``s over it, the sink chunk and a later chunk (the
+    JAX server's jitted chunk, ``sink_fill`` static); pending admissions
+    hold only their tokens;
   - ServerPool adds capacity classes: one Server per max_len class;
   - sampling is host-side per request (greedy / temperature, numpy RNG as
     the JAX server's).
@@ -32,7 +36,7 @@ import torch
 
 from . import engine
 from .cache import (KVCache, DeployConfig, DeployedQuant, create_cache,
-                    check_intn_codebook)
+                    cache_storage_bytes, check_intn_codebook, reset_cache)
 from .device import resolve_device
 from .models.config import ModelConfig
 
@@ -54,16 +58,99 @@ class Completion:
 
 @dataclass
 class _Admission:
-    """In-flight chunked admission: a 1-sequence cache filled one prompt
-    chunk per server step."""
+    """In-flight chunked admission: its padded prompt, run one chunk per
+    server step into the admission cache (``AdmissionCache``) once it is
+    the first in line."""
 
     req: Request
     slot: int
-    cache: KVCache
     toks: np.ndarray  # (1, S + n_chunks*chunk) padded prompt
     n_chunks: int
     ci: int = 0
     last_logits: np.ndarray | None = None
+
+
+@dataclass
+class AdmissionMemory:
+    """The memory that a server's admission caches share: ``storage``, a
+    byte buffer that the cache of every capacity views
+    (``cache.create_cache(storage=...)``), and on a card ``pool``, the
+    graph pool of their chunk graphs, and ``logits``, the buffers those
+    graphs write, one for each chunk shape. Only one admission advances at
+    a time and it resets its cache as it starts, so the caches take turns:
+    the memory held is that of the largest cache and of one chunk's work,
+    however many capacities there are."""
+
+    storage: torch.Tensor
+    pool: object = None
+    logits: dict = field(default_factory=dict)  # (B, Tq) -> (B, Tq, V)
+
+    @classmethod
+    def create(cls, dcfg: DeployConfig, n_layers: int, device):
+        """Room for a 1-sequence cache of ``dcfg``'s capacity (or less)."""
+        dev = resolve_device(device)
+        storage = torch.empty(cache_storage_bytes(dcfg, n_layers, 1),
+                              dtype=torch.uint8, device=dev)
+        return cls(storage, torch.cuda.graph_pool_handle()
+                   if dev.type == "cuda" else None)
+
+    def logits_buffer(self, shape, vocab: int) -> torch.Tensor:
+        if tuple(shape) not in self.logits:
+            self.logits[tuple(shape)] = torch.empty(
+                (*shape, vocab), dtype=torch.float32,
+                device=self.storage.device)
+        return self.logits[tuple(shape)]
+
+
+class AdmissionCache:
+    """The 1-sequence cache that chunked admission fills, held for the
+    server's life in ``memory`` (an ``AdmissionMemory``, its own unless
+    the server shares one between capacities), and on a card the two
+    ``engine.ChunkGraph``s over it (the sink chunk, a later chunk), each
+    captured at the first chunk of its kind; elsewhere, and for the
+    configurations that ``engine.graph_unsupported`` names, the chunks run
+    as ``engine.prefill_chunk`` calls. Only the admission that advances
+    owns the cache, and ``start()`` resets it, so a graph's warm-up may
+    write anything into it."""
+
+    def __init__(self, params, cfg: ModelConfig, dcfg: DeployConfig,
+                 dq: DeployedQuant, device,
+                 memory: AdmissionMemory | None = None):
+        self.params, self.cfg, self.dcfg, self.dq = params, cfg, dcfg, dq
+        self.memory = memory or AdmissionMemory.create(dcfg, cfg.n_layers,
+                                                       device)
+        self.cache = create_cache(dcfg, cfg.n_layers, 1,
+                                  storage=self.memory.storage)
+        self.graphed = engine.chunk_graphable(self.cache, cfg)
+        self.graphs: dict[bool, engine.ChunkGraph] = {}  # by sink_fill
+
+    def start(self):
+        """A new admission owns the cache: zero it."""
+        reset_cache(self.cache)
+
+    def chunk(self, blk: torch.Tensor, pos0: int, sink_fill: bool):
+        """One prompt chunk ``blk`` (1, Tq) at ``pos0`` into the cache;
+        returns its logits (1, Tq, V), which the next chunk of its shape
+        may overwrite."""
+        S = self.dcfg.sink
+        p0, n = max(pos0 - S, 0), blk.shape[1] - (S if sink_fill else 0)
+        assert p0 + n <= self.dcfg.cache_tokens, (
+            f"packed tokens [{p0}, {p0 + n}) exceed the cache's "
+            f"{self.dcfg.cache_tokens}")
+        if not self.graphed:
+            return engine.prefill_chunk(self.params, self.cfg, self.dcfg,
+                                        self.dq, self.cache, blk, pos0,
+                                        sink_fill)[1]
+        graph = self.graphs.get(sink_fill)
+        if graph is None:
+            m = self.memory
+            graph = self.graphs[sink_fill] = engine.ChunkGraph(
+                self.params, self.cfg, self.dcfg, self.dq, self.cache, blk,
+                pos0, sink_fill,
+                out=m.logits_buffer(blk.shape, self.cfg.vocab_size),
+                pool=m.pool)
+            return graph.first
+        return graph(blk, pos0)
 
 
 class Server:
@@ -92,6 +179,7 @@ class Server:
         self._rng = np.random.default_rng(seed)
         self.decode_steps = 0  # telemetry: decode advanced this many steps
         self._step = None  # engine.decode_stepper, built at the first step
+        self._adm = None  # AdmissionCache, built at the first chunk
 
     # ------------------------------------------------------------------
     def submit(self, req: Request):
@@ -151,33 +239,33 @@ class Server:
             n_chunks = -(-(T0 - S) // chunk)
             toks = np.zeros((1, S + n_chunks * chunk), np.int32)
             toks[0, :T0] = req.prompt
-            self.admitting.append(_Admission(
-                req=req, slot=b,
-                cache=create_cache(self.dcfg, self.cfg.n_layers, 1,
-                                   device=self.device),
-                toks=toks, n_chunks=n_chunks,
-            ))
+            self.admitting.append(_Admission(req=req, slot=b, toks=toks,
+                                             n_chunks=n_chunks))
             busy.add(b)
 
     def _step_admission(self, adm: _Admission) -> bool:
-        """Run ONE prompt chunk; returns True when the admission finished."""
+        """Run ONE prompt chunk into the admission cache (reset at the
+        admission's first chunk); returns True when the admission
+        finished."""
         S, chunk = self.dcfg.sink, self.admit_chunk
+        if self._adm is None:
+            self._adm = AdmissionCache(self.params, self.cfg, self.dcfg,
+                                       self.dq, self.device)
         ci = adm.ci
         if ci == 0:
+            self._adm.start()
             blk, pos0, sf = adm.toks[:, :S + chunk], S, True
         else:
             a = S + ci * chunk
             blk, pos0, sf = adm.toks[:, a:a + chunk], a, False
-        adm.cache, logits = engine.prefill_chunk(
-            self.params, self.cfg, self.dcfg, self.dq, adm.cache,
-            self._prompt(blk), pos0, sf)
+        logits = self._adm.chunk(self._prompt(blk), pos0, sf)
         adm.ci += 1
         if adm.ci < adm.n_chunks:
             return False
         T0 = len(adm.req.prompt)
         last = (T0 - 1) - (S + (adm.n_chunks - 1) * chunk) \
             if adm.n_chunks > 1 else T0 - 1
-        adm.cache.length.fill_(T0)
+        self._adm.cache.length.fill_(T0)
         adm.last_logits = logits[0, last].cpu().numpy()
         return True
 
@@ -190,7 +278,9 @@ class Server:
         adm = self.admitting[0]
         if self._step_admission(adm):
             self.admitting.pop(0)
-            self._activate(adm.slot, adm.req, adm.cache, adm.last_logits)
+            # copied out on the stream, before the next admission's reset
+            self._activate(adm.slot, adm.req, self._adm.cache,
+                           adm.last_logits)
 
     def _admit(self):
         if self.admit_mode == "sync":
