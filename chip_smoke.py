@@ -192,6 +192,22 @@ The MoE family and the HF loader:
      R 6, K5 at B=4 x 8K) against plain, with times and bounds; K2 at G 3 /
      6 against plain; the decode edge grid at G 3 / 6 through K1 and K5;
      a toy MoE's greedy tokens card == CPU through K1 and K2.
+     The MoE family's compiled step: the expert products' kernel
+     (csrc/moe_experts.cu, moe_glu then moe_down) against its plain version
+     at layer 0's weights, C 1 / 2 / 4 / 8 with empty experts and a batch
+     of identical tokens that overflows capacity (tokens past it get a
+     zero FFN), timed at the decode shape beside its byte bound,
+     per-expert torch.matmul and torch.bmm over all experts; the 2048-token
+     quantized prefill's chunk graph == eager chunks bitwise; for each of
+     the three paths 16 greedy steps graphed and eager from clones of one
+     cache: tokens, logits, caches bitwise, launches a step (moe_experts
+     on every layer) == the port's kernels by name in a replay's trace,
+     device ms, wall / device and idle, the expert products' device ms in
+     a graphed step (moe_glu + moe_down by name) beside the routed and
+     all-experts bounds, capture s and pool MiB, and one eager step under
+     torch.cuda's sync debug mode "error"; the fp16-KV baseline's graph
+     == eager; serve.Server on the toy MoE (4 slots, chunked admission)
+     graphed == eager.
 Tensor parallelism (kvquant_tpu_torch/parallel):
  26. tp 2 on the one card: two rank processes on cuda:0 joined over gloo
      (backend="gloo", set explicitly: NCCL takes one card per rank, and
@@ -318,7 +334,8 @@ import torch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, NVIDIA data sheet
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak, data sheet
 FP32_TOL = 1e-4  # fp32 dots: |kernel - plain| <= FP32_TOL * (1 + max|plain|)
-SOURCES = ("flash_serial", "flash_decode", "attention")  # csrc/<name>.cu
+SOURCES = ("flash_serial", "flash_decode", "attention",
+           "moe_experts")  # csrc/<name>.cu
 VERBOSE_BUILD = False  # --verbose-build: nvcc's register / spill report
 # the kernels' device times before their last redesign (PERF.md §6; an
 # H100 80GB HBM3 at 700 W): K1 / K5 before fd_decode and fd_chunk, K3 / K4
@@ -516,6 +533,7 @@ def phase_device_and_build(report):
     from kvquant_tpu_torch.ops.kernels import build, flash_decode as fd
     from kvquant_tpu_torch.ops.kernels import attention as at
     from kvquant_tpu_torch.ops.kernels import flash_serial as fs
+    from kvquant_tpu_torch.ops.kernels import moe_experts as mx
 
     # one nvcc per source, all started together
     t0 = time.perf_counter()
@@ -526,6 +544,7 @@ def phase_device_and_build(report):
     fs.load_library()
     fd.load_library()
     at.load_library()
+    mx.load_library()
     log(f"[1] built and loaded {', '.join(f'csrc/{n}.cu' for n in SOURCES)} "
         f"in {time.perf_counter() - t0:.1f} s (nvcc " + ", ".join(
             f"{n} {build.build_seconds.get(n, 0.0):.1f} s" for n in SOURCES)
@@ -2232,11 +2251,12 @@ def reset_launches():
     from kvquant_tpu_torch.ops.kernels import attention as at
     from kvquant_tpu_torch.ops.kernels import flash_decode as fd
     from kvquant_tpu_torch.ops.kernels import flash_serial as fs
+    from kvquant_tpu_torch.ops.kernels import moe_experts as mx
     from kvquant_tpu_torch.ops.kernels import paged_decode as pdk
 
     counters = {"K1": fd.flash_attention, "K2": fs.flash_serial_decode,
                 "K3": at.qk_fused, "K4": at.pv_fused,
-                "K5": pdk.paged_flash_decode}
+                "K5": pdk.paged_flash_decode, "moe_experts": mx.moe_experts}
     for fn in counters.values():
         fn.launches = 0
     fd.flash_attention.chunk_launches = 0
@@ -3701,10 +3721,12 @@ ATTN_KERNEL = ("fd_", "fs_", "qk_", "pv_")  # the port's kernels' names
 
 def moe_profile(tag, step, steps, prof_steps=3):
     """``decode_profile`` for an MoE model, with the device time of a step
-    split into the expert FFN (kernels launched inside ``moe.moe_ffn``,
-    marked by a profiler range), the attention kernel (the port's CUDA
-    kernels) and the rest. Returns (tok/s, dict of device ms per step and
-    the idle share)."""
+    split into the expert FFN, the attention kernel (the port's CUDA
+    kernels) and the rest. The expert FFN is the ATen kernels launched
+    inside ``moe.moe_ffn``, marked by a profiler range, plus the expert
+    products' kernels by name (moe_glu, moe_down): the profiler does not
+    attribute a kernel launched through ctypes to the range. Returns
+    (tok/s, dict of device ms per step and the idle share)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from kvquant_tpu_torch.models import moe
@@ -3739,21 +3761,28 @@ def moe_profile(tag, step, steps, prof_steps=3):
     dev_ms = sum(e.self_device_time_total for e in ev) / prof_steps / 1e3
     attn_ms = sum(e.self_device_time_total for e in ev
                   if any(k in e.key for k in ATTN_KERNEL)) / prof_steps / 1e3
-    expert_ms = sum(e.device_time_total for e in prof.events()
-                    if e.name == "expert_ffn"
-                    and e.device_type == torch.autograd.DeviceType.CPU
-                    ) / prof_steps / 1e3
+    range_ms = sum(e.device_time_total for e in prof.events()
+                   if e.name == "expert_ffn"
+                   and e.device_type == torch.autograd.DeviceType.CPU
+                   ) / prof_steps / 1e3
+    products_ms = sum(e.self_device_time_total for e in ev
+                      if any(f"::{k}<" in e.key
+                             for k in ("moe_glu", "moe_down"))
+                      ) / prof_steps / 1e3
+    expert_ms = range_ms + products_ms
     idle = 1 - dev_ms * tps / 1e3
     log(f"{tag} decode {tps:.2f} tok/s (host wall time, {steps} steps); "
         f"profiler over {prof_steps} steps: device {dev_ms:.3f} ms/step = "
-        f"expert FFN {expert_ms:.3f} + attention kernel {attn_ms:.3f} + rest "
+        f"expert FFN {expert_ms:.3f} (its range {range_ms:.3f} + the expert "
+        f"products {products_ms:.3f}) + attention kernel {attn_ms:.3f} + rest "
         f"{dev_ms - expert_ms - attn_ms:.3f}; {1e3 / tps:.3f} ms/step "
         f"unprofiled wall (device idle share {idle:.3f}); "
         f"{sum(e.count for e in ev) / prof_steps:.0f} kernels/step")
     for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:6]:
         log(f"{tag}   {e.self_device_time_total / prof_steps / 1e3:8.3f} "
             f"ms/step  x{e.count // prof_steps:5d}  {e.key[:90]}")
-    return tps, dict(device_ms=dev_ms, expert_ms=expert_ms, attn_ms=attn_ms,
+    return tps, dict(device_ms=dev_ms, expert_ms=expert_ms,
+                     expert_products_ms=products_ms, attn_ms=attn_ms,
                      rest_ms=dev_ms - expert_ms - attn_ms, idle=idle)
 
 
@@ -3952,13 +3981,12 @@ def dbrx_kernel_times(tag, cfg):
     return rows
 
 
-def toy_moe_card_vs_cpu(tag):
+def toy_moe():
     """A toy MoE (12 / 2 heads, G 6, 4 experts top 2, sparse, LayerNorm;
-    fp32 weights drawn on the CPU) gives the same 16 greedy tokens on the
-    card and on the CPU: through K2 (int4 post-RoPE channels) and through
-    K1 (nuq3 pre-RoPE slots) with the fp16 and the quantized prefill."""
-    from kvquant_tpu_torch import engine
-    from kvquant_tpu_torch.cache import DeployConfig, deployed_from_quantizers
+    fp32 weights drawn on the CPU): (cfg, CPU params, the same on the card,
+    kernel -> (QuantizerSet, DeployConfig)) for "flash_serial" (int4
+    post-RoPE channels) and "flash" (nuq3 pre-RoPE slots)."""
+    from kvquant_tpu_torch.cache import DeployConfig
     from kvquant_tpu_torch.models import moe
     from kvquant_tpu_torch.quant.artifacts import (
         KQuantizer, VQuantizer, LayerQuantizers, QuantizerSet)
@@ -3974,15 +4002,13 @@ def toy_moe_card_vs_cpu(tag):
             "layers": {k: v.numpy() for k, v in cpu.layers.items()}}
     gpu = moe.params_from_numpy(tree, cfg, device="cuda")
     rng = np.random.default_rng(254)
-    prompt = torch.randint(0, cfg.vocab_size, (1, 16),
-                           generator=torch.Generator().manual_seed(255))
-    gcfg = engine.GenerateConfig(max_new_tokens=16)
     storage = {
         "flash_serial": (4, dict(codes="int4", post_rope_k=True,
                                  k_outliers="channels", n_kc=4,
                                  cap_per_side=0)),
         "flash": (3, dict(codes="nuq", post_rope_k=False,
                           k_outliers="slots", cap_per_side=2))}
+    out = {}
     for kernel, (bits, kw) in storage.items():
         lut = np.linspace(-1, 1, 2 ** bits, dtype=np.float32)
         layers = []
@@ -3996,10 +4022,25 @@ def toy_moe_card_vs_cpu(tag):
                 v=VQuantizer(lut=lut.copy())))
         qs = QuantizerSet(layers=layers, bits=bits, sparsity_threshold=0.99,
                           cap_outliers=True, first_few_fp16=5)
-        dcfg = DeployConfig.create(
+        out[kernel] = (qs, DeployConfig.create(
             bits=bits, n_kv_heads=cfg.n_kv_heads, d_head=cfg.d_head,
             max_len=5 + 256 + 32, sink=5, kernel=kernel, head_group=2,
-            dot_bf16=False, **kw)
+            dot_bf16=False, **kw))
+    return cfg, cpu, gpu, out
+
+
+def toy_moe_card_vs_cpu(tag):
+    """The toy MoE (``toy_moe``) gives the same 16 greedy tokens on the
+    card and on the CPU: through K2 (int4 post-RoPE channels) and through
+    K1 (nuq3 pre-RoPE slots) with the fp16 and the quantized prefill."""
+    from kvquant_tpu_torch import engine
+    from kvquant_tpu_torch.cache import deployed_from_quantizers
+
+    cfg, cpu, gpu, storage = toy_moe()
+    prompt = torch.randint(0, cfg.vocab_size, (1, 16),
+                           generator=torch.Generator().manual_seed(255))
+    gcfg = engine.GenerateConfig(max_new_tokens=16)
+    for kernel, (qs, dcfg) in storage.items():
         for mode in (("fp16",) if kernel == "flash_serial"
                      else ("fp16", "quantized")):
             out = {}
@@ -4016,6 +4057,337 @@ def toy_moe_card_vs_cpu(tag):
             if not same:
                 raise AssertionError(f"card {out['cuda']} != cpu "
                                      f"{out['cpu']}")
+
+
+# moe_experts against its plain version: bf16 gate / up / silu * up and y
+# are rounded in both, so a rounding flipped by another fp32 sum order
+# moves an element by an ulp or two of bf16: |err| <= MOE_TOL x max|plain|
+MOE_TOL = 2e-2
+
+
+def moe_kernel_check(tag, lp, cfg):
+    """``moe_experts`` against ``moe_experts_plain`` at one DBRX
+    layer's weights (E 16, D 6144, F 10752, bf16): C 1 / 2 / 4 / 8 with
+    counts drawn in 1..C and every third expert empty, and the slots of a
+    batch of 4 identical tokens (C 2: each routed expert keeps tokens 0
+    and 1, tokens 2 and 3 lose all four, so their FFN output is 0); then
+    the main path's shape (C 1, the top_k experts of one token live)
+    timed: the kernel, the plain version, per-expert ``torch.matmul`` on
+    the live rows (the eager route before) and ``torch.bmm`` over all E
+    experts (``swiglu_products``), device ms between CUDA events (median
+    of 7), beside the byte bound (the live experts' weights, xe and y at
+    3.35 TB/s). Returns the record for the kernels line."""
+    import torch.nn.functional as F
+
+    from kvquant_tpu_torch.models import moe
+    from kvquant_tpu_torch.ops.kernels import moe_experts as mx
+
+    E, D, Fd = cfg.n_experts, cfg.d_model, cfg.d_ff
+    wts = (lp["w_gate"], lp["w_up"], lp["w_down"])
+    gen = torch.Generator(device="cuda").manual_seed(251)
+    cases = []
+    for C in (1, 2, 4, 8):
+        xe = torch.randn((E, C, D), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        count = torch.randint(1, C + 1, (E,), generator=gen, device="cuda",
+                              dtype=torch.int32)
+        count[::3] = 0
+        cases.append((f"C {C}", xe, count))
+    h = torch.randn((1, D), generator=gen, device="cuda").to(
+        torch.bfloat16).expand(4, D).contiguous()
+    _, w = moe._router_weights(h, lp, cfg)
+    C4 = moe.capacity(4, cfg)
+    s = moe.dispatch_slots(w, C4)
+    xe4 = torch.cat([h, h.new_zeros((1, D))])[s.tokens]
+    cases.append((f"4 identical tokens, C {C4}", xe4, s.count))
+    worst = 0.0
+    for name, xe, count in cases:
+        got = mx.moe_experts(xe, count, *wts)
+        want = mx.moe_experts_plain(xe, count, *wts)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        dead = torch.arange(xe.shape[1], device="cuda")[None] >= \
+            count[:, None]
+        log(f"{tag} moe_experts {name}, counts {count.tolist()}: "
+            f"max|kernel-plain| {err:.3e} (tol {MOE_TOL * scale:.1e}, "
+            f"max|plain| {scale:.3e})")
+        if not (err <= MOE_TOL * scale and bool(torch.isfinite(got).all())
+                and not got[dead].any()):
+            raise AssertionError(f"{tag} moe_experts disagrees with plain: "
+                                 f"{name}")
+        worst = max(worst, err)
+    ffn = moe.moe_ffn_sparse(h, lp, cfg)
+    kept = s.keep.sum(1).tolist()
+    log(f"{tag} 4 identical tokens: kept pairs per token {kept}; FFN rows "
+        f"2-3 zero {not ffn[2:].any()}, rows 0 == 1 "
+        f"{torch.equal(ffn[0], ffn[1])}")
+    if not (kept == [cfg.top_k] * 2 + [0, 0] and not ffn[2:].any()
+            and torch.equal(ffn[0], ffn[1]) and bool(ffn[0].any())):
+        raise AssertionError(f"{tag} the overflowing batch: kept {kept}")
+
+    # the main path's call: B=1, C 1, the router's top_k experts live
+    xe1 = torch.randn((E, 1, D), generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    count1 = torch.zeros((E,), dtype=torch.int32, device="cuda")
+    live = torch.randperm(E, generator=gen, device="cuda")[:cfg.top_k]
+    count1[live] = 1
+    rows = {int(e): xe1[int(e)] for e in live.tolist()}
+
+    def per_expert():
+        for e, x in rows.items():
+            (F.silu(x @ wts[0][e]) * (x @ wts[1][e])) @ wts[2][e]
+
+    ms = {"ms": device_ms(lambda: mx.moe_experts(xe1, count1, *wts), n=10),
+          "plain_ms": device_ms(lambda: mx.moe_experts_plain(
+              xe1, count1, *wts), n=10),
+          "library_ms": device_ms(lambda: mx.swiglu_products(xe1, *wts),
+                                  n=10),
+          "per_expert_matmul_ms": device_ms(per_expert, n=10)}
+    nbytes = (cfg.top_k * 3 * D * Fd + 2 * E * D) * 2
+    ms["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"{tag} moe_experts at the decode shape (B=1: C 1, {cfg.top_k} of "
+        f"{E} experts live): kernel {ms['ms']:.4f} ms, bound "
+        f"{ms['bound_ms']:.4f} ms ({nbytes / 1e9:.3f} GB at 3.35 TB/s; "
+        f"{ms['bound_ms'] / ms['ms']:.1%}), plain {ms['plain_ms']:.4f}, "
+        f"per-expert torch.matmul {ms['per_expert_matmul_ms']:.4f}, "
+        f"torch.bmm over all {E} experts {ms['library_ms']:.4f}")
+    return dict(max_abs_err=worst, **ms)
+
+
+def dbrx_graph_vs_eager(tag, params, cfg, dcfg, dq, cache, ctx, steps,
+                        want, bounds):
+    """DBRX decode graphed beside eager from clones of one cache
+    at ``ctx``: ``steps`` greedy steps, tokens, every step's logits and the
+    caches bitwise; device ms a step (replays back to back), wall / device
+    and idle of each; a replay's trace: kernels, the port's kernels by
+    name == the counters a step (``want``, moe_experts on every layer), the
+    expert products' device ms (``moe_glu`` + ``moe_down``); capture s,
+    pool MiB; one eager step under sync-debug "error" (an op that makes
+    the host wait raises). ``bounds``: the expert weights' read at 3.35
+    TB/s a step, (routed experts only, all experts), in ms."""
+    from kvquant_tpu_torch import engine
+    from kvquant_tpu_torch.cache import static_channels
+
+    cache_g = clone_cache(cache)
+    graph = engine.DecodeGraph(params, cfg, dcfg, dq, cache_g)
+    k_chan = static_channels(dq, dcfg)
+
+    def eager(tok, pos):
+        return engine.decode_step(params, cfg, dcfg, dq, cache, tok, pos,
+                                  k_chan=k_chan)[1]
+
+    tok_e, lg_e, wall_e, n_e = greedy_run(eager, ctx, steps)
+    tok_g, lg_g, wall_g, n_g = greedy_run(graph, ctx, steps)
+    r = {"capture_s": graph.capture_s, "pool_mib": graph.pool_mib,
+         "tokens_equal": bool(torch.equal(tok_e, tok_g)),
+         "logits_bitwise": bitwise(lg_e, lg_g),
+         "caches_equal": caches_equal(cache, cache_g),
+         "finite": bool(torch.isfinite(lg_g).all())}
+    per = {k: v / steps for k, v in n_g.items() if v}
+    pos_end = torch.full((1,), ctx + steps, dtype=torch.int32, device="cuda")
+    tok = tok_e[:, -1]
+    dev = device_ms(lambda: graph(tok, pos_end), n=8, reps=3)
+    for mode, step, wall in (("eager", eager, wall_e),
+                             ("graphed", graph, wall_g)):
+        kms, kern, own, own_ms = step_trace(
+            lambda: step(tok, pos_end), n=2,
+            kernels={**OWN_KERNELS, "moe_down": ("moe_down",)})
+        wall_ms = wall / steps * 1e3
+        moe_ms = {"moe_glu": own_ms.get("moe_experts", 0.0),
+                  "moe_down": own_ms.get("moe_down", 0.0)}
+        r[mode] = {"tok_s": steps / wall, "wall_ms": wall_ms,
+                   "wall_per_device": wall_ms / dev, "idle": 1 - dev / wall_ms,
+                   "kernel_ms": kms, "kernels": kern,
+                   "moe_down_launches": own.pop("moe_down", 0.0),
+                   "trace_launches": own,
+                   "expert_products_ms": sum(moe_ms.values()),
+                   "expert_products_by_name": moe_ms}
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager(tok, pos_end)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    r.update(device_ms=dev, launches_per_step=per)
+    e, g = r["eager"], r["graphed"]
+    log(f"{tag} {ctx} ctx, {steps} steps: device {dev:.3f} ms a step "
+        f"(graph replays); eager {e['tok_s']:.2f} tok/s (wall "
+        f"{e['wall_ms']:.3f} ms, {e['wall_per_device']:.3f} x device, "
+        f"idle {e['idle']:.3f}); graphed {g['tok_s']:.2f} tok/s (wall "
+        f"{g['wall_ms']:.3f} ms, {g['wall_per_device']:.3f} x device, idle "
+        f"{g['idle']:.3f}); kernels a replay {g['kernels']:.0f} "
+        f"({g['kernel_ms']:.3f} kernel ms); the expert products "
+        f"(moe_glu + moe_down) {g['expert_products_ms']:.3f} ms a graphed "
+        f"step ({g['expert_products_by_name']}) against the expert weights' "
+        f"read {bounds[0]:.2f} ms (routed) / {bounds[1]:.2f} ms (all "
+        f"experts); launches a step {per}, "
+        f"the port's kernels in a replay's trace {g['trace_launches']}; "
+        f"capture {graph.capture_s:.3f} s, pool {graph.pool_mib:.1f} MiB; "
+        f"graphed == eager: tokens {r['tokens_equal']}, logits bitwise "
+        f"{r['logits_bitwise']}, caches {r['caches_equal']}; an eager step "
+        f"under sync-debug \"error\" ran")
+    if not (r["tokens_equal"] and r["logits_bitwise"] and r["caches_equal"]
+            and r["finite"]):
+        raise AssertionError(f"{tag}: graphed != eager")
+    if n_e != n_g or per != want:
+        raise AssertionError(f"{tag}: launches a step eager {n_e} graphed "
+                             f"{n_g}, expected {want} a step")
+    if not (e["trace_launches"] == g["trace_launches"] == want
+            and e["moe_down_launches"] == g["moe_down_launches"]
+            == want["moe_experts"]):
+        raise AssertionError(
+            f"{tag}: the trace a step {g['trace_launches']}, moe_down "
+            f"{g['moe_down_launches']} (eager {e['trace_launches']}, "
+            f"{e['moe_down_launches']}), counters {want}")
+    del graph, cache_g
+    return r
+
+
+def dbrx_prefill_graph(tag, params, cfg, dcfg, dq, prompt, chunk):
+    """The quantized prefill of ``prompt`` through a chunk graph
+    (chunk 0 eager, 1 the warm-up, replays after) beside every chunk
+    eager: every chunk's logits and the caches bitwise; the wall of
+    prefill_quantized both ways; capture s, pool MiB, launches a
+    replay."""
+    from kvquant_tpu_torch import engine
+    from kvquant_tpu_torch.cache import create_cache
+
+    S = dcfg.sink
+    n_chunks = -(-(prompt.shape[1] - S) // chunk)
+    toks = torch.nn.functional.pad(
+        prompt, (0, n_chunks * chunk - (prompt.shape[1] - S)))
+    walls = {}
+    for mode in ("eager", "graphed"):
+        cache = create_cache(dcfg, cfg.n_layers, 1, device="cuda")
+        ctx = eager_prefill() if mode == "eager" \
+            else contextlib.nullcontext()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with ctx:
+            engine.prefill_quantized(params, cfg, dcfg, dq, cache, prompt,
+                                     chunk=chunk)
+        torch.cuda.synchronize()
+        walls[mode] = time.perf_counter() - t0
+        del cache
+    ce = create_cache(dcfg, cfg.n_layers, 1, device="cuda")
+    lg_e, _ = chunk_loop(params, cfg, dcfg, dq, ce, toks, chunk, False)
+    cg = create_cache(dcfg, cfg.n_layers, 1, device="cuda")
+    lg_g, graph = chunk_loop(params, cfg, dcfg, dq, cg, toks, chunk, True)
+    r = {"eager_wall_s": walls["eager"], "graphed_wall_s": walls["graphed"],
+         "capture_s": graph.capture_s, "pool_mib": graph.pool_mib,
+         "launches_per_replay": dict(graph.launches),
+         "logits_bitwise": all(bitwise(a, b) for a, b in zip(lg_e, lg_g)),
+         "caches_equal": caches_equal(ce, cg),
+         "finite": all(bool(torch.isfinite(x).all()) for x in lg_g)}
+    log(f"{tag} quantized prefill {prompt.shape[1]} tokens ({n_chunks} "
+        f"chunks of {chunk}): eager {walls['eager']:.3f} s, graphed "
+        f"{walls['graphed']:.3f} s; chunk graph capture "
+        f"{graph.capture_s:.3f} s, pool {graph.pool_mib:.1f} MiB, launches "
+        f"a replay {r['launches_per_replay']}; every chunk's logits bitwise "
+        f"{r['logits_bitwise']}, caches equal {r['caches_equal']}")
+    if not (r["logits_bitwise"] and r["caches_equal"] and r["finite"]):
+        raise AssertionError(f"{tag}: the chunk graph != eager chunks")
+    del graph, ce, cg, lg_e, lg_g
+    torch.cuda.empty_cache()
+    return r
+
+
+def dbrx_fp16_graph(tag, params, cfg, fcache, ctx, steps):
+    """The fp16-KV baseline's step graphed beside eager from clones of
+    one cache: tokens, logits, caches bitwise; device ms, tok/s."""
+    from kvquant_tpu_torch import baseline_fp16
+
+    ref = baseline_fp16.Fp16Cache(**{
+        f.name: getattr(fcache, f.name).clone()
+        for f in dataclasses.fields(fcache)})
+    graph = baseline_fp16.DecodeGraph(params, cfg, fcache)
+    tok_e, lg_e, wall_e, _ = greedy_run(
+        lambda t, p: baseline_fp16.decode_step(params, cfg, ref, t, p)[1],
+        ctx, steps)
+    tok_g, lg_g, wall_g, _ = greedy_run(graph, ctx, steps)
+    r = {"tokens_equal": bool(torch.equal(tok_e, tok_g)),
+         "logits_bitwise": bitwise(lg_e, lg_g),
+         "caches_equal": all(torch.equal(getattr(ref, n), getattr(fcache, n))
+                             for n in ("k", "v", "length")),
+         "eager_tok_s": steps / wall_e, "graphed_tok_s": steps / wall_g,
+         "capture_s": graph.capture_s, "pool_mib": graph.pool_mib}
+    # the replays timed at the next position write into the graph's cache
+    # alone: after the comparison
+    pos_end = torch.full((1,), ctx + steps, dtype=torch.int32, device="cuda")
+    r["device_ms"] = dev = device_ms(lambda: graph(tok_e[:, -1], pos_end),
+                                     n=8, reps=3)
+    log(f"{tag} fp16-KV baseline {ctx} ctx, {steps} steps: device {dev:.3f} "
+        f"ms a step; eager {r['eager_tok_s']:.2f} tok/s, graphed "
+        f"{r['graphed_tok_s']:.2f} tok/s (wall / device "
+        f"{1e3 / r['graphed_tok_s'] / dev:.3f}); capture "
+        f"{graph.capture_s:.3f} s, pool {graph.pool_mib:.1f} MiB; graphed "
+        f"== eager: tokens {r['tokens_equal']}, logits bitwise "
+        f"{r['logits_bitwise']}, caches {r['caches_equal']}")
+    if not (r["tokens_equal"] and r["logits_bitwise"] and r["caches_equal"]
+            and bool(torch.isfinite(lg_g).all())):
+        raise AssertionError(f"{tag}: the baseline graph != eager")
+    del graph, ref
+    return r
+
+
+def toy_moe_server_graph(tag):
+    """serve.Server on the toy MoE of ``toy_moe_card_vs_cpu`` (G 6, 4
+    experts top 2, sparse, fp32 weights; nuq3 through K1) with 4 slots,
+    6 requests and chunked admission: graphed (its DecodeGraph and the
+    admission chunk graphs) == the same server stepping eagerly (the eager
+    step in the graph's place, eager chunks), request by request;
+    moe_experts launched on every layer of every step."""
+    from kvquant_tpu_torch import engine, serve
+    from kvquant_tpu_torch.cache import (deployed_from_quantizers,
+                                         static_channels)
+    from kvquant_tpu_torch.ops.kernels import launch_counts
+
+    cfg, _, gpu, storage = toy_moe()
+    qs, dcfg = storage["flash"]
+    dq = deployed_from_quantizers(qs, cfg.n_kv_heads, cfg.d_head,
+                                  device="cuda")
+    rng = np.random.default_rng(256)
+    reqs = [(rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32),
+             int(m)) for n, m in zip(rng.integers(20, 120, 6),
+                                     rng.integers(6, 20, 6))]
+    served, out = {}, {}
+    for graphed in (False, True):
+        srv = serve.Server(gpu, cfg, dcfg, dq, n_slots=4, seed=0,
+                           admit_mode="chunked", device="cuda")
+        if not graphed:
+            srv._step = lambda t, p, srv=srv: engine.decode_step(
+                gpu, cfg, dcfg, dq, srv.cache, t, p,
+                k_chan=static_channels(dq, dcfg))[1]
+        before = launch_counts()
+        ctx = contextlib.nullcontext() if graphed else eager_prefill()
+        t0 = time.perf_counter()
+        with ctx:
+            done = srv.run([serve.Request(rid=i, prompt=p, max_new_tokens=m)
+                            for i, (p, m) in enumerate(reqs)])
+        torch.cuda.synchronize()
+        n = {k: v - before[k] for k, v in launch_counts().items()}
+        served[graphed] = {rid: c.tokens for rid, c in done.items()}
+        out["graphed" if graphed else "eager"] = dict(
+            wall_s=time.perf_counter() - t0, steps=srv.decode_steps,
+            moe_experts=n["moe_experts"], chunk_graphs=len(
+                srv._adm.graphs) if srv._adm else 0)
+        if n["moe_experts"] != cfg.n_layers * srv.decode_steps:
+            raise AssertionError(f"{tag} serve: moe_experts "
+                                 f"{n['moe_experts']}, steps "
+                                 f"{srv.decode_steps}")
+        del srv
+    same = served[True] == served[False]
+    g = out["graphed"]
+    log(f"{tag} serve.Server, toy MoE (G 6, sparse, fp32), 4 slots, "
+        f"{len(reqs)} requests, chunked admission: graphed tokens == eager "
+        f"{same}; {g['steps']} decode steps, moe_experts {g['moe_experts']}, "
+        f"{g['chunk_graphs']} admission chunk graphs; wall eager "
+        f"{out['eager']['wall_s']:.3f} s, graphed {g['wall_s']:.3f} s")
+    if not (same and g["chunk_graphs"]):
+        raise AssertionError(f"{tag} serve: graphed != eager")
+    out["equal"] = same
+    return out
 
 
 def phase_dbrx(report):
@@ -4089,6 +4461,8 @@ def phase_dbrx(report):
     out = dict(weights_gib=w_gib, init_s=init_s,
                bound_step_routed_ms=step_routed, bound_step_all_ms=step_all,
                bound_ffn_routed_ms=ffn_routed, bound_ffn_all_ms=ffn_all)
+    out["moe_experts"] = moe_kernel_check("[25]", params.layer(0), cfg)
+    L = cfg.n_layers
 
     T0, N, N2, chunk = 2048, 32, 16, 256
     max_len = T0 + N + 24
@@ -4110,6 +4484,8 @@ def phase_dbrx(report):
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     del cache
+    out["prefill_graph"] = dbrx_prefill_graph(
+        "[25] flash nuq3", params, cfg, dcfg, dq, prompt, chunk)
     read = reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -4128,8 +4504,10 @@ def phase_dbrx(report):
         f"{want}: at G {G} every call runs the chunk body, decode steps at "
         f"Tq = 1 included)")
     if not (n["K1"] == want == n["K1_chunk"]
-            and n["K2"] == n["K3"] == n["K4"] == n["K5"] == 0):
-        raise AssertionError("DBRX did not run K1 per layer, chunk and step")
+            and n["K2"] == n["K3"] == n["K4"] == n["K5"] == 0
+            and n["moe_experts"] == cfg.n_layers * N):
+        raise AssertionError("DBRX did not run K1 per layer, chunk and "
+                             "step, and moe_experts per layer and step")
     if not (toks.shape == (1, N) and int(toks.min()) >= 0
             and int(toks.max()) < cfg.vocab_size):
         raise AssertionError(f"bad tokens {toks.shape}")
@@ -4155,7 +4533,11 @@ def phase_dbrx(report):
                             decode_step(params, cfg, dcfg, dq, cache, tok,
                                         T0 + N + i), 8)
     out["flash"] = dict(prefill_s=prefill_s, decode_tps=tps,
-                        k1_launches=n["K1"], max_abs_err=worst, **prof)
+                        k1_launches=n["K1"], max_abs_err=worst,
+                        moe_launches=n["moe_experts"], **prof)
+    out["flash"]["graph"] = dbrx_graph_vs_eager(
+        "[25] flash graphed", params, cfg, dcfg, dq, cache, T0 + N, 16,
+        {"K1": L, "moe_experts": L}, (ffn_routed, ffn_all))
     del cache, arrs
     torch.cuda.empty_cache()
 
@@ -4169,7 +4551,7 @@ def phase_dbrx(report):
     n = read()
     log(f"[25] kernel pallas, fp16 prefill {T0} + {N2} greedy tokens: "
         f"launches {n} (K3 / K4 expected {cfg.n_layers * N2} each)")
-    if not (n["K3"] == n["K4"] == cfg.n_layers * N2
+    if not (n["K3"] == n["K4"] == n["moe_experts"] == cfg.n_layers * N2
             and n["K1"] == n["K2"] == n["K5"] == 0):
         raise AssertionError("DBRX pallas did not run K3 / K4 per step")
     k34 = live_k34_check("[25] live cache", cache, dq, dcfg_p, cfg,
@@ -4179,7 +4561,11 @@ def phase_dbrx(report):
                             decode_step(params, cfg, dcfg_p, dq, cache, tok,
                                         T0 + N2 + i), 8)
     out["pallas"] = dict(decode_tps=tps, k3_launches=n["K3"],
-                         k4_launches=n["K4"], max_abs_err=k34, **prof)
+                         k4_launches=n["K4"], max_abs_err=k34,
+                         moe_launches=n["moe_experts"], **prof)
+    out["pallas"]["graph"] = dbrx_graph_vs_eager(
+        "[25] pallas graphed", params, cfg, dcfg_p, dq, cache, T0 + N2, 16,
+        {"K3": L, "K4": L, "moe_experts": L}, (ffn_routed, ffn_all))
     del cache
     torch.cuda.empty_cache()
 
@@ -4199,6 +4585,7 @@ def phase_dbrx(report):
         f"launches {n}, per body {routes} (K2 expected "
         f"{cfg.n_layers * N2}, all fs_mma)")
     if not (n["K2"] == cfg.n_layers * N2 == routes["fs_mma"]
+            == n["moe_experts"]
             and n["K1"] == n["K3"] == n["K4"] == n["K5"] == 0):
         raise AssertionError("DBRX speed config did not run K2 per step")
     arrs = cache.arrays()
@@ -4222,7 +4609,11 @@ def phase_dbrx(report):
                             engine.decode_step(params, cfg, dcfg2, dq2, cache,
                                                tok, T0 + N2 + i), 8)
     out["flash_serial"] = dict(decode_tps=tps, k2_launches=n["K2"],
-                               max_abs_err=worst, **prof)
+                               max_abs_err=worst,
+                               moe_launches=n["moe_experts"], **prof)
+    out["flash_serial"]["graph"] = dbrx_graph_vs_eager(
+        "[25] flash_serial graphed", params, cfg, dcfg2, dq2, cache,
+        T0 + N2, 16, {"K2": L, "moe_experts": L}, (ffn_routed, ffn_all))
     del cache, arrs
     torch.cuda.empty_cache()
 
@@ -4233,6 +4624,7 @@ def phase_dbrx(report):
     out["fp16_baseline_tps"], _ = decode_profile(
         f"[25] fp16-KV baseline {T0} ctx", lambda i: baseline_fp16.
         decode_step(params, cfg, fcache, tok, T0 + i), 8, prof_steps=0)
+    out["fp16_graph"] = dbrx_fp16_graph("[25]", params, cfg, fcache, T0, 16)
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"[25] peak device memory {out['peak_gib']:.2f} GiB")
     del fcache, params
@@ -4245,6 +4637,7 @@ def phase_dbrx(report):
     out["k1_edges"] = decode_edge_grid("[25]", modes, paged=False, odd_g=True)
     out["k5_edges"] = decode_edge_grid("[25]", modes, paged=True, odd_g=True)
     toy_moe_card_vs_cpu("[25]")
+    out["serve_graph"] = toy_moe_server_graph("[25]")
     report["dbrx"] = out
     shutil.rmtree(work)
 
@@ -4703,12 +5096,12 @@ def phase_tp(report):
 
 
 def step_trace(step, n=3, kernels=None):
-    """(device kernel ms, kernels, the port's kernels by wrapper) per call
-    of ``step()`` over ``n`` calls under torch.profiler (utils.profiling.
-    kernel_summary, the reading of ``cli.deploy --profile``), after one
-    warm-up call. The third counts the trace's kernels named in
-    ``kernels`` (default OWN_KERNELS): what the card ran, whatever the
-    counters say."""
+    """(device kernel ms, kernels, the port's kernels by wrapper, their
+    device ms by wrapper) per call of ``step()`` over ``n`` calls under
+    torch.profiler (utils.profiling.kernel_summary, the reading of
+    ``cli.deploy --profile``), after one warm-up call. The third counts
+    the trace's kernels named in ``kernels`` (default OWN_KERNELS): what
+    the card ran, whatever the counters say."""
     import re
 
     from torch.profiler import ProfilerActivity, profile
@@ -4723,7 +5116,7 @@ def step_trace(step, n=3, kernels=None):
             step()
         torch.cuda.synchronize()
     s = kernel_summary(prof, cuda=True)
-    own = {}
+    own, own_ms = {}, {}
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -4731,7 +5124,9 @@ def step_trace(step, n=3, kernels=None):
         for k, names in (kernels or OWN_KERNELS).items():
             if m and m.group(1) in names:
                 own[k] = own.get(k, 0) + e.count / n
-    return s["kernel_ms"] / n, s["launches"] / n, own
+                own_ms[k] = own_ms.get(k, 0) + \
+                    e.self_device_time_total / n / 1e3
+    return s["kernel_ms"] / n, s["launches"] / n, own, own_ms
 
 
 # the port's kernels in a profiler trace, by the wrapper that launches
@@ -4740,7 +5135,8 @@ def step_trace(step, n=3, kernels=None):
 OWN_KERNELS = {"K1": ("fd_decode", "fd_chunk", "fd_partial"),
                "K2": ("fs_mma", "fs_partial"),
                "K3": ("qk_decode", "qk_mma", "qk_simt"),
-               "K4": ("pv_decode", "pv_mma", "pv_simt")}
+               "K4": ("pv_decode", "pv_mma", "pv_simt"),
+               "moe_experts": ("moe_glu",)}
 
 
 def step_profile(step, n=3):
@@ -5187,9 +5583,9 @@ def phase_graphed_decode(report):
                 wall_ms = wall / steps * 1e3
                 # the profiler's trace at 2K (the kernels a step do not
                 # change with the context; the counters are read at each)
-                kms, kern, own = step_trace(lambda: step(tok_e[:, -1],
-                                                         pos_end), n=2) \
-                    if compare else (None, None, None)
+                kms, kern, own, _ = step_trace(lambda: step(tok_e[:, -1],
+                                                            pos_end), n=2) \
+                    if compare else (None, None, None, None)
                 r[mode] = {"tok_s": steps / wall, "wall_ms": wall_ms,
                            "device_ms": dev, "idle": 1 - dev / wall_ms,
                            "kernel_ms": kms, "kernels": kern,
@@ -5644,7 +6040,7 @@ def phase_paged_graph(report):
             walls = paged_step_walls(st, host, 8,
                                      reps=1 if mode == "eager" else 10)
             st.load(*host)
-            kms, kern, own = step_trace(st, n=2, kernels=k5_names)
+            kms, kern, own, _ = step_trace(st, n=2, kernels=k5_names)
             r[f"{mode}_steady"] = x = dict(
                 step_wall_ms=walls["step"], burst_wall_ms=walls["burst"],
                 step_idle=1 - dev_ms / walls["step"],
@@ -5870,7 +6266,7 @@ def phase_graphed_prefill(report):
                             graph, last))
         blk = toks[:, S + (n_chunks - 1) * chunk:]
         p_last = S + (n_chunks - 1) * chunk
-        kms, kern, own = step_trace(lambda: graph(blk, p_last), n=2)
+        kms, kern, own, _ = step_trace(lambda: graph(blk, p_last), n=2)
         r.update(kernel_ms=kms, kernels=kern, trace_launches=own)
         log(f"[30] {tag} {T0}-token prefill ({n_chunks} chunks of "
             f"{chunk}): wall eager {r['eager_wall_s']:.3f} s, graphed "
@@ -6246,6 +6642,34 @@ def main(argv=None) -> int:
                       "dbrx_g6_ctx": t["ctx"]})
             if key == "K1":
                 k["dbrx_g6_padded8_fd_decode_ms"] = t["padded8_ms"]
+            k["dbrx_graphed_launches_per_step"] = next(
+                (d[p]["graph"]["launches_per_step"][key]
+                 for p in ("flash", "pallas", "flash_serial")
+                 if key in d[p]["graph"]["launches_per_step"]), 0)
+        m = d["moe_experts"]
+        kernels.append({
+            "name": "moe_experts", "route": "cuda",
+            "source": "kvquant_tpu_torch/csrc/moe_experts.cu",
+            "replaces": "kvquant_tpu/models/moe.py:148 (XLA einsums of the "
+                        "capacity dispatch; no TPU kernel)",
+            "launches": d["flash"]["moe_launches"],
+            "max_abs_err": m["max_abs_err"],
+            "ms": m["ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": "bytes",
+            "library_ms": m["library_ms"],
+            "per_expert_matmul_ms": m["per_expert_matmul_ms"],
+            "graphed_launches_per_step": {
+                p: d[p]["graph"]["launches_per_step"]["moe_experts"]
+                for p in ("flash", "pallas", "flash_serial")},
+            "graphed_trace_launches_per_step": {
+                p: d[p]["graph"]["graphed"]["trace_launches"]["moe_experts"]
+                for p in ("flash", "pallas", "flash_serial")},
+            "graphed_step_ms": {
+                p: d[p]["graph"]["graphed"]["expert_products_ms"]
+                for p in ("flash", "pallas", "flash_serial")},
+            "shape": "one DBRX layer: E=16 D=6144 F=10752 bf16, C=1 with "
+                     "top_k=4 experts live (B=1 decode)",
+        })
     if 26 in phases:  # tp 2 on the card: per-rank launches and errors
         tp = report["tp"]
         for k in kernels:

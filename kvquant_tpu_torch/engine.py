@@ -20,12 +20,13 @@ kvquant_tpu/engine.py: prefill, decode_step, generate, deployed_ppl).
     and position buffers, one replay per step.
   - ``generate`` / ``deployed_ppl``: Python loops over one DecodeGraph on
     a card (over decode_step on the CPU, and for the configurations a
-    graph cannot capture: tp > 1, the MoE family); sampling, EOS and
-    ``done`` stay outside the graph.
+    graph cannot capture: tp > 1); sampling, EOS and ``done`` stay outside
+    the graph.
 
-Both model families run here: the MoE family's fused projection and
-expert FFN come in through ``models.llama.project_qkv`` / ``ffn`` (the
-JAX engine's ``is_moe`` branches).
+Both model families run here, and both are captured: the MoE family's
+fused projection and expert FFN come in through ``models.llama.
+project_qkv`` / ``ffn`` (the JAX engine's ``is_moe`` branches), and its
+capacity dispatch runs on the device (``models.moe.moe_ffn_sparse``).
 
 Tensor parallelism: with rank-local params and configs
 (``parallel.shardings``), every entry point runs this rank's heads and its
@@ -188,15 +189,10 @@ def _decode_step_flash(params, cfg: ModelConfig, dcfg: DeployConfig,
 
 def graph_unsupported(cfg: ModelConfig) -> str | None:
     """Why a decode step of ``cfg`` cannot be captured in a CUDA graph, or
-    None when it can."""
-    from .models.moe import MoEConfig
-
+    None when it can (both model families at tp 1)."""
     if tp_group(cfg) is not None:
         return ("tensor parallelism: the tp group's collectives run over "
                 "gloo on the host")
-    if isinstance(cfg, MoEConfig):
-        return ("the MoE family: the expert dispatch reads the routing mask "
-                "to the host (models/moe.py)")
     return None
 
 
@@ -341,8 +337,7 @@ def decode_stepper(params, cfg: ModelConfig, dcfg: DeployConfig,
                    dq: DeployedQuant, cache: KVCache):
     """``step(token, pos) -> logits (B, V)`` over ``cache``: a DecodeGraph
     when the cache lies on a card, unless ``graph_unsupported(cfg)`` (tp >
-    1, the MoE family); else decode_step, with the static K channels
-    computed once."""
+    1); else decode_step, with the static K channels computed once."""
     if cache.length.is_cuda and graph_unsupported(cfg) is None:
         return DecodeGraph(params, cfg, dcfg, dq, cache)
     k_chan = static_channels(dq, dcfg)

@@ -17,12 +17,19 @@ masked router weights (exact; the JAX function's einsums).
 takes at most C = min(N, ceil(N K / E) * max(1, round(capacity_factor)))
 tokens in arrival order, and a token past an expert's capacity loses that
 expert, without renormalisation. The JAX function dispatches with one-hot
-einsums over (N, E, C), which suit the TPU; here the kept (token, expert)
-pairs are gathered per expert and summed back with ``index_add``, so only
-routed experts run and only on their own tokens: the same pairs are kept
-and the same products summed (in fp32, with one cast at the end, as the
-bf16 einsum does). Reading which pairs are kept costs one device-to-host
-copy of the (N, E) mask per call.
+einsums over (N, E, C), which suit the TPU; here the same fixed shapes are
+built on the device by index (``dispatch_slots``): each kept pair's token
+goes to slot e C + its arrival order in expert e of an (E, C) slot table,
+whose unused slots point at a zero row; the slots' rows (E, C, D) go
+through the experts, and each token gathers its top_k experts' outputs
+back from their slots and sums them times the router weights in fp32, in
+ascending expert order, with one cast at the end, as the bf16 einsum
+does. Nothing is read back to the host, so a CUDA graph captures the FFN
+(``engine.DecodeGraph``). The experts' products take C <= 8 rows an
+expert (decode) through the Hopper kernel ``ops.kernels.moe_experts``,
+which reads only the weights of experts with a live slot, and larger C
+(prefill chunks) through ``torch.bmm`` over (E, C, ·), the JAX einsums'
+own products.
 
 Router ties: the top_k experts come from ``utils.topk.top_k``, which orders
 as ``jax.lax.top_k`` does (ties to the lower index), not ``torch.topk``.
@@ -31,6 +38,7 @@ as ``jax.lax.top_k`` does (ties to the lower index), not ``torch.topk``.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -196,39 +204,86 @@ def dispatch(w, C: int):
     """(N, E) bool: the (token, expert) pairs kept under capacity C. A pair
     is routed where its weight is > 0; each expert keeps its first C routed
     tokens in token order (the exclusive cumsum of the JAX function)."""
+    return dispatch_slots(w, C).keep
+
+
+class Slots(NamedTuple):
+    """The capacity dispatch of N tokens over E experts on the device:
+    ``keep`` (N, E) bool the kept pairs, ``pos`` (N, E) int32 each pair's
+    arrival order in its expert (the JAX function's ``pos_in_e``),
+    ``tokens`` (E_local, C) int64 the token of each slot of this rank's
+    experts (N, the appended zero row, where a slot is unused) and
+    ``count`` (E_local,) int32 their kept pairs."""
+    keep: torch.Tensor
+    pos: torch.Tensor
+    tokens: torch.Tensor
+    count: torch.Tensor
+
+
+def dispatch_slots(w, C: int, e0: int = 0, n_local: int | None = None):
+    """The ``Slots`` of the router weights w (N, E) under capacity C, for
+    the ``n_local`` experts from ``e0`` (all by default). Kept pair (n, e)
+    writes n into slot (e - e0) C + pos[n, e]; a dropped pair writes into a
+    slot of its own past the table, so every index has one writer."""
+    N, E = w.shape
+    n_local = E if n_local is None else n_local
     routed = (w > 0).to(torch.int32)
-    pos_in_e = torch.cumsum(routed, dim=0) - routed
-    return (routed > 0) & (pos_in_e < C)
+    pos = torch.cumsum(routed, dim=0, dtype=torch.int32) - routed
+    keep = (routed > 0) & (pos < C)
+    kl, pl = keep[:, e0:e0 + n_local], pos[:, e0:e0 + n_local]
+    dev = w.device
+    pair = torch.arange(N * n_local, device=dev).reshape(N, n_local)
+    expert = torch.arange(n_local, device=dev)
+    idx = torch.where(kl, expert * C + pl, n_local * C + pair)
+    tokens = torch.full((n_local * C + N * n_local,), N, dtype=torch.int64,
+                        device=dev)
+    tokens.scatter_(0, idx.reshape(-1), torch.arange(
+        N, device=dev)[:, None].expand(N, n_local).reshape(-1))
+    return Slots(keep, pos, tokens[:n_local * C].reshape(n_local, C),
+                 kl.sum(0, dtype=torch.int32))
 
 
 def moe_ffn_sparse(h, lp, cfg: MoEConfig):
-    """Capacity dispatch of h (..., D) over the flattened N tokens: expert
-    e runs on its kept tokens only (``dispatch``), and each token sums its
-    kept experts' outputs times their router weights in fp32, cast once
-    to h's dtype. Under a rank-local config every rank computes the global
-    routing and capacity dispatch, runs its own experts, and the fp32 sums
-    are summed over the tp group before the cast."""
+    """Capacity dispatch of h (..., D) over the flattened N tokens
+    (``dispatch_slots``): the rows of every expert's C capacity slots run
+    through the SwiGLU experts as one (E, C, D) batch, through the kernel
+    ``moe_experts`` at C <= ``KERNEL_ROWS`` and ``torch.bmm`` above (and
+    for a call that needs a gradient: the kernel has no backward); each
+    token sums its kept experts' outputs times their router weights in
+    fp32, in ascending expert order, cast once to h's dtype. No host read.
+    Under a rank-local config every rank computes the global routing and
+    capacity dispatch, runs its own experts, and the fp32 sums are summed
+    over the tp group before the cast."""
+    from ..ops.kernels.moe_experts import (KERNEL_ROWS, moe_experts,
+                                           swiglu_products)
+
     shape = h.shape
     hf = h.reshape(-1, shape[-1])
-    N = hf.shape[0]
+    N, D = hf.shape
     _, w = _router_weights(hf, lp, cfg)
-    keep = dispatch(w, capacity(N, cfg))
+    C = capacity(N, cfg)
     e0, n_local = _local_experts(cfg)
-    # the kept pairs of this rank's experts, expert-major and in token
-    # order within an expert
-    exp, tok = torch.nonzero(keep[:, e0:e0 + n_local].T.cpu(),
-                             as_tuple=True)
-    counts = torch.bincount(exp, minlength=n_local).tolist()
-    rows = tok.to(h.device)
-    out = torch.zeros((N, shape[-1]), dtype=torch.float32, device=h.device)
-    start = 0
-    for e, n in enumerate(counts):
-        if n == 0:
-            continue
-        r = rows[start:start + n]
-        start += n
-        y = _expert(hf[r], lp, e).to(torch.float32)
-        out = out.index_add(0, r, y * w[r, e0 + e].to(torch.float32)[:, None])
+    s = dispatch_slots(w, C, e0, n_local)
+    xe = torch.cat([hf, hf.new_zeros((1, D))])[s.tokens]  # (E, C, D)
+    wts = (lp["w_gate"], lp["w_up"], lp["w_down"])
+    if C <= KERNEL_ROWS and not (torch.is_grad_enabled() and any(
+            t.requires_grad for t in (xe, *wts))):
+        y = moe_experts(xe, s.count, *wts)
+    else:
+        y = swiglu_products(xe, *wts)
+    # each token's top_k experts, the routed ones first in ascending
+    # order; a pair that is not kept here reads the zero row past the table
+    ids = torch.argsort((w <= 0).to(torch.int32), dim=-1,
+                        stable=True)[:, :cfg.top_k]
+    local = ids - e0
+    live = (local >= 0) & (local < n_local) & torch.gather(s.keep, 1, ids)
+    slot = torch.where(live, local.clamp(0, n_local - 1) * C
+                       + torch.gather(s.pos, 1, ids), n_local * C)
+    ye = torch.cat([y.reshape(n_local * C, D), y.new_zeros((1, D))])
+    wk = torch.gather(w, 1, ids).to(torch.float32)
+    out = torch.zeros((N, D), dtype=torch.float32, device=h.device)
+    for k in range(cfg.top_k):
+        out = out + ye[slot[:, k]].to(torch.float32) * wk[:, k, None]
     return reduce_from_tp(out, tp_group(cfg)).to(h.dtype).reshape(shape)
 
 

@@ -10,20 +10,23 @@ each replay (``add_launches``)."""
 
 def _counters() -> dict:
     """Every launch counter by name: (object, attribute)."""
-    from . import attention, flash_decode, flash_serial, paged_decode
+    from . import (attention, flash_decode, flash_serial, moe_experts,
+                   paged_decode)
 
     return {"K1": (flash_decode.flash_attention, "launches"),
             "K1_chunk": (flash_decode.flash_attention, "chunk_launches"),
             "K2": (flash_serial.flash_serial_decode, "launches"),
             "K3": (attention.qk_fused, "launches"),
             "K4": (attention.pv_fused, "launches"),
-            "K5": (paged_decode.paged_flash_decode, "launches")}
+            "K5": (paged_decode.paged_flash_decode, "launches"),
+            "moe_experts": (moe_experts.moe_experts, "launches")}
 
 
 def launch_counts() -> dict:
     """Launches so far of each kernel wrapper on a card, by the TPU
     kernel it ports: K1 flash_attention, K2 flash_serial_decode, K3
-    qk_fused, K4 pv_fused, K5 paged_flash_decode."""
+    qk_fused, K4 pv_fused, K5 paged_flash_decode; and "moe_experts", the
+    MoE family's expert products, which port no TPU kernel."""
     return {k: getattr(o, a) for k, (o, a) in _counters().items()
             if k != "K1_chunk"}
 

@@ -18,7 +18,8 @@ against the JAX package on the same numpy inputs:
     ``bool()``), with Tensor.tolist / numpy / cpu patched to raise; the
     kernels' plain versions, which never run on the card's path, are
     exempt;
-  - DecodeGraph refuses the CPU, tp > 1 and the MoE family; the launch
+  - DecodeGraph refuses the CPU and tp > 1, and takes the MoE family
+    (``graph_unsupported`` is None for it); the launch
     counters' record-and-add logic (ops.kernels.counted / add_launches)
     with a stub capture, since a replay cannot run here;
   - a step at position S, DecodeGraph's warm-up, leaves the cache bitwise
@@ -55,6 +56,7 @@ from kvquant_tpu_torch.ops import kernels as tkernels
 from kvquant_tpu_torch.ops.kernels import attention as at
 from kvquant_tpu_torch.ops.kernels import flash_decode as fd
 from kvquant_tpu_torch.ops.kernels import flash_serial as fs
+from kvquant_tpu_torch.ops.kernels import moe_experts as mx
 
 torch.set_num_threads(1)
 
@@ -445,12 +447,15 @@ def test_decode_graph_refuses_cpu_tp_and_moe():
           for f in dataclasses.fields(TINY_LLAMA)}
     tp2 = shardings._local_class(type(TINY_LLAMA))(
         **kw, tp_group=object(), tp_rank=0, tp_size=2)
-    for cfg, why in ((tp2, "tensor parallelism"),
-                     (moe.TINY_MOE, "MoE family")):
-        assert why in engine.graph_unsupported(cfg)
-        with pytest.raises(ValueError, match=why):
-            engine.DecodeGraph(None, cfg, td, tq, cache)
-    assert engine.graph_unsupported(TINY_LLAMA) is None
+    assert "tensor parallelism" in engine.graph_unsupported(tp2)
+    with pytest.raises(ValueError, match="tensor parallelism"):
+        engine.DecodeGraph(None, tp2, td, tq, cache)
+    # the MoE family captures (its dispatch reads nothing back); off the
+    # card it is refused for the card alone
+    for cfg in (TINY_LLAMA, moe.TINY_MOE):
+        assert engine.graph_unsupported(cfg) is None
+    with pytest.raises(ValueError, match="needs a card"):
+        engine.DecodeGraph(None, moe.TINY_MOE, td, tq, cache)
     # the CPU path steps through decode_step
     step = engine.decode_stepper(None, TINY_LLAMA, td, tq, cache)
     assert not isinstance(step, engine.DecodeGraph)
@@ -467,6 +472,7 @@ def test_launch_counters_record_and_replay(monkeypatch):
                         {"fs_mma": 2, "fs_partial": 0})
     monkeypatch.setattr(at.qk_fused, "launches", 0)
     monkeypatch.setattr(at.pv_fused, "launches", 0)
+    monkeypatch.setattr(mx.moe_experts, "launches", 0)
 
     def stub_capture():  # what the wrappers count while a graph captures
         fd.flash_attention.launches += 3
@@ -474,17 +480,20 @@ def test_launch_counters_record_and_replay(monkeypatch):
         fs.flash_serial_decode.route_launches["fs_mma"] += 2
         at.qk_fused.launches += 1
         at.pv_fused.launches += 1
+        mx.moe_experts.launches += 2
         return "logits"
 
     before = tkernels.snapshot()
     out, delta = tkernels.counted(stub_capture)
     assert out == "logits"
-    assert delta == {"K1": 3, "K2": 2, "K2:fs_mma": 2, "K3": 1, "K4": 1}
+    assert delta == {"K1": 3, "K2": 2, "K2:fs_mma": 2, "K3": 1, "K4": 1,
+                     "moe_experts": 2}
     assert tkernels.snapshot() == before  # a capture launches nothing
     for _ in range(4):  # four replays
         tkernels.add_launches(delta)
     assert tkernels.launch_counts() == {"K1": 17, "K2": 10, "K3": 4,
-                                        "K4": 4, "K5": before["K5"]}
+                                        "K4": 4, "K5": before["K5"],
+                                        "moe_experts": 8}
     assert fs.flash_serial_decode.route_launches == {"fs_mma": 10,
                                                      "fs_partial": 0}
     assert fd.flash_attention.chunk_launches == 1
