@@ -178,20 +178,30 @@ The MoE family and the HF loader:
      ffn 10752, vocab 100352) read through config_from_hf and cut from 40
      to 8 layers, random bf16 weights from a seed: the faithful nuq3 config
      through K1 (2048-token quantized prefill in 8 chunks of 256, 32
-     greedy tokens: K1 8 x (8 + 32), every call on the chunk body at G 6;
+     greedy tokens: K1 8 x (8 + 32), the chunks on fd_chunk and the decode
+     steps at G 6 on the tensor-core decode body fd_gqa;
      K1 == plain on the live cache at layers 0 and 7, a decode row and a
      chunk, both dot modes), kernel pallas through K3 / K4 (16 tokens, 8 x
-     16 each, == plain at R 6 and 1536) and the speed config (int4,
+     16 each, K3 on qk_gqa, == plain at R 6 and 1536) and the speed
+     config (int4,
      post-RoPE, hg 8) through K2 (16 tokens, 8 x 16, all fs_mma at 8
      padded rows, == plain); each path's decode tok/s and a profiler pass
      over 3 steps (device ms split into the expert FFN, the attention
      kernel and the rest; idle share) beside the step's weight-read bounds
      (routed experts only, all experts); prefill s, the fp16-KV baseline's
-     tok/s on the same weights, peak GiB; the G 6 routes alone at one DBRX
-     layer (K1 decode on fd_chunk and padded to fd_decode, K2, K3 / K4 at
-     R 6, K5 at B=4 x 8K) against plain, with times and bounds; K2 at G 3 /
-     6 against plain; the decode edge grid at G 3 / 6 through K1 and K5;
-     a toy MoE's greedy tokens card == CPU through K1 and K2.
+     tok/s on the same weights, peak GiB; the graphed step at 32K on a
+     filled cache (~0.22 GB) through K1 and K3 / K4, graphed == eager
+     bitwise over 4 steps, device ms and K1 / K3 by name in a replay's
+     trace, beside the same step captured with the old G 3-8 routes forced
+     (K1 on fd_chunk, K3 on the 8-row qk_decode); the G 6 routes alone at
+     one DBRX layer (K1 decode on fd_gqa beside fd_chunk and the rows
+     padded to fd_decode, K2, K3 on qk_gqa beside the 8-row qk_decode, K4
+     at R 6, K5 at B=4 x 8K on fd_gqa beside the padded fd_decode) against
+     plain, with times and bounds, and the routing rows K1 G 4 (MISTRAL_7B,
+     window live) / G 8 and K3 R 4 / 8, old body beside new; K2 at G 3 / 6
+     against plain; the decode edge grid at G 3 / 5 / 6 / 7 through K1 and
+     K5 (every mode), K3's qk_gqa grid (R 3 / 5 / 6 / 7); a toy MoE's
+     greedy tokens card == CPU through K1 and K2.
      The MoE family's compiled step: the expert products' kernel
      (csrc/moe_experts.cu, moe_glu then moe_down) against its plain version
      at layer 0's weights, C 1 / 2 / 4 / 8 with empty experts and a batch
@@ -250,7 +260,7 @@ the card, so phases 3, 7, 11, 19, 20, 23 and 27 replay graphs):
  28. at LLaMA-2-7B width (random bf16 weights from a seed, B=1) for the
      speed config (K2), faithful nuq3 through K1 and K3 / K4, 2-bit int4x2
      through K1 and the eager xla oracle: from clones of one filled 2K
-     cache, 64 greedy steps graphed and eager (8 for xla) give the same
+     cache, 32 greedy steps graphed and eager (8 for xla) give the same
      tokens, bitwise the same logits at every step and bitwise the same
      caches; launches per step graphed == eager == layers (x2 for K3 /
      K4); no host wait in either step (torch.cuda's sync debug mode);
@@ -1148,10 +1158,12 @@ def decode_edge_grid(tag, modes, paged, odd_g=False):
     card's splits beyond a row's live tiles hold no tile. ``paged``: K5
     over permuted pages of 256 (with an inactive fourth slot aliasing the
     third's pages), also held to K1 on the same tokens. ``odd_g``: the
-    widths' G 1/2 become 3 and G 4/8 become 6, head ratios without a decode
-    instance (K1 runs them on its chunk body at Tq = 1, K5 pads them to
-    the next instance), and K5 == K1 is held to the dot mode's bound.
-    Returns the worst |err| / bound per dot mode."""
+    widths' G 1 / 2 / 4 / 8 become 3 / 5 / 6 / 7, head ratios without an
+    fd_decode instance (with bf16 dots K1 and K5 run them on the
+    tensor-core decode body fd_gqa; with fp32 dots K1 runs its chunk body
+    at Tq = 1 and K5 pads them to the next instance), and K5 == K1 is held
+    to the dot mode's bound. Returns the worst |err| / bound per dot
+    mode."""
     from kvquant_tpu_torch.ops.kernels import flash_decode as fd
     from kvquant_tpu_torch.ops.kernels import paged_decode as pdk
 
@@ -1164,7 +1176,7 @@ def decode_edge_grid(tag, modes, paged, odd_g=False):
         for codes, bits in modes:
             widths = decode_widths(codes)
             if odd_g:
-                widths = [(3 if G < 4 else 6, hg, D, k)
+                widths = [({1: 3, 2: 5, 4: 6, 8: 7}[G], hg, D, k)
                           for G, hg, D, k in widths]
             for post in (False, True):
                 for i, (G, hg, D, k_out) in enumerate(widths):
@@ -1875,6 +1887,52 @@ def k34_edge_grid():
     return worst
 
 
+def k3_gqa_grid(tag):
+    """K3 on its tensor-core decode body (qk_gqa, bf16 dots) against the
+    plain version at R 3 / 5 / 6 / 7 x D 32 / 64 / 128 x head group 1 / 2 /
+    4 with colliding slot words (cap 2, or 4 at head group 2) x capacity
+    128 / 256 / 2304, B = 2; the launches counted on qk_gqa. Returns the
+    worst |err| / bound."""
+    from kvquant_tpu_torch.cache import DeployConfig
+    from kvquant_tpu_torch.models.config import ModelConfig
+    from kvquant_tpu_torch.ops.kernels import attention as at
+
+    dev = torch.device("cuda")
+    B, Hkv = 2, 8
+    worst = {False: 0.0, True: 0.0}
+    n, t0 = 0, time.perf_counter()
+    before = at.qk_fused.gqa_launches
+    for r in (3, 5, 6, 7):
+        for d in (32, 64, 128):
+            for hg in (1, 2, 4):
+                for tc in (128, 256, 2304):
+                    dcfg = DeployConfig.create(
+                        bits=(2, 3, 4)[n % 3], n_kv_heads=Hkv, d_head=d,
+                        max_len=tc + 5, sink=5, kernel="pallas",
+                        head_group=hg, cap_per_side=4 if hg == 2 else 2)
+                    mcfg = ModelConfig(
+                        vocab_size=64, d_model=Hkv * d, n_layers=1,
+                        n_heads=Hkv * r, n_kv_heads=Hkv, d_head=d, d_ff=64,
+                        max_seq_len=tc, rope_scaling=2.0)
+                    gen = torch.Generator(device=dev).manual_seed(900 + n)
+                    o = k34_operands(dcfg, B, r, tc, gen, dev)
+                    o["kv_out"] = colliding_words(dcfg, B, tc, gen, dev)
+                    got = run_qk(at.qk_fused, o, dcfg, mcfg)
+                    torch.cuda.synchronize()
+                    check_case(f"{tag} K3 qk_gqa R{r} D{d} hg{hg} Tc{tc} "
+                               f"nuq{dcfg.bits}", got,
+                               run_qk(at.qk_fused_ref, o, dcfg, mcfg), True,
+                               worst)
+                    n += 1
+    launched = at.qk_fused.gqa_launches - before
+    log(f"{tag} K3 qk_gqa grid == plain on {n} cases (bf16 dots, "
+        f"{launched} launches on qk_gqa) in {time.perf_counter() - t0:.1f} "
+        f"s; worst |err| / bound {worst[True]:.3f}")
+    if launched != n:
+        raise AssertionError("K3 at R 3-8 with bf16 dots did not run qk_gqa")
+    return worst[True]
+
+
 def live_k34_check(tag, cache, dq, dcfg, cfg, li_list, gen, rs=(1, 261)):
     """K3 and K4 against plain on layers of a live cache: random queries
     and probabilities at R rows of ``rs``, the main path's bf16 dots and
@@ -2260,9 +2318,14 @@ def reset_launches():
     for fn in counters.values():
         fn.launches = 0
     fd.flash_attention.chunk_launches = 0
+    for fn in (fd.flash_attention, at.qk_fused, pdk.paged_flash_decode):
+        fn.gqa_launches = 0
     fs.flash_serial_decode.route_launches = {b: 0 for b in fs.BODIES}
     return lambda: dict({k: fn.launches for k, fn in counters.items()},
-                        K1_chunk=fd.flash_attention.chunk_launches)
+                        K1_chunk=fd.flash_attention.chunk_launches,
+                        K1_gqa=fd.flash_attention.gqa_launches,
+                        K3_gqa=at.qk_fused.gqa_launches,
+                        K5_gqa=pdk.paged_flash_decode.gqa_launches)
 
 
 def phase_paged_main_path(report):
@@ -3838,11 +3901,18 @@ def k2_odd_g_check(tag):
 
 def dbrx_kernel_times(tag, cfg):
     """The kernels at one DBRX layer (8 kv heads, G 6, D 128) over a 32K
-    filled cache: K1 decode (the faithful nuq3, fd_chunk at Tq = 1, and the
-    same rows padded to 8 on fd_decode as context), K2 (speed config,
-    fs_mma at 8 rows), K3 / K4 decode (R = 6), K5 (B=4 x 8K); each held to
-    its plain version; bound by bytes as phases 5 / 9 / 13 / 17 count
-    them."""
+    filled cache: K1 decode (the faithful nuq3: the route, the tensor-core
+    decode body fd_gqa, beside the old routes forced in the same call:
+    fd_chunk at Tq = 1 and the rows padded to 8 on fd_decode), K2 (speed
+    config, fs_mma at 8 rows), K3 (R = 6: qk_gqa beside the 8-row
+    qk_decode forced) and K4 (pv_decode's 8-row instance), K5 (B=4 x 8K:
+    fd_gqa beside the rows padded to 8 on fd_decode); each route held to
+    its plain version in both dot modes; bound by bytes as phases 5 / 9 /
+    13 / 17 count them. Then the routing rows: K1 at G 4 (MISTRAL_7B's 32
+    / 8 heads, its 4096-token window live at 32K) and G 8, K3 at R 4 and 8,
+    each on fd_gqa / qk_gqa beside fd_decode / qk_decode, the new body held
+    to plain with bf16 dots."""
+    from kvquant_tpu_torch.models.config import MISTRAL_7B
     from kvquant_tpu_torch.ops.kernels import attention as at
     from kvquant_tpu_torch.ops.kernels import common
     from kvquant_tpu_torch.ops.kernels import flash_decode as fd
@@ -3856,8 +3926,11 @@ def dbrx_kernel_times(tag, cfg):
     one = dataclasses.replace(cfg, n_layers=1)
     rows = {}
 
+    def best(fn):
+        return min(device_ms(fn), device_ms(fn))
+
     def timed(name, kern, plain, nbytes, tokens, extra=""):
-        ms = min(device_ms(kern), device_ms(kern))
+        ms = best(kern)
         plain_ms = device_ms(plain, n=2, reps=3, warmup=1)
         bound = nbytes / HBM_BYTES_PER_S * 1e3
         rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
@@ -3866,35 +3939,68 @@ def dbrx_kernel_times(tag, cfg):
             f"plain {plain_ms:.3f} ms, bound {bound:.4f} ms by bytes "
             f"({nbytes / 1e6:.1f} MB at 3.35 TB/s){extra}")
 
-    # K1: the faithful config's decode row at G 6
+    def k1_bytes(dcfg, live, g):
+        return live * nuq_bytes_per_token(dcfg) + 4 * Hkv * D * (
+            2 * dcfg.sink + 2 * g)
+
+    # K1: the faithful config's decode row at G 6, the route and the old
+    # routes forced
     _, dcfg, _ = faithful_config(ctx + 8, 1, one)
     gen = torch.Generator(device=dev).manual_seed(251)
     ops = k1_operands(dcfg, 1, 1, dcfg.cache_tokens, gen, dev)
     q = torch.randn((1, Hkv, G, D), generator=gen, device=dev)
     pos = torch.tensor([ctx - 1], dtype=torch.int32, device=dev)
     d32 = dataclasses.replace(dcfg, dot_bf16=False)
-    err = max(agree(f"{tag} K1 G{G} decode", call(fd.flash_attention, q, ops,
-                                                  0, pos, dcfg, one),
-                    call(fd.flash_attention_ref, q, ops, 0, pos, dcfg, one),
-                    True),
-              agree(f"{tag} K1 G{G} decode", call(fd.flash_attention, q, ops,
-                                                  0, pos, d32, one),
-                    call(fd.flash_attention_ref, q, ops, 0, pos, d32, one),
-                    False))
+
+    def k1(d=dcfg, qq=q, body=None, p=pos, mcfg=one):
+        return fd.flash_attention(
+            qq, ops["k_planes"], ops["v_planes"], ops["kv_out"],
+            ops["k_range"], ops["k_offset"], ops["v_scale"], ops["v_offset"],
+            ops["k_sink"], ops["v_sink"], ops["k_lut"], ops["v_lut"], 0, p,
+            d, mcfg, body=body)
+
+    def k1_ref(d=dcfg, qq=q, p=pos, mcfg=one):
+        return call(fd.flash_attention_ref, qq, ops, 0, p, d, mcfg)
+
+    before = fd.flash_attention.gqa_launches
+    err = max(agree(f"{tag} K1 G{G} decode (fd_gqa)", k1(), k1_ref(), True),
+              agree(f"{tag} K1 G{G} decode", k1(d32), k1_ref(d32), False))
+    if fd.flash_attention.gqa_launches - before != 1:
+        raise AssertionError(f"K1 at G {G} with bf16 dots did not run fd_gqa")
     rows["K1"] = dict(route=fd.body(dcfg, G, 1), max_abs_err=err)
-    n_live = ctx - dcfg.sink
-    k1_bytes = n_live * nuq_bytes_per_token(dcfg) + 4 * Hkv * D * (
-        2 * dcfg.sink + 2 * G)
     q8 = torch.nn.functional.pad(q, (0, 0, 0, 8 - G))
-    pad8 = lambda: call(fd.flash_attention, q8, ops, 0, pos, dcfg,  # noqa
-                        one)[:, :, :G]
-    rows["K1"]["padded8_ms"] = min(device_ms(pad8), device_ms(pad8))
-    agree(f"{tag} K1 G{G} padded to fd_decode at 8 rows", pad8(),
-          call(fd.flash_attention_ref, q, ops, 0, pos, dcfg, one), True)
-    timed("K1", lambda: call(fd.flash_attention, q, ops, 0, pos, dcfg, one),
-          lambda: call(fd.flash_attention_ref, q, ops, 0, pos, dcfg, one),
-          k1_bytes, ctx, f" (route {rows['K1']['route']}; the same rows "
-          f"padded to 8 on fd_decode: {rows['K1']['padded8_ms']:.4f} ms)")
+    agree(f"{tag} K1 G{G} on fd_chunk at Tq = 1 (old route)", k1(body="mma"),
+          k1_ref(), True)
+    agree(f"{tag} K1 G{G} padded to fd_decode at 8 rows",
+          k1(qq=q8, body="decode")[:, :, :G], k1_ref(), True)
+    rows["K1"]["old_ms"] = {
+        "fd_chunk": best(lambda: k1(body="mma")),
+        "fd_decode_pad8": best(lambda: k1(qq=q8, body="decode"))}
+    timed("K1", k1, k1_ref, k1_bytes(dcfg, ctx - dcfg.sink, G), ctx,
+          f" (route {rows['K1']['route']}; the old routes in the same call: "
+          f"fd_chunk {rows['K1']['old_ms']['fd_chunk']:.4f} ms, padded to 8 "
+          f"on fd_decode {rows['K1']['old_ms']['fd_decode_pad8']:.4f} ms)")
+
+    # K1 routing rows: G 4 (MISTRAL_7B, window live) and G 8 on fd_gqa
+    # beside fd_decode, the same cache
+    for g_r, mcfg in ((4, dataclasses.replace(MISTRAL_7B, n_layers=1)),
+                      (8, dataclasses.replace(one, n_heads=Hkv * 8))):
+        assert mcfg.n_kv_heads == Hkv and mcfg.q_per_kv == g_r
+        qg = torch.randn((1, Hkv, g_r, D), generator=gen, device=dev)
+        new = lambda: k1(qq=qg, body="gqa", mcfg=mcfg)  # noqa: E731
+        old = lambda: k1(qq=qg, body="decode", mcfg=mcfg)  # noqa: E731
+        e = agree(f"{tag} K1 G{g_r} on fd_gqa", new(),
+                  k1_ref(qq=qg, mcfg=mcfg), True)
+        win = mcfg.sliding_window
+        live = min(ctx - dcfg.sink, win or ctx)
+        rows[f"K1 G{g_r}"] = dict(
+            ms=best(new), old_ms={"fd_decode": best(old)}, max_abs_err=e,
+            bound_ms=k1_bytes(dcfg, live, g_r) / HBM_BYTES_PER_S * 1e3,
+            route=fd.body(dcfg, g_r, 1), window=win, ctx=ctx)
+        r = rows[f"K1 G{g_r}"]
+        log(f"{tag} K1 G{g_r} at {ctx} tokens (window {win}): fd_gqa "
+            f"{r['ms']:.4f} ms, fd_decode {r['old_ms']['fd_decode']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f}; route {r['route']}")
 
     # K3 / K4: decode rows R = G over the same capacity (kernel "pallas")
     dp = dataclasses.replace(dcfg, kernel="pallas")
@@ -3902,11 +4008,14 @@ def dbrx_kernel_times(tag, cfg):
     Tc = dp.cache_tokens
     code_b = Hkv * D * dp.bits // 8
     J, spk = dp.n_slots, dp.slots_per_kind
+
+    def k3_bytes(r):
+        return (Tc * (code_b + dp.n_groups * spk * 4 + Hkv * r * 4)
+                + 4 * Hkv * D * (r + 2) + 4 * 2 ** dp.bits)
+
     for name, fn, ref, run, nbytes in (
             ("K3", at.qk_fused, at.qk_fused_ref,
-             lambda f, d=dp: run_qk(f, o, d, one),
-             Tc * (code_b + dp.n_groups * spk * 4 + Hkv * G * 4)
-             + 4 * Hkv * D * (G + 2) + 4 * 2 ** dp.bits),
+             lambda f, d=dp: run_qk(f, o, d, one), k3_bytes(G)),
             ("K4", at.pv_fused, at.pv_fused_ref,
              lambda f, d=dp: run_pv(f, o, d),
              Tc * (code_b + dp.n_groups * (J - spk) * 4 + 8 + Hkv * G * 4)
@@ -3916,7 +4025,41 @@ def dbrx_kernel_times(tag, cfg):
             agree(f"{tag} {name} R {G}", run(fn), run(ref), True),
             agree(f"{tag} {name} R {G}", run(fn, d32p), run(ref, d32p),
                   False)))
-        timed(name, lambda: run(fn), lambda: run(ref), nbytes, ctx)
+        extra = ""
+        if name == "K3":
+            rows[name]["route"] = at.qk_plan(dp, G, D, Tc, 1, Hkv, J,
+                                             common.sm_count(dev)).body
+            old = lambda: at.qk_fused(  # noqa: E731
+                o["q"], o["k_planes"], o["kv_out"], o["k_range"],
+                o["k_offset"], o["k_lut"], dp, one, body="decode")
+            agree(f"{tag} K3 R {G} on the 8-row qk_decode (old route)",
+                  old(), run(ref), True)
+            rows[name]["old_ms"] = {"qk_decode": best(old)}
+            extra = (f" (route {rows[name]['route']}; the 8-row qk_decode "
+                     f"in the same call: "
+                     f"{rows[name]['old_ms']['qk_decode']:.4f} ms)")
+        timed(name, lambda: run(fn), lambda: run(ref), nbytes, ctx, extra)
+    # K3 routing rows: R 4 and 8 on qk_gqa beside qk_decode
+    for r_r in (4, 8):
+        o_r = k34_operands(dp, 1, r_r, Tc, gen, dev)
+
+        def k3(body, o_r=o_r):
+            return at.qk_fused(o_r["q"], o_r["k_planes"], o_r["kv_out"],
+                               o_r["k_range"], o_r["k_offset"], o_r["k_lut"],
+                               dp, one, body=body)
+        e = agree(f"{tag} K3 R{r_r} on qk_gqa", k3("gqa"),
+                  run_qk(at.qk_fused_ref, o_r, dp, one), True)
+        rows[f"K3 R{r_r}"] = dict(
+            ms=best(lambda: k3("gqa")),
+            old_ms={"qk_decode": best(lambda: k3("decode"))}, max_abs_err=e,
+            bound_ms=k3_bytes(r_r) / HBM_BYTES_PER_S * 1e3,
+            route=at.qk_plan(dp, r_r, D, Tc, 1, Hkv, J,
+                             common.sm_count(dev)).body, ctx=Tc)
+        r = rows[f"K3 R{r_r}"]
+        log(f"{tag} K3 R{r_r} over Tc {Tc}: qk_gqa {r['ms']:.4f} ms, "
+            f"qk_decode {r['old_ms']['qk_decode']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f}; route {r['route']}")
+        del o_r
     del ops, o
 
     # K2: the speed config's decode row at G 6 (padded to fs_mma's 8)
@@ -3940,7 +4083,7 @@ def dbrx_kernel_times(tag, cfg):
                   k2(fs.flash_serial_decode_ref, d32), False)))
     timed("K2", lambda: k2(fs.flash_serial_decode),
           lambda: k2(fs.flash_serial_decode_ref),
-          n_live * stored_bytes_per_token(dcfg2)
+          (ctx - dcfg2.sink) * stored_bytes_per_token(dcfg2)
           + 4 * Hkv * D * (2 * dcfg2.sink + 2 * G), ctx,
           f" ({rows['K2']['plan']})")
     del ops
@@ -3961,21 +4104,33 @@ def dbrx_kernel_times(tag, cfg):
         252)).to(torch.int32).reshape(B, MP).to(dev)
     pos5 = torch.full((B,), c5 - 1, dtype=torch.int32, device=dev)
     q5 = torch.randn((B, Hkv, G, D), generator=gen, device=dev)
-    run5 = lambda f, d=dcfg5: f(q5, pool, table, dq, 0, pos5, d, one)  # noqa
+    q58 = torch.nn.functional.pad(q5, (0, 0, 0, 8 - G))
+    run5 = lambda f, d=dcfg5, qq=q5: f(qq, pool, table, dq, 0, pos5, d,  # noqa
+                                       one)
     d32 = dataclasses.replace(dcfg5, dot_bf16=False)
+    before = pdk.paged_flash_decode.gqa_launches
     rows["K5"] = dict(
         plan=repr(pdk.paged_plan(dcfg5, B, Hkv, G, D, dcfg5.n_slots, c5,
                                  common.sm_count(dev))),
         max_abs_err=max(
-            agree(f"{tag} K5 G{G}", run5(pdk.paged_flash_decode),
+            agree(f"{tag} K5 G{G} (fd_gqa)", run5(pdk.paged_flash_decode),
                   run5(pdk.paged_flash_decode_ref), True),
             agree(f"{tag} K5 G{G}", run5(pdk.paged_flash_decode, d32),
                   run5(pdk.paged_flash_decode_ref, d32), False)))
+    if pdk.paged_flash_decode.gqa_launches - before != 1:
+        raise AssertionError(f"K5 at G {G} with bf16 dots did not run fd_gqa")
+    old5 = lambda: run5(pdk.paged_flash_decode, qq=q58)  # noqa: E731
+    with old_routes():  # 8 rows on fd_decode
+        agree(f"{tag} K5 G{G} padded to fd_decode at 8 rows (old route)",
+              old5()[:, :, :G], run5(pdk.paged_flash_decode_ref), True)
+        rows["K5"]["old_ms"] = {"fd_decode_pad8": best(old5)}
     timed("K5", lambda: run5(pdk.paged_flash_decode),
           lambda: run5(pdk.paged_flash_decode_ref),
           B * (c5 - dcfg5.sink) * nuq_bytes_per_token(dcfg5)
           + 4 * Hkv * D * (2 * dcfg5.sink + 2 * G) * B + 4 * B * MP, c5,
-          f" per slot, B {B} ({rows['K5']['plan']})")
+          f" per slot, B {B} ({rows['K5']['plan']}; padded to 8 on "
+          f"fd_decode in the same call: "
+          f"{rows['K5']['old_ms']['fd_decode_pad8']:.4f} ms)")
     del ops, pool
     torch.cuda.empty_cache()
     return rows
@@ -4244,6 +4399,84 @@ def dbrx_graph_vs_eager(tag, params, cfg, dcfg, dq, cache, ctx, steps,
     return r
 
 
+@contextlib.contextmanager
+def old_routes():
+    """The routes of 3-8 query rows per kv head as they were before the
+    tensor-core decode bodies: K1 and K5 steps off fd_gqa (K1 on fd_chunk
+    at Tq = 1 for 3 / 5 / 6 / 7 rows and on fd_decode at 4 / 8, K5 padded
+    to fd_decode), K3 off qk_gqa (qk_decode's 4- or 8-row instance)."""
+    from kvquant_tpu_torch.ops.kernels import attention as at
+    from kvquant_tpu_torch.ops.kernels import flash_decode as fd
+
+    saved = fd.GQA_ROWS, at.QK_GQA_ROWS
+    fd.GQA_ROWS, at.QK_GQA_ROWS = (), ()
+    try:
+        yield
+    finally:
+        fd.GQA_ROWS, at.QK_GQA_ROWS = saved
+
+
+STEP_NAMES = {n: (n,) for n in ("fd_gqa", "fd_decode", "fd_chunk", "qk_gqa",
+                                "qk_decode", "pv_decode")}
+
+
+def dbrx_long_step(params, cfg, dq, bounds, ctx=32768, steps=4):
+    """DBRX's graphed decode step at ``ctx`` on a synthetic filled cache
+    (the faithful nuq3 storage filled as phase 28 fills LLaMA's; ~0.22 GB
+    at 8 layers) through ``flash`` (K1) and ``pallas`` (K3 / K4):
+    ``dbrx_graph_vs_eager`` over ``steps`` steps (graphed == eager
+    bitwise, device ms a step, wall / device), the attention kernels by
+    name in a replay's trace; then the same step captured with the old
+    routes forced (``old_routes``) in the same call, its device ms and
+    kernels by name."""
+    from kvquant_tpu_torch import engine
+
+    L = cfg.n_layers
+    _, dcfg, _ = faithful_config(ctx + steps + 8, L, cfg)
+    cache = filled_cache(dcfg, L, ctx, 2532)
+    tok = torch.zeros((1,), dtype=torch.int32, device="cuda")
+    pos = torch.full((1,), ctx + steps, dtype=torch.int32, device="cuda")
+    out = {"cache_gib": sum(t.numel() * t.element_size()
+                            for t in cache.arrays().values()) / 2 ** 30}
+    for path, d, want in (
+            ("flash", dcfg, {"K1": L, "moe_experts": L}),
+            ("pallas", dataclasses.replace(dcfg, kernel="pallas"),
+             {"K3": L, "K4": L, "moe_experts": L})):
+        tag = f"[25] {path} graphed {ctx}"
+        r = dbrx_graph_vs_eager(tag, params, cfg, d, dq, cache, ctx, steps,
+                                want, bounds)
+        graph = engine.DecodeGraph(params, cfg, d, dq, clone_cache(cache))
+        new_ms = device_ms(lambda: graph(tok, pos), n=8, reps=3)
+        _, _, names, names_ms = step_trace(lambda: graph(tok, pos), n=2,
+                                           kernels=STEP_NAMES)
+        with old_routes():
+            old = engine.DecodeGraph(params, cfg, d, dq, clone_cache(cache))
+        old_ms = device_ms(lambda: old(tok, pos), n=8, reps=3)
+        _, _, old_names, old_names_ms = step_trace(lambda: old(tok, pos), n=2,
+                                                   kernels=STEP_NAMES)
+        new_ms2 = device_ms(lambda: graph(tok, pos), n=8, reps=3)
+        r.update(new_ms=(new_ms, new_ms2), old_ms=old_ms,
+                 trace_names=names, trace_names_ms=names_ms,
+                 old_trace_names=old_names, old_trace_names_ms=old_names_ms)
+        log(f"{tag}: device {new_ms:.3f} / {new_ms2:.3f} ms a step "
+            f"(new routes, before / after), {old_ms:.3f} with the old routes "
+            f"forced (K1 fd_chunk, K3 8-row qk_decode), "
+            f"{old_ms - min(new_ms, new_ms2):.3f} ms saved a step; by name a "
+            f"step: new {names} {names_ms}, old {old_names} {old_names_ms}")
+        want_new = {"flash": {"fd_gqa": L}, "pallas": {"qk_gqa": L,
+                                                        "pv_decode": L}}[path]
+        want_old = {"flash": {"fd_chunk": L},
+                    "pallas": {"qk_decode": L, "pv_decode": L}}[path]
+        if names != want_new or old_names != want_old:
+            raise AssertionError(f"{tag}: kernels by name {names} (new) / "
+                                 f"{old_names} (old routes)")
+        out[path] = r
+        del graph, old
+    del cache
+    torch.cuda.empty_cache()
+    return out
+
+
 def dbrx_prefill_graph(tag, params, cfg, dcfg, dq, prompt, chunk):
     """The quantized prefill of ``prompt`` through a chunk graph
     (chunk 0 eager, 1 the warm-up, replays after) beside every chunk
@@ -4396,9 +4629,13 @@ def phase_dbrx(report):
     random bf16 weights from a seed: the faithful nuq3 config through K1
     (2048-token quantized prefill, 32 greedy tokens), the speed config
     through K2 and kernel "pallas" through K3 / K4 (16 tokens each), each
-    kernel held to its plain version on the live cache; then the G 6
-    routes alone, K1's and K5's edge grids at G 3 / 6, a toy MoE card ==
-    CPU, and the fp16-KV baseline on the same weights."""
+    kernel held to its plain version on the live cache; the graphed step
+    at 32K on a filled cache through K1 and K3 / K4, beside the same step
+    with the G 3-8 routes of before the tensor-core decode bodies forced;
+    then the G 6 routes alone (the new bodies beside the old routes, and
+    the G 4 / G 8 routing rows), K1's and K5's edge grids at G 3 / 5 / 6 /
+    7, K3's qk_gqa grid, a toy MoE card == CPU, and the fp16-KV baseline
+    on the same weights."""
     import os
     import shutil
 
@@ -4501,13 +4738,15 @@ def phase_dbrx(report):
         f"{chunk}, {G * chunk} rows a kv head) {prefill_s:.3f} s; generate "
         f"(prefill + {N} steps) {gen_s:.3f} s, decode "
         f"{N / (gen_s - prefill_s):.2f} tok/s; launches {n} (K1 expected "
-        f"{want}: at G {G} every call runs the chunk body, decode steps at "
-        f"Tq = 1 included)")
-    if not (n["K1"] == want == n["K1_chunk"]
+        f"{want}: the chunks on fd_chunk, the decode steps at G {G} on "
+        f"fd_gqa)")
+    if not (n["K1"] == want and n["K1_chunk"] == cfg.n_layers * n_chunks
+            and n["K1_gqa"] == cfg.n_layers * N
             and n["K2"] == n["K3"] == n["K4"] == n["K5"] == 0
             and n["moe_experts"] == cfg.n_layers * N):
-        raise AssertionError("DBRX did not run K1 per layer, chunk and "
-                             "step, and moe_experts per layer and step")
+        raise AssertionError("DBRX did not run K1 per layer, chunk (fd_chunk)"
+                             " and step (fd_gqa), and moe_experts per layer "
+                             "and step")
     if not (toks.shape == (1, N) and int(toks.min()) >= 0
             and int(toks.max()) < cfg.vocab_size):
         raise AssertionError(f"bad tokens {toks.shape}")
@@ -4533,7 +4772,8 @@ def phase_dbrx(report):
                             decode_step(params, cfg, dcfg, dq, cache, tok,
                                         T0 + N + i), 8)
     out["flash"] = dict(prefill_s=prefill_s, decode_tps=tps,
-                        k1_launches=n["K1"], max_abs_err=worst,
+                        k1_launches=n["K1"], k1_gqa_launches=n["K1_gqa"],
+                        max_abs_err=worst,
                         moe_launches=n["moe_experts"], **prof)
     out["flash"]["graph"] = dbrx_graph_vs_eager(
         "[25] flash graphed", params, cfg, dcfg, dq, cache, T0 + N, 16,
@@ -4550,10 +4790,12 @@ def phase_dbrx(report):
     torch.cuda.synchronize()
     n = read()
     log(f"[25] kernel pallas, fp16 prefill {T0} + {N2} greedy tokens: "
-        f"launches {n} (K3 / K4 expected {cfg.n_layers * N2} each)")
+        f"launches {n} (K3 / K4 expected {cfg.n_layers * N2} each, K3 on "
+        f"qk_gqa)")
     if not (n["K3"] == n["K4"] == n["moe_experts"] == cfg.n_layers * N2
-            and n["K1"] == n["K2"] == n["K5"] == 0):
-        raise AssertionError("DBRX pallas did not run K3 / K4 per step")
+            == n["K3_gqa"] and n["K1"] == n["K2"] == n["K5"] == 0):
+        raise AssertionError("DBRX pallas did not run K3 (qk_gqa) / K4 per "
+                             "step")
     k34 = live_k34_check("[25] live cache", cache, dq, dcfg_p, cfg,
                          (0, cfg.n_layers - 1), gen, rs=(G, G * chunk))
     tok = toks[:, -1]
@@ -4561,6 +4803,7 @@ def phase_dbrx(report):
                             decode_step(params, cfg, dcfg_p, dq, cache, tok,
                                         T0 + N2 + i), 8)
     out["pallas"] = dict(decode_tps=tps, k3_launches=n["K3"],
+                         k3_gqa_launches=n["K3_gqa"],
                          k4_launches=n["K4"], max_abs_err=k34,
                          moe_launches=n["moe_experts"], **prof)
     out["pallas"]["graph"] = dbrx_graph_vs_eager(
@@ -4568,6 +4811,9 @@ def phase_dbrx(report):
         {"K3": L, "K4": L, "moe_experts": L}, (ffn_routed, ffn_all))
     del cache
     torch.cuda.empty_cache()
+
+    # ---- the graphed step at 32K, new routes beside the old ones ----
+    out["step_32k"] = dbrx_long_step(params, cfg, dq, (ffn_routed, ffn_all))
 
     # ---- the speed config through K2 (G 6 padded to fs_mma's 8 rows) ----
     dcfg2, qs2 = dbrx_speed_config(cfg, max_len, cfg.n_layers)
@@ -4633,9 +4879,11 @@ def phase_dbrx(report):
     # ---- the G 6 routes alone; edge grids at G 3 / 6; toy card == CPU ----
     out["times"] = dbrx_kernel_times("[25]", cfg)
     out["k2_odd_g"] = k2_odd_g_check("[25]")
-    modes = (("nuq", 3), ("int4", 4), ("int8", 8))
+    modes = (("nuq", 2), ("nuq", 3), ("nuq", 4), ("int4", 4), ("int8", 8),
+             ("int4x2", 2))
     out["k1_edges"] = decode_edge_grid("[25]", modes, paged=False, odd_g=True)
     out["k5_edges"] = decode_edge_grid("[25]", modes, paged=True, odd_g=True)
+    out["k3_gqa_grid"] = k3_gqa_grid("[25]")
     toy_moe_card_vs_cpu("[25]")
     out["serve_graph"] = toy_moe_server_graph("[25]")
     report["dbrx"] = out
@@ -5132,9 +5380,9 @@ def step_trace(step, n=3, kernels=None):
 # the port's kernels in a profiler trace, by the wrapper that launches
 # them: one of these a wrapper call (the merges that may follow are left
 # out)
-OWN_KERNELS = {"K1": ("fd_decode", "fd_chunk", "fd_partial"),
+OWN_KERNELS = {"K1": ("fd_decode", "fd_gqa", "fd_chunk", "fd_partial"),
                "K2": ("fs_mma", "fs_partial"),
-               "K3": ("qk_decode", "qk_mma", "qk_simt"),
+               "K3": ("qk_decode", "qk_gqa", "qk_mma", "qk_simt"),
                "K4": ("pv_decode", "pv_mma", "pv_simt"),
                "moe_experts": ("moe_glu",)}
 
@@ -5451,11 +5699,11 @@ def phase_training(report):
 # (tag, config of LLaMA-2-7B width, kernel, {context: greedy steps}): the
 # token and cache comparison runs at 2K, the timings at every context
 GRAPH_PATHS = (
-    ("K2 speed int4", "speed_config", "flash_serial", {2048: 64, 32768: 8}),
-    ("K1 nuq3", "faithful_config", "flash", {2048: 64, 32768: 8}),
-    ("K3/K4 nuq3", "faithful_config", "pallas", {2048: 64, 32768: 8}),
+    ("K2 speed int4", "speed_config", "flash_serial", {2048: 32, 32768: 8}),
+    ("K1 nuq3", "faithful_config", "flash", {2048: 32, 32768: 8}),
+    ("K3/K4 nuq3", "faithful_config", "pallas", {2048: 32, 32768: 8}),
     ("K1 int4x2", "speed2_config", "flash",
-     {2048: 64, 32768: 8, 131072: 8}),
+     {2048: 32, 32768: 8, 131072: 8}),
     ("xla nuq3", "faithful_config", "xla", {2048: 8}),
 )
 
@@ -6640,12 +6888,48 @@ def main(argv=None) -> int:
                       "dbrx_g6_ms": t["ms"], "dbrx_g6_plain_ms": t["plain_ms"],
                       "dbrx_g6_bound_ms": t["bound_ms"],
                       "dbrx_g6_ctx": t["ctx"]})
-            if key == "K1":
-                k["dbrx_g6_padded8_fd_decode_ms"] = t["padded8_ms"]
+            if "old_ms" in t:
+                k["dbrx_g6_old_route_ms"] = t["old_ms"]
             k["dbrx_graphed_launches_per_step"] = next(
                 (d[p]["graph"]["launches_per_step"][key]
                  for p in ("flash", "pallas", "flash_serial")
                  if key in d[p]["graph"]["launches_per_step"]), 0)
+        # the tensor-core decode bodies by name: K1's at G 6 (K5's through
+        # the page table beside it), K3's at R 6; the G 4 / R 4 and G 8 / R 8
+        # rows of the routing decision; DBRX's graphed step at 32K
+        t = d["times"]
+        step = d["step_32k"]
+        for name, key, launches, k5, rows in (
+                ("flash_attention:fd_gqa", "K1", d["flash"]["k1_gqa_launches"],
+                 True, ("K1 G4", "K1 G8")),
+                ("qk_fused:qk_gqa", "K3", d["pallas"]["k3_gqa_launches"],
+                 False, ("K3 R4", "K3 R8"))):
+            mode = "flash" if key == "K1" else "pallas"
+            kernels.append({
+                "name": name, "route": "cuda",
+                "source": ("kvquant_tpu_torch/csrc/flash_decode.cu" if k5
+                           else "kvquant_tpu_torch/csrc/attention.cu"),
+                "replaces": ("kvquant_tpu/ops/pallas/flash_decode.py:255" if k5
+                             else "kvquant_tpu/ops/pallas/attention.py:156"),
+                "launches": launches,
+                "max_abs_err": max(t[key]["max_abs_err"],
+                                   *(t[r]["max_abs_err"] for r in rows)),
+                "ms": t[key]["ms"], "plain_ms": t[key]["plain_ms"],
+                "bound_ms": t[key]["bound_ms"], "bound_by": "bytes",
+                "library_ms": None, "old_route_ms": t[key]["old_ms"],
+                "routing_rows": {r: {k: t[r][k] for k in (
+                    "ms", "old_ms", "bound_ms", "route")} for r in rows},
+                "dbrx_step_32k_ms": {"new": step[mode]["new_ms"],
+                                     "old_routes": step[mode]["old_ms"]},
+                "shape": "one DBRX layer: Hkv=8 G=6 D=128 nuq3 pre-RoPE slots "
+                         "cap=2 hg=4 sink=5, bf16 dots, 32K tokens",
+                **({"k5_ms": t["K5"]["ms"],
+                    "k5_old_route_ms": t["K5"]["old_ms"],
+                    "k5_bound_ms": t["K5"]["bound_ms"],
+                    "k5_max_abs_err": t["K5"]["max_abs_err"],
+                    "k5_shape": "B=4 x 8K in permuted pages of 1024"}
+                   if k5 else {}),
+            })
         m = d["moe_experts"]
         kernels.append({
             "name": "moe_experts", "route": "cuda",

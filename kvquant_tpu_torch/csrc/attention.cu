@@ -25,9 +25,9 @@
 // the contractions, 2*R*Tc*D flops per head in each kernel, fit the tensor
 // cores' rate several times over.
 //
-// Three bodies per kernel, picked by the host plan (qk_plan / pv_plan in
-// ops/kernels/attention.py), which this file checks, its shared-memory
-// count included:
+// Three bodies per kernel (and K3's tensor-core decode body qk_gqa), picked
+// by the host plan (qk_plan / pv_plan in ops/kernels/attention.py), which
+// this file checks, its shared-memory count included:
 //  - decode (R <= 8, both dot modes; G = 1/2/4/8 rows per instance): one
 //    block per (batch row, hc kv heads of whole head groups, token split).
 //    A producer warp fills a ring of 128-token stages (one nuq packing
@@ -52,6 +52,15 @@
 //    which it adds as rnd(p) * rnd(M) in token order. The warps of a head
 //    meet in shared memory, the splits in pv_merge, in a fixed order: sums
 //    are the same from run to run;
+//  - qk_gqa (K3 at R = 3..8 with bf16 dots: DBRX's G 6, MISTRAL_7B's 4):
+//    the decode body's ring, heads and splits, each consumer warp a
+//    128-token stage's word row at a time; the scores on mma.sync.m16n8k16
+//    with A = 16 tokens x 16 dims of keys dequantized, rotated (a pair
+//    never leaves its lane) and rounded in registers and B = the R rows
+//    (hopper.cuh's fd_gqa layout), written straight from the C fragments;
+//    the K slot fix-ups are qk_decode's, one lane per token for every row,
+//    added through a per-warp exchange tile. Two blocks an SM (96
+//    registers; one block at 168 runs slower, gqa_ablation.py);
 //  - mma (R > 8, bf16 dots), on the tensor cores with mma.sync.m16n8k16 and
 //    ldmatrix, 8 warps a block. K3: a block owns a head, up to 272 query
 //    rows (bf16 in shared memory) and a token split; each 128-token tile of
@@ -123,7 +132,7 @@ struct PvArgs {
 
 namespace {
 
-constexpr int BODY_DECODE = 0, BODY_MMA = 1, BODY_SIMT = 2;
+constexpr int BODY_DECODE = 0, BODY_MMA = 1, BODY_SIMT = 2, BODY_GQA = 3;
 constexpr int MAXD = 128;
 constexpr int MAX_SLOTS = 8;  // slot rows of one kind per head group
 
@@ -149,14 +158,6 @@ __device__ __forceinline__ int kslot_dim(uint32_t u, int hg, int jh, int D) {
 // the key pair (i, i + D/2) such a dim touches
 __device__ __forceinline__ int kslot_pair(int d, int D) {
   return d < D ? d & (D / 2 - 1) : d - D;
-}
-
-// The rotation of the pair (x0 at dim i, x1 at dim i + D/2) by (c, s), with
-// fixed roundings: every body and the K slot fix-up compute the same bits.
-__device__ __forceinline__ void rope2(float x0, float x1, float c, float s, float& r0,
-                                      float& r1) {
-  r0 = __fmaf_rn(x0, c, -__fmul_rn(x1, s));
-  r1 = __fmaf_rn(x1, c, __fmul_rn(x0, s));
 }
 
 // ---------------------------------------------------------------------------
@@ -502,6 +503,11 @@ __host__ __device__ inline int qk_decode_smem(const QkArgs& a, int G) {
   const DRing r = dring(a.hc, a.bits, a.D, staged_rows(a.n_kslots, a.hc, a.hg), false);
   return 128 + a.n_stage * r.bytes + 4 * a.hc * (G + 2) * a.D;
 }
+// qk_gqa's: the ring, the queries transposed [hc][D][8], k_range and
+// k_offset [hc][2][D], a slot-term exchange tile per consumer warp
+__host__ __device__ inline int qk_gqa_smem(const QkArgs& a) {
+  return qk_decode_smem(a, 8) + DW * GXB;
+}
 __host__ __device__ inline int pv_decode_smem(const PvArgs& a, int G) {
   const DRing r = dring(a.hc, a.bits, a.D, staged_rows(a.n_vslots, a.hc, a.hg), true);
   const int ring = a.n_stage * r.bytes, merge = DW * G * (a.D + 1) * 4;
@@ -718,6 +724,149 @@ __global__ void __launch_bounds__(DNT, G >= 4 ? 1 : 2) qk_decode(QkArgs a) {
         }
       }
       if (rlane < R) orow[t0 + tt] = sc;
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);  // the stage may be refilled
+  }
+}
+
+// K3, one tensor-core decode block (R = 3..8 rows, bf16 dots): batch row
+// b, kv heads [h0, h0 + hc), token split blockIdx.x and the ring of
+// qk_decode. Consumer warp w takes head w / WPH and the word rows
+// (w % WPH) mod WPH of each 128-token stage, 32 tokens a unit: scores on
+// mma.sync.m16n8k16 with A = 16 tokens x 16 dims of keys dequantized,
+// rotated and rounded in registers and B = the R query rows (N = 8,
+// hopper.cuh's layout); the K slot fix-ups are qk_decode's, one lane per
+// token for every row, added to the scores through the warp's exchange
+// tile.
+template <int NB>
+__global__ void __launch_bounds__(DNT, 2) qk_gqa(QkArgs a) {
+  extern __shared__ __align__(128) unsigned char dsm[];
+  constexpr int UPS = DT / GU;  // units per stage
+  __shared__ float sLut[16];
+  const int D = a.D, half = D / 2, hc = a.hc, NS = a.n_stage, Tc = a.Tc, R = a.R;
+  const int nks = a.n_kslots, hg = a.hg;
+  const DRing L = dring(hc, NB, D, staged_rows(nks, hc, hg), false);
+  uint64_t* full = reinterpret_cast<uint64_t*>(dsm);
+  uint64_t* empty = full + MAX_STAGES;
+  unsigned char* ring = dsm + 128;
+  float* sQT = reinterpret_cast<float*>(ring + NS * L.bytes);  // [hc][D][8]
+  float* sKr = sQT + hc * 8 * D;  // [hc][2][D]: k_range, k_offset
+  float* sXall = sKr + hc * 2 * D;  // [DW][8][GXS]
+
+  const int s = blockIdx.x, h0 = blockIdx.y * hc, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n_tiles = Tc / DT, tps = (n_tiles + a.n_split - 1) / a.n_split;
+  const int t_begin = s * tps, t_end = min(n_tiles, t_begin + tps);
+  if (t_begin >= t_end) return;
+  const int WPH = DW / hc, nact = hc * min(WPH, UPS);
+
+  if (tid == 0) {
+    for (int i = 0; i < NS; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], nact);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  const float* qb = a.q + ((size_t)b * a.Hkv + h0) * R * D;
+  for (int i = tid; i < hc * D * 8; i += DNT) {  // rows past R zero
+    const int k = i / (8 * D), d = (i / 8) % D, r = i % 8;
+    sQT[i] = r < R ? rnd(qb[((size_t)k * R + r) * D + d], true) : 0.f;
+  }
+  for (int i = tid; i < hc * 2 * D; i += DNT) {
+    const int k = i / (2 * D), d = i % D;
+    sKr[i] = ((i / D) & 1 ? a.k_offset : a.k_range)[(size_t)(h0 + k) * D + d];
+  }
+  if (tid < (1 << NB)) sLut[tid] = a.lut[tid];
+  __syncthreads();
+
+  if (warp == DW) {
+    if (lane == 0)
+      fill_ring<NB>(ring, full, empty, NS, L, a.kp, a.kv_out, nullptr, nullptr, b, a.Hkv, h0,
+                    hc, hg, a.J, 0, nks, D, Tc, t_begin, t_end);
+    return;
+  }
+  const int k = warp / WPH, wk = warp % WPH, h = h0 + k, jh = h % hg;
+  if (wk >= UPS) return;  // warps past a stage's units idle (hc = 1)
+  const int g = lane >> 2, tq = lane & 3;
+  const float* kr = sKr + k * 2 * D;
+  const float* ko = kr + D;
+  const float* qT = sQT + k * D * 8;
+  float* sX = sXall + warp * 8 * GXS;
+  uint32_t qf[GNJ][2][2];
+  gqa_query_frags(qT, D, g, tq, qf);
+  const bool r0ok = 2 * tq < R, r1ok = 2 * tq + 1 < R;
+  float* orow = a.out + (((size_t)b * a.Hkv + h) * R + 2 * tq) * Tc;
+
+  for (int it = t_begin; it < t_end; ++it) {
+    const int u = it - t_begin, st = u % NS;
+    mbar_wait(&full[st], (u / NS) & 1);
+    const unsigned char* stg = ring + st * L.bytes;
+    const unsigned char* sKc = stg + k * NB * 16 * D;
+    const float* sRows = reinterpret_cast<const float*>(stg + L.rows) + (k / hg) * nks * DT;
+    const int t0 = it * DT;
+    for (int un = wk; un < UPS; un += WPH) {
+      float sc[2][4];
+      gqa_nuq_scores<NB, true>(sKc, D, un, kr, ko, sLut, a.rope + (size_t)t0 * half, g, tq, qf,
+                               sc);
+      // ---- K slots: lane l takes unit slot l (tile token 4l + un); each
+      // key pair a slot touches is recomputed as the keys were, given the
+      // pair's addend (its slots summed in slot order, rotated), rounded
+      // once, and the difference of the two rounded operands enters every
+      // row's score, exchanged to the lanes that hold the scores ----
+      if (nks > 0) {
+        const int tt = 4 * lane + un;
+        const float* wt = sRows + tt;  // the token's slot words, DT apart
+        float e[8];
+#pragma unroll
+        for (int r = 0; r < 8; ++r) e[r] = 0.f;
+#pragma unroll 1
+        for (int j = 0; j < MAX_SLOTS; ++j) {
+          if (j >= nks) break;
+          const int dj = kslot_dim(__float_as_uint(wt[j * DT]), hg, jh, D);
+          const int i = kslot_pair(dj, D);
+          bool first = dj >= 0;
+#pragma unroll
+          for (int j2 = 0; j2 < j; ++j2) {
+            const int d2 = kslot_dim(__float_as_uint(wt[j2 * DT]), hg, jh, D);
+            first = first && !(d2 >= 0 && kslot_pair(d2, D) == i);
+          }
+          if (!first) continue;
+          float a0 = 0.f, a1 = 0.f, a2 = 0.f;
+#pragma unroll
+          for (int j2 = j; j2 < MAX_SLOTS; ++j2) {
+            if (j2 >= nks) break;
+            const uint32_t w2 = __float_as_uint(wt[j2 * DT]);
+            const int d2 = kslot_dim(w2, hg, jh, D);
+            const bool on = d2 >= 0 && kslot_pair(d2, D) == i;
+            a0 += on && d2 < half ? slot_value(w2) : 0.f;
+            a1 += on && d2 >= half && d2 < D ? slot_value(w2) : 0.f;
+            a2 += on && d2 >= D ? slot_value(w2) : 0.f;
+          }
+          const float x0 = fmaf(sLut[staged_code<NB>(sKc, D, tt, i)], kr[i], ko[i]);
+          const float x1 = fmaf(sLut[staged_code<NB>(sKc, D, tt, i + half)], kr[i + half],
+                                ko[i + half]);
+          const float2 cs = __ldg(a.rope + (size_t)(t0 + tt) * half + i);
+          float k0, k1, e0, e1;
+          rope2(x0, x1, cs.x, cs.y, k0, k1);
+          rope2(a0, a1, cs.x, cs.y, e0, e1);
+          e1 -= a2 * cs.y;
+          const float d0 = rnd(k0 + e0, true) - rnd(k0, true);
+          const float d1 = rnd(k1 + e1, true) - rnd(k1, true);
+          float q0[8], q1[8];
+          gqa_q8(qT, i, q0);
+          gqa_q8(qT, i + half, q1);
+#pragma unroll
+          for (int r = 0; r < 8; ++r) e[r] += q0[r] * d0 + q1[r] * d1;
+        }
+        gqa_exchange(sX, lane, e, g, tq, sc);
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int tt = 4 * (g + 8 * q) + un;
+        if (r0ok) orow[t0 + tt] = sc[q >> 1][2 * (q & 1)];
+        if (r1ok) orow[Tc + t0 + tt] = sc[q >> 1][2 * (q & 1) + 1];
+      }
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[st]);  // the stage may be refilled
@@ -1372,6 +1521,11 @@ cudaError_t pv_decode_go(const PvArgs& a, cudaStream_t st) {
 
 template <int NB>
 cudaError_t qk_bits(const QkArgs& a, cudaStream_t st) {
+  if (a.body == BODY_GQA) {
+    static int configured = 0;
+    return launch(qk_gqa<NB>, dim3(a.n_split, a.Hkv / a.hc, a.B), DNT, a.smem, a, st,
+                  configured);
+  }
   if (a.body == BODY_DECODE) {
     switch (decode_rows(a.R)) {
       case 1: return qk_decode_go<NB, 1>(a, st);
@@ -1428,9 +1582,10 @@ bool plan_ok(const Args& a, int n_slots, int max_rows) {
       a.bits > 4 || a.R < 1 || n_slots > MAX_SLOTS || a.Hkv % a.hg ||
       (n_slots > 0 && a.hg > 4) || a.n_split < 1)
     return false;
-  if (a.body == BODY_DECODE)
+  if (a.body == BODY_DECODE || a.body == BODY_GQA)
     return a.R <= 8 && a.hc >= 1 && a.hc <= DW && a.Hkv % a.hc == 0 &&
-           (n_slots == 0 || a.hc % a.hg == 0) && a.n_stage >= 2 && a.n_stage <= MAX_STAGES;
+           (n_slots == 0 || a.hc % a.hg == 0) && a.n_stage >= 2 && a.n_stage <= MAX_STAGES &&
+           (a.body == BODY_DECODE || (a.R >= 3 && a.dot_bf16));
   if (a.R <= 8) return false;
   if (a.body == BODY_MMA)
     return a.dot_bf16 && a.rows_blk % 16 == 0 && a.rows_blk >= 16 && a.rows_blk <= max_rows &&
@@ -1444,6 +1599,7 @@ bool plan_ok(const Args& a, int n_slots, int max_rows) {
 // differ, so that the plan and the bodies' layouts cannot drift apart.
 inline int qk_smem(const QkArgs& a) {
   if (a.body == BODY_DECODE) return qk_decode_smem(a, decode_rows(a.R));
+  if (a.body == BODY_GQA) return qk_gqa_smem(a);
   return a.body == BODY_MMA ? qk_mma_smem(a) : qk_simt_floats(a.D) * 4;
 }
 inline int pv_smem(const PvArgs& a) {
@@ -1466,7 +1622,7 @@ extern "C" int qk_fused(const QkArgs* a, void* stream) {
 // Launches K4's split kernel and its merge kernel on `stream`; returns the
 // cudaError_t of the launches (0 on success). Nothing is synchronised.
 extern "C" int pv_fused(const PvArgs* a, void* stream) {
-  if (!plan_ok(*a, a->n_vslots, PV_ROWS) || a->smem != pv_smem(*a))
+  if (a->body == BODY_GQA || !plan_ok(*a, a->n_vslots, PV_ROWS) || a->smem != pv_smem(*a))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t e = by_bits<PvArgs, pv_bits<2>, pv_bits<3>, pv_bits<4>>(*a, st);

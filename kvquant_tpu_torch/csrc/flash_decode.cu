@@ -21,9 +21,11 @@
 // row t0 % P. In fd_decode only the producer thread addresses memory, so
 // the policy is chosen at run time there (K5 passes a table, K1 none).
 //
-// Four kernels:
-//  - fd_decode, the decode body of K1 (Tq = 1, G = 1/2/4/8 rows per kv
-//    head) and all of K5;
+// Five kernels:
+//  - fd_decode, the SIMT decode body of K1 and K5 (Tq = 1, G = 1/2 rows
+//    per kv head, and 4/8 with fp32 dots; other G padded to an instance);
+//  - fd_gqa, the tensor-core decode body of K1 and K5 (Tq = 1, 3-8 rows
+//    per kv head, bf16 dots; the host's body() / GQA_ROWS route it);
 //  - fd_chunk, the multi-row body of K1 with bf16 dots (prefill chunks,
 //    every call that is not a decode step): mma.sync on the tensor cores;
 //  - fd_partial, the multi-row body of K1 with fp32 dots (64 rows, SIMT);
@@ -86,6 +88,43 @@
 // G = 4 at 138-160 and G = 8 at 168 (one block per SM). Shared memory: the
 // ring (2-4 stages, <= 96 KB: 87 KB for LLaMA-2-7B nuq3, 70 KB for its
 // int4x2) plus hb * G * D query floats.
+//
+// fd_gqa (decode steps of 3-8 rows per kv head, bf16 dots: DBRX's 48 / 8
+// heads, MISTRAL_7B's 32 / 8). What bounds it: the bytes, as fd_decode
+// (DBRX nuq3 at 32K: 27.6 MB a layer, 0.0082 ms at 3.35 TB/s). fd_decode's
+// SIMT consumers take G partial dots per code and a butterfly per chunk, so
+// their cost grows with the rows, not the bytes; the G rows of a kv head
+// are what mma.sync's N = 8 holds, so on the tensor cores a code costs the
+// same at any G <= 8. What the design does:
+//  - the ring, producer thread, splits, sink prefix (fd_merge) and both
+//    addressings of fd_decode (produce_tiles); a consumer warp takes one
+//    head and 32-token units of a stage (a nuq word row: tokens 4s + r at
+//    bit s; containers: 32 consecutive tokens);
+//  - scores S^T = K Q^T on mma.sync.m16n8k16: A = 16 tokens x 16 dims of
+//    keys dequantized in registers (a nuq plane's four slot bits of a lane
+//    sit at bits g, g + 8, g + 16, g + 24 of one word: one rotate and one
+//    AND-OR a plane give four codes, then the LUT), straight into the A
+//    fragments; a lane's k-block j holds dims 16j + 4tq .. + 3 and k-block
+//    j + D/32 their RoPE partners, so pre-RoPE keys rotate in registers
+//    with the (cos, sin) rows loaded ahead; B = the G query rows (bf16,
+//    zero past G; hopper.cuh's layout);
+//  - K outliers by linearity in fp32, one lane per token for every row
+//    (the slot's rotated terms times the transposed queries), added to the
+//    score fragments through a per-warp exchange tile;
+//  - an online softmax in log2 units per row (a column of C), P^T through
+//    a per-warp bf16 tile (rows past G zero), then O^T += V^T P^T with V^T
+//    dequantized in registers (m-block mt row g is dim 16mt + g; the
+//    bit-plane tokens of a k-step are the slot order the P^T tile is
+//    written in);
+//  - V slots as a second A operand: one lane per token writes rnd(v_add)
+//    (its slots summed per dim) into column p of a per-warp bf16 V^T slot
+//    tile, multiplied by the same P^T over the m-blocks that hold one, and
+//    cleared after; no shared-memory atomics;
+//  - one block an SM (288 threads at <= 168 registers, no spills; two
+//    blocks an SM at 96 registers spill and run slower, gqa_ablation.py),
+//    three ring stages.
+// Budget (chip_smoke.py --verbose-build): 0-16 B of spills across the 12
+// instances; 190 KB of shared memory for DBRX's nuq3 (3 stages, V slots).
 //
 // fd_chunk (prefill chunks, bf16 dots). What bounds it: at Tq = 256 rows
 // the two contractions, 4*Q*live*D*Hkv flops per call (0.139 ms at 32K
@@ -211,6 +250,7 @@ struct FdArgs {
   int n_stage;             // decode and tensor-core chunk: ring stages (2..MAX_STAGES)
   int rows_blk;            // tensor-core chunk: query rows per block (16..128, of 16)
   int n_buf;               // tensor-core chunk: dequantized half-tile buffers (1 or 2)
+  int body;                // BODY_DECODE / BODY_GQA / BODY_CHUNK / BODY_PARTIAL (the host's route)
 };
 
 namespace {
@@ -223,7 +263,9 @@ constexpr int MAX_KC = 64;
 constexpr int MAX_SINK = 64;
 constexpr int PR = 64;       // query rows per block, prefill body
 constexpr int MODE_NUQ = 0, MODE_INT4 = 1, MODE_INT8 = 2, MODE_INT4X2 = 3;
+constexpr int BODY_DECODE = 0, BODY_GQA = 1, BODY_CHUNK = 2, BODY_PARTIAL = 3;
 constexpr int NEG_ROW = -(1 << 30);  // position of a padding row: sees nothing
+constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ float nibble(uint8_t x, int hi) {
   return (float)((int)(((x >> (4 * hi)) & 0xF) ^ 8) - 8);
@@ -367,6 +409,95 @@ __device__ __forceinline__ void container_codes(const unsigned char* codes, int 
   }
 }
 
+// The producer thread of a decode block (fd_decode, fd_gqa): keeps the
+// ring full with the tiles [t_begin, t_end) of the block's hb heads from
+// h0 (int4x2: their pair containers), the head group's outlier rows and the
+// V scale / offset, one TMA bulk copy per piece, through the page table
+// when K5 passes one.
+template <int MODE>
+__device__ __forceinline__ void produce_tiles(const FdArgs& a, unsigned char* ring, uint64_t* full,
+                                              uint64_t* empty, const Ring& R, int b, int h0,
+                                              int grp, int pos, int t_begin, int t_end) {
+  constexpr int TILE = tile_tokens(MODE);
+  const int li = a.li, S = a.S, D = a.D, hb = a.hb, NS = a.n_stage;
+  // the addressing policy: K5 passes a page table, K1 none
+  const bool paged = a.table != nullptr;
+  const size_t lay = (size_t)li * (paged ? Paged::slabs(a) : Contig::slabs(a));
+  const int TS = paged ? Paged::tokens(a) : Contig::tokens(a);
+  const int last = paged ? Paged::last_page(a, pos, S) : 0;
+  const bool paired = MODE == MODE_INT4X2;
+  const int Hc = paired ? a.Hkv / 2 : a.Hkv, hc0 = paired ? h0 / 2 : h0;
+  const int units = paired ? hb / 2 : hb;
+  const int cb = code_bytes(MODE, a.bits, D), NG = a.Hkv / a.hg;
+  const int nrows = rows_copied(a);
+  for (int i = t_begin; i < t_end; ++i) {
+    const int u = i - t_begin, st = u % NS;
+    if (u >= NS) mbar_wait(&empty[st], (u / NS - 1) & 1);
+    // under paging the page lookup comes before the copy through it
+    const int2 sr = paged ? Paged::locate(a, b, i * TILE, last)
+                          : Contig::locate(a, b, i * TILE, last);
+    const size_t slab = lay + sr.x;
+    unsigned char* dst = ring + st * R.bytes;
+    mbar_expect_tx(&full[st], R.bytes);
+    for (int c = 0; c < units; ++c) {
+      const size_t hs = slab * Hc + hc0 + c;
+      if (MODE == MODE_NUQ) {
+        // plane bb: word rows 4g .. 4g + 3 of the tile's 128-token group
+        const size_t TW = TS / 32;
+        for (int bb = 0; bb < a.bits; ++bb) {
+          const size_t w = (hs * a.bits + bb) * TW * D + (size_t)(sr.y / 32) * D;
+          bulk_g2s(dst + R.k + c * cb + bb * 16 * D,
+                   reinterpret_cast<const int32_t*>(a.kp) + w, 16 * D, &full[st]);
+          bulk_g2s(dst + R.v + c * cb + bb * 16 * D,
+                   reinterpret_cast<const int32_t*>(a.vp) + w, 16 * D, &full[st]);
+        }
+      } else {
+        const size_t rb = MODE == MODE_INT8 ? D : D / 2;
+        const size_t o = (hs * TS + sr.y) * rb;
+        bulk_g2s(dst + R.k + c * cb, reinterpret_cast<const uint8_t*>(a.kp) + o,
+                 cb, &full[st]);
+        bulk_g2s(dst + R.v + c * cb, reinterpret_cast<const uint8_t*>(a.vp) + o,
+                 cb, &full[st]);
+      }
+    }
+    for (int r = 0; r < nrows; ++r)
+      bulk_g2s(dst + R.rows + r * TILE * 4,
+               a.kv_out + ((slab * NG + grp) * a.J + r) * TS + sr.y,
+               TILE * 4, &full[st]);
+    bulk_g2s(dst + R.vs, a.v_scale + slab * TS + sr.y, TILE * 4, &full[st]);
+    bulk_g2s(dst + R.vo, a.v_offset + slab * TS + sr.y, TILE * 4, &full[st]);
+  }
+}
+
+// The end of a decode block (fd_decode, fd_gqa): the DW consumer warps'
+// (acc [G][D], m, l) in the merge scratch `red` ([DW][G][D + 2], the
+// warps of head k at k * DW / hb ..) merged by log-sum-exp into split s's
+// partials of the block's hb heads.
+__device__ __forceinline__ void merge_warps(const FdArgs& a, const float* red, int G,
+                                            size_t bh0, int s, int tid) {
+  const int D = a.D, hb = a.hb, WPH = DW / hb, NSP = a.n_split;
+  for (int i = tid; i < hb * G * D; i += DNT) {
+    const int k = i / (G * D), r = (i / D) % G, d = i % D;
+    const float* rw = red + ((size_t)k * WPH * G + r) * (D + 2);
+    const size_t wstride = (size_t)G * (D + 2);
+    float M = -INFINITY;
+    for (int w = 0; w < WPH; ++w) M = fmaxf(M, rw[w * wstride + D]);
+    float acc = 0.f, L = 0.f;
+    for (int w = 0; w < WPH; ++w) {
+      const float mw = rw[w * wstride + D];
+      const float e = mw == -INFINITY ? 0.f : expf(mw - M);
+      acc = fmaf(e, rw[w * wstride + d], acc);
+      L = fmaf(e, rw[w * wstride + D + 1], L);
+    }
+    const size_t pi = ((bh0 + k) * NSP + s) * G + r;
+    a.part_acc[pi * D + d] = acc;
+    if (d == 0) {
+      a.part_m[pi] = M;
+      a.part_l[pi] = L;
+    }
+  }
+}
+
 // One block: batch row b (blockIdx.z), kv heads [h0, h0 + hb) of one head
 // group (blockIdx.y), split s of the live key tiles (blockIdx.x). Warp DW
 // is the producer; consumer warp `warp` takes head slot warp / WPH and the
@@ -449,55 +580,7 @@ __global__ void __launch_bounds__(DNT, G >= 4 ? 1 : 2) fd_decode(FdArgs a) {
 
   if (warp == DW) {
     // ---- producer: one thread keeps the ring full ----
-    if (lane == 0) {
-      // the addressing policy: K5 passes a page table, K1 none
-      const bool paged = a.table != nullptr;
-      const size_t lay = (size_t)li * (paged ? Paged::slabs(a) : Contig::slabs(a));
-      const int TS = paged ? Paged::tokens(a) : Contig::tokens(a);
-      const int last = paged ? Paged::last_page(a, pos, S) : 0;
-      const bool paired = MODE == MODE_INT4X2;
-      const int Hc = paired ? a.Hkv / 2 : a.Hkv, hc0 = paired ? h0 / 2 : h0;
-      const int units = paired ? hb / 2 : hb;
-      const int cb = code_bytes(MODE, a.bits, D), NG = a.Hkv / a.hg;
-      const int nrows = rows_copied(a);
-      for (int i = t_begin; i < t_end; ++i) {
-        const int u = i - t_begin, st = u % NS;
-        if (u >= NS) mbar_wait(&empty[st], (u / NS - 1) & 1);
-        // under paging the page lookup comes before the copy through it
-        const int2 sr = paged ? Paged::locate(a, b, i * TILE, last)
-                              : Contig::locate(a, b, i * TILE, last);
-        const size_t slab = lay + sr.x;
-        unsigned char* dst = ring + st * R.bytes;
-        mbar_expect_tx(&full[st], R.bytes);
-        for (int c = 0; c < units; ++c) {
-          const size_t hs = slab * Hc + hc0 + c;
-          if (MODE == MODE_NUQ) {
-            // plane bb: word rows 4g .. 4g + 3 of the tile's 128-token group
-            const size_t TW = TS / 32;
-            for (int bb = 0; bb < a.bits; ++bb) {
-              const size_t w = (hs * a.bits + bb) * TW * D + (size_t)(sr.y / 32) * D;
-              bulk_g2s(dst + R.k + c * cb + bb * 16 * D,
-                       reinterpret_cast<const int32_t*>(a.kp) + w, 16 * D, &full[st]);
-              bulk_g2s(dst + R.v + c * cb + bb * 16 * D,
-                       reinterpret_cast<const int32_t*>(a.vp) + w, 16 * D, &full[st]);
-            }
-          } else {
-            const size_t rb = MODE == MODE_INT8 ? D : D / 2;
-            const size_t o = (hs * TS + sr.y) * rb;
-            bulk_g2s(dst + R.k + c * cb, reinterpret_cast<const uint8_t*>(a.kp) + o,
-                     cb, &full[st]);
-            bulk_g2s(dst + R.v + c * cb, reinterpret_cast<const uint8_t*>(a.vp) + o,
-                     cb, &full[st]);
-          }
-        }
-        for (int r = 0; r < nrows; ++r)
-          bulk_g2s(dst + R.rows + r * TILE * 4,
-                   a.kv_out + ((slab * NG + grp) * a.J + r) * TS + sr.y,
-                   TILE * 4, &full[st]);
-        bulk_g2s(dst + R.vs, a.v_scale + slab * TS + sr.y, TILE * 4, &full[st]);
-        bulk_g2s(dst + R.vo, a.v_offset + slab * TS + sr.y, TILE * 4, &full[st]);
-      }
-    }
+    if (lane == 0) produce_tiles<MODE>(a, ring, full, empty, R, b, h0, grp, pos, t_begin, t_end);
   } else {
     // ---- consumers ----
     const int WPH = DW / hb, k = warp / WPH, wk = warp % WPH;
@@ -732,28 +815,495 @@ __global__ void __launch_bounds__(DNT, G >= 4 ? 1 : 2) fd_decode(FdArgs a) {
   __syncthreads();
 
   // ---- merge the warps of each head: this split's partials ----
-  const int WPH = DW / hb;
-  const float* red = reinterpret_cast<const float*>(ring);
-  for (int i = tid; i < hb * G * D; i += DNT) {
-    const int k = i / (G * D), r = (i / D) % G, d = i % D;
-    const float* rw = red + ((size_t)k * WPH * G + r) * (D + 2);
-    const size_t wstride = (size_t)G * (D + 2);
-    float M = -INFINITY;
-    for (int w = 0; w < WPH; ++w) M = fmaxf(M, rw[w * wstride + D]);
-    float acc = 0.f, L = 0.f;
-    for (int w = 0; w < WPH; ++w) {
-      const float mw = rw[w * wstride + D];
-      const float e = mw == -INFINITY ? 0.f : expf(mw - M);
-      acc = fmaf(e, rw[w * wstride + d], acc);
-      L = fmaf(e, rw[w * wstride + D + 1], L);
-    }
-    const size_t pi = ((bh0 + k) * NSP + s) * G + r;
-    a.part_acc[pi * D + d] = acc;
-    if (d == 0) {
-      a.part_m[pi] = M;
-      a.part_l[pi] = L;
+  merge_warps(a, reinterpret_cast<const float*>(ring), G, bh0, s, tid);
+}
+
+// ===========================================================================
+// fd_gqa: Tq = 1, 3..8 rows per kv head, bf16 dots, on the tensor cores
+// ===========================================================================
+
+constexpr int GPS = GU + 8;  // bf16 stride of a row of a warp's P^T tile
+constexpr int GVS = GU + 8;  // bf16 stride of a row (a dim) of a warp's V slot tile
+
+// dynamic shared memory of fd_gqa: 128 B of mbarriers, the ring (or the
+// merge scratch), the block's queries transposed [hb][D][8] fp32, the
+// static-channel dims [hb][n_kc], the heads' K step and zero [hb][2][D],
+// per consumer warp an exchange tile [8][GXS] fp32 that is also its P^T
+// tile [8][GPS] bf16 and, with V slots, its V^T slot tile [D][GVS] bf16
+struct GqaSmem {
+  int q, ch, kc, p, vt, bytes;
+};
+__host__ __device__ inline GqaSmem gqa_layout(const FdArgs& a) {
+  GqaSmem L;
+  L.q = 128 + ring_span(a);
+  L.ch = L.q + 4 * a.hb * 8 * a.D;
+  L.kc = (L.ch + 4 * a.hb * a.n_kc + 15) & ~15;
+  L.p = L.kc + 4 * a.hb * 2 * a.D;
+  L.vt = L.p + DW * GXB;
+  L.bytes = L.vt + (a.n_vslots > 0 ? 2 * DW * a.D * GVS : 0);
+  return L;
+}
+
+// The container codes of staged row tt at dims c .. c + 3 (x[0..3]) and
+// their partners c + D/2 .. (x[4..7]), as the folded dequant multiplies
+// them (container_codes' arithmetic)
+template <int MODE>
+__device__ __forceinline__ void gqa_container_codes(const unsigned char* codes, int tt, int D,
+                                                    int c, int odd, float (&x)[8]) {
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    const int cc = c + p * (D / 2);
+    if (MODE == MODE_INT8) {
+      const uint32_t w = *reinterpret_cast<const uint32_t*>(codes + tt * D + cc);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) x[4 * p + i] = int8_code((w >> (8 * i)) & 0xFFu);
+    } else {
+      const uint32_t w = *reinterpret_cast<const uint16_t*>(codes + tt * (D / 2) + cc / 2);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint32_t n = (w >> (4 * i)) & 0xFu;
+        x[4 * p + i] = MODE == MODE_INT4X2 ? small_uint(((n ^ 8u) >> (2 * odd)) & 3u)
+                                           : int4_code(n);
+      }
     }
   }
+}
+
+// the container code of staged row tt at dim d
+template <int MODE>
+__device__ __forceinline__ float gqa_container_code(const unsigned char* codes, int tt, int D,
+                                                    int d, int odd) {
+  if (MODE == MODE_INT8) return int8_code(codes[tt * D + d]);
+  const uint32_t n = (codes[tt * (D / 2) + (d >> 1)] >> (4 * (d & 1))) & 0xFu;
+  return MODE == MODE_INT4X2 ? small_uint(((n ^ 8u) >> (2 * odd)) & 3u) : int4_code(n);
+}
+
+// One block: as fd_decode (batch row b, kv heads [h0, h0 + hb), split s),
+// G = a.Q rows per head. Consumer warp `warp` takes head warp / WPH and the
+// units (32-token slices of a stage) warp % WPH (mod WPH); warps past a
+// stage's units idle (hb = 1 bit planes, hb <= 2 containers). Per unit:
+// scores S^T = K Q^T as 2 m16 tiles x D/16 k-blocks (hopper.cuh's layout),
+// the outliers' fp32 terms, an online softmax in log2 units per row (a
+// column of C), P^T through the warp's bf16 tile, then O^T += V^T P^T with
+// V^T in registers: m-block mt, row g (+ 8) is dim 16 mt + g (+ 8); k-step
+// hh, column 2tq + e + 8f is unit slot tq + 4hh + 8e + 16f (bit planes) or
+// 16hh + 2tq + e + 8f (containers), at P^T position 16hh + 2tq + e + 8f.
+template <int MODE, int NB, bool PRE>
+__global__ void __launch_bounds__(DNT, 1) fd_gqa(FdArgs a) {
+  extern __shared__ __align__(128) unsigned char dsm[];
+  constexpr int TILE = tile_tokens(MODE);
+  constexpr int UPS = TILE / GU;       // units per stage
+  constexpr int NM = MAXD / 16;        // m-blocks of P.V at most
+  __shared__ float sLut[2][16];        // nuq K / V codebooks of layer li
+  const int D = a.D, half = D / 2, hb = a.hb, NS = a.n_stage, G = a.Q;
+  const Ring R = ring_layout(a);
+  const GqaSmem SL = gqa_layout(a);
+  uint64_t* full = reinterpret_cast<uint64_t*>(dsm);
+  uint64_t* empty = full + MAX_STAGES;
+  unsigned char* ring = dsm + 128;
+  float* sQT = reinterpret_cast<float*>(dsm + SL.q);
+  int* sCh = reinterpret_cast<int*>(dsm + SL.ch);
+  float* sKc = reinterpret_cast<float*>(dsm + SL.kc);
+
+  const int s = blockIdx.x, h0 = blockIdx.y * hb, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int li = a.li, S = a.S, win = a.window, NSP = a.n_split;
+  const int pos = a.pos[b];
+
+  // ---- this block's live key tiles: packed tokens [lo, hi] ----
+  const int hi = min(pos - S, a.Tc - 1);
+  const int lo = win > 0 ? max(0, pos - win + 1 - S) : 0;
+  const int n_tiles = hi < lo ? 0 : hi / TILE - lo / TILE + 1;
+  const int tps = max(MIN_TPS, (n_tiles + NSP - 1) / NSP);
+  const int t_begin = lo / TILE + s * tps;
+  const int t_end = min(lo / TILE + n_tiles, t_begin + tps);
+  const size_t bh0 = (size_t)b * a.Hkv + h0;
+  if (t_begin >= t_end) {  // a split with no tile: zero weight in the merge
+    for (int i = tid; i < hb * G; i += DNT) {
+      const size_t pi = ((bh0 + i / G) * NSP + s) * G + i % G;
+      a.part_m[pi] = -INFINITY;
+      a.part_l[pi] = 0.f;
+    }
+    return;
+  }
+
+  // ---- per-block constants ----
+  const int grp = h0 / a.hg, jh0 = h0 % a.hg;
+  const int WPH = DW / hb, nact = hb * min(WPH, UPS);
+  if (tid == 0) {
+    for (int i = 0; i < NS; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], nact);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  const float* qb = a.q + bh0 * G * D;
+  for (int i = tid; i < hb * D * 8; i += DNT) {  // [k][d][r], rows past G zero
+    const int k = i / (8 * D), d = (i / 8) % D, r = i % 8;
+    sQT[i] = r < G ? rnd(qb[((size_t)k * G + r) * D + d], true) : 0.f;
+  }
+  const int K = 1 << a.bits;
+  if (MODE == MODE_NUQ && tid < K) {
+    sLut[0][tid] = a.k_lut[(size_t)li * K + tid];
+    sLut[1][tid] = a.v_lut[(size_t)li * K + tid];
+  }
+  for (int i = tid; i < hb * a.n_kc; i += DNT) {
+    const int k = i / a.n_kc;
+    const int ch = a.k_chan[grp * a.n_kc + i % a.n_kc];
+    sCh[i] = ch / D == jh0 + k ? ch % D : -1;
+  }
+  // per-column dequant constants: nuq (range, offset); the containers'
+  // affine codebook folded as in the plain version (common.fold_affine)
+  const float* kl = a.k_lut + (size_t)li * K;
+  const float* vl = a.v_lut + (size_t)li * K;
+  const float bias = MODE == MODE_INT4X2 ? 0.f : (float)(1 << (a.bits - 1));
+  const float kb = (kl[K - 1] - kl[0]) / (float)(K - 1);
+  const float ka = kl[0] + bias * kb;
+  const float vb = (vl[K - 1] - vl[0]) / (float)(K - 1);
+  const float va = vl[0] + bias * vb;
+  for (int i = tid; i < hb * D; i += DNT) {
+    const int k = i / D, d = i % D;
+    const size_t ci = ((size_t)li * a.Hkv + h0 + k) * D + d;
+    const float kr = a.k_range[ci], ko = a.k_offset[ci];
+    sKc[2 * k * D + d] = MODE == MODE_NUQ ? kr : kb * kr;
+    sKc[(2 * k + 1) * D + d] = MODE == MODE_NUQ ? ko : ka * kr + ko;
+  }
+  if (a.n_vslots > 0)  // the V slot tiles start zero; each unit clears what it wrote
+    for (int i = tid; i < DW * D * GVS / 2; i += DNT) reinterpret_cast<uint32_t*>(dsm + SL.vt)[i] = 0u;
+  __syncthreads();
+
+  // the consumer's lane roles and running state (an idle warp keeps the
+  // initial state, which the merge weighs zero)
+  const int g = lane >> 2, tq = lane & 3;
+  const bool r0ok = 2 * tq < G, r1ok = 2 * tq + 1 < G;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  float acc[NM][4];
+#pragma unroll
+  for (int mt = 0; mt < NM; ++mt)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[mt][r] = 0.f;
+
+  if (warp == DW) {
+    // ---- producer: one thread keeps the ring full ----
+    if (lane == 0) produce_tiles<MODE>(a, ring, full, empty, R, b, h0, grp, pos, t_begin, t_end);
+  } else if (warp % WPH < UPS) {
+    // ---- consumers ----
+    const int k = warp / WPH, wk = warp % WPH;
+    const int h = h0 + k, jh = jh0 + k, lgD = 31 - __clz(D);
+    const int odd = h & 1, cu = MODE == MODE_INT4X2 ? k / 2 : k;
+    const int cb = code_bytes(MODE, a.bits, D);
+    const float* qT = sQT + k * D * 8;
+    const float* kst = sKc + 2 * k * D;
+    const float* kze = kst + D;
+    float* sX = reinterpret_cast<float*>(dsm + SL.p + warp * GXB);
+    uint16_t* sP = reinterpret_cast<uint16_t*>(sX);
+    __nv_bfloat16* sVt = reinterpret_cast<__nv_bfloat16*>(dsm + SL.vt) + (size_t)warp * D * GVS;
+    // a V slot word's dim in this head, or -1
+    auto vdim = [&](uint32_t w) {
+      const int gidx = (int)((w >> 7) & 0x3u) * D + (int)(w & 0x7Fu);
+      return (gidx >> lgD) == jh ? gidx & (D - 1) : -1;
+    };
+    const float scl = a.inv * LOG2E;
+    uint32_t qf[GNJ][2][2];
+    gqa_query_frags(qT, D, g, tq, qf);
+
+    // an outlier value v at (token t_abs, dim) of this head's key, as the
+    // score terms e of every query row: RoPE is linear, so v at dim d adds
+    // v*cos at d and +-v*sin at its partner d +- D/2
+    auto kterm = [&](int t_abs, int dim, float v, float (&e)[8]) {
+      float qd[8];
+      gqa_q8(qT, dim, qd);
+      if (!PRE) {
+        const float rv = rnd(v, true);
+#pragma unroll
+        for (int r = 0; r < 8; ++r) e[r] = fmaf(qd[r], rv, e[r]);
+        return;
+      }
+      const int i = dim & (half - 1);
+      const float2 cs = __ldg(a.rope + (size_t)t_abs * half + i);
+      const float t0v = rnd(v * cs.x, true);
+      const float t1v = rnd(dim < half ? v * cs.y : -v * cs.y, true);
+      float qp[8];
+      gqa_q8(qT, dim < half ? dim + half : i, qp);
+#pragma unroll
+      for (int r = 0; r < 8; ++r) e[r] += qd[r] * t0v + qp[r] * t1v;
+    };
+    // the P^T position of unit slot sl (bit planes: the V operand's column
+    // order, hopper.cuh)
+    auto ppos = [](int sl) {
+      return MODE == MODE_NUQ
+                 ? 16 * ((sl >> 2) & 1) + 8 * ((sl >> 4) & 1) + 2 * (sl & 3) + ((sl >> 3) & 1)
+                 : sl;
+    };
+
+    for (int it = t_begin; it < t_end; ++it) {
+      const int u = it - t_begin, st = u % NS;
+      mbar_wait(&full[st], (u / NS) & 1);
+      const unsigned char* stg = ring + st * R.bytes;
+      const unsigned char* sKq = stg + R.k + cu * cb;
+      const unsigned char* sVq = stg + R.v + cu * cb;
+      const float* sRows = reinterpret_cast<const float*>(stg + R.rows);
+      const float* sVs = reinterpret_cast<const float*>(stg + R.vs);
+      const float* sVo = reinterpret_cast<const float*>(stg + R.vo);
+      const int t0 = it * TILE;
+      for (int un = wk; un < UPS; un += WPH) {
+        // the tile token of unit slot sl
+        auto tok = [&](int sl) { return MODE == MODE_NUQ ? 4 * sl + un : GU * un + sl; };
+
+        // ---- scores: A = keys in registers, B = the query rows ----
+        float sc[2][4];
+        if (MODE == MODE_NUQ) {
+          gqa_nuq_scores<NB, PRE>(sKq, D, un, kst, kze, sLut[0],
+                                  PRE ? a.rope + (size_t)t0 * half : nullptr, g, tq, qf, sc);
+        } else {
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) sc[hh][r] = 0.f;
+#pragma unroll
+          for (int j = 0; j < GNJ; ++j) {
+            if (j < D / 32) {
+              const int c = 16 * j + 4 * tq;
+              const float4 s0 = *reinterpret_cast<const float4*>(kst + c);
+              const float4 s1 = *reinterpret_cast<const float4*>(kst + c + half);
+              const float4 z0 = *reinterpret_cast<const float4*>(kze + c);
+              const float4 z1 = *reinterpret_cast<const float4*>(kze + c + half);
+              const float ks[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+              const float kz[8] = {z0.x, z0.y, z0.z, z0.w, z1.x, z1.y, z1.z, z1.w};
+#pragma unroll
+              for (int hh = 0; hh < 2; ++hh) {
+                uint32_t af[2][4];
+#pragma unroll
+                for (int f = 0; f < 2; ++f) {
+                  const int tt = tok(g + 8 * (2 * hh + f));
+                  const Rot4 rot =
+                      gqa_rot4<PRE>(PRE ? a.rope + (size_t)(t0 + tt) * half + c : nullptr);
+                  float x[8];
+                  gqa_container_codes<MODE>(sKq, tt, D, c, odd, x);
+#pragma unroll
+                  for (int i = 0; i < 8; ++i) x[i] = fmaf(x[i], ks[i], kz[i]);
+                  gqa_key_frag<PRE>(x, rot, f, af);
+                }
+#pragma unroll
+                for (int e = 0; e < 2; ++e) mma16816(sc[hh], af[e], qf[j][e][0], qf[j][e][1]);
+              }
+            }
+          }
+        }
+
+        // ---- K outliers (fp32, by linearity): lane l takes unit slot l,
+        // its rows' terms for every query row, exchanged to the lanes that
+        // hold its scores ----
+        if (a.n_kc > 0 || a.n_kslots > 0) {
+          const int tl = tok(lane), tal = t0 + tl;
+          float e[8];
+#pragma unroll
+          for (int r = 0; r < 8; ++r) e[r] = 0.f;
+          if (a.n_kc > 0) {
+            for (int n = 0; n < a.n_kc; ++n) {
+              const int dim = sCh[k * a.n_kc + n];
+              if (dim >= 0) kterm(tal, dim, sRows[n * TILE + tl], e);
+            }
+          } else {
+            for (int sl = 0; sl < a.n_kslots; ++sl) {
+              const uint32_t w = __float_as_uint(sRows[sl * TILE + tl]);
+              const int gidx = (int)((w >> 7) & 0x3u) * D + (int)(w & 0x7Fu);
+              if ((gidx >> lgD) == jh)
+                kterm(tal, gidx & (D - 1), __uint_as_float(w & 0xFFFFFE00u), e);
+            }
+          }
+          gqa_exchange(sX, lane, e, g, tq, sc);
+        }
+
+        // ---- mask, scale to log2 units ----
+        float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int hh = q >> 1, f = q & 1, ta = t0 + tok(g + 8 * q);
+          const bool ok = key_ok(ta, pos, S, win);
+          const float s0 = ok ? sc[hh][2 * f] * scl : -INFINITY;
+          const float s1 = ok ? sc[hh][2 * f + 1] * scl : -INFINITY;
+          sc[hh][2 * f] = s0;
+          sc[hh][2 * f + 1] = s1;
+          mx0 = fmaxf(mx0, s0);
+          mx1 = fmaxf(mx1, s1);
+        }
+        // the unit's row maxima: the lanes of one tq hold a row's 32 slots
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) {
+          mx0 = fmaxf(mx0, __shfl_xor_sync(FULL, mx0, o));
+          mx1 = fmaxf(mx1, __shfl_xor_sync(FULL, mx1, o));
+        }
+        const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+        const float al0 = m0 == -INFINITY ? 0.f : exp2f(m0 - mn0);
+        const float al1 = m1 == -INFINITY ? 0.f : exp2f(m1 - mn1);
+        m0 = mn0;
+        m1 = mn1;
+        l0 *= al0;
+        l1 *= al1;
+#pragma unroll
+        for (int mt = 0; mt < NM; ++mt) {
+          acc[mt][0] *= al0;
+          acc[mt][1] *= al1;
+          acc[mt][2] *= al0;
+          acc[mt][3] *= al1;
+        }
+
+        // ---- probabilities: l, P^T as bf16 (rows past G zero) ----
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int hh = q >> 1, f = q & 1, pp = ppos(g + 8 * q);
+          const float p0 = sc[hh][2 * f] == -INFINITY || !r0ok ? 0.f : exp2f(sc[hh][2 * f] - mn0);
+          const float p1 =
+              sc[hh][2 * f + 1] == -INFINITY || !r1ok ? 0.f : exp2f(sc[hh][2 * f + 1] - mn1);
+          l0 += p0;
+          l1 += p1;
+          sP[2 * tq * GPS + pp] = __bfloat16_as_ushort(__float2bfloat16_rn(p0));
+          sP[(2 * tq + 1) * GPS + pp] = __bfloat16_as_ushort(__float2bfloat16_rn(p1));
+        }
+        __syncwarp();
+        // ---- V slots: lane l writes its slot's V slot values (summed per
+        // dim in slot order, rounded once: rnd(v_add)) into column ppos(l)
+        // of the warp's V^T slot tile, a second A operand of P.V: rnd(p)
+        // rnd(v_add), the plain version's rounding; vmask: the m-blocks
+        // the unit's slots touch ----
+        unsigned vmask = 0u;
+        const bool vlive = a.n_vslots > 0 && t0 + tok(lane) <= hi;
+        const float* vrow = sRows + a.spk * TILE + tok(lane);  // the slot's V words, TILE apart
+        if (vlive) {
+          for (int j = 0; j < a.n_vslots; ++j) {
+            const int dj = vdim(__float_as_uint(vrow[j * TILE]));
+            bool first = dj >= 0;
+            for (int j2 = 0; j2 < j; ++j2) first = first && vdim(__float_as_uint(vrow[j2 * TILE])) != dj;
+            if (!first) continue;
+            float sum = 0.f;
+            for (int j2 = j; j2 < a.n_vslots; ++j2) {
+              const uint32_t w2 = __float_as_uint(vrow[j2 * TILE]);
+              if (vdim(w2) == dj) sum += __uint_as_float(w2 & 0xFFFFFE00u);
+            }
+            sVt[dj * GVS + ppos(lane)] = __float2bfloat16_rn(sum);
+            vmask |= 1u << (dj >> 4);
+          }
+        }
+        if (a.n_vslots > 0) {
+          vmask = __reduce_or_sync(FULL, vmask);
+          __syncwarp();
+        }
+
+        // ---- P.V: A = V^T (16 dims x 16 tokens), B = P^T (16 tokens x 8) ----
+        uint32_t pb[2][2];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          pb[hh][0] = *reinterpret_cast<const uint32_t*>(sP + g * GPS + 16 * hh + 2 * tq);
+          pb[hh][1] = *reinterpret_cast<const uint32_t*>(sP + g * GPS + 16 * hh + 2 * tq + 8);
+        }
+        // the V scale / offset of the thread's eight tokens [hh][e][f]; a
+        // token past the live range gets zero, so its value is 0 whatever
+        // its codes
+        float vsc[2][2][2], vof[2][2][2];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+#pragma unroll
+            for (int f = 0; f < 2; ++f) {
+              const int tt = MODE == MODE_NUQ ? tok(tq + 4 * hh + 8 * e + 16 * f)
+                                              : tok(16 * hh + 2 * tq + e + 8 * f);
+              const bool live = t0 + tt <= hi;
+              const float sc_t = live ? sVs[tt] : 0.f, of_t = live ? sVo[tt] : 0.f;
+              vsc[hh][e][f] = MODE == MODE_NUQ ? sc_t : sc_t * vb;
+              vof[hh][e][f] = MODE == MODE_NUQ ? of_t : sc_t * va + of_t;
+            }
+#pragma unroll
+        for (int mt = 0; mt < NM; ++mt) {
+          if (mt < D / 16) {
+            // the codes of the thread's two dims: bit planes as LUT byte
+            // offsets (byte e + 2f of cw[hf][hh]: slot tq + 4hh + 8e + 16f)
+            uint32_t cw[2][2];
+            if (MODE == MODE_NUQ) {
+#pragma unroll
+              for (int hf = 0; hf < 2; ++hf) {
+                cw[hf][0] = cw[hf][1] = 0u;
+#pragma unroll
+                for (int bb = 0; bb < NB; ++bb) {
+                  const uint32_t w = reinterpret_cast<const uint32_t*>(
+                      sVq + bb * 16 * D)[un * D + 16 * mt + g + 8 * hf];
+                  cw[hf][0] |= plane_bits(w, tq, 2 + bb);
+                  cw[hf][1] |= plane_bits(w, tq + 4, 2 + bb);
+                }
+              }
+            }
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              float y[2][2][2];  // [dim g + 8hf][e][f]
+#pragma unroll
+              for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+                for (int e = 0; e < 2; ++e)
+#pragma unroll
+                  for (int f = 0; f < 2; ++f) {
+                    const float c = MODE == MODE_NUQ
+                        ? *reinterpret_cast<const float*>(reinterpret_cast<const char*>(sLut[1]) +
+                                                          byte_of(cw[hf][hh], e + 2 * f))
+                        : gqa_container_code<MODE>(sVq, tok(16 * hh + 2 * tq + e + 8 * f), D,
+                                                   16 * mt + g + 8 * hf, odd);
+                    y[hf][e][f] = fmaf(c, vsc[hh][e][f], vof[hh][e][f]);
+                  }
+              const uint32_t fa[4] = {bf2(y[0][0][0], y[0][1][0]), bf2(y[1][0][0], y[1][1][0]),
+                                      bf2(y[0][0][1], y[0][1][1]), bf2(y[1][0][1], y[1][1][1])};
+              mma16816(acc[mt], fa, pb[hh][0], pb[hh][1]);
+            }
+            if ((vmask >> mt) & 1u) {  // the V slot tile's dims of this block
+#pragma unroll
+              for (int hh = 0; hh < 2; ++hh) {
+                uint32_t fv[4];
+                ldsm4(fv, smem_u32(sVt + (16 * mt + (lane & 15)) * GVS + 16 * hh + 8 * (lane >> 4)));
+                mma16816(acc[mt], fv, pb[hh][0], pb[hh][1]);
+              }
+            }
+          }
+        }
+        __syncwarp();  // the P^T tile and the V slot tile are read
+        if (vlive)  // clear the slot tile's cells this lane wrote
+          for (int j = 0; j < a.n_vslots; ++j) {
+            const int dj = vdim(__float_as_uint(vrow[j * TILE]));
+            if (dj >= 0) sVt[dj * GVS + ppos(lane)] = __float2bfloat16_rn(0.f);
+          }
+      }
+      if (lane == 0) mbar_arrive(&empty[st]);  // the stage may be refilled
+    }
+  }
+#pragma unroll
+  for (int o = 4; o < 32; o <<= 1) {
+    l0 += __shfl_xor_sync(FULL, l0, o);
+    l1 += __shfl_xor_sync(FULL, l1, o);
+  }
+
+  __syncthreads();  // every tile consumed: the ring becomes merge scratch
+  if (warp < DW) {
+    float* red = reinterpret_cast<float*>(ring) + (size_t)warp * G * (D + 2);
+#pragma unroll
+    for (int mt = 0; mt < NM; ++mt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int row = 2 * tq + (r & 1);
+        if (mt < D / 16 && row < G) red[row * (D + 2) + 16 * mt + g + 8 * (r >> 1)] = acc[mt][r];
+      }
+    if (g == 0) {  // the maxima in natural units, as fd_merge reads them
+      if (r0ok) {
+        red[2 * tq * (D + 2) + D] = m0 == -INFINITY ? -INFINITY : m0 / LOG2E;
+        red[2 * tq * (D + 2) + D + 1] = l0;
+      }
+      if (r1ok) {
+        red[(2 * tq + 1) * (D + 2) + D] = m1 == -INFINITY ? -INFINITY : m1 / LOG2E;
+        red[(2 * tq + 1) * (D + 2) + D + 1] = l1;
+      }
+    }
+  }
+  __syncthreads();
+
+  // ---- merge the warps of each head: this split's partials ----
+  merge_warps(a, reinterpret_cast<const float*>(ring), G, bh0, s, tid);
 }
 
 // ===========================================================================
@@ -1154,7 +1704,6 @@ __host__ __device__ constexpr int chunk_pw(int mode) { return mode == MODE_NUQ ?
 constexpr int CHUNK_ROWS = CW * RW;   // most query rows per block
 constexpr int QS = MAXD + 8;          // bf16 row stride of the tiles for every D
 constexpr int CHUNK_SMEM_MAX = 225 * 1024;
-constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
 // bytes of one kind (K or V) of one 128-token stage for one head (int4x2:
@@ -1884,6 +2433,48 @@ cudaError_t dispatch_decode(const FdArgs& a, cudaStream_t st) {
   return cudaErrorInvalidValue;
 }
 
+template <int MODE, int NB, bool PRE>
+cudaError_t launch_gqa(const FdArgs& a, cudaStream_t stream) {
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(fd_gqa<MODE, NB, PRE>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         DECODE_SMEM_MAX);
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  fd_gqa<MODE, NB, PRE><<<dim3(a.n_split, a.Hkv / a.hb, a.B), DNT, gqa_layout(a).bytes,
+                          stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int MODE, int NB>
+cudaError_t gqa_rope(const FdArgs& a, cudaStream_t st) {
+  return a.post_rope ? launch_gqa<MODE, NB, false>(a, st) : launch_gqa<MODE, NB, true>(a, st);
+}
+
+// the tensor-core decode body: Tq = 1, 3..8 rows per kv head, bf16 dots
+cudaError_t dispatch_gqa(const FdArgs& a, cudaStream_t st) {
+  const bool pair_ok = a.mode != MODE_INT4X2 || a.hb % 2 == 0;
+  if (a.Tq != 1 || a.n_rt != 1 || a.Q < 3 || a.Q > 8 || !a.dot_bf16 || a.hb < 1 ||
+      a.hb > DW || DW % a.hb || a.hg % a.hb || !pair_ok || a.n_stage < 2 ||
+      a.n_stage > MAX_STAGES || gqa_layout(a).bytes > DECODE_SMEM_MAX)
+    return cudaErrorInvalidValue;
+  switch (a.mode) {
+    case MODE_NUQ:
+      switch (a.bits) {
+        case 2: return gqa_rope<MODE_NUQ, 2>(a, st);
+        case 3: return gqa_rope<MODE_NUQ, 3>(a, st);
+        case 4: return gqa_rope<MODE_NUQ, 4>(a, st);
+      }
+      return cudaErrorInvalidValue;
+    case MODE_INT4: return gqa_rope<MODE_INT4, 0>(a, st);
+    case MODE_INT8: return gqa_rope<MODE_INT8, 0>(a, st);
+    case MODE_INT4X2: return gqa_rope<MODE_INT4X2, 0>(a, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
 template <int MODE>
 cudaError_t launch_partial(const FdArgs& a, cudaStream_t stream) {
   static bool configured = false;
@@ -1940,8 +2531,8 @@ bool is_decode(const FdArgs& a) {
   return a.Tq == 1 && a.n_rt == 1 && (a.Q == 1 || a.Q == 2 || a.Q == 4 || a.Q == 8);
 }
 
-// The split kernel (decode body, or prefill body over the contiguous
-// cache) and the merge on `stream`.
+// The split kernel of the body the host routed the call to (a decode body,
+// or over the contiguous cache a chunk body) and the merge on `stream`.
 int run(const FdArgs* a, void* stream) {
   if (a->S > MAX_SINK || a->n_kc > MAX_KC || a->D > MAXD || a->D % 32 ||
       a->Tc % 128 || (a->mode == MODE_NUQ && (a->bits < 2 || a->bits > 4)) ||
@@ -1950,11 +2541,13 @@ int run(const FdArgs* a, void* stream) {
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaErrorInvalidValue;
-  if (is_decode(*a)) {
-    e = dispatch_decode(*a, st);
-  } else if (!a->table && a->dot_bf16) {
-    e = dispatch_chunk(*a, st);
-  } else if (!a->table) {  // fp32 dots: the SIMT body
+  if (a->body == BODY_DECODE) {
+    if (is_decode(*a)) e = dispatch_decode(*a, st);
+  } else if (a->body == BODY_GQA) {
+    e = dispatch_gqa(*a, st);
+  } else if (a->body == BODY_CHUNK) {
+    if (!a->table && a->dot_bf16) e = dispatch_chunk(*a, st);
+  } else if (a->body == BODY_PARTIAL && !a->table) {  // fp32 dots: the SIMT body
     switch (a->mode) {
       case MODE_NUQ: e = launch_partial<MODE_NUQ>(*a, st); break;
       case MODE_INT4: e = launch_partial<MODE_INT4>(*a, st); break;
@@ -1969,20 +2562,21 @@ int run(const FdArgs* a, void* stream) {
 
 }  // namespace
 
-// K1 over the contiguous (L, B, ...) cache: fd_decode at Tq = 1 with
-// G = Q in {1, 2, 4, 8}, else fd_chunk (bf16 dots) or fd_partial (fp32
-// dots). Returns the cudaError_t of the
-// launches (0 on success); nothing is synchronised.
+// K1 over the contiguous (L, B, ...) cache, on the body the host routed it
+// to (a.body): fd_decode at Tq = 1 with G = Q in {1, 2, 4, 8}, fd_gqa at
+// Tq = 1 with 3-8 rows and bf16 dots, else fd_chunk (bf16 dots) or
+// fd_partial (fp32 dots). Returns the cudaError_t of the launches (0 on success); nothing is
+// synchronised.
 extern "C" int fd_attention(const FdArgs* a, void* stream) {
   if (a->table) return (int)cudaErrorInvalidValue;
   return run(a, stream);
 }
 
-// K5: decode attention (Tq = 1, Q <= 8 rows per kv head) over the
-// (L, NP, ...) page pool through the (B, MP) page table, Tc = MP * P.
+// K5: decode attention (Tq = 1, fd_decode or fd_gqa) over the (L, NP, ...)
+// page pool through the (B, MP) page table, Tc = MP * P.
 extern "C" int fd_paged_attention(const FdArgs* a, void* stream) {
   if (!a->table || a->P <= 0 || a->P % 128 || a->MP <= 0 || a->NP <= 0 ||
-      a->Tc != a->MP * a->P || !is_decode(*a))
+      a->Tc != a->MP * a->P || (a->body != BODY_DECODE && a->body != BODY_GQA))
     return (int)cudaErrorInvalidValue;
   return run(a, stream);
 }

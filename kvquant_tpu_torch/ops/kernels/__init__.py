@@ -15,10 +15,13 @@ def _counters() -> dict:
 
     return {"K1": (flash_decode.flash_attention, "launches"),
             "K1_chunk": (flash_decode.flash_attention, "chunk_launches"),
+            "K1_gqa": (flash_decode.flash_attention, "gqa_launches"),
             "K2": (flash_serial.flash_serial_decode, "launches"),
             "K3": (attention.qk_fused, "launches"),
+            "K3_gqa": (attention.qk_fused, "gqa_launches"),
             "K4": (attention.pv_fused, "launches"),
             "K5": (paged_decode.paged_flash_decode, "launches"),
+            "K5_gqa": (paged_decode.paged_flash_decode, "gqa_launches"),
             "moe_experts": (moe_experts.moe_experts, "launches")}
 
 
@@ -28,12 +31,14 @@ def launch_counts() -> dict:
     qk_fused, K4 pv_fused, K5 paged_flash_decode; and "moe_experts", the
     MoE family's expert products, which port no TPU kernel."""
     return {k: getattr(o, a) for k, (o, a) in _counters().items()
-            if k != "K1_chunk"}
+            if "_" not in k or k == "moe_experts"}
 
 
 def snapshot() -> dict:
     """Every counter: those of ``launch_counts``, K1's chunk launches
-    ("K1_chunk") and K2's launches per body ("K2:<body>")."""
+    ("K1_chunk"), the launches on the tensor-core decode bodies of K1, K3
+    and K5 ("K1_gqa", "K3_gqa", "K5_gqa") and K2's launches per body
+    ("K2:<body>")."""
     from .flash_serial import flash_serial_decode
 
     out = {k: getattr(o, a) for k, (o, a) in _counters().items()}

@@ -31,8 +31,14 @@ term separately as bf16(p) . bf16(M).
   - CUDA tensors: the hand-written kernels ``csrc/attention.cu``, or an
     exception when they cannot be built or launched; there is no fallback.
 
+On the card ``qk_plan`` / ``pv_plan`` pick the body: a decode step of R
+in ``QK_GQA_ROWS`` (3-8) rows with bf16 dots runs K3's tensor-core decode
+body ``qk_gqa``; other steps of R <= 8 rows the decode bodies ``qk_decode``
+/ ``pv_decode``; more rows the tensor-core bodies (bf16 dots) or the SIMT
+bodies (fp32 dots).
+
 ``qk_fused.launches`` / ``pv_fused.launches`` count kernel launches (one
-per call on the card).
+per call on the card), ``qk_fused.gqa_launches`` those on qk_gqa.
 """
 
 from __future__ import annotations
@@ -191,15 +197,19 @@ ROW_STRIDE = (128 + 8) * 2  # bytes of a bf16 K / V / query tile row (csrc QS)
 P_STRIDE = (TILE + 8) * 2  # bytes of a bf16 row of K4's probability tiles (PS)
 SMEM_MAX = 227 * 1024  # H100: dynamic shared memory one block may use
 SMEM_PER_SM = 228 * 1024  # H100: shared memory of an SM, 1 KB kept per block
-BODIES = {"decode": 0, "mma": 1, "simt": 2}  # csrc BODY_*
+BODIES = {"decode": 0, "mma": 1, "simt": 2, "gqa": 3}  # csrc BODY_*
+QK_GQA_ROWS = (3, 4, 5, 6, 7, 8)  # rows of a bf16-dot K3 call on qk_gqa
+GQA_X_BYTES = 8 * 33 * 4  # qk_gqa: a warp's slot-term exchange tile (csrc GXB)
 
 
 class K34Plan(NamedTuple):
     """Block shape of one K3 or K4 call. ``body``: "decode" (R <= 8, both
-    dot modes), "mma" (R > 8, bf16 dots, tensor cores) or "simt" (R > 8,
-    fp32 dots). ``rows``: the decode instance's rows per head (1/2/4/8), or
-    query rows per block; ``n_rt`` row blocks; ``hc`` kv heads per block
-    (whole head groups); ``stages`` ring stages (decode); ``n_split`` token
+    dot modes), "gqa" (K3 at R in QK_GQA_ROWS with bf16 dots: qk_gqa, the
+    decode ring on the tensor cores), "mma" (R > 8, bf16 dots, tensor
+    cores) or "simt" (R > 8, fp32 dots). ``rows``: the decode instance's
+    rows per head (1/2/4/8; R on qk_gqa), or query rows per block;
+    ``n_rt`` row blocks; ``hc`` kv heads per block (whole head groups);
+    ``stages`` ring stages (decode and gqa); ``n_split`` token
     splits; ``smem`` dynamic shared bytes per block (passed to the kernel,
     which refuses a call whose count differs from its bodies' layout);
     ``per_sm`` blocks an SM holds at once. Sized from the capacity Tc,
@@ -214,8 +224,21 @@ class K34Plan(NamedTuple):
     per_sm: int
 
 
-def body(dcfg: DeployConfig, R: int) -> str:
-    """The kernel body a call of R query rows runs on the card."""
+def body(dcfg: DeployConfig, R: int, kernel: str,
+         force: str = None) -> str:
+    """The kernel body a call of R query rows of ``kernel`` ("qk" K3, "pv"
+    K4) runs on the card. ``force`` names another for timing: "decode" at
+    R <= 8, "gqa" for K3 at 3-8 rows with bf16 dots; anything else raises
+    ValueError."""
+    if force is not None:
+        ok = {"decode": R <= 8,
+              "gqa": kernel == "qk" and 3 <= R <= 8 and dcfg.dot_bf16}
+        if not ok.get(force, False):
+            raise ValueError(f"{kernel} kernel: body {force!r} does not run "
+                             f"R={R}, dot_bf16={dcfg.dot_bf16}")
+        return force
+    if kernel == "qk" and dcfg.dot_bf16 and R in QK_GQA_ROWS:
+        return "gqa"
     if R <= 8:
         return "decode"
     return "mma" if dcfg.dot_bf16 else "simt"
@@ -275,15 +298,24 @@ def _row_blocks(R: int, most: int) -> tuple:
 
 
 def qk_plan(dcfg: DeployConfig, R: int, D: int, Tc: int, B: int, Hkv: int,
-            J: int, sms: int) -> K34Plan:
+            J: int, sms: int, body_: str = None) -> K34Plan:
     """Block shape of a K3 call (R query rows per kv head, capacity Tc, J
-    kv_out rows, ``sms`` SMs on the card). decode: hc heads per block (the
-    (cos, sin) table is read B*Hkv/hc times per call, from L2 after the
-    first), splits filling the resident blocks once; mma: all rows of a
-    head in one block up to QK_MMA_ROWS, splits over 128-token tiles
-    filling the resident blocks once; simt: one block per 64-token tile."""
-    kind = body(dcfg, R)
+    kv_out rows, ``sms`` SMs on the card; ``body_`` forces a body for
+    timing). decode: hc heads per block (the (cos, sin) table is read
+    B*Hkv/hc times per call, from L2 after the first), splits filling the
+    resident blocks once; gqa: the decode ring and heads, R rows, two
+    blocks an SM; mma: all rows of a head in one block up to QK_MMA_ROWS,
+    splits over 128-token tiles filling the resident blocks once; simt:
+    one block per 64-token tile."""
+    kind = body(dcfg, R, "qk", body_)
     nks, _ = slot_counts(dcfg, J)
+    if kind == "gqa":
+        hc, stages, stage = _decode_shape(dcfg, D, Hkv, nks, False)
+        smem = 128 + stages * stage + 4 * hc * (8 + 2) * D \
+            + DECODE_WARPS * GQA_X_BYTES
+        per_sm = _per_sm(smem + 64, 2)
+        n_split = _splits(Tc // DECODE_TILE, per_sm * sms // (B * Hkv // hc))
+        return K34Plan(kind, R, 1, hc, stages, n_split, smem, per_sm)
     if kind == "decode":
         G = decode_rows(R)
         hc, stages, stage = _decode_shape(dcfg, D, Hkv, nks, False)
@@ -310,7 +342,7 @@ def pv_plan(dcfg: DeployConfig, R: int, D: int, Tc: int, B: int, Hkv: int,
     at most PV_MMA_ROWS rows (9 row tiles of accumulators a warp) over
     64-token tiles; simt blocks of 64 rows, about four per SM. Every body
     writes split partials that pv_merge adds in split order."""
-    kind = body(dcfg, R)
+    kind = body(dcfg, R, "pv")
     _, nvs = slot_counts(dcfg, J)
     if kind == "decode":
         G = decode_rows(R)
@@ -420,7 +452,8 @@ def _run(fn, args, dev, name):
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
 
 
-def _qk_launch(q_rot, k_planes, kv_out, k_range, k_offset, lut, dcfg, mcfg):
+def _qk_launch(q_rot, k_planes, kv_out, k_range, k_offset, lut, dcfg, mcfg,
+               force=None):
     B, Hkv, R, D = q_rot.shape
     bits, hg = dcfg.bits, dcfg.head_group
     Tc = k_planes.shape[-2] * 32
@@ -445,7 +478,7 @@ def _qk_launch(q_rot, k_planes, kv_out, k_range, k_offset, lut, dcfg, mcfg):
     if mcfg.d_head != D:
         raise ValueError(f"qk_fused kernel: d_head {mcfg.d_head} of the "
                          f"model, {D} of the queries")
-    plan = qk_plan(dcfg, R, D, Tc, B, Hkv, J, sm_count(dev))
+    plan = qk_plan(dcfg, R, D, Tc, B, Hkv, J, sm_count(dev), force)
     _check_plan("qk_fused", plan)
     # K1's cached (cos, sin) table: one build serves both kernels
     rope = rope_table(mcfg, dcfg.sink, Tc, dev)
@@ -461,18 +494,22 @@ def _qk_launch(q_rot, k_planes, kv_out, k_range, k_offset, lut, dcfg, mcfg):
     )
     _run(_lib().qk_fused, args, dev, "qk_fused")
     qk_fused.launches += 1
+    if plan.body == "gqa":
+        qk_fused.gqa_launches += 1
     return out
 
 
 def qk_fused(q_rot, k_planes, kv_out, k_range, k_offset, lut,
-             dcfg: DeployConfig, mcfg, block_tokens: int = 1024):
+             dcfg: DeployConfig, mcfg, block_tokens: int = 1024,
+             body: str = None):
     """Scores (B, Hkv, R, Tc) = q_rot (B, Hkv, R, D) . rope(dequant +
     K slots) over every packed token. k_planes (B, Hkv, bits, Tc/32, D)
     int32; kv_out (B, Hkv/head_group, J, Tc) merged encoded slot words (K
     rows first) or None; k_range / k_offset (Hkv, D); lut (2**bits,).
     Unscaled; the caller applies 1/sqrt(D) and the validity mask. The
     kernel's tiles are fixed (``qk_plan``); ``block_tokens`` is accepted for
-    signature parity."""
+    signature parity. ``body`` forces a kernel body on the card (timing
+    only, see ``body()``); the CPU runs the plain version."""
     _check_config(dcfg, "qk_fused")
     if q_rot.device.type == "cpu":
         return qk_fused_ref(q_rot, k_planes, kv_out, k_range, k_offset, lut,
@@ -480,10 +517,11 @@ def qk_fused(q_rot, k_planes, kv_out, k_range, k_offset, lut,
     if q_rot.device.type != "cuda":
         raise ValueError(f"qk_fused: unsupported device {q_rot.device}")
     return _qk_launch(q_rot.to(torch.float32).contiguous(), k_planes, kv_out,
-                      k_range, k_offset, lut, dcfg, mcfg)
+                      k_range, k_offset, lut, dcfg, mcfg, force=body)
 
 
 qk_fused.launches = 0
+qk_fused.gqa_launches = 0  # of them, calls on qk_gqa
 
 
 def _pv_launch(probs, v_planes, v_scale, v_offset, kv_out, lut, dcfg):

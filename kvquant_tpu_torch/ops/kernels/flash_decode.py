@@ -19,21 +19,25 @@ words or static channels, V slot words.
   - CUDA tensors: the hand-written kernel ``csrc/flash_decode.cu``, or an
     exception when it cannot be built or launched; there is no fallback.
 
-On the card a decode step (Tq == 1, G = Q in {1, 2, 4, 8}) runs the
-decode body ``fd_decode`` (an async-copy tile ring, one block per head
-group slice). Other calls (prefill chunks) run the tensor-core body
-``fd_chunk`` with bf16 dots (``dot_bf16``, the default: up to 256 query
-rows per block, mma.sync), or the SIMT body ``fd_partial`` with fp32 dots
-(64 rows per block), the reference mode that bf16 tensor cores cannot
-compute; ``body`` says which and ``chunk_plan`` gives the block shape. All
-read the (cos, sin) table of ``rope_table``, built once per capacity,
-sink, RoPE parameters and device.
+On the card a decode step (Tq == 1) of G in ``GQA_ROWS`` (3-8) rows per
+kv head with bf16 dots runs the tensor-core decode body ``fd_gqa``
+(``gqa_plan``); other steps of G = Q in {1, 2, 4, 8} the SIMT decode body
+``fd_decode`` (``decode_plan``); both an async-copy tile ring, one block per
+head group slice. Other calls (prefill chunks, and steps of other row
+counts) run the tensor-core body ``fd_chunk`` with bf16 dots (``dot_bf16``,
+the default: up to 256 query rows per block, mma.sync), or the SIMT body
+``fd_partial`` with fp32 dots (64 rows per block), the reference mode that
+bf16 tensor cores cannot compute; ``body`` says which (and takes a forced
+body for timing) and ``chunk_plan`` gives the block shape. All read the
+(cos, sin) table of ``rope_table``, built once per capacity, sink, RoPE
+parameters and device.
 
 ``flash_attention.launches`` counts kernel launches (one per call on the
 card, ``flash_decode`` included), ``flash_attention.chunk_launches`` those
-of calls that are not a decode step. The TPU kernel's constant-band packing
-(``prep_constants``) exists for a Mosaic operand limit and is not ported:
-the CUDA kernel takes its operands in a struct.
+on a chunk body, ``flash_attention.gqa_launches`` those on fd_gqa. The TPU
+kernel's constant-band packing (``prep_constants``) exists for a Mosaic
+operand limit and is not ported: the CUDA kernel takes its operands in a
+struct.
 """
 
 from __future__ import annotations
@@ -187,6 +191,7 @@ class _FdArgs(ctypes.Structure):
         ("n_rt", _I), ("inv", ctypes.c_float),
         ("table", _P), ("MP", _I), ("P", _I), ("NP", _I),
         ("hb", _I), ("n_stage", _I), ("rows_blk", _I), ("n_buf", _I),
+        ("body", _I),
     ]
 
 
@@ -256,6 +261,71 @@ def decode_plan(dcfg: DeployConfig, D: int, J: int, n_rows: bool):
             128 if dcfg.codes == "nuq" else 64)
 
 
+GQA_ROWS = (3, 4, 5, 6, 7, 8)  # rows per kv head of a bf16-dot step on fd_gqa
+GQA_BLOCKS_PER_SM = 1  # fd_gqa's launch bound: one block, <= 168 registers
+GQA_UNIT = 32  # tokens per consumer unit of fd_gqa (csrc GU)
+GQA_X_BYTES = 8 * (GQA_UNIT + 1) * 4  # a warp's exchange / P^T tile (csrc GXB)
+GQA_VT_STRIDE = GQA_UNIT + 8  # a warp's V slot tile row, bf16 (csrc GVS)
+DECODE_WARPS = 8  # consumer warps of a decode block (csrc DW)
+DECODE_SMEM_MAX = 200 * 1024  # csrc DECODE_SMEM_MAX
+
+
+class GqaPlan(NamedTuple):
+    """Block shape of a call on fd_gqa: heads per block ``hb`` and tile
+    tokens as ``decode_plan``, ring ``stages`` (fewer than decode_plan's
+    where GQA_BLOCKS_PER_SM blocks would not fit an SM), ``smem`` dynamic
+    shared bytes per block, ``per_sm`` resident blocks an SM holds."""
+    hb: int
+    stages: int
+    tile: int
+    smem: int
+    per_sm: int
+
+
+def _gqa_smem(dcfg: DeployConfig, D: int, J: int, G: int, n_rows: bool,
+              live: tuple, hb: int, stages: int) -> int:
+    """csrc gqa_layout(a).bytes: mbarriers, the ring or the merge scratch,
+    the queries transposed (8 rows), the static-channel dims (to 16 B),
+    the K step and zero, the warps' exchange / P^T tiles and, with V
+    slots, their V^T slot tiles."""
+    n_kc, _, n_vslots = live
+    ring = max(stages * _stage_bytes(dcfg, D, J, n_rows, hb),
+               DECODE_WARPS * G * (D + 2) * 4)
+    off = 128 + ring + 4 * hb * 8 * D + 4 * hb * n_kc
+    off = -(-off // 16) * 16 + 4 * hb * 2 * D + DECODE_WARPS * GQA_X_BYTES
+    if n_vslots:
+        off += 2 * DECODE_WARPS * D * GQA_VT_STRIDE
+    return off
+
+
+def gqa_plan(dcfg: DeployConfig, D: int, J: int, G: int) -> GqaPlan:
+    """The block shape of fd_gqa for G rows per kv head: decode_plan's
+    heads and stages, the stages cut (to two at the least) until
+    GQA_BLOCKS_PER_SM blocks share an SM and a block fits
+    DECODE_SMEM_MAX. Raises ValueError where the smallest shape does
+    not."""
+    live = kernel_limits(dcfg, D, J)
+    n_rows = any(live)
+    hb, stages, tile = decode_plan(dcfg, D, J, n_rows)
+    smem = _gqa_smem(dcfg, D, J, G, n_rows, live, hb, stages)
+    while stages > 2 and ((smem + 1024) * GQA_BLOCKS_PER_SM > SMEM_PER_SM
+                          or smem > DECODE_SMEM_MAX):
+        stages -= 1
+        smem = _gqa_smem(dcfg, D, J, G, n_rows, live, hb, stages)
+    if smem > DECODE_SMEM_MAX:
+        raise ValueError(f"flash_attention kernel: fd_gqa needs {smem} B "
+                         f"of shared memory > {DECODE_SMEM_MAX}")
+    per_sm = max(1, min(GQA_BLOCKS_PER_SM, SMEM_PER_SM // (smem + 1024)))
+    return GqaPlan(hb, stages, tile, smem, per_sm)
+
+
+def gqa_splits(plan: GqaPlan, B: int, Hkv: int, Tc: int, sms: int) -> int:
+    """Token splits of an fd_gqa call: as many as fill the card's resident
+    blocks once over B * Hkv / hb head blocks, at most one per tile."""
+    return max(1, min(Tc // plan.tile, DECODE_WAVES * plan.per_sm * sms
+                      // (B * Hkv // plan.hb)))
+
+
 def decode_splits(dcfg: DeployConfig, B: int, Hkv: int, G: int, D: int,
                   J: int, n_rows: bool, n_kc: int, Tc: int, sms: int) -> int:
     """Token splits of a decode call: as many as fill the card's resident
@@ -321,25 +391,44 @@ def _chunk_smem(dcfg: DeployConfig, D: int, J: int, rows: int, stages: int,
     return 128 + stages * stage + rows * row + n_buf * buf
 
 
-def body(dcfg: DeployConfig, Q: int, Tq: int) -> str:
+BODIES = {"decode": 0, "gqa": 1, "mma": 2, "simt": 3}  # csrc BODY_*
+
+
+def body(dcfg: DeployConfig, Q: int, Tq: int, force: str = None) -> str:
     """The kernel body a call runs on the card: "decode" (fd_decode, one
-    step of G in 1/2/4/8 rows per kv head), else "mma" (fd_chunk) with
-    bf16 dots or "simt" (fd_partial) with fp32 dots."""
-    if is_decode(Q, Tq):
+    step of G in 1/2/4/8 rows per kv head), "gqa" (fd_gqa, one step of G
+    in GQA_ROWS rows with bf16 dots, on the tensor cores), else "mma"
+    (fd_chunk) with bf16 dots or "simt" (fd_partial) with fp32 dots.
+    ``force`` names another body for timing: "mma" / "simt" take any call
+    (the chunk bodies at Tq = 1 too), "decode" a step of 1/2/4/8 rows,
+    "gqa" a bf16-dot step of 3-8 rows; anything else raises ValueError."""
+    if force is not None:
+        ok = {"decode": is_decode(Q, Tq, False),
+              "gqa": Tq == 1 and 3 <= Q <= 8 and dcfg.dot_bf16,
+              "mma": dcfg.dot_bf16, "simt": True}
+        if not ok.get(force, False):
+            raise ValueError(f"flash_attention kernel: body {force!r} does "
+                             f"not run Q={Q}, Tq={Tq}, dot_bf16="
+                             f"{dcfg.dot_bf16}")
+        return force
+    if Tq == 1 and dcfg.dot_bf16 and Q in GQA_ROWS:
+        return "gqa"
+    if is_decode(Q, Tq, False):
         return "decode"
     return "mma" if dcfg.dot_bf16 else "simt"
 
 
 def chunk_plan(dcfg: DeployConfig, D: int, J: int, Q: int,
-               Tq: int) -> ChunkPlan:
-    """Block shape of a call that is not a decode step (Q = G * Tq rows).
-    mma: the fewest row blocks of at most CHUNK_ROWS rows, their rows
-    spread evenly in tiles of 16 (mma's row tile); the first of
+               Tq: int, force: str = None) -> ChunkPlan:
+    """Block shape of a call that is not a decode step (Q = G * Tq rows),
+    or of a decode step ``force``d onto a chunk body ("mma" / "simt", for
+    timing). mma: the fewest row blocks of at most CHUNK_ROWS rows, their
+    rows spread evenly in tiles of 16 (mma's row tile); the first of
     CHUNK_SHAPES (piece buffers, ring stages) that CHUNK_SMEM_MAX holds.
     Raises ValueError for a decode call or a configuration whose smallest
     shape does not fit."""
-    kind = body(dcfg, Q, Tq)
-    if kind == "decode":
+    kind = body(dcfg, Q, Tq, force)
+    if kind in ("decode", "gqa"):
         raise ValueError(f"chunk_plan: Q={Q}, Tq={Tq} is a decode step")
     if kind == "simt":
         return ChunkPlan("simt", ROWS, -(-Q // ROWS), TILE, 0, 0,
@@ -405,17 +494,19 @@ def kernel_limits(dcfg: DeployConfig, D: int, J: int):
     return n_kc, n_kslots, n_vslots
 
 
-def is_decode(Q: int, Tq: int) -> bool:
-    """Whether the kernel runs its decode body (one step, G rows per kv
-    head, all in one block) rather than a multi-row body."""
-    return Tq == 1 and Q in (1, 2, 4, 8)
+def is_decode(Q: int, Tq: int, dot_bf16: bool = True) -> bool:
+    """Whether a call runs a decode body (one step, G rows per kv head, all
+    in one block: fd_decode at 1/2/4/8 rows, fd_gqa at GQA_ROWS with bf16
+    dots) rather than a multi-row body."""
+    return Tq == 1 and (Q in (1, 2, 4, 8) or (dot_bf16 and Q in GQA_ROWS))
 
 
 def run_kernel(entry, q_rot, arrays, pos, k_chan_l, dcfg, mcfg, *, L, Tc, J,
-               Tq, li, paged=(None, 0, 0, 0)):
+               Tq, li, paged=(None, 0, 0, 0), kind=None):
     """Allocate the output and the partials, fill the ``FdArgs`` struct
     (the cached RoPE table under pre-RoPE keys) and launch ``entry``
-    (fd_attention or fd_paged_attention) on the current stream.
+    (fd_attention or fd_paged_attention) on the current stream, on the
+    body ``kind`` (default ``body(dcfg, Q, Tq)``).
     ``arrays``: k_planes, v_planes, kv_out, k_range, k_offset, v_scale,
     v_offset, k_sink, v_sink, k_lut, v_lut, checked by the caller;
     ``paged``: (table, MP, P, NP). Returns the (B, Hkv, Q, D) fp32
@@ -423,19 +514,25 @@ def run_kernel(entry, q_rot, arrays, pos, k_chan_l, dcfg, mcfg, *, L, Tc, J,
     B, Hkv, Q, D = q_rot.shape
     dev = q_rot.device
     n_kc, n_kslots, n_vslots = kernel_limits(dcfg, D, J)
+    kind = kind or body(dcfg, Q, Tq)
     rows_blk = n_buf = 0
-    if is_decode(Q, Tq):
+    if kind == "decode":
         n_rt = 1
         rows = bool(n_kc or n_kslots or n_vslots)
         hb, n_stage, _ = decode_plan(dcfg, D, J, rows)
         ns = decode_splits(dcfg, B, Hkv, Q, D, J, rows, n_kc, Tc,
                            sm_count(dev))
+    elif kind == "gqa":
+        n_rt = 1
+        plan = gqa_plan(dcfg, D, J, Q)
+        hb, n_stage = plan.hb, plan.stages
+        ns = gqa_splits(plan, B, Hkv, Tc, sm_count(dev))
     else:
-        plan = chunk_plan(dcfg, D, J, Q, Tq)
+        plan = chunk_plan(dcfg, D, J, Q, Tq, force=kind)
         n_rt, hb, n_stage = plan.n_rt, 0, plan.stages
         rows_blk, n_buf = plan.rows, plan.n_buf
         ns = chunk_splits(plan, B, Hkv, Tc, sm_count(dev))
-    if body(dcfg, Q, Tq) != "simt":
+    if kind != "simt":
         # the ring's bulk copies need 16-byte aligned sources
         for name, i in (("k_planes", 0), ("v_planes", 1), ("kv_out", 2),
                         ("v_scale", 5), ("v_offset", 6)):
@@ -460,7 +557,7 @@ def run_kernel(entry, q_rot, arrays, pos, k_chan_l, dcfg, mcfg, *, L, Tc, J,
         mcfg.sliding_window or 0, int(dcfg.post_rope_k), int(dcfg.dot_bf16),
         int(li), ns, n_rt, 1.0 / (D ** 0.5),
         None if table is None else table.data_ptr(), MP, P, NP, hb, n_stage,
-        rows_blk, n_buf,
+        rows_blk, n_buf, BODIES[kind],
     )
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -473,7 +570,7 @@ def run_kernel(entry, q_rot, arrays, pos, k_chan_l, dcfg, mcfg, *, L, Tc, J,
 
 def _launch(q_rot, k_planes, v_planes, kv_out, k_range, k_offset, v_scale,
             v_offset, k_sink, v_sink, k_lut, v_lut, li, pos, dcfg, mcfg, Tq,
-            k_chan_l):
+            k_chan_l, force=None):
     B, Hkv, Q, D = q_rot.shape
     L = k_planes.shape[0]
     S, hg = dcfg.sink, dcfg.head_group
@@ -511,14 +608,17 @@ def _launch(q_rot, k_planes, v_planes, kv_out, k_range, k_offset, v_scale,
         expect["k_chan"] = (k_chan_l, (NG, n_kc), torch.int32)
     check_operands("flash_attention kernel", expect, q_rot.device)
 
+    kind = body(dcfg, q_rot.shape[2], Tq, force)
     out = run_kernel(
         _lib().fd_attention, q_rot,
         (k_planes, v_planes, kv_out, k_range, k_offset, v_scale, v_offset,
          k_sink, v_sink, k_lut, v_lut), pos, k_chan_l, dcfg, mcfg, L=L,
-        Tc=Tc, J=J, Tq=Tq, li=li)
+        Tc=Tc, J=J, Tq=Tq, li=li, kind=kind)
     flash_attention.launches += 1
-    if not is_decode(q_rot.shape[2], Tq):
+    if kind in ("mma", "simt"):
         flash_attention.chunk_launches += 1
+    elif kind == "gqa":
+        flash_attention.gqa_launches += 1
     return out
 
 
@@ -526,13 +626,15 @@ def flash_attention(
     q_rot, k_planes, v_planes, kv_out, k_range, k_offset, v_scale, v_offset,
     k_sink, v_sink, k_lut, v_lut, li, pos, dcfg: DeployConfig, mcfg,
     Tq: int = 1, block_tokens: int = 1024, k_ressc=None, k_chan=None,
+    body: str = None,
 ):
     """Attention of Q = G*Tq query rows per kv head over sink + packed cache
     for layer ``li`` of the stacked arrays. ``pos`` (B,) int (or an int) is
     row 0's position. ``k_chan`` (L, n_groups, n_kc) may carry the static K
     channels precomputed from ``k_ressc`` ("channels" mode). The kernels'
     key tiles are fixed (64 or 128 tokens); ``block_tokens`` is accepted
-    for signature parity."""
+    for signature parity. ``body`` forces a kernel body on the card
+    (timing only, see ``body()``); the CPU runs the plain version."""
     _check_config(dcfg)
     if q_rot.device.type == "cpu":
         return flash_attention_ref(
@@ -554,11 +656,12 @@ def flash_attention(
         k_chan_l = k_chan_l.to(torch.int32).contiguous()
     return _launch(q_rot.contiguous(), k_planes, v_planes, kv_out, k_range,
                    k_offset, v_scale, v_offset, k_sink, v_sink, k_lut, v_lut,
-                   li, pos, dcfg, mcfg, Tq, k_chan_l)
+                   li, pos, dcfg, mcfg, Tq, k_chan_l, force=body)
 
 
 flash_attention.launches = 0
-flash_attention.chunk_launches = 0  # of them, calls that are not a decode step
+flash_attention.chunk_launches = 0  # of them, calls on a chunk body
+flash_attention.gqa_launches = 0  # of them, steps on fd_gqa
 
 
 def flash_decode(q_rot, k_planes, v_planes, kv_out, k_range, k_offset,

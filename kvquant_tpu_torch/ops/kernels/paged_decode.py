@@ -16,9 +16,11 @@ Sinks stay per slot, (L, B, Hkv, S, D).
     decode kernel (``fd_decode``) instantiated with the paged addressing
     policy, or an exception; there is no fallback.
 
-The decode body is instantiated for 1, 2, 4 and 8 query rows per kv head;
-other head ratios are padded with zero queries to the next instance
-(``paged_plan``, ``common.padded_launches``).
+With bf16 dots, 3, 5, 6 or 7 query rows per kv head run the tensor-core
+decode body ``fd_gqa`` (``flash_decode.GQA_ROWS``) in one launch; the
+SIMT body ``fd_decode`` is instantiated for 1, 2, 4 and 8 rows, and other
+head ratios (fp32 dots, or more than 8 rows) are padded with zero queries
+to the next instance (``paged_plan``, ``common.padded_launches``).
 ``paged_flash_decode.launches`` counts kernel launches. Every storage mode
 of K1 is taken, int4x2 included (pool code arrays (L, NP, Hkv/2, P, D/2));
 a page must hold whole 128-token bit-plane groups, so
@@ -34,8 +36,9 @@ import torch
 from ...cache import DeployConfig, k_channel_index
 from ..packing import GROUP
 from .common import check_operands, decode_rows, padded_launches
-from .flash_decode import (_check_config, _lib, decode_plan, decode_splits,
-                           flash_attention_ref, kernel_limits, run_kernel)
+from .flash_decode import (_check_config, _lib, body, decode_plan,
+                           decode_splits, flash_attention_ref, gqa_plan,
+                           gqa_splits, kernel_limits, run_kernel)
 
 
 def _check(dcfg: DeployConfig):
@@ -47,11 +50,14 @@ def _check(dcfg: DeployConfig):
 
 
 class PagedPlan(NamedTuple):
-    """A K5 call of G query rows per kv head on the card: ``rows`` per
-    launch of the decode body (``decode_rows(G)``, zero rows padding G),
+    """A K5 call of G query rows per kv head on the card: the decode
+    ``body`` of each launch ("gqa", fd_gqa, or "decode", fd_decode), its
+    ``rows`` (G in one launch on fd_gqa, else ``decode_rows(G)``, zero
+    rows padding G),
     ``launches`` of them, and each launch's block shape (heads per block
     ``hb``, ring ``stages``, ``tile`` tokens) and token splits
     ``n_split``."""
+    body: str
     rows: int
     launches: int
     hb: int
@@ -63,15 +69,21 @@ class PagedPlan(NamedTuple):
 def paged_plan(dcfg: DeployConfig, B: int, Hkv: int, G: int, D: int, J: int,
                Tc: int, sms: int) -> PagedPlan:
     """The plan of a K5 call over ``Tc`` = MP * P table tokens per slot,
-    as the wrapper launches it (``flash_decode.run_kernel``'s decode block
-    shape and splits at the padded rows). Raises ValueError for a
-    configuration the kernel does not take."""
+    as the wrapper launches it (``flash_decode.run_kernel``'s block shape
+    and splits: one launch of G rows where ``flash_decode.body`` routes a
+    step of G rows to fd_gqa, else launches of the padded rows on the body
+    that takes them). Raises ValueError for a configuration the kernel
+    does not take."""
     _check(dcfg)
-    R = decode_rows(G)
+    R = G if G >= 1 and body(dcfg, G, 1) == "gqa" else decode_rows(G)
+    if body(dcfg, R, 1) == "gqa":
+        plan = gqa_plan(dcfg, D, J, R)
+        return PagedPlan("gqa", R, -(-G // R), plan.hb, plan.stages,
+                         plan.tile, gqa_splits(plan, B, Hkv, Tc, sms))
     n_kc, n_ks, n_vs = kernel_limits(dcfg, D, J)
     rows = bool(n_kc or n_ks or n_vs)
     hb, stages, tile = decode_plan(dcfg, D, J, rows)
-    return PagedPlan(R, -(-G // R), hb, stages, tile,
+    return PagedPlan("decode", R, -(-G // R), hb, stages, tile,
                      decode_splits(dcfg, B, Hkv, R, D, J, rows, n_kc, Tc,
                                    sms))
 
@@ -193,17 +205,23 @@ def paged_flash_decode(q_rot, pool, page_table, dq, li, pos,
     check_operands("paged_flash_decode kernel", expect, dev)
 
     def launch(q):
+        kind = body(dcfg, q.shape[2], 1)
         out = run_kernel(
             _lib().fd_paged_attention, q,
             (pool.k_planes, pool.v_planes, pool.kv_out, dq.k_range,
              dq.k_offset, pool.v_scale, pool.v_offset, pool.k_sink,
              pool.v_sink, dq.k_lut_dec, dq.v_lut_dec), pos, k_chan_l, dcfg,
             mcfg, L=L, Tc=MP * P, J=J, Tq=1, li=li,
-            paged=(page_table, MP, P, NP))
+            paged=(page_table, MP, P, NP), kind=kind)
         paged_flash_decode.launches += 1
+        if kind == "gqa":
+            paged_flash_decode.gqa_launches += 1
         return out
 
+    if body(dcfg, G, 1) == "gqa":
+        return launch(q_rot)
     return padded_launches(q_rot, launch)
 
 
 paged_flash_decode.launches = 0
+paged_flash_decode.gqa_launches = 0  # of them, steps on fd_gqa

@@ -11,7 +11,8 @@ them over the card. What the CUDA kernel relies on, checked on the CPU:
       buffers, ring stages) that fits;
   (c) the splits lie between 1 and the capacity's 128-token tiles;
   (d) fp32 dots route to the SIMT body ``fd_partial``, decode steps to
-      ``fd_decode`` and never to a chunk plan.
+      ``fd_decode`` (or, with bf16 dots at 3-8 rows, ``fd_gqa``) and never
+      to a chunk plan.
 """
 
 import pytest
@@ -123,9 +124,15 @@ def test_fp32_dots_route_to_the_simt_body(codes, bits):
 def test_decode_steps_are_not_chunks(dot_bf16):
     dcfg = _dcfg("nuq", 3, 128, False, "slots", dot_bf16=dot_bf16)
     for G in (1, 2, 4, 8):
-        assert fd.body(dcfg, G, 1) == "decode"
+        assert fd.body(dcfg, G, 1) == (
+            "gqa" if dot_bf16 and G in fd.GQA_ROWS else "decode")
         with pytest.raises(ValueError, match="decode step"):
             fd.chunk_plan(dcfg, 128, dcfg.n_slots, G, 1)
-    # other row counts at Tq = 1 are not decode steps
-    for G in (3, 16):
+    # 3 rows at Tq = 1 are a step of the tensor-core decode body fd_gqa
+    # with bf16 dots and a chunk with fp32 dots; 16 rows are a chunk
+    assert fd.body(dcfg, 3, 1) == ("gqa" if dot_bf16 else "simt")
+    if dot_bf16:
+        with pytest.raises(ValueError, match="decode step"):
+            fd.chunk_plan(dcfg, 128, dcfg.n_slots, 3, 1)
+    for G in (16,) if dot_bf16 else (3, 16):
         assert fd.body(dcfg, G, 1) == ("mma" if dot_bf16 else "simt")

@@ -133,5 +133,9 @@ def test_decode_plan_shapes(codes, bits):
 
 def test_only_single_token_steps_run_the_decode_body():
     assert all(fd.is_decode(G, 1) for G in (1, 2, 4, 8))
-    assert not any(fd.is_decode(G, 1) for G in (3, 5, 16))
+    # 3 / 5 rows run the tensor-core decode body fd_gqa with bf16 dots; with
+    # fp32 dots (and at 16 rows) they are not decode steps
+    assert all(fd.is_decode(G, 1) for G in (3, 5))
+    assert not any(fd.is_decode(G, 1, dot_bf16=False) for G in (3, 5, 16))
+    assert not fd.is_decode(16, 1)
     assert not fd.is_decode(2, 2) and not fd.is_decode(256, 256)

@@ -43,12 +43,15 @@ def _dcfg(bits=3, Hkv=32, D=128, Tc=2304, hg=4, cap=2, dot_bf16=True):
 def test_routing(kernel, R, dot_bf16):
     d = _dcfg(dot_bf16=dot_bf16)
     plan = PLANS[kernel](d, R, 128, 2304, 1, 32, d.n_slots, SMS)
-    if R <= 8:
+    if kernel == "qk" and dot_bf16 and R in at.QK_GQA_ROWS:
+        # K3 at 3 / 5 rows with bf16 dots: the tensor-core decode body
+        assert plan.body == "gqa" and plan.rows == R
+    elif R <= 8:
         assert plan.body == "decode"
         assert plan.rows == next(g for g in (1, 2, 4, 8) if R <= g)
     else:
         assert plan.body == ("mma" if dot_bf16 else "simt")
-    assert plan.body == at.body(d, R)
+    assert plan.body == at.body(d, R, kernel)
 
 
 CONFIGS = [(bits, D, hg, cap, Hkv)
@@ -70,7 +73,7 @@ def test_blocks_and_shared_memory(kernel, bits, D, hg, cap, Hkv):
                     plan = PLANS[kernel](d, R, D, Tc, B, Hkv, d.n_slots, SMS)
                     assert plan.smem <= at.SMEM_MAX, plan
                     assert plan.per_sm >= 1
-                    if plan.body == "decode":
+                    if plan.body in ("decode", "gqa"):  # the decode ring
                         assert Hkv % plan.hc == 0 and 1 <= plan.hc <= 8
                         if slots:
                             assert plan.hc % hg == 0

@@ -325,6 +325,9 @@ def test_k2_plans_odd_head_ratios_at_the_padded_instance(G, rows, body):
 @pytest.mark.parametrize("codes", ["nuq", "int4x2"])
 def test_k5_plans_odd_head_ratios_at_the_padded_instance(G, rows, launches,
                                                          codes):
+    """With bf16 dots G 3 / 6 run fd_gqa at G rows in one launch and G 12 /
+    16 two launches of 8 rows there; with fp32 dots the padded fd_decode
+    instance."""
     from kvquant_tpu_torch.ops.kernels import flash_decode as fd
     from kvquant_tpu_torch.ops.kernels import paged_decode as pdk
 
@@ -332,15 +335,26 @@ def test_k5_plans_odd_head_ratios_at_the_padded_instance(G, rows, launches,
           if codes == "nuq" else
           dict(bits=2, codes="int4x2", post_rope_k=True,
                k_outliers="channels", n_kc=4, cap_per_side=0))
-    d = DeployConfig.create(n_kv_heads=8, d_head=128, max_len=8192, sink=5,
-                            kernel="flash", head_group=4, **kw)
-    plan = pdk.paged_plan(d, 4, 8, G, 128, d.n_slots, 8192, SMS)
-    assert (plan.rows, plan.launches) == (rows, launches)
-    n_rows = codes == "nuq" or d.k_outliers == "channels"
-    assert plan.n_split == fd.decode_splits(
-        d, 4, 8, rows, 128, d.n_slots, n_rows, d.n_kc if codes != "nuq"
-        else 0, 8192, SMS)
-    assert fd.is_decode(plan.rows, 1)
+    n_rows = codes == "nuq" or kw["k_outliers"] == "channels"
+    for dot_bf16 in (True, False):
+        d = DeployConfig.create(n_kv_heads=8, d_head=128, max_len=8192,
+                                sink=5, kernel="flash", head_group=4,
+                                dot_bf16=dot_bf16, **kw)
+        plan = pdk.paged_plan(d, 4, 8, G, 128, d.n_slots, 8192, SMS)
+        R = G if dot_bf16 and G in fd.GQA_ROWS else rows
+        kind = "gqa" if dot_bf16 and R in fd.GQA_ROWS else "decode"
+        assert (plan.body, plan.rows, plan.launches) == (
+            kind, R, 1 if R == G else launches)
+        if plan.body == "gqa":
+            gp = fd.gqa_plan(d, 128, d.n_slots, plan.rows)
+            assert plan.n_split == fd.gqa_splits(gp, 4, 8, 8192, SMS)
+            assert (plan.hb, plan.stages) == (gp.hb, gp.stages)
+        else:
+            assert plan.n_split == fd.decode_splits(
+                d, 4, 8, rows, 128, d.n_slots, n_rows,
+                d.n_kc if codes != "nuq" else 0, 8192, SMS)
+        assert fd.is_decode(plan.rows, 1, dot_bf16)
+
 
 
 def test_k2_k5_g0_raises():
