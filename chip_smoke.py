@@ -20,7 +20,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero).
 K2 is csrc/flash_serial.cu (flash_serial_decode), K1 csrc/flash_decode.cu
 (flash_attention / flash_decode):
   1. device and build: the card, torch / CUDA versions, one nvcc per
-     kvquant_tpu_torch/csrc/*.cu source of this checkout, run in parallel;
+     kvquant_tpu_torch/csrc/*.cu source of this checkout, all started
+     together; flash_decode.cu's, the longest, runs on beside phases 2-5,
+     which launch K2 alone, and the first later phase waits for it;
   2. K2 against its plain PyTorch version on the card: int4 / int8 /
      int4x2 x channels / slots x sink 0 / 5, B=2 at unequal positions, and a
      sliding window, with fp32 dots and with bf16 dot operands, each case
@@ -182,25 +184,29 @@ The MoE family and the HF loader:
      steps at G 6 on the tensor-core decode body fd_gqa;
      K1 == plain on the live cache at layers 0 and 7, a decode row and a
      chunk, both dot modes), kernel pallas through K3 / K4 (16 tokens, 8 x
-     16 each, K3 on qk_gqa, == plain at R 6 and 1536) and the speed
-     config (int4,
-     post-RoPE, hg 8) through K2 (16 tokens, 8 x 16, all fs_mma at 8
-     padded rows, == plain); each path's decode tok/s and a profiler pass
-     over 3 steps (device ms split into the expert FFN, the attention
-     kernel and the rest; idle share) beside the step's weight-read bounds
-     (routed experts only, all experts); prefill s, the fp16-KV baseline's
-     tok/s on the same weights, peak GiB; the graphed step at 32K on a
-     filled cache (~0.22 GB) through K1 and K3 / K4, graphed == eager
-     bitwise over 4 steps, device ms and K1 / K3 by name in a replay's
-     trace, beside the same step captured with the old G 3-8 routes forced
-     (K1 on fd_chunk, K3 on the 8-row qk_decode); the G 6 routes alone at
-     one DBRX layer (K1 decode on fd_gqa beside fd_chunk and the rows
-     padded to fd_decode, K2, K3 on qk_gqa beside the 8-row qk_decode, K4
-     at R 6, K5 at B=4 x 8K on fd_gqa beside the padded fd_decode) against
-     plain, with times and bounds, and the routing rows K1 G 4 (MISTRAL_7B,
-     window live) / G 8 and K3 R 4 / 8, old body beside new; K2 at G 3 / 6
-     against plain; the decode edge grid at G 3 / 5 / 6 / 7 through K1 and
-     K5 (every mode), K3's qk_gqa grid (R 3 / 5 / 6 / 7); a toy MoE's
+     16 each, K3 on qk_gqa and K4 on pv_gqa, == plain at R 6 and 1536) and
+     the speed config (int4, post-RoPE, hg 8) through K2 (16 tokens, 8 x
+     16, all fs_mma at its 6 rows, unpadded, == plain); each path's decode
+     tok/s and a profiler pass over 3 steps (device ms split into the
+     expert FFN, the attention kernel and the rest; idle share) beside the
+     step's weight-read bounds (routed experts only, all experts); prefill
+     s, the fp16-KV baseline's tok/s on the same weights, peak GiB; the
+     graphed step at 32K on a filled cache (~0.22 GB nuq3; the speed
+     config's int4 cache for K2) through K1, K3 / K4 and K2, graphed ==
+     eager bitwise over 4 steps, device ms and the attention kernels by
+     name in a replay's trace, beside the same step captured with the old
+     G 3-8 routes forced (K1 on fd_chunk, K3 / K4 on the 8-row qk_decode /
+     pv_decode, K2 padded to 8 rows), at 2K the same step new beside old
+     without the eager run; the G 6
+     routes alone at one DBRX layer (K1 decode on fd_gqa beside fd_chunk
+     and the rows padded to fd_decode, K2 on fs_mma at 6 rows beside the
+     padded route, K3 on qk_gqa and K4 on pv_gqa beside the 8-row
+     qk_decode / pv_decode, K5 at B=4 x 8K on fd_gqa beside the padded
+     fd_decode) against plain, with times and bounds, and the routing rows
+     K1 G 4 (MISTRAL_7B, window live) / G 8, K3 and K4 R 4 / 8, K2 G 4 / 8,
+     old route beside new; K2 at G 3 / 5 / 6 / 7 against plain; the decode
+     edge grid at G 3 / 5 / 6 / 7 through K1 and K5 (every mode), K3's
+     qk_gqa grid and K4's pv_gqa grid (R 3 / 5 / 6 / 7); a toy MoE's
      greedy tokens card == CPU through K1 and K2.
      The MoE family's compiled step: the expert products' kernel
      (csrc/moe_experts.cu, moe_glu then moe_down) against its plain version
@@ -545,21 +551,56 @@ def phase_device_and_build(report):
     from kvquant_tpu_torch.ops.kernels import flash_serial as fs
     from kvquant_tpu_torch.ops.kernels import moe_experts as mx
 
-    # one nvcc per source, all started together
+    # one nvcc per source, all started together; K1 / K5's source, the
+    # longest build, goes on while the K2 phases run (LATE_BUILDS)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(SOURCES)) as ex:
-        for f in [ex.submit(build.build, name, VERBOSE_BUILD)
-                  for name in SOURCES]:
+    ex = ThreadPoolExecutor(len(SOURCES))
+    futures = {name: ex.submit(build.build, name, VERBOSE_BUILD)
+               for name in SOURCES}
+    ex.shutdown(wait=False)
+    for name, f in futures.items():
+        if name in LATE_BUILDS:
+            PENDING_BUILDS[name] = (f, t0)
+        else:
             f.result()
     fs.load_library()
-    fd.load_library()
     at.load_library()
     mx.load_library()
-    log(f"[1] built and loaded {', '.join(f'csrc/{n}.cu' for n in SOURCES)} "
+    done = [n for n in SOURCES if n not in LATE_BUILDS]
+    log(f"[1] built and loaded {', '.join(f'csrc/{n}.cu' for n in done)} "
         f"in {time.perf_counter() - t0:.1f} s (nvcc " + ", ".join(
-            f"{n} {build.build_seconds.get(n, 0.0):.1f} s" for n in SOURCES)
-        + ")")
+            f"{n} {build.build_seconds.get(n, 0.0):.1f} s" for n in done)
+        + f"); {', '.join(f'csrc/{n}.cu' for n in LATE_BUILDS)} still "
+        f"building beside phases {', '.join(map(str, K2_PHASES))}")
     report["card"] = card
+    report["nvcc_s"] = dict(build.build_seconds)
+
+
+LATE_BUILDS = ("flash_decode",)  # sources whose build overlaps K2_PHASES
+K2_PHASES = (2, 3, 4, 5)  # phases that launch K2 alone
+PENDING_BUILDS: dict = {}  # source -> (its build's future, start time)
+
+
+def finish_builds(report):
+    """Wait for the builds phase 1 left running, then load their libraries
+    (a build that failed raises here)."""
+    from kvquant_tpu_torch.ops.kernels import build, flash_decode as fd
+
+    if not PENDING_BUILDS:
+        return
+    early = [n for n in PENDING_BUILDS if n in build._loaded]
+    if early:  # an earlier phase loaded it, maybe with an nvcc of its own
+        raise AssertionError(f"{early} loaded before finish_builds: the "
+                             f"phases {K2_PHASES} must not launch them")
+    t0 = time.perf_counter()
+    for name, (f, start) in list(PENDING_BUILDS.items()):
+        f.result()
+        del PENDING_BUILDS[name]
+        log(f"[1] csrc/{name}.cu built (nvcc "
+            f"{build.build_seconds.get(name, 0.0):.1f} s, "
+            f"{time.perf_counter() - start:.1f} s after phase 1 started "
+            f"it; waited {time.perf_counter() - t0:.1f} s here)")
+    fd.load_library()
     report["nvcc_s"] = dict(build.build_seconds)
 
 
@@ -1933,6 +1974,51 @@ def k3_gqa_grid(tag):
     return worst[True]
 
 
+def k4_gqa_grid(tag):
+    """K4 on its tensor-core decode body (pv_gqa, bf16 dots) against the
+    plain version at R 3 / 5 / 6 / 7 x D 32 / 64 / 128 x head group 1 / 2 /
+    4 with colliding V slot words (cap 2, or 4 at head group 2) x capacity
+    128 / 256 / 2304, and three cases at head group 8 without slots, B = 2 (the second row's last half of probabilities
+    zero, as past a live length); the probabilities a column slice after 5
+    sink columns (rows that start off 16 bytes); the launches counted on
+    pv_gqa. Returns the worst |err| / bound."""
+    from kvquant_tpu_torch.cache import DeployConfig
+    from kvquant_tpu_torch.ops.kernels import attention as at
+
+    dev = torch.device("cuda")
+    B, Hkv = 2, 8
+    worst = {False: 0.0, True: 0.0}
+    n, t0 = 0, time.perf_counter()
+    before = at.pv_fused.gqa_launches
+    # and head group 8 (eight heads a block), which K4 takes without slots
+    # (the slot word's head field holds 4)
+    cases = [(r, d, hg, tc) for r in (3, 5, 6, 7) for d in (32, 64, 128)
+             for hg in (1, 2, 4) for tc in (128, 256, 2304)]
+    cases += [(3, 128, 8, 2304), (6, 128, 8, 2304), (8, 64, 8, 256)]
+    for r, d, hg, tc in cases:
+        dcfg = DeployConfig.create(
+            bits=(2, 3, 4)[n % 3], n_kv_heads=Hkv, d_head=d, max_len=tc + 5,
+            sink=5, kernel="pallas", head_group=hg,
+            cap_per_side={2: 4, 8: 0}.get(hg, 2))
+        gen = torch.Generator(device=dev).manual_seed(950 + n)
+        o = k34_operands(dcfg, B, r, tc, gen, dev)
+        o["kv_out"] = colliding_words(dcfg, B, tc, gen, dev)
+        o["probs"][1, :, :, tc // 2:] = 0.0
+        got = run_pv(at.pv_fused, o, dcfg)
+        torch.cuda.synchronize()
+        check_case(f"{tag} K4 pv_gqa R{r} D{d} hg{hg} Tc{tc} "
+                   f"nuq{dcfg.bits}", got, run_pv(at.pv_fused_ref, o, dcfg),
+                   True, worst)
+        n += 1
+    launched = at.pv_fused.gqa_launches - before
+    log(f"{tag} K4 pv_gqa grid == plain on {n} cases (bf16 dots, "
+        f"{launched} launches on pv_gqa) in {time.perf_counter() - t0:.1f} "
+        f"s; worst |err| / bound {worst[True]:.3f}")
+    if launched != n:
+        raise AssertionError("K4 at R 3-8 with bf16 dots did not run pv_gqa")
+    return worst[True]
+
+
 def live_k34_check(tag, cache, dq, dcfg, cfg, li_list, gen, rs=(1, 261)):
     """K3 and K4 against plain on layers of a live cache: random queries
     and probabilities at R rows of ``rs``, the main path's bf16 dots and
@@ -2318,13 +2404,16 @@ def reset_launches():
     for fn in counters.values():
         fn.launches = 0
     fd.flash_attention.chunk_launches = 0
-    for fn in (fd.flash_attention, at.qk_fused, pdk.paged_flash_decode):
+    for fn in (fd.flash_attention, at.qk_fused, at.pv_fused,
+               pdk.paged_flash_decode, fs.flash_serial_decode):
         fn.gqa_launches = 0
     fs.flash_serial_decode.route_launches = {b: 0 for b in fs.BODIES}
     return lambda: dict({k: fn.launches for k, fn in counters.items()},
                         K1_chunk=fd.flash_attention.chunk_launches,
                         K1_gqa=fd.flash_attention.gqa_launches,
+                        K2_gqa=fs.flash_serial_decode.gqa_launches,
                         K3_gqa=at.qk_fused.gqa_launches,
+                        K4_gqa=at.pv_fused.gqa_launches,
                         K5_gqa=pdk.paged_flash_decode.gqa_launches)
 
 
@@ -3850,9 +3939,11 @@ def moe_profile(tag, step, steps, prof_steps=3):
 
 
 def k2_odd_g_check(tag):
-    """K2 at G 3 and 6 (padded to the 4 / 8 row instances) against its
-    plain version: int4 / int4x2 / int8 x channels / slots x both dot
-    modes, B=2 at unequal positions, a sliding window on one case."""
+    """K2 at G 3 / 5 / 6 / 7 against its plain version: int4 / int4x2 /
+    int8 x channels / slots x both dot modes, B=2 at unequal positions, a
+    sliding window on one case; with bf16 dots on int4 / int4x2 each call
+    is one fs_mma launch at its own rows (counted on its gqa counter),
+    else fs_partial at the padded instance."""
     from kvquant_tpu_torch.cache import DeployConfig
     from kvquant_tpu_torch.models.config import ModelConfig
     from kvquant_tpu_torch.ops.kernels import flash_serial as fs
@@ -3865,7 +3956,7 @@ def k2_odd_g_check(tag):
     for dot_bf16 in (False, True):
         for codes in ("int4", "int4x2", "int8"):
             for k_out in ("channels", "slots"):
-                for G in (3, 6):
+                for G in (3, 5, 6, 7):
                     bits = {"int4": 4, "int8": 8, "int4x2": 2}[codes]
                     window = 300 if (codes, k_out) == ("int4", "slots") \
                         else None
@@ -3890,12 +3981,16 @@ def k2_odd_g_check(tag):
                     check_case(f"{tag} K2 {codes} {k_out} G{G} "
                                f"win{window}", got, want, dot_bf16, worst)
                     n += 1
-    launches = read()["K2"]
-    log(f"{tag} K2 at G 3 / 6 == plain on {n // 2} cases x 2 dot modes "
-        f"({launches} launches, one per call); worst |err| / bound: fp32 "
-        f"dots {worst[False]:.3f}, bf16 dots {worst[True]:.3f}")
-    if launches != n:
-        raise AssertionError("K2 at G 3 / 6 did not launch once per call")
+    got_n = read()
+    launches, gqa = got_n["K2"], got_n["K2_gqa"]
+    want_gqa = 2 * 2 * 4  # bf16 dots: int4 / int4x2 x channels / slots x G
+    log(f"{tag} K2 at G 3 / 5 / 6 / 7 == plain on {n // 2} cases x 2 dot "
+        f"modes ({launches} launches, one per call; {gqa} on fs_mma at "
+        f"their own rows); worst |err| / bound: fp32 dots "
+        f"{worst[False]:.3f}, bf16 dots {worst[True]:.3f}")
+    if launches != n or gqa != want_gqa:
+        raise AssertionError("K2 at G 3-7 did not launch once per call, on "
+                             "fs_mma unpadded with bf16 dots")
     return worst
 
 
@@ -3904,14 +3999,14 @@ def dbrx_kernel_times(tag, cfg):
     filled cache: K1 decode (the faithful nuq3: the route, the tensor-core
     decode body fd_gqa, beside the old routes forced in the same call:
     fd_chunk at Tq = 1 and the rows padded to 8 on fd_decode), K2 (speed
-    config, fs_mma at 8 rows), K3 (R = 6: qk_gqa beside the 8-row
-    qk_decode forced) and K4 (pv_decode's 8-row instance), K5 (B=4 x 8K:
-    fd_gqa beside the rows padded to 8 on fd_decode); each route held to
-    its plain version in both dot modes; bound by bytes as phases 5 / 9 /
-    13 / 17 count them. Then the routing rows: K1 at G 4 (MISTRAL_7B's 32
-    / 8 heads, its 4096-token window live at 32K) and G 8, K3 at R 4 and 8,
-    each on fd_gqa / qk_gqa beside fd_decode / qk_decode, the new body held
-    to plain with bf16 dots."""
+    config: fs_mma at its 6 rows beside the rows padded to 8), K3 (R = 6: qk_gqa beside the 8-row qk_decode
+    forced) and K4 (R = 6: pv_gqa beside the 8-row pv_decode), K5 (B=4 x
+    8K: fd_gqa beside the rows padded to 8 on fd_decode); each route held
+    to its plain version in both dot modes; bound by bytes as phases 5 / 9
+    / 13 / 17 count them. Then the routing rows: K1 at G 4 (MISTRAL_7B's 32
+    / 8 heads, its 4096-token window live at 32K) and G 8, K3 and K4 at R 4
+    and 8, K2 at G 4 and 8, each new route beside the old, the new held to
+    plain with bf16 dots."""
     from kvquant_tpu_torch.models.config import MISTRAL_7B
     from kvquant_tpu_torch.ops.kernels import attention as at
     from kvquant_tpu_torch.ops.kernels import common
@@ -4013,79 +4108,123 @@ def dbrx_kernel_times(tag, cfg):
         return (Tc * (code_b + dp.n_groups * spk * 4 + Hkv * r * 4)
                 + 4 * Hkv * D * (r + 2) + 4 * 2 ** dp.bits)
 
-    for name, fn, ref, run, nbytes in (
-            ("K3", at.qk_fused, at.qk_fused_ref,
-             lambda f, d=dp: run_qk(f, o, d, one), k3_bytes(G)),
-            ("K4", at.pv_fused, at.pv_fused_ref,
-             lambda f, d=dp: run_pv(f, o, d),
-             Tc * (code_b + dp.n_groups * (J - spk) * 4 + 8 + Hkv * G * 4)
-             + 4 * Hkv * D * G + 4 * 2 ** dp.bits)):
-        d32p = dataclasses.replace(dp, dot_bf16=False)
+    def k4_bytes(r):
+        return (Tc * (code_b + dp.n_groups * (J - spk) * 4 + 8 + Hkv * r * 4)
+                + 4 * Hkv * D * r + 4 * 2 ** dp.bits)
+
+    def k3(oo, d=dp, body=None, fn=at.qk_fused):
+        return fn(oo["q"], oo["k_planes"], oo["kv_out"], oo["k_range"],
+                  oo["k_offset"], oo["k_lut"], d, one,
+                  **({"body": body} if body else {}))
+
+    def k4(oo, d=dp, body=None, fn=at.pv_fused):
+        return fn(oo["probs"], oo["v_planes"], oo["v_scale"], oo["v_offset"],
+                  oo["kv_out"], oo["v_lut"], d,
+                  **({"body": body} if body else {}))
+
+    # (name, call, plain, plan, tensor-core body, old body, bytes)
+    k34 = (("K3", k3, at.qk_fused_ref, at.qk_plan, "qk_gqa", "qk_decode",
+            k3_bytes),
+           ("K4", k4, at.pv_fused_ref, at.pv_plan, "pv_gqa", "pv_decode",
+            k4_bytes))
+    d32p = dataclasses.replace(dp, dot_bf16=False)
+    for name, fn, ref, plan_fn, new_body, old_body, nbytes in k34:
+        counter = at.qk_fused if name == "K3" else at.pv_fused
+        before = counter.gqa_launches
         rows[name] = dict(max_abs_err=max(
-            agree(f"{tag} {name} R {G}", run(fn), run(ref), True),
-            agree(f"{tag} {name} R {G}", run(fn, d32p), run(ref, d32p),
+            agree(f"{tag} {name} R {G} ({new_body})", fn(o), fn(o, fn=ref),
+                  True),
+            agree(f"{tag} {name} R {G}", fn(o, d32p), fn(o, d32p, fn=ref),
                   False)))
-        extra = ""
-        if name == "K3":
-            rows[name]["route"] = at.qk_plan(dp, G, D, Tc, 1, Hkv, J,
-                                             common.sm_count(dev)).body
-            old = lambda: at.qk_fused(  # noqa: E731
-                o["q"], o["k_planes"], o["kv_out"], o["k_range"],
-                o["k_offset"], o["k_lut"], dp, one, body="decode")
-            agree(f"{tag} K3 R {G} on the 8-row qk_decode (old route)",
-                  old(), run(ref), True)
-            rows[name]["old_ms"] = {"qk_decode": best(old)}
-            extra = (f" (route {rows[name]['route']}; the 8-row qk_decode "
-                     f"in the same call: "
-                     f"{rows[name]['old_ms']['qk_decode']:.4f} ms)")
-        timed(name, lambda: run(fn), lambda: run(ref), nbytes, ctx, extra)
-    # K3 routing rows: R 4 and 8 on qk_gqa beside qk_decode
+        if counter.gqa_launches - before != 1:
+            raise AssertionError(f"{name} at R {G} with bf16 dots did not "
+                                 f"run {new_body}")
+        rows[name]["route"] = plan_fn(dp, G, D, Tc, 1, Hkv, J,
+                                      common.sm_count(dev)).body
+        old = lambda fn=fn: fn(o, body="decode")  # noqa: E731
+        agree(f"{tag} {name} R {G} on the 8-row {old_body} (old route)",
+              old(), fn(o, fn=ref), True)
+        rows[name]["old_ms"] = {old_body: best(old)}
+        timed(name, lambda fn=fn: fn(o), lambda fn=fn, ref=ref: fn(o, fn=ref),
+              nbytes(G), ctx,
+              f" (route {rows[name]['route']}; the 8-row {old_body} in the "
+              f"same call: {rows[name]['old_ms'][old_body]:.4f} ms)")
+    # K3 / K4 routing rows: R 4 and 8 on the tensor-core bodies beside the
+    # decode instances
     for r_r in (4, 8):
         o_r = k34_operands(dp, 1, r_r, Tc, gen, dev)
-
-        def k3(body, o_r=o_r):
-            return at.qk_fused(o_r["q"], o_r["k_planes"], o_r["kv_out"],
-                               o_r["k_range"], o_r["k_offset"], o_r["k_lut"],
-                               dp, one, body=body)
-        e = agree(f"{tag} K3 R{r_r} on qk_gqa", k3("gqa"),
-                  run_qk(at.qk_fused_ref, o_r, dp, one), True)
-        rows[f"K3 R{r_r}"] = dict(
-            ms=best(lambda: k3("gqa")),
-            old_ms={"qk_decode": best(lambda: k3("decode"))}, max_abs_err=e,
-            bound_ms=k3_bytes(r_r) / HBM_BYTES_PER_S * 1e3,
-            route=at.qk_plan(dp, r_r, D, Tc, 1, Hkv, J,
-                             common.sm_count(dev)).body, ctx=Tc)
-        r = rows[f"K3 R{r_r}"]
-        log(f"{tag} K3 R{r_r} over Tc {Tc}: qk_gqa {r['ms']:.4f} ms, "
-            f"qk_decode {r['old_ms']['qk_decode']:.4f} ms, bound "
-            f"{r['bound_ms']:.4f}; route {r['route']}")
+        for name, fn, ref, plan_fn, new_body, old_body, nbytes in k34:
+            e = agree(f"{tag} {name} R{r_r} on {new_body}", fn(o_r,
+                                                                body="gqa"),
+                      fn(o_r, fn=ref), True)
+            key = f"{name} R{r_r}"
+            rows[key] = dict(
+                ms=best(lambda fn=fn: fn(o_r, body="gqa")),
+                old_ms={old_body: best(lambda fn=fn: fn(o_r, body="decode"))},
+                max_abs_err=e, bound_ms=nbytes(r_r) / HBM_BYTES_PER_S * 1e3,
+                route=plan_fn(dp, r_r, D, Tc, 1, Hkv, J,
+                              common.sm_count(dev)).body, ctx=Tc)
+            r = rows[key]
+            log(f"{tag} {key} over Tc {Tc}: {new_body} {r['ms']:.4f} ms, "
+                f"{old_body} {r['old_ms'][old_body]:.4f} ms, bound "
+                f"{r['bound_ms']:.4f}; route {r['route']}")
         del o_r
     del ops, o
 
-    # K2: the speed config's decode row at G 6 (padded to fs_mma's 8)
+    # K2: the speed config's decode row at G 6, its rows as they are on
+    # fs_mma beside the padding of before forced (fs_mma at 8 rows); then
+    # the routing rows G 4 and 8
     dcfg2, _ = dbrx_speed_config(one, ctx + 8, 1)
     ops = kernel_operands(dcfg2, one, 1, 1, G, dcfg2.cache_tokens, gen, dev)
     chan = fs.k_channel_index(ops["k_ressc"], dcfg2).to(torch.int32)
 
-    def k2(f, d=dcfg2):
-        return f(q, ops["k_planes"], ops["v_planes"], ops["kv_out"],
+    def k2(f, d=dcfg2, qq=q, body=None):
+        return f(qq, ops["k_planes"], ops["v_planes"], ops["kv_out"],
                  ops["k_range"], ops["k_offset"], ops["v_scale"],
                  ops["v_offset"], ops["k_sink"], ops["v_sink"], ops["k_lut"],
-                 ops["v_lut"], 0, pos, d, one, k_chan=chan)
+                 ops["v_lut"], 0, pos, d, one, k_chan=chan,
+                 **({"body": body} if body else {}))
+
+    def k2_bytes(g):
+        return ((ctx - dcfg2.sink) * stored_bytes_per_token(dcfg2)
+                + 4 * Hkv * D * (2 * dcfg2.sink + 2 * g))
 
     d32 = dataclasses.replace(dcfg2, dot_bf16=False)
+    plan2 = fs.fs_plan(dcfg2, 1, Hkv, G, D, dcfg2.cache_tokens, dev)
+    before = fs.flash_serial_decode.gqa_launches
     rows["K2"] = dict(
-        plan=repr(fs.fs_plan(dcfg2, 1, Hkv, G, D, dcfg2.cache_tokens, dev)),
+        plan=repr(plan2), route=f"{plan2.body} at {plan2.rows} rows",
         max_abs_err=max(
-            agree(f"{tag} K2 G{G}", k2(fs.flash_serial_decode),
+            agree(f"{tag} K2 G{G} (fs_mma, {G} rows)",
+                  k2(fs.flash_serial_decode),
                   k2(fs.flash_serial_decode_ref), True),
             agree(f"{tag} K2 G{G}", k2(fs.flash_serial_decode, d32),
                   k2(fs.flash_serial_decode_ref, d32), False)))
+    if fs.flash_serial_decode.gqa_launches - before != 1:
+        raise AssertionError(f"K2 at G {G} did not run fs_mma unpadded")
+    old2 = lambda: k2(fs.flash_serial_decode, body=fs.PADDED)  # noqa: E731
+    agree(f"{tag} K2 G{G} padded to fs_mma's 8 rows (old route)", old2(),
+          k2(fs.flash_serial_decode_ref), True)
+    rows["K2"]["old_ms"] = {"fs_mma_padded": best(old2)}
     timed("K2", lambda: k2(fs.flash_serial_decode),
-          lambda: k2(fs.flash_serial_decode_ref),
-          (ctx - dcfg2.sink) * stored_bytes_per_token(dcfg2)
-          + 4 * Hkv * D * (2 * dcfg2.sink + 2 * G), ctx,
-          f" ({rows['K2']['plan']})")
+          lambda: k2(fs.flash_serial_decode_ref), k2_bytes(G), ctx,
+          f" ({rows['K2']['plan']}; padded to 8 rows in the same call: "
+          f"{rows['K2']['old_ms']['fs_mma_padded']:.4f} ms)")
+    for g_r in (4, 8):
+        qg = torch.randn((1, Hkv, g_r, D), generator=gen, device=dev)
+        e = agree(f"{tag} K2 G{g_r} on fs_mma",
+                  k2(fs.flash_serial_decode, qq=qg),
+                  k2(fs.flash_serial_decode_ref, qq=qg), True)
+        rows[f"K2 G{g_r}"] = dict(
+            ms=best(lambda: k2(fs.flash_serial_decode, qq=qg)),
+            old_ms={"fs_mma_padded": best(lambda: k2(
+                fs.flash_serial_decode, qq=qg, body=fs.PADDED))},
+            max_abs_err=e, bound_ms=k2_bytes(g_r) / HBM_BYTES_PER_S * 1e3,
+            route=repr(fs.fs_plan(dcfg2, 1, Hkv, g_r, D, dcfg2.cache_tokens,
+                                  dev)), ctx=ctx)
+        r = rows[f"K2 G{g_r}"]
+        log(f"{tag} K2 G{g_r} at {ctx} tokens: fs_mma {r['ms']:.4f} ms, "
+            f"padded {r['old_ms']['fs_mma_padded']:.4f} ms, bound {r['bound_ms']:.4f}; {r['route']}")
     del ops
 
     # K5: B=4 slots of 8K in permuted pages of 1024, the faithful config
@@ -4404,77 +4543,105 @@ def old_routes():
     """The routes of 3-8 query rows per kv head as they were before the
     tensor-core decode bodies: K1 and K5 steps off fd_gqa (K1 on fd_chunk
     at Tq = 1 for 3 / 5 / 6 / 7 rows and on fd_decode at 4 / 8, K5 padded
-    to fd_decode), K3 off qk_gqa (qk_decode's 4- or 8-row instance)."""
+    to fd_decode), K3 off qk_gqa and K4 off pv_gqa (qk_decode's and
+    pv_decode's 4- or 8-row instances), K2 on fs_mma with the rows padded
+    to 4 or 8."""
     from kvquant_tpu_torch.ops.kernels import attention as at
     from kvquant_tpu_torch.ops.kernels import flash_decode as fd
+    from kvquant_tpu_torch.ops.kernels import flash_serial as fs
 
-    saved = fd.GQA_ROWS, at.QK_GQA_ROWS
-    fd.GQA_ROWS, at.QK_GQA_ROWS = (), ()
+    saved = fd.GQA_ROWS, at.QK_GQA_ROWS, at.PV_GQA_ROWS, fs.GQA_ROWS
+    fd.GQA_ROWS = at.QK_GQA_ROWS = at.PV_GQA_ROWS = fs.GQA_ROWS = ()
     try:
         yield
     finally:
-        fd.GQA_ROWS, at.QK_GQA_ROWS = saved
+        fd.GQA_ROWS, at.QK_GQA_ROWS, at.PV_GQA_ROWS, fs.GQA_ROWS = saved
 
 
 STEP_NAMES = {n: (n,) for n in ("fd_gqa", "fd_decode", "fd_chunk", "qk_gqa",
-                                "qk_decode", "pv_decode")}
+                                "qk_decode", "pv_gqa", "pv_decode", "fs_mma",
+                                "fs_merge")}
 
 
-def dbrx_long_step(params, cfg, dq, bounds, ctx=32768, steps=4):
-    """DBRX's graphed decode step at ``ctx`` on a synthetic filled cache
-    (the faithful nuq3 storage filled as phase 28 fills LLaMA's; ~0.22 GB
-    at 8 layers) through ``flash`` (K1) and ``pallas`` (K3 / K4):
-    ``dbrx_graph_vs_eager`` over ``steps`` steps (graphed == eager
-    bitwise, device ms a step, wall / device), the attention kernels by
-    name in a replay's trace; then the same step captured with the old
-    routes forced (``old_routes``) in the same call, its device ms and
-    kernels by name."""
-    from kvquant_tpu_torch import engine
+def dbrx_long_step(params, cfg, dq, bounds, ctxs=(2048, 32768), steps=4):
+    """DBRX's graphed decode step on synthetic filled caches of capacity
+    ``ctx`` + ``steps`` + 8 (the faithful nuq3 storage filled as phase 28
+    fills LLaMA's; ~0.22 GB at 8 layers and 32K) through ``flash`` (K1)
+    and ``pallas`` (K3 / K4), and on a filled cache of the speed config
+    through ``flash_serial`` (K2), at each context of ``ctxs``: at the
+    longest ``dbrx_graph_vs_eager`` over ``steps`` steps (graphed == eager
+    bitwise, device ms a step, wall / device); at every one ``step_ab``,
+    the new routes beside the old ones in the same call."""
+    from kvquant_tpu_torch.cache import deployed_from_quantizers
 
     L = cfg.n_layers
-    _, dcfg, _ = faithful_config(ctx + steps + 8, L, cfg)
-    cache = filled_cache(dcfg, L, ctx, 2532)
     tok = torch.zeros((1,), dtype=torch.int32, device="cuda")
-    pos = torch.full((1,), ctx + steps, dtype=torch.int32, device="cuda")
-    out = {"cache_gib": sum(t.numel() * t.element_size()
-                            for t in cache.arrays().values()) / 2 ** 30}
-    for path, d, want in (
-            ("flash", dcfg, {"K1": L, "moe_experts": L}),
-            ("pallas", dataclasses.replace(dcfg, kernel="pallas"),
-             {"K3": L, "K4": L, "moe_experts": L})):
-        tag = f"[25] {path} graphed {ctx}"
-        r = dbrx_graph_vs_eager(tag, params, cfg, d, dq, cache, ctx, steps,
-                                want, bounds)
-        graph = engine.DecodeGraph(params, cfg, d, dq, clone_cache(cache))
-        new_ms = device_ms(lambda: graph(tok, pos), n=8, reps=3)
-        _, _, names, names_ms = step_trace(lambda: graph(tok, pos), n=2,
-                                           kernels=STEP_NAMES)
-        with old_routes():
-            old = engine.DecodeGraph(params, cfg, d, dq, clone_cache(cache))
-        old_ms = device_ms(lambda: old(tok, pos), n=8, reps=3)
-        _, _, old_names, old_names_ms = step_trace(lambda: old(tok, pos), n=2,
-                                                   kernels=STEP_NAMES)
-        new_ms2 = device_ms(lambda: graph(tok, pos), n=8, reps=3)
-        r.update(new_ms=(new_ms, new_ms2), old_ms=old_ms,
-                 trace_names=names, trace_names_ms=names_ms,
-                 old_trace_names=old_names, old_trace_names_ms=old_names_ms)
-        log(f"{tag}: device {new_ms:.3f} / {new_ms2:.3f} ms a step "
-            f"(new routes, before / after), {old_ms:.3f} with the old routes "
-            f"forced (K1 fd_chunk, K3 8-row qk_decode), "
-            f"{old_ms - min(new_ms, new_ms2):.3f} ms saved a step; by name a "
-            f"step: new {names} {names_ms}, old {old_names} {old_names_ms}")
-        want_new = {"flash": {"fd_gqa": L}, "pallas": {"qk_gqa": L,
-                                                        "pv_decode": L}}[path]
-        want_old = {"flash": {"fd_chunk": L},
-                    "pallas": {"qk_decode": L, "pv_decode": L}}[path]
-        if names != want_new or old_names != want_old:
-            raise AssertionError(f"{tag}: kernels by name {names} (new) / "
-                                 f"{old_names} (old routes)")
-        out[path] = r
-        del graph, old
-    del cache
-    torch.cuda.empty_cache()
+    out = {}
+    for ctx in ctxs:
+        _, dcfg, _ = faithful_config(ctx + steps + 8, L, cfg)
+        dcfg2, qs2 = dbrx_speed_config(cfg, ctx + steps + 8, L)
+        dq2 = deployed_from_quantizers(qs2, cfg.n_kv_heads, cfg.d_head,
+                                       device="cuda")
+        pos = torch.full((1,), ctx + steps, dtype=torch.int32, device="cuda")
+        cache = filled_cache(dcfg, L, ctx, 2532)
+        for path, d, dqp, want in (
+                ("flash", dcfg, dq, {"K1": L, "moe_experts": L}),
+                ("pallas", dataclasses.replace(dcfg, kernel="pallas"), dq,
+                 {"K3": L, "K4": L, "moe_experts": L}),
+                ("flash_serial", dcfg2, dq2, {"K2": L, "moe_experts": L})):
+            tag = f"[25] {path} graphed {ctx}"
+            if path == "flash_serial":
+                del cache
+                cache = filled_cache(dcfg2, L, ctx, 2533)
+            r = {"cache_gib": sum(t.numel() * t.element_size() for t in
+                                  cache.arrays().values()) / 2 ** 30}
+            if ctx == max(ctxs):
+                r.update(dbrx_graph_vs_eager(tag, params, cfg, d, dqp, cache,
+                                             ctx, steps, want, bounds))
+            r.update(step_ab(tag, params, cfg, d, dqp, cache, tok, pos, L,
+                             path))
+            out[path if ctx == max(ctxs) else f"{path}_{ctx}"] = r
+        del cache
+        torch.cuda.empty_cache()
     return out
+
+
+def step_ab(tag, params, cfg, dcfg, dq, cache, tok, pos, L, path):
+    """The graphed step at ``pos`` on a clone of ``cache``, new routes
+    beside the old ones forced (``old_routes``) in the same call: device
+    ms (the new graph before and after the old one), the attention
+    kernels by name in a replay's trace."""
+    from kvquant_tpu_torch import engine
+
+    graph = engine.DecodeGraph(params, cfg, dcfg, dq, clone_cache(cache))
+    new_ms = device_ms(lambda: graph(tok, pos), n=8, reps=3)
+    _, _, names, names_ms = step_trace(lambda: graph(tok, pos), n=2,
+                                       kernels=STEP_NAMES)
+    with old_routes():
+        old = engine.DecodeGraph(params, cfg, dcfg, dq, clone_cache(cache))
+    old_ms = device_ms(lambda: old(tok, pos), n=8, reps=3)
+    _, _, old_names, old_names_ms = step_trace(lambda: old(tok, pos), n=2,
+                                               kernels=STEP_NAMES)
+    new_ms2 = device_ms(lambda: graph(tok, pos), n=8, reps=3)
+    log(f"{tag}: device {new_ms:.3f} / {new_ms2:.3f} ms a step (new routes, "
+        f"before / after), {old_ms:.3f} with the old routes forced (K1 "
+        f"fd_chunk, K3 / K4 8-row qk_decode / pv_decode, K2 padded to 8 "
+        f"rows), {old_ms - min(new_ms, new_ms2):.3f} ms saved a step; by "
+        f"name a step: new {names} {names_ms}, old {old_names} "
+        f"{old_names_ms}")
+    want_new = {"flash": {"fd_gqa": L},
+                "pallas": {"qk_gqa": L, "pv_gqa": L},
+                "flash_serial": {"fs_mma": L, "fs_merge": L}}[path]
+    want_old = {"flash": {"fd_chunk": L},
+                "pallas": {"qk_decode": L, "pv_decode": L},
+                "flash_serial": {"fs_mma": L, "fs_merge": L}}[path]
+    if names != want_new or old_names != want_old:
+        raise AssertionError(f"{tag}: kernels by name {names} (new) / "
+                             f"{old_names} (old routes)")
+    del graph, old
+    return dict(new_ms=(new_ms, new_ms2), old_ms=old_ms, trace_names=names,
+                trace_names_ms=names_ms, old_trace_names=old_names,
+                old_trace_names_ms=old_names_ms)
 
 
 def dbrx_prefill_graph(tag, params, cfg, dcfg, dq, prompt, chunk):
@@ -4790,12 +4957,13 @@ def phase_dbrx(report):
     torch.cuda.synchronize()
     n = read()
     log(f"[25] kernel pallas, fp16 prefill {T0} + {N2} greedy tokens: "
-        f"launches {n} (K3 / K4 expected {cfg.n_layers * N2} each, K3 on "
-        f"qk_gqa)")
+        f"launches {n} (K3 / K4 expected {cfg.n_layers * N2} each, on "
+        f"qk_gqa / pv_gqa)")
     if not (n["K3"] == n["K4"] == n["moe_experts"] == cfg.n_layers * N2
-            == n["K3_gqa"] and n["K1"] == n["K2"] == n["K5"] == 0):
-        raise AssertionError("DBRX pallas did not run K3 (qk_gqa) / K4 per "
-                             "step")
+            == n["K3_gqa"] == n["K4_gqa"]
+            and n["K1"] == n["K2"] == n["K5"] == 0):
+        raise AssertionError("DBRX pallas did not run K3 (qk_gqa) / K4 "
+                             "(pv_gqa) per step")
     k34 = live_k34_check("[25] live cache", cache, dq, dcfg_p, cfg,
                          (0, cfg.n_layers - 1), gen, rs=(G, G * chunk))
     tok = toks[:, -1]
@@ -4804,7 +4972,8 @@ def phase_dbrx(report):
                                         T0 + N2 + i), 8)
     out["pallas"] = dict(decode_tps=tps, k3_launches=n["K3"],
                          k3_gqa_launches=n["K3_gqa"],
-                         k4_launches=n["K4"], max_abs_err=k34,
+                         k4_launches=n["K4"], k4_gqa_launches=n["K4_gqa"],
+                         max_abs_err=k34,
                          moe_launches=n["moe_experts"], **prof)
     out["pallas"]["graph"] = dbrx_graph_vs_eager(
         "[25] pallas graphed", params, cfg, dcfg_p, dq, cache, T0 + N2, 16,
@@ -4812,10 +4981,10 @@ def phase_dbrx(report):
     del cache
     torch.cuda.empty_cache()
 
-    # ---- the graphed step at 32K, new routes beside the old ones ----
-    out["step_32k"] = dbrx_long_step(params, cfg, dq, (ffn_routed, ffn_all))
+    # ---- the graphed step at 2K and 32K, new routes beside the old ones ----
+    out["graphed_steps"] = dbrx_long_step(params, cfg, dq, (ffn_routed, ffn_all))
 
-    # ---- the speed config through K2 (G 6 padded to fs_mma's 8 rows) ----
+    # ---- the speed config through K2 (fs_mma at G 6's own rows) ----
     dcfg2, qs2 = dbrx_speed_config(cfg, max_len, cfg.n_layers)
     dq2 = deployed_from_quantizers(qs2, cfg.n_kv_heads, cfg.d_head,
                                    device="cuda")
@@ -4829,11 +4998,12 @@ def phase_dbrx(report):
     log(f"[25] speed config (int4, post-RoPE, 16 static K channels, hg 8), "
         f"kernel flash_serial, fp16 prefill {T0} + {N2} greedy tokens: "
         f"launches {n}, per body {routes} (K2 expected "
-        f"{cfg.n_layers * N2}, all fs_mma)")
+        f"{cfg.n_layers * N2}, all fs_mma at {G} rows, unpadded)")
     if not (n["K2"] == cfg.n_layers * N2 == routes["fs_mma"]
-            == n["moe_experts"]
+            == n["moe_experts"] == n["K2_gqa"]
             and n["K1"] == n["K3"] == n["K4"] == n["K5"] == 0):
-        raise AssertionError("DBRX speed config did not run K2 per step")
+        raise AssertionError("DBRX speed config did not run K2 (fs_mma "
+                             "unpadded) per step")
     arrs = cache.arrays()
     q = torch.randn((1, cfg.n_kv_heads, G, cfg.d_head), generator=gen,
                     device="cuda")
@@ -4855,6 +5025,7 @@ def phase_dbrx(report):
                             engine.decode_step(params, cfg, dcfg2, dq2, cache,
                                                tok, T0 + N2 + i), 8)
     out["flash_serial"] = dict(decode_tps=tps, k2_launches=n["K2"],
+                               k2_gqa_launches=n["K2_gqa"],
                                max_abs_err=worst,
                                moe_launches=n["moe_experts"], **prof)
     out["flash_serial"]["graph"] = dbrx_graph_vs_eager(
@@ -4884,6 +5055,7 @@ def phase_dbrx(report):
     out["k1_edges"] = decode_edge_grid("[25]", modes, paged=False, odd_g=True)
     out["k5_edges"] = decode_edge_grid("[25]", modes, paged=True, odd_g=True)
     out["k3_gqa_grid"] = k3_gqa_grid("[25]")
+    out["k4_gqa_grid"] = k4_gqa_grid("[25]")
     toy_moe_card_vs_cpu("[25]")
     out["serve_graph"] = toy_moe_server_graph("[25]")
     report["dbrx"] = out
@@ -5383,7 +5555,7 @@ def step_trace(step, n=3, kernels=None):
 OWN_KERNELS = {"K1": ("fd_decode", "fd_gqa", "fd_chunk", "fd_partial"),
                "K2": ("fs_mma", "fs_partial"),
                "K3": ("qk_decode", "qk_gqa", "qk_mma", "qk_simt"),
-               "K4": ("pv_decode", "pv_mma", "pv_simt"),
+               "K4": ("pv_decode", "pv_gqa", "pv_mma", "pv_simt"),
                "moe_experts": ("moe_glu",)}
 
 
@@ -6742,9 +6914,12 @@ def main(argv=None) -> int:
     report: dict = {}
     t_all = time.perf_counter()
     for p in phases:
+        if p not in K2_PHASES:
+            finish_builds(report)
         t0 = time.perf_counter()
         PHASES[p](report)
         log(f"[{p}] done in {time.perf_counter() - t0:.1f} s")
+    finish_builds(report)
     log(f"total {time.perf_counter() - t_all:.1f} s")
 
     kernels = []
@@ -6894,23 +7069,34 @@ def main(argv=None) -> int:
                 (d[p]["graph"]["launches_per_step"][key]
                  for p in ("flash", "pallas", "flash_serial")
                  if key in d[p]["graph"]["launches_per_step"]), 0)
-        # the tensor-core decode bodies by name: K1's at G 6 (K5's through
-        # the page table beside it), K3's at R 6; the G 4 / R 4 and G 8 / R 8
-        # rows of the routing decision; DBRX's graphed step at 32K
+        # the G 3-8 routes by name: K1's fd_gqa at G 6 (K5's through the
+        # page table beside it), K3's qk_gqa and K4's pv_gqa at R 6, K2's
+        # fs_mma at its 6 rows; the G / R 4 and 8 rows of the routing
+        # decision; DBRX's graphed step at 32K
         t = d["times"]
-        step = d["step_32k"]
-        for name, key, launches, k5, rows in (
+        step = d["graphed_steps"]
+        nuq3 = ("one DBRX layer: Hkv=8 G=6 D=128 nuq3 pre-RoPE slots cap=2 "
+                "hg=4 sink=5, bf16 dots, 32K tokens")
+        for name, key, launches, src, body_line, mode, rows, shape in (
                 ("flash_attention:fd_gqa", "K1", d["flash"]["k1_gqa_launches"],
-                 True, ("K1 G4", "K1 G8")),
+                 "flash_decode.cu", "flash_decode.py:255", "flash",
+                 ("K1 G4", "K1 G8"), nuq3),
                 ("qk_fused:qk_gqa", "K3", d["pallas"]["k3_gqa_launches"],
-                 False, ("K3 R4", "K3 R8"))):
-            mode = "flash" if key == "K1" else "pallas"
+                 "attention.cu", "attention.py:156", "pallas",
+                 ("K3 R4", "K3 R8"), nuq3),
+                ("pv_fused:pv_gqa", "K4", d["pallas"]["k4_gqa_launches"],
+                 "attention.cu", "attention.py:249", "pallas",
+                 ("K4 R4", "K4 R8"), nuq3),
+                ("flash_serial_decode:fs_mma_rows", "K2",
+                 d["flash_serial"]["k2_gqa_launches"], "flash_serial.cu",
+                 "flash_serial.py:62", "flash_serial", ("K2 G4", "K2 G8"),
+                 "one DBRX layer: Hkv=8 G=6 D=128 int4 post-RoPE channels "
+                 "n_kc=16 cap=0 hg=8 sink=5, bf16 dots, 32K tokens")):
+            k5 = key == "K1"
             kernels.append({
                 "name": name, "route": "cuda",
-                "source": ("kvquant_tpu_torch/csrc/flash_decode.cu" if k5
-                           else "kvquant_tpu_torch/csrc/attention.cu"),
-                "replaces": ("kvquant_tpu/ops/pallas/flash_decode.py:255" if k5
-                             else "kvquant_tpu/ops/pallas/attention.py:156"),
+                "source": f"kvquant_tpu_torch/csrc/{src}",
+                "replaces": f"kvquant_tpu/ops/pallas/{body_line}",
                 "launches": launches,
                 "max_abs_err": max(t[key]["max_abs_err"],
                                    *(t[r]["max_abs_err"] for r in rows)),
@@ -6921,8 +7107,10 @@ def main(argv=None) -> int:
                     "ms", "old_ms", "bound_ms", "route")} for r in rows},
                 "dbrx_step_32k_ms": {"new": step[mode]["new_ms"],
                                      "old_routes": step[mode]["old_ms"]},
-                "shape": "one DBRX layer: Hkv=8 G=6 D=128 nuq3 pre-RoPE slots "
-                         "cap=2 hg=4 sink=5, bf16 dots, 32K tokens",
+                "dbrx_step_2k_ms": {
+                    "new": step[f"{mode}_2048"]["new_ms"],
+                    "old_routes": step[f"{mode}_2048"]["old_ms"]},
+                "shape": shape,
                 **({"k5_ms": t["K5"]["ms"],
                     "k5_old_route_ms": t["K5"]["old_ms"],
                     "k5_bound_ms": t["K5"]["bound_ms"],

@@ -79,6 +79,8 @@ def main(argv=None) -> int:
 
     cs = load_smoke()
     cs.phase_device_and_build({})
+    # a checkout whose phase 1 leaves its longest build running
+    getattr(cs, "finish_builds", lambda report: None)({})
     out = {"tag": args.tag, "package": kvquant_tpu_torch.__file__,
            "eager_32k": {}, "generate": {}}
     cfg = LLAMA2_7B

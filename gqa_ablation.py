@@ -1,15 +1,17 @@
 """Where the tensor-core decode bodies spend their time: fd_gqa (K1 / K5,
-kvquant_tpu_torch/csrc/flash_decode.cu) and qk_gqa (K3, csrc/attention.cu),
-on one NVIDIA card.
+kvquant_tpu_torch/csrc/flash_decode.cu), qk_gqa (K3) and pv_gqa (K4, both
+csrc/attention.cu), on one NVIDIA card.
 
-    python3 gqa_ablation.py
+    python3 gqa_ablation.py            # every copy
+    python3 gqa_ablation.py base pvnop # only the copies named
 
 Builds copies of the two sources reduced to their nuq3 instances, each with
 one part of the body switched off (or one launch bound changed) by a text
-edit of the copy, then times K1 decode (G 6) and K3 (R 6) at one DBRX
+edit of the copy, then times K1 decode (G 6), K3 and K4 (R 6) at one DBRX
 layer (8 kv heads, D 128, the faithful nuq3 config: pre-RoPE keys, slots
 cap 2, head group 4) over a 32K cache (CUDA events, as chip_smoke.py
-phase 25) for each copy. A switched-off copy computes a wrong result: its
+phase 25) for each copy, and K4 on the base copy with pv_plan's split
+count scaled (x 1/2, x 2). A switched-off copy computes a wrong result: its
 time says what the part costs, nothing else. The copies go to the ignored
 build directory kvquant_tpu_torch/_build/ablation/. The last line is one
 JSON object with every time.
@@ -23,7 +25,14 @@ Copies (each edit must match the source, or the script stops):
   nokslot   K1 without its K slot terms;
   novslot   K1 without its V slot tile (neither written nor multiplied);
   nopv      K1 without P.V (values neither dequantized nor multiplied);
-  nokey     K1 without the key dequantization and the score products.
+  nokey     K1 without the key dequantization and the score products;
+  pvnomerge K4 without pv_merge (the splits' partials not added);
+  pvnocodes K4 without the V codes' A fragments and their mma;
+  pvnovslot K4 without its V slot tile (neither written nor multiplied);
+  pvnop     K4 without the P rows' copies into the ring (the stages'
+            arrivals kept: a copy that drops a barrier arrival hangs);
+  pvstream  K4's ring alone: each stage waited for and released, no unit
+            computed.
 """
 
 from __future__ import annotations
@@ -103,6 +112,18 @@ EDITS = {
                                  "      Rot4 rot[4];",
                                  "    if (false) {\n      const int c = 16 * j + 4 * tq;\n"
                                  "      Rot4 rot[4];")],
+    ("pvnomerge", "attention"): [("  pv_merge<<<", "  if (false) pv_merge<<<")],
+    ("pvnocodes", "attention"): [("              mma16816(acc[mt], fa, pb[hh][0], pb[hh][1]);",
+                                  "")],
+    ("pvnovslot", "attention"): [
+        ("// the token's slot words, DT apart\n        if (nvs > 0) {",
+         "// the token's slot words, DT apart\n        if (false) {"),
+        ("        if (nvs > 0) {  // clear the slot tile's cells",
+         "        if (false) {  // clear the slot tile's cells")],
+    ("pvnop", "attention"): [("          cp_async4(rows + r * GPW + 32 * (tt & 3) + gqa_pos(tt >> 2),\n"
+                              "                    src + (size_t)r * ps->p_ld + tt);", "")],
+    ("pvstream", "attention"): [("      for (int un = wk; un < UPS; un += WPH) {\n        // ---- B",
+                                 "      for (int un = wk; un < 0; un += WPH) {\n        // ---- B")],
 }
 REDUCE = {"flash_decode": reduce_fd, "attention": reduce_at}
 
@@ -142,6 +163,8 @@ def bind(so: str, stem: str):
     else:
         lib.qk_fused.argtypes = [ctypes.POINTER(at._QkArgs), ctypes.c_void_p]
         lib.qk_fused.restype = ctypes.c_int
+        lib.pv_fused.argtypes = [ctypes.POINTER(at._PvArgs), ctypes.c_void_p]
+        lib.pv_fused.restype = ctypes.c_int
     return lib
 
 
@@ -158,8 +181,9 @@ def main() -> int:
                          text=True)
     print(smi.stdout.strip(), flush=True)
     os.makedirs(OUT, exist_ok=True)
+    keys = [k for k in EDITS if len(sys.argv) < 2 or k[0] in sys.argv[1:]]
     with ThreadPoolExecutor(8) as ex:
-        libs = dict(zip(EDITS, ex.map(build_copy, EDITS)))
+        libs = dict(zip(keys, ex.map(build_copy, keys)))
 
     dev = torch.device("cuda")
     ctx, G = 32768, 6
@@ -175,24 +199,36 @@ def main() -> int:
     o = cs.k34_operands(dp, 1, G, dp.cache_tokens, gen, dev)
 
     fd_lib, at_lib, per_sm = fd._lib, at._lib, fd.GQA_BLOCKS_PER_SM
+    pv_plan = at.pv_plan
     times = {}
+
+    def timed(key, run):
+        times[key] = min(cs.device_ms(run), cs.device_ms(run))
+        print(f"{key:24s} {times[key]:.4f} ms", flush=True)
+
     try:
         for (name, stem), so in libs.items():
             lib = bind(so, stem)
             if stem == "flash_decode":
                 fd._lib = lambda lib=lib: lib  # noqa: E731
                 fd.GQA_BLOCKS_PER_SM = 2 if name == "bound" else per_sm
-                run = lambda: cs.call(fd.flash_attention, q, ops, 0, pos,  # noqa
-                                      dcfg, one)
-                key = f"{name}/K1 G{G}"
-            else:
-                at._lib = lambda lib=lib: lib  # noqa: E731
-                run = lambda: cs.run_qk(at.qk_fused, o, dp, one)  # noqa
-                key = f"{name}/K3 R{G}"
-            times[key] = min(cs.device_ms(run), cs.device_ms(run))
-            print(f"{key:16s} {times[key]:.4f} ms", flush=True)
+                timed(f"{name}/K1 G{G}", lambda: cs.call(
+                    fd.flash_attention, q, ops, 0, pos, dcfg, one))
+                continue
+            at._lib = lambda lib=lib: lib  # noqa: E731
+            if not name.startswith("pv"):
+                timed(f"{name}/K3 R{G}", lambda: cs.run_qk(at.qk_fused, o,
+                                                           dp, one))
+            knobs = (1.0, 0.5, 2.0) if name == "base" else (1.0,)
+            for f in knobs:
+                at.pv_plan = lambda *a, f=f, **k: (lambda p: p._replace(
+                    n_split=max(1, int(p.n_split * f))))(pv_plan(*a, **k))
+                timed(f"{name}/K4 R{G}" + ("" if f == 1.0 else f" split{f}"),
+                      lambda: cs.run_pv(at.pv_fused, o, dp))
+            at.pv_plan = pv_plan
     finally:
         fd._lib, at._lib, fd.GQA_BLOCKS_PER_SM = fd_lib, at_lib, per_sm
+        at.pv_plan = pv_plan
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "gqa_ms_32k": times}), flush=True)
     return 0

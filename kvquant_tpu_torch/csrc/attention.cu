@@ -25,7 +25,7 @@
 // the contractions, 2*R*Tc*D flops per head in each kernel, fit the tensor
 // cores' rate several times over.
 //
-// Three bodies per kernel (and K3's tensor-core decode body qk_gqa), picked
+// Three bodies per kernel (and the tensor-core decode bodies qk_gqa, pv_gqa), picked
 // by the host plan (qk_plan / pv_plan in ops/kernels/attention.py), which
 // this file checks, its shared-memory count included:
 //  - decode (R <= 8, both dot modes; G = 1/2/4/8 rows per instance): one
@@ -61,6 +61,11 @@
 //    the K slot fix-ups are qk_decode's, one lane per token for every row,
 //    added through a per-warp exchange tile. Two blocks an SM (96
 //    registers; one block at 168 runs slower, gqa_ablation.py);
+//  - pv_gqa (K4 at R = 3..8 with bf16 dots): the same ring, which also
+//    stages each tile's P rows (cp.async, in fragment order); P.V on
+//    mma.sync.m16n8k16 with A = 16 dims x 16 tokens of rnd(lut[code]) from
+//    the bit planes in registers and B = rnd(p * v_scale) of the R rows;
+//    V slots through a per-warp bf16 V^T slot tile (its note below);
 //  - mma (R > 8, bf16 dots), on the tensor cores with mma.sync.m16n8k16 and
 //    ldmatrix, 8 warps a block. K3: a block owns a head, up to 272 query
 //    rows (bf16 in shared memory) and a token split; each 128-token tile of
@@ -530,37 +535,87 @@ __device__ __forceinline__ int staged_code(const unsigned char* planes, int D, i
   return e;
 }
 
+// 4-byte asynchronous copy global -> shared (no register staging), and
+// the arrive-on of a thread's prior cp.async copies on an mbarrier whose
+// expected count includes the thread (.noinc)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// the position of unit slot sl (token 4 sl + un of a bit-plane word row un)
+// in a P^T k-step order that matches the V codes' A fragments (fd_gqa's
+// and pv_gqa's): column 2tq + e + 8f of k-step hh is slot tq + 4hh + 8e +
+// 16f
+__device__ __forceinline__ int gqa_pos(int sl) {
+  return 16 * ((sl >> 2) & 1) + 8 * ((sl >> 4) & 1) + 2 * (sl & 3) + ((sl >> 3) & 1);
+}
+
+constexpr int GPW = DT + 8;  // float stride of a staged P row (pv_gqa)
+
+// The probability rows a K4 stage holds (pv_gqa): R rows of each of the hc
+// heads, rows p_ld apart from `p` (batch row b, head h0), at byte `off` of a
+// stage, each 128-token row in the consumers' fragment order: token tt at
+// float 32 (tt % 4) + gqa_pos(tt / 4) of its GPW-float row.
+struct PStage {
+  const float* p;
+  int p_ld, R, off;
+};
+
 // The producer of a decode block: one thread keeps the ring full. Per stage
-// (tile `it`): NB planes of each of the hc heads (4 word rows each), n slot
-// rows of each head group from row `row0`, and, when `vs` is given, the V
-// scale and offset.
+// (tile `it`, `stride` bytes apart): NB planes of each of the hc heads (4
+// word rows each), n slot rows of each head group from row `row0`, and,
+// when `vs` is given, the V scale and offset: L.bytes by TMA bulk copies.
+// With `ps` (pv_gqa) the whole producer warp runs it (`lane`): it also
+// stages the probability rows with 4-byte cp.async copies (a row's start
+// need not be 16-byte aligned), every lane's completion counted on the
+// stage's full barrier, whose count is 1 + 32.
 template <int NB>
 __device__ void fill_ring(unsigned char* ring, uint64_t* full, uint64_t* empty, int NS,
-                          const DRing& L, const int32_t* planes, const float* kv_out,
-                          const float* vs, const float* vo, int b, int Hkv, int h0, int hc,
-                          int hg, int J, int row0, int n, int D, int Tc, int t_begin,
-                          int t_end) {
+                          const DRing& L, int stride, const int32_t* planes,
+                          const float* kv_out, const float* vs, const float* vo, int b, int Hkv,
+                          int h0, int hc, int hg, int J, int row0, int n, int D, int Tc,
+                          int t_begin, int t_end, const PStage* ps = nullptr, int lane = 0) {
   const size_t TW = Tc / 32;
   const int ng = n > 0 ? hc / hg : 0;
   for (int it = t_begin; it < t_end; ++it) {
     const int u = it - t_begin, st = u % NS;
     if (u >= NS) mbar_wait(&empty[st], (u / NS - 1) & 1);
-    unsigned char* dst = ring + st * L.bytes;
-    mbar_expect_tx(&full[st], L.bytes);
-    for (int k = 0; k < hc; ++k)
-      for (int bb = 0; bb < NB; ++bb)
-        bulk_g2s(dst + (k * NB + bb) * 16 * D,
-                 planes + ((((size_t)b * Hkv + h0 + k) * NB + bb) * TW + it * 4) * D, 16 * D,
-                 &full[st]);
-    for (int gi = 0; gi < ng; ++gi)
-      for (int j = 0; j < n; ++j)
-        bulk_g2s(dst + L.rows + (gi * n + j) * DT * 4,
-                 kv_out + (((size_t)b * (Hkv / hg) + h0 / hg + gi) * J + row0 + j) * Tc +
-                     (size_t)it * DT,
-                 DT * 4, &full[st]);
-    if (vs != nullptr) {
-      bulk_g2s(dst + L.vs, vs + (size_t)b * Tc + (size_t)it * DT, DT * 4, &full[st]);
-      bulk_g2s(dst + L.vo, vo + (size_t)b * Tc + (size_t)it * DT, DT * 4, &full[st]);
+    unsigned char* dst = ring + st * stride;
+    if (lane == 0) {
+      mbar_expect_tx(&full[st], L.bytes);
+      for (int k = 0; k < hc; ++k)
+        for (int bb = 0; bb < NB; ++bb)
+          bulk_g2s(dst + (k * NB + bb) * 16 * D,
+                   planes + ((((size_t)b * Hkv + h0 + k) * NB + bb) * TW + it * 4) * D, 16 * D,
+                   &full[st]);
+      for (int gi = 0; gi < ng; ++gi)
+        for (int j = 0; j < n; ++j)
+          bulk_g2s(dst + L.rows + (gi * n + j) * DT * 4,
+                   kv_out + (((size_t)b * (Hkv / hg) + h0 / hg + gi) * J + row0 + j) * Tc +
+                       (size_t)it * DT,
+                   DT * 4, &full[st]);
+      if (vs != nullptr) {
+        bulk_g2s(dst + L.vs, vs + (size_t)b * Tc + (size_t)it * DT, DT * 4, &full[st]);
+        bulk_g2s(dst + L.vo, vo + (size_t)b * Tc + (size_t)it * DT, DT * 4, &full[st]);
+      }
+    }
+    if (ps != nullptr) {
+      const float* src = ps->p + ((size_t)b * Hkv + h0) * ps->R * ps->p_ld + (size_t)it * DT;
+      float* rows = reinterpret_cast<float*>(dst + ps->off);
+      for (int r = 0; r < hc * ps->R; ++r) {
+#pragma unroll
+        for (int j = 0; j < DT / 32; ++j) {
+          const int tt = lane + 32 * j;
+          cp_async4(rows + r * GPW + 32 * (tt & 3) + gqa_pos(tt >> 2),
+                    src + (size_t)r * ps->p_ld + tt);
+        }
+      }
+      cp_async_arrive(&full[st]);
     }
   }
 }
@@ -612,8 +667,8 @@ __global__ void __launch_bounds__(DNT, G >= 4 ? 1 : 2) qk_decode(QkArgs a) {
 
   if (warp == DW) {
     if (lane == 0)
-      fill_ring<NB>(ring, full, empty, NS, L, a.kp, a.kv_out, nullptr, nullptr, b, a.Hkv, h0,
-                    hc, hg, a.J, 0, nks, D, Tc, t_begin, t_end);
+      fill_ring<NB>(ring, full, empty, NS, L, L.bytes, a.kp, a.kv_out, nullptr, nullptr, b,
+                    a.Hkv, h0, hc, hg, a.J, 0, nks, D, Tc, t_begin, t_end);
     return;
   }
   if (warp >= nact) return;
@@ -782,8 +837,8 @@ __global__ void __launch_bounds__(DNT, 2) qk_gqa(QkArgs a) {
 
   if (warp == DW) {
     if (lane == 0)
-      fill_ring<NB>(ring, full, empty, NS, L, a.kp, a.kv_out, nullptr, nullptr, b, a.Hkv, h0,
-                    hc, hg, a.J, 0, nks, D, Tc, t_begin, t_end);
+      fill_ring<NB>(ring, full, empty, NS, L, L.bytes, a.kp, a.kv_out, nullptr, nullptr, b,
+                    a.Hkv, h0, hc, hg, a.J, 0, nks, D, Tc, t_begin, t_end);
     return;
   }
   const int k = warp / WPH, wk = warp % WPH, h = h0 + k, jh = h % hg;
@@ -925,8 +980,8 @@ __global__ void __launch_bounds__(DNT, G >= 4 ? 1 : 2) pv_decode(PvArgs a) {
 
   if (warp == DW) {
     if (lane == 0)
-      fill_ring<NB>(ring, full, empty, NS, L, a.vp, a.kv_out, a.v_scale, a.v_offset, b, a.Hkv,
-                    h0, hc, hg, a.J, a.spk, nvs, D, Tc, t_begin, t_end);
+      fill_ring<NB>(ring, full, empty, NS, L, L.bytes, a.vp, a.kv_out, a.v_scale, a.v_offset,
+                    b, a.Hkv, h0, hc, hg, a.J, a.spk, nvs, D, Tc, t_begin, t_end);
   } else if (warp < nact) {
     const float* prow = a.p + (((size_t)b * a.Hkv + h) * R + min(rlane, R - 1)) * (size_t)a.p_ld;
     for (int it = t_begin; it < t_end; ++it) {
@@ -1050,6 +1105,247 @@ __global__ void __launch_bounds__(DNT, G >= 4 ? 1 : 2) pv_decode(PvArgs a) {
       acc += rw[d] + rw[D];
     }
     a.part[((bh0 + kk) * NSP + s) * R * D + (size_t)r * D + d] = acc;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// pv_gqa: K4's tensor-core decode body (R = 3..8 rows, bf16 dots)
+// ---------------------------------------------------------------------------
+//
+// Replaces, with pv_merge, kvquant_tpu/ops/pallas/attention.py:_pv_kernel
+// (pv_fused) at a GQA decode step: DBRX's 6 query rows per kv head,
+// MISTRAL_7B's 4. What bounds it: device-memory bytes (the heads' V bit
+// planes, the probabilities, V scale / offset and the groups' V slot rows:
+// ~21 MB at one DBRX layer over 32K, 6.4 us at 3.35 TB/s), then issue.
+// pv_decode's 8-row SIMT instance paid per token 8 shuffles and 32 FMAs a
+// lane whatever R, and read P from device memory inside its token loop.
+// Here the rows are the N of mma.sync.m16n8k16 (rows past R zero), so the
+// tensor cores take every row at once: O^T += V^T P^T with A = 16 dims x
+// 16 tokens of rnd(lut[code]) made in registers from the staged bit planes
+// (the byte layout of fd_gqa's V operand) and B = rnd(p * v_scale), 16
+// tokens x 8 rows; fp32 accumulators. The producer warp also stages each
+// 128-token tile's P rows in the ring, in the fragment order the B
+// operands read (cp.async, 4 bytes a copy: a row need not start 16-byte
+// aligned); sum p * v_offset stays fp32 per row; a token's V slots (summed
+// per dim in slot order, rounded once) go through a per-warp bf16 V^T slot
+// tile, a second A operand against B = rnd(p), as in fd_gqa: no
+// shared-memory atomics. The products are pv_decode's with bf16 dots; only
+// the order of the sums differs. Block, ring, heads and splits are
+// pv_decode's (whole head groups, 128-token stages); a consumer warp takes
+// the word rows (32-token units) warp % WPH (mod WPH) of its head, and the
+// warps of a head meet in shared memory at the end, the splits in pv_merge.
+
+constexpr int GVT = GU + 8;  // bf16 stride of a dim's row of a warp's V^T slot tile
+
+// pv_gqa's stage: pv_decode's (planes, V slot rows, V scale, V offset),
+// then the P rows [hc][R][GPW] fp32 from byte `p`
+struct PvGqaRing {
+  DRing d;
+  int p, bytes;
+};
+__host__ __device__ inline PvGqaRing pv_gqa_ring(const PvArgs& a) {
+  PvGqaRing r;
+  r.d = dring(a.hc, a.bits, a.D, staged_rows(a.n_vslots, a.hc, a.hg), true);
+  r.p = r.d.bytes;
+  r.bytes = r.p + a.hc * a.R * GPW * 4;
+  return r;
+}
+// dynamic shared memory: 128 B of mbarriers, the ring (or the merge
+// scratch [DW][R][D + 1] that reuses it) and, with V slots, a V^T slot
+// tile [D][GVT] bf16 per consumer warp
+__host__ __device__ inline int pv_gqa_smem(const PvArgs& a) {
+  const int ring = a.n_stage * pv_gqa_ring(a).bytes, merge = DW * a.R * (a.D + 1) * 4;
+  return 128 + (ring > merge ? ring : merge) + (a.n_vslots > 0 ? DW * a.D * GVT * 2 : 0);
+}
+
+template <int NB>
+__global__ void __launch_bounds__(DNT, 1) pv_gqa(PvArgs a) {
+  extern __shared__ __align__(128) unsigned char dsm[];
+  constexpr int UPS = DT / GU;   // units per stage
+  constexpr int NM = MAXD / 16;  // m-blocks (16 dims) at most
+  __shared__ float sLut[16];     // rnd(lut)
+  const int D = a.D, hc = a.hc, NS = a.n_stage, Tc = a.Tc, R = a.R;
+  const int nvs = a.n_vslots, hg = a.hg, NSP = a.n_split;
+  const PvGqaRing L = pv_gqa_ring(a);
+  uint64_t* full = reinterpret_cast<uint64_t*>(dsm);
+  uint64_t* empty = full + MAX_STAGES;
+  unsigned char* ring = dsm + 128;
+  const int ring_bytes = NS * L.bytes, merge_bytes = DW * R * (D + 1) * 4;
+  __nv_bfloat16* sVtAll =
+      reinterpret_cast<__nv_bfloat16*>(ring + (ring_bytes > merge_bytes ? ring_bytes : merge_bytes));
+
+  const int s = blockIdx.x, h0 = blockIdx.y * hc, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n_tiles = Tc / DT, tps = (n_tiles + NSP - 1) / NSP;
+  const int t_begin = s * tps, t_end = min(n_tiles, t_begin + tps);
+  const size_t bh0 = (size_t)b * a.Hkv + h0;
+  if (t_begin >= t_end) {  // a split with no tile adds zero
+    for (int i = tid; i < hc * R * D; i += DNT)
+      a.part[((bh0 + i / (R * D)) * NSP + s) * R * D + i % (R * D)] = 0.f;
+    return;
+  }
+  const int WPH = DW / hc, nw = min(WPH, UPS), nact = hc * nw;
+  if (tid == 0) {
+    for (int i = 0; i < NS; ++i) {
+      mbar_init(&full[i], 1 + 32);  // the TMA bytes' arrival, the P copies of 32 lanes
+      mbar_init(&empty[i], nact);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  if (tid < (1 << NB)) sLut[tid] = rnd(a.lut[tid], true);
+  if (nvs > 0)  // the V slot tiles start zero; each unit clears what it wrote
+    for (int i = tid; i < DW * D * GVT / 2; i += DNT) reinterpret_cast<uint32_t*>(sVtAll)[i] = 0u;
+  __syncthreads();
+
+  const int k = warp / WPH, wk = warp % WPH, jh = (h0 + k) % hg;
+  const int g = lane >> 2, tq = lane & 3;
+  float acc[NM][4];
+#pragma unroll
+  for (int mt = 0; mt < NM; ++mt)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[mt][r] = 0.f;
+  float off = 0.f;  // sum over the lane's tokens of p * v_offset, row g
+
+  if (warp == DW) {
+    const PStage ps{a.p, a.p_ld, R, L.p};
+    fill_ring<NB>(ring, full, empty, NS, L.d, L.bytes, a.vp, a.kv_out, a.v_scale, a.v_offset, b,
+                  a.Hkv, h0, hc, hg, a.J, a.spk, nvs, D, Tc, t_begin, t_end, &ps, lane);
+  } else if (wk < UPS) {
+    __nv_bfloat16* sVt = sVtAll + (size_t)warp * D * GVT;
+    for (int it = t_begin; it < t_end; ++it) {
+      const int u = it - t_begin, st = u % NS;
+      mbar_wait(&full[st], (u / NS) & 1);
+      const unsigned char* stg = ring + st * L.bytes;
+      const uint32_t* sVc = reinterpret_cast<const uint32_t*>(stg + k * NB * 16 * D);
+      const float* sRows = reinterpret_cast<const float*>(stg + L.d.rows) + (k / hg) * nvs * DT;
+      const float* sVs = reinterpret_cast<const float*>(stg + L.d.vs);
+      const float* sVo = reinterpret_cast<const float*>(stg + L.d.vo);
+      const float* sP = reinterpret_cast<const float*>(stg + L.p) + k * R * GPW;
+      for (int un = wk; un < UPS; un += WPH) {
+        // ---- B fragments of row g: k-step hh, b[f] takes positions
+        // 16hh + 8f + 2tq (+1) = slots tq + 4hh + 16f (+8), tokens
+        // 4 slot + un; rnd(p * v_scale) for the codes, rnd(p) for the
+        // V slot tile ----
+        uint32_t pb[2][2], qb[2][2];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int f = 0; f < 2; ++f) {
+            const float2 p2 = g < R ? *reinterpret_cast<const float2*>(
+                                          sP + g * GPW + 32 * un + 16 * hh + 8 * f + 2 * tq)
+                                    : make_float2(0.f, 0.f);
+            const int t0 = 4 * (tq + 4 * hh + 16 * f) + un, t1 = t0 + 32;
+            pb[hh][f] = bf2(p2.x * sVs[t0], p2.y * sVs[t1]);
+            qb[hh][f] = bf2(p2.x, p2.y);
+            off = fmaf(p2.x, sVo[t0], off);
+            off = fmaf(p2.y, sVo[t1], off);
+          }
+        // ---- V slots: lane l takes unit slot l (tile token 4l + un); the
+        // first slot of each of its dims writes rnd(M), M the dim's slots
+        // summed in slot order, into column gqa_pos(l) of the warp's V^T
+        // slot tile; vmask: the m-blocks the unit's slots touch ----
+        unsigned vmask = 0u;
+        const float* wt = sRows + 4 * lane + un;  // the token's slot words, DT apart
+        if (nvs > 0) {
+#pragma unroll 1
+          for (int j = 0; j < nvs; ++j) {
+            const int d = slot_dim(__float_as_uint(wt[j * DT]), hg, jh, D);
+            bool first = d >= 0;
+            for (int j2 = 0; j2 < j; ++j2)
+              first = first && slot_dim(__float_as_uint(wt[j2 * DT]), hg, jh, D) != d;
+            if (!first) continue;
+            float M = 0.f;
+            for (int j2 = j; j2 < nvs; ++j2) {
+              const uint32_t w2 = __float_as_uint(wt[j2 * DT]);
+              if (slot_dim(w2, hg, jh, D) == d) M += slot_value(w2);
+            }
+            sVt[d * GVT + gqa_pos(lane)] = __float2bfloat16_rn(M);
+            vmask |= 1u << (d >> 4);
+          }
+          vmask = __reduce_or_sync(FULL, vmask);
+          __syncwarp();
+        }
+        // ---- O^T += V^T P^T: m-block mt, A row g (+ 8) is dim 16mt + g
+        // (+ 8); byte e + 2f of cw[hf][hh] is 4 x the code of slot
+        // tq + 4hh + 8e + 16f at that dim ----
+#pragma unroll
+        for (int mt = 0; mt < NM; ++mt) {
+          if (mt < D / 16) {
+            uint32_t cw[2][2];
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+              cw[hf][0] = cw[hf][1] = 0u;
+#pragma unroll
+              for (int bb = 0; bb < NB; ++bb) {
+                const uint32_t w = sVc[(bb * 4 + un) * D + 16 * mt + g + 8 * hf];
+                cw[hf][0] |= plane_bits(w, tq, 2 + bb);
+                cw[hf][1] |= plane_bits(w, tq + 4, 2 + bb);
+              }
+            }
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              float y[2][2][2];  // [dim g + 8hf][e][f]
+#pragma unroll
+              for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+                for (int e = 0; e < 2; ++e)
+#pragma unroll
+                  for (int f = 0; f < 2; ++f) y[hf][e][f] = lut_at(sLut, cw[hf][hh], e + 2 * f);
+              const uint32_t fa[4] = {bf2(y[0][0][0], y[0][1][0]), bf2(y[1][0][0], y[1][1][0]),
+                                      bf2(y[0][0][1], y[0][1][1]), bf2(y[1][0][1], y[1][1][1])};
+              mma16816(acc[mt], fa, pb[hh][0], pb[hh][1]);
+            }
+            if ((vmask >> mt) & 1u) {  // the V slot tile's dims of this block
+#pragma unroll
+              for (int hh = 0; hh < 2; ++hh) {
+                uint32_t fv[4];
+                ldsm4(fv, smem_u32(sVt + (16 * mt + (lane & 15)) * GVT + 16 * hh + 8 * (lane >> 4)));
+                mma16816(acc[mt], fv, qb[hh][0], qb[hh][1]);
+              }
+            }
+          }
+        }
+        if (nvs > 0) {  // clear the slot tile's cells this lane wrote
+          __syncwarp();
+#pragma unroll 1
+          for (int j = 0; j < nvs; ++j) {
+            const int d = slot_dim(__float_as_uint(wt[j * DT]), hg, jh, D);
+            if (d >= 0) sVt[d * GVT + gqa_pos(lane)] = __float2bfloat16_rn(0.f);
+          }
+          __syncwarp();
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);  // the stage may be refilled
+    }
+    // row g's offset sum over the four lanes of g
+    off += __shfl_xor_sync(FULL, off, 1);
+    off += __shfl_xor_sync(FULL, off, 2);
+  }
+
+  __syncthreads();  // every stage consumed: the ring becomes merge scratch
+  float* red = reinterpret_cast<float*>(ring);  // [DW][R][D + 1], D: the offset sum
+  if (warp < DW && wk < nw) {
+    float* rw = red + (size_t)warp * R * (D + 1);
+#pragma unroll
+    for (int mt = 0; mt < NM; ++mt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int row = 2 * tq + (r & 1);
+        if (mt < D / 16 && row < R) rw[row * (D + 1) + 16 * mt + g + 8 * (r >> 1)] = acc[mt][r];
+      }
+    if (tq == 0 && g < R) rw[g * (D + 1) + D] = off;
+  }
+  __syncthreads();
+  // the warps of each head in order: this split's partial
+  for (int i = tid; i < hc * R * D; i += DNT) {
+    const int kk = i / (R * D), r = (i / D) % R, d = i % D;
+    float sum = 0.f;
+    for (int w = 0; w < nw; ++w) {
+      const float* rw = red + ((size_t)(kk * WPH + w) * R + r) * (D + 1);
+      sum += rw[d] + rw[D];
+    }
+    a.part[((bh0 + kk) * NSP + s) * R * D + (size_t)r * D + d] = sum;
   }
 }
 
@@ -1545,6 +1841,11 @@ cudaError_t qk_bits(const QkArgs& a, cudaStream_t st) {
 
 template <int NB>
 cudaError_t pv_bits(const PvArgs& a, cudaStream_t st) {
+  if (a.body == BODY_GQA) {
+    static int configured = 0;
+    return launch(pv_gqa<NB>, dim3(a.n_split, a.Hkv / a.hc, a.B), DNT, a.smem, a, st,
+                  configured);
+  }
   if (a.body == BODY_DECODE) {
     switch (decode_rows(a.R)) {
       case 1: return pv_decode_go<NB, 1>(a, st);
@@ -1604,6 +1905,7 @@ inline int qk_smem(const QkArgs& a) {
 }
 inline int pv_smem(const PvArgs& a) {
   if (a.body == BODY_DECODE) return pv_decode_smem(a, decode_rows(a.R));
+  if (a.body == BODY_GQA) return pv_gqa_smem(a);
   return a.body == BODY_MMA ? pv_mma_smem(a) : pv_simt_floats(a.D) * 4;
 }
 
@@ -1622,7 +1924,7 @@ extern "C" int qk_fused(const QkArgs* a, void* stream) {
 // Launches K4's split kernel and its merge kernel on `stream`; returns the
 // cudaError_t of the launches (0 on success). Nothing is synchronised.
 extern "C" int pv_fused(const PvArgs* a, void* stream) {
-  if (a->body == BODY_GQA || !plan_ok(*a, a->n_vslots, PV_ROWS) || a->smem != pv_smem(*a))
+  if (!plan_ok(*a, a->n_vslots, PV_ROWS) || a->smem != pv_smem(*a))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t e = by_bits<PvArgs, pv_bits<2>, pv_bits<3>, pv_bits<4>>(*a, st);

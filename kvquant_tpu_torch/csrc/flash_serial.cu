@@ -33,7 +33,14 @@
 //    at one dim) and B = P^T, rnd(p * v_scale * vb). Zero term, static
 //    channels, slot words and the V offset stay fp32 SIMT at the plain
 //    version's rounding points. Four blocks an SM (16 warps) hide the
-//    tiles' latency better than deeper rings with fewer warps.
+//    tiles' latency better than deeper rings with fewer warps. The query
+//    rows are mma's N: one instance runs 2-8 rows as they are (DBRX's 6,
+//    MISTRAL_7B's 4), and fs_merge gives each row a block of its own. At
+//    few kv heads the call is bound by latency, not bytes (DBRX, 8 heads
+//    over 32K: the rows padded to 8 and one merge block walking them took
+//    0.10 ms against a 0.011 ms byte bound, more than half of it in that
+//    merge; serial_ablation.py), so the host plan also gives each warp
+//    more tiles there (fs_plan's WARP_TILES).
 //  fs_partial (fp32 dots, or int8 containers, which do not fit bf16's
 //    mantissa): grid = splits x Hkv x B, 128-token tiles double-buffered
 //    with cp.async, one token per thread when scoring; codes become floats
@@ -466,10 +473,13 @@ __global__ void __launch_bounds__(NT) fs_partial(FsArgs a) {
   }
 }
 
-// One block per (kv head, batch row): the sink prefix and every split's
-// partial merged by log-sum-exp, then 1/l. The splits' maxima and weights
-// are formed in parallel (one split per thread) so the loads of the
-// partial accumulators are independent and overlap.
+// One block per (kv head, batch row, query row g = blockIdx.z): the sink
+// prefix and every split's partial merged by log-sum-exp, then 1/l. The
+// splits' maxima and weights are formed in parallel (one split per thread)
+// so the loads of the partial accumulators are independent and overlap.
+// The rows of a head run on blocks of their own: at few kv heads and many
+// splits (DBRX: 8 heads, G 6, 66 splits) one block walking every row took
+// most of the call.
 __global__ void __launch_bounds__(NT) fs_merge(FsArgs a) {
   extern __shared__ float s_w[];  // [n_split] split weights
   __shared__ float red[NW];
@@ -483,55 +493,54 @@ __global__ void __launch_bounds__(NT) fs_merge(FsArgs a) {
   const float* ks = a.k_sink + ((((size_t)a.li * a.B + b) * a.Hkv + h) * S) * D;
   const float* vs = a.v_sink + ((((size_t)a.li * a.B + b) * a.Hkv + h) * S) * D;
 
-  for (int g = 0; g < G; ++g) {
-    const float* qg = a.q + (bh * G + g) * D;
-    // sink scores: warp w takes sink rows w, w + NW, ...
-    for (int k = warp; k < S; k += NW) {
-      float v = 0.f;
-      for (int e = lane; e < D; e += 32) v += rnd(qg[e], bf) * rnd(ks[k * D + e], bf);
-      for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-      if (lane == 0) s_sc[k] = v * a.inv;
-    }
-    // split maxima (one split per thread), then the block maximum
-    float mloc = -INFINITY;
-    for (int sp = d; sp < NS; sp += NT) mloc = fmaxf(mloc, a.part_m[(bh * NS + sp) * G + g]);
-    for (int o = 16; o; o >>= 1) mloc = fmaxf(mloc, __shfl_xor_sync(0xffffffffu, mloc, o));
-    if (lane == 0) red[warp] = mloc;
-    __syncthreads();
-    float m0 = -INFINITY;  // sink maximum
-    for (int k = 0; k < S; ++k)
-      if (k <= pos && (a.window <= 0 || k > pos - a.window)) m0 = fmaxf(m0, s_sc[k]);
-    float M = m0;
-    for (int w = 0; w < NW; ++w) M = fmaxf(M, red[w]);
-    __syncthreads();  // red is reused below
-    // split weights and their share of l
-    float lloc = 0.f;
-    for (int sp = d; sp < NS; sp += NT) {
-      const size_t pi = (bh * NS + sp) * G + g;
-      const float ms = a.part_m[pi];
-      const float w = ms == -INFINITY ? 0.f : expf(ms - M);
-      s_w[sp] = w;
-      lloc += w * a.part_l[pi];
-    }
-    for (int o = 16; o; o >>= 1) lloc += __shfl_xor_sync(0xffffffffu, lloc, o);
-    if (lane == 0) red[warp] = lloc;
-    __syncthreads();
-    float l = 0.f, acc = 0.f;
-    for (int w = 0; w < NW; ++w) l += red[w];
-    for (int k = 0; k < S; ++k) {
-      const bool ok = k <= pos && (a.window <= 0 || k > pos - a.window);
-      const float pk = ok ? expf(s_sc[k] - m0) : 0.f;
-      const float ck = m0 == -INFINITY ? 0.f : expf(m0 - M);
-      l += pk * ck;
-      if (d < D) acc = fmaf(rnd(pk, bf) * ck, rnd(vs[k * D + d], bf), acc);
-    }
-    if (d < D) {
-      const float* pacc = a.part_acc + (bh * NS * G + g) * D + d;
-#pragma unroll 4
-      for (int sp = 0; sp < NS; ++sp) acc = fmaf(pacc[(size_t)sp * G * D], s_w[sp], acc);
-      a.out[(bh * G + g) * D + d] = acc / l;
-    }
-    __syncthreads();  // s_sc, s_w and red are rewritten for the next row
+  const int g = blockIdx.z;  // the query row
+  const float* qg = a.q + (bh * G + g) * D;
+  // sink scores: warp w takes sink rows w, w + NW, ...
+  for (int k = warp; k < S; k += NW) {
+    float v = 0.f;
+    for (int e = lane; e < D; e += 32) v += rnd(qg[e], bf) * rnd(ks[k * D + e], bf);
+    for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    if (lane == 0) s_sc[k] = v * a.inv;
+  }
+  // split maxima (one split per thread), then the block maximum
+  float mloc = -INFINITY;
+  for (int sp = d; sp < NS; sp += NT) mloc = fmaxf(mloc, a.part_m[(bh * NS + sp) * G + g]);
+  for (int o = 16; o; o >>= 1) mloc = fmaxf(mloc, __shfl_xor_sync(0xffffffffu, mloc, o));
+  if (lane == 0) red[warp] = mloc;
+  __syncthreads();
+  float m0 = -INFINITY;  // sink maximum
+  for (int k = 0; k < S; ++k)
+    if (k <= pos && (a.window <= 0 || k > pos - a.window)) m0 = fmaxf(m0, s_sc[k]);
+  float M = m0;
+  for (int w = 0; w < NW; ++w) M = fmaxf(M, red[w]);
+  __syncthreads();  // red is reused below
+  // split weights and their share of l
+  float lloc = 0.f;
+  for (int sp = d; sp < NS; sp += NT) {
+    const size_t pi = (bh * NS + sp) * G + g;
+    const float ms = a.part_m[pi];
+    const float w = ms == -INFINITY ? 0.f : expf(ms - M);
+    s_w[sp] = w;
+    lloc += w * a.part_l[pi];
+  }
+  for (int o = 16; o; o >>= 1) lloc += __shfl_xor_sync(0xffffffffu, lloc, o);
+  if (lane == 0) red[warp] = lloc;
+  __syncthreads();
+  float l = 0.f, acc = 0.f;
+  for (int w = 0; w < NW; ++w) l += red[w];
+  for (int k = 0; k < S; ++k) {
+    const bool ok = k <= pos && (a.window <= 0 || k > pos - a.window);
+    const float pk = ok ? expf(s_sc[k] - m0) : 0.f;
+    const float ck = m0 == -INFINITY ? 0.f : expf(m0 - M);
+    l += pk * ck;
+    if (d < D) acc = fmaf(rnd(pk, bf) * ck, rnd(vs[k * D + d], bf), acc);
+  }
+  if (d < D) {
+    const float* pacc = a.part_acc + (bh * NS * G + g) * D + d;
+    // 16 loads in flight: at 66 splits their chain set the time
+#pragma unroll 16
+    for (int sp = 0; sp < NS; ++sp) acc = fmaf(pacc[(size_t)sp * G * D], s_w[sp], acc);
+    a.out[(bh * G + g) * D + d] = acc / l;
   }
 }
 
@@ -638,8 +647,13 @@ __device__ __forceinline__ void ld_vbytes(const unsigned char* p,
 // (e 0/1, mt < NMT) of the same two query rows. Scores and maxima are kept
 // in log2 units (the 1/sqrt(D) scale times log2 e), so exponentials are
 // exp2f; the partial's maximum is written back in natural units.
-template <int CODES, int D, int G>
+// Instances: GI = 1 (one query row, the count known at compile time) and
+// GI = 8, which runs a.G = 2..8 rows as they are: the rows are mma's N,
+// so rows past G cost the tensor cores nothing and are masked (g0, g1,
+// the zero B columns), and no caller pads them.
+template <int CODES, int D, int GI>
 __global__ void __launch_bounds__(MNT, MMA_MIN_BLOCKS) fs_mma(FsArgs a) {
+  const int G = GI == 1 ? 1 : a.G;  // query rows per kv head
   constexpr int RB = D / 2;            // container row bytes
   constexpr int WPT = D / 32;          // K words per thread per token
   constexpr int NMT = D / 16;          // k-steps of a score, dim tiles of P.V
@@ -788,16 +802,18 @@ __global__ void __launch_bounds__(MNT, MMA_MIN_BLOCKS) fs_mma(FsArgs a) {
   const uint32_t xv = Bf<CODES>::xv(odd);
   float z0 = 0.f, z1 = 0.f;
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    float v = 0.f;
-    for (int d = lane; d < D; d += 32) {
-      const float qd = qh[g * D + d];
-      v += qd * (ka * krg[d] + kof[d]);
-      v -= Bf<CODES>::BIAS * __bfloat162float(__float2bfloat16_rn(qd * (kb * krg[d])));
+  for (int g = 0; g < GI; ++g) {  // unrolled to the instance's rows: the
+    if (g < G) {                  // rows' loads overlap
+      float v = 0.f;
+      for (int d = lane; d < D; d += 32) {
+        const float qd = qh[g * D + d];
+        v += qd * (ka * krg[d] + kof[d]);
+        v -= Bf<CODES>::BIAS * __bfloat162float(__float2bfloat16_rn(qd * (kb * krg[d])));
+      }
+      for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+      if (g == 2 * tq) z0 = v;
+      if (g == 2 * tq + 1) z1 = v;
     }
-    for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-    if (g == 2 * tq) z0 = v;
-    if (g == 2 * tq + 1) z1 = v;
   }
   const bool g0 = 2 * tq < G, g1 = 2 * tq + 1 < G;
 
@@ -1073,36 +1089,38 @@ cudaError_t launch_partial(const FsArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int CODES, int D, int G>
+template <int CODES, int D, int GI>
 cudaError_t launch_mma(const FsArgs& a, cudaStream_t stream) {
   static int configured = 0;
   const int smem = mma_smem_bytes(a);
   if (a.smem != smem || !a.dot_bf16) return cudaErrorInvalidValue;
   if (smem > configured) {
-    cudaError_t e = cudaFuncSetAttribute(fs_mma<CODES, D, G>,
+    cudaError_t e = cudaFuncSetAttribute(fs_mma<CODES, D, GI>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     configured = smem;
   }
-  fs_mma<CODES, D, G><<<dim3(a.n_split, a.Hkv, a.B), MNT, smem, stream>>>(a);
+  fs_mma<CODES, D, GI><<<dim3(a.n_split, a.Hkv, a.B), MNT, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <int CODES, int D, int G>
-cudaError_t launch_body(const FsArgs& a, cudaStream_t st) {
-  if (a.body == BODY_PARTIAL) return launch_partial<CODES, D, G>(a, st);
-  if constexpr (CODES != CODES_INT8)
-    if (a.body == BODY_MMA) return launch_mma<CODES, D, G>(a, st);
-  return cudaErrorInvalidValue;
-}
-
+// fs_mma: its one-row instance, or the instance of 2-8 rows at run time;
+// fs_partial: its instances of 1 / 2 / 4 / 8 rows (the host pads to them)
 template <int CODES, int D>
 cudaError_t dispatch_g(const FsArgs& a, cudaStream_t st) {
+  if (a.body == BODY_MMA) {
+    if constexpr (CODES != CODES_INT8) {
+      if (a.G == 1) return launch_mma<CODES, D, 1>(a, st);
+      if (a.G >= 2 && a.G <= 8) return launch_mma<CODES, D, 8>(a, st);
+    }
+    return cudaErrorInvalidValue;
+  }
+  if (a.body != BODY_PARTIAL) return cudaErrorInvalidValue;
   switch (a.G) {
-    case 1: return launch_body<CODES, D, 1>(a, st);
-    case 2: return launch_body<CODES, D, 2>(a, st);
-    case 4: return launch_body<CODES, D, 4>(a, st);
-    case 8: return launch_body<CODES, D, 8>(a, st);
+    case 1: return launch_partial<CODES, D, 1>(a, st);
+    case 2: return launch_partial<CODES, D, 2>(a, st);
+    case 4: return launch_partial<CODES, D, 4>(a, st);
+    case 8: return launch_partial<CODES, D, 8>(a, st);
   }
   return cudaErrorInvalidValue;
 }
@@ -1134,6 +1152,6 @@ extern "C" int fs_decode(const FsArgs* a, void* stream) {
     case CODES_INT4X2: e = dispatch_d<CODES_INT4X2>(*a, st); break;
   }
   if (e != cudaSuccess) return (int)e;
-  fs_merge<<<dim3(a->Hkv, a->B), NT, a->n_split * sizeof(float), st>>>(*a);
+  fs_merge<<<dim3(a->Hkv, a->B, a->G), NT, a->n_split * sizeof(float), st>>>(*a);
   return (int)cudaGetLastError();
 }

@@ -17,9 +17,11 @@ def _counters() -> dict:
             "K1_chunk": (flash_decode.flash_attention, "chunk_launches"),
             "K1_gqa": (flash_decode.flash_attention, "gqa_launches"),
             "K2": (flash_serial.flash_serial_decode, "launches"),
+            "K2_gqa": (flash_serial.flash_serial_decode, "gqa_launches"),
             "K3": (attention.qk_fused, "launches"),
             "K3_gqa": (attention.qk_fused, "gqa_launches"),
             "K4": (attention.pv_fused, "launches"),
+            "K4_gqa": (attention.pv_fused, "gqa_launches"),
             "K5": (paged_decode.paged_flash_decode, "launches"),
             "K5_gqa": (paged_decode.paged_flash_decode, "gqa_launches"),
             "moe_experts": (moe_experts.moe_experts, "launches")}
@@ -36,8 +38,9 @@ def launch_counts() -> dict:
 
 def snapshot() -> dict:
     """Every counter: those of ``launch_counts``, K1's chunk launches
-    ("K1_chunk"), the launches on the tensor-core decode bodies of K1, K3
-    and K5 ("K1_gqa", "K3_gqa", "K5_gqa") and K2's launches per body
+    ("K1_chunk"), the launches on the tensor-core decode bodies of K1, K3,
+    K4 and K5 ("K1_gqa", "K3_gqa", "K4_gqa", "K5_gqa"), K2's unpadded
+    launches at 3-8 rows ("K2_gqa") and K2's launches per body
     ("K2:<body>")."""
     from .flash_serial import flash_serial_decode
 

@@ -32,13 +32,16 @@ term separately as bf16(p) . bf16(M).
     exception when they cannot be built or launched; there is no fallback.
 
 On the card ``qk_plan`` / ``pv_plan`` pick the body: a decode step of R
-in ``QK_GQA_ROWS`` (3-8) rows with bf16 dots runs K3's tensor-core decode
-body ``qk_gqa``; other steps of R <= 8 rows the decode bodies ``qk_decode``
-/ ``pv_decode``; more rows the tensor-core bodies (bf16 dots) or the SIMT
-bodies (fp32 dots).
+in ``QK_GQA_ROWS`` / ``PV_GQA_ROWS`` (3-8) rows with bf16 dots runs the
+tensor-core decode bodies ``qk_gqa`` / ``pv_gqa``; other steps of R <= 8
+rows the decode bodies ``qk_decode`` / ``pv_decode``; more rows the
+tensor-core bodies (bf16 dots) or the SIMT bodies (fp32 dots).
+``qk_fused(..., body=)`` / ``pv_fused(..., body=)`` force another body
+(timing only).
 
 ``qk_fused.launches`` / ``pv_fused.launches`` count kernel launches (one
-per call on the card), ``qk_fused.gqa_launches`` those on qk_gqa.
+per call on the card), ``qk_fused.gqa_launches`` /
+``pv_fused.gqa_launches`` those on qk_gqa / pv_gqa.
 """
 
 from __future__ import annotations
@@ -199,15 +202,19 @@ SMEM_MAX = 227 * 1024  # H100: dynamic shared memory one block may use
 SMEM_PER_SM = 228 * 1024  # H100: shared memory of an SM, 1 KB kept per block
 BODIES = {"decode": 0, "mma": 1, "simt": 2, "gqa": 3}  # csrc BODY_*
 QK_GQA_ROWS = (3, 4, 5, 6, 7, 8)  # rows of a bf16-dot K3 call on qk_gqa
+PV_GQA_ROWS = (3, 4, 5, 6, 7, 8)  # rows of a bf16-dot K4 call on pv_gqa
 GQA_X_BYTES = 8 * 33 * 4  # qk_gqa: a warp's slot-term exchange tile (csrc GXB)
+GQA_P_STRIDE = DECODE_TILE + 8  # pv_gqa: floats of a staged P row (csrc GPW)
+GQA_VT_STRIDE = 32 + 8  # pv_gqa: bf16 of a dim's row of a V^T slot tile (GVT)
 
 
 class K34Plan(NamedTuple):
     """Block shape of one K3 or K4 call. ``body``: "decode" (R <= 8, both
-    dot modes), "gqa" (K3 at R in QK_GQA_ROWS with bf16 dots: qk_gqa, the
-    decode ring on the tensor cores), "mma" (R > 8, bf16 dots, tensor
-    cores) or "simt" (R > 8, fp32 dots). ``rows``: the decode instance's
-    rows per head (1/2/4/8; R on qk_gqa), or query rows per block;
+    dot modes), "gqa" (R in QK_GQA_ROWS / PV_GQA_ROWS with bf16 dots:
+    qk_gqa / pv_gqa, the decode ring on the tensor cores), "mma" (R > 8,
+    bf16 dots, tensor cores) or "simt" (R > 8, fp32 dots). ``rows``: the
+    decode instance's rows per head (1/2/4/8; R on the gqa bodies), or
+    query rows per block;
     ``n_rt`` row blocks; ``hc`` kv heads per block (whole head groups);
     ``stages`` ring stages (decode and gqa); ``n_split`` token
     splits; ``smem`` dynamic shared bytes per block (passed to the kernel,
@@ -228,16 +235,16 @@ def body(dcfg: DeployConfig, R: int, kernel: str,
          force: str = None) -> str:
     """The kernel body a call of R query rows of ``kernel`` ("qk" K3, "pv"
     K4) runs on the card. ``force`` names another for timing: "decode" at
-    R <= 8, "gqa" for K3 at 3-8 rows with bf16 dots; anything else raises
+    R <= 8, "gqa" at 3-8 rows with bf16 dots; anything else raises
     ValueError."""
     if force is not None:
-        ok = {"decode": R <= 8,
-              "gqa": kernel == "qk" and 3 <= R <= 8 and dcfg.dot_bf16}
+        ok = {"decode": R <= 8, "gqa": 3 <= R <= 8 and dcfg.dot_bf16}
         if not ok.get(force, False):
             raise ValueError(f"{kernel} kernel: body {force!r} does not run "
                              f"R={R}, dot_bf16={dcfg.dot_bf16}")
         return force
-    if kernel == "qk" and dcfg.dot_bf16 and R in QK_GQA_ROWS:
+    gqa_rows = QK_GQA_ROWS if kernel == "qk" else PV_GQA_ROWS
+    if dcfg.dot_bf16 and R in gqa_rows:
         return "gqa"
     if R <= 8:
         return "decode"
@@ -336,14 +343,26 @@ def qk_plan(dcfg: DeployConfig, R: int, D: int, Tc: int, B: int, Hkv: int,
 
 
 def pv_plan(dcfg: DeployConfig, R: int, D: int, Tc: int, B: int, Hkv: int,
-            J: int, sms: int) -> K34Plan:
+            J: int, sms: int, body_: str = None) -> K34Plan:
     """Block shape of a K4 call, as ``qk_plan``: decode blocks of hc heads
-    whose warps meet in the ring's shared memory at the end; mma blocks of
-    at most PV_MMA_ROWS rows (9 row tiles of accumulators a warp) over
-    64-token tiles; simt blocks of 64 rows, about four per SM. Every body
-    writes split partials that pv_merge adds in split order."""
-    kind = body(dcfg, R, "pv")
+    whose warps meet in the ring's shared memory at the end; gqa: the
+    decode block's heads with the tile's P rows in each stage, as many
+    stages (2-4) as fit beside the warps' V^T slot tiles, one block an SM;
+    mma blocks of at most PV_MMA_ROWS rows (9 row tiles of accumulators a
+    warp) over 64-token tiles; simt blocks of 64 rows, about four per SM.
+    Every body writes split partials that pv_merge adds in split order.
+    ``body_`` forces a body for timing."""
+    kind = body(dcfg, R, "pv", body_)
     _, nvs = slot_counts(dcfg, J)
+    if kind == "gqa":
+        hc, _, stage = _decode_shape(dcfg, D, Hkv, nvs, True)
+        stage += hc * R * GQA_P_STRIDE * 4
+        vt = DECODE_WARPS * D * GQA_VT_STRIDE * 2 if nvs else 0
+        stages = max(2, min(4, (SMEM_MAX - 1024 - vt) // stage))
+        smem = 128 + max(stages * stage, DECODE_WARPS * R * (D + 1) * 4) + vt
+        per_sm = _per_sm(smem + 64, 1)
+        n_split = _splits(Tc // DECODE_TILE, per_sm * sms // (B * Hkv // hc))
+        return K34Plan(kind, R, 1, hc, stages, n_split, smem, per_sm)
     if kind == "decode":
         G = decode_rows(R)
         hc, stages, stage = _decode_shape(dcfg, D, Hkv, nvs, True)
@@ -524,7 +543,8 @@ qk_fused.launches = 0
 qk_fused.gqa_launches = 0  # of them, calls on qk_gqa
 
 
-def _pv_launch(probs, v_planes, v_scale, v_offset, kv_out, lut, dcfg):
+def _pv_launch(probs, v_planes, v_scale, v_offset, kv_out, lut, dcfg,
+               force=None):
     B, Hkv, R, Tc = probs.shape
     D = v_planes.shape[-1]
     bits, hg = dcfg.bits, dcfg.head_group
@@ -558,7 +578,7 @@ def _pv_launch(probs, v_planes, v_scale, v_offset, kv_out, lut, dcfg):
     _check_aligned("pv_fused", {
         "v_planes": v_planes, "v_scale": v_scale, "v_offset": v_offset,
         "kv_out": kv_out if rows is not None else None})
-    plan = pv_plan(dcfg, R, D, Tc, B, Hkv, J, sm_count(dev))
+    plan = pv_plan(dcfg, R, D, Tc, B, Hkv, J, sm_count(dev), force)
     _check_plan("pv_fused", plan)
     part = torch.empty((B, Hkv, plan.n_split, R, D), dtype=torch.float32,
                        device=dev)
@@ -574,25 +594,32 @@ def _pv_launch(probs, v_planes, v_scale, v_offset, kv_out, lut, dcfg):
     )
     _run(_lib().pv_fused, args, dev, "pv_fused")
     pv_fused.launches += 1
+    if plan.body == "gqa":
+        pv_fused.gqa_launches += 1
     return out
 
 
 def pv_fused(probs, v_planes, v_scale, v_offset, kv_out, lut,
-             dcfg: DeployConfig, block_tokens: int = 1024):
+             dcfg: DeployConfig, block_tokens: int = 1024,
+             body: str = None):
     """out (B, Hkv, R, D) = probs (B, Hkv, R, Tc) . (dequant(v_planes) +
     V slots). v_planes (B, Hkv, bits, Tc/32, D) int32; v_scale / v_offset
     (B, Tc) per-token range; kv_out (B, Hkv/head_group, J, Tc) merged
     encoded slot words (V rows after the K rows) or None. probs must be
     zero at invalid positions; its rows may be strided (a column slice of
     a wider tensor). The kernel's tiles are fixed (``pv_plan``);
-    ``block_tokens`` is accepted for signature parity."""
+    ``block_tokens`` is accepted for signature parity. ``body`` forces a
+    kernel body on the card (timing only, see ``body()``); the CPU runs
+    the plain version."""
     _check_config(dcfg, "pv_fused")
     if probs.device.type == "cpu":
         return pv_fused_ref(probs, v_planes, v_scale, v_offset, kv_out, lut,
                             dcfg, block_tokens)
     if probs.device.type != "cuda":
         raise ValueError(f"pv_fused: unsupported device {probs.device}")
-    return _pv_launch(probs, v_planes, v_scale, v_offset, kv_out, lut, dcfg)
+    return _pv_launch(probs, v_planes, v_scale, v_offset, kv_out, lut, dcfg,
+                      force=body)
 
 
 pv_fused.launches = 0
+pv_fused.gqa_launches = 0  # of them, calls on pv_gqa

@@ -14,12 +14,19 @@ position, over the exact sink prefix and the packed tokens [0, pos - S]
     (tensor cores, one wave of blocks) for bf16 dots on int4 / int4x2
     containers, ``fs_partial`` (SIMT) for fp32 dots and int8 containers.
 
-The kernel is instantiated for 1, 2, 4 and 8 query rows per kv head;
-other head ratios run the next instance up, their rows padded with zero
-queries and the padding's output dropped (``common.padded_launches``; G > 8
-in launches of 8 rows). ``flash_serial_decode.launches`` counts kernel
-launches (one per call on the card for G <= 8),
-``flash_serial_decode.route_launches`` the same per body. The
+fs_mma runs G = 1 on an instance of its own and G = 2-8 query rows per
+kv head as they are (DBRX's 6, MISTRAL_7B's 4: the rows are mma's N); its
+merge takes one block per query row. fs_partial is instantiated for 1, 2,
+4 and 8 rows; other head ratios run the next instance up, their rows
+padded with zero queries and the padding's output dropped
+(``common.padded_launches``); G > 8 runs launches of 8 rows on either
+body. ``body="fs_mma_padded"`` forces the padding of before for timing:
+fs_mma with the rows padded with zero queries to 4 or 8, as fs_partial's are
+(``GQA_ROWS`` emptied does the same for every call).
+``flash_serial_decode.launches`` counts kernel launches (one per call
+on the card for G <= 8), ``flash_serial_decode.route_launches`` the same
+per body, ``flash_serial_decode.gqa_launches`` those of fs_mma at 3-8 rows
+unpadded. The
 TPU kernel's constant-band packing (``prep_constants``) works around a
 Mosaic operand limit and is not ported: the CUDA kernel takes its
 operands plainly, folds the affine codebook itself and reads the static K
@@ -174,11 +181,15 @@ MMA_STAGES = 2  # ring stages per warp
 MMA_WARPS = 4  # warps per block, each streaming every 4th tile of the run
 MMA_MIN_BLOCKS = 4  # __launch_bounds__ minimum: registers allow 4 blocks/SM
 KC_STAGED = 4  # static K channel rows a tile stages (the rest read in place)
+WARP_TILES = 8  # fs_mma: tiles a warp should have before splits exceed half a wave
 P_STRIDE = MMA_TILE + 8  # bf16 stride of a row of a warp's P tile
 SMEM_MAX = 227 * 1024  # H100: dynamic shared memory one block may use
 SMEM_PER_SM = 228 * 1024  # H100: shared memory of an SM, 1 KB kept per block
 PARTIAL_THREADS = 128  # fs_partial's block (csrc NT)
 BODIES = {"fs_partial": 0, "fs_mma": 1}  # csrc BODY_*
+PADDED = "fs_mma_padded"  # fs_mma behind the rows' padding, timing only
+ROUTES = (*BODIES, PADDED)  # what ``body=`` may name
+GQA_ROWS = (3, 4, 5, 6, 7, 8)  # rows fs_mma runs unpadded above 2 (gqa)
 
 
 class FsPlan(NamedTuple):
@@ -188,13 +199,16 @@ class FsPlan(NamedTuple):
     (b, kv head); ``smem`` dynamic shared bytes per block (passed to the
     kernel, which refuses a call whose count differs from its body's
     layout); ``per_sm`` blocks an SM holds at once; ``tile`` tokens per
-    tile. fs_mma's grid (n_split x Hkv x B) fits one wave of per_sm x SMs
-    blocks whenever B x Hkv does."""
+    tile; ``rows`` query rows per kv head of one launch (the G rows
+    themselves on fs_mma up to 8, else the padded instance's). fs_mma's
+    grid (n_split x Hkv x B) fits one wave of
+    per_sm x SMs blocks whenever B x Hkv does."""
     body: str
     n_split: int
     smem: int
     per_sm: int
     tile: int
+    rows: int
 
 
 def _round16(x: int) -> int:
@@ -259,18 +273,26 @@ def fs_plan(dcfg: DeployConfig, B: int, Hkv: int, G: int, D: int, Tc: int,
             device=None, sms: int = None, body: str = None,
             J: int = None) -> FsPlan:
     """The plan of a K2 call of G query rows per kv head: its body
-    (``fs_body``, or ``body`` when a caller forces one for timing) and grid,
-    for the instance of ``decode_rows(G)`` rows that runs them. fs_mma:
+    (``fs_body``, or ``body`` when a caller forces one for timing: any of
+    ``ROUTES``) and grid, for the rows one launch takes: G itself on
+    fs_mma (8 above), ``decode_rows(G)`` on fs_partial and on the forced
+    padded route. fs_mma:
     the resident blocks an SM holds (from the body's shared memory and its
     register bound), and as many token splits as fill them once, at most
     one per 128 tokens of the capacity so that each of a block's warps has
-    a tile; fs_partial: about eight blocks an SM, at most one split per
-    128-token tile. ``sms`` defaults to the SM count of ``device``; ``J``
-    (kv_out rows) to the configuration's."""
-    G = decode_rows(G)
+    a tile, and at 2-8 rows no more than give each warp WARP_TILES tiles
+    unless that leaves under half a wave (few kv heads at a long capacity:
+    DBRX's 8 at 32K take 34, where a wave is 66); fs_partial: about eight blocks an
+    SM, at most one split per 128-token tile. ``sms`` defaults to the SM
+    count of ``device``; ``J`` (kv_out rows) to the configuration's."""
+    rows = decode_rows(G)  # raises for G < 1
     if D not in (32, 64, 128):
         raise ValueError(f"flash_serial kernel: d_head {D} not in 32/64/128")
     kind = body or fs_body(dcfg)
+    if kind == PADDED:
+        kind = "fs_mma"
+    elif kind == "fs_mma":
+        rows = min(G, 8)
     if kind == "fs_mma" and fs_body(dcfg) != "fs_mma":
         raise ValueError(f"flash_serial kernel: fs_mma takes bf16 dots on "
                          f"int4 / int4x2, not dot_bf16={dcfg.dot_bf16} "
@@ -281,19 +303,25 @@ def fs_plan(dcfg: DeployConfig, B: int, Hkv: int, G: int, D: int, Tc: int,
         sms = sm_count(torch.device(device))
     n_kc, n_ks, n_vs = _slot_rows(dcfg, dcfg.n_slots if J is None else J)
     if kind == "fs_partial":
-        smem = partial_smem_bytes(dcfg.codes, G, D)
+        smem = partial_smem_bytes(dcfg.codes, rows, D)
         per_sm = max(1, SMEM_PER_SM // (smem + 1024))
         target = 8 * sms
         n_split = max(1, min(-(-target // (B * Hkv)), -(-Tc // TILE_TOKENS)))
-        return FsPlan(kind, n_split, smem, per_sm, TILE_TOKENS)
-    smem = mma_smem_bytes(G, D, n_kc, n_ks, n_vs)
+        return FsPlan(kind, n_split, smem, per_sm, TILE_TOKENS, rows)
+    smem = mma_smem_bytes(rows, D, n_kc, n_ks, n_vs)
     if smem > SMEM_MAX:
         raise ValueError(f"flash_serial kernel: fs_mma needs {smem} B of "
                          f"shared memory > {SMEM_MAX}")
     per_sm = max(1, min(MMA_MIN_BLOCKS, SMEM_PER_SM // (smem + 1024)))
     most = Tc // (MMA_TILE * MMA_WARPS)
-    n_split = max(1, min(per_sm * sms // (B * Hkv), most))
-    return FsPlan(kind, n_split, smem, per_sm, MMA_TILE)
+    wave = per_sm * sms // (B * Hkv)
+    n_split = max(1, min(wave, most))
+    if rows > 1:
+        # few kv heads at a long capacity: a wave's splits would leave each
+        # warp a handful of tiles behind its setup and the merge's loads of
+        # every row; take fewer (WARP_TILES a warp), never under half a wave
+        n_split = max(1, min(n_split, max(wave // 2, most // WARP_TILES)))
+    return FsPlan(kind, n_split, smem, per_sm, MMA_TILE, rows)
 
 
 def _launch(q_rot, k_planes, v_planes, kv_out, k_range, k_offset, v_scale,
@@ -314,6 +342,7 @@ def _launch(q_rot, k_planes, v_planes, kv_out, k_range, k_offset, v_scale,
                          f"a multiple of {TILE_TOKENS} tokens")
     # the body and its grid; raises for G or d_head outside the instances
     plan = fs_plan(dcfg, B, Hkv, G, D, Tc, dev, body=body, J=J)
+    assert plan.rows == G, (plan, G)  # the caller padded to the instance
     if S > MAX_SINK:
         raise ValueError(f"flash_serial kernel: sink {S} > {MAX_SINK}")
     n_kc, n_kslots, n_vslots = _slot_rows(dcfg, J)
@@ -366,7 +395,8 @@ def _launch(q_rot, k_planes, v_planes, kv_out, k_range, k_offset, v_scale,
         out.data_ptr(),
         L, B, Hkv, G, D, Tc, S, J, dcfg.slots_per_kind, n_kc,
         n_kslots, n_vslots, hg, CODES[dcfg.codes], dcfg.bits, win,
-        int(dcfg.dot_bf16), int(li), ns, BODIES[plan.body], plan.smem,
+        int(dcfg.dot_bf16), int(li), ns,
+        BODIES[plan.body], plan.smem,
         1.0 / (D ** 0.5),
     )
     lib = _lib()
@@ -378,6 +408,8 @@ def _launch(q_rot, k_planes, v_planes, kv_out, k_range, k_offset, v_scale,
                            f"failed: cudaError {err}")
     flash_serial_decode.launches += 1
     flash_serial_decode.route_launches[plan.body] += 1
+    if plan.body == "fs_mma" and G in GQA_ROWS and body != PADDED:
+        flash_serial_decode.gqa_launches += 1
     return out
 
 
@@ -391,8 +423,10 @@ def flash_serial_decode(
     carry the static K channels precomputed from ``k_ressc`` (the engine
     does this once per step); otherwise they are derived from ``k_ressc``.
     ``block_tokens`` is accepted for signature parity; the kernel's tiles
-    are fixed (``fs_plan``). ``body`` forces a body on the card (timing
-    only: "fs_partial" for bf16 dots); by default ``fs_body`` picks it."""
+    are fixed (``fs_plan``). ``body`` forces a route on the card (timing
+    only: "fs_partial" for bf16 dots, or "fs_mma_padded", fs_mma behind
+    the rows' padding to 4 or 8); by
+    default ``fs_body`` picks it."""
     _check_config(dcfg)
     if q_rot.device.type == "cpu":
         return flash_serial_decode_ref(
@@ -412,11 +446,24 @@ def flash_serial_decode(
         k_chan_l = (k_chan[li] if k_chan is not None
                     else k_channel_index(k_ressc[li], dcfg))
         k_chan_l = k_chan_l.to(torch.int32).contiguous()
-    return padded_launches(q_rot.contiguous(), lambda q: _launch(
-        q, k_planes, v_planes, kv_out, k_range, k_offset, v_scale, v_offset,
-        k_sink, v_sink, k_lut, v_lut, li, pos, dcfg, mcfg, k_chan_l,
-        body=body))
+    if body is not None and body not in ROUTES:
+        raise ValueError(f"flash_serial kernel: unknown body {body!r}")
+
+    def launch(q, route):
+        return _launch(q, k_planes, v_planes, kv_out, k_range, k_offset,
+                       v_scale, v_offset, k_sink, v_sink, k_lut, v_lut, li,
+                       pos, dcfg, mcfg, k_chan_l, body=route)
+
+    q = q_rot.contiguous()
+    G = q.shape[2]
+    route = body or fs_body(dcfg)
+    if route == "fs_mma" and 2 < G <= 8 and G not in GQA_ROWS:
+        route = PADDED  # the padded route (GQA_ROWS emptied for timing)
+    if route == "fs_mma" and G <= 8:
+        return launch(q, route)  # the rows as they are, one launch
+    return padded_launches(q, lambda x: launch(x, route))
 
 
 flash_serial_decode.launches = 0
 flash_serial_decode.route_launches = {b: 0 for b in BODIES}
+flash_serial_decode.gqa_launches = 0  # of them, fs_mma at 3-8 rows unpadded

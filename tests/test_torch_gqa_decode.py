@@ -373,8 +373,8 @@ def test_fp32_dots_keep_their_routes(G):
 def test_k3_plan_at_decode_rows(R, dot_bf16):
     """K3 at R rows: qk_gqa with bf16 dots at QK_GQA_ROWS (R rows, the
     decode ring's heads and stages, two blocks an SM), else qk_decode's
-    instance; K4 stays on pv_decode; the shared memory mirrors csrc
-    qk_gqa_smem."""
+    instance; K4 runs pv_gqa at PV_GQA_ROWS with bf16 dots, else
+    pv_decode; the shared memory mirrors csrc qk_gqa_smem."""
     d = dataclasses.replace(_dbrx_like(dot_bf16=dot_bf16), kernel="pallas")
     J, Tc_ = d.n_slots, 34816
     plan = at.qk_plan(d, R, 128, Tc_, 1, 8, J, SMS)
@@ -391,7 +391,8 @@ def test_k3_plan_at_decode_rows(R, dot_bf16):
     else:
         assert plan == dec
     assert 1 <= plan.n_split <= Tc_ // at.DECODE_TILE
-    assert at.pv_plan(d, R, 128, Tc_, 1, 8, J, SMS).body == "decode"
+    assert at.pv_plan(d, R, 128, Tc_, 1, 8, J, SMS).body == (
+        "gqa" if dot_bf16 and R in at.PV_GQA_ROWS else "decode")
 
 
 def test_forced_routes_for_timing():
@@ -407,7 +408,7 @@ def test_forced_routes_for_timing():
             fd.body(dc, G, 1, bad)
     dp = dataclasses.replace(d, kernel="pallas")
     assert at.body(dp, 6, "qk", "decode") == "decode"
-    for bad, kernel, R in (("gqa", "pv", 6), ("gqa", "qk", 2),
+    for bad, kernel, R in (("gqa", "pv", 2), ("gqa", "qk", 2),
                            ("decode", "qk", 9)):
         with pytest.raises(ValueError, match="body"):
             at.body(dp, R, kernel, bad)

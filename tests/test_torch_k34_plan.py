@@ -43,8 +43,9 @@ def _dcfg(bits=3, Hkv=32, D=128, Tc=2304, hg=4, cap=2, dot_bf16=True):
 def test_routing(kernel, R, dot_bf16):
     d = _dcfg(dot_bf16=dot_bf16)
     plan = PLANS[kernel](d, R, 128, 2304, 1, 32, d.n_slots, SMS)
-    if kernel == "qk" and dot_bf16 and R in at.QK_GQA_ROWS:
-        # K3 at 3 / 5 rows with bf16 dots: the tensor-core decode body
+    gqa_rows = at.QK_GQA_ROWS if kernel == "qk" else at.PV_GQA_ROWS
+    if dot_bf16 and R in gqa_rows:
+        # 3-8 rows with bf16 dots: the tensor-core decode bodies
         assert plan.body == "gqa" and plan.rows == R
     elif R <= 8:
         assert plan.body == "decode"

@@ -309,15 +309,25 @@ def _speed(Hkv=8, hg=8):
 @pytest.mark.parametrize("G,rows", [(3, 4), (6, 8), (5, 8), (7, 8), (8, 8)])
 @pytest.mark.parametrize("body", ["fs_mma", "fs_partial"])
 def test_k2_plans_odd_head_ratios_at_the_padded_instance(G, rows, body):
+    """fs_partial plans G at the padded instance of ``rows``; fs_mma plans
+    the G rows themselves (one launch, a merge block per row), and its
+    padded route, forced for timing, the padded instance."""
     from kvquant_tpu_torch.ops.kernels import common, flash_serial as fs
 
     d = _speed()
     assert common.decode_rows(G) == rows
     plan = fs.fs_plan(d, 1, 8, G, 128, d.cache_tokens, sms=SMS, body=body)
-    assert plan == fs.fs_plan(d, 1, 8, rows, 128, d.cache_tokens, sms=SMS,
-                              body=body)
-    if body == "fs_mma":
-        assert plan.smem == fs.mma_smem_bytes(rows, 128, 16, 0, 0)
+    padded = fs.fs_plan(d, 1, 8, rows, 128, d.cache_tokens, sms=SMS,
+                        body=body)
+    if body == "fs_partial":
+        assert plan == padded and plan.rows == rows
+        return
+    assert plan.rows == G
+    assert plan.smem == fs.mma_smem_bytes(G, 128, 16, 0, 0)
+    forced = fs.fs_plan(d, 1, 8, G, 128, d.cache_tokens, sms=SMS,
+                        body=fs.PADDED)
+    assert forced == padded and forced.rows == rows
+    assert forced.smem == fs.mma_smem_bytes(rows, 128, 16, 0, 0)
 
 
 @pytest.mark.parametrize("G,rows,launches", [(3, 4, 1), (6, 8, 1),
