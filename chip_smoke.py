@@ -15,6 +15,7 @@
     python3 chip_smoke.py --phases 1,15,29               # graphed paged step
     python3 chip_smoke.py --phases 1,22,30,31            # graphed prefill,
                                                          # fp16-KV graph
+    python3 chip_smoke.py --phases 1,7,32                # host packer
 
 Phases (each prints its own lines; any failure raises and exits non-zero).
 K2 is csrc/flash_serial.cu (flash_serial_decode), K1 csrc/flash_decode.cu
@@ -330,6 +331,17 @@ the fp16-KV baseline's compiled step (baseline_fp16.DecodeGraph):
      step, idle share and kernels a step, eager and graphed, at 2K and 32K
      (a cache drawn at random), capture s and pool MiB; cli.passkey
      without --quantizers at toy width replays the graph.
+The host packer (kvquant_tpu_torch/native, csrc/packing.cpp built with the
+host compiler):
+ 32. on the faithful nuq3 cache phase 7's main path wrote on the card
+     (layers 0 and 31; phase 32 needs phase 7 in the same run) and one
+     layer of a filled 32K cache: native.unpack_codes ==
+     the card's ops/packing.unpack_codes, native.pack_codes of those codes
+     == the cache's planes, native.decode_outliers of kv_out == the card's
+     decode_outlier_words and re-encodes to kv_out, all bit for bit, and
+     the numpy *_ref versions the same; host ms per layer (C++, numpy)
+     beside the card's unpack (CUDA events), with the card's name and
+     power limit and the host's CPU model.
 The line before the last lists every ported kernel as JSON; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -531,12 +543,7 @@ def stored_bytes_per_token(dcfg):
 
 
 def phase_device_and_build(report):
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else \
-        f"nvidia-smi failed: {smi.stderr.strip()}"
+    card = card_name_and_limit()
     log(card)
     log(f"[1] torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} "
@@ -1458,6 +1465,17 @@ def decode_profile(tag, step, steps, prof_steps=3):
     return tps, idle
 
 
+HOST_PACKED = ("k_planes", "v_planes", "kv_out")  # what phase 32 reads
+LIVE_CACHE: dict = {}  # "nuq3" -> (dcfg, {layer: {array: tensor}}), phase 7
+
+
+def live_layers(dcfg, arrs, n_layers):
+    """Copies on the card of the first and last layer's bit planes and slot
+    words, for the host packer's phase."""
+    return dcfg, {li: {n: arrs[n][li].clone() for n in HOST_PACKED}
+                  for li in (0, n_layers - 1)}
+
+
 def phase_k1_main_path(report):
     """The slice's main path at LLaMA-2-7B width: quantized chunked prefill
     of a 2048-token prompt and 64 greedy tokens, all through K1."""
@@ -1543,6 +1561,7 @@ def phase_k1_main_path(report):
     report["k1_max_abs_err"] = worst
     report["k1_decode_tps_2k"] = decode_tps
     report["k1_prefill_s_2k"] = prefill_s
+    LIVE_CACHE["nuq3"] = live_layers(dcfg, arrs, cfg.n_layers)
     del cache, arrs
 
     # decode at 32K context over a synthetic filled nuq3 cache
@@ -6874,6 +6893,136 @@ def phase_fp16_graph(report):
     report["fp16_graph"] = out
 
 
+def card_name_and_limit():
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else \
+        f"nvidia-smi failed: {smi.stderr.strip()}"
+
+
+def cpu_model():
+    """The host CPU as /proc/cpuinfo names it (its model name, else vendor,
+    family and model numbers), else lscpu; and its cores."""
+    import os
+
+    info = {}
+    with contextlib.suppress(OSError), open("/proc/cpuinfo") as f:
+        for line in f:
+            key, _, val = line.partition(":")
+            info.setdefault(key.strip().lower(), val.strip())
+    name = info.get("model name", "unknown")
+    if name == "unknown":  # some virtualised kernels hide the model name
+        name = " ".join(f"{k} {info[k]}" for k in ("vendor_id", "cpu family",
+                                                    "model") if info.get(k))
+    if not name:
+        with contextlib.suppress(OSError, subprocess.SubprocessError):
+            out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                                 timeout=30).stdout
+            name = next((line.split(":", 1)[1].strip()
+                         for line in out.splitlines()
+                         if line.startswith("Model name")), None)
+    return f"{name or 'not reported'}, {os.cpu_count()} cores"
+
+
+def bitwise_equal(tag, got, want):
+    """Raises unless two host arrays hold the same bits."""
+    if got.shape != want.shape or got.dtype != want.dtype or not np.array_equal(
+            got.view(np.uint32), want.view(np.uint32)):
+        raise AssertionError(f"[32] host packer disagrees: {tag}")
+
+
+def phase_host_packer(report):
+    """kvquant_tpu_torch.native (csrc/packing.cpp, built here with the host
+    compiler) against the card's ops/packing on the cache the main path
+    wrote (phase 7's first and last layer) and one layer of a filled 32K
+    cache, bit for bit; host ms beside the card's."""
+    from kvquant_tpu_torch import native
+    from kvquant_tpu_torch.ops import packing as pk
+    from kvquant_tpu_torch.ops.kernels import build
+
+    t0 = time.perf_counter()
+    build.build("packing")
+    log(f"[32] built csrc/packing.cpp with {build.cxx_path()} in "
+        f"{time.perf_counter() - t0:.2f} s "
+        f"({build.build_seconds.get('packing', 0.0):.2f} s compiling)")
+    if not native.have_native():
+        raise AssertionError("[32] the host packer does not load")
+    if "nuq3" not in LIVE_CACHE:
+        raise AssertionError("[32] reads the cache phase 7's main path "
+                             "wrote: run phases 7 and 32 together")
+    dcfg, layers = LIVE_CACHE["nuq3"]
+    ctx = 32768
+    _, dcfg32, _ = faithful_config(ctx + 8, 1)
+    c32 = filled_cache(dcfg32, 1, ctx, 4)
+    cases = [(f"main path's {dcfg.max_len}-token cache layer {li}", dcfg,
+              arrs)
+             for li, arrs in layers.items()]
+    cases.append((f"filled {ctx}-token cache layer 0", dcfg32,
+                  {n: getattr(c32, n)[0] for n in HOST_PACKED}))
+
+    def host_ms(fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        return out, (time.perf_counter() - t) * 1e3
+
+    rows = []
+    for tag, d, arrs in cases:
+        ms = {k: 0.0 for k in ("cpp_unpack", "numpy_unpack", "card_unpack",
+                               "cpp_pack", "numpy_pack", "cpp_decode",
+                               "numpy_decode")}
+        for name in ("k_planes", "v_planes"):
+            planes = arrs[name]  # (B, Hkv, bits, TW, D) int32
+            host = planes.cpu().numpy()
+            want = pk.unpack_codes(planes, d.bits).cpu().numpy()
+            ms["card_unpack"] += median_ms(
+                lambda: pk.unpack_codes(planes, d.bits), runs=10, warmup=2)
+            codes, t = host_ms(native.unpack_codes, host, d.bits)
+            ms["cpp_unpack"] += t
+            bitwise_equal(f"{tag} {name} unpack", codes, want)
+            ref, t = host_ms(native.unpack_codes_ref, host, d.bits)
+            ms["numpy_unpack"] += t
+            bitwise_equal(f"{tag} {name} unpack_ref", ref, want)
+            back, t = host_ms(native.pack_codes, codes, d.bits)
+            ms["cpp_pack"] += t
+            bitwise_equal(f"{tag} {name} pack", back, host)
+            back, t = host_ms(native.pack_codes_ref, codes, d.bits)
+            ms["numpy_pack"] += t
+            bitwise_equal(f"{tag} {name} pack_ref", back, host)
+        words = arrs["kv_out"]  # (B, NG, J, Tc) fp32 slot words
+        host = words.cpu().numpy()
+        vals_card, idx_card = (x.cpu().numpy()
+                               for x in pk.decode_outlier_words(words))
+        (vals, idx), ms["cpp_decode"] = host_ms(native.decode_outliers, host)
+        (rvals, ridx), ms["numpy_decode"] = host_ms(
+            native.decode_outliers_ref, host)
+        for got, want, what in ((vals, vals_card, "values"),
+                                (idx, idx_card, "indices"),
+                                (rvals, vals_card, "values (ref)"),
+                                (ridx, idx_card, "indices (ref)")):
+            bitwise_equal(f"{tag} kv_out decode {what}", got, want)
+        bitwise_equal(f"{tag} kv_out re-encoded",
+                      native.encode_outliers(vals, idx), host)
+        bitwise_equal(f"{tag} kv_out re-encoded (ref)",
+                      native.encode_outliers_ref(vals, idx), host)
+        log(f"[32] {tag}: K and V planes {tuple(arrs['k_planes'].shape)}, "
+            f"kv_out {tuple(words.shape)}: host == card bit for bit "
+            f"(unpack, pack back to the planes, decode and re-encode the "
+            f"slot words; C++ and numpy); ms for the layer (K + V): unpack "
+            f"C++ {ms['cpp_unpack']:.2f}, numpy {ms['numpy_unpack']:.2f}, "
+            f"card {ms['card_unpack']:.3f} (CUDA events, median of 10); "
+            f"pack C++ {ms['cpp_pack']:.2f}, numpy {ms['numpy_pack']:.2f}; "
+            f"decode kv_out C++ {ms['cpp_decode']:.2f}, numpy "
+            f"{ms['numpy_decode']:.2f}")
+        rows.append(dict(case=tag, **ms))
+    card, cpu = card_name_and_limit(), cpu_model()
+    log(f"[32] host packer times: card {card}; host CPU {cpu}; host ms: "
+        f"one call each, on one thread")
+    report["host_packer"] = {"card": card, "cpu": cpu, "rows": rows}
+    del c32
+
+
 PHASES = {1: phase_device_and_build, 2: phase_kernel_vs_plain,
           3: phase_main_path, 4: phase_card_vs_cpu, 5: phase_times,
           6: phase_k1_vs_plain, 7: phase_k1_main_path,
@@ -6888,7 +7037,7 @@ PHASES = {1: phase_device_and_build, 2: phase_kernel_vs_plain,
           24: phase_mistral, 25: phase_dbrx, 26: phase_tp,
           27: phase_training, 28: phase_graphed_decode,
           29: phase_paged_graph, 30: phase_graphed_prefill,
-          31: phase_fp16_graph}
+          31: phase_fp16_graph, 32: phase_host_packer}
 
 
 def main(argv=None) -> int:

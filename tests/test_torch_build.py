@@ -38,6 +38,32 @@ def test_library_path_hashes_included_headers(tmp_path):
     assert path("b") != b0
 
 
+def test_host_library_path_hashes_source_and_flags(tmp_path, monkeypatch):
+    """A host source (csrc/<name>.cpp, built with $CXX) is keyed like a
+    CUDA one: by its text, the local headers it includes and its flags."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    _write(csrc / "h.cuh", "#pragma once\nconstexpr int K = 1;\n")
+    _write(csrc / "p.cpp", "#include <cstdint>\n#include \"h.cuh\"\n")
+    path = lambda: build.library_path("p", str(csrc), str(tmp_path / "out"))
+    p0 = path()
+    assert os.path.basename(p0).startswith("libp-") and p0.endswith(".so")
+    assert build.source_path("p", str(csrc)) == str(csrc / "p.cpp")
+    assert path() == p0  # stable
+
+    _write(csrc / "p.cpp", "#include <cstdint>\n#include \"h.cuh\"\n// e\n")
+    p1 = path()
+    assert p1 != p0
+    _write(csrc / "h.cuh", "#pragma once\nconstexpr int K = 2;\n")
+    p2 = path()
+    assert p2 not in (p0, p1)
+    monkeypatch.setattr(build, "HOST_FLAGS", build.HOST_FLAGS + ["-g"])
+    assert path() not in (p0, p1, p2)
+    monkeypatch.undo()
+    monkeypatch.setattr(build, "FLAGS", build.FLAGS + ["-g"])
+    assert path() == p2  # nvcc's flags do not key a host library
+
+
 def test_library_path_of_the_repository_sources():
     """Every committed source resolves (its local includes exist) and the
     names differ between sources."""
