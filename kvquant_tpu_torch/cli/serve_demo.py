@@ -9,7 +9,10 @@ a fixed slot pool; slots decode at independent positions in one step.
 the paged kernel K5, chunked admission through K1); without it the slot
 pool (serve.Server, ``--kernel``, default flash). The requests are drawn
 from ``--seed`` with numpy as the JAX CLI draws them; the model is a random
-init (cli/common.py). ``main`` returns the completions {rid: Completion}.
+init (cli/common.py). At the end it prints the serving path's spans over
+the run (``utils.profiling.SPANS``: count, host ms and device ms of each,
+the host gaps' total, share and part outside the program); the page pool
+records none. ``main`` returns the completions {rid: Completion}.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from .generate import deploy_config
 from .. import serve
 from ..cache import deployed_from_quantizers
 from ..quant.artifacts import load_quantizers
+from ..utils.profiling import SPANS
 
 
 def main(argv=None):
@@ -91,13 +95,33 @@ def main(argv=None):
                            admit_mode=args.admit_mode, device=args.device)
     t0 = time.perf_counter()
     results = srv.run(reqs)
-    dt = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    dt = t1 - t0
     total = sum(len(c.tokens) for c in results.values())
     print(f"served {len(reqs)} requests / {total} tokens in {dt:.2f}s "
           f"({total/dt:.1f} tok/s aggregate, {args.slots} slots)")
     for rid in sorted(results):
         print(f"  req {rid}: {len(results[rid].tokens)} tokens")
+    print_spans(SPANS.read(t0, t1)["summary"])
     return results
+
+
+def print_spans(summary: dict):
+    """The recorder's ``read(...)["summary"]``, one line a span name."""
+    by = summary["by_name"]
+    if not by:
+        print("spans: none recorded")
+        return
+    print(f"spans over {summary['wall_s'] * 1e3:.1f} ms "
+          f"(count, host ms, device ms):")
+    for name, e in by.items():
+        dev = (f"{e['device_s'] * 1e3:10.3f}" if e.get("device_n")
+               else f"{'-':>10}")
+        print(f"  {name:20s} {e['count']:6d} {e['host_s'] * 1e3:10.3f} {dev}")
+    g = summary["host_gap"]
+    print(f"host gaps: {g['n']} gaps, {g['s'] * 1e3:.3f} ms "
+          f"({g['pct']:.2f}% of the run), {g['outside_s'] * 1e3:.3f} ms "
+          f"of it outside the program")
 
 
 if __name__ == "__main__":

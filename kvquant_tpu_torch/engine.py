@@ -57,6 +57,7 @@ from .models.config import ModelConfig
 from .models import get_forward, llama
 from .ops import deployed
 from .parallel.collectives import row_parallel, tp_group
+from .utils.profiling import SPANS
 
 
 def _check_kernel(dcfg: DeployConfig):
@@ -253,9 +254,11 @@ class CapturedStep:
         self.capture_s = time.perf_counter() - t0
 
     def replay(self):
-        """Replay the step and count its launches; returns ``out``."""
+        """Replay the step and count its launches; returns ``out``. The
+        serving path's recorder marks the launch (``SPANS.launch``)."""
         from .ops.kernels import add_launches
 
+        SPANS.launch()
         self.graph.replay()
         add_launches(self.launches)
         return self.out
@@ -341,8 +344,12 @@ def decode_stepper(params, cfg: ModelConfig, dcfg: DeployConfig,
     if cache.length.is_cuda and graph_unsupported(cfg) is None:
         return DecodeGraph(params, cfg, dcfg, dq, cache)
     k_chan = static_channels(dq, dcfg)
-    return lambda token, pos: decode_step(params, cfg, dcfg, dq, cache,
-                                          token, pos, k_chan=k_chan)[1]
+
+    def step(token, pos):
+        SPANS.launch()
+        return decode_step(params, cfg, dcfg, dq, cache, token, pos,
+                           k_chan=k_chan)[1]
+    return step
 
 
 # ---------------------------------------------------------------------------

@@ -19,7 +19,19 @@ kvquant_tpu/serve.py).
     hold only their tokens;
   - ServerPool adds capacity classes: one Server per max_len class;
   - sampling is host-side per request (greedy / temperature, numpy RNG as
-    the JAX server's).
+    the JAX server's);
+  - every step records spans into ``utils.profiling.SPANS`` (switched off
+    with ``SPANS.enabled = False``): ``server.step`` (the root),
+    ``server.admit`` (starting admissions and the step's one chunk),
+    ``engine.chunk`` (the reset, the input copy and the chunk, with its
+    ``rid``), ``server.first_token`` (an admission's last logits read, its
+    slot write and first token), ``engine.decode`` (the input copies and
+    the decode step), ``server.logits_read`` (the blocking read of the
+    decode logits) and ``server.sample`` (host sampling and the slots'
+    bookkeeping). On a card ``engine.chunk`` and ``engine.decode`` carry
+    CUDA events from the replay's launch to its end (its device time);
+    the blocking reads mark the device idle until the next reset, slot
+    write or launch (the recorder's host gaps).
 
 The scheduler is host-side Python as in the JAX package; the cache is
 updated in place by each step (the JAX server donates it to its jitted
@@ -39,6 +51,7 @@ from .cache import (KVCache, DeployConfig, DeployedQuant, create_cache,
                     cache_storage_bytes, check_intn_codebook, reset_cache)
 from .device import resolve_device
 from .models.config import ModelConfig
+from .utils.profiling import SPANS
 
 
 @dataclass
@@ -67,7 +80,6 @@ class _Admission:
     toks: np.ndarray  # (1, S + n_chunks*chunk) padded prompt
     n_chunks: int
     ci: int = 0
-    last_logits: np.ndarray | None = None
 
 
 @dataclass
@@ -138,11 +150,13 @@ class AdmissionCache:
             f"packed tokens [{p0}, {p0 + n}) exceed the cache's "
             f"{self.dcfg.cache_tokens}")
         if not self.graphed:
+            SPANS.launch()
             return engine.prefill_chunk(self.params, self.cfg, self.dcfg,
                                         self.dq, self.cache, blk, pos0,
                                         sink_fill)[1]
         graph = self.graphs.get(sink_fill)
         if graph is None:
+            SPANS.launch()  # the capture runs the chunk first
             m = self.memory
             graph = self.graphs[sink_fill] = engine.ChunkGraph(
                 self.params, self.cfg, self.dcfg, self.dq, self.cache, blk,
@@ -180,6 +194,9 @@ class Server:
         self.decode_steps = 0  # telemetry: decode advanced this many steps
         self._step = None  # engine.decode_stepper, built at the first step
         self._adm = None  # AdmissionCache, built at the first chunk
+        # the stream the graphs replay on: the replays' spans time it
+        self._stream = (torch.cuda.current_stream(self.device)
+                        if self.device.type == "cuda" else None)
 
     # ------------------------------------------------------------------
     def submit(self, req: Request):
@@ -200,12 +217,15 @@ class Server:
                 full[:, b] = one[:, 0]
 
     def _activate(self, b: int, req: Request, one: KVCache, logits):
+        SPANS.enqueue()
         self._write_slot(b, one)
+        if torch.is_tensor(logits):  # sync admission reads after the write
+            logits = logits.cpu().numpy()
+            SPANS.device_idle()
         self.active[b] = req
         self.pos[b] = len(req.prompt)
         self.remaining[b] = req.max_new_tokens
-        tok = self._sample_with(req, np.asarray(torch.as_tensor(logits)
-                                                .cpu()))
+        tok = self._sample_with(req, logits)
         self.out[req.rid].tokens.append(tok)
         self.last_tok[b] = tok
         self.remaining[b] -= 1
@@ -219,12 +239,14 @@ class Server:
             if self.active[b] is not None or not self.queue:
                 continue
             req = self.queue.popleft()
+            SPANS.enqueue()
             one = create_cache(self.dcfg, self.cfg.n_layers, 1,
                                device=self.device)
             one, logits = engine.prefill(self.params, self.cfg, self.dcfg,
                                          self.dq, one,
                                          self._prompt(req.prompt)[None])
-            self._activate(b, req, one, logits[0])
+            with SPANS.span("server.first_token", req.rid):
+                self._activate(b, req, one, logits[0])
 
     # -- chunked (non-blocking) admission ------------------------------
     def _start_admissions(self):
@@ -243,31 +265,38 @@ class Server:
                                              n_chunks=n_chunks))
             busy.add(b)
 
-    def _step_admission(self, adm: _Admission) -> bool:
+    def _step_admission(self, adm: _Admission):
         """Run ONE prompt chunk into the admission cache (reset at the
-        admission's first chunk); returns True when the admission
-        finished."""
+        admission's first chunk); returns its logits (1, Tq, V)."""
         S, chunk = self.dcfg.sink, self.admit_chunk
         if self._adm is None:
             self._adm = AdmissionCache(self.params, self.cfg, self.dcfg,
                                        self.dq, self.device)
         ci = adm.ci
-        if ci == 0:
-            self._adm.start()
-            blk, pos0, sf = adm.toks[:, :S + chunk], S, True
-        else:
-            a = S + ci * chunk
-            blk, pos0, sf = adm.toks[:, a:a + chunk], a, False
-        logits = self._adm.chunk(self._prompt(blk), pos0, sf)
+        with SPANS.span("engine.chunk", adm.req.rid, self._stream):
+            if ci == 0:
+                SPANS.enqueue()
+                self._adm.start()
+                blk, pos0, sf = adm.toks[:, :S + chunk], S, True
+            else:
+                a = S + ci * chunk
+                blk, pos0, sf = adm.toks[:, a:a + chunk], a, False
+            logits = self._adm.chunk(self._prompt(blk), pos0, sf)
         adm.ci += 1
-        if adm.ci < adm.n_chunks:
-            return False
+        return logits
+
+    def _finish_admission(self, adm: _Admission, logits):
+        """After the admission's last chunk: read its last real row's
+        logits and activate its slot."""
+        S, chunk = self.dcfg.sink, self.admit_chunk
         T0 = len(adm.req.prompt)
         last = (T0 - 1) - (S + (adm.n_chunks - 1) * chunk) \
             if adm.n_chunks > 1 else T0 - 1
         self._adm.cache.length.fill_(T0)
-        adm.last_logits = logits[0, last].cpu().numpy()
-        return True
+        first = logits[0, last].cpu().numpy()
+        SPANS.device_idle()
+        # copied out on the stream, before the next admission's reset
+        self._activate(adm.slot, adm.req, self._adm.cache, first)
 
     def _admit_chunked(self):
         self._start_admissions()
@@ -276,11 +305,11 @@ class Server:
         # at most ONE chunk of ONE admission per server step: the decode
         # stall per step is bounded by a single chunk
         adm = self.admitting[0]
-        if self._step_admission(adm):
+        logits = self._step_admission(adm)
+        if adm.ci == adm.n_chunks:
             self.admitting.pop(0)
-            # copied out on the stream, before the next admission's reset
-            self._activate(adm.slot, adm.req, self._adm.cache,
-                           adm.last_logits)
+            with SPANS.span("server.first_token", adm.req.rid):
+                self._finish_admission(adm, logits)
 
     def _admit(self):
         if self.admit_mode == "sync":
@@ -313,25 +342,36 @@ class Server:
     def step(self) -> bool:
         """Admit (one prompt chunk max in chunked mode) and advance every
         active slot by one token. Returns True while any work remains."""
-        self._admit()
+        with SPANS.span("server.step"):
+            return self._step_spanned()
+
+    def _step_spanned(self) -> bool:
+        if self.queue or self.admitting:
+            with SPANS.span("server.admit"):
+                self._admit()
         if all(a is None for a in self.active):
             return bool(self.queue) or bool(self.admitting)
 
         if self._step is None:
+            SPANS.enqueue()  # the capture's warm-up steps
             self._step = engine.decode_stepper(
                 self.params, self.cfg, self.dcfg, self.dq, self.cache)
-        logits = self._step(self._prompt(self.last_tok), self.pos)
+        with SPANS.span("engine.decode", stream=self._stream):
+            logits = self._step(self._prompt(self.last_tok), self.pos)
         self.decode_steps += 1
-        logits_np = logits.cpu().numpy()
-        for b in range(self.n):
-            if self.active[b] is None:
-                continue
-            self.pos[b] += 1
-            tok = self._sample_with(self.active[b], logits_np[b])
-            self.out[self.active[b].rid].tokens.append(tok)
-            self.last_tok[b] = tok
-            self.remaining[b] -= 1
-            self._maybe_retire(b, tok)
+        with SPANS.span("server.logits_read"):
+            logits_np = logits.cpu().numpy()
+            SPANS.device_idle()
+        with SPANS.span("server.sample"):
+            for b in range(self.n):
+                if self.active[b] is None:
+                    continue
+                self.pos[b] += 1
+                tok = self._sample_with(self.active[b], logits_np[b])
+                self.out[self.active[b].rid].tokens.append(tok)
+                self.last_tok[b] = tok
+                self.remaining[b] -= 1
+                self._maybe_retire(b, tok)
         return (bool(self.queue) or bool(self.admitting)
                 or any(a is not None for a in self.active))
 
