@@ -211,9 +211,12 @@ The MoE family and the HF loader:
      greedy tokens card == CPU through K1 and K2.
      The MoE family's compiled step: the expert products' kernel
      (csrc/moe_experts.cu, moe_glu then moe_down) against its plain version
-     at layer 0's weights, C 1 / 2 / 4 / 8 with empty experts and a batch
-     of identical tokens that overflows capacity (tokens past it get a
-     zero FFN), timed at the decode shape beside its byte bound,
+     at layer 0's weights, on the routed body and the SIMT body, C 1 / 2 /
+     4 / 8 with empty experts, a batch of identical tokens that overflows
+     capacity (tokens past it get a zero FFN), the benchmark cell's decode
+     step (16 tokens, C 8) and fp32; at the cell's shape repeat calls and a
+     graph replay bitwise == eager; timed at the B=1 decode shape and the
+     cell's C 8 shape beside their byte bounds and the SIMT body,
      per-expert torch.matmul and torch.bmm over all experts; the 2048-token
      quantized prefill's chunk graph == eager chunks bitwise; for each of
      the three paths 16 greedy steps graphed and eager from clones of one
@@ -3937,8 +3940,9 @@ def moe_profile(tag, step, steps, prof_steps=3):
                    and e.device_type == torch.autograd.DeviceType.CPU
                    ) / prof_steps / 1e3
     products_ms = sum(e.self_device_time_total for e in ev
-                      if any(f"::{k}<" in e.key
-                             for k in ("moe_glu", "moe_down"))
+                      if any(f"::{k}" in e.key
+                             for k in ("moe_glu<", "moe_down<", "moe_glu_mma(",
+                                       "moe_down_mma("))
                       ) / prof_steps / 1e3
     expert_ms = range_ms + products_ms
     idle = 1 - dev_ms * tps / 1e3
@@ -4380,16 +4384,23 @@ MOE_TOL = 2e-2
 
 def moe_kernel_check(tag, lp, cfg):
     """``moe_experts`` against ``moe_experts_plain`` at one DBRX
-    layer's weights (E 16, D 6144, F 10752, bf16): C 1 / 2 / 4 / 8 with
-    counts drawn in 1..C and every third expert empty, and the slots of a
+    layer's weights (E 16, D 6144, F 10752, bf16), on each body (the
+    tensor-core and the SIMT body, each forced): C 1 / 2 / 4 / 8 with
+    counts drawn in 1..C and every third expert empty; the slots of a
     batch of 4 identical tokens (C 2: each routed expert keeps tokens 0
-    and 1, tokens 2 and 3 lose all four, so their FFN output is 0); then
-    the main path's shape (C 1, the top_k experts of one token live)
-    timed: the kernel, the plain version, per-expert ``torch.matmul`` on
-    the live rows (the eager route before) and ``torch.bmm`` over all E
-    experts (``swiglu_products``), device ms between CUDA events (median
-    of 7), beside the byte bound (the live experts' weights, xe and y at
-    3.35 TB/s). Returns the record for the kernels line."""
+    and 1, tokens 2 and 3 lose all four, so their FFN output is 0); the
+    benchmark cell's decode step (16 tokens through the router, top 4: C
+    8, nearly every expert live) and C 8 with all 16 experts full; fp32 at
+    a small width (the SIMT body alone). At the cell's shape: two calls
+    bitwise equal, a CUDA graph's replay == the eager call bitwise, and
+    the launches by body.
+    Then timed, device ms between CUDA events (median of 7) beside the
+    byte bound (the live experts' weights, xe and y at 3.35 TB/s): the
+    main path's B=1 shape (C 1, the top_k experts of one token live; the
+    kernel, both bodies, the plain version, per-expert ``torch.matmul``
+    on the live rows, ``torch.bmm`` over all E experts) and the cell's C 8
+    shape (the kernel, the SIMT body). Returns the record for the kernels
+    line."""
     import torch.nn.functional as F
 
     from kvquant_tpu_torch.models import moe
@@ -4405,31 +4416,56 @@ def moe_kernel_check(tag, lp, cfg):
         count = torch.randint(1, C + 1, (E,), generator=gen, device="cuda",
                               dtype=torch.int32)
         count[::3] = 0
-        cases.append((f"C {C}", xe, count))
+        cases.append((f"C {C}", xe, count, wts))
     h = torch.randn((1, D), generator=gen, device="cuda").to(
         torch.bfloat16).expand(4, D).contiguous()
     _, w = moe._router_weights(h, lp, cfg)
     C4 = moe.capacity(4, cfg)
     s = moe.dispatch_slots(w, C4)
     xe4 = torch.cat([h, h.new_zeros((1, D))])[s.tokens]
-    cases.append((f"4 identical tokens, C {C4}", xe4, s.count))
+    cases.append((f"4 identical tokens, C {C4}", xe4, s.count, wts))
+    # the cell's decode step: 16 slots' rows through the router
+    h16 = torch.randn((16, D), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    _, w16 = moe._router_weights(h16, lp, cfg)
+    C16 = moe.capacity(16, cfg)
+    s16 = moe.dispatch_slots(w16, C16)
+    xe16 = torch.cat([h16, h16.new_zeros((1, D))])[s16.tokens]
+    cases.append((f"16 tokens x top {cfg.top_k}, C {C16}", xe16, s16.count,
+                  wts))
+    full8 = torch.full((E,), 8, dtype=torch.int32, device="cuda")
+    xe8 = torch.randn((E, 8, D), generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    cases.append(("C 8, all experts full", xe8, full8, wts))
+    g32 = torch.Generator(device="cuda").manual_seed(252)
+    w32 = tuple((torch.randn(sh, generator=g32, device="cuda") / sh[1] ** 0.5)
+                for sh in ((4, 256, 512), (4, 256, 512), (4, 512, 256)))
+    cases.append(("fp32, E 4, D 256, F 512, C 8",
+                  torch.randn((4, 8, 256), generator=g32, device="cuda"),
+                  torch.tensor([8, 0, 3, 1], dtype=torch.int32,
+                               device="cuda"), w32))
     worst = 0.0
-    for name, xe, count in cases:
-        got = mx.moe_experts(xe, count, *wts)
-        want = mx.moe_experts_plain(xe, count, *wts)
-        torch.cuda.synchronize()
-        err = float((got.float() - want.float()).abs().max())
+    for name, xe, count, ws in cases:
+        want = mx.moe_experts_plain(xe, count, *ws)
         scale = float(want.float().abs().max())
         dead = torch.arange(xe.shape[1], device="cuda")[None] >= \
             count[:, None]
-        log(f"{tag} moe_experts {name}, counts {count.tolist()}: "
-            f"max|kernel-plain| {err:.3e} (tol {MOE_TOL * scale:.1e}, "
-            f"max|plain| {scale:.3e})")
-        if not (err <= MOE_TOL * scale and bool(torch.isfinite(got).all())
-                and not got[dead].any()):
-            raise AssertionError(f"{tag} moe_experts disagrees with plain: "
-                                 f"{name}")
-        worst = max(worst, err)
+        shape = (xe.shape[0], xe.shape[2], ws[0].shape[-1])
+        routed = mx.body(xe.shape[1], xe.dtype, *shape)
+        for forced in ("mma", "simt") if mx.mma_takes(xe.dtype, *shape) \
+                else ("simt",):
+            got = mx.moe_experts(xe, count, *ws, body_name=forced)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            log(f"{tag} moe_experts {name} on {forced}"
+                f"{' (routed)' if forced == routed else ''}, counts "
+                f"{count.tolist()}: max|kernel-plain| {err:.3e} (tol "
+                f"{MOE_TOL * scale:.1e}, max|plain| {scale:.3e})")
+            if not (err <= MOE_TOL * scale and bool(torch.isfinite(got).all())
+                    and not got[dead].any()):
+                raise AssertionError(f"{tag} moe_experts disagrees with "
+                                     f"plain: {name} on {forced}")
+            worst = max(worst, err)
     ffn = moe.moe_ffn_sparse(h, lp, cfg)
     kept = s.keep.sum(1).tolist()
     log(f"{tag} 4 identical tokens: kept pairs per token {kept}; FFN rows "
@@ -4438,6 +4474,41 @@ def moe_kernel_check(tag, lp, cfg):
     if not (kept == [cfg.top_k] * 2 + [0, 0] and not ffn[2:].any()
             and torch.equal(ffn[0], ffn[1]) and bool(ffn[0].any())):
         raise AssertionError(f"{tag} the overflowing batch: kept {kept}")
+
+    # the cell's shape: repeat calls and a graph replay bitwise == eager
+    def cell():
+        return mx.moe_experts(xe16, s16.count, *wts)
+
+    by_body = dict(mx.moe_experts.launches_by_body)
+    first, second = cell(), cell()
+    bodies = {k: v - by_body[k]
+              for k, v in mx.moe_experts.launches_by_body.items()
+              if v != by_body[k]}
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        cell()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = cell()
+    graph.replay()
+    torch.cuda.synchronize()
+    n_live = int((s16.count > 0).sum())
+
+    def same(a, b):
+        return bool(torch.equal(a.view(torch.int16), b.view(torch.int16)))
+
+    rec = {"cell_C": C16, "cell_live_experts": n_live,
+           "cell_bodies": bodies, "repeat_bitwise": same(first, second),
+           "graph_bitwise": same(first, replayed)}
+    log(f"{tag} the cell's shape (16 tokens, C {C16}, {n_live} of {E} "
+        f"experts live): launches by body {bodies}; two calls bitwise "
+        f"{rec['repeat_bitwise']}; graph replay == eager bitwise "
+        f"{rec['graph_bitwise']}")
+    if not (rec["repeat_bitwise"] and rec["graph_bitwise"]):
+        raise AssertionError(f"{tag} moe_experts is not bitwise stable")
+    del graph, replayed
 
     # the main path's call: B=1, C 1, the router's top_k experts live
     xe1 = torch.randn((E, 1, D), generator=gen,
@@ -4452,6 +4523,10 @@ def moe_kernel_check(tag, lp, cfg):
             (F.silu(x @ wts[0][e]) * (x @ wts[1][e])) @ wts[2][e]
 
     ms = {"ms": device_ms(lambda: mx.moe_experts(xe1, count1, *wts), n=10),
+          "simt_ms": device_ms(lambda: mx.moe_experts(
+              xe1, count1, *wts, body_name="simt"), n=10),
+          "mma_ms": device_ms(lambda: mx.moe_experts(
+              xe1, count1, *wts, body_name="mma"), n=10),
           "plain_ms": device_ms(lambda: mx.moe_experts_plain(
               xe1, count1, *wts), n=10),
           "library_ms": device_ms(lambda: mx.swiglu_products(xe1, *wts),
@@ -4460,12 +4535,28 @@ def moe_kernel_check(tag, lp, cfg):
     nbytes = (cfg.top_k * 3 * D * Fd + 2 * E * D) * 2
     ms["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
     log(f"{tag} moe_experts at the decode shape (B=1: C 1, {cfg.top_k} of "
-        f"{E} experts live): kernel {ms['ms']:.4f} ms, bound "
+        f"{E} experts live): kernel ({mx.body(1, torch.bfloat16, E, D, Fd)})"
+        f" {ms['ms']:.4f} ms, bound "
         f"{ms['bound_ms']:.4f} ms ({nbytes / 1e9:.3f} GB at 3.35 TB/s; "
-        f"{ms['bound_ms'] / ms['ms']:.1%}), plain {ms['plain_ms']:.4f}, "
+        f"{ms['bound_ms'] / ms['ms']:.1%}), SIMT body {ms['simt_ms']:.4f} "
+        f"({ms['bound_ms'] / ms['simt_ms']:.1%}), tensor-core body "
+        f"{ms['mma_ms']:.4f} ({ms['bound_ms'] / ms['mma_ms']:.1%}), plain "
+        f"{ms['plain_ms']:.4f}, "
         f"per-expert torch.matmul {ms['per_expert_matmul_ms']:.4f}, "
         f"torch.bmm over all {E} experts {ms['library_ms']:.4f}")
-    return dict(max_abs_err=worst, **ms)
+    # the cell's decode step: C 8, the dispatch of 16 tokens
+    c8 = {"ms": device_ms(cell, n=10),
+          "simt_ms": device_ms(lambda: mx.moe_experts(
+              xe16, s16.count, *wts, body_name="simt"), n=10)}
+    nbytes8 = (n_live * 3 * D * Fd + 2 * E * C16 * D) * 2
+    c8["bound_ms"] = nbytes8 / HBM_BYTES_PER_S * 1e3
+    log(f"{tag} moe_experts at the cell's decode shape (16 tokens: C "
+        f"{C16}, {n_live} of {E} experts live): kernel "
+        f"({mx.body(C16, torch.bfloat16, E, D, Fd)}) {c8['ms']:.4f} ms, "
+        f"bound {c8['bound_ms']:.4f} ms ({nbytes8 / 1e9:.3f} GB; "
+        f"{c8['bound_ms'] / c8['ms']:.1%}), SIMT body {c8['simt_ms']:.4f} "
+        f"({c8['bound_ms'] / c8['simt_ms']:.1%})")
+    return dict(max_abs_err=worst, **ms, cell=dict(rec, **c8))
 
 
 def dbrx_graph_vs_eager(tag, params, cfg, dcfg, dq, cache, ctx, steps,
@@ -4504,8 +4595,8 @@ def dbrx_graph_vs_eager(tag, params, cfg, dcfg, dq, cache, ctx, steps,
     for mode, step, wall in (("eager", eager, wall_e),
                              ("graphed", graph, wall_g)):
         kms, kern, own, own_ms = step_trace(
-            lambda: step(tok, pos_end), n=2,
-            kernels={**OWN_KERNELS, "moe_down": ("moe_down",)})
+            lambda: step(tok, pos_end), n=2, kernels={
+                **OWN_KERNELS, "moe_down": ("moe_down", "moe_down_mma")})
         wall_ms = wall / steps * 1e3
         moe_ms = {"moe_glu": own_ms.get("moe_experts", 0.0),
                   "moe_down": own_ms.get("moe_down", 0.0)}
@@ -5575,7 +5666,7 @@ OWN_KERNELS = {"K1": ("fd_decode", "fd_gqa", "fd_chunk", "fd_partial"),
                "K2": ("fs_mma", "fs_partial"),
                "K3": ("qk_decode", "qk_gqa", "qk_mma", "qk_simt"),
                "K4": ("pv_decode", "pv_gqa", "pv_mma", "pv_simt"),
-               "moe_experts": ("moe_glu",)}
+               "moe_experts": ("moe_glu", "moe_glu_mma")}
 
 
 def step_profile(step, n=3):

@@ -36,25 +36,33 @@ def launch_counts() -> dict:
             if "_" not in k or k == "moe_experts"}
 
 
+def _by_body() -> dict:
+    """The per-body launch counts by prefix: "K2" flash_serial_decode's,
+    "moe_experts" the expert products'."""
+    from .flash_serial import flash_serial_decode
+    from .moe_experts import moe_experts
+
+    return {"K2": flash_serial_decode.route_launches,
+            "moe_experts": moe_experts.launches_by_body}
+
+
 def snapshot() -> dict:
     """Every counter: those of ``launch_counts``, K1's chunk launches
     ("K1_chunk"), the launches on the tensor-core decode bodies of K1, K3,
     K4 and K5 ("K1_gqa", "K3_gqa", "K4_gqa", "K5_gqa"), K2's unpadded
-    launches at 3-8 rows ("K2_gqa") and K2's launches per body
-    ("K2:<body>")."""
-    from .flash_serial import flash_serial_decode
-
+    launches at 3-8 rows ("K2_gqa"), and K2's and the expert products'
+    launches per body ("K2:<body>", "moe_experts:<body>")."""
     out = {k: getattr(o, a) for k, (o, a) in _counters().items()}
-    for body, n in flash_serial_decode.route_launches.items():
-        out[f"K2:{body}"] = n
+    for prefix, counts in _by_body().items():
+        for body, n in counts.items():
+            out[f"{prefix}:{body}"] = n
     return out
 
 
 def _set(name: str, value: int):
-    from .flash_serial import flash_serial_decode
-
-    if name.startswith("K2:"):
-        flash_serial_decode.route_launches[name[3:]] = value
+    if ":" in name:
+        prefix, body = name.split(":", 1)
+        _by_body()[prefix][body] = value
     else:
         obj, attr = _counters()[name]
         setattr(obj, attr, value)

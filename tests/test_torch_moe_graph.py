@@ -21,7 +21,11 @@ inputs, at TINY_MOE widths (4 experts, top 2) and the G 6 toy's:
   (e) ``moe_experts_plain`` == the per-expert ``_expert`` at C 1-8 with
       empty experts (rows past the count zero); the wrapper on the CPU is
       the plain version and counts no launch; the plan by C (the kernel
-      at C <= 8, ``torch.bmm`` above and where a gradient is needed);
+      at C <= 8, ``torch.bmm`` above and where a gradient is needed); the
+      kernel's body by (C, dtype, widths), fp32 never on the tensor
+      cores; the rows each body reads (xe itself for "mma", no copy) and
+      its scratch, launched through a stub library; the per-body launch
+      counts through a graph's record and replay; the ticket array;
   (f) ``engine.graph_unsupported`` is None for an MoEConfig at tp 1 and
       still names tensor parallelism for a rank-local one;
   (g) a rank-local config's partial sums (experts split over two ranks)
@@ -248,6 +252,139 @@ def test_expert_products_route_by_rows(n, grad, route, monkeypatch):
     if grad:
         out.sum().backward()
         assert tl["w_down"].grad is not None
+
+
+DBRX = (16, 6144, 10752)  # E, D, F of the DBRX layer the card runs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", list(range(1, 9)))
+def test_kernel_body_by_rows_and_dtype(C, dtype):
+    """(e) bf16 at DBRX's widths runs the tensor-core body at the rows of
+    MMA_ROWS and the SIMT body elsewhere; fp32 never leaves the SIMT body
+    (the tensor cores would take it as TF32)."""
+    want = ("mma" if dtype == torch.bfloat16 and C in mx.MMA_ROWS
+            else "simt")
+    assert mx.body(C, dtype, *DBRX) == want
+    assert mx.mma_takes(dtype, *DBRX) == (dtype == torch.bfloat16)
+
+
+@pytest.mark.parametrize("E,D,Fd", [(16, 6144 + 16, 10752),
+                                    (16, 6144, 10752 + 8),
+                                    (mx.MMA_MAX_EXPERTS + 1, 64, 64)])
+def test_kernel_body_needs_whole_stages(E, D, Fd):
+    """(e) widths that do not fill whole ring stages, or more experts than
+    the live list holds, keep bf16 on the SIMT body at every C."""
+    assert not mx.mma_takes(torch.bfloat16, E, D, Fd)
+    assert {mx.body(C, torch.bfloat16, E, D, Fd)
+            for C in range(1, 9)} == {"simt"}
+    with pytest.raises(ValueError, match="rows an expert"):
+        mx.body(mx.KERNEL_ROWS + 1, torch.bfloat16, *DBRX)
+
+
+class _StubLib:
+    """What ``_launch`` hands the C entry, recorded; launches nothing."""
+
+    PART, TICKS = 96, 40
+
+    def __init__(self):
+        self.calls = []
+
+    def moe_experts_scratch(self, E, D, Fd, out):
+        out[0], out[1], out[2], out[3] = self.PART, self.TICKS, 132, 132
+        return 0
+
+    def moe_experts(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("route", ["mma", "simt"])
+@pytest.mark.parametrize("C", [1, 3, 8])
+def test_launch_lays_out_each_body(route, C, monkeypatch):
+    """(e) the tensor-core body reads the rows as they are (the pointer of
+    xe: no transpose, no copy) with CR = C, an (E, C, F) scratch and the
+    partials and tickets; the SIMT body reads them by element, (E, D, CR),
+    a view of xe only at C 1, with no partials or tickets. Each launch
+    counts once in ``launches`` and once under its body."""
+    monkeypatch.setattr(mx.moe_experts, "launches", 0)
+    monkeypatch.setattr(mx.moe_experts, "launches_by_body",
+                        {"simt": 0, "mma": 0})
+    monkeypatch.setattr(mx, "_tickets", {})
+    E, D, Fd = 3, 32, 64
+    wg, wu, wd = _experts(E, D, Fd, torch.bfloat16, seed=C)
+    xe = torch.randn((E, C, D)).to(torch.bfloat16)
+    count = torch.tensor([C, 0, 1], dtype=torch.int32)
+    lib = _StubLib()
+    y = mx._launch(lib, route, xe, count, wg, wu, wd, 0)
+    assert y.shape == (E, C, D) and y.dtype == torch.bfloat16
+    (x_ptr, c_ptr, g_ptr, u_ptr, d_ptr, a_ptr, y_ptr, part, ticks, e_, c_,
+     cr, d_, f_, dt, b, stream), = lib.calls
+    assert (x_ptr == xe.data_ptr()) == (route == "mma" or C == 1)
+    assert (c_ptr, g_ptr, u_ptr, d_ptr, y_ptr) == (
+        count.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(),
+        y.data_ptr())
+    assert (e_, c_, d_, f_, dt, b) == (E, C, D, Fd, 1, mx.BODIES[route])
+    assert cr == (C if route == "mma" else mx.kernel_rows(C))
+    if route == "mma":
+        t = mx._tickets[xe.device]
+        assert ticks == t.data_ptr() and t.numel() >= lib.TICKS
+        assert part is not None and not t.any()
+    else:
+        assert part is None and ticks is None and not mx._tickets
+    assert mx.moe_experts.launches == 1
+    assert mx.moe_experts.launches_by_body == {
+        "simt": int(route == "simt"), "mma": int(route == "mma")}
+
+
+@pytest.mark.parametrize("C", [1, 3, 8])
+def test_rows_operand_by_body(C):
+    """(e) the rows each body reads: xe itself for "mma"; for "simt" the
+    rows by element, zero past C up to the instance's CR, equal to xe."""
+    xe = torch.randn((4, C, 16))
+    assert mx.kernel_rows_operand(xe, "mma") is xe
+    x = mx.kernel_rows_operand(xe, "simt")
+    CR = mx.kernel_rows(C)
+    assert x.shape == (4, 16, CR) and x.is_contiguous()
+    assert torch.equal(x[..., :C], xe.transpose(1, 2))
+    assert not x[..., C:].any()
+
+
+def test_tickets_made_zero_once_and_kept(monkeypatch):
+    """(e) one zero ticket array a device, kept across calls (the kernels
+    leave it zero), made anew only where a longer one is needed."""
+    monkeypatch.setattr(mx, "_tickets", {})
+    dev = torch.device("cpu")
+    t = mx.tickets(dev, 10)
+    assert t.dtype == torch.int32 and t.numel() == 10 and not t.any()
+    assert mx.tickets(dev, 8) is t
+    t2 = mx.tickets(dev, 12)
+    assert t2 is not t and t2.numel() == 12 and not t2.any()
+
+
+def test_body_counters_recorded_and_replayed(monkeypatch):
+    """(e) the per-body counts are counters of their own: a graph's
+    capture records them and each replay adds them; launch_counts keeps
+    one count for the wrapper."""
+    from kvquant_tpu_torch.ops import kernels as tk
+
+    monkeypatch.setattr(mx.moe_experts, "launches", 4)
+    monkeypatch.setattr(mx.moe_experts, "launches_by_body",
+                        {"simt": 1, "mma": 3})
+
+    def capture():
+        mx.moe_experts.launches += 8
+        mx.moe_experts.launches_by_body["mma"] += 8
+
+    _, delta = tk.counted(capture)
+    assert delta == {"moe_experts": 8, "moe_experts:mma": 8}
+    assert mx.moe_experts.launches_by_body == {"simt": 1, "mma": 3}
+    for _ in range(2):
+        tk.add_launches(delta)
+    assert mx.moe_experts.launches == 20
+    assert mx.moe_experts.launches_by_body == {"simt": 1, "mma": 19}
+    assert tk.snapshot()["moe_experts:simt"] == 1
+    assert "moe_experts:mma" not in tk.launch_counts()
 
 
 def _rank_local(cfg, rank, tp):
