@@ -16,6 +16,8 @@
     python3 chip_smoke.py --phases 1,22,30,31            # graphed prefill,
                                                          # fp16-KV graph
     python3 chip_smoke.py --phases 1,7,32                # host packer
+    python3 chip_smoke.py --phases 1,33                  # whole-prompt
+                                                         # admission
 
 Phases (each prints its own lines; any failure raises and exits non-zero).
 K2 is csrc/flash_serial.cu (flash_serial_decode), K1 csrc/flash_decode.cu
@@ -345,6 +347,21 @@ host compiler):
      the numpy *_ref versions the same; host ms per layer (C++, numpy)
      beside the card's unpack (CUDA events), with the card's name and
      power limit and the host's CPU model.
+Whole-prompt admission (serve.Server's admission chunk in sub-chunks of
+serve.ADMIT_SUB_CHUNK rows) at the mistral7b-nuq3-longdoc cell's shapes:
+ 33. Mistral-7B-Instruct-v0.2 at its published widths (G 4, theta 1e6, no
+     window; random bf16 weights) cut to 2 of 32 layers, nuq3, 120 slots
+     of a 16,897-token capacity, admit_chunk 16384: admissions of 4101
+     tokens (two sub-chunks) and 16384 (eight, the last partly padding),
+     each in one step, through a graphed and an eager server: the rows
+     the engine.chunk span recorded ([2053, 2048, ...]), K1 launches
+     (layers x sub-chunks on fd_chunk, layers on fd_gqa for the decode),
+     served tokens and the slot and admission caches bitwise equal; K1
+     against plain on the live admission cache at the sink sub-chunk
+     (2053 rows at position 0) and the last (2048 rows at 14341); 118 more
+     prompts of 2048-16384 tokens admitted, then K1's decode at B 120 on
+     the slots' live caches (fd_gqa with bf16 dots; fp32 dots too)
+     against plain; both dot modes at layers 0 and 1.
 The line before the last lists every ported kernel as JSON; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -7114,6 +7131,199 @@ def phase_host_packer(report):
     del c32
 
 
+# ---------------------------------------------------------------------------
+# the long-document cell's shapes: whole-prompt admission in sub-chunks and
+# the 120-row decode at Mistral-7B-Instruct-v0.2's widths
+# ---------------------------------------------------------------------------
+
+LONGDOC_CONFIG = "portbench/configs/mistral-7b-v0.2"  # under the checkout
+
+
+def phase_longdoc(report):
+    """Mistral-7B-Instruct-v0.2 at its published widths (G 4, theta 1e6,
+    no window; random bf16 weights), cut to 2 of 32 layers, nuq3 as the
+    benchmark's scheme, behind serve.Server as the mistral7b-nuq3-longdoc
+    cell runs it (120 slots of a 16,897-token capacity, admit_chunk 16384
+    in sub-chunks of serve.ADMIT_SUB_CHUNK): two admissions of several
+    sub-chunks (4101 tokens: two full ones; 16384: eight, the last
+    partly padding) through a graphed and an eager server; launches, the
+    rows the engine.chunk span recorded, served tokens and caches
+    compared; then K1 against plain on the live admission cache at the
+    sink sub-chunk (2053 rows at position 0) and the last (2048 rows at
+    14341), and, once 120 prompts of 2048-16384 tokens are admitted, K1's
+    decode at B 120 (fd_gqa) on the slots' live caches; both dot modes."""
+    import os
+
+    from kvquant_tpu_torch import engine, serve
+    from kvquant_tpu_torch.cache import (deployed_from_quantizers,
+                                         static_channels)
+    from kvquant_tpu_torch.models import init_params
+    from kvquant_tpu_torch.models.hf_loader import config_from_hf
+    from kvquant_tpu_torch.ops.kernels import flash_decode as fd
+    from kvquant_tpu_torch.utils.profiling import SPANS
+
+    L, slots, admit, new = 2, 120, 16384, 512
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = dataclasses.replace(
+        config_from_hf(os.path.join(root, LONGDOC_CONFIG)), n_layers=L)
+    cfg, dcfg, qs = faithful_config(admit + new + 1, L, cfg)
+    S, w, G = dcfg.sink, serve.sub_width(admit), cfg.q_per_kv
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(33),
+                         dtype=torch.bfloat16, device="cuda")
+    dq = deployed_from_quantizers(qs, cfg.n_kv_heads, cfg.d_head,
+                                  device="cuda")
+    rng = np.random.default_rng(33)
+    lens = [S + 2 * w, admit] + [int(x) for x in np.linspace(
+        2048, admit, slots - 2).round()]
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in lens]
+    log(f"[33] Mistral-7B-Instruct-v0.2 widths ({cfg.d_model} wide, "
+        f"{cfg.n_heads} / {cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, theta "
+        f"{cfg.rope_theta:g}, window {cfg.sliding_window}), {L} of 32 "
+        f"layers; nuq3, capacity {dcfg.cache_tokens} tokens, {slots} "
+        f"slots, admit_chunk {admit} in sub-chunks of {w}")
+
+    servers, got = {}, {}
+    for graphed in (False, True):
+        srv = serve.Server(params, cfg, dcfg, dq, n_slots=slots, seed=0,
+                           admit_mode="chunked", admit_chunk=admit,
+                           device="cuda")
+        if not graphed:  # the reference: the eager step in the graph's place
+            srv._step = lambda t, p, srv=srv: engine.decode_step(
+                params, cfg, dcfg, dq, srv.cache, t, p,
+                k_chan=static_channels(dq, dcfg))[1]
+        rows, counts = [], []
+        for rid in (0, 1):
+            srv.submit(serve.Request(rid=rid, prompt=prompts[rid],
+                                     max_new_tokens=new))
+            read = reset_launches()
+            t0 = SPANS.clock()
+            with (contextlib.nullcontext() if graphed else eager_prefill()):
+                srv.step()
+            torch.cuda.synchronize()
+            counts.append(read())
+            rows.append([list(s.rows) for s in SPANS.read(
+                t0, SPANS.clock())["spans"] if s.name == "engine.chunk"])
+        for rid in (0, 1):
+            n_sub = -(-(lens[rid] - S) // w)
+            want_rows = [[S + w] + [w] * (n_sub - 1)]
+            n = counts[rid]
+            want_k1 = L * (n_sub + 1)  # the sub-chunks, then one decode
+            log(f"[33] {'graphed' if graphed else 'eager'} admission of "
+                f"{lens[rid]} tokens in one step: rows {rows[rid]}, K1 "
+                f"{n['K1']} (chunk {n['K1_chunk']}, gqa {n['K1_gqa']}; "
+                f"expected {want_k1}, {L * n_sub}, {L})")
+            if rows[rid] != want_rows:
+                raise AssertionError(f"[33] rows {rows[rid]} != "
+                                     f"{want_rows}")
+            # the graphed server's first step also runs each capture's
+            # warm-up: its counts are checked from its second step on
+            if (not graphed or rid == 1) and not (
+                    n["K1"] == want_k1 and n["K1_chunk"] == L * n_sub
+                    and n["K1_gqa"] == L
+                    and n["K2"] == n["K3"] == n["K4"] == n["K5"] == 0):
+                raise AssertionError(f"[33] launches {n}")
+        servers[graphed] = srv
+        got[graphed] = {r: list(c.tokens) for r, c in srv.out.items()}
+    same_tok = got[True] == got[False]
+    same_cache = caches_equal(servers[True].cache, servers[False].cache)
+    same_adm = caches_equal(servers[True]._adm.cache,
+                            servers[False]._adm.cache)
+    log(f"[33] graphed == eager: tokens {same_tok} ({got[True]}), slot "
+        f"caches bitwise {same_cache}, admission cache bitwise {same_adm}")
+    for f in dataclasses.fields(srv.cache):
+        x, y = (getattr(servers[g].cache, f.name) for g in (True, False))
+        if x.dim() > 1 and not torch.equal(x, y):
+            log(f"[33]   {f.name} differs in slots "
+                f"{torch.nonzero((x != y).flatten(2).any(2).any(0)).tolist()}")
+    if not (same_tok and same_cache and same_adm):
+        raise AssertionError("[33] the graphed admission != eager")
+    srv = servers[True]
+    del servers[False]
+    torch.cuda.empty_cache()
+
+    # K1 against plain on the admission cache the 16384-token prompt left:
+    # the sink sub-chunk and the last sub-chunk of the prompt
+    arrs = srv._adm.cache.arrays()
+    gen = torch.Generator(device="cuda").manual_seed(34)
+    worst = 0.0
+    n_sub = -(-(admit - S) // w)
+    for tq, p0 in ((S + w, 0), (w, S + (n_sub - 1) * w)):
+        q = torch.randn((1, cfg.n_kv_heads, G * tq, cfg.d_head),
+                        generator=gen, device="cuda")
+        pos = torch.tensor([p0], dtype=torch.int32, device="cuda")
+        for li in (0, L - 1):
+            for d in (dcfg, dataclasses.replace(dcfg, dot_bf16=False)):
+                args = (q, arrs["k_planes"], arrs["v_planes"],
+                        arrs["kv_out"], dq.k_range, dq.k_offset,
+                        arrs["v_scale"], arrs["v_offset"], arrs["k_sink"],
+                        arrs["v_sink"], dq.k_lut_dec, dq.v_lut_dec, li, pos,
+                        d, cfg)
+                out = fd.flash_attention(*args, Tq=tq)
+                worst = max(worst, agree(
+                    f"[33] admission cache layer {li} Tq {tq} pos {p0}",
+                    out, fd.flash_attention_ref(*args, Tq=tq), d.dot_bf16))
+                del out
+                torch.cuda.empty_cache()
+    del arrs
+
+    # every slot admitted: the decode step's K1 at B 120 over live caches
+    for rid in range(2, slots):
+        srv.submit(serve.Request(rid=rid, prompt=prompts[rid],
+                                 max_new_tokens=new))
+    t0 = time.perf_counter()
+    steps = 0
+    while srv.queue or srv.admitting:
+        srv.step()
+        steps += 1
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    live = sum(a is not None for a in srv.active)
+    pos_np = srv.pos.astype(np.int64) - 1  # each slot's last written token
+    log(f"[33] {slots - 2} more admissions in {steps} steps, {fill_s:.2f} "
+        f"s; {live} slots live at {int(pos_np.min()) + 1}-"
+        f"{int(pos_np.max()) + 1} tokens ({int(pos_np.sum()) + slots} in "
+        f"all)")
+    if live != slots:
+        raise AssertionError(f"[33] {live} of {slots} slots live")
+    arrs = srv.cache.arrays()
+    q = torch.randn((slots, cfg.n_kv_heads, G, cfg.d_head), generator=gen,
+                    device="cuda")
+    pos = torch.as_tensor(pos_np, dtype=torch.int32, device="cuda")
+    part = 24  # slots a plain call dequantizes at once
+    for li in (0, L - 1):
+        for d in (dcfg, dataclasses.replace(dcfg, dot_bf16=False)):
+            read = reset_launches()
+            out = fd.flash_attention(q, *[arrs[k] for k in (
+                "k_planes", "v_planes", "kv_out")], dq.k_range, dq.k_offset,
+                arrs["v_scale"], arrs["v_offset"], arrs["k_sink"],
+                arrs["v_sink"], dq.k_lut_dec, dq.v_lut_dec, li, pos, d, cfg)
+            torch.cuda.synchronize()
+            n = read()
+            if d.dot_bf16 and n["K1_gqa"] != 1:
+                raise AssertionError(f"[33] B {slots} G {G} decode did not "
+                                     f"run fd_gqa: {n}")
+            want = torch.cat([fd.flash_attention_ref(
+                q[b:b + part], *[arrs[k][:, b:b + part].contiguous()
+                                 for k in ("k_planes", "v_planes",
+                                           "kv_out")],
+                dq.k_range, dq.k_offset,
+                *[arrs[k][:, b:b + part].contiguous() for k in (
+                    "v_scale", "v_offset", "k_sink", "v_sink")],
+                dq.k_lut_dec, dq.v_lut_dec, li, pos[b:b + part], d, cfg)
+                for b in range(0, slots, part)])
+            worst = max(worst, agree(
+                f"[33] decode B {slots} G {G} layer {li} "
+                f"({'fd_gqa' if d.dot_bf16 else 'fp32 body'})", out, want,
+                d.dot_bf16))
+            del out, want
+            torch.cuda.empty_cache()
+    report["longdoc"] = dict(rows=rows, equal=True, fill_s=fill_s,
+                             max_abs_err=worst, peak_gib=gib_peak())
+    del srv, servers, arrs, params
+    torch.cuda.empty_cache()
+
+
 PHASES = {1: phase_device_and_build, 2: phase_kernel_vs_plain,
           3: phase_main_path, 4: phase_card_vs_cpu, 5: phase_times,
           6: phase_k1_vs_plain, 7: phase_k1_main_path,
@@ -7128,7 +7338,8 @@ PHASES = {1: phase_device_and_build, 2: phase_kernel_vs_plain,
           24: phase_mistral, 25: phase_dbrx, 26: phase_tp,
           27: phase_training, 28: phase_graphed_decode,
           29: phase_paged_graph, 30: phase_graphed_prefill,
-          31: phase_fp16_graph, 32: phase_host_packer}
+          31: phase_fp16_graph, 32: phase_host_packer,
+          33: phase_longdoc}
 
 
 def main(argv=None) -> int:

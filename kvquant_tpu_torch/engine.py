@@ -467,7 +467,7 @@ def deployed_ppl(params, cfg: ModelConfig, dcfg: DeployConfig,
 
 def prefill_chunk(params, cfg: ModelConfig, dcfg: DeployConfig,
                   dq: DeployedQuant, cache: KVCache, tok_blk, pos0,
-                  sink_fill: bool):
+                  sink_fill: bool, row=None):
     """One chunk of quantized prefill: embed, every layer's block_attention
     (pack + attend over the quantized cache, in place), the MLP. tok_blk
     (B, Tq) holds the chunk's tokens (after the ``sink`` leading sink
@@ -476,7 +476,9 @@ def prefill_chunk(params, cfg: ModelConfig, dcfg: DeployConfig,
     cache's device (then the chunk reads nothing back to the host, and
     its caller checks that the chunk fits the cache; an int is checked
     here and made a tensor once for every layer). Returns (cache, logits
-    (B, Tq, V) fp32)."""
+    (B, Tq, V) fp32), or with ``row`` (an index into the chunk's Tq
+    rows: an int, or a 0-d int32 tensor on the cache's device) the final
+    norm and LM head of that row alone, (B, V) fp32."""
     _check_kernel(dcfg)
     B, T = tok_blk.shape
     pos0 = deployed.block_pos0(pos0, T - (dcfg.sink if sink_fill else 0),
@@ -493,6 +495,9 @@ def prefill_chunk(params, cfg: ModelConfig, dcfg: DeployConfig,
                                            sink_fill=sink_fill)
         x = x + row_parallel(attn.to(x.dtype), lp["wo"], tp_group(cfg))
         x = _mlp(x, lp, cfg)
+    if row is not None:
+        x = x[:, row] if isinstance(row, int) else x.index_select(
+            1, row.reshape(1))[:, 0]
     return cache, _logits(params, x, cfg)
 
 
@@ -512,10 +517,16 @@ class ChunkGraph:
     every position. ``launches``, ``setup_launches``, ``capture_s`` and
     ``pool_mib`` are the capture's.
 
+    With ``row`` (an int: the first chunk's row) the graph computes the
+    logits of one row alone (``prefill_chunk``'s ``row``), picked by a
+    0-d int32 buffer ``row`` that each call loads (``graph(tok_blk,
+    pos0, row)``), so one capture serves every row; ``logits`` is then
+    (B, V).
+
     Graphs that take turns over one memory (``serve.AdmissionCache``) pass
-    ``out``, a (B, Tq_all, V) fp32 buffer on the card that the chunk's
-    logits are copied into (``logits`` and ``first`` are then that
-    buffer), and ``pool``, a graph pool handle they share.
+    ``out``, a fp32 buffer on the card of the logits' shape that they are
+    copied into (``logits`` and ``first`` are then that buffer), and
+    ``pool``, a graph pool handle they share.
 
     Raises ValueError for a cache that is not on a card and for the
     configurations ``graph_unsupported`` names; a capture that fails
@@ -524,7 +535,7 @@ class ChunkGraph:
     def __init__(self, params, cfg: ModelConfig, dcfg: DeployConfig,
                  dq: DeployedQuant, cache: KVCache, tok_blk, pos0,
                  sink_fill: bool, out: torch.Tensor | None = None,
-                 pool=None):
+                 pool=None, row: int | None = None):
         from .ops.kernels import add_launches
 
         _check_kernel(dcfg)
@@ -539,7 +550,9 @@ class ChunkGraph:
         self.tokens = torch.zeros(tuple(tok_blk.shape), dtype=torch.int32,
                                   device=dev)
         self.pos0 = torch.zeros((), dtype=torch.int32, device=dev)
-        self._load(tok_blk, pos0)
+        self.row = None if row is None else torch.zeros(
+            (), dtype=torch.int32, device=dev)
+        self._load(tok_blk, pos0, row)
         self._rope = _hold_rope_table(cfg, dcfg, dcfg.cache_tokens, dev)
         # the graph reads and writes these tensors' memory: they live as
         # long as it does
@@ -547,7 +560,7 @@ class ChunkGraph:
 
         def step():
             logits = prefill_chunk(params, cfg, dcfg, dq, cache, self.tokens,
-                                   self.pos0, sink_fill)[1]
+                                   self.pos0, sink_fill, self.row)[1]
             return logits if out is None else out.copy_(logits)
 
         self._captured = c = CapturedStep(step, dev, pool=pool)
@@ -557,15 +570,17 @@ class ChunkGraph:
         self.setup_launches, self.pool_mib = c.setup_launches, c.pool_mib
         self.capture_s = time.perf_counter() - t0
 
-    def _load(self, tok_blk, pos0):
+    def _load(self, tok_blk, pos0, row=None):
         self.tokens.copy_(tok_blk)
         if isinstance(pos0, int):
             self.pos0.fill_(pos0)
         else:
             self.pos0.copy_(torch.as_tensor(pos0).reshape(()))
+        if self.row is not None:
+            self.row.fill_(row)
 
-    def __call__(self, tok_blk, pos0):
-        self._load(tok_blk, pos0)
+    def __call__(self, tok_blk, pos0, row: int | None = None):
+        self._load(tok_blk, pos0, row)
         return self._captured.replay()
 
 

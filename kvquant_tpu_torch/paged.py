@@ -572,15 +572,14 @@ class PagedServer:
         else:
             a = S + ci * chunk
             blk, pos0, sf = adm["toks"][:, a:a + chunk], a, False
+        T0 = len(adm["req"].prompt)
+        r0 = 0 if sf else pos0  # the chunk's first row in the prompt
         logits = held.chunk(torch.as_tensor(blk, device=self.device), pos0,
-                            sf)
+                            sf, min(T0 - 1, r0 + blk.shape[1] - 1) - r0)
         adm["ci"] += 1
         if adm["ci"] < adm["n_chunks"]:
             return False
-        T0 = len(adm["req"].prompt)
-        last = (T0 - 1) - (S + (adm["n_chunks"] - 1) * chunk) \
-            if adm["n_chunks"] > 1 else T0 - 1
-        adm["last_logits"] = logits[0, last].cpu()
+        adm["last_logits"] = logits[0].cpu()
         return True
 
     def _admit_chunked(self):

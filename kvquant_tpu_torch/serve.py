@@ -10,28 +10,35 @@ kvquant_tpu/serve.py).
   - requests queue on the host; a finished or empty slot is re-admitted by
     prefilling the new prompt into a 1-sequence cache and copying it into
     the slot's batch row. admit_mode="chunked" spreads that prefill over
-    server steps, ONE quantized-trajectory prompt chunk per step
-    (engine.prefill_chunk), so active slots keep decoding while a long
-    prompt streams in. The server holds one admission cache, which the
-    admission that advances owns (reset as it starts), and on a card two
-    ``engine.ChunkGraph``s over it, the sink chunk and a later chunk (the
-    JAX server's jitted chunk, ``sink_fill`` static); pending admissions
-    hold only their tokens;
+    server steps, ONE quantized-trajectory prompt chunk of ``admit_chunk``
+    rows per step (engine.prefill_chunk), so active slots keep decoding
+    while a long prompt streams in. A chunk runs as sub-chunks of
+    ``sub_width`` rows (``ADMIT_SUB_CHUNK`` where it divides
+    ``admit_chunk``), up to the one that holds the prompt's last real row:
+    a chunk as wide as the longest prompt admits a prompt in one step
+    without running its padding. The server holds one admission cache,
+    which the admission that advances owns (reset as it starts), and on a
+    card two ``engine.ChunkGraph``s over it, the sink sub-chunk and a later
+    sub-chunk (the JAX server's jitted chunk, ``sink_fill`` static), each
+    computing the logits of the one row an admission reads; pending
+    admissions hold only their tokens;
   - ServerPool adds capacity classes: one Server per max_len class;
   - sampling is host-side per request (greedy / temperature, numpy RNG as
     the JAX server's);
   - every step records spans into ``utils.profiling.SPANS`` (switched off
     with ``SPANS.enabled = False``): ``server.step`` (the root),
     ``server.admit`` (starting admissions and the step's one chunk),
-    ``engine.chunk`` (the reset, the input copy and the chunk, with its
-    ``rid``), ``server.first_token`` (an admission's last logits read, its
-    slot write and first token), ``engine.decode`` (the input copies and
-    the decode step), ``server.logits_read`` (the blocking read of the
-    decode logits) and ``server.sample`` (host sampling and the slots'
-    bookkeeping). On a card ``engine.chunk`` and ``engine.decode`` carry
-    CUDA events from the replay's launch to its end (its device time);
-    the blocking reads mark the device idle until the next reset, slot
-    write or launch (the recorder's host gaps).
+    ``engine.chunk`` (the reset, the input copy and the chunk's
+    sub-chunks, with its ``rid`` and each sub-chunk's rows,
+    ``SPANS.replayed``), ``server.first_token`` (an admission's last
+    logits read, its slot write and first token), ``engine.decode`` (the
+    input copies and the decode step), ``server.logits_read`` (the
+    blocking read of the decode logits) and ``server.sample`` (host
+    sampling and the slots' bookkeeping). On a card ``engine.chunk`` and
+    ``engine.decode`` carry CUDA events from the first replay's launch to
+    the span's end (its device time); the blocking reads mark the device
+    idle until the next reset, slot write or launch (the recorder's host
+    gaps).
 
 The scheduler is host-side Python as in the JAX package; the cache is
 updated in place by each step (the JAX server donates it to its jitted
@@ -69,6 +76,21 @@ class Completion:
     tokens: list = field(default_factory=list)
 
 
+# rows of one replay of an admission chunk (``sub_width``), from
+# Mistral-7B-v0.2 admissions timed on an H100 (admission_ablation.py,
+# PERF.md): a 2K prompt takes 131 ms at 2048 (142 at 1024, 1478 as one
+# padded 16K chunk), a 16K prompt 1665 ms (1741 at 1024, 1568 padded)
+ADMIT_SUB_CHUNK = 2048
+
+
+def sub_width(admit_chunk: int) -> int:
+    """The rows of one sub-chunk of an admission chunk of ``admit_chunk``
+    rows: ``ADMIT_SUB_CHUNK`` where it divides the chunk, else the whole
+    chunk (one replay a chunk)."""
+    return ADMIT_SUB_CHUNK if admit_chunk % ADMIT_SUB_CHUNK == 0 \
+        else admit_chunk
+
+
 @dataclass
 class _Admission:
     """In-flight chunked admission: its padded prompt, run one chunk per
@@ -88,14 +110,14 @@ class AdmissionMemory:
     byte buffer that the cache of every capacity views
     (``cache.create_cache(storage=...)``), and on a card ``pool``, the
     graph pool of their chunk graphs, and ``logits``, the buffers those
-    graphs write, one for each chunk shape. Only one admission advances at
-    a time and it resets its cache as it starts, so the caches take turns:
-    the memory held is that of the largest cache and of one chunk's work,
-    however many capacities there are."""
+    graphs write the read row's logits into, one for each batch. Only one
+    admission advances at a time and it resets its cache as it starts, so
+    the caches take turns: the memory held is that of the largest cache
+    and of one chunk's work, however many capacities there are."""
 
     storage: torch.Tensor
     pool: object = None
-    logits: dict = field(default_factory=dict)  # (B, Tq) -> (B, Tq, V)
+    logits: dict = field(default_factory=dict)  # (B,) -> (B, V)
 
     @classmethod
     def create(cls, dcfg: DeployConfig, n_layers: int, device):
@@ -140,20 +162,23 @@ class AdmissionCache:
         """A new admission owns the cache: zero it."""
         reset_cache(self.cache)
 
-    def chunk(self, blk: torch.Tensor, pos0: int, sink_fill: bool):
+    def chunk(self, blk: torch.Tensor, pos0: int, sink_fill: bool,
+              row: int):
         """One prompt chunk ``blk`` (1, Tq) at ``pos0`` into the cache;
-        returns its logits (1, Tq, V), which the next chunk of its shape
-        may overwrite."""
+        returns the logits (1, V) of its row ``row``, which the next chunk
+        may overwrite. The innermost open span records its rows
+        (``SPANS.replayed``)."""
         S = self.dcfg.sink
         p0, n = max(pos0 - S, 0), blk.shape[1] - (S if sink_fill else 0)
         assert p0 + n <= self.dcfg.cache_tokens, (
             f"packed tokens [{p0}, {p0 + n}) exceed the cache's "
             f"{self.dcfg.cache_tokens}")
+        SPANS.replayed(blk.shape[1])
         if not self.graphed:
             SPANS.launch()
             return engine.prefill_chunk(self.params, self.cfg, self.dcfg,
                                         self.dq, self.cache, blk, pos0,
-                                        sink_fill)[1]
+                                        sink_fill, row)[1]
         graph = self.graphs.get(sink_fill)
         if graph is None:
             SPANS.launch()  # the capture runs the chunk first
@@ -161,10 +186,10 @@ class AdmissionCache:
             graph = self.graphs[sink_fill] = engine.ChunkGraph(
                 self.params, self.cfg, self.dcfg, self.dq, self.cache, blk,
                 pos0, sink_fill,
-                out=m.logits_buffer(blk.shape, self.cfg.vocab_size),
-                pool=m.pool)
+                out=m.logits_buffer(blk.shape[:1], self.cfg.vocab_size),
+                pool=m.pool, row=row)
             return graph.first
-        return graph(blk, pos0)
+        return graph(blk, pos0, row)
 
 
 class Server:
@@ -179,6 +204,7 @@ class Server:
         self.n = n_slots
         self.admit_mode = admit_mode
         self.admit_chunk = admit_chunk
+        self.sub_chunk = sub_width(admit_chunk)
         self.device = resolve_device(device)
         check_intn_codebook(dcfg, dq)
         self.cache = create_cache(dcfg, cfg.n_layers, n_slots,
@@ -267,33 +293,38 @@ class Server:
 
     def _step_admission(self, adm: _Admission):
         """Run ONE prompt chunk into the admission cache (reset at the
-        admission's first chunk); returns its logits (1, Tq, V)."""
-        S, chunk = self.dcfg.sink, self.admit_chunk
+        admission's first chunk): its sub-chunks of ``sub_chunk`` rows
+        (the first chunk's first with the sink rows before it), up to the
+        one that holds the prompt's last real row. Returns the last
+        sub-chunk's logits (1, V): those of the prompt's last real row
+        once the chunk holds it."""
+        S, chunk, w = self.dcfg.sink, self.admit_chunk, self.sub_chunk
         if self._adm is None:
             self._adm = AdmissionCache(self.params, self.cfg, self.dcfg,
                                        self.dq, self.device)
-        ci = adm.ci
+        T0 = len(adm.req.prompt)
+        a = S + adm.ci * chunk  # the chunk's first packed position
+        n_sub = -(-(min(a + chunk, T0) - a) // w)
+        lo = 0 if adm.ci == 0 else a  # its first row, the sinks' at 0
         with SPANS.span("engine.chunk", adm.req.rid, self._stream):
-            if ci == 0:
+            if adm.ci == 0:
                 SPANS.enqueue()
                 self._adm.start()
-                blk, pos0, sf = adm.toks[:, :S + chunk], S, True
-            else:
-                a = S + ci * chunk
-                blk, pos0, sf = adm.toks[:, a:a + chunk], a, False
-            logits = self._adm.chunk(self._prompt(blk), pos0, sf)
+            toks = self._prompt(adm.toks[:, lo:a + n_sub * w])
+            for j in range(n_sub):
+                p = a + j * w
+                r0 = lo if j == 0 else p
+                logits = self._adm.chunk(
+                    toks[:, r0 - lo:p + w - lo], p, r0 < S,
+                    min(T0 - 1, p + w - 1) - r0)
         adm.ci += 1
         return logits
 
     def _finish_admission(self, adm: _Admission, logits):
         """After the admission's last chunk: read its last real row's
         logits and activate its slot."""
-        S, chunk = self.dcfg.sink, self.admit_chunk
-        T0 = len(adm.req.prompt)
-        last = (T0 - 1) - (S + (adm.n_chunks - 1) * chunk) \
-            if adm.n_chunks > 1 else T0 - 1
-        self._adm.cache.length.fill_(T0)
-        first = logits[0, last].cpu().numpy()
+        self._adm.cache.length.fill_(len(adm.req.prompt))
+        first = logits[0].cpu().numpy()
         SPANS.device_idle()
         # copied out on the stream, before the next admission's reset
         self._activate(adm.slot, adm.req, self._adm.cache, first)

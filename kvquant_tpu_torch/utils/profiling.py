@@ -129,10 +129,12 @@ def traffic_report(fn, *args, label: str = "fn") -> dict:
 class Span(NamedTuple):
     """A finished span: ``id``, ``name``, host-clock ``t0`` / ``t1``
     (seconds), ``parent`` (the enclosing span's id, or None for a root),
-    ``rid`` (the request it belongs to, or None) and ``device_s``: the
+    ``rid`` (the request it belongs to, or None), ``device_s``: the
     device time between its CUDA events (None without events, or before
-    the next blocking read). The ring holds the same fields as a plain
-    tuple, without ``device_s``; ``read`` joins it."""
+    the next blocking read), and ``rows``: the rows of each replay it
+    wrapped, in launch order (``SpanRecorder.replayed``; None where it
+    recorded none). The ring holds the same fields as a plain tuple,
+    without ``device_s`` and ``rows``; ``read`` joins them."""
 
     id: int
     name: str
@@ -141,6 +143,7 @@ class Span(NamedTuple):
     parent: int | None
     rid: int | None
     device_s: float | None = None
+    rows: tuple | None = None
 
 
 class Gap(NamedTuple):
@@ -157,11 +160,12 @@ class _Open:
     plain tuple goes into the ring: nothing there refers back to the
     recorder, and nothing outlives the span but that tuple."""
 
-    __slots__ = ("rec", "name", "rid", "stream", "id", "t0", "parent", "ev")
+    __slots__ = ("rec", "name", "rid", "stream", "id", "t0", "parent", "ev",
+                 "rows")
 
     def __init__(self, rec, name, rid, stream):
         self.rec, self.name, self.rid, self.stream = rec, name, rid, stream
-        self.ev = None
+        self.ev = self.rows = None
 
     def __enter__(self):
         rec = self.rec
@@ -181,6 +185,8 @@ class _Open:
             rec._pending.append((self.id, self.ev))
         elif rec._await is self:
             rec._await = None
+        if self.rows is not None:
+            rec._rows.append((self.id, tuple(self.rows)))
         rec._stack.pop()
         rec._ring.append((self.id, self.name, self.t0, rec.clock(),
                           self.parent, self.rid))
@@ -233,6 +239,10 @@ class SpanRecorder:
     part outside every root span passed outside the program (between two
     ``Server.step()`` calls).
 
+    Replays: ``replayed(rows)``, called as a replay of ``rows`` rows (or
+    its eager counterpart) is enqueued, adds it to the innermost open
+    span (the span's ``rows``).
+
     Finished spans and gaps go into bounded rings of ``capacity`` each, as
     plain tuples; no file is written. ``read(t0, t1)`` is the one reader.
     ``enabled = False`` switches the recorder off: a span then costs one
@@ -246,6 +256,7 @@ class SpanRecorder:
         self._ring: deque = deque(maxlen=capacity)
         self._gaps: deque = deque(maxlen=capacity)
         self._device: deque = deque(maxlen=capacity)  # (span id, seconds)
+        self._rows: deque = deque(maxlen=capacity)  # (span id, rows)
         self._ids = itertools.count()
         self._stack: list[_Open] = []
         self._await = None  # the open timed span, before its launch
@@ -269,6 +280,14 @@ class SpanRecorder:
             free = self._free
             op.ev = free.pop() if free else (self._event(), self._event())
             op.ev[0].record(op.stream)
+
+    def replayed(self, rows: int):
+        """The innermost open span's next replay runs ``rows`` rows."""
+        if self.enabled and self._stack:
+            op = self._stack[-1]
+            if op.rows is None:
+                op.rows = []
+            op.rows.append(int(rows))
 
     def device_idle(self):
         """A blocking device-to-host read has returned: the stream is
@@ -311,8 +330,9 @@ class SpanRecorder:
           ``pct`` (of ``wall_s``), ``by_span``: that time by the innermost
           span open at each instant, ``outside`` where none is, and
           ``outside_s``, the ``outside`` part."""
-        dev_of = dict(self._device)
-        ring = [Span(*s, dev_of.get(s[0])) for s in self._ring]
+        dev_of, rows_of = dict(self._device), dict(self._rows)
+        ring = [Span(*s, dev_of.get(s[0]), rows_of.get(s[0]))
+                for s in self._ring]
         spans = sorted((s for s in ring if t0 <= s.t0 < t1),
                        key=lambda s: s.t0)
         inside = [Gap(*g) for g in self._gaps if g[0] < t1 and g[1] > t0]
