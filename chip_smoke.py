@@ -60,11 +60,11 @@ K2 is csrc/flash_serial.cu (flash_serial_decode), K1 csrc/flash_decode.cu
      slots / channels / none x sink 0 / 5, a window; B=3 rows at ragged
      positions: one with no packed token, a live length that is not a
      multiple of a tile, splits with no tile), the chunk bodies' edge grid
-     (fd_chunk with bf16 dots, fd_partial with fp32: every mode x pre /
-     post x G 1/4 with rows straddling g boundaries, 256 / 261 rows, D
-     32/64/128, slots / channels / none, sink 0/5, a first chunk whose sink
-     rows see no packed token, B=2 at unequal positions, a partly masked
-     last tile, a window) and the cached RoPE table against rope_cos_sin on
+     (fd_chunk / fd_chunk_sync with bf16 dots, fd_partial with fp32: every
+     mode x pre / post x G 1/4 with rows straddling g boundaries, 256 / 261
+     rows, D 32/64/128, slots / channels / none, sink 0/5, a first chunk
+     whose sink rows see no packed token, B=2 at unequal positions, a
+     partly masked last tile, a window) and the cached RoPE table against rope_cos_sin on
      the card;
   7. the reference-faithful main path at LLaMA-2-7B width (nuq3, pre-RoPE
      K, slots cap 2, head_group 4, sink 5, kernel "flash"): quantized
@@ -386,19 +386,22 @@ SOURCES = ("flash_serial", "flash_decode", "attention",
            "moe_experts")  # csrc/<name>.cu
 VERBOSE_BUILD = False  # --verbose-build: nvcc's register / spill report
 # the kernels' device times before their last redesign (PERF.md §6; an
-# H100 80GB HBM3 at 700 W): K1 / K5 before fd_decode and fd_chunk, K3 / K4
+# H100 80GB HBM3 at 700 W): K1 / K5 before fd_decode, K1's 256-row chunk
+# on fd_chunk's mma.sync body (before its wgmma consumers; the containers
+# run it still, as fd_chunk_sync), K3 / K4
 # before attention.cu's decode and mma bodies; printed in the log beside
 # this run's, never in the kernels line, which holds only this run's
 # measurements: (kernel, storage, kind or B, tokens) -> ms
 BEFORE_MS = {("K1", "nuq3", "decode", 32768): 0.2927,
              ("K1", "nuq3", "decode", 131072): 1.0844,
-             ("K1", "nuq3", "prefill", 2048): 0.9025,
-             ("K1", "nuq3", "prefill", 32768): 11.0661,
+             ("K1", "nuq3", "prefill", 2048): 0.1588,
+             ("K1", "nuq3", "prefill", 32768): 1.4888,
              ("K5", "nuq3", 1, 32768): 0.2929, ("K5", "nuq3", 4, 8192): 0.2880,
              ("K1", "int4x2", "decode", 32768): 0.2419,
              ("K1", "int4x2", "decode", 131072): 0.7813,
              ("K1", "int4x2", "decode", 524288): 2.8717,
-             ("K1", "int4x2", "prefill", 32768): 14.7080,
+             ("K1", "int4x2", "prefill", 2048): 0.1583,
+             ("K1", "int4x2", "prefill", 32768): 0.9611,
              ("K5", "int4x2", 4, 8192): 0.2385,
              # K3 / K4 before their redesign (PERF.md §6)
              ("K3", "nuq3", "decode", 34816): 0.3528,
@@ -1313,15 +1316,17 @@ def decode_edge_grid(tag, modes, paged, odd_g=False):
 
 
 def chunk_edge_grid(tag, modes):
-    """The chunk bodies (fd_chunk with bf16 dots, fd_partial with fp32 dots)
-    against the plain version over their edge cases: each mode x pre / post
-    RoPE x G 1 / 4 (g-major rows, Q = G x 256 and G x 261: row blocks
-    straddle g boundaries, and 261 rows are no multiple of a block's rows),
-    cycling D 32 / 64 / 128 x slots / channels / none x sink 0 / 5; each
+    """The chunk bodies (fd_chunk / fd_chunk_sync with bf16 dots, fd_partial
+    with fp32 dots) against the plain version over their edge cases: each
+    mode x pre / post RoPE x G 1 / 4 (g-major rows, Q = G x 256 and G x
+    261: row blocks straddle g boundaries, and 261 rows are no multiple of
+    a block's rows), cycling D 32 / 64 / 128 x slots / channels / none x sink 0 / 5; each
     with a first chunk at pos 0 (its sink rows see no packed token), a
     later 261-row chunk at unequal positions of B = 2 (its last tile partly
-    masked) and a 256-row chunk under a sliding window. Returns the worst
-    |err| / bound per dot mode."""
+    masked) and a 256-row chunk under a sliding window; and per mode the
+    longdoc cell's sub-chunks at G 4, D 128 over a 16K capacity (2048 rows
+    at 14,336, the 2053-row sink sub-chunk at 0, 2048 rows under a 4096
+    window). Returns the worst |err| / bound per dot mode."""
     from kvquant_tpu_torch.ops.kernels import flash_decode as fd
 
     dev = torch.device("cuda")
@@ -1367,6 +1372,31 @@ def chunk_edge_grid(tag, modes):
                                    f"pos{pos} win{window}", got, want,
                                    dot_bf16, worst)
                         n += 1
+            # the longdoc cell's sub-chunks at G 4 over a 16K capacity: the
+            # last 2048 rows at 14,336; 2053 rows at 0 (the sink sub-chunk,
+            # whose 256-row blocks straddle each g boundary); 2048 rows
+            # under a 4096-token window
+            D, k_out, hg = widths[0]
+            for tq, p0, window in ((2048, 14336, None), (2053, 0, None),
+                                   (2048, 6000, 4096)):
+                dcfg, mcfg = k1_config(
+                    codes, bits, 4, D, 4, 16384, 5, False, k_out, hg, window,
+                    dot_bf16, L=L, n_kc=4 if codes == "int4x2" else None)
+                gen = torch.Generator(device=dev).manual_seed(71 + n)
+                ops = k1_operands(dcfg, L, 1, dcfg.cache_tokens, gen, dev)
+                q = torch.randn((1, 4, 4 * tq, D), generator=gen, device=dev)
+                p = torch.tensor([p0], dtype=torch.int32, device=dev)
+                got = call(lambda *a, **k: fd.flash_attention(
+                    *a, Tq=tq, **k), q, ops, 1, p, dcfg, mcfg)
+                torch.cuda.synchronize()
+                want = call(lambda *a, **k: fd.flash_attention_ref(
+                    *a, Tq=tq, **k), q, ops, 1, p, dcfg, mcfg)
+                check_case(f"{tag} chunk edge {codes}{bits} pre {k_out} G4 "
+                           f"hg{hg} D{D} sink5 Tq{tq} pos[{p0}] win{window} "
+                           f"(longdoc)", got, want, dot_bf16, worst)
+                n += 1
+                del ops, got, want
+                torch.cuda.empty_cache()
     log(f"{tag} chunk body edge grid (K1, Tq > 1): {n // 2} cases x 2 dot "
         f"modes in {time.perf_counter() - t0:.1f} s; worst |err| / bound: "
         f"fp32 dots (fd_partial) {worst[False]:.3f}, bf16 dots (fd_chunk) "
@@ -5679,7 +5709,8 @@ def step_trace(step, n=3, kernels=None):
 # the port's kernels in a profiler trace, by the wrapper that launches
 # them: one of these a wrapper call (the merges that may follow are left
 # out)
-OWN_KERNELS = {"K1": ("fd_decode", "fd_gqa", "fd_chunk", "fd_partial"),
+OWN_KERNELS = {"K1": ("fd_decode", "fd_gqa", "fd_chunk", "fd_chunk_sync",
+                      "fd_partial"),
                "K2": ("fs_mma", "fs_partial"),
                "K3": ("qk_decode", "qk_gqa", "qk_mma", "qk_simt"),
                "K4": ("pv_decode", "pv_gqa", "pv_mma", "pv_simt"),
@@ -7183,6 +7214,10 @@ def phase_longdoc(report):
         f"layers; nuq3, capacity {dcfg.cache_tokens} tokens, {slots} "
         f"slots, admit_chunk {admit} in sub-chunks of {w}")
 
+    # bf16 dots: every chunk launch a sub-chunk makes runs fd_chunk
+    body = fd.body(dcfg, G * w, w)
+    if not dcfg.dot_bf16 or body != "mma":
+        raise AssertionError(f"[33] sub-chunks route to {body}")
     servers, got = {}, {}
     for graphed in (False, True):
         srv = serve.Server(params, cfg, dcfg, dq, n_slots=slots, seed=0,
@@ -7211,8 +7246,8 @@ def phase_longdoc(report):
             want_k1 = L * (n_sub + 1)  # the sub-chunks, then one decode
             log(f"[33] {'graphed' if graphed else 'eager'} admission of "
                 f"{lens[rid]} tokens in one step: rows {rows[rid]}, K1 "
-                f"{n['K1']} (chunk {n['K1_chunk']}, gqa {n['K1_gqa']}; "
-                f"expected {want_k1}, {L * n_sub}, {L})")
+                f"{n['K1']} (chunk {n['K1_chunk']} on fd_chunk, gqa "
+                f"{n['K1_gqa']}; expected {want_k1}, {L * n_sub}, {L})")
             if rows[rid] != want_rows:
                 raise AssertionError(f"[33] rows {rows[rid]} != "
                                      f"{want_rows}")

@@ -21,13 +21,16 @@
 // row t0 % P. In fd_decode only the producer thread addresses memory, so
 // the policy is chosen at run time there (K5 passes a table, K1 none).
 //
-// Five kernels:
+// Six kernels:
 //  - fd_decode, the SIMT decode body of K1 and K5 (Tq = 1, G = 1/2 rows
 //    per kv head, and 4/8 with fp32 dots; other G padded to an instance);
 //  - fd_gqa, the tensor-core decode body of K1 and K5 (Tq = 1, 3-8 rows
 //    per kv head, bf16 dots; the host's body() / GQA_ROWS route it);
-//  - fd_chunk, the multi-row body of K1 with bf16 dots (prefill chunks,
-//    every call that is not a decode step): mma.sync on the tensor cores;
+//  - fd_chunk, the multi-row body of K1 with bf16 dots over bit planes
+//    (prefill chunks, every call that is not a decode step): wgmma on the
+//    tensor cores;
+//  - fd_chunk_sync, the same over the containers (int4, int8, int4x2):
+//    mma.sync on the tensor cores;
 //  - fd_partial, the multi-row body of K1 with fp32 dots (64 rows, SIMT);
 //  - fd_merge, which merges the token splits of any of them with the sink
 //    prefix by log-sum-exp (a split of zero weight is not read).
@@ -126,67 +129,97 @@
 // Budget (chip_smoke.py --verbose-build): 0-16 B of spills across the 12
 // instances; 190 KB of shared memory for DBRX's nuq3 (3 stages, V slots).
 //
-// fd_chunk (prefill chunks, bf16 dots). What bounds it: at Tq = 256 rows
-// the two contractions, 4*Q*live*D*Hkv flops per call (0.139 ms at 32K
-// tokens of a LLaMA-2-7B layer at 989 TFLOP/s), on mma.sync, which Hopper
-// runs well below wgmma's rate; beside them the dequantization and the
-// outlier tiles, whose instruction count does not shrink with the rows
-// (PERF.md gives chunk_ablation.py's split). What the design does:
+// fd_chunk (prefill chunks over bit planes, bf16 dots). What bounds it: at
+// Tq = 256 rows the two contractions, 4*Q*live*D*Hkv flops per call (0.139
+// ms at 32K tokens of a LLaMA-2-7B layer at 989 TFLOP/s), which only wgmma
+// runs at the card's tensor-core rate; beside them the producers' dequantization
+// and outlier tiles, whose instruction count does not shrink with the rows
+// and which wait on shared-memory and L2 latency (two producer warps a
+// scheduler). With outliers the products are four passes (Q.K^T,
+// Q.K_add^T, P.V, P.V_add). PERF.md gives chunk_ablation.py's split: the
+// producers set the pace. What the design does:
 //  - one block per (batch row, kv head, up to 256 query rows, token split):
-//    every K / V tile is dequantized once for all rows of a 256-row chunk
-//    (the SIMT body dequantized it once per 64 rows);
-//  - warp specialisation: producer warpgroups (two for bit planes, one for
-//    the containers; setmaxnreg.dec to 40-56 registers) keep the ring full
-//    and dequantize while two consumer warpgroups (setmaxnreg.inc to
-//    216-224) multiply; 3 piece buffers with full / empty mbarriers hand the
-//    pieces over, so the dequantization of the next pieces overlaps the
-//    products of this one;
-//  - raw codes, outlier rows and V scale / offset of a 128-token tile (one
+//    every K / V tile is dequantized once for all rows of a 256-row chunk;
+//  - warp specialisation: two producer warpgroups (setmaxnreg.dec to 56
+//    registers) keep the ring full and dequantize while two consumer
+//    warpgroups (setmaxnreg.inc to 200) multiply; 3 piece buffers with
+//    full / empty mbarriers hand the pieces over, so the dequantization of
+//    the next pieces overlaps the products of this one;
+//  - raw planes, outlier rows and V scale / offset of a 128-token tile (one
 //    nuq packing group) arrive through a ring of 2-3 stages; producer warp
 //    0 refills a stage with TMA bulk copies (one per lane, completing on the
 //    stage's mbarrier) once every producer has dequantized it (a named
 //    barrier of the producers);
 //  - the producers dequantize each 32-token piece into bf16 K and V tiles
 //    with fd_decode's code tricks (bit spreading by one multiply + byte
-//    permute + LUT for bit planes, the 2**23 mantissa for containers,
-//    paired bf16 conversion), a unit being 4 tokens x a column quad (c0,
+//    permute + LUT, paired bf16 conversion), a unit being 4 tokens x a column quad (c0,
 //    c0 + 1 and their RoPE partners); pre-RoPE keys are rotated with the
-//    cached (cos, sin) table before rounding;
-//  - each consumer warp owns 32 query rows as two m16 tiles: S = Q.K^T and
-//    O += P.V run as mma.sync.m16n8k16 (bf16 in, fp32 accumulate) with
-//    ldmatrix / ldmatrix.trans, each K / V fragment feeding both tiles;
-//    Q fragments are reloaded per piece from the block's bf16 queries; the
-//    online softmax runs in base 2 on the fp32 S fragments, P is repacked
-//    as the bf16 A operand in registers (no round trip through shared
-//    memory) and O is rescaled only when a row maximum moved; a warp skips
-//    a piece none of its rows sees and drops the per-element mask where
-//    all of them see all of it. Tile rows are 128 + 8 bf16 for every D
-//    (columns D .. 127 stay zero), so the product loops have fixed trip
-//    counts and pipeline their ldmatrix; the +8 keeps ldmatrix
-//    conflict-free;
+//    cached (cos, sin) table before rounding, its four rows of a bit-plane
+//    unit loaded before the codes are decoded. Every tile (and the block's
+//    bf16 queries) is written in wgmma's 128-byte swizzled layout
+//    (wgmma.cuh: rows of 64 columns, 16-byte chunks XORed by the row), and
+//    each producer fences its writes to the async proxy before it arrives
+//    on the buffer's full barrier;
+//  - a consumer warpgroup owns two m64 row tiles (wg and wg + 2, so a
+//    128-row block keeps both warpgroups busy) and multiplies with
+//    asynchronous wgmma: S = Q.K^T as m64n32k16 with both operands read from
+//    shared memory (the queries as A, the K tile as B, K-major, read once
+//    per warpgroup and not once per warp), then the K outlier tile into the
+//    same accumulator over the 16-dim k-steps it touches; after
+//    wgmma.wait_group the online softmax runs in base 2 on the fp32
+//    accumulators, P is repacked as the bf16 A operand in registers (the
+//    accumulator's layout is the A fragment's: no round trip through shared
+//    memory) and O is rescaled only when a row maximum moved; O += P.V as
+//    m64n128k16 with A in registers and the V tile read transposed
+//    (MN-major), then P.V_add where the piece holds a V slot. The two
+//    warpgroups take turns to issue their score products (two named
+//    barriers), so one's softmax runs beside the other's products. A
+//    consumer releases a buffer after the wait that ends its products.
+//    ptxas serializes every wgmma of a kernel that needs a register fence
+//    on a divergent path (its C7520), so a batch branches only on
+//    warp-uniform values: a tile's sight of the piece, the outlier tile's
+//    k-step mask and the V slot flag pass through a vote (__any_sync /
+//    __reduce_or_sync) first. Columns D .. 127 stay zero, so the value
+//    product is N = 128 at every D; a tile whose rows all see all of a
+//    piece drops the per-element mask;
 //  - outliers at the plain version's rounding points, as sparse bf16 tiles
 //    multiplied by the same operands: the K tile holds rnd(rope(kd)) and a
 //    second K tile rnd(rope(k_add)) (slots or static channels of one dim
 //    add before the rotation, a dim and its RoPE partner mix before the
-//    rounding), multiplied over the 16-dim k-steps it touches (the whole
-//    tile, pipelined, when it touches more than half); V slots as a tile
-//    rnd(v_add) multiplied by the same bf16 P where a piece holds one. Each
-//    producer warp builds its token rows, a few lanes a row (zero, then one
-//    entry a lane): no shared-memory atomics;
+//    rounding); V slots as a tile rnd(v_add) multiplied by the same bf16 P.
+//    A few lanes build a token's row (zero, then one entry a lane), no
+//    shared-memory atomics; with both tiles the first half of the producer
+//    warps builds the K rows and the second half the V rows, two latency
+//    chains side by side;
 //  - splits (chunk_plan / chunk_splits in ops/kernels/flash_decode.py):
 //    grid = n_split x Hkv * n_rt x B fills the SMs once (one block per SM:
-//    384-512 threads, 150-225 KB of shared memory); blocks derive their
+//    384-512 threads, up to 225 KB of shared memory); blocks derive their
 //    live tiles from pos on the device, as fd_decode.
-// Budget (chip_smoke.py --verbose-build: nvcc -Xptxas -v, sm_90a): the
-// launch bound gives 168 (containers) / 128 (bit planes) registers before
-// setmaxnreg; ptxas reports 168-196 B (containers) and 236-244 B (bit
-// planes) of spill stores for both roles together.
-// Shared memory at LLaMA-2-7B width, 256 rows, 3 buffers and 3 stages:
-// 221 KB nuq3 with slots, 202 KB int4x2 with 4 channels. Why not fewer
-// roles or more rows a warp: warps that dequantize and then multiply
-// between block barriers leave the tensor cores idle while they
-// dequantize, and 16 rows a warp would need 16 consumer warps, whose
-// 128-register cap spills the O fragments (PERF.md has the measurements).
+// Budget: 65,536 registers an SM, one block: 256 x 56 (producers) + 256 x
+// 200 (consumers) (chunk_ablation.py measured the neighbours: more for the
+// producers or for the consumers is slower); a consumer holds O (2 tiles x
+// 64 fp32), S (2 x 16), P (2 x 8) and the softmax state. ptxas (-Xptxas
+// -v, sm_90a) reports 208-212 B of spill stores for both roles together,
+// and no serialized wgmma. Shared memory at LLaMA-2-7B width, 256 rows, 3
+// buffers and 3 stages: 213 KB nuq3 with slots (the swizzled tiles need no
+// padding columns; 1 KB aligns the base). Why not more rows or longer
+// pieces: a third m64 tile's, or a 64-token piece's, accumulators do not
+// fit beside O.
+//
+// fd_chunk_sync (prefill chunks over the containers, bf16 dots) is the
+// mma.sync body fd_chunk had before its wgmma consumers: on the containers
+// the wgmma body ran slower (int4x2 at LLaMA-2-7B width, 256 rows: 1.04
+// against 0.96 ms at 32K; its producers alone 0.75 against 0.61, for no
+// reason the ablations found: not the register split, the proxy fence or
+// the swizzled stores; PERF.md). The same block, ring, pieces and outlier
+// tiles as fd_chunk, with one producer warpgroup (56 registers) and eight
+// consumer warps (224), each owning 32 rows as two 16-row mma tiles: it
+// loads its Q, K and V fragments from shared memory with ldmatrix (tiles
+// in rows of 128 + 8 bf16, conflict-free) and multiplies with
+// mma.sync.m16n8k16 (Q.K^T, Q.K_add^T over the k-steps the K outlier tile
+// touches, P.V, P.V_add where the piece holds a V slot). Rows per block in
+// tiles of 16. Shared memory at LLaMA-2-7B width, 256 rows, 3 buffers and
+// 3 stages: 202 KB int4x2 with 4 channels.
 //
 // fd_partial (fp32 dots) stays the SIMT body: the fp32 reference
 // mode of the parity checks, which bf16 tensor cores cannot compute. The
@@ -210,6 +243,7 @@
 #include <math.h>
 
 #include "hopper.cuh"
+#include "wgmma.cuh"
 
 // Field order is mirrored by the ctypes Structure in
 // kvquant_tpu_torch/ops/kernels/flash_decode.py.
@@ -248,8 +282,8 @@ struct FdArgs {
   int MP, P, NP;           // paged: table width, tokens per page, pool pages
   int hb;                  // decode: kv heads per block (divides hg)
   int n_stage;             // decode and tensor-core chunk: ring stages (2..MAX_STAGES)
-  int rows_blk;            // tensor-core chunk: query rows per block (16..128, of 16)
-  int n_buf;               // tensor-core chunk: dequantized half-tile buffers (1 or 2)
+  int rows_blk;            // tensor-core chunk: query rows per block (64..256, of 64)
+  int n_buf;               // tensor-core chunk: dequantized piece buffers (1..MAX_BUF)
   int body;                // BODY_DECODE / BODY_GQA / BODY_CHUNK / BODY_PARTIAL (the host's route)
 };
 
@@ -1687,22 +1721,29 @@ __global__ void __launch_bounds__(NT) fd_partial(FdArgs a) {
 }
 
 // ===========================================================================
-// fd_chunk: prefill chunks with bf16 dots, on the tensor cores
+// fd_chunk / fd_chunk_sync: prefill chunks with bf16 dots, on the tensor cores
 // ===========================================================================
 
 constexpr int CW = 8;                 // consumer warps (two warpgroups): the products
-constexpr int MT = 2;                 // 16-row mma tiles per consumer warp
-constexpr int RW = 16 * MT;           // query rows per consumer warp
+constexpr int CWG = CW / 4;           // consumer warpgroups
+constexpr int MT = 2;                 // m64 row tiles per consumer warpgroup
+constexpr int CHUNK_ROWS = CWG * MT * 64;  // most query rows per block
 constexpr int CT = 128;               // key tokens per ring stage (one nuq packing group)
 constexpr int PT = 32;                // key tokens per dequantized piece
 constexpr int MAX_BUF = 4;            // piece buffers
+constexpr int PTILE = PT * 2 * MAXD;  // bytes of one swizzled bf16 piece tile [PT][MAXD]
+// mbarriers (128 B), then the producer warps' outlier masks [MAX_BUF][2][8]
+constexpr int CHUNK_HEAD = 128 + MAX_BUF * 2 * 8 * 4;
+constexpr int CHUNK_BAR = 2;          // named barriers 2, 3: the consumer warpgroups' turns
 
-// producer warps (whole warpgroups) beside the CW consumer warps: two
-// warpgroups for bit planes, whose dequantization costs the most, one for
-// the containers
-__host__ __device__ constexpr int chunk_pw(int mode) { return mode == MODE_NUQ ? 8 : 4; }
-constexpr int CHUNK_ROWS = CW * RW;   // most query rows per block
-constexpr int QS = MAXD + 8;          // bf16 row stride of the tiles for every D
+// Each body's roles: producer warps (whole warpgroups) beside the CW
+// consumer warps, and the registers a producer / consumer thread holds
+// after setmaxnreg. fd_chunk (bit planes, whose dequantization costs the
+// most): two producer warpgroups; fd_chunk_sync (the containers): one.
+constexpr int CHUNK_PW = 8, CHUNK_P_REGS = 56, CHUNK_C_REGS = 200;
+constexpr int SYNC_PW = 4, SYNC_P_REGS = 56, SYNC_C_REGS = 224;
+static_assert(CHUNK_PW * 32 * CHUNK_P_REGS + CW * 32 * CHUNK_C_REGS <= 65536, "registers");
+static_assert(SYNC_PW * 32 * SYNC_P_REGS + CW * 32 * SYNC_C_REGS <= 65536, "registers");
 constexpr int CHUNK_SMEM_MAX = 225 * 1024;
 constexpr float LN2 = 0.6931471805599453f;
 
@@ -1712,20 +1753,21 @@ __host__ __device__ inline int chunk_code_bytes(int mode, int bits, int D) {
   return mode == MODE_NUQ ? bits * 16 * D : mode == MODE_INT8 ? CT * D : CT * D / 2;
 }
 
-// Dynamic shared memory of fd_chunk (mirrored by chunk_plan in
-// ops/kernels/flash_decode.py): 128 B of mbarriers (the ring's, then the
-// piece buffers' full and empty ones); the ring of raw 128-token stages;
-// the block's queries in bf16 [rows_blk][QS]; n_buf piece buffers of bf16
-// tiles [32][QS]: K, V, the K outlier tile (K slots or channels) and the V
-// slot tile (V slots), and the producer warps' masks of the outlier tiles'
-// nonzero 16-dim groups. Rows of QS = 128 + 8 bf16 keep
-// ldmatrix conflict-free and the products' loops free of D: columns from D
-// to 127 stay zero.
+// Dynamic shared memory of fd_chunk (mirrored by chunk_layout in
+// ops/kernels/flash_decode.py), from the first 1024-aligned byte of the
+// block's dynamic shared memory (the launch asks for SW_ATOM bytes more):
+// the mbarriers (the ring's, then the piece buffers' full and empty ones)
+// and the producer warps' masks of the outlier tiles' nonzero 16-dim
+// groups; the ring of raw 128-token stages; then, 1024-aligned, the
+// block's queries as a swizzled bf16 tile [rows_blk][MAXD] and n_buf piece
+// buffers of swizzled bf16 tiles [PT][MAXD] (wgmma.cuh): K, V, the K
+// outlier tile (K slots or channels) and the V slot tile (V slots).
+// Columns D .. 127 stay zero.
 struct ChunkLayout {
   int cb, rows, vs, vo, stage;  // a stage: K codes, V codes at cb, outlier rows, V scale, V offset
-  int ring, q, buf0, buf;       // offsets in the block's shared memory; bytes of a buffer
-  int k, v, kc, vsl, mask;      // offsets in a buffer
-  int bytes;
+  int ring, q, buf0, buf;       // offsets from the aligned base; bytes of a buffer
+  int k, v, kc, vsl;            // offsets in a buffer
+  int end, bytes;               // the layout's end; the bytes a launch asks for
 };
 
 __host__ __device__ inline ChunkLayout chunk_layout(const FdArgs& a) {
@@ -1735,17 +1777,16 @@ __host__ __device__ inline ChunkLayout chunk_layout(const FdArgs& a) {
   c.vs = c.rows + rows_copied(a) * CT * 4;
   c.vo = c.vs + CT * 4;
   c.stage = c.vo + CT * 4;
-  c.ring = 128;
-  c.q = c.ring + a.n_stage * c.stage;
-  const int tb = PT * QS * 2;
-  c.buf0 = c.q + a.rows_blk * QS * 2;
+  c.ring = CHUNK_HEAD;
+  c.q = (c.ring + a.n_stage * c.stage + SW_ATOM - 1) / SW_ATOM * SW_ATOM;
+  c.buf0 = c.q + a.rows_blk * 2 * MAXD;
   c.k = 0;
-  c.v = tb;
-  c.kc = 2 * tb;
-  c.vsl = c.kc + (a.n_kc > 0 || a.n_kslots > 0 ? tb : 0);
-  c.mask = c.vsl + (a.n_vslots > 0 ? tb : 0);
-  c.buf = c.mask + 2 * chunk_pw(a.mode) * 4;
-  c.bytes = c.buf0 + a.n_buf * c.buf;
+  c.v = PTILE;
+  c.kc = 2 * PTILE;
+  c.vsl = c.kc + (a.n_kc > 0 || a.n_kslots > 0 ? PTILE : 0);
+  c.buf = c.vsl + (a.n_vslots > 0 ? PTILE : 0);
+  c.end = c.buf0 + a.n_buf * c.buf;
+  c.bytes = c.end + SW_ATOM;
   return c;
 }
 
@@ -1773,24 +1814,657 @@ __device__ __forceinline__ float slot_value(uint32_t w) {
 // (blockIdx.y = h * n_rt + rt, blockIdx.z = b), split s of the live key
 // tiles (blockIdx.x). Producer warps 0 .. PW - 1 keep the ring full (warp 0
 // refills a stage once they have all dequantized it) and turn each 32-token
-// piece into bf16 tiles in a piece buffer; consumer warp c = warp - PW owns
-// rows r0 + RW c .. r0 + RW (c + 1) - 1 as MT mma row tiles (lane: rows
-// g = lane / 4 and g + 8 of each, columns 2 * (lane % 4) + {0, 1} of every
-// 8-wide tile). A buffer's full / empty mbarriers hand it over.
-template <int MODE, int NB>
-__global__ void __launch_bounds__((chunk_pw(MODE) + CW) * 32, 1) fd_chunk(FdArgs a) {
-  constexpr int PW = chunk_pw(MODE), CNT = (PW + CW) * 32;
-  // registers a producer / consumer thread holds after setmaxnreg:
-  // PW * 32 * P_REGS + CW * 32 * C_REGS <= 65536
-  constexpr int P_REGS = PW == 8 ? 40 : 56, C_REGS = PW == 8 ? 216 : 224;
+// piece into swizzled bf16 tiles in a piece buffer; consumer warpgroup wg
+// (warps PW + 4 wg ..) owns the block's m64 row tiles wg and wg + CWG and
+// multiplies them with wgmma (warp wi of it: rows 16 wi .. 16 wi + 15 of
+// each tile; lane: rows g = lane / 4 and g + 8 of those, columns
+// 2 * (lane % 4) + {0, 1} of every 8-wide block). A buffer's full / empty
+// mbarriers hand it over.
+template <int NB>
+__global__ void __launch_bounds__((CHUNK_PW + CW) * 32, 1) fd_chunk(FdArgs a) {
+  constexpr int PW = CHUNK_PW, CNT = (PW + CW) * 32;
+  constexpr int P_REGS = CHUNK_P_REGS, C_REGS = CHUNK_C_REGS;
   constexpr int TPW = PT / PW;   // tokens per producer warp in the outlier tiles' build
   constexpr int LPT = 32 / TPW;  // lanes per token there
-  extern __shared__ __align__(128) unsigned char csm[];
-  __shared__ float sLut[2][16];  // nuq K / V codebooks of layer li
+  extern __shared__ __align__(128) unsigned char csm_raw[];
+  __shared__ float sLut[2][16];  // K / V codebooks of layer li
   __shared__ float sKs[MAXD];    // K dequant scale and offset per dim
   __shared__ float sKz[MAXD];
   __shared__ int sCh[MAX_KC];    // static channel n's dim in this head, or -1
   const ChunkLayout Lc = chunk_layout(a);
+  // the layout's base: the first byte of a 1024-byte swizzle atom
+  unsigned char* csm =
+      csm_raw + ((SW_ATOM - (smem_u32(csm_raw) & (SW_ATOM - 1))) & (SW_ATOM - 1));
+  const int D = a.D, half = D / 2, NS = a.n_stage, NSP = a.n_split;
+  const int S = a.S, win = a.window, li = a.li, Q = a.Q, Tq = a.Tq;
+  uint64_t* full = reinterpret_cast<uint64_t*>(csm);  // ring stages
+  uint64_t* pfull = full + MAX_STAGES;                 // piece buffers: dequantized
+  uint64_t* pempty = pfull + MAX_BUF;                  //   multiplied
+  uint32_t* masks = reinterpret_cast<uint32_t*>(csm + 128);  // [buffer][K, V][warp]
+  unsigned char* ring = csm + Lc.ring;
+  unsigned char* sQ = csm + Lc.q;
+
+  const int s = blockIdx.x, h = blockIdx.y / a.n_rt, rt = blockIdx.y % a.n_rt;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int RB = a.rows_blk, r0 = rt * RB, nrows = min(RB, Q - r0);
+  const int pos = a.pos[b];
+
+  // ---- this block's live key tiles: packed tokens [lo, hi] ----
+  int pmin, pmax;
+  row_span(r0, nrows, Tq, pos, pmin, pmax);
+  const int hi = min(pmax - S, a.Tc - 1);
+  const int lo = win > 0 ? max(0, pmin - win + 1 - S) : 0;
+  const int n_tiles = hi < lo ? 0 : hi / CT - lo / CT + 1;
+  const int tps = (n_tiles + NSP - 1) / NSP;
+  const int t_begin = lo / CT + s * tps;
+  const int t_end = min(lo / CT + n_tiles, t_begin + tps);
+  const size_t bh = (size_t)b * a.Hkv + h;
+  float* pm = a.part_m + (bh * NSP + s) * Q + r0;
+  float* pl = a.part_l + (bh * NSP + s) * Q + r0;
+  float* pacc = a.part_acc + ((bh * NSP + s) * Q + r0) * D;
+  if (n_tiles == 0 || t_begin >= t_end) {  // zero weight in the merge
+    for (int r = tid; r < nrows; r += CNT) {
+      pm[r] = -INFINITY;
+      pl[r] = 0.f;
+    }
+    return;
+  }
+
+  // ---- per-block constants ----
+  const int hg = a.hg, jh = h % hg, grp = h / hg;
+  if (tid == 0) {
+    for (int i = 0; i < NS; ++i) mbar_init(&full[i], 1);
+    for (int i = 0; i < a.n_buf; ++i) {
+      mbar_init(&pfull[i], PW * 32);
+      mbar_init(&pempty[i], CW * 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  // the queries and every tile start at zero: columns D .. 127 stay so
+  for (int i = tid; i < (Lc.end - Lc.q) / 16; i += CNT)
+    reinterpret_cast<uint4*>(csm + Lc.q)[i] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+  const float* qb = a.q + (bh * Q + r0) * D;
+  for (int i = tid; i < nrows * half; i += CNT) {
+    const int r = i / half, d = 2 * (i % half);
+    const float2 v = *reinterpret_cast<const float2*>(qb + (size_t)r * D + d);
+    *reinterpret_cast<uint32_t*>(sQ + sw_off(r, d, RB)) = bf2(v.x, v.y);
+  }
+  const int K = 1 << a.bits;
+  const float* kl = a.k_lut + (size_t)li * K;
+  const float* vl = a.v_lut + (size_t)li * K;
+  if (tid < K) {
+    sLut[0][tid] = kl[tid];
+    sLut[1][tid] = vl[tid];
+  }
+  if (tid < D) {
+    const size_t ci = ((size_t)li * a.Hkv + h) * D + tid;
+    sKs[tid] = a.k_range[ci];
+    sKz[tid] = a.k_offset[ci];
+  }
+  for (int i = tid; i < a.n_kc; i += CNT) {
+    const int ch = a.k_chan[grp * a.n_kc + i];
+    sCh[i] = ch / D == jh ? ch % D : -1;
+  }
+  fence_async_smem();  // the zeroed tiles and the queries, for wgmma
+  __syncthreads();
+
+  // ---- the ring: tile i of the split into stage (i - t_begin) % NS, by
+  // warp 0, one TMA bulk copy per lane (K and V planes, outlier rows, V
+  // scale, V offset), completing on the stage's mbarrier, which lane 0 arms
+  // with the stage's bytes ----
+  const int nrw = rows_copied(a);
+  auto fill = [&](int i, int st) {
+    const size_t slab = (size_t)li * a.B + b, hs = slab * a.Hkv + h;
+    const int t0 = i * CT, cb = Lc.cb;
+    unsigned char* dst = ring + st * Lc.stage;
+    if (lane == 0) mbar_expect_tx(&full[st], Lc.stage);
+    for (int c = lane; c < 2 * NB + nrw + 2; c += 32) {
+      if (c < 2 * NB) {
+        // kind c / NB (0: K, 1: V), plane bb: word rows t0 / 32 .. t0 / 32
+        // + 3 (the 128-token group)
+        const int kv = c / NB, bb = c % NB;
+        const size_t w = ((hs * NB + bb) * (a.Tc / 32) + t0 / 32) * D;
+        bulk_g2s(dst + kv * cb + bb * 16 * D,
+                 reinterpret_cast<const int32_t*>(kv ? a.vp : a.kp) + w, 16 * D, &full[st]);
+      } else if (c < 2 * NB + nrw) {
+        const int r = c - 2 * NB;
+        bulk_g2s(dst + Lc.rows + r * CT * 4,
+                 a.kv_out + ((slab * (a.Hkv / hg) + grp) * a.J + r) * a.Tc + t0, CT * 4,
+                 &full[st]);
+      } else {
+        const bool scale = c == 2 * NB + nrw;
+        const float* src = (scale ? a.v_scale : a.v_offset) + slab * a.Tc + t0;
+        bulk_g2s(dst + (scale ? Lc.vs : Lc.vo), src, CT * 4, &full[st]);
+      }
+    }
+  };
+
+  // ---- the thread's dequantization units: kind (K or V), its column
+  // quad (c0, c0 + 1, c0 + D/2, c0 + D/2 + 1) and 4 tokens of a piece ----
+  const int lgD = 31 - __clz(D), lgq = lgD - 2;  // D and D/4 quads are powers of 2
+  const int upk = 8 << lgq;                      // units of one kind per piece
+  const bool pre = !a.post_rope;
+  const bool kfix = a.n_kc > 0 || a.n_kslots > 0, vfix = a.n_vslots > 0;
+  const float4* rope4 = reinterpret_cast<const float4*>(a.rope);
+  const float2* rope2 = reinterpret_cast<const float2*>(a.rope);
+
+  if (warp < PW) {
+    // ---- producers: the ring's tiles into bf16 pieces, in order ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" :: "n"(P_REGS));
+    if (warp == 0)
+      for (int i = t_begin; i < min(t_end, t_begin + NS); ++i) fill(i, i - t_begin);
+    int ub = 0, urnd = 0;  // the piece buffer and the fills it had before
+    int st = 0, phase = 0;  // the ring stage and its parity
+    for (int it = t_begin; it < t_end; ++it) {
+      const int t0 = it * CT;
+      mbar_wait(&full[st], phase);
+      const unsigned char* stg = ring + st * Lc.stage;
+      const float* sRows = reinterpret_cast<const float*>(stg + Lc.rows);
+      const float* sVs = reinterpret_cast<const float*>(stg + Lc.vs);
+      const float* sVo = reinterpret_cast<const float*>(stg + Lc.vo);
+      const int last_pc = min(CT / PT - 1, (hi - t0) / PT);  // the stage's last live piece
+      for (int pc = 0; pc <= last_pc; ++pc) {
+        const int tb0 = t0 + PT * pc;  // the piece's first packed token
+        if (tb0 + PT - 1 < lo) continue;  // before the window: uniform over the block
+        if (urnd > 0) mbar_wait(&pempty[ub], (urnd - 1) & 1);  // its last piece multiplied
+        unsigned char* buf = csm + Lc.buf0 + ub * Lc.buf;
+        unsigned char* tK = buf + Lc.k;
+        unsigned char* tV = buf + Lc.v;
+        unsigned char* tKc = buf + Lc.kc;
+        unsigned char* tVs = buf + Lc.vsl;
+        uint32_t* bMask = masks + ub * 16;
+
+        // ---- dequantize the piece once for every row of the block: a unit
+        // is 4 tokens x 4 columns of K (rotated) or V, rounded to bf16 ----
+        for (int uu = tid; uu < 2 * upk; uu += PW * 32) {
+          const int kind = uu >= upk, un = uu - kind * upk;
+          const int c0 = 2 * (un & ((1 << lgq) - 1)), tu = un >> lgq;
+          const unsigned char* codes = stg + kind * Lc.cb;
+          float x[4][4];  // [token of the unit][column]
+          int tls[4];
+          // token 16 nib + 4 jb + w4 of the piece sits at bit 8 pc + 4 nib +
+          // jb of word row w4 (the packing group's interleave)
+          const int w4 = tu & 3, nib = tu >> 2;
+#pragma unroll
+          for (int jb = 0; jb < 4; ++jb) tls[jb] = 16 * nib + 4 * jb + w4;
+          // pre-RoPE keys: the tokens' (cos, sin) rows, loaded before the
+          // codes so that their latency overlaps the decoding
+          float4 csv[4];
+          if (pre && kind == 0)
+#pragma unroll
+            for (int jb = 0; jb < 4; ++jb)
+              csv[jb] = __ldg(rope4 + ((size_t)(tb0 + tls[jb]) * half + c0) / 2);
+          uint32_t cw[4][1];
+          nuq_bytes<NB, 1>(codes, w4, D, c0, half, 8 * pc + 4 * nib, cw);
+#pragma unroll
+          for (int jb = 0; jb < 4; ++jb) {
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj)
+              x[jb][jj] = *reinterpret_cast<const float*>(
+                  reinterpret_cast<const char*>(sLut[kind]) + byte_of(cw[jj][0], jb));
+          }
+          if (kind == 0) {
+            const float2 s01 = *reinterpret_cast<const float2*>(sKs + c0);
+            const float2 s23 = *reinterpret_cast<const float2*>(sKs + c0 + half);
+            const float2 z01 = *reinterpret_cast<const float2*>(sKz + c0);
+            const float2 z23 = *reinterpret_cast<const float2*>(sKz + c0 + half);
+#pragma unroll
+            for (int jb = 0; jb < 4; ++jb) {
+              const int tl = tls[jb];
+              float x0 = fmaf(x[jb][0], s01.x, z01.x), x1 = fmaf(x[jb][1], s01.y, z01.y);
+              float x2 = fmaf(x[jb][2], s23.x, z23.x), x3 = fmaf(x[jb][3], s23.y, z23.y);
+              if (pre) {  // rotate the pairs (c0, c0 + D/2), (c0 + 1, c0 + 1 + D/2)
+                const float4 cs = csv[jb];
+                const float q0 = x0 * cs.x - x2 * cs.y;
+                const float q2 = x2 * cs.x + x0 * cs.y;
+                const float q1 = x1 * cs.z - x3 * cs.w;
+                const float q3 = x3 * cs.z + x1 * cs.w;
+                x0 = q0; x1 = q1; x2 = q2; x3 = q3;
+              }
+              *reinterpret_cast<uint32_t*>(tK + sw_off(tl, c0, PT)) = bf2(x0, x1);
+              *reinterpret_cast<uint32_t*>(tK + sw_off(tl, c0 + half, PT)) = bf2(x2, x3);
+            }
+          } else {
+#pragma unroll
+            for (int jb = 0; jb < 4; ++jb) {
+              const int tl = tls[jb], tt = PT * pc + tl;
+              // a token past the live range gets a zero V scale and offset,
+              // so its value is 0 whatever its codes
+              const bool live = tb0 + tl <= hi;
+              const float vs_t = live ? sVs[tt] : 0.f, vo_t = live ? sVo[tt] : 0.f;
+              *reinterpret_cast<uint32_t*>(tV + sw_off(tl, c0, PT)) =
+                  bf2(fmaf(x[jb][0], vs_t, vo_t), fmaf(x[jb][1], vs_t, vo_t));
+              *reinterpret_cast<uint32_t*>(tV + sw_off(tl, c0 + half, PT)) =
+                  bf2(fmaf(x[jb][2], vs_t, vo_t), fmaf(x[jb][3], vs_t, vo_t));
+            }
+          }
+        }
+
+        // ---- the piece's outliers as sparse bf16 tiles, at the plain
+        // version's rounding points: K as rnd(rope(k_add)) (slots of one dim
+        // add before the rotation, a dim and its RoPE partner mix before the
+        // rounding), V as rnd(v_add). Warp w builds the rows of its TPW
+        // tokens, LPT lanes each (zero the row, then one entry per lane), and
+        // the masks of the 16-dim column groups its rows touch ----
+        if (kfix || vfix) {
+          // with both tiles, the first half of the warps builds the K
+          // outlier rows and the second the V slot rows, of twice the tokens
+          // each: two chains side by side in place of one after the other
+          const bool split = kfix && vfix;
+          const bool dok = kfix && (!split || warp < PW / 2);
+          const bool dov = vfix && (!split || warp >= PW / 2);
+          const int lpt = split ? LPT / 2 : LPT;
+          const int tl = split ? 2 * TPW * (warp % (PW / 2)) + lane / (LPT / 2)
+                               : TPW * warp + lane / LPT;
+          const int le = lane % lpt;
+          const int tt = PT * pc + tl, ta = tb0 + tl;
+          for (int i = le; i < MAXD / 8; i += lpt) {
+            if (dok) *reinterpret_cast<uint4*>(tKc + sw_off(tl, 8 * i, PT)) = make_uint4(0u, 0u, 0u, 0u);
+            if (dov) *reinterpret_cast<uint4*>(tVs + sw_off(tl, 8 * i, PT)) = make_uint4(0u, 0u, 0u, 0u);
+          }
+          __syncwarp();
+          uint32_t km = 0u, vm = 0u;
+          if (dok && ta <= hi) {
+            const bool chan = a.n_kc > 0;
+            const int ne = chan ? a.n_kc : a.n_kslots;
+            // entry e's dim in this head (or -1) and value
+            auto dim_of = [&](int e) {
+              if (chan) return sCh[e];
+              const int gi = slot_gidx(__float_as_uint(sRows[e * CT + tt]), D);
+              return (gi >> lgD) == jh ? gi & (D - 1) : -1;
+            };
+            auto val_of = [&](int e) {
+              const float w = sRows[e * CT + tt];
+              return chan ? w : slot_value(__float_as_uint(w));
+            };
+            for (int e = le; e < ne; e += lpt) {
+              const int d = dim_of(e);
+              if (d < 0) continue;
+              // the dims whose addend this entry's positions read: d, and
+              // pre-RoPE its partner; the first entry among them writes
+              const int i = pre ? d & (half - 1) : d;
+              float s_lo = 0.f, s_hi = 0.f;
+              bool first = true;
+              for (int e2 = 0; e2 < ne && first; ++e2) {
+                const int d2 = dim_of(e2);
+                if (d2 < 0 || (pre ? d2 & (half - 1) : d2) != i) continue;
+                if (e2 < e) {
+                  first = false;
+                } else if (!pre || d2 < half) {
+                  s_lo += val_of(e2);
+                } else {
+                  s_hi += val_of(e2);
+                }
+              }
+              if (!first) continue;
+              if (pre) {
+                const float2 cs = __ldg(rope2 + (size_t)ta * half + i);
+                *reinterpret_cast<__nv_bfloat16*>(tKc + sw_off(tl, i, PT)) = __float2bfloat16_rn(
+                    __fsub_rn(__fmul_rn(s_lo, cs.x), __fmul_rn(s_hi, cs.y)));
+                *reinterpret_cast<__nv_bfloat16*>(tKc + sw_off(tl, i + half, PT)) =
+                    __float2bfloat16_rn(__fadd_rn(__fmul_rn(s_hi, cs.x), __fmul_rn(s_lo, cs.y)));
+                km |= (1u << (i >> 4)) | (1u << ((i + half) >> 4));
+              } else {
+                *reinterpret_cast<__nv_bfloat16*>(tKc + sw_off(tl, d, PT)) =
+                    __float2bfloat16_rn(s_lo);
+                km |= 1u << (d >> 4);
+              }
+            }
+          }
+          if (dov && ta <= hi) {
+            const float* vw = sRows + a.spk * CT + tt;
+            for (int e = le; e < a.n_vslots; e += lpt) {
+              const int gi = slot_gidx(__float_as_uint(vw[e * CT]), D);
+              if ((gi >> lgD) != jh) continue;
+              // slots of one (token, dim) add before rounding: the first
+              // writes
+              float v = 0.f;
+              bool first = true;
+              for (int e2 = 0; e2 < a.n_vslots && first; ++e2) {
+                if (slot_gidx(__float_as_uint(vw[e2 * CT]), D) != gi) continue;
+                if (e2 < e) first = false;
+                else v += slot_value(__float_as_uint(vw[e2 * CT]));
+              }
+              if (!first) continue;
+              *reinterpret_cast<__nv_bfloat16*>(tVs + sw_off(tl, gi & (D - 1), PT)) =
+                  __float2bfloat16_rn(v);
+              vm |= 1u << ((gi & (D - 1)) >> 4);
+            }
+          }
+          km = __reduce_or_sync(FULL, km);
+          vm = __reduce_or_sync(FULL, vm);
+          if (lane == 0) {
+            bMask[warp] = km;
+            bMask[8 + warp] = vm;
+          }
+        }
+        fence_async_smem();  // the tiles, for the consumers' wgmma
+        mbar_arrive(&pfull[ub]);  // the piece's tiles are complete
+        if (++ub == a.n_buf) {
+          ub = 0;
+          ++urnd;
+        }
+        if (pc == last_pc) {  // every producer has read the stage: it takes tile it + NS
+          asm volatile("bar.sync 1, %0;" :: "n"(PW * 32) : "memory");
+          if (warp == 0 && it + NS < t_end) fill(it + NS, st);
+        }
+      }
+      if (++st == NS) {
+        st = 0;
+        phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: the products over each piece, in order ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" :: "n"(C_REGS));
+  // ---- the warpgroup's m64 tiles and the warp's rows in them: positions,
+  // spans; the operands' descriptors ----
+  const int wg = (warp - PW) >> 2, wi = (warp - PW) & 3;
+  const int g = lane >> 2, tq4 = lane & 3;
+  int rp[MT][2], tmin[MT], tmax[MT];
+  bool tlive[MT];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const int tr0 = 64 * (wg + CWG * mt);
+    tlive[mt] = tr0 < nrows;
+    tmin[mt] = 0;
+    tmax[mt] = NEG_ROW;
+    if (tlive[mt]) row_span(r0 + tr0, min(64, nrows - tr0), Tq, pos, tmin[mt], tmax[mt]);
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = tr0 + 16 * wi + 8 * hf + g;
+      rp[mt][hf] = r < nrows ? pos + (r0 + r) % Tq : NEG_ROW;
+    }
+  }
+  // Q (A, K-major) of tile mt at k-step kk; a piece tile of keys (B,
+  // K-major) at kk; of values (B, MN-major: 64-column blocks PT rows apart)
+  // at token step kt. A descriptor's low bits are the address / 16, so a
+  // step adds its offset / 16 to a base descriptor.
+  const uint64_t qd0 = wg_desc(smem_u32(sQ) + 64 * wg * SW_ROW, 16, SW_ATOM);
+  const int qblk = RB * SW_ROW / 16;  // a 64-column block of the queries, / 16
+  auto q_desc = [&](uint64_t qd, int mt, int kk) {
+    return qd + (CWG * 64 * SW_ROW / 16) * mt + (kk >> 2) * qblk + (kk & 3) * 2;
+  };
+  auto k_desc = [](uint64_t kd, int kk) {
+    return kd + (kk >> 2) * (PT * SW_ROW / 16) + (kk & 3) * 2;
+  };
+  auto v_desc = [](uint64_t vd, int kt) { return vd + kt * (2 * SW_ATOM / 16); };
+
+  // Between a product batch's wgmma.fence and its wait no instruction
+  // writes the batch's registers and the batch branches only on
+  // warp-uniform values (a compiler-inserted fence on a divergent path
+  // serializes every product); S and P live within a piece, O across them.
+  float o[MT][16][4];
+  float m[MT][2], l[MT][2];  // base-2 running state of rows g and g + 8
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int n = 0; n < 16; ++n)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) o[mt][n][j] = 0.f;
+    m[mt][0] = m[mt][1] = -INFINITY;
+    l[mt][0] = l[mt][1] = 0.f;
+  }
+  const float sl2 = a.inv * LOG2E;
+  // the two consumer warpgroups take turns to issue their score products
+  // (named barrier CHUNK_BAR + wg completes once the other one has issued
+  // its own; warpgroup 1 lets warpgroup 0 go first), so one's softmax runs
+  // beside the other's products
+  if (wg == 1) named_arrive(CHUNK_BAR, CW * 32);
+
+  int ub = 0, urnd = 0;  // the piece buffer and the fills it had before
+  for (int it = t_begin; it < t_end; ++it) {
+    const int t0 = it * CT;
+    const int last_pc = min(CT / PT - 1, (hi - t0) / PT);
+    for (int pc = 0; pc <= last_pc; ++pc) {
+      const int tb0 = t0 + PT * pc;
+      if (tb0 + PT - 1 < lo) continue;
+      mbar_wait(&pfull[ub], urnd & 1);
+      named_sync(CHUNK_BAR + wg, CW * 32);
+      const uint32_t ba = smem_u32(csm + Lc.buf0 + ub * Lc.buf);
+      // the query descriptor made opaque here, so that its 16 steps are
+      // added where they are used and not held across the loop
+      uint64_t qd = qd0;
+      asm volatile("" : "+l"(qd));
+      const uint64_t kd = wg_desc(ba + Lc.k, 16, SW_ATOM);
+
+      // ---- which tiles see some of the piece; the 16-dim k-steps the K
+      // outlier tile touches; whether the piece holds a V slot. Made
+      // warp-uniform by a vote, so that the batches below branch on them
+      // on a non-divergent path ----
+      const uint32_t* bMask = masks + ub * 16;
+      uint32_t km = 0u, vm = 0u;
+      for (int w = 0; w < PW; ++w) {
+        km |= bMask[w];
+        vm |= bMask[8 + w];
+      }
+      const uint32_t kmask = __reduce_or_sync(FULL, km);
+      const bool vany = vfix && __reduce_or_sync(FULL, vm) != 0u;
+      bool see[MT];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        see[mt] = __any_sync(FULL, tlive[mt] && tb0 <= tmax[mt] - S &&
+                                       (win <= 0 || tb0 + PT - 1 + S > tmin[mt] - win));
+
+      // ---- S = Q.K^T + Q.Kc^T: the K tile, then the K outlier tile over
+      // the k-steps it touches, into one accumulator per tile (columns D ..
+      // 127 are zero) ----
+      float sc[MT][4][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[mt][j][e] = 0.f;
+      wg_fence();
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        if (!see[mt]) continue;
+#pragma unroll
+        for (int kk = 0; kk < MAXD / 16; ++kk)
+          wg_m64n32_ss(sc[mt], q_desc(qd, mt, kk), k_desc(kd, kk), 1);
+      }
+      if (kfix) {
+        const uint64_t kcd = kd + (Lc.kc - Lc.k) / 16;
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          if (!see[mt]) continue;
+          for (uint32_t mk = kmask; mk; mk &= mk - 1) {
+            const int kk = __ffs(mk) - 1;
+            wg_m64n32_ss(sc[mt], q_desc(qd, mt, kk), k_desc(kcd, kk), 1);
+          }
+        }
+      }
+      wg_commit();
+      named_arrive(CHUNK_BAR + (wg ^ 1), CW * 32);
+      wg_wait_all();
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) reg_fence(sc[mt]);
+
+      // ---- mask, online softmax (base 2) over the piece; P to bf16 A
+      // fragments in registers (zero for a tile that sees none of it) ----
+      uint32_t pa[MT][2][4];
+      bool moved = false;
+      float al[MT][2];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        al[mt][0] = al[mt][1] = 1.f;
+        if (!see[mt]) {
+#pragma unroll
+          for (int kt = 0; kt < 2; ++kt)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) pa[mt][kt][j] = 0u;
+          continue;
+        }
+        // all of the tile's rows see all of the piece: no mask
+        const bool all = tb0 + PT - 1 <= tmin[mt] - S && (win <= 0 || tb0 + S > tmax[mt] - win);
+        float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float v = sc[mt][j][e] * sl2;
+            if (!all && !key_ok(tb0 + 8 * j + 2 * tq4 + (e & 1), rp[mt][e >> 1], S, win))
+              v = -INFINITY;
+            sc[mt][j][e] = v;
+            mx[e >> 1] = fmaxf(mx[e >> 1], v);
+          }
+        float mu[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(FULL, mx[hf], 1));
+          mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(FULL, mx[hf], 2));
+          const float mn = fmaxf(m[mt][hf], mx[hf]);
+          mu[hf] = mn == -INFINITY ? 0.f : mn;
+          al[mt][hf] = exp2f(m[mt][hf] - mu[hf]);
+          moved |= al[mt][hf] != 1.f;
+          m[mt][hf] = mn;
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float p0 = exp2f(sc[mt][j][0] - mu[0]), p1 = exp2f(sc[mt][j][1] - mu[0]);
+          const float p2 = exp2f(sc[mt][j][2] - mu[1]), p3 = exp2f(sc[mt][j][3] - mu[1]);
+          sum[0] += p0 + p1;
+          sum[1] += p2 + p3;
+          pa[mt][j >> 1][2 * (j & 1)] = bf2(p0, p1);
+          pa[mt][j >> 1][2 * (j & 1) + 1] = bf2(p2, p3);
+        }
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) l[mt][hf] = l[mt][hf] * al[mt][hf] + sum[hf];
+      }
+      if (__any_sync(FULL, moved)) {  // a row maximum moved: rescale O
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int n = 0; n < 16; ++n) {
+            o[mt][n][0] *= al[mt][0];
+            o[mt][n][1] *= al[mt][0];
+            o[mt][n][2] *= al[mt][1];
+            o[mt][n][3] *= al[mt][1];
+          }
+      }
+
+      // ---- O += P.V, then P.V_slots ----
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) reg_fence(o[mt]);
+      const uint64_t vd = wg_desc(ba + Lc.v, PT * SW_ROW, SW_ATOM);
+      wg_fence();
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        if (!see[mt]) continue;
+#pragma unroll
+        for (int kt = 0; kt < 2; ++kt) wg_m64n128_rs(o[mt], pa[mt][kt], v_desc(vd, kt));
+        if (vany) {
+          const uint64_t vsd = vd + (Lc.vsl - Lc.v) / 16;
+#pragma unroll
+          for (int kt = 0; kt < 2; ++kt) wg_m64n128_rs(o[mt], pa[mt][kt], v_desc(vsd, kt));
+        }
+      }
+      wg_commit();
+      wg_wait_all();
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) reg_fence(o[mt]);
+      mbar_arrive(&pempty[ub]);  // the buffer may be refilled
+      if (++ub == a.n_buf) {
+        ub = 0;
+        ++urnd;
+      }
+    }
+  }
+
+  if (wg == 0) named_sync(CHUNK_BAR, CW * 32);  // warpgroup 1's last turn
+
+  // ---- this split's partials, straight from the fragments ----
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    if (!tlive[mt]) continue;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float lt = l[mt][hf];
+      lt += __shfl_xor_sync(FULL, lt, 1);
+      lt += __shfl_xor_sync(FULL, lt, 2);
+      const int r = 64 * (wg + CWG * mt) + 16 * wi + 8 * hf + g;
+      if (r < nrows) {
+#pragma unroll
+        for (int n = 0; n < 16; ++n)
+          if (n < D / 8)
+            *reinterpret_cast<float2*>(pacc + (size_t)r * D + 8 * n + 2 * tq4) =
+                make_float2(o[mt][n][2 * hf], o[mt][n][2 * hf + 1]);
+        if (tq4 == 0) {
+          pm[r] = m[mt][hf] == -INFINITY ? -INFINITY : m[mt][hf] * LN2;
+          pl[r] = lt;
+        }
+      }
+    }
+  }
+}
+
+// fd_chunk_sync's row tiles: SMT 16-row mma tiles per consumer warp, RW
+// rows a warp; its tiles' bf16 row stride
+constexpr int SMT = 2;
+constexpr int RW = 16 * SMT;
+static_assert(CW * RW == CHUNK_ROWS, "rows");
+constexpr int QS = MAXD + 8;
+
+// Dynamic shared memory of fd_chunk_sync (mirrored by chunk_layout in
+// ops/kernels/flash_decode.py): 128 B of mbarriers (the ring's, then the
+// piece buffers' full and empty ones); the ring of raw 128-token stages;
+// the block's queries in bf16 [rows_blk][QS]; n_buf piece buffers of bf16
+// tiles [32][QS]: K, V, the K outlier tile (K slots or channels) and the V
+// slot tile (V slots), and the producer warps' masks of the outlier tiles'
+// nonzero 16-dim groups. Rows of QS = 128 + 8 bf16 keep
+// ldmatrix conflict-free and the products' loops free of D: columns from D
+// to 127 stay zero.
+struct SyncLayout {
+  int cb, rows, vs, vo, stage;  // a stage: K codes, V codes at cb, outlier rows, V scale, V offset
+  int ring, q, buf0, buf;       // offsets in the block's shared memory; bytes of a buffer
+  int k, v, kc, vsl, mask;      // offsets in a buffer
+  int bytes;
+};
+
+__host__ __device__ inline SyncLayout sync_layout(const FdArgs& a) {
+  SyncLayout c;
+  c.cb = chunk_code_bytes(a.mode, a.bits, a.D);
+  c.rows = 2 * c.cb;
+  c.vs = c.rows + rows_copied(a) * CT * 4;
+  c.vo = c.vs + CT * 4;
+  c.stage = c.vo + CT * 4;
+  c.ring = 128;
+  c.q = c.ring + a.n_stage * c.stage;
+  const int tb = PT * QS * 2;
+  c.buf0 = c.q + a.rows_blk * QS * 2;
+  c.k = 0;
+  c.v = tb;
+  c.kc = 2 * tb;
+  c.vsl = c.kc + (a.n_kc > 0 || a.n_kslots > 0 ? tb : 0);
+  c.mask = c.vsl + (a.n_vslots > 0 ? tb : 0);
+  c.buf = c.mask + 2 * SYNC_PW * 4;
+  c.bytes = c.buf0 + a.n_buf * c.buf;
+  return c;
+}
+
+// fd_chunk_sync, the containers' chunk body: one block as fd_chunk's, on
+// mma.sync. Producer warps 0 .. PW - 1 keep the ring full (warp 0 refills
+// a stage once they have all dequantized it) and turn each 32-token piece
+// into bf16 tiles in a piece buffer; consumer warp c = warp - PW owns rows
+// r0 + RW c .. r0 + RW (c + 1) - 1 as SMT mma row tiles (lane: rows
+// g = lane / 4 and g + 8 of each, columns 2 * (lane % 4) + {0, 1} of every
+// 8-wide tile). A buffer's full / empty mbarriers hand it over.
+template <int MODE>
+__global__ void __launch_bounds__((SYNC_PW + CW) * 32, 1) fd_chunk_sync(FdArgs a) {
+  constexpr int PW = SYNC_PW, CNT = (PW + CW) * 32, MT = SMT;
+  constexpr int P_REGS = SYNC_P_REGS, C_REGS = SYNC_C_REGS;
+  constexpr int TPW = PT / PW;   // tokens per producer warp in the outlier tiles' build
+  constexpr int LPT = 32 / TPW;  // lanes per token there
+  extern __shared__ __align__(128) unsigned char csm[];
+  __shared__ float sKs[MAXD];    // K dequant scale and offset per dim
+  __shared__ float sKz[MAXD];
+  __shared__ int sCh[MAX_KC];    // static channel n's dim in this head, or -1
+  const SyncLayout Lc = sync_layout(a);
   const int D = a.D, half = D / 2, NS = a.n_stage, NSP = a.n_split;
   const int S = a.S, win = a.window, li = a.li, Q = a.Q, Tq = a.Tq;
   uint64_t* full = reinterpret_cast<uint64_t*>(csm);  // ring stages
@@ -1849,10 +2523,6 @@ __global__ void __launch_bounds__((chunk_pw(MODE) + CW) * 32, 1) fd_chunk(FdArgs
   const int K = 1 << a.bits;
   const float* kl = a.k_lut + (size_t)li * K;
   const float* vl = a.v_lut + (size_t)li * K;
-  if (MODE == MODE_NUQ && tid < K) {
-    sLut[0][tid] = kl[tid];
-    sLut[1][tid] = vl[tid];
-  }
   // the containers' affine codebook folded as in the plain version
   // (common.fold_affine): code c_s -> c_s * step + zero, c_s signed (int4 /
   // int8) or unsigned (int4x2, bias 0)
@@ -1864,8 +2534,8 @@ __global__ void __launch_bounds__((chunk_pw(MODE) + CW) * 32, 1) fd_chunk(FdArgs
     const float ka = kl[0] + bias * kb;
     const size_t ci = ((size_t)li * a.Hkv + h) * D + tid;
     const float kr = a.k_range[ci], ko = a.k_offset[ci];
-    sKs[tid] = MODE == MODE_NUQ ? kr : kb * kr;
-    sKz[tid] = MODE == MODE_NUQ ? ko : ka * kr + ko;
+    sKs[tid] = kb * kr;
+    sKz[tid] = ka * kr + ko;
   }
   for (int i = tid; i < a.n_kc; i += CNT) {
     const int ch = a.k_chan[grp * a.n_kc + i];
@@ -1874,9 +2544,9 @@ __global__ void __launch_bounds__((chunk_pw(MODE) + CW) * 32, 1) fd_chunk(FdArgs
   __syncthreads();
 
   // ---- the ring: tile i of the split into stage (i - t_begin) % NS, by
-  // warp 0, one TMA bulk copy per lane (K and V planes or containers,
-  // outlier rows, V scale, V offset), completing on the stage's mbarrier,
-  // which lane 0 arms with the stage's bytes ----
+  // warp 0, one TMA bulk copy per lane (K and V containers, outlier rows,
+  // V scale, V offset), completing on the stage's mbarrier, which lane 0
+  // arms with the stage's bytes ----
   const int nrw = rows_copied(a);
   auto fill = [&](int i, int st) {
     const bool paired = MODE == MODE_INT4X2;
@@ -1884,29 +2554,19 @@ __global__ void __launch_bounds__((chunk_pw(MODE) + CW) * 32, 1) fd_chunk(FdArgs
     const size_t slab = (size_t)li * a.B + b, hs = slab * Hc + hc;
     const int t0 = i * CT, cb = Lc.cb;
     unsigned char* dst = ring + st * Lc.stage;
-    constexpr int NP = MODE == MODE_NUQ ? NB : 1;  // code copies per kind
     if (lane == 0) mbar_expect_tx(&full[st], Lc.stage);
-    for (int c = lane; c < 2 * NP + nrw + 2; c += 32) {
-      if (c < 2 * NP) {
-        const int kv = c / NP;  // 0: K, 1: V
-        const void* src = kv ? a.vp : a.kp;
-        if (MODE == MODE_NUQ) {
-          // plane bb: word rows t0 / 32 .. t0 / 32 + 3 (the 128-token group)
-          const int bb = c % NP;
-          const size_t w = ((hs * NB + bb) * (a.Tc / 32) + t0 / 32) * D;
-          bulk_g2s(dst + kv * cb + bb * 16 * D, reinterpret_cast<const int32_t*>(src) + w,
-                   16 * D, &full[st]);
-        } else {
-          const size_t o = (hs * a.Tc + t0) * (size_t)(cb / CT);
-          bulk_g2s(dst + kv * cb, reinterpret_cast<const uint8_t*>(src) + o, cb, &full[st]);
-        }
-      } else if (c < 2 * NP + nrw) {
-        const int r = c - 2 * NP;
+    for (int c = lane; c < 2 + nrw + 2; c += 32) {
+      if (c < 2) {  // 0: K, 1: V
+        const size_t o = (hs * a.Tc + t0) * (size_t)(cb / CT);
+        bulk_g2s(dst + c * cb, reinterpret_cast<const uint8_t*>(c ? a.vp : a.kp) + o, cb,
+                 &full[st]);
+      } else if (c < 2 + nrw) {
+        const int r = c - 2;
         bulk_g2s(dst + Lc.rows + r * CT * 4,
                  a.kv_out + ((slab * (a.Hkv / hg) + grp) * a.J + r) * a.Tc + t0, CT * 4,
                  &full[st]);
       } else {
-        const bool scale = c == 2 * NP + nrw;
+        const bool scale = c == 2 + nrw;
         const float* src = (scale ? a.v_scale : a.v_offset) + slab * a.Tc + t0;
         bulk_g2s(dst + (scale ? Lc.vs : Lc.vo), src, CT * 4, &full[st]);
       }
@@ -1957,26 +2617,10 @@ __global__ void __launch_bounds__((chunk_pw(MODE) + CW) * 32, 1) fd_chunk(FdArgs
           const unsigned char* codes = stg + kind * Lc.cb;
           float x[4][4];  // [token of the unit][column]
           int tls[4];
-          if (MODE == MODE_NUQ) {
-            // token 16 nib + 4 jb + w4 of the piece sits at bit 8 pc + 4 nib +
-            // jb of word row w4 (the packing group's interleave)
-            const int w4 = tu & 3, nib = tu >> 2;
-            uint32_t cw[4][1];
-            nuq_bytes<NB, 1>(codes, w4, D, c0, half, 8 * pc + 4 * nib, cw);
 #pragma unroll
-            for (int jb = 0; jb < 4; ++jb) {
-              tls[jb] = 16 * nib + 4 * jb + w4;
-#pragma unroll
-              for (int jj = 0; jj < 4; ++jj)
-                x[jb][jj] = *reinterpret_cast<const float*>(
-                    reinterpret_cast<const char*>(sLut[kind]) + byte_of(cw[jj][0], jb));
-            }
-          } else {
-#pragma unroll
-            for (int jb = 0; jb < 4; ++jb) {
-              tls[jb] = 4 * tu + jb;
-              container_codes<MODE>(codes, PT * pc + tls[jb], D, c0, half, odd, x[jb]);
-            }
+          for (int jb = 0; jb < 4; ++jb) {
+            tls[jb] = 4 * tu + jb;
+            container_codes<MODE>(codes, PT * pc + tls[jb], D, c0, half, odd, x[jb]);
           }
           if (kind == 0) {
             const float2 s01 = *reinterpret_cast<const float2*>(sKs + c0);
@@ -2007,8 +2651,7 @@ __global__ void __launch_bounds__((chunk_pw(MODE) + CW) * 32, 1) fd_chunk(FdArgs
               // so its value is 0 whatever its codes
               const bool live = tb0 + tl <= hi;
               const float sc_t = live ? sVs[tt] : 0.f, of_t = live ? sVo[tt] : 0.f;
-              const float vs_t = MODE == MODE_NUQ ? sc_t : sc_t * vb;
-              const float vo_t = MODE == MODE_NUQ ? of_t : sc_t * va + of_t;
+              const float vs_t = sc_t * vb, vo_t = sc_t * va + of_t;
               *reinterpret_cast<uint32_t*>(bV + tl * QS + c0) =
                   bf2(fmaf(x[jb][0], vs_t, vo_t), fmaf(x[jb][1], vs_t, vo_t));
               *reinterpret_cast<uint32_t*>(bV + tl * QS + c0 + half) =
@@ -2490,39 +3133,58 @@ cudaError_t launch_partial(const FdArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int MODE, int NB>
+template <int NB>
 cudaError_t launch_chunk(const FdArgs& a, cudaStream_t stream) {
   static bool configured = false;
   if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(fd_chunk<MODE, NB>,
+    cudaError_t e = cudaFuncSetAttribute(fd_chunk<NB>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          CHUNK_SMEM_MAX);
     if (e != cudaSuccess) return e;
     configured = true;
   }
-  fd_chunk<MODE, NB><<<dim3(a.n_split, a.Hkv * a.n_rt, a.B), (chunk_pw(MODE) + CW) * 32,
-                       chunk_layout(a).bytes, stream>>>(a);
+  fd_chunk<NB><<<dim3(a.n_split, a.Hkv * a.n_rt, a.B), (CHUNK_PW + CW) * 32,
+                 chunk_layout(a).bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
-// the tensor-core chunk body (bf16 dots) over the contiguous cache
+template <int MODE>
+cudaError_t launch_chunk_sync(const FdArgs& a, cudaStream_t stream) {
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(fd_chunk_sync<MODE>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         CHUNK_SMEM_MAX);
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  fd_chunk_sync<MODE><<<dim3(a.n_split, a.Hkv * a.n_rt, a.B), (SYNC_PW + CW) * 32,
+                        sync_layout(a).bytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// the tensor-core chunk body of the mode (bf16 dots) over the contiguous
+// cache: bit planes on fd_chunk (wgmma, rows in tiles of 64), the
+// containers on fd_chunk_sync (mma.sync, rows in tiles of 16)
 cudaError_t dispatch_chunk(const FdArgs& a, cudaStream_t st) {
-  if (a.rows_blk < 16 || a.rows_blk > CHUNK_ROWS || a.rows_blk % 16 ||
+  const bool planes = a.mode == MODE_NUQ;
+  const int m = planes ? 64 : 16;
+  if (a.rows_blk < m || a.rows_blk > CHUNK_ROWS || a.rows_blk % m ||
       a.n_rt * a.rows_blk < a.Q || (a.n_rt - 1) * a.rows_blk >= a.Q || a.n_stage < 2 ||
       a.n_stage > MAX_STAGES || a.n_buf < 1 || a.n_buf > MAX_BUF ||
-      chunk_layout(a).bytes > CHUNK_SMEM_MAX)
+      (planes ? chunk_layout(a).bytes : sync_layout(a).bytes) > CHUNK_SMEM_MAX)
     return cudaErrorInvalidValue;
   switch (a.mode) {
     case MODE_NUQ:
       switch (a.bits) {
-        case 2: return launch_chunk<MODE_NUQ, 2>(a, st);
-        case 3: return launch_chunk<MODE_NUQ, 3>(a, st);
-        case 4: return launch_chunk<MODE_NUQ, 4>(a, st);
+        case 2: return launch_chunk<2>(a, st);
+        case 3: return launch_chunk<3>(a, st);
+        case 4: return launch_chunk<4>(a, st);
       }
       return cudaErrorInvalidValue;
-    case MODE_INT4: return launch_chunk<MODE_INT4, 0>(a, st);
-    case MODE_INT8: return launch_chunk<MODE_INT8, 0>(a, st);
-    case MODE_INT4X2: return launch_chunk<MODE_INT4X2, 0>(a, st);
+    case MODE_INT4: return launch_chunk_sync<MODE_INT4>(a, st);
+    case MODE_INT8: return launch_chunk_sync<MODE_INT8>(a, st);
+    case MODE_INT4X2: return launch_chunk_sync<MODE_INT4X2>(a, st);
   }
   return cudaErrorInvalidValue;
 }

@@ -24,8 +24,9 @@ kv head with bf16 dots runs the tensor-core decode body ``fd_gqa``
 (``gqa_plan``); other steps of G = Q in {1, 2, 4, 8} the SIMT decode body
 ``fd_decode`` (``decode_plan``); both an async-copy tile ring, one block per
 head group slice. Other calls (prefill chunks, and steps of other row
-counts) run the tensor-core body ``fd_chunk`` with bf16 dots (``dot_bf16``,
-the default: up to 256 query rows per block, mma.sync), or the SIMT body
+counts) run a tensor-core chunk body with bf16 dots (``dot_bf16``, the
+default: up to 256 query rows per block; ``fd_chunk`` on wgmma over bit
+planes, ``fd_chunk_sync`` on mma.sync over the containers), or the SIMT body
 ``fd_partial`` with fp32 dots (64 rows per block), the reference mode that
 bf16 tensor cores cannot compute; ``body`` says which (and takes a forced
 body for timing) and ``chunk_plan`` gives the block shape. All read the
@@ -344,20 +345,26 @@ def decode_splits(dcfg: DeployConfig, B: int, Hkv: int, G: int, D: int,
 
 CHUNK_TILE = 128  # key tokens per ring stage of fd_chunk (a nuq packing group)
 CHUNK_PIECE = 32  # key tokens per dequantized bf16 piece
-CHUNK_ROWS = 256  # most query rows per fd_chunk block: 8 consumer warps x 32
+CHUNK_M = 64  # rows of a wgmma row tile (m64): fd_chunk's rows come in these
+SYNC_M = 16  # rows of an mma.sync row tile: fd_chunk_sync's rows come in these
+CHUNK_ROWS = 256  # most query rows per chunk block: 8 consumer warps
 CHUNK_SMEM_MAX = 225 * 1024  # csrc CHUNK_SMEM_MAX: dynamic shared bytes
-CHUNK_BLOCKS_PER_SM = 1  # 384-512 threads, the consumers at 216-224 registers
+CHUNK_BLOCKS_PER_SM = 1  # 384-512 threads, the consumers at 200-224 registers
 # (piece buffers, ring stages) in the order chunk_plan tries them: buffers
 # let the producers run ahead of the products, stages ahead of the codes
 CHUNK_SHAPES = ((3, 3), (3, 2), (2, 3), (2, 2), (1, 3), (1, 2))
+SW_ATOM = 1024  # csrc SW_ATOM: a swizzle atom, the tiles' alignment
+CHUNK_HEAD = 128 + 4 * 2 * 8 * 4  # csrc CHUNK_HEAD: mbarriers, outlier masks
+SYNC_PW = 4  # csrc SYNC_PW: fd_chunk_sync's producer warps
 
 
 class ChunkPlan(NamedTuple):
     """Block shape of a call that is not a decode step. ``body`` "mma"
-    (fd_chunk, bf16 dots) or "simt" (fd_partial, fp32 dots); ``rows`` query
-    rows per block, ``n_rt`` row blocks covering the Q rows; ``tile`` key
-    tokens per tile; ``stages`` ring stages and ``n_buf`` bf16 piece
-    buffers (mma); ``smem`` dynamic shared bytes per block."""
+    (fd_chunk / fd_chunk_sync, bf16 dots) or "simt" (fd_partial, fp32
+    dots); ``rows`` query rows per block, ``n_rt`` row blocks covering the
+    Q rows; ``tile`` key tokens per tile; ``stages`` ring stages and
+    ``n_buf`` bf16 piece buffers (mma); ``smem`` dynamic shared bytes per
+    block."""
     body: str
     rows: int
     n_rt: int
@@ -374,21 +381,49 @@ def _simt_smem(D: int) -> int:
     return 4 * floats + 4 * (ROWS + MAX_KC)
 
 
-def _chunk_smem(dcfg: DeployConfig, D: int, J: int, rows: int, stages: int,
-                n_buf: int, live: tuple) -> int:
-    """csrc chunk_layout(a).bytes: mbarriers, the ring, the bf16 queries and
-    the piece buffers (bf16 K, V, the K outlier tile, the V slot tile, the
-    producer warps' masks)."""
+class ChunkLayout(NamedTuple):
+    """A chunk body's dynamic shared memory: byte offsets from the block's
+    base. ``ring`` the raw stages (after the mbarriers, and for fd_chunk
+    the outlier masks), ``q`` the bf16 queries, ``buf0`` the first piece
+    buffer, ``buf`` a buffer's bytes (``tiles`` bf16 tiles of 32 rows: K,
+    V, the K outlier tile, the V slot tile; fd_chunk_sync's also holds the
+    producer warps' outlier masks), ``end`` the layout's end and ``bytes``
+    the dynamic shared bytes a launch asks for. fd_chunk's tiles are
+    swizzled rows of 128 bf16 from a 1024-aligned base (a swizzle atom
+    more is asked for, to align it); fd_chunk_sync's rows of 128 + 8."""
+    ring: int
+    q: int
+    buf0: int
+    buf: int
+    tiles: int
+    end: int
+    bytes: int
+
+
+def chunk_layout(dcfg: DeployConfig, D: int, J: int, rows: int, stages: int,
+                 n_buf: int, live: tuple) -> ChunkLayout:
+    """The mirror of csrc chunk_layout (bit planes) or sync_layout (the
+    containers) for ``rows`` query rows, ``stages`` ring stages and
+    ``n_buf`` piece buffers."""
     n_kc, n_kslots, n_vslots = live
     cb = {"nuq": dcfg.bits * 16 * D,
           "int8": CHUNK_TILE * D}.get(dcfg.codes, CHUNK_TILE * D // 2)
     n_rows = J if (n_kc or n_kslots or n_vslots) else 0
     stage = 2 * cb + (n_rows + 2) * CHUNK_TILE * 4
     tiles = 2 + bool(n_kc or n_kslots) + bool(n_vslots)
-    row = (128 + 8) * 2  # bf16 tile rows of 128 + 8 columns for every D
-    producers = 8 if dcfg.codes == "nuq" else 4  # csrc chunk_pw
-    buf = tiles * CHUNK_PIECE * row + 2 * producers * 4
-    return 128 + stages * stage + rows * row + n_buf * buf
+    if dcfg.codes != "nuq":  # fd_chunk_sync: 128 B of mbarriers
+        row = (128 + 8) * 2  # bf16 tile rows of 128 + 8 columns
+        q = 128 + stages * stage
+        buf0 = q + rows * row
+        buf = tiles * CHUNK_PIECE * row + 2 * SYNC_PW * 4
+        end = buf0 + n_buf * buf
+        return ChunkLayout(128, q, buf0, buf, tiles, end, end)
+    row = 128 * 2  # bf16 tile rows of 128 columns for every D
+    q = -(-(CHUNK_HEAD + stages * stage) // SW_ATOM) * SW_ATOM
+    buf0 = q + rows * row
+    buf = tiles * CHUNK_PIECE * row
+    end = buf0 + n_buf * buf
+    return ChunkLayout(CHUNK_HEAD, q, buf0, buf, tiles, end, end + SW_ATOM)
 
 
 BODIES = {"decode": 0, "gqa": 1, "mma": 2, "simt": 3}  # csrc BODY_*
@@ -398,7 +433,8 @@ def body(dcfg: DeployConfig, Q: int, Tq: int, force: str = None) -> str:
     """The kernel body a call runs on the card: "decode" (fd_decode, one
     step of G in 1/2/4/8 rows per kv head), "gqa" (fd_gqa, one step of G
     in GQA_ROWS rows with bf16 dots, on the tensor cores), else "mma"
-    (fd_chunk) with bf16 dots or "simt" (fd_partial) with fp32 dots.
+    (fd_chunk over bit planes, fd_chunk_sync over the containers) with
+    bf16 dots or "simt" (fd_partial) with fp32 dots.
     ``force`` names another body for timing: "mma" / "simt" take any call
     (the chunk bodies at Tq = 1 too), "decode" a step of 1/2/4/8 rows,
     "gqa" a bf16-dot step of 3-8 rows; anything else raises ValueError."""
@@ -423,8 +459,10 @@ def chunk_plan(dcfg: DeployConfig, D: int, J: int, Q: int,
     """Block shape of a call that is not a decode step (Q = G * Tq rows),
     or of a decode step ``force``d onto a chunk body ("mma" / "simt", for
     timing). mma: the fewest row blocks of at most CHUNK_ROWS rows, their
-    rows spread evenly in tiles of 16 (mma's row tile); the first of
-    CHUNK_SHAPES (piece buffers, ring stages) that CHUNK_SMEM_MAX holds.
+    rows spread evenly in tiles of CHUNK_M (fd_chunk's wgmma row tile, bit
+    planes) or SYNC_M (fd_chunk_sync's mma.sync one, the containers); the
+    first of CHUNK_SHAPES (piece buffers, ring stages) that CHUNK_SMEM_MAX
+    holds.
     Raises ValueError for a decode call or a configuration whose smallest
     shape does not fit."""
     kind = body(dcfg, Q, Tq, force)
@@ -434,11 +472,12 @@ def chunk_plan(dcfg: DeployConfig, D: int, J: int, Q: int,
         return ChunkPlan("simt", ROWS, -(-Q // ROWS), TILE, 0, 0,
                          _simt_smem(D))
     live = kernel_limits(dcfg, D, J)
-    tiles = -(-Q // 16)
-    n_rt = -(-tiles // (CHUNK_ROWS // 16))
-    rows = 16 * -(-tiles // n_rt)
+    m = CHUNK_M if dcfg.codes == "nuq" else SYNC_M
+    tiles = -(-Q // m)
+    n_rt = -(-tiles // (CHUNK_ROWS // m))
+    rows = m * -(-tiles // n_rt)
     for n_buf, stages in CHUNK_SHAPES:
-        smem = _chunk_smem(dcfg, D, J, rows, stages, n_buf, live)
+        smem = chunk_layout(dcfg, D, J, rows, stages, n_buf, live).bytes
         if smem <= CHUNK_SMEM_MAX:
             return ChunkPlan("mma", rows, n_rt, CHUNK_TILE, stages, n_buf,
                              smem)

@@ -3,25 +3,36 @@ flash_decode.py): ``body`` routes each call, ``chunk_plan`` shapes the
 blocks of the tensor-core body ``fd_chunk`` and ``chunk_splits`` spreads
 them over the card. What the CUDA kernel relies on, checked on the CPU:
 
-  (a) rows per block are a multiple of 16 (mma's row tile) and at most
-      256; the row blocks cover each of the Q = G * Tq rows exactly once
-      and none is empty;
-  (b) the dynamic shared memory (the mirror of csrc ``chunk_layout``) is
-      within the card's 227 KB, at the first of ``CHUNK_SHAPES`` (piece
-      buffers, ring stages) that fits;
-  (c) the splits lie between 1 and the capacity's 128-token tiles;
-  (d) fp32 dots route to the SIMT body ``fd_partial``, decode steps to
+  (a) rows per block are a multiple of the body's row tile (bit planes on
+      fd_chunk: wgmma's m64; the containers on fd_chunk_sync: mma.sync's
+      16) and at most 256; the row blocks cover each of the Q = G * Tq
+      rows exactly once and none is empty;
+  (b) the dynamic shared memory (the mirror of csrc ``chunk_layout`` /
+      ``sync_layout``) is within the card's 227 KB, at the first of
+      ``CHUNK_SHAPES`` (piece buffers, ring stages) that fits; fd_chunk's
+      swizzled query tile and every piece buffer start on a 1024-byte
+      swizzle atom, a buffer holds its bf16 tiles [32][128] and nothing
+      else; fd_chunk_sync's tiles have rows of 128 + 8 bf16;
+  (c) the registers each body's roles take after setmaxnreg (read from
+      csrc) fit one SM's 65,536;
+  (d) the splits lie between 1 and the capacity's 128-token tiles;
+  (e) fp32 dots route to the SIMT body ``fd_partial``, decode steps to
       ``fd_decode`` (or, with bf16 dots at 3-8 rows, ``fd_gqa``) and never
       to a chunk plan.
 """
+
+import os
+import re
 
 import pytest
 
 from kvquant_tpu_torch.cache import DeployConfig
 from kvquant_tpu_torch.models.config import LLAMA2_7B
+from kvquant_tpu_torch.ops.kernels import build
 from kvquant_tpu_torch.ops.kernels import flash_decode as fd
 
 SMEM_PER_BLOCK = 227 * 1024  # H100: the most shared memory a block can use
+REGS_PER_SM = 65536  # H100: 32-bit registers of an SM
 MODES = [("nuq", 2), ("nuq", 3), ("nuq", 4), ("int4", 4), ("int8", 8),
          ("int4x2", 2)]
 
@@ -47,13 +58,15 @@ def _configs(codes, bits):
 def test_chunk_plan_invariants(codes, bits, G):
     for D, post, k_out, dcfg in _configs(codes, bits):
         J = dcfg.n_slots
-        for Tq in (128, 256, 261):
+        for Tq in (128, 256, 261, 2048, 2053):
             Q = G * Tq
             assert fd.body(dcfg, Q, Tq) == "mma"
             plan = fd.chunk_plan(dcfg, D, J, Q, Tq)
             case = (codes, bits, D, post, k_out, G, Tq, plan)
             assert plan.body == "mma" and plan.tile == 128, case
-            assert plan.rows % 16 == 0 and 16 <= plan.rows <= 256, case
+            m = fd.CHUNK_M if codes == "nuq" else fd.SYNC_M
+            assert plan.rows % m == 0, case
+            assert m <= plan.rows <= fd.CHUNK_ROWS == 256, case
             covered = [r for rt in range(plan.n_rt)
                        for r in range(rt * plan.rows,
                                       min((rt + 1) * plan.rows, Q))]
@@ -61,16 +74,30 @@ def test_chunk_plan_invariants(codes, bits, G):
             assert (plan.n_rt - 1) * plan.rows < Q, case
             assert plan.smem <= fd.CHUNK_SMEM_MAX <= SMEM_PER_BLOCK, case
             assert (plan.n_buf, plan.stages) in fd.CHUNK_SHAPES, case
-            # the mirror of csrc chunk_layout, at the plan's own shape
+            # the mirror of csrc chunk_layout / sync_layout, at the plan's
+            # own shape
             live = fd.kernel_limits(dcfg, D, J)
-            assert plan.smem == fd._chunk_smem(dcfg, D, J, plan.rows,
-                                               plan.stages, plan.n_buf, live)
+            lay = fd.chunk_layout(dcfg, D, J, plan.rows, plan.stages,
+                                  plan.n_buf, live)
+            if codes == "nuq":
+                assert plan.smem == lay.bytes == lay.end + fd.SW_ATOM, case
+                assert lay.q % fd.SW_ATOM == 0 and lay.buf0 % fd.SW_ATOM == 0
+                assert lay.buf0 - lay.q == plan.rows * 2 * 128, case
+                assert lay.buf == lay.tiles * fd.CHUNK_PIECE * 2 * 128, case
+                assert lay.buf % fd.SW_ATOM == 0, case
+            else:
+                assert plan.smem == lay.bytes == lay.end, case
+                assert lay.buf0 - lay.q == plan.rows * 2 * 136, case
+                assert lay.buf == (lay.tiles * fd.CHUNK_PIECE * 2 * 136
+                                   + 2 * fd.SYNC_PW * 4), case
+            assert lay.tiles == 2 + (k_out != "none") + (k_out == "slots")
+            assert lay.end == lay.buf0 + plan.n_buf * lay.buf, case
             # every shape tried before the plan's would not have fit
             for n_buf, stages in fd.CHUNK_SHAPES:
                 if (n_buf, stages) == (plan.n_buf, plan.stages):
                     break
-                assert fd._chunk_smem(dcfg, D, J, plan.rows, stages, n_buf,
-                                      live) > fd.CHUNK_SMEM_MAX, case
+                assert fd.chunk_layout(dcfg, D, J, plan.rows, stages, n_buf,
+                                       live).bytes > fd.CHUNK_SMEM_MAX, case
             for B, Hkv, Tc in ((1, 32, 2048), (1, 32, 32768), (2, 4, 1024),
                                (4, 16, 256)):
                 ns = fd.chunk_splits(plan, B, Hkv, Tc, 132)
@@ -79,16 +106,31 @@ def test_chunk_plan_invariants(codes, bits, G):
 
 def test_chunk_plan_at_llama2_7b():
     """The two LLaMA-2-7B cells' 256-row chunks: one row block, four
-    splits over 132 SMs (128 resident blocks)."""
+    splits over 132 SMs (128 resident blocks); the longdoc cell's 2048-row
+    sub-chunks at Mistral-7B's G 4: 32 blocks of 256 rows a kv head; a
+    40-row last chunk: one block of 64 rows (bit planes) or 48 (the
+    containers)."""
     D = LLAMA2_7B.d_head
     nuq3 = _dcfg("nuq", 3, D, False, "slots")
     x2 = _dcfg("int4x2", 2, D, True, "channels")
-    for dcfg, smem in ((nuq3, 226624), (x2, 206560)):
+    for dcfg, smem in ((nuq3, 218112), (x2, 206560)):
         plan = fd.chunk_plan(dcfg, D, dcfg.n_slots, 256, 256)
         assert plan == fd.ChunkPlan("mma", 256, 1, 128, 3, 3, smem)
         assert fd.chunk_splits(plan, 1, 32, 32768, 132) == 4
-    # a first chunk carries the sink rows: 261 rows in two blocks of 144
-    assert fd.chunk_plan(nuq3, D, nuq3.n_slots, 261, 261)[1:3] == (144, 2)
+    # a first chunk carries the sink rows: 261 rows in two blocks of 192
+    # (five m64 tiles, three and two) or 144 (17 tiles of 16, 9 and 8)
+    assert fd.chunk_plan(nuq3, D, nuq3.n_slots, 261, 261)[1:3] == (192, 2)
+    assert fd.chunk_plan(x2, D, x2.n_slots, 261, 261)[1:3] == (144, 2)
+    assert fd.chunk_plan(nuq3, D, nuq3.n_slots, 40, 40)[1:3] == (64, 1)
+    assert fd.chunk_plan(x2, D, x2.n_slots, 40, 40)[1:3] == (48, 1)
+    # longdoc: 4 x 2048 rows of one kv head in 32 blocks of 256, one split
+    # (8 kv heads: 256 blocks over 132 SMs); the sink sub-chunk's 4 x 2053
+    # rows in 33, each block but the last straddling no g boundary at 2048
+    plan = fd.chunk_plan(nuq3, D, nuq3.n_slots, 4 * 2048, 2048)
+    assert plan == fd.ChunkPlan("mma", 256, 32, 128, 3, 3, 218112)
+    assert fd.chunk_splits(plan, 1, 8, 16896, 132) == 1
+    assert fd.chunk_plan(nuq3, D, nuq3.n_slots, 4 * 2053, 2053)[1:3] == (
+        256, 33)
 
 
 def test_chunk_plan_shrinks_then_refuses():
@@ -106,6 +148,45 @@ def test_chunk_plan_shrinks_then_refuses():
     assert fd.chunk_plan(d64, 128, d64.n_slots, 256, 256)[4:6] == (2, 1)
     with pytest.raises(ValueError, match="shared memory"):
         fd.chunk_plan(d64v, 128, d64v.n_slots, 256, 256)
+
+
+def _csrc_roles(codes):
+    """A chunk body's roles as csrc/flash_decode.cu states them (fd_chunk's
+    CHUNK_*, fd_chunk_sync's SYNC_*, and CW): (producer warps, registers a
+    producer thread keeps, consumer warps, registers a consumer thread
+    takes) after setmaxnreg."""
+    with open(os.path.join(build.CSRC_DIR, "flash_decode.cu")) as f:
+        src = f.read()
+    pre = "CHUNK" if codes == "nuq" else "SYNC"
+    pw, p_regs, c_regs = map(int, re.search(
+        rf"constexpr int {pre}_PW = (\d+), {pre}_P_REGS = (\d+), "
+        rf"{pre}_C_REGS = (\d+);", src).groups())
+    cw = int(re.search(r"constexpr int CW = (\d+);", src)[1])
+    return pw, p_regs, cw, c_regs
+
+
+@pytest.mark.parametrize("codes,bits", MODES)
+def test_chunk_register_split(codes, bits):
+    """The roles' registers after setmaxnreg, read from csrc: whole
+    warpgroups, counts setmaxnreg takes (multiples of 8 in 24-256), one
+    block's threads within 65,536 registers; the consumers keep room for
+    two row tiles' O (2 x 64 fp32), S (2 x 16) and P (2 x 8)."""
+    pw, p_regs, cw, c_regs = _csrc_roles(codes)
+    assert pw % 4 == 0 and cw % 4 == 0
+    if codes == "nuq":  # two warpgroups of two m64 tiles
+        assert (cw // 4) * 2 * fd.CHUNK_M == fd.CHUNK_ROWS
+    else:  # warps of two 16-row tiles
+        assert cw * 2 * fd.SYNC_M == fd.CHUNK_ROWS
+    assert pw == (8 if codes == "nuq" else fd.SYNC_PW)
+    for regs in (p_regs, c_regs):
+        assert regs % 8 == 0 and 24 <= regs <= 256
+    assert pw * 32 * p_regs + cw * 32 * c_regs <= REGS_PER_SM
+    assert (pw + cw) * 32 <= 1024
+    assert c_regs >= 2 * 64 + 2 * 16 + 2 * 8
+    # the launch bound's registers at entry do not exceed what setmaxnreg
+    # hands back and takes
+    entry = REGS_PER_SM // ((pw + cw) * 32)
+    assert p_regs <= entry <= c_regs
 
 
 @pytest.mark.parametrize("codes,bits", MODES)
